@@ -1,0 +1,91 @@
+"""TPC-H Q1/Q6 through the port, held to the reference Session on the CPU.
+
+* The DAG check: the reference planner's pushed DAG for tpch.Q1 / tpch.Q6
+  is captured by a recording wrapper installed on ONE engine instance
+  (the session store's `sched._tpu`; no tidb_tpu name is rebound), and the
+  port's DAG functions must give the same structure.
+* The answer check: the same generated lineitem rows through
+  `tidb_tpu_torch.entry.run_query(device="cpu")` must give exactly the
+  rows the reference Session gives for the same SQL.
+"""
+
+import numpy as np
+import pytest
+
+from tidb_tpu.models import tpch as ref_tpch
+from tidb_tpu.session import Session
+
+from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+from tidb_tpu_torch.entry import batch_from_numpy, run_query
+from tidb_tpu_torch.models import tpch
+
+N = 20_000
+
+
+@pytest.fixture(scope="module")
+def ref_session():
+    s = Session()
+    ref_tpch.setup_lineitem(s, N)
+    return s
+
+
+def _capture(s, sql):
+    """The DAGs the reference pushes for `sql`, recorded on this session's
+    own engine instance."""
+    prev = s.vars.get("tidb_cop_engine")
+    s.vars["tidb_cop_engine"] = "tpu"
+    eng = s.store.sched.tpu_engine
+    seen = []
+    orig_execute, orig_many = eng.execute, eng.execute_many
+
+    def execute(dag, batch, *a, **kw):
+        seen.append(dag)
+        return orig_execute(dag, batch, *a, **kw)
+
+    def execute_many(items, *a, **kw):
+        seen.extend(dag for dag, _ in items)
+        return orig_many(items, *a, **kw)
+
+    eng.execute, eng.execute_many = execute, execute_many
+    try:
+        rows = s.execute(sql).rows()
+    finally:
+        del eng.execute, eng.execute_many  # back to the class methods
+        s.vars["tidb_cop_engine"] = prev
+    return seen, rows
+
+
+@pytest.mark.parametrize("q", ["Q1", "Q6"])
+def test_port_builds_the_dag_the_planner_pushes(ref_session, q):
+    seen, _ = _capture(ref_session, getattr(ref_tpch, q))
+    assert seen, "the reference pushed nothing to its device engine"
+    ref_dag = seen[0]
+    dag = getattr(tpch, f"{q.lower()}_dag")()
+    assert repr(dag.selection.conds) == repr(ref_dag.selection.conds)
+    assert repr(dag.agg.group_by) == repr(ref_dag.agg.group_by)
+    assert repr(dag.agg.aggs) == repr(ref_dag.agg.aggs)
+    assert dag.scan.col_offsets == ref_dag.scan.col_offsets
+    assert [(ft.tp, ft.decimal) for ft in dag.output_types()] == \
+        [(ft.tp, ft.decimal) for ft in ref_dag.output_types()]
+    for mine, theirs in zip(dag.selection.conds, ref_dag.selection.conds):
+        assert [a.ret_type.tp for a in mine.args] == [a.ret_type.tp for a in theirs.args]
+
+
+def test_port_generator_is_the_reference_generator():
+    mine, theirs = tpch.gen_lineitem(1000, 9), ref_tpch.gen_lineitem(1000, 9)
+    assert list(mine) == list(theirs)
+    for k in mine:
+        assert mine[k].dtype == theirs[k].dtype and np.array_equal(mine[k], theirs[k]), k
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+@pytest.mark.parametrize("q", ["Q1", "Q6"])
+def test_run_query_gives_the_reference_session_rows(ref_session, q, compress):
+    want = ref_session.execute(getattr(ref_tpch, q)).rows()
+    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(N))
+    engine = TorchEngine(device="cpu")
+    engine.tile_compression = compress
+    got = run_query(getattr(tpch, f"{q.lower()}_dag")(), batch, device="cpu", engine=engine).to_pylist()
+    assert got == want
+    assert engine.fallbacks == 0
+    assert len(got) == (6 if q == "Q1" else 1)

@@ -1,0 +1,751 @@
+"""GPU coprocessor engine — pushed-down DAGs over torch tensors with the
+port's hand-written kernels (ref: tidb_tpu/copr/tpu_engine.py TPUEngine).
+
+The reference traces one fused XLA program per DAG. Here the same steps
+run eagerly on the card:
+
+    column lanes ──► K1 decode_lane ──► mask (expression glue) ──► K4 seg_agg
+    (codec payloads    (kernels/)         (expr builtins over         (packed int64 +
+     uploaded once)                         xp_torch.XP)               float64 partials)
+
+then the two packed matrices come back to the host, which rebuilds the
+partial chunk exactly as the reference does (_agg_outputs_to_chunk).
+
+What this slice ports: DeviceBatch (encode on the host, upload once per
+batch and device), `_lower`, `_rewrite`/`_code_cmp` with Vocab and
+_dict_encode_lane, `_eval_device`/`_mask`, the filter-only path, the
+direct-address aggregation path and `execute`. It declines — and counts
+in `fallbacks`, answering through host_engine.execute_dag_host — exactly
+the DAGs TPUEngine._lower declines. DAGs the reference runs on paths not
+ported yet (sort-based GROUP BY, TopN, grouped launches) raise
+NotPortedError. Lanes, breakers, placement, tracing and metrics are not
+part of this slice.
+"""
+
+from __future__ import annotations
+
+import bisect
+from contextlib import nullcontext
+from threading import Lock
+
+import numpy as np
+import torch
+
+from ..chunk.chunk import Chunk, Column
+from ..errors import NotPortedError
+from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFunc
+from ..expr.xp_torch import XP, U64
+from ..kernels import SegKey, SegLane, decode_lane, seg_agg
+from ..mysqltypes.datum import Datum, K_STR, K_BYTES
+from ..mysqltypes.field_type import ft_longlong
+from ..mysqltypes.mydecimal import pow10
+from ..torchenv import resolve_device
+from .dag import DAGRequest
+from .host_engine import exact_sum64, exact_sumsq64, execute_dag_host
+from .tilecache import ColumnBatch, _pad2d, encode_data_lane, encode_valid_lane, pow2_rows
+
+TILE_ROWS = 1 << 16
+DIRECT_GROUP_MAX = 1 << 16
+# the reference reduces up to this many segments densely (where an empty
+# segment keeps the caller's fill) and above it with jax.ops.segment_*
+# (where it gets the dtype's identity); only FIRST_ROW's fill tells them
+# apart, and the port mirrors both so the raw partials stay bit-identical
+SEG_DENSE_MAX = 64
+_I64 = np.iinfo(np.int64)
+
+_CMP_SWAP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
+
+
+class Vocab(list):
+    """Sorted dict-encode vocabulary: ORIGINAL values in code order, plus
+    the lookup keys codes were assigned by (weight strings under a ci
+    collation, the values themselves under binary)."""
+
+    def __init__(self, originals, keys=None, coll="utf8mb4_bin"):
+        super().__init__(originals)
+        self.keys = list(self) if keys is None else keys
+        self.coll = coll
+
+    def lookup(self, s: str):
+        """(insertion position, exact-present) for a constant under this
+        vocab's collation — the bisect behind code-space compare/IN."""
+        from ..mysqltypes import collate as _c
+
+        k = _c.weight(s, self.coll) if _c.is_ci(self.coll) else s
+        i = bisect.bisect_left(self.keys, k)
+        return i, i < len(self.keys) and self.keys[i] == k
+
+
+def _dict_encode_lane(d: np.ndarray, v: np.ndarray, coll: str = "utf8mb4_bin"):
+    """Vectorized sorted-dict encoding of an object lane → (int32 codes,
+    Vocab) (copy of tpu_engine._dict_encode_lane). Under a ci collation
+    codes follow WEIGHT order — equal-weight values share one code whose
+    vocab entry is the first occurrence in row order."""
+    from ..mysqltypes import collate as _coll
+
+    if not v.any():
+        return np.zeros(len(d), np.int32), Vocab([], coll=coll)
+    present = d[v]
+    kinds = {type(x) for x in present.tolist()}
+    if _coll.is_ci(coll) and kinds <= {str}:
+        raw = np.where(v, d, "")
+        wa = _coll.weight_lane(raw, coll).astype("U")
+        sel = np.nonzero(v)[0]
+        uniqw, first = np.unique(wa[sel], return_index=True)
+        reps = [d[i] for i in sel[first]]
+        codes = np.searchsorted(uniqw, wa).astype(np.int32)
+        codes[~v] = 0
+        return codes, Vocab(reps, keys=uniqw.tolist(), coll=coll)
+    if kinds <= {str}:
+        vals = np.where(v, d, "").astype("U")
+        vocab_arr = np.unique(vals[v])
+        codes = np.searchsorted(vocab_arr, vals).astype(np.int32)
+        codes[~v] = 0
+        return codes, Vocab(vocab_arr.tolist())
+    if kinds <= {bytes}:
+        as_str = np.array([x.decode("latin-1") for x in present.tolist()], dtype="U")
+        vocab_arr = np.unique(as_str)
+        codes = np.zeros(len(d), np.int32)
+        codes[v] = np.searchsorted(vocab_arr, as_str).astype(np.int32)
+        orig = [s.encode("latin-1") for s in vocab_arr.tolist()]
+        return codes, Vocab(orig, keys=vocab_arr.tolist())
+    vocab = sorted({x if isinstance(x, str) else x.decode("latin-1") for x in present.tolist()})
+    code_of = {s: i for i, s in enumerate(vocab)}
+    codes = np.zeros(len(d), np.int32)
+    for i in np.nonzero(v)[0]:
+        x = d[i]
+        codes[i] = code_of[x if isinstance(x, str) else x.decode("latin-1")]
+    return codes, Vocab(vocab)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """numpy → tensor on `device`. uint16/uint32/uint64 go as signed bit
+    views of the same width: the kernels read codes unsigned, and uint64
+    values are carried as int64 bit patterns (xp_torch.U64)."""
+    a = np.ascontiguousarray(a)
+    view = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32,
+            np.dtype(np.uint64): np.int64}.get(a.dtype)
+    if view is not None:
+        a = a.view(view)
+    return torch.from_numpy(a).to(device)
+
+
+def _upload_payload(pay: dict, device: torch.device) -> dict:
+    out = {}
+    for k, a in pay.items():
+        if k == "b":  # pack base: a launch parameter, kept on the host
+            a = np.asarray(a)
+            out[k] = torch.tensor(int(a.view(np.int64)) if a.dtype == np.uint64 else a.item(),
+                                  dtype=torch.int64 if a.dtype.itemsize == 8 else torch.int32)
+        else:
+            out[k] = _upload(a, device)
+    return out
+
+
+class DeviceBatch:
+    """Device-resident mirror of a ColumnBatch: per used column the
+    encoded (data, valid) lanes, uploaded once (ref: tpu_engine.py:283).
+
+    With `compress` (the reference's tidb_tpu_tile_compression default)
+    batches up to TILE_ROWS pad to a power-of-two row bucket and every
+    lane ships in the cheapest of dense/pack/dict/rle form, decoded on the
+    card by K1; `compress=False` keeps the legacy layout: 64Ki-row tiles,
+    dense lanes."""
+
+    def __init__(self, batch: ColumnBatch, device: torch.device, compress: bool = True):
+        self.batch = batch
+        self.device = device
+        self.compress = compress
+        n = batch.n_rows
+        if compress and n <= TILE_ROWS:
+            self.t, self.r = 1, pow2_rows(n)
+        else:
+            self.t, self.r = max((n + TILE_ROWS - 1) // TILE_ROWS, 1), TILE_ROWS
+        self.padded = self.t * self.r
+        self.vocabs: dict[int, Vocab] = {}
+        self._data: dict[int, object] = {}
+        self._valid: dict[int, object] = {}
+        rv = np.zeros(self.padded, dtype=bool)
+        rv[:n] = True
+        self.row_valid = _upload(rv.reshape(self.t, self.r), device)
+
+    def lanes(self, off: int, phase=None):
+        """(data, valid) device lanes for a table column offset — each a
+        dense [T, R] tensor or a codec payload K1 decodes. Object lanes
+        dict-encode to sorted-vocab int32 codes first. `phase(name)` (an
+        engine's PhaseTimer hook) brackets the host encode and the h2d
+        upload of a first touch."""
+        if off not in self._data:
+            phase = phase or (lambda name: nullcontext())
+            with phase("encode"):
+                d = self.batch.data[off]
+                v = self.batch.valid[off]
+                if d.dtype == object:
+                    coll = getattr(self.batch.table.columns[off].ft, "collate", "utf8mb4_bin")
+                    codes, vocab = _dict_encode_lane(d, v, coll)
+                    self.vocabs[off] = vocab
+                    d = codes
+                if self.compress:
+                    pay_d, _ = encode_data_lane(d, v, (self.t, self.r))
+                    pay_v, _ = encode_valid_lane(v, (self.t, self.r))
+                else:
+                    pay_d = pay_v = None
+            with phase("h2d"):
+                self._data[off] = (_upload(_pad2d(d, (self.t, self.r)), self.device) if pay_d is None
+                                   else _upload_payload(pay_d, self.device))
+                self._valid[off] = (_upload(_pad2d(v, (self.t, self.r)), self.device) if pay_v is None
+                                    else _upload_payload(pay_v, self.device))
+        return self._data[off], self._valid[off]
+
+
+class TorchEngine:
+    """The port's device cop engine (ref: TPUEngine). `device` defaults to
+    "cuda" and is never swapped for the CPU on the engine's own initiative:
+    without a card, construction raises unless the caller passes "cpu"."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self._lock = Lock()
+        self.fallbacks = 0
+        # bucketed/compressed device tiles (the reference's SET GLOBAL
+        # tidb_tpu_tile_compression, default ON); OFF = dense 64Ki tiles
+        self.tile_compression = True
+        # optional torchenv.PhaseTimer: encode / h2d (first touch of a
+        # lane) and decode / mask / agg_args / seg_agg / d2h / finalize
+        # spans of each execute
+        self.timer = None
+        # the K4 entry point; a caller may wrap it per instance to observe
+        # the kernel's inputs (chip_smoke.py times K4 on Q1's own lanes)
+        self.seg_agg = seg_agg
+
+    def phase(self, name: str):
+        """The timer's span for `name`, or a no-op without a timer."""
+        return self.timer.phase(name) if self.timer is not None else nullcontext()
+
+    # --- public ------------------------------------------------------------
+
+    def execute(self, dag: DAGRequest, batch: ColumnBatch) -> Chunk:
+        """Run one cop DAG over one region batch → the partial chunk the
+        reference's TPUEngine.execute returns for the same inputs."""
+        mirrors = getattr(batch, "_gpu_mirrors", None)
+        if mirrors is None:
+            mirrors = batch._gpu_mirrors = {}
+        mkey = (str(self.device), self.tile_compression)
+        dev = mirrors.get(mkey)
+        if dev is None:
+            dev = mirrors[mkey] = DeviceBatch(batch, self.device, compress=self.tile_compression)
+        plan = self._lower(dag, dev)
+        if plan is None:
+            with self._lock:
+                self.fallbacks += 1
+            return execute_dag_host(dag, batch)
+        return plan()
+
+    def execute_many(self, items):
+        raise NotPortedError("tpu_engine.execute_many", "grouped launches (K10)")
+
+    # --- lowering ----------------------------------------------------------
+
+    def _lower(self, dag: DAGRequest, dev: DeviceBatch):
+        """→ zero-arg callable producing the result Chunk, or None if this
+        DAG can't run on device (host fallback, as the reference)."""
+        scan_offs = dag.scan.col_offsets
+        used: set[int] = set()
+        conds = dag.selection.conds if dag.selection else []
+        for c in conds:
+            c.collect_columns(used)
+        if dag.agg:
+            for g in dag.agg.group_by:
+                g.collect_columns(used)
+            for a in dag.agg.aggs:
+                for e in a.args:
+                    e.collect_columns(used)
+        elif dag.topn:
+            for e, _ in dag.topn.by:
+                e.collect_columns(used)
+            used |= set(range(len(scan_offs)))
+        else:
+            used |= set(range(len(scan_offs)))
+
+        lanes = {}
+        vocabs = {}
+        for i in sorted(used):
+            off = scan_offs[i]
+            lanes[i] = dev.lanes(off, self.phase)
+            if off in dev.vocabs:
+                vocabs[i] = dev.vocabs[off]
+
+        r_conds = [self._rewrite(c, vocabs) for c in conds]
+        if any(c is None for c in r_conds):
+            return None
+        # lanes of BIGINT UNSIGNED columns decode to U64 (xp_torch)
+        unsigned = {i for i in used
+                    if i not in vocabs and dev.batch.data[scan_offs[i]].dtype == np.uint64}
+
+        if dag.agg is not None:
+            return self._lower_agg(dag, dev, lanes, vocabs, r_conds, unsigned)
+        if dag.topn is not None:
+            for e, _ in dag.topn.by:
+                if self._rewrite(e, vocabs) is None:
+                    return None  # the reference declines this TopN too
+            raise NotPortedError("tpu_engine._lower_topn", "TopN (K6-K8)")
+        return self._lower_filter(dag, dev, lanes, r_conds, unsigned)
+
+    # --- string/dict rewriting --------------------------------------------
+
+    def _rewrite(self, e: Expression, vocabs: dict[int, list]):
+        """Rewrite an expression into device (code-space) form; None if not
+        lowerable. String columns become int32 code lanes; comparisons with
+        string constants map through the sorted vocab so code order ==
+        collation order."""
+        if isinstance(e, ExprCol):
+            return e
+        if isinstance(e, Constant):
+            if e.value.kind in (K_STR, K_BYTES):
+                return None
+            return e
+        if not isinstance(e, ScalarFunc):
+            return None
+        name = e.sig.name
+        if name in _CMP_SWAP and len(e.args) == 2:
+            a, b = e.args
+            if isinstance(b, ExprCol) and isinstance(a, Constant):
+                a, b = b, a
+                name = _CMP_SWAP[name]
+            if isinstance(a, ExprCol) and a.idx in vocabs and isinstance(b, Constant):
+                if b.value.kind not in (K_STR, K_BYTES):
+                    return None
+                return self._code_cmp(name, a, b, vocabs[a.idx])
+            if isinstance(a, ExprCol) and a.idx in vocabs:
+                return None
+        if name == "in" and isinstance(e.args[0], ExprCol) and e.args[0].idx in vocabs:
+            vocab = vocabs[e.args[0].idx]
+            codes = []
+            for c in e.args[1:]:
+                if not isinstance(c, Constant) or c.value.kind not in (K_STR, K_BYTES):
+                    return None
+                i, present = vocab.lookup(c.value.to_str())
+                codes.append(i if present else -1)
+            col = ExprCol(e.args[0].idx, ft_longlong(), e.args[0].name)
+            from ..expr.expression import make_func
+
+            return make_func("in", col, *[Constant(Datum.i(c), ft_longlong()) for c in codes])
+        for a in e.args:
+            if isinstance(a, ExprCol) and a.idx in vocabs:
+                return None
+        new_args = [self._rewrite(a, vocabs) for a in e.args]
+        if any(a is None for a in new_args):
+            return None
+        return ScalarFunc(e.sig, new_args, e.ret_type)
+
+    def _code_cmp(self, op: str, col: ExprCol, const: Constant, vocab: Vocab):
+        """col <op> 'str' → code-space comparison via sorted-vocab bisect."""
+        from ..expr.expression import make_func
+
+        pos, present = vocab.lookup(const.value.to_str())
+        icol = ExprCol(col.idx, ft_longlong(), col.name)
+
+        def c(v):
+            return Constant(Datum.i(v), ft_longlong())
+
+        if op == "eq":
+            return make_func("eq", icol, c(pos if present else -1))
+        if op == "ne":
+            return make_func("ne", icol, c(pos if present else -1))
+        if op == "lt":
+            return make_func("lt", icol, c(pos))
+        if op == "ge":
+            return make_func("ge", icol, c(pos))
+        if op == "le":
+            return make_func("lt" if not present else "le", icol, c(pos))
+        if op == "gt":
+            return make_func("ge" if not present else "gt", icol, c(pos))
+        return None
+
+    # --- device evaluation (K2/K3: glue over xp_torch) --------------------
+
+    def _eval_device(self, e: Expression, lanes: dict):
+        """Recursive device eval over [T, R] lanes → (data, valid)."""
+        dev = self.device
+
+        def rec(x):
+            if isinstance(x, ExprCol):
+                return lanes[x.idx]
+            if isinstance(x, Constant):
+                v = x.scalar_value()
+                if v is None:
+                    return (torch.zeros((), dtype=torch.int64, device=dev),
+                            torch.zeros((), dtype=torch.bool, device=dev))
+                ok = torch.ones((), dtype=torch.bool, device=dev)
+                if x.ret_type.is_float():
+                    return torch.tensor(v, dtype=torch.float64, device=dev), ok
+                if isinstance(v, int) and v > _I64.max:  # BIGINT UNSIGNED literal
+                    return U64(torch.tensor(v - (1 << 64), dtype=torch.int64, device=dev)), ok
+                return torch.tensor(v, dtype=torch.int64, device=dev), ok
+            return x.eval_xp(XP, [rec(a) for a in x.args])
+
+        return rec(e)
+
+    def _mask(self, r_conds, lanes, row_valid):
+        mask = row_valid
+        for c in r_conds:
+            d, v = self._eval_device(c, lanes)
+            mask = mask & v & (d != 0)
+        return mask
+
+    def _decode(self, dev: DeviceBatch, lanes: dict, unsigned: set):
+        """K1 over every used lane (the reference's _unflatten)."""
+        out = {}
+        for i, (d, v) in lanes.items():
+            dd = decode_lane(d, dev.row_valid)
+            if i in unsigned:
+                dd = U64(dd)
+            out[i] = (dd, decode_lane(v, dev.row_valid))
+        return out
+
+    # --- filter-only --------------------------------------------------------
+
+    def _lower_filter(self, dag: DAGRequest, dev: DeviceBatch, lanes, r_conds, unsigned):
+        def run():
+            with self.phase("decode"):
+                l = self._decode(dev, lanes, unsigned)
+            with self.phase("mask"):
+                mask = self._mask(r_conds, l, dev.row_valid)
+            with self.phase("d2h"):
+                mask = mask.reshape(-1).cpu().numpy()[: dev.batch.n_rows]
+            with self.phase("finalize"):
+                chunk = dev.batch.to_chunk(dag.scan.col_offsets).filter(mask)
+                if dag.limit is not None:
+                    chunk = chunk.slice(0, min(dag.limit.n, chunk.num_rows))
+            return chunk
+
+        return run
+
+    # --- aggregation --------------------------------------------------------
+
+    def _lower_agg(self, dag: DAGRequest, dev: DeviceBatch, lanes, vocabs, r_conds, unsigned):
+        agg = dag.agg
+        gb = agg.group_by
+        wide_keys = False
+        for g in gb:
+            if not isinstance(g, ExprCol):
+                return None
+            if g.idx not in vocabs:
+                d = dev.batch.data[dag.scan.col_offsets[g.idx]]
+                if d.dtype == np.float64 or d.dtype == np.uint64:
+                    wide_keys = True
+        from ..mysqltypes import collate as _coll
+
+        dev_args = []
+        for a in agg.aggs:
+            if a.name not in (
+                "count", "sum", "avg", "min", "max", "first_row",
+                "stddev_pop", "stddev_samp", "var_pop", "var_samp",
+                "bit_and", "bit_or", "bit_xor",
+            ):
+                return None
+            if (
+                a.name in ("min", "max")
+                and a.args
+                and a.args[0].ret_type.is_string()
+                and _coll.is_ci(getattr(a.args[0].ret_type, "collate", None))
+            ):
+                # dict codes collapse a ci weight class to ONE vocab
+                # representative chosen batch-wide (pre-filter): host path
+                return None
+            r_args = [
+                self._rewrite(x, vocabs) if not (isinstance(x, ExprCol) and x.idx in vocabs)
+                else (x if a.name in ("min", "max", "first_row", "count") else None)
+                for x in a.args
+            ]
+            if any(x is None for x in r_args):
+                return None
+            dev_args.append(r_args)
+
+        # direct addressing needs NULL-free keys with small finite domains
+        domains = []
+        key_cols = []
+        direct = not wide_keys
+        for g in gb:
+            if not direct:
+                break
+            if g.idx in vocabs:
+                domains.append(max(len(vocabs[g.idx]), 1))
+            else:
+                d = dev.batch.data[dag.scan.col_offsets[g.idx]]
+                v = dev.batch.valid[dag.scan.col_offsets[g.idx]]
+                if not v.all() or len(d) == 0:
+                    direct = False
+                    break
+                lo, hi = int(d.min()), int(d.max())
+                if hi - lo + 1 > DIRECT_GROUP_MAX:
+                    direct = False
+                    break
+                domains.append(hi - lo + 1)
+                key_cols.append((g.idx, lo))
+                continue
+            key_cols.append((g.idx, 0))
+        nseg = 1
+        for s in domains:
+            nseg *= s + 1  # +1 slot for NULL keys
+        if not direct or nseg > DIRECT_GROUP_MAX:
+            raise NotPortedError("tpu_engine._lower_agg_sorted", "sort-based GROUP BY (K9)")
+
+        def run():
+            with self.phase("decode"):
+                l = self._decode(dev, lanes, unsigned)
+            with self.phase("mask"):
+                flat_mask = self._mask(r_conds, l, dev.row_valid).reshape(-1)
+            with self.phase("agg_args"):
+                keys = [
+                    SegKey(l[idx][0].reshape(-1), self._valid_arg(l[idx][1], dev), lo, dom)
+                    for (idx, lo), dom in zip(key_cols, domains)
+                ]
+                outs = [[SegLane("count")]]  # group_count: masked-in rows per slot
+                for a, r_args in zip(agg.aggs, dev_args):
+                    outs.extend(self._agg_partials_device(a, r_args, l, dev, nseg))
+            with self.phase("seg_agg"):
+                seg_lanes = [s for o in outs for s in o]
+                i_raw, f_raw = self.seg_agg(flat_mask, keys, seg_lanes, nseg)
+                i_mat, f_mat, layout = self._pack(outs, i_raw, f_raw)
+            with self.phase("d2h"):
+                i_host, f_host = i_mat.cpu().numpy(), f_mat.cpu().numpy()
+            with self.phase("finalize"):
+                res = [i_host[k] if t == "i" else f_host[k] for t, k in layout]
+                chunk = self._agg_outputs_to_chunk(dag, dev, res, domains, key_cols, vocabs, nseg)
+            return chunk
+
+        return run
+
+    @staticmethod
+    def _valid_arg(v, dev: DeviceBatch):
+        """A valid lane for the kernel: None when it is row_valid itself
+        (every masked-in row is valid), else the flat bool lane."""
+        if v is dev.row_valid:
+            return None
+        n = dev.padded
+        return v.reshape(-1) if v.ndim else v.expand(n).contiguous()
+
+    @staticmethod
+    def _pack(outs, i_raw, f_raw):
+        """Kernel rows → the reference's packed layout (K5, torch glue).
+        Each output is one SegLane, or the 64 per-bit lanes of a bitwise
+        aggregate, recombined here into one int64 row by shifts."""
+        rows_i, rows_f, layout = [], [], []
+        ki = kf = 0
+        for o in outs:
+            if len(o) == 64:  # bit_and / bit_or / bit_xor
+                red = i_raw[ki:ki + 64]
+                ki += 64
+                shifts = torch.arange(64, dtype=torch.int64, device=red.device)[:, None]
+                layout.append(("i", len(rows_i)))
+                rows_i.append(((red & 1) << shifts).sum(dim=0))
+            elif o[0].is_float:
+                layout.append(("f", len(rows_f)))
+                rows_f.append(f_raw[kf])
+                kf += 1
+            else:
+                layout.append(("i", len(rows_i)))
+                rows_i.append(i_raw[ki])
+                ki += 1
+        if len(rows_i) == i_raw.shape[0]:
+            i_mat = i_raw  # no bitwise aggregate: the kernel's matrix as written
+        else:
+            i_mat = torch.stack(rows_i) if rows_i else i_raw[:0]
+        return i_mat, f_raw, layout
+
+    def _agg_partials_device(self, a, r_args, lanes, dev: DeviceBatch, nseg: int):
+        """SegLane specs of one aggregate's partials, in the reference's
+        output order (tpu_engine.py:1527 _agg_partials_device). Each list
+        entry is one output; bitwise aggregates give 64 per-bit lanes."""
+        name = a.name
+        n = dev.padded
+        if r_args:
+            d, v = self._eval_device(r_args[0], lanes)
+            dd = d.bits if isinstance(d, U64) else d
+            dd = dd.reshape(-1) if dd.ndim else dd.expand(n).contiguous()
+            vv = self._valid_arg(v, dev)
+        else:
+            d, dd, vv = None, None, None
+        unsigned = isinstance(d, U64)
+
+        def cnt():
+            return [SegLane("count", valid=vv)]
+
+        if name == "count":
+            return [cnt()]
+        if name in ("sum", "avg"):
+            if dd.dtype in (torch.float64, torch.float32):
+                s = SegLane("sum_f64", dd.to(torch.float64), vv)
+            else:
+                s = SegLane("sum_i64", dd.to(torch.int64), vv)
+            return [[s], cnt()]
+        if name in ("min", "max"):
+            if dd.dtype.is_floating_point:
+                op, big, small = "f64", float("inf"), float("-inf")
+                x = dd.to(torch.float64)
+            else:
+                # sentinels in the lane's OWN dtype (uint64 / int32 codes)
+                info = np.iinfo(np.uint64 if unsigned else
+                                {torch.int32: np.int32}.get(dd.dtype, np.int64))
+                op, big, small = ("u64" if unsigned else "i64"), int(info.max), int(info.min)
+                x = dd.to(torch.int64)
+            lane = SegLane(f"{name}_{op}", x, vv, big if name == "min" else small)
+            return [[lane], cnt()]
+        if name == "first_row":
+            return [[SegLane("first_row", valid=vv, fill=n if nseg <= SEG_DENSE_MAX else int(_I64.max))]]
+        if name in ("stddev_pop", "stddev_samp", "var_pop", "var_samp"):
+            # (cnt, sum, sumsq) partials; decimals ship (int64 wrap-sum,
+            # float estimate) pairs of the SCALED ints and their 32-bit
+            # limbs, rebuilt exactly on the host (host_engine.exact_sum64)
+            arg_ft = a.args[0].ret_type
+            ok = None if vv is None else vv
+            if arg_ft.is_decimal():
+                xi = dd.to(torch.int64)
+                if ok is not None:
+                    xi = torch.where(ok, xi, 0)
+                ai = xi >> 32  # arithmetic shift: hi limb keeps the sign
+                bi = xi - (ai << 32)  # lo limb in [0, 2^32)
+                af, bf = ai.to(torch.float64), bi.to(torch.float64)
+                return [cnt(),
+                        [SegLane("sum_i64", xi, vv)], [SegLane("sum_f64", xi.to(torch.float64), vv)],
+                        [SegLane("sum_i64", ai * ai, vv)], [SegLane("sum_f64", af * af, vv)],
+                        [SegLane("sum_i64", ai * bi, vv)], [SegLane("sum_f64", af * bf, vv)],
+                        [SegLane("sum_i64", bi * bi, vv)], [SegLane("sum_f64", bf * bf, vv)]]
+            x = XP.astype(d, torch.float64)
+            x = x.reshape(-1) if x.ndim else x.expand(n).contiguous()
+            if ok is not None:
+                x = torch.where(ok, x, 0.0)
+            return [cnt(), [SegLane("sum_f64", x, vv)], [SegLane("sum_f64", x * x, vv)]]
+        if name in ("bit_and", "bit_or", "bit_xor"):
+            # per-bit segment min/max/sum-mod-2 over 64 bit lanes,
+            # recombined by shifts in _pack (two's complement places bit 63)
+            arg_ft = a.args[0].ret_type
+            if arg_ft.is_decimal():
+                xf = dd.to(torch.float64) / float(pow10(max(arg_ft.decimal, 0)))
+                x = torch.round(xf).to(torch.int64)
+            elif dd.dtype.is_floating_point:
+                x = torch.round(dd).to(torch.int64)
+            else:
+                x = dd.to(torch.int64)
+            op, fill = {"bit_and": ("min_i64", 1), "bit_or": ("max_i64", 0),
+                        "bit_xor": ("sum_i64", 0)}[name]
+            return [[SegLane(op, ((x >> b) & 1).contiguous(), vv, fill) for b in range(64)]]
+        raise NotImplementedError(name)
+
+    def _agg_outputs_to_chunk(self, dag, dev, outs, domains, key_cols, vocabs, nseg):
+        out_fts = dag.output_types()
+        group_count = np.asarray(outs[0])
+        present = np.nonzero(group_count > 0)[0]
+        G = len(present)
+        cols: list[Column] = []
+        radix = [d + 1 for d in domains]
+        codes = present.copy()
+        key_vals = []
+        for r in reversed(radix):
+            key_vals.append(codes % r)
+            codes = codes // r
+        key_vals.reverse()
+        oi = 0
+        for (idx, lo), kv in zip(key_cols, key_vals):
+            ft = out_fts[oi]
+            valid = kv > 0
+            if idx in vocabs:
+                vocab = vocabs[idx]
+                data = np.empty(G, dtype=object)
+                for j, code in enumerate(kv):
+                    data[j] = vocab[code - 1] if code > 0 else None
+            else:
+                data = (kv.astype(np.int64) - 1) + lo
+                data[~valid] = 0
+            cols.append(Column(ft, data, valid))
+            oi += 1
+        cols.extend(self._agg_value_cols(dag, dev, outs, 1, oi, present, vocabs))
+        return Chunk(cols)
+
+    def _agg_value_cols(self, dag, dev, outs, pos, oi, present, vocabs):
+        """Partial-state → Column decode (copy of TPUEngine._agg_value_cols)."""
+        agg = dag.agg
+        out_fts = dag.output_types()
+        G = len(present)
+        cols: list[Column] = []
+        for a in agg.aggs:
+            if a.name == "count":
+                cnt = np.asarray(outs[pos])[present]
+                cols.append(Column(out_fts[oi], cnt.astype(np.int64), np.ones(G, dtype=bool)))
+                pos += 1
+                oi += 1
+            elif a.name in ("sum", "avg"):
+                s = np.asarray(outs[pos])[present]
+                cnt = np.asarray(outs[pos + 1])[present]
+                has = cnt > 0
+                sd = s if out_fts[oi].is_float() else s.astype(np.int64)
+                cols.append(Column(out_fts[oi], sd, has))
+                oi += 1
+                if a.name == "avg":
+                    cols.append(Column(out_fts[oi], cnt.astype(np.int64), np.ones(G, dtype=bool)))
+                    oi += 1
+                pos += 2
+            elif a.name in ("min", "max"):
+                s = np.asarray(outs[pos])[present]
+                cnt = np.asarray(outs[pos + 1])[present]
+                has = cnt > 0
+                ft = out_fts[oi]
+                arg = a.args[0]
+                if isinstance(arg, ExprCol) and arg.idx in vocabs:
+                    vocab = vocabs[arg.idx]
+                    data = np.empty(G, dtype=object)
+                    for j in range(G):
+                        data[j] = vocab[int(s[j])] if has[j] and 0 <= int(s[j]) < len(vocab) else None
+                elif ft.is_float():
+                    data = s
+                elif ft.is_int() and ft.is_unsigned:
+                    data = s.astype(np.int64).view(np.uint64).copy()
+                    data[~has] = 0
+                else:
+                    data = np.where(has, s.astype(np.int64), 0)
+                cols.append(Column(ft, data, has))
+                pos += 2
+                oi += 1
+            elif a.name in ("stddev_pop", "stddev_samp", "var_pop", "var_samp"):
+                ones = np.ones(G, dtype=bool)
+                cnt = np.asarray(outs[pos])[present].astype(np.int64)
+                arg_ft = a.args[0].ret_type
+                if arg_ft.is_decimal():
+                    o = [np.asarray(outs[pos + j])[present] for j in range(1, 9)]
+                    scale = float(pow10(max(arg_ft.decimal, 0)))
+                    s = exact_sum64(o[0], o[1]) / scale
+                    sq = exact_sumsq64(o[2], o[3], o[4], o[5], o[6], o[7]) / (scale * scale)
+                    pos += 9
+                else:
+                    s = np.asarray(outs[pos + 1])[present]
+                    sq = np.asarray(outs[pos + 2])[present]
+                    pos += 3
+                cols.append(Column(out_fts[oi], cnt, ones))
+                cols.append(Column(out_fts[oi + 1], s, ones))
+                cols.append(Column(out_fts[oi + 2], sq, ones))
+                oi += 3
+            elif a.name in ("bit_and", "bit_or", "bit_xor"):
+                val = np.asarray(outs[pos])[present].astype(np.int64)
+                cols.append(Column(out_fts[oi], val, np.ones(G, dtype=bool)))
+                pos += 1
+                oi += 1
+            elif a.name == "first_row":
+                firsts = np.asarray(outs[pos])[present]
+                ft = out_fts[oi]
+                n = dev.batch.n_rows
+                src_off = dag.scan.col_offsets[a.args[0].idx] if isinstance(a.args[0], ExprCol) else None
+                from ..chunk.chunk import col_numpy_dtype, VARLEN
+
+                dt = col_numpy_dtype(ft)
+                data = np.empty(G, dtype=object) if dt is VARLEN else np.zeros(G, dtype=dt)
+                valid = np.zeros(G, dtype=bool)
+                for j, fi in enumerate(firsts):
+                    fi = int(fi)
+                    if fi < n and src_off is not None:
+                        data[j] = dev.batch.data[src_off][fi]
+                        valid[j] = dev.batch.valid[src_off][fi]
+                cols.append(Column(ft, data, valid))
+                pos += 1
+                oi += 1
+        return cols

@@ -1,0 +1,60 @@
+"""Entry points of the port's coprocessor slice.
+
+* `batch_from_numpy(table, columns, valid=None)`: region data as numpy
+  lanes (the form of a reference ColumnBatch) → the port's ColumnBatch.
+  It takes numpy arrays only, so both packages can be fed the same data.
+* `run_query(dag, batch, device="cuda")`: the GPU cop engine over one
+  batch, the final merge of its partial chunk, ORDER BY the group keys →
+  the result chunk.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .catalog.schema import TableInfo
+from .chunk.chunk import Chunk, VARLEN, col_numpy_dtype
+from .copr.dag import DAGRequest
+from .copr.gpu_engine import TorchEngine
+from .copr.tilecache import ColumnBatch
+from .executor.final_agg import merge_partials, order_by_keys
+
+
+def batch_from_numpy(table: TableInfo, columns: dict[str, np.ndarray],
+                     valid: dict[str, np.ndarray] | None = None) -> ColumnBatch:
+    """One region's rows as a ColumnBatch: `columns` maps every visible
+    column name to its lane (int64 for ints, scaled decimals and packed
+    dates, uint64, float64, object for strings); `valid` optionally maps a
+    name to its NOT-NULL mask. The hidden `_tidb_rowid` gets the handles."""
+    n = len(next(iter(columns.values())))
+    handles = np.arange(1, n + 1, dtype=np.int64)
+    data, valids = [], []
+    for c in table.columns:
+        if c.name in columns:
+            d = np.asarray(columns[c.name])
+            dt = col_numpy_dtype(c.ft)
+            d = d.astype(object) if dt is VARLEN else d.astype(dt, copy=False)
+        elif c.hidden and c.name == "_tidb_rowid":
+            d = handles
+        else:
+            raise KeyError(f"batch_from_numpy: no lane for column {c.name!r}")
+        if len(d) != n:
+            raise ValueError(f"batch_from_numpy: column {c.name!r} has {len(d)} rows, not {n}")
+        v = (valid or {}).get(c.name)
+        v = np.ones(n, dtype=bool) if v is None else np.asarray(v, dtype=bool)
+        data.append(d)
+        valids.append(v)
+    return ColumnBatch(table, handles, data, valids, version=0)
+
+
+def run_query(dag: DAGRequest, batch: ColumnBatch, device="cuda",
+              engine: TorchEngine | None = None) -> Chunk:
+    """Answer one pushed-down query over one region batch on `device`."""
+    engine = engine or TorchEngine(device)
+    partial = engine.execute(dag, batch)
+    if dag.agg is None:
+        return partial
+    out_fts = [g.ret_type for g in dag.agg.group_by] + [a.ret_type for a in dag.agg.aggs]
+    with engine.phase("finalize"):
+        final = merge_partials([partial], dag.agg.group_by, dag.agg.aggs, out_fts)
+        return order_by_keys(final, dag.agg.group_by)

@@ -1,0 +1,164 @@
+"""TPC-H lineitem for the port (ref: tidb_tpu/models/tpch.py).
+
+* `LINEITEM`: the lineitem schema as the reference's DDL builds it
+  (tpch.py LINEITEM_DDL), hidden `_tidb_rowid` handle column included;
+* `gen_lineitem` / `_rand_dates`: copies of the reference's generator
+  (tpch.py:91-128), so the same seed gives the same rows in both packages;
+* `q1_dag` / `q6_dag`: the DAGRequests the reference planner pushes for
+  tpch.Q1 and tpch.Q6 (selection + aggregation over one lineitem scan),
+  the same expression trees, types and constants.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..catalog.schema import ColumnInfo, TableInfo
+from ..copr.dag import AggNode, DAGRequest, ScanNode, SelectionNode
+from ..expr.aggregation import AggDesc
+from ..expr.expression import Column, Constant, make_func
+from ..mysqltypes.coretime import parse_datetime
+from ..mysqltypes.datum import Datum
+from ..mysqltypes.field_type import NOT_NULL_FLAG, FieldType, TypeCode, ft_decimal, ft_longlong
+from ..mysqltypes.mydecimal import dec_from_string
+
+Q1 = """SELECT l_returnflag, l_linestatus,
+  SUM(l_quantity) AS sum_qty,
+  SUM(l_extendedprice) AS sum_base_price,
+  SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+  SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+  AVG(l_quantity) AS avg_qty,
+  AVG(l_extendedprice) AS avg_price,
+  AVG(l_discount) AS avg_disc,
+  COUNT(*) AS count_order
+FROM lineitem
+WHERE l_shipdate <= '1998-09-02'
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus"""
+
+Q6 = """SELECT SUM(l_extendedprice * l_discount) AS revenue
+FROM lineitem
+WHERE l_shipdate >= '1994-01-01' AND l_shipdate < '1995-01-01'
+  AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24"""
+
+
+def _nn(tp: TypeCode, **kw) -> FieldType:
+    return FieldType(tp, flag=NOT_NULL_FLAG, **kw)
+
+
+_COLS = [
+    ("l_orderkey", _nn(TypeCode.Longlong)),
+    ("l_partkey", _nn(TypeCode.Longlong)),
+    ("l_suppkey", _nn(TypeCode.Longlong)),
+    ("l_linenumber", _nn(TypeCode.Longlong)),
+    ("l_quantity", _nn(TypeCode.NewDecimal, flen=15, decimal=2)),
+    ("l_extendedprice", _nn(TypeCode.NewDecimal, flen=15, decimal=2)),
+    ("l_discount", _nn(TypeCode.NewDecimal, flen=15, decimal=2)),
+    ("l_tax", _nn(TypeCode.NewDecimal, flen=15, decimal=2)),
+    ("l_returnflag", _nn(TypeCode.String, flen=1)),
+    ("l_linestatus", _nn(TypeCode.String, flen=1)),
+    ("l_shipdate", _nn(TypeCode.Date)),
+    ("l_commitdate", _nn(TypeCode.Date)),
+    ("l_receiptdate", _nn(TypeCode.Date)),
+]
+
+LINEITEM = TableInfo(
+    1, "lineitem",
+    [ColumnInfo(2 + i, name, ft, i) for i, (name, ft) in enumerate(_COLS)]
+    + [ColumnInfo(2 + len(_COLS), "_tidb_rowid", ft_longlong(), len(_COLS), hidden=True)],
+)
+
+
+def _rand_dates(rng, n, y0=1992, y1=1998):
+    """Packed date int64s uniform over [y0, y1]."""
+    years = rng.integers(y0, y1 + 1, n)
+    months = rng.integers(1, 13, n)
+    days = rng.integers(1, 29, n)
+    return ((years * 13 + months) * 32 + days) * (24 * 60 * 60 * 1_000_000)
+
+
+def gen_lineitem(n_rows: int, seed: int = 42) -> dict[str, np.ndarray]:
+    """Generate lineitem columns, distribution-shaped like dbgen."""
+    rng = np.random.default_rng(seed)
+    orderkey = np.sort(rng.integers(1, max(n_rows // 4, 2), n_rows))
+    qty = rng.integers(100, 5100, n_rows)  # 1.00..51.00 scale 2
+    price = rng.integers(90000, 10500000, n_rows)  # 900.00..105000.00
+    discount = rng.integers(0, 11, n_rows)  # 0.00..0.10
+    tax = rng.integers(0, 9, n_rows)
+    shipdate = _rand_dates(rng, n_rows)
+    rf = rng.choice(np.array(["A", "N", "R"], dtype=object), n_rows, p=[0.25, 0.5, 0.25])
+    ls = np.where(rng.random(n_rows) < 0.5, "O", "F").astype(object)
+    return {
+        "l_orderkey": orderkey,
+        "l_partkey": rng.integers(1, 200000, n_rows),
+        "l_suppkey": rng.integers(1, 10000, n_rows),
+        "l_linenumber": rng.integers(1, 8, n_rows),
+        "l_quantity": qty,
+        "l_extendedprice": price,
+        "l_discount": discount,
+        "l_tax": tax,
+        "l_returnflag": rf,
+        "l_linestatus": ls,
+        "l_shipdate": shipdate,
+        "l_commitdate": shipdate + 32 * 24 * 3600 * 1_000_000,
+        "l_receiptdate": shipdate + 33 * 24 * 3600 * 1_000_000,
+    }
+
+
+def _col(name: str) -> Column:
+    c = LINEITEM.col_by_name(name)
+    return Column(c.offset, c.ft, c.name)
+
+
+def _date(s: str) -> Constant:
+    """A date literal as the planner folds it against a DATE column: the
+    string parses to a packed datetime constant of the column's type."""
+    return Constant(Datum.t(parse_datetime(s)), LINEITEM.col_by_name("l_shipdate").ft.clone())
+
+
+def _int(v: int) -> Constant:
+    return Constant(Datum.i(v), ft_longlong())
+
+
+def _dec(s: str, scale: int) -> Constant:
+    return Constant(Datum.d(dec_from_string(s)), ft_decimal(30, scale))
+
+
+def _scan() -> ScanNode:
+    vis = LINEITEM.visible_columns()
+    return ScanNode(LINEITEM.id, [c.offset for c in vis], [c.ft for c in vis], [c.id for c in vis])
+
+
+def q1_dag() -> DAGRequest:
+    price, disc, tax = _col("l_extendedprice"), _col("l_discount"), _col("l_tax")
+    disc_price = make_func("mul", price, make_func("minus", _int(1), disc))
+    charge = make_func("mul", make_func("mul", price, make_func("minus", _int(1), disc)),
+                       make_func("plus", _int(1), tax))
+    aggs = [
+        AggDesc.make("sum", [_col("l_quantity")]),
+        AggDesc.make("sum", [price]),
+        AggDesc.make("sum", [disc_price]),
+        AggDesc.make("sum", [charge]),
+        AggDesc.make("avg", [_col("l_quantity")]),
+        AggDesc.make("avg", [price]),
+        AggDesc.make("avg", [disc]),
+        AggDesc.make("count", []),
+    ]
+    return DAGRequest(
+        scan=_scan(),
+        selection=SelectionNode([make_func("le", _col("l_shipdate"), _date("1998-09-02"))]),
+        agg=AggNode([_col("l_returnflag"), _col("l_linestatus")], aggs),
+    )
+
+
+def q6_dag() -> DAGRequest:
+    ship, disc, qty = _col("l_shipdate"), _col("l_discount"), _col("l_quantity")
+    conds = [
+        make_func("ge", ship, _date("1994-01-01")),
+        make_func("lt", ship, _date("1995-01-01")),
+        make_func("ge", disc, _dec("0.05", 2)),
+        make_func("le", disc, _dec("0.07", 2)),
+        make_func("lt", qty, _int(24)),
+    ]
+    revenue = AggDesc.make("sum", [make_func("mul", _col("l_extendedprice"), disc)])
+    return DAGRequest(scan=_scan(), selection=SelectionNode(conds), agg=AggNode([], [revenue]))
