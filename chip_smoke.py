@@ -8,21 +8,36 @@ Phases, one line each; any failure exits non-zero and prints no result:
  1. device  — torch's device name, and the card's name and power limit
               as nvidia-smi reports them;
  2. build   — compiles every CUDA kernel of the port from csrc/ (nvcc,
-              sm_90a) into build/kernels/ and reports the seconds;
- 3. kernels — K1 decode_lane and K4 seg_agg against their plain PyTorch
-              versions on the card, over every codec and op at the main
-              path's shapes (T=245, R=65536, nseg=12) and the edge shapes
-              of the CPU tests: integers bit-exact, floats within
-              rtol 1e-9 / atol 1e-6 (bench.py's own check); then each
-              kernel's time beside its plain version's and its bound;
+              sm_90a, one process per source, all at once) into
+              build/kernels/ and reports the seconds;
+ 3. kernels — every kernel against its plain PyTorch version on the card,
+              at the main path's shapes (T=245, R=65536) and edge shapes:
+              K1 decode_lane over every codec; K4 seg_agg over every op
+              (nseg 1..65536) and in its segment-lane mode at nseg
+              4,194,304; K8 lex_sort over every operand kind, ties and a
+              key wider than 64 bits; K6 topk with NULLs, masked rows,
+              ties past a tile, the int64 limits, signed zeros and NaNs,
+              k = N; K7 topn_multi's operands; K9 sort_groups with
+              NULL-able, float, uint64 and dict-code keys, all rows
+              masked and a capacity below n_groups. Integers, row ids and
+              group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
+              (bench.py's own check); all cases run, failures are raised
+              together;
  4. main path — generates lineitem (--rows, seed --seed) with the port's
-              generator, runs TPC-H Q1 and Q6 through run_query on "cuda",
-              holds each answer to the port's host engine plus the final
-              merge on the same data (exact), requires both kernels'
-              launch counters to have moved during the queries, and
-              reports rows/s, the median of --reps warm runs and a
-              per-phase split timed with CUDA events;
- 5. the kernels JSON line, the card line, and last the result line
+              generator and runs through run_query on "cuda": TPC-H Q1
+              and Q6, tpch_topn (ORDER BY l_extendedprice DESC LIMIT 100),
+              multikey_topn (ORDER BY l_extendedprice DESC, l_orderkey,
+              l_linenumber LIMIT 50) and Q18's subquery (GROUP BY
+              l_orderkey); holds every run's answer to the port's host
+              engine plus the same root step on the same data (exact, in
+              order), requires each query's kernels' launch counters to
+              have moved during its runs, and reports rows/s, the median
+              of --reps warm runs and a per-phase split timed with CUDA
+              events;
+ 5. measure — each kernel on the main path's own inputs: held once more to
+              its plain version, then timed beside it, its bytes bound and
+              the nearest single PyTorch call where there is one;
+ 6. the kernels JSON line, the card line, and last the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without a CUDA device, or run from a directory without the repository,
@@ -167,35 +182,205 @@ def seg_cases(dev, rng, n: int, nseg: int, all_masked: bool = False, overflow: b
     return keys, lanes, mask
 
 
-def check_kernels(dev, rng) -> dict:
+def sort_cases(dev, rng, n: int):
+    """(name, K8 operands) over every operand kind, ties and a key wider
+    than one 64-bit word."""
+    import numpy as np
     import torch
 
-    from tidb_tpu_torch.kernels import decode_lane, decode_lane_ref, seg_agg, seg_agg_ref
+    from tidb_tpu_torch.kernels import SortOp
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    zero = t(np.zeros(n, np.int32))
+    specials = np.array([-np.inf, -1.5, -0.0, 0.0, 1.5, np.inf, np.nan, -np.nan, 2.5e-308])
+    return [
+        ("multikey_topn", [SortOp(t((rng.random(n) < 0.02).astype(np.int32)), "i32"), SortOp(zero, "i32"),
+                           SortOp(t(~rng.integers(90000, 10500000, n)), "i64"), SortOp(zero, "i32"),
+                           SortOp(t(np.sort(rng.integers(1, max(n // 4, 2), n))), "i64"), SortOp(zero, "i32"),
+                           SortOp(t(rng.integers(1, 8, n)), "i64")]),
+        ("floats_codes", [SortOp(t(rng.integers(-2, 2, n).astype(np.int32)), "i32"),
+                          SortOp(t(rng.choice(specials, n)), "f64")]),
+        ("wide_u64_i64", [SortOp(t(rng.integers(0, 4, n)), "u64"),
+                          SortOp(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)), "u64"),
+                          SortOp(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)), "i64"),
+                          SortOp(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)), "i64")]),
+        ("all_equal", [SortOp(t(np.full(n, 7, np.int64)), "i64")]),
+        ("one_bit_ties", [SortOp(t(rng.integers(0, 2, n).astype(np.int32)), "i32")]),
+    ]
+
+
+def topk_cases(dev, rng, n: int):
+    """(name, (data, valid, mask, desc, k)) for K6: the main path's key and
+    the edges — NULLs, masked rows, ties past one tile, the int64 limits,
+    signed zeros and NaNs, k = N."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    i64 = np.iinfo(np.int64)
+    m_all = np.ones(n, bool)
+    m_all[n - n // 7:] = False  # a pad tail
+    m_rand = rng.random(n) < 0.7
+    v_rand = t(rng.random(n) < 0.9)
+    price = t(rng.integers(90000, 10500000, n))
+    specials = t(rng.choice(np.array([-np.inf, -1.5, -0.0, 0.0, 1.5, np.inf, np.nan, -np.nan]), n))
+    limits = t(rng.choice(np.array([i64.min, i64.min + 1, -1, 0, 1, i64.max - 1, i64.max]), n))
+    k = min(100, n)
+    cases = [("price_desc", (price, None, t(m_all), True, k)), ("price_asc", (price, None, t(m_all), False, k)),
+             ("price_nulls_asc", (price, v_rand, t(m_rand), False, min(1000, n)))]
+    for desc in (True, False):
+        cases += [(f"float_specials_{desc}", (specials, v_rand, t(m_rand), desc, min(5000, n))),
+                  (f"int64_limits_{desc}", (limits, v_rand, t(m_rand), desc, min(5000, n)))]
+    cases += [("all_masked", (price, None, t(np.zeros(n, bool)), True, min(50, n))),
+              ("all_equal_ties", (t(np.full(n, 3, np.int64)), None, t(m_all), True, min(5000, n))),
+              ("k_is_n", (price, v_rand, t(m_rand), False, n))]
+    return cases
+
+
+def multi_cases(dev, rng, n: int):
+    """(mask, keys) for K7 over every key kind, NULLs and both orders."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.expr.xp_torch import U64
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    v = t(rng.random(n) < 0.9)
+    specials = rng.choice(np.array([-np.inf, -1.5, -0.0, 0.0, 1.5, np.inf, np.nan]), n)
+    keys = [(t(rng.integers(90000, 10500000, n)), None, True),
+            (t(rng.integers(0, 5, n).astype(np.int32)), v, False),
+            (t(specials), v, True),
+            (U64(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64))), None, False),
+            (t(rng.integers(-5, 5, n)), v, True)]
+    return t(rng.random(n) < 0.8), keys
+
+
+def group_cases(dev, rng, n: int):
+    """(name, mask, keys, cap) for K9: NULL-able, float (±0.0, NaN), uint64
+    and dict-code keys; an all-masked batch; a capacity below n_groups."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.expr.xp_torch import U64
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    mask = t(rng.random(n) < 0.8)
+    v = t(rng.random(n) < 0.9)
+    orderkey = t(np.sort(rng.integers(1, max(n // 4, 2), n)))
+    fl = t(rng.choice(np.array([-0.0, 0.0, 1.5, -2.5, np.nan, np.inf]), n))
+    u = U64(t(rng.integers(0, 3, n) + (1 << 62) * rng.integers(-2, 2, n)))
+    codes = t(rng.integers(0, 7, n).astype(np.int32))
+    return [("q18_orderkey", t(np.ones(n, bool)), [(orderkey, None)], None),
+            ("nullable_int_float", mask, [(t(rng.integers(0, 50, n)), v), (fl, v)], None),
+            ("u64_codes", mask, [(u, None), (codes, v)], None),
+            ("all_masked", t(np.zeros(n, bool)), [(orderkey, v)], None),
+            ("capped", mask, [(orderkey, None)], 4)]
+
+
+def gcap_escalation(ng: int, cap: int = 1 << 16) -> int:
+    """The engine's group capacity for n_groups from gcap0 (x4 steps)."""
+    while cap < ng:
+        cap <<= 2
+    return cap
+
+
+def _same_groups(g, w, what: str) -> None:
+    if (g.n_groups, g.cap) != (w.n_groups, w.cap):
+        raise AssertionError(f"{what}: n_groups/cap {g.n_groups}/{g.cap} vs {w.n_groups}/{w.cap}")
+    for name in ("perm", "seg", "kval", "kvalid"):
+        _same(getattr(g, name), getattr(w, name), f"{what} {name}")
+
+
+def check_kernels(dev, rng) -> dict:
+    """Every kernel against its plain version on the same tensors. All
+    cases run; the failures are raised together at the end."""
+    import torch
 
     from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.kernels import (decode_lane, decode_lane_ref, lex_sort_perm, lex_sort_perm_ref,
+                                        seg_agg, seg_agg_ref, sort_groups, sort_groups_ref, topk, topk_ref,
+                                        topn_multi_ops, topn_multi_ops_ref)
 
     K.reset_launches()
-    verdict = {"decode_lane": 0.0, "seg_agg": 0.0}
-    shapes = [(T_MAIN, R_MAIN), (1, 256), (3, 1024)]
+    verdict = {name: 0.0 for name in K.WRAPPERS}
+    errors: list[str] = []
     ncase = 0
-    for t, r in shapes:
-        for name, enc, rv in decode_cases(dev, rng, t, r):
-            got = decode_lane(enc, rv)
-            want = decode_lane_ref(enc, rv)
+
+    def case(name, fn):
+        nonlocal ncase
+        ncase += 1
+        try:
+            err = fn()
             torch.cuda.synchronize()
-            err = _same(got, want, f"decode_lane {name} [{t},{r}]", floats=got.is_floating_point())
-            verdict["decode_lane"] = max(verdict["decode_lane"], err)
-            ncase += 1
+        except Exception as e:  # noqa: BLE001 — gathered and raised below
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+            return
+        kernel = name.split()[0]
+        verdict[kernel] = max(verdict[kernel], err or 0.0)
+
+    for t, r in [(T_MAIN, R_MAIN), (1, 256), (3, 1024)]:
+        for cname, enc, rv in decode_cases(dev, rng, t, r):
+            def k1(enc=enc, rv=rv, cname=cname, t=t, r=r):
+                got, want = decode_lane(enc, rv), decode_lane_ref(enc, rv)
+                return _same(got, want, f"{cname} [{t},{r}]", floats=got.is_floating_point())
+            case(f"decode_lane {cname} [{t},{r}]", k1)
     for n, nseg, kw in ((T_MAIN * R_MAIN, NSEG_MAIN, {}), (T_MAIN * R_MAIN, NSEG_MAIN, {"overflow": True}),
                         (4096, 1, {}), (4096, 64, {}), (4096, 65, {}), (200_000, 65536, {}),
                         (4096, 12, {"all_masked": True})):
         keys, lanes, mask = seg_cases(dev, rng, n, nseg, **kw)
-        gi, gf = seg_agg(mask, keys, lanes, nseg)
-        wi, wf = seg_agg_ref(mask, keys, lanes, nseg)
-        torch.cuda.synchronize()
-        _same(gi, wi, f"seg_agg ints n={n} nseg={nseg} {kw}")
-        verdict["seg_agg"] = max(verdict["seg_agg"], _same(gf, wf, f"seg_agg floats n={n} nseg={nseg} {kw}", True))
-        ncase += 1
+
+        def k4(mask=mask, keys=keys, lanes=lanes, nseg=nseg):
+            (gi, gf), (wi, wf) = seg_agg(mask, keys, lanes, nseg), seg_agg_ref(mask, keys, lanes, nseg)
+            _same(gi, wi, "ints")
+            return _same(gf, wf, "floats", True)
+        case(f"seg_agg n={n} nseg={nseg} {kw}", k4)
+    # K4's segment-lane mode (the sort path), at the Q18 capacity: the
+    # global-atomics regime
+    for n, nseg in ((T_MAIN * R_MAIN, 1 << 22), (4096, 5)):
+        _, lanes, mask = seg_cases(dev, rng, n, nseg)
+        seg = torch.from_numpy(rng.integers(0, nseg + nseg // 16 + 2, n).astype("int32")).to(dev)
+
+        def k4s(mask=mask, lanes=lanes, nseg=nseg, seg=seg):
+            (gi, gf), (wi, wf) = seg_agg(mask, [], lanes, nseg, seg=seg), seg_agg_ref(mask, [], lanes, nseg, seg=seg)
+            _same(gi, wi, "ints")
+            return _same(gf, wf, "floats", True)
+        case(f"seg_agg segment-lane n={n} nseg={nseg}", k4s)
+    for n in (T_MAIN * R_MAIN, 1, 5, 4096, 4097, 100_000):
+        for cname, ops in sort_cases(dev, rng, n):
+            if n == T_MAIN * R_MAIN and cname in ("all_equal", "one_bit_ties"):
+                continue
+            case(f"lex_sort {cname} n={n}",
+                 lambda ops=ops: _same(lex_sort_perm(ops), lex_sort_perm_ref(ops), "perm"))
+        for cname, args in topk_cases(dev, rng, n):
+            def k6(args=args):
+                (gi, go), (wi, wo) = topk(*args), topk_ref(*args)
+                _same(gi, wi, "rows")
+                _same(go, wo, "ok bits")
+            case(f"topk {cname} n={n}", k6)
+        mask, keys = multi_cases(dev, rng, n)
+
+        def k7(mask=mask, keys=keys):
+            for j, (g, w) in enumerate(zip(topn_multi_ops(mask, keys), topn_multi_ops_ref(mask, keys))):
+                if g.kind != w.kind:
+                    raise AssertionError(f"operand {j}: kind {g.kind} vs {w.kind}")
+                gd, wd = (g.data.view(torch.int64), w.data.view(torch.int64)) if g.kind == "f64" else (g.data, w.data)
+                _same(gd, wd, f"operand {j}")
+        case(f"topn_multi n={n}", k7)
+        for cname, mask, keys, cap in group_cases(dev, rng, n):
+            cap_of = gcap_escalation if cap is None else (lambda ng, cap=cap: cap)
+            case(f"sort_groups {cname} n={n}",
+                 lambda mask=mask, keys=keys, cap_of=cap_of, cname=cname: _same_groups(
+                     sort_groups(mask, keys, cap_of), sort_groups_ref(mask, keys, cap_of), cname))
+    if errors:
+        raise AssertionError(f"{len(errors)} of {ncase} kernel cases failed:\n" + "\n".join(errors))
     launched = K.launches()
     return {"cases": ncase, "max_abs_err": verdict,
             "kernels": {k: {"verdict": "match", "max_abs_err": verdict[k], "launches": launched[k]}
@@ -231,30 +416,114 @@ def _decode_bytes(mirror, encs) -> int:
     return total
 
 
-def run_main_path(dev, rows: int, seed: int, reps: int, card: str) -> dict:
+# (query, DAG builder of models/tpch.py, kernels its runs must launch)
+QUERIES = (
+    ("q1", "q1_dag", ("decode_lane", "seg_agg")),
+    ("q6", "q6_dag", ("decode_lane", "seg_agg")),
+    ("tpch_topn", "topn_dag", ("topk",)),
+    ("multikey_topn", "multikey_topn_dag", ("topn_multi", "lex_sort")),
+    ("q18_inner", "q18_inner_dag", ("lex_sort", "sort_groups", "seg_agg")),
+)
+SPIED = ("seg_agg", "topk", "topn_multi_ops", "lex_sort_perm", "sort_groups")
+
+
+def _spy(engine, captured: dict) -> None:
+    """Record the last inputs of each kernel entry point of `engine`."""
+    for name in SPIED:
+        def wrapped(*a, _fn=getattr(engine, name), _name=name, **kw):
+            captured[_name] = (a, kw)
+            return _fn(*a, **kw)
+        setattr(engine, name, wrapped)
+
+
+def oracle(dag, batch):
+    """The port's host engine on the same batch, then the same root step."""
+    from tidb_tpu_torch.copr.host_engine import execute_dag_host
+    from tidb_tpu_torch.executor.final_agg import merge_partials, order_by_keys, top_n
+
+    part = execute_dag_host(dag, batch)
+    if dag.topn is not None:
+        return top_n(part, dag.topn.by, dag.topn.n)
+    fts = [g.ret_type for g in dag.agg.group_by] + [a.ret_type for a in dag.agg.aggs]
+    return order_by_keys(merge_partials([part], dag.agg.group_by, dag.agg.aggs, fts), dag.agg.group_by)
+
+
+def chunks_equal(got, want) -> str | None:
+    """None when the chunks hold the same rows in the same order, exactly;
+    else what differs."""
     import numpy as np
+
+    if (got.num_rows, got.num_cols) != (want.num_rows, want.num_cols):
+        return f"shape {got.num_rows}x{got.num_cols} vs {want.num_rows}x{want.num_cols}"
+    for j, (g, w) in enumerate(zip(got.columns, want.columns)):
+        if not np.array_equal(g.valid, w.valid):
+            return f"column {j}: NULLs differ"
+        gd, wd = g.data[g.valid], w.data[w.valid]
+        same = gd.tolist() == wd.tolist() if wd.dtype == object else np.array_equal(gd, wd)
+        if not same:
+            return f"column {j}: values differ"
+    return None
+
+
+def busy_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profiled_run(dag, batch, dev, engine) -> dict:
+    """One more warm run under torch.profiler: its wall (host clock), the
+    time the card was busy (union of its kernel and copy spans) and the
+    idle share. The profiler adds host time, so the share is an upper
+    bound of the unprofiled runs'."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tidb_tpu_torch.entry import run_query
+
+    engine.timer = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run_query(dag, batch, device=dev, engine=engine)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_us(spans)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3, "device_events": len(spans),
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us)}
+
+
+def run_main_path(dev, rows: int, seed: int, reps: int, card: str) -> dict:
     import torch
 
     from tidb_tpu_torch import kernels as K
     from tidb_tpu_torch.copr.gpu_engine import TorchEngine
-    from tidb_tpu_torch.copr.host_engine import execute_dag_host
     from tidb_tpu_torch.entry import batch_from_numpy, run_query
-    from tidb_tpu_torch.executor.final_agg import merge_partials, order_by_keys
     from tidb_tpu_torch.models import tpch
     from tidb_tpu_torch.torchenv import PhaseTimer
 
     t0 = time.perf_counter()
     batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(rows, seed))
     say("main.data", rows=rows, seed=seed, seconds=time.perf_counter() - t0)
-    out = {}
+    out = {"captured": {}}
     K.reset_launches()
-    per_query = {}
-    for qname, mk in (("q1", tpch.q1_dag), ("q6", tpch.q6_dag)):
-        dag = mk()
+    for qname, builder, needs in QUERIES:
+        dag = getattr(tpch, builder)()
         engine = TorchEngine(dev)
+        captured = out["captured"][qname] = {}
+        _spy(engine, captured)
         before = K.launches()
         runs = []
-        for rep in range(reps + 1):  # first run is cold: encode + h2d
+        for rep in range(reps + 1):  # first run is cold: encode + h2d of lanes not yet touched
             engine.timer = PhaseTimer(engine.device)
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -262,33 +531,34 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str) -> dict:
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t, engine.timer.totals_ms(), res))
         after = K.launches()
-        per_query[qname] = {k: after[k] - before[k] for k in after}
-        idle = [k for k, c in per_query[qname].items() if c == 0]
+        moved = {k: after[k] - before[k] for k in after}
+        idle = [k for k in needs if moved[k] == 0]
         if idle:
             raise AssertionError(f"{qname}: kernels {idle} were never launched")
         if engine.fallbacks:
             raise AssertionError(f"{qname}: {engine.fallbacks} host fallbacks on the main path")
         t = time.perf_counter()
-        part = execute_dag_host(dag, batch)
-        fts = [g.ret_type for g in dag.agg.group_by] + [a.ret_type for a in dag.agg.aggs]
-        want = order_by_keys(merge_partials([part], dag.agg.group_by, dag.agg.aggs, fts),
-                             dag.agg.group_by).to_pylist()
+        want = oracle(dag, batch)
         host_s = time.perf_counter() - t
-        for _, _, res in runs:
-            if res.to_pylist() != want:
-                raise AssertionError(f"{qname}: GPU answer differs from the host engine's\n"
-                                     f"gpu:  {res.to_pylist()}\nhost: {want}")
-        if qname == "q1" and not 1 <= len(want) <= 6:
-            raise AssertionError(f"q1: {len(want)} groups")
+        for i, (_, _, res) in enumerate(runs):
+            diff = chunks_equal(res, want)
+            if diff is not None:
+                raise AssertionError(f"{qname} run {i}: GPU answer differs from the host engine's: {diff}\n"
+                                     f"gpu:  {res.slice(0, 6).to_pylist()}\nhost: {want.slice(0, 6).to_pylist()}")
+        if qname == "q1" and not 1 <= want.num_rows <= 6:
+            raise AssertionError(f"q1: {want.num_rows} groups")
+        if dag.topn is not None and want.num_rows != min(dag.topn.n, rows):
+            raise AssertionError(f"{qname}: {want.num_rows} rows")
         warm = sorted(runs[1:], key=lambda x: x[0])
         med = warm[len(warm) // 2]
-        per_run = (sum(per_query[qname].values()) / (reps + 1))
+        prof = profiled_run(dag, batch, dev, engine)
         out[qname] = {
-            "rows": rows, "groups": len(want), "cold_s": runs[0][0], "cold_phases_ms": runs[0][1],
+            "rows": rows, "result_rows": want.num_rows, "cold_s": runs[0][0], "cold_phases_ms": runs[0][1],
             "warm_median_s": med[0], "warm_s": [r[0] for r in runs[1:]],
             "rows_per_s": rows / med[0], "phases_ms": med[1], "host_oracle_s": host_s,
-            "launches_per_run": per_run, "launches": per_query[qname],
-            "answer": want if len(want) <= 6 else want[:6], "card": card,
+            "launches_per_run": {k: c / (reps + 1) for k, c in moved.items() if c},
+            "gcap": sorted(engine._gcap.values()), "profiled_run": prof,
+            "answer": want.slice(0, 6).to_pylist(), "card": card,
         }
         say(f"main.{qname}", **out[qname])
     counts = K.launches()
@@ -368,8 +638,7 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
         "index_add_stacked_sums_ms": time_ms(lambda: acc.zero_().index_add_(0, seg, stacked)),
         "lanes": len(lanes), "nseg": nseg, "rows": n,
     }
-    say("measure", decode_lane=k1, decode_lane_dict=k1_dict, seg_agg=k4)
-    return [
+    entries = [
         {"name": "decode_lane", "route": "cuda", "source": "tidb_tpu_torch/csrc/decode_lane.cu",
          "replaces": "tidb_tpu/copr/tpu_engine.py:1169", "launches": main["launches"]["decode_lane"],
          "max_abs_err": max_err["decode_lane"],
@@ -381,6 +650,118 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bytes"] / HBM_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "library_ms": None},
     ]
+    new, extra = measure_sort_kernels(main, max_err)
+    say("measure", decode_lane=k1, decode_lane_dict=k1_dict, seg_agg=k4, **extra)
+    return entries + new
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _packed_word(ops):
+    """The operands' ordered keys packed into one int64 (each shifted to
+    its range), most significant first — None when they need more than 63
+    bits. torch.argsort(stable=True) over it is the one-call yardstick
+    for a multi-key sort."""
+    from tidb_tpu_torch.kernels.lex_sort import ordered_key
+
+    word, used = None, 0
+    for op in reversed(ops):
+        k = ordered_key(op)
+        lo, hi = int(k.min()), int(k.max())
+        if hi - lo >= 1 << 62:
+            return None
+        width = (hi - lo).bit_length()
+        if used + width > 63:
+            return None
+        part = (k - lo) << used if width else None
+        word = part if word is None else (word if part is None else word | part)
+        used += width
+    return word
+
+
+def measure_sort_kernels(main: dict, max_err: dict):
+    """K6-K9 (and K4's segment-lane mode) on the main path's own inputs:
+    held once more to the plain versions on exactly those tensors, then
+    timed beside the plain version, the bytes bound and the nearest single
+    PyTorch call."""
+    import torch
+
+    from tidb_tpu_torch.kernels import (lex_sort_perm, lex_sort_perm_ref, seg_agg, seg_agg_ref, sort_groups,
+                                        sort_groups_ref, topk, topk_ref, topn_multi_ops, topn_multi_ops_ref)
+    from tidb_tpu_torch.kernels.topk import sort_key
+
+    cap = main["captured"]
+    bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+
+    (d, v, m, desc, k), _ = cap["tpch_topn"]["topk"]
+    (gi, go), (wi, wo) = topk(d, v, m, desc, k), topk_ref(d, v, m, desc, k)
+    torch.cuda.synchronize()
+    _same(gi, wi, "topk rows on tpch_topn")
+    _same(go, wo, "topk ok bits on tpch_topn")
+    sk = sort_key(d, v, m, desc)
+    k6 = {"ms": time_ms(lambda: topk(d, v, m, desc, k)), "plain_ms": time_ms(lambda: topk_ref(d, v, m, desc, k), 3),
+          "library_ms": time_ms(lambda: torch.topk(sk, k)), "bytes": _nbytes(d, v, m) + k * 5,
+          "rows": d.numel(), "k": k, "desc": desc}
+
+    (mask, keys), _ = cap["multikey_topn"]["topn_multi_ops"]
+    got, want = topn_multi_ops(mask, keys), topn_multi_ops_ref(mask, keys)
+    torch.cuda.synchronize()
+    for j, (g, w) in enumerate(zip(got, want)):
+        _same(g.data.view(torch.int64) if g.kind == "f64" else g.data,
+              w.data.view(torch.int64) if w.kind == "f64" else w.data, f"topn_multi operand {j}")
+    k7_in = _nbytes(mask) + sum(_nbytes(getattr(kd, "bits", kd), kv) for kd, kv, _ in keys)
+    k7 = {"ms": time_ms(lambda: topn_multi_ops(mask, keys)),
+          "plain_ms": time_ms(lambda: topn_multi_ops_ref(mask, keys), 3),
+          "bytes": k7_in + sum(_nbytes(o.data) for o in got), "keys": len(keys)}
+
+    (ops,), _ = cap["multikey_topn"]["lex_sort_perm"]
+    _same(lex_sort_perm(ops), lex_sort_perm_ref(ops), "lex_sort on multikey_topn")
+    word = _packed_word(ops)
+    k8 = {"ms": time_ms(lambda: lex_sort_perm(ops)), "plain_ms": time_ms(lambda: lex_sort_perm_ref(ops), 3),
+          "library_ms": None if word is None else time_ms(lambda: torch.argsort(word, stable=True)),
+          "bytes": sum(_nbytes(o.data) for o in ops) + 4 * ops[0].data.numel(), "operands": len(ops)}
+
+    (mask, keys, cap_of), _ = cap["q18_inner"]["sort_groups"]
+    g, w = sort_groups(mask, keys, cap_of), sort_groups_ref(mask, keys, cap_of)
+    torch.cuda.synchronize()
+    _same_groups(g, w, "sort_groups on q18_inner")
+    skey = torch.sort(keys[0][0]).values
+    k9 = {"ms": time_ms(lambda: sort_groups(mask, keys, cap_of)),
+          "plain_ms": time_ms(lambda: sort_groups_ref(mask, keys, cap_of), 3),
+          "library_ms": time_ms(lambda: torch.unique_consecutive(skey, return_inverse=True)),
+          "bytes": _nbytes(mask) + sum(_nbytes(getattr(kd, "bits", kd), kv) for kd, kv in keys)
+          + 4 * mask.numel() + 16 * len(keys) * g.n_groups,
+          "n_groups": g.n_groups, "cap": g.cap, "note": "ms includes K8 and one n_groups sync"}
+
+    (mask, no_keys, lanes, nseg), kw = cap["q18_inner"]["seg_agg"]
+    seg = kw["seg"]
+    (gi, gf), (wi, wf) = seg_agg(mask, no_keys, lanes, nseg, seg=seg), seg_agg_ref(mask, no_keys, lanes, nseg, seg=seg)
+    torch.cuda.synchronize()
+    _same(gi, wi, "seg_agg segment-lane ints on q18_inner")
+    max_err["seg_agg"] = max(max_err["seg_agg"], _same(gf, wf, "seg_agg segment-lane floats on q18_inner", True))
+    # nearest single PyTorch call: index_add_ of the sum lane on the clamped ids
+    ids = torch.where(mask & (seg < nseg), seg, nseg).long()
+    sums = next(l.data for l in lanes if l.op == "sum_i64")
+    acc = torch.zeros(nseg + 1, dtype=torch.int64, device=sums.device)
+    k4s = {"ms": time_ms(lambda: seg_agg(mask, no_keys, lanes, nseg, seg=seg)),
+           "plain_ms": time_ms(lambda: seg_agg_ref(mask, no_keys, lanes, nseg, seg=seg), 3),
+           "index_add_sum_lane_ms": time_ms(lambda: acc.zero_().index_add_(0, ids, sums)),
+           "bytes": _nbytes(mask, seg) + sum(_nbytes(l.data, l.valid) for l in lanes) + 8 * nseg * len(lanes),
+           "nseg": nseg, "lanes": len(lanes)}
+
+    L = main["launches"]
+
+    def entry(name, src, ref, meas):
+        return {"name": name, "route": "cuda", "source": f"tidb_tpu_torch/csrc/{src}",
+                "replaces": f"tidb_tpu/copr/tpu_engine.py:{ref}", "launches": L[name],
+                "max_abs_err": max_err[name], "ms": meas["ms"], "plain_ms": meas["plain_ms"],
+                "bound_ms": bound(meas["bytes"]), "bound_by": "bytes", "library_ms": meas.get("library_ms")}
+
+    return ([entry("topk", "topk.cu", 1759, k6), entry("topn_multi", "topn_multi.cu", 1812, k7),
+             entry("lex_sort", "lex_sort.cu", 195, k8), entry("sort_groups", "sort_groups.cu", 1351, k9)],
+            {"topk": k6, "topn_multi": k7, "lex_sort": k8, "sort_groups": k9, "seg_agg_segment_lane": k4s})
 
 
 def main(argv=None) -> int:

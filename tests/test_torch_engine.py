@@ -134,8 +134,10 @@ def _assert_same_chunk(want, got):
             assert wd.tolist() == gd.tolist(), f"column {j}"
 
 
-def _run_both(spec: dict, compress: bool, n: int = 3000):
+def _run_both(spec: dict, compress: bool, n: int = 3000, mutate=None):
     data, valid = _region(n)
+    if mutate is not None:
+        mutate(data, valid)
     rt, pt = REF.table(COLS), PORT.table(COLS)
     rb, pb = _batches(data, valid, rt, pt)
     ref, port = TPUEngine(), TorchEngine(device="cpu")
@@ -206,17 +208,102 @@ def test_declines_match_reference(case):
     _assert_same_chunk(want, got)
 
 
-@pytest.mark.parametrize("spec,path", [
-    (dict(group_by=[COL("i")], aggs=[("count",)]), "_lower_agg_sorted"),  # NULL-able key
-    (dict(group_by=[COL("f")], aggs=[("count",)]), "_lower_agg_sorted"),  # float key
-    (dict(topn=[(COL("i"), True)]), "_lower_topn"),
-], ids=["nullable_key", "float_key", "topn"])
-def test_unported_paths_raise(spec, path):
+TOPN_CASES = {
+    # single key: lax.top_k order, NULLs last DESC / first ASC
+    "int_desc": [(COL("i"), True)], "int_asc": [(COL("i"), False)],
+    "decimal_desc": [(COL("d"), True)], "date_asc": [(COL("dt"), False)],
+    "dict_string_desc": [(COL("s"), True)], "double_asc": [(COL("f"), False)],
+    "double_desc": [(COL("f"), True)], "uint64_desc": [(COL("u"), True)], "uint64_asc": [(COL("u"), False)],
+    "duplicate_keys_desc": [(COL("k"), True)], "duplicate_keys_asc": [(COL("k2"), False)],
+    # multi key: the stable chain of sorts, ties by row
+    "multi_dup_int_double": [(COL("k"), False), (COL("f"), True)],
+    "multi_string_date_uint": [(COL("s"), True), (COL("dt"), False), (COL("u"), True)],
+    "multi_dup_only": [(COL("k2"), True), (COL("k"), False)],
+    "multi_decimal_ci_string": [(COL("d"), False), (COL("sci"), True)],
+}
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+@pytest.mark.parametrize("case", sorted(TOPN_CASES))
+def test_topn_partials_match_reference(case, compress):
+    spec = dict(conds=[("ne", COL("k"), ("int", 6))], topn=TOPN_CASES[case])
+    ref, port, want, got = _run_both(spec, compress)
+    assert ref.fallbacks == port.fallbacks == 0
+    _assert_same_chunk(want, got)
+    assert got.num_rows == 10
+
+
+@pytest.mark.parametrize("by", [[(COL("i"), True)], [(COL("k"), False), (COL("f"), True)]],
+                         ids=["single_key", "multi_key"])
+def test_topn_limit_zero_matches_reference(by):
     data, valid = _region(500)
-    pt = PORT.table(COLS)
-    with pytest.raises(NotPortedError) as ei:
-        TorchEngine(device="cpu").execute(PORT.dag(pt, **spec), batch_from_numpy(pt, data, valid))
-    assert path in str(ei.value)
+    rt, pt = REF.table(COLS), PORT.table(COLS)
+    rb, pb = _batches(data, valid, rt, pt)
+    rdag, pdag = REF.dag(rt, topn=by), PORT.dag(pt, topn=by)
+    rdag.topn.n = pdag.topn.n = 0
+    ref, port = TPUEngine(), TorchEngine(device="cpu")
+    want, got = ref.execute(rdag, rb), port.execute(pdag, pb)
+    assert ref.fallbacks == port.fallbacks == 0
+    _assert_same_chunk(want, got)
+    assert got.num_rows == 0
+
+
+SORTED_AGG_CASES = {
+    # NULL-able, float (with +-0.0), uint64, dict-string and multi-column
+    # keys go through the sort path; every aggregate K4 supports
+    "nullable_int_key": dict(group_by=[COL("i")], aggs=[("count",), ("sum", COL("d")), ("first_row", COL("s"))]),
+    "double_key_signed_zero": dict(
+        conds=[("lt", COL("i"), ("int", 500000))], group_by=[COL("f")],
+        aggs=[("count",), ("avg", COL("d")), ("min", COL("u")), ("max", COL("dt"))]),
+    "uint64_key": dict(group_by=[COL("u")], aggs=[("sum", COL("i")), ("max", COL("f")), ("first_row", COL("d"))]),
+    "multi_column_key": dict(
+        group_by=[COL("s"), COL("k"), COL("dt")],
+        aggs=[("count", COL("i")), ("min", COL("s")), ("max", COL("s")), ("var_pop", COL("d")),
+              ("stddev_samp", COL("f")), ("bit_and", COL("i")), ("bit_or", COL("k")), ("bit_xor", COL("d")),
+              ("first_row", COL("f"))]),
+    "all_rows_filtered": dict(conds=[("gt", COL("k"), ("int", 100))], group_by=[COL("i")], aggs=[("count",)]),
+}
+
+
+def _signed_zeros(data, valid):
+    f = data["f"].copy()
+    f[::5] = 0.0
+    f[1::5] = -0.0
+    f[2::97] = 5e-324  # a subnormal folds into the zero group, as XLA's flushed x == 0.0 makes it
+    data["f"] = np.where(valid["f"], f, 0.0)
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+@pytest.mark.parametrize("case", sorted(SORTED_AGG_CASES))
+def test_sorted_agg_partials_match_reference(case, compress):
+    ref, port, want, got = _run_both(SORTED_AGG_CASES[case], compress, mutate=_signed_zeros)
+    assert ref.fallbacks == port.fallbacks == 0
+    _assert_same_chunk(want, got)
+    assert got.num_rows > 0 or case == "all_rows_filtered"
+
+
+@pytest.mark.parametrize("gcap0", [4, 64, 1 << 16])
+def test_sorted_agg_capacity_escalation_matches_reference(gcap0):
+    """A small initial capacity overflows on both engines; the escalated
+    capacity (x4 steps, remembered per DAG shape) and the chunk match, and
+    a second run starts at the remembered capacity."""
+    spec = dict(group_by=[COL("i"), COL("k")], aggs=[("count",), ("sum", COL("d")), ("first_row", COL("dt"))])
+    data, valid = _region(3000)
+    rt, pt = REF.table(COLS), PORT.table(COLS)
+    rb, pb = _batches(data, valid, rt, pt)
+    ref, port = TPUEngine(), TorchEngine(device="cpu")
+    ref.gcap0 = port.gcap0 = gcap0
+    for _ in range(2):
+        want = ref.execute(REF.dag(rt, **spec), rb)
+        got = port.execute(PORT.dag(pt, **spec), pb)
+        _assert_same_chunk(want, got)
+        assert sorted(port._gcap.values()) == sorted(ref._gcap.values())
+    ng = got.num_rows
+    assert ng > 64
+    assert bool(port._gcap) == (ng > gcap0)
+    if port._gcap:
+        (cap,) = port._gcap.values()
+        assert cap >= ng and cap // 4 < ng
 
 
 def test_execute_many_is_not_ported():
@@ -270,3 +357,26 @@ def test_tpch_partials_match_reference(q, compress):
     got = port.execute(dag, batch_from_numpy(tpch.LINEITEM, data))
     assert ref.fallbacks == port.fallbacks == 0
     _assert_same_chunk(want, got)
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+def test_q18_inner_takes_the_sort_path_and_matches_reference(compress):
+    """Q18's GROUP BY l_orderkey over more than 65,536 key values: the sort
+    path on both engines, escalating past gcap0 = 65,536 to the same
+    capacity."""
+    from tidb_tpu_torch.models import tpch
+
+    n = 280_000  # l_orderkey spans n / 4 = 70,000 values
+    data = tpch.gen_lineitem(n, seed=5)
+    rt = REF.table(LINEITEM_COLS)
+    rb = RefBatch(rt, np.arange(1, n + 1, dtype=np.int64), [data[c] for c, _ in LINEITEM_COLS],
+                  [np.ones(n, dtype=bool)] * len(LINEITEM_COLS), version=0)
+    ref, port = TPUEngine(), TorchEngine(device="cpu")
+    ref.tile_compression = port.tile_compression = compress
+    spec = dict(group_by=[COL("l_orderkey")], aggs=[("sum", COL("l_quantity"))])
+    want = ref.execute(REF.dag(rt, **spec), rb)
+    got = port.execute(tpch.q18_inner_dag(), batch_from_numpy(tpch.LINEITEM, data))
+    assert ref.fallbacks == port.fallbacks == 0
+    _assert_same_chunk(want, got)
+    assert got.num_rows > 1 << 16
+    assert list(port._gcap.values()) == list(ref._gcap.values()) == [1 << 18]

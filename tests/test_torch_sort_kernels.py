@@ -1,0 +1,350 @@
+"""The port's sort-path kernels (K6-K9, K4's segment-lane mode), held to
+the reference and to numpy oracles on the CPU.
+
+Inputs are made from a seed with numpy and handed to both sides. The
+reference side is the JAX package's own function where it has one
+(`lex_sort_perm`, `lax.top_k`, `_seg_sum`/`_seg_min`/`_seg_max`) or its
+kernel's formulas written out in jnp; the oracle side is numpy
+(`np.lexsort`, a stable argsort, `np.unique`). Permutations, row ids,
+group ids and integer partials must be identical; float sums agree within
+rtol 1e-9 / atol 1e-6 (summation order differs).
+
+On the CPU each wrapper takes its plain version; chip_smoke.py holds the
+CUDA kernels to these plain versions on the card.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tidb_tpu.copr import tpu_engine as ref_engine
+from tidb_tpu.jaxenv import jnp
+
+from tidb_tpu_torch.expr.xp_torch import U64
+from tidb_tpu_torch.kernels import (SegLane, SortOp, lex_sort_perm, seg_agg, seg_agg_ref, sort_groups,
+                                    topk, topn_multi_ops)
+from tidb_tpu_torch.kernels.lex_sort import ordered_key, plan_words
+
+RTOL, ATOL = 1e-9, 1e-6
+I64 = np.iinfo(np.int64)
+SPECIALS = np.array([-np.inf, -1.5, -0.0, 0.0, 1.5, np.inf, np.nan, -np.nan, 5e-324])
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _operands(case: str, n: int, rng):
+    """(numpy arrays, kinds), most significant first."""
+    if case == "flags_and_ints":
+        return [(rng.random(n) < 0.3).astype(np.int32), rng.integers(-3, 3, n), rng.integers(0, 4, n)], \
+            ["i32", "i64", "i64"]
+    if case == "float_specials":
+        return [rng.integers(0, 2, n).astype(np.int32), rng.choice(SPECIALS, n)], ["i32", "f64"]
+    if case == "uint64":
+        u = rng.integers(0, 4, n).astype(np.uint64) << np.uint64(62) | rng.integers(0, 3, n).astype(np.uint64)
+        return [u, rng.integers(-2, 2, n).astype(np.int32)], ["u64", "i32"]
+    if case == "int64_limits":
+        return [rng.choice(np.array([I64.min, I64.min + 1, -1, 0, 1, I64.max - 1, I64.max]), n)], ["i64"]
+    if case == "wider_than_a_word":
+        full = lambda: rng.integers(I64.min, I64.max, n, dtype=np.int64)  # noqa: E731
+        return [rng.integers(0, 3, n), full(), full()], ["i64", "i64", "i64"]
+    if case == "all_equal":
+        return [np.full(n, 5, np.int64), np.zeros(n, np.int32)], ["i64", "i32"]
+    raise KeyError(case)
+
+
+def _sort_ops(arrays, kinds):
+    ops = []
+    for a, k in zip(arrays, kinds):
+        ops.append(SortOp(_t(a.view(np.int64) if k == "u64" else a), k))
+    return ops
+
+
+def _np_order_key(a: np.ndarray, kind: str) -> np.ndarray:
+    """numpy stand-in of lax.sort's order (floats: -0.0 == +0.0, every NaN
+    equal and after +inf), as a float or int lane np.lexsort orders."""
+    if kind == "f64":  # subnormals compare equal to zero there (flushed)
+        a = np.where(np.abs(a) < np.finfo(np.float64).tiny, 0.0, a)
+        return np.where(np.isnan(a), np.inf, a), np.isnan(a)
+    return a, None
+
+
+SORT_CASES = ["flags_and_ints", "float_specials", "uint64", "int64_limits", "wider_than_a_word", "all_equal"]
+
+
+@pytest.mark.parametrize("n", [1, 7, 3000])
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_lex_sort_matches_the_reference_and_np_lexsort(case, n):
+    rng = np.random.default_rng(SORT_CASES.index(case) * 100 + n)
+    arrays, kinds = _operands(case, n, rng)
+    got = lex_sort_perm(_sort_ops(arrays, kinds))
+    assert got.dtype == torch.int32
+    ref = np.asarray(ref_engine.lex_sort_perm([jnp.asarray(a) for a in arrays]))
+    assert got.numpy().tolist() == ref.tolist()
+    lanes = []
+    for a, k in zip(arrays, kinds):
+        key, nan = _np_order_key(a, k)
+        lanes.append(key)
+        if nan is not None:
+            lanes.append(nan)  # NaN after +inf: the flag is the more significant lane
+    assert got.numpy().tolist() == np.lexsort(lanes[::-1]).tolist()
+
+
+def _emulate_lsd(ops, words) -> np.ndarray:
+    """numpy model of the kernels' radix plan: per word, least significant
+    first, the composite key of its fields sorted stably."""
+    u = [(ordered_key(op).numpy().view(np.uint64) ^ np.uint64(1 << 63)) for op in ops]
+    perm = np.arange(len(u[0]))
+    for fields, bits in words:
+        key = np.zeros(len(perm), dtype=np.uint64)
+        for k, src, width, dst in fields:
+            f = (u[k][perm] >> np.uint64(src)) & np.uint64((1 << width) - 1 if width < 64 else (1 << 64) - 1)
+            key |= f << np.uint64(dst)
+        perm = perm[np.argsort(key, kind="stable")]
+    return perm
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_radix_plan_packs_varying_bits_into_words(case):
+    rng = np.random.default_rng(5)
+    arrays, kinds = _operands(case, 2000, rng)
+    ops = _sort_ops(arrays, kinds)
+    us = [ordered_key(op).numpy().view(np.uint64) ^ np.uint64(1 << 63) for op in ops]
+    orand = np.array([x for u in us for x in (np.bitwise_or.reduce(u), np.bitwise_and.reduce(u))], dtype=np.uint64)
+    words = plan_words(orand)
+    for fields, bits in words:
+        assert 0 < bits <= 64 and bits == sum(w for _, _, w, _ in fields)
+    assert sum(bits for _, bits in words) == sum(
+        (int(o) ^ int(a)).bit_length() - ((int(o) ^ int(a)) & -(int(o) ^ int(a))).bit_length() + 1
+        for o, a in zip(orand[::2], orand[1::2]) if int(o) != int(a))
+    assert _emulate_lsd(ops, words).tolist() == lex_sort_perm(ops).numpy().tolist()
+
+
+def test_radix_plan_skips_constant_operands_and_packs_flags():
+    # a constant operand, a 1-bit flag and a 3-bit value share one word
+    orand = np.array([0b1, 0b0, 5, 5, 0b1110, 0b0010], dtype=np.uint64)
+    assert plan_words(orand) == [([(2, 2, 2, 0), (0, 0, 1, 2)], 3)]
+    assert plan_words(np.array([7, 7], dtype=np.uint64)) == []
+
+
+# --- K6 topk ---------------------------------------------------------------
+
+
+def _ref_topk(d, v, m, desc, k):
+    """The reference kernel's key (tpu_engine.py:1766-1778) and lax.top_k."""
+    d, v, m = jnp.asarray(d), jnp.asarray(v), jnp.asarray(m)
+    if jnp.issubdtype(d.dtype, jnp.floating):
+        lo, hi = -jnp.inf, jnp.inf
+    else:
+        d = d.astype(jnp.int64)
+        lo, hi = I64.min, I64.max - 1
+    key = jnp.where(m & v, d, lo) if desc else jnp.where(m, jnp.where(v, -d, hi), lo)
+    _, idx = jax.lax.top_k(key, k)
+    return np.asarray(idx), np.asarray(m[idx])
+
+
+def _topk_data(case: str, n: int, rng):
+    if case == "price":
+        return rng.integers(90000, 10500000, n)
+    if case == "duplicates":
+        return rng.integers(0, 3, n)
+    if case == "int64_limits":
+        return rng.choice(np.array([I64.min, I64.min + 1, -1, 0, 1, I64.max - 1, I64.max]), n)
+    if case == "float_specials":
+        return rng.choice(SPECIALS, n)
+    if case == "uint64_bits":  # BIGINT UNSIGNED: the reference's astype(int64) keeps the bits
+        return (rng.integers(0, 1 << 63, n).astype(np.uint64) << np.uint64(1)).view(np.int64)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("k", [1, 37, 400])
+@pytest.mark.parametrize("desc", [True, False], ids=["desc", "asc"])
+@pytest.mark.parametrize("case", ["price", "duplicates", "int64_limits", "float_specials", "uint64_bits"])
+def test_topk_matches_lax_top_k(case, desc, k):
+    rng = np.random.default_rng(k + 7 * desc)
+    n = 400
+    d = _topk_data(case, n, rng)
+    v = rng.random(n) < 0.8
+    m = rng.random(n) < 0.7
+    got_idx, got_ok = topk(_t(d), _t(v), _t(m), desc, k)
+    want_idx, want_ok = _ref_topk(d, v, m, desc, k)
+    assert got_idx.numpy().tolist() == want_idx.tolist()
+    assert got_ok.numpy().tolist() == want_ok.tolist()
+
+
+def test_topk_tie_order_and_signed_zeros_pin_lax_top_k():
+    """lax.top_k on the CPU: equal keys keep the lower index first, +0.0
+    ranks above -0.0, +NaN above +inf and -NaN below -inf."""
+    d = np.array([1, 3, 3, -0.0, 0.0, np.nan, 3, -np.nan, -np.inf])
+    ones = np.ones(len(d), bool)
+    got, _ = topk(_t(d), None, _t(ones), True, len(d))
+    assert got.numpy().tolist() == [5, 1, 2, 6, 0, 4, 3, 8, 7]
+    assert got.numpy().tolist() == _ref_topk(d, ones, ones, True, len(d))[0].tolist()
+    ties = np.full(9, 4, np.int64)
+    assert topk(_t(ties), None, _t(ones), False, 5)[0].numpy().tolist() == [0, 1, 2, 3, 4]
+
+
+def test_topk_equals_a_stable_numpy_argsort():
+    rng = np.random.default_rng(3)
+    d = rng.integers(-5, 5, 1000)
+    m = rng.random(1000) < 0.5
+    idx, ok = topk(_t(d), None, _t(m), True, 1000)
+    key = np.where(m, d, I64.min)
+    assert idx.numpy().tolist() == np.argsort(-key.astype(np.float64), kind="stable").tolist()
+    assert ok.numpy().tolist() == m[idx.numpy()].tolist()
+
+
+def test_topk_rejects_what_it_does_not_take():
+    d, m = _t(np.arange(5)), _t(np.ones(5, bool))
+    with pytest.raises(ValueError):
+        topk(d, None, m, True, 6)
+    idx, ok = topk(d, None, m, True, 0)  # LIMIT 0: lax.top_k gives nothing too
+    assert idx.numel() == ok.numel() == 0
+    with pytest.raises(TypeError):
+        topk(d.to(torch.int32), None, m, True, 2)
+
+
+# --- K7 topn_multi ---------------------------------------------------------
+
+
+def _ref_multi_ops(m, keys):
+    """The reference kernel's operands (tpu_engine.py:1816-1826)."""
+    ops = [(~jnp.asarray(m)).astype(jnp.int32)]
+    for d, v, desc in keys:
+        d, v = jnp.asarray(d), jnp.asarray(v)
+        nullkey = jnp.where(v, 0, 1) if desc else jnp.where(v, 1, 0)
+        dd = jnp.where(v, d, jnp.zeros((), d.dtype))
+        if desc:
+            dd = -dd if jnp.issubdtype(d.dtype, jnp.floating) else ~dd
+        ops += [nullkey.astype(jnp.int32), dd]
+    return ops
+
+
+def test_topn_multi_operands_and_order_match_the_reference():
+    rng = np.random.default_rng(11)
+    n = 3000
+    m = rng.random(n) < 0.8
+    price = rng.integers(0, 50, n)
+    codes = rng.integers(0, 4, n).astype(np.int32)
+    fl = rng.choice(SPECIALS, n)
+    u = rng.integers(0, 4, n).astype(np.uint64) << np.uint64(62)
+    vs = [np.ones(n, bool), rng.random(n) < 0.9, rng.random(n) < 0.9, rng.random(n) < 0.9]
+    spec = [(price, vs[0], True), (codes, vs[1], False), (fl, vs[2], True), (u, vs[3], False)]
+    ref_ops = _ref_multi_ops(m, spec)
+    port_keys = [(U64(_t(d.view(np.int64))) if d.dtype == np.uint64 else _t(d), _t(v), desc)
+                 for d, v, desc in spec]
+    ops = topn_multi_ops(_t(m), port_keys)
+    for got, want in zip(ops, ref_ops):
+        w = np.asarray(want)
+        g = got.data.numpy()
+        assert g.view(np.uint8).tobytes() == (w.view(np.int64) if w.dtype == np.uint64 else w).view(np.uint8).tobytes()
+    perm = lex_sort_perm(ops).numpy()
+    assert perm.tolist() == np.asarray(ref_engine.lex_sort_perm(ref_ops)).tolist()
+
+
+# --- K9 sort_groups --------------------------------------------------------
+
+
+def _np_groups(m, keys):
+    """numpy oracle: distinct (NULL flag, key bits) tuples of the masked
+    rows in sorted order, and each masked row's group index."""
+    cols = []
+    for d, v in keys:
+        if d.dtype == np.float64:
+            d = np.where(np.abs(d) < np.finfo(np.float64).tiny, 0.0, d).view(np.int64)
+        cols += [(~v).astype(np.int64), np.where(v, d.astype(np.int64), 0)]
+    sel = np.nonzero(m)[0]
+    stacked = np.stack([c[sel] for c in cols]) if len(sel) else np.zeros((len(cols), 0), np.int64)
+    uniq, inv = np.unique(stacked, axis=1, return_inverse=True)
+    return uniq, sel, inv.reshape(-1)
+
+
+def _group_spec(case, n, rng):
+    v = rng.random(n) < 0.85
+    if case == "nullable_int":
+        return [(rng.integers(-20, 20, n), v)]
+    if case == "float_signed_zero_nan":
+        return [(rng.choice(np.array([-0.0, 0.0, 1.5, -2.5, np.nan, np.inf, 5e-324, -1e-310]), n), v)]
+    if case == "uint64":
+        return [(rng.integers(0, 5, n).astype(np.uint64) << np.uint64(61), np.ones(n, bool))]
+    if case == "multi_column":
+        return [(rng.integers(0, 6, n).astype(np.int32), v), (rng.integers(-3, 3, n), rng.random(n) < 0.9)]
+    raise KeyError(case)
+
+
+def _port_keys(spec):
+    return [(U64(_t(d.view(np.int64))) if d.dtype == np.uint64 else _t(d), _t(v)) for d, v in spec]
+
+
+@pytest.mark.parametrize("cap", [None, 3], ids=["fits", "capped"])
+@pytest.mark.parametrize("case", ["nullable_int", "float_signed_zero_nan", "uint64", "multi_column"])
+def test_sort_groups_matches_a_numpy_oracle(case, cap):
+    rng = np.random.default_rng(len(case))
+    n = 2500
+    m = rng.random(n) < 0.75
+    spec = _group_spec(case, n, rng)
+    seen = []
+    g = sort_groups(_t(m), _port_keys(spec), lambda ng: seen.append(ng) or (cap or max(ng, 1)))
+    uniq, sel, inv = _np_groups(m, spec)
+    ng = uniq.shape[1]
+    assert seen == [ng] and g.n_groups == ng
+    c = g.cap
+    seg = g.seg.numpy()
+    assert (seg[~m] == c).all()
+    assert seg[sel].tolist() == np.minimum(inv, c).tolist()
+    kept = min(ng, c)
+    for j in range(len(spec)):
+        assert g.kvalid.numpy()[j, :kept].tolist() == (1 - uniq[2 * j, :kept]).tolist()
+        assert g.kval.numpy()[j, :kept].tolist() == uniq[2 * j + 1, :kept].tolist()
+        assert (g.kval.numpy()[j, kept:] == I64.min).all() and (g.kvalid.numpy()[j, kept:] == -1).all()
+
+
+def test_sort_groups_all_masked_has_no_groups():
+    n = 100
+    g = sort_groups(_t(np.zeros(n, bool)), [(_t(np.arange(n)), None)], lambda ng: 64)
+    assert g.n_groups == 0 and (g.seg.numpy() == 64).all()
+
+
+# --- K4 segment-lane mode ----------------------------------------------------
+
+
+@pytest.mark.parametrize("nseg", [5, 64, 300])
+def test_seg_agg_segment_lane_matches_the_reference_reductions(nseg):
+    """K4 over precomputed ids against _seg_sum/_seg_min/_seg_max, with rows
+    at and beyond nseg dropped like masked rows."""
+    rng = np.random.default_rng(nseg)
+    n = 3000
+    m = rng.random(n) < 0.8
+    seg = rng.integers(0, nseg + 4, n).astype(np.int32)
+    x = rng.integers(-10**12, 10**12, n)
+    f = rng.standard_normal(n)
+    ok = rng.random(n) < 0.9
+    lanes = [SegLane("count", valid=_t(ok)), SegLane("sum_i64", _t(x), _t(ok)), SegLane("sum_f64", _t(f), _t(ok)),
+             SegLane("min_i64", _t(x), _t(ok), int(I64.max)), SegLane("max_f64", _t(f), None, float("-inf")),
+             SegLane("first_row", None, _t(ok), n if nseg <= 64 else int(I64.max))]
+    gi, gf = seg_agg(_t(m), [], lanes, nseg, seg=_t(seg))
+    jseg = jnp.asarray(np.where(m & (seg < nseg), seg, nseg))
+    keep = jnp.asarray(m & ok)
+    want_i = [ref_engine._seg_sum(keep.astype(jnp.int64), jseg, nseg),
+              ref_engine._seg_sum(jnp.where(keep, jnp.asarray(x), 0), jseg, nseg),
+              ref_engine._seg_min(jnp.where(keep, jnp.asarray(x), I64.max), jseg, nseg, I64.max),
+              ref_engine._seg_min(jnp.where(keep, jnp.arange(n), n), jseg, nseg, jnp.asarray(n))]
+    for j, w in enumerate(want_i):
+        assert gi.numpy()[j].tolist() == np.asarray(w).tolist(), j
+    want_f = [ref_engine._seg_sum(jnp.where(keep, jnp.asarray(f), 0.0), jseg, nseg),
+              ref_engine._seg_max(jnp.where(jnp.asarray(m), jnp.asarray(f), -jnp.inf), jseg, nseg, -jnp.inf)]
+    for j, w in enumerate(want_f):
+        assert np.allclose(gf.numpy()[j], np.asarray(w), rtol=RTOL, atol=ATOL), j
+    assert seg_agg_ref(_t(m), [], lanes, nseg, seg=_t(seg))[0].numpy().tolist() == gi.numpy().tolist()
+
+
+def test_seg_agg_segment_lane_replaces_the_keys():
+    from tidb_tpu_torch.kernels import SegKey
+
+    m = _t(np.ones(4, bool))
+    with pytest.raises(ValueError, match="segment lane"):
+        seg_agg(m, [SegKey(_t(np.arange(4)), None, 0, 4)], [SegLane("count")], 5, seg=_t(np.zeros(4, np.int32)))
+    with pytest.raises(ValueError, match="segment lane"):
+        seg_agg(m, [], [SegLane("count")], 5, seg=_t(np.zeros(4, np.int64)))

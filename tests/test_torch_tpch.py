@@ -1,6 +1,9 @@
-"""TPC-H Q1/Q6 through the port, held to the reference Session on the CPU.
+"""TPC-H queries through the port, held to the reference Session on the CPU.
 
-* The DAG check: the reference planner's pushed DAG for tpch.Q1 / tpch.Q6
+Q1, Q6, the TopN of tpch.TOPN, bench.py's multi-key TopN (MULTIKEY_TOPN)
+and Q18's subquery (Q18_INNER).
+
+* The DAG check: the reference planner's pushed DAG for each query
   is captured by a recording wrapper installed on ONE engine instance
   (the session store's `sched._tpu`; no tidb_tpu name is rebound), and the
   port's DAG functions must give the same structure.
@@ -15,6 +18,7 @@ import pytest
 from tidb_tpu.models import tpch as ref_tpch
 from tidb_tpu.session import Session
 
+from tidb_tpu_torch.chunk.chunk import Chunk
 from tidb_tpu_torch.copr.gpu_engine import TorchEngine
 from tidb_tpu_torch.entry import batch_from_numpy, run_query
 from tidb_tpu_torch.models import tpch
@@ -89,3 +93,59 @@ def test_run_query_gives_the_reference_session_rows(ref_session, q, compress):
     assert got == want
     assert engine.fallbacks == 0
     assert len(got) == (6 if q == "Q1" else 1)
+
+
+NEW_QUERIES = {"TOPN": "topn_dag", "MULTIKEY_TOPN": "multikey_topn_dag", "Q18_INNER": "q18_inner_dag"}
+
+
+@pytest.mark.parametrize("q", sorted(NEW_QUERIES))
+def test_port_builds_the_sort_path_dags_the_planner_pushes(ref_session, q):
+    seen, _ = _capture(ref_session, getattr(tpch, q))
+    assert seen, "the reference pushed nothing to its device engine"
+    ref_dag, dag = seen[0], getattr(tpch, NEW_QUERIES[q])()
+    assert dag.scan.col_offsets == ref_dag.scan.col_offsets
+    assert dag.selection is None and ref_dag.selection is None
+    assert dag.limit is None and ref_dag.limit is None
+    if dag.topn is not None:
+        assert ref_dag.agg is None and ref_dag.topn is not None
+        assert repr(dag.topn.by) == repr(ref_dag.topn.by) and dag.topn.n == ref_dag.topn.n
+        assert [e.ret_type.tp for e, _ in dag.topn.by] == [e.ret_type.tp for e, _ in ref_dag.topn.by]
+    else:
+        assert ref_dag.topn is None
+        assert repr(dag.agg.group_by) == repr(ref_dag.agg.group_by)
+        assert repr(dag.agg.aggs) == repr(ref_dag.agg.aggs)
+        assert [(ft.tp, ft.decimal) for ft in dag.output_types()] == \
+            [(ft.tp, ft.decimal) for ft in ref_dag.output_types()]
+
+
+def test_bench_multikey_sql_is_not_pushed_by_the_reference(ref_session):
+    """bench.py's multikey_topn selects no l_linenumber: the planner puts a
+    Projection between the Limit and the Sort and pushes no TopN, which is
+    why MULTIKEY_TOPN selects l_linenumber. Both give the same rows."""
+    sql = ("SELECT l_orderkey, l_extendedprice FROM lineitem"
+           " ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber LIMIT 50")
+    seen, rows = _capture(ref_session, sql)
+    assert seen and all(d.topn is None for d in seen)
+    _, pushed_rows = _capture(ref_session, tpch.MULTIKEY_TOPN)
+    assert rows == [r[:2] for r in pushed_rows]
+
+
+# the SELECT list of each query, as offsets of the scan's columns
+PROJECT = {"TOPN": [0, 5], "MULTIKEY_TOPN": [0, 5, 3], "Q18_INNER": None}
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+@pytest.mark.parametrize("q", sorted(NEW_QUERIES))
+def test_run_query_gives_the_reference_session_rows_on_the_sort_paths(ref_session, q, compress):
+    want = ref_session.execute(getattr(tpch, q)).rows()
+    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(N))
+    engine = TorchEngine(device="cpu")
+    engine.tile_compression = compress
+    res = run_query(getattr(tpch, NEW_QUERIES[q])(), batch, device="cpu", engine=engine)
+    if PROJECT[q] is not None:
+        res = Chunk([res.columns[i] for i in PROJECT[q]])
+        assert res.to_pylist() == want  # ORDER BY ... LIMIT: the order is the answer
+    else:  # no ORDER BY: compare the rows as a set; run_query orders by the key
+        assert sorted(res.to_pylist()) == sorted(want)
+    assert engine.fallbacks == 0
+    assert res.num_rows == len(want) > 0

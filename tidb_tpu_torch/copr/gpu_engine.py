@@ -4,22 +4,29 @@ port's hand-written kernels (ref: tidb_tpu/copr/tpu_engine.py TPUEngine).
 The reference traces one fused XLA program per DAG. Here the same steps
 run eagerly on the card:
 
-    column lanes ──► K1 decode_lane ──► mask (expression glue) ──► K4 seg_agg
-    (codec payloads    (kernels/)         (expr builtins over         (packed int64 +
-     uploaded once)                         xp_torch.XP)               float64 partials)
+    column lanes ──► K1 decode_lane ──► mask (expression glue) ──► one of
+    (codec payloads    (kernels/)         (expr builtins over
+     uploaded once)                         xp_torch.XP)
 
-then the two packed matrices come back to the host, which rebuilds the
-partial chunk exactly as the reference does (_agg_outputs_to_chunk).
+      direct GROUP BY   K4 seg_agg over the mixed-radix key code
+      sort GROUP BY     K9 sort_groups (K8 lex_sort inside) → capped dense
+                        group ids → K4 seg_agg in its segment-lane mode
+      single-key TopN   K6 topk (radix select; K8 orders the k rows)
+      multi-key TopN    K7 topn_multi_ops → K8 lex_sort_perm → first n
 
-What this slice ports: DeviceBatch (encode on the host, upload once per
-batch and device), `_lower`, `_rewrite`/`_code_cmp` with Vocab and
+then the results come back to the host, which rebuilds the partial chunk
+exactly as the reference does (_agg_outputs_to_chunk,
+_agg_sorted_to_chunk, the TopN take).
+
+What is ported: DeviceBatch (encode on the host, upload once per batch
+and device), `_lower`, `_rewrite`/`_code_cmp` with Vocab and
 _dict_encode_lane, `_eval_device`/`_mask`, the filter-only path, the
-direct-address aggregation path and `execute`. It declines — and counts
-in `fallbacks`, answering through host_engine.execute_dag_host — exactly
-the DAGs TPUEngine._lower declines. DAGs the reference runs on paths not
-ported yet (sort-based GROUP BY, TopN, grouped launches) raise
-NotPortedError. Lanes, breakers, placement, tracing and metrics are not
-part of this slice.
+direct-address and sort-based aggregation paths (with the reference's
+group-capacity escalation, remembered per DAG shape), both TopN paths and
+`execute`. It declines — and counts in `fallbacks`, answering through
+host_engine.execute_dag_host — exactly the DAGs TPUEngine._lower
+declines. Grouped launches (`execute_many`) raise NotPortedError. Lanes,
+breakers, placement, tracing and metrics are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from ..chunk.chunk import Chunk, Column
 from ..errors import NotPortedError
 from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFunc
 from ..expr.xp_torch import XP, U64
-from ..kernels import SegKey, SegLane, decode_lane, seg_agg
+from ..kernels import SegKey, SegLane, decode_lane, lex_sort_perm, seg_agg, sort_groups, topk, topn_multi_ops
 from ..mysqltypes.datum import Datum, K_STR, K_BYTES
 from ..mysqltypes.field_type import ft_longlong
 from ..mysqltypes.mydecimal import pow10
@@ -211,12 +218,22 @@ class TorchEngine:
         # tidb_tpu_tile_compression, default ON); OFF = dense 64Ki tiles
         self.tile_compression = True
         # optional torchenv.PhaseTimer: encode / h2d (first touch of a
-        # lane) and decode / mask / agg_args / seg_agg / d2h / finalize
-        # spans of each execute
+        # lane) and decode / mask / sort (K6-K9) / agg_args / seg_agg /
+        # d2h / finalize spans of each execute
         self.timer = None
-        # the K4 entry point; a caller may wrap it per instance to observe
-        # the kernel's inputs (chip_smoke.py times K4 on Q1's own lanes)
+        # the kernels' entry points; a caller may wrap one per instance to
+        # observe its inputs (chip_smoke.py times each kernel on the main
+        # path's own tensors)
         self.seg_agg = seg_agg
+        self.topk = topk
+        self.topn_multi_ops = topn_multi_ops
+        self.lex_sort_perm = lex_sort_perm
+        self.sort_groups = sort_groups
+        # sort-based GROUP BY group capacity: start at gcap0, escalate x4
+        # past an overflow and remember it per DAG shape (the reference's
+        # TPUEngine.gcap0 / _gcap)
+        self.gcap0 = 1 << 16
+        self._gcap: dict = {}
 
     def phase(self, name: str):
         """The timer's span for `name`, or a no-op without a timer."""
@@ -285,10 +302,7 @@ class TorchEngine:
         if dag.agg is not None:
             return self._lower_agg(dag, dev, lanes, vocabs, r_conds, unsigned)
         if dag.topn is not None:
-            for e, _ in dag.topn.by:
-                if self._rewrite(e, vocabs) is None:
-                    return None  # the reference declines this TopN too
-            raise NotPortedError("tpu_engine._lower_topn", "TopN (K6-K8)")
+            return self._lower_topn(dag, dev, lanes, vocabs, r_conds, unsigned)
         return self._lower_filter(dag, dev, lanes, r_conds, unsigned)
 
     # --- string/dict rewriting --------------------------------------------
@@ -489,7 +503,7 @@ class TorchEngine:
         for s in domains:
             nseg *= s + 1  # +1 slot for NULL keys
         if not direct or nseg > DIRECT_GROUP_MAX:
-            raise NotPortedError("tpu_engine._lower_agg_sorted", "sort-based GROUP BY (K9)")
+            return self._lower_agg_sorted(dag, dev, lanes, vocabs, r_conds, unsigned, dev_args)
 
         def run():
             with self.phase("decode"):
@@ -517,14 +531,130 @@ class TorchEngine:
 
         return run
 
+    # --- sort-based aggregation (high-cardinality GROUP BY) -----------------
+
+    def _lower_agg_sorted(self, dag: DAGRequest, dev: DeviceBatch, lanes, vocabs, r_conds, unsigned,
+                          dev_args):
+        """GROUP BY over NULL-able, float, uint64 or wide key domains (ref:
+        tpu_engine.py:1324 _lower_agg_sorted): K9 sorts the masked rows by
+        (NULL flag, key bits) per key (through K8) and gives each row a
+        dense group id; K4 reduces the value lanes over those ids.
+
+        The group capacity starts at gcap0 and, when n_groups overflows
+        it, escalates x4 until it fits and is remembered for this DAG
+        shape — the reference's escalation, with the same capacities. The
+        reference learns n_groups after a full launch and reruns at the
+        new capacity; here K9 counts the groups before K4 runs, so the
+        first launch already uses the capacity the rerun would."""
+        agg = dag.agg
+        key_idx = [g.idx for g in agg.group_by]
+        if not key_idx:
+            return None
+        shape_key = ("aggsort", repr(r_conds),
+                     repr([(a.name, repr(x)) for a, x in zip(agg.aggs, dev_args)]),
+                     repr(key_idx), dev.t, dev.r)
+
+        def cap_of(ng: int) -> int:
+            with self._lock:
+                cap = self._gcap.get(shape_key, self.gcap0)
+                if ng > cap:
+                    while cap < ng:
+                        cap <<= 2
+                    self._gcap[shape_key] = cap
+            return cap
+
+        def run():
+            with self.phase("decode"):
+                l = self._decode(dev, lanes, unsigned)
+            with self.phase("mask"):
+                flat_mask = self._mask(r_conds, l, dev.row_valid).reshape(-1)
+            with self.phase("sort"):
+                keys = [(self._flat(l[ki][0], dev.padded), self._valid_arg(l[ki][1], dev))
+                        for ki in key_idx]
+                g = self.sort_groups(flat_mask, keys, cap_of)
+            with self.phase("agg_args"):
+                outs = []
+                for a, r_args in zip(agg.aggs, dev_args):
+                    outs.extend(self._agg_partials_device(a, r_args, l, dev, g.cap))
+            with self.phase("seg_agg"):
+                seg_lanes = [s for o in outs for s in o]
+                layout = []
+                if seg_lanes:
+                    i_raw, f_raw = self.seg_agg(flat_mask, [], seg_lanes, g.cap, seg=g.seg)
+                    i_mat, f_mat, layout = self._pack(outs, i_raw, f_raw)
+            with self.phase("d2h"):
+                ng = g.n_groups  # only [:n_groups] reaches the chunk
+                kval, kvalid = g.kval[:, :ng].cpu().numpy(), g.kvalid[:, :ng].cpu().numpy()
+                if layout:
+                    i_host, f_host = i_mat[:, :ng].cpu().numpy(), f_mat[:, :ng].cpu().numpy()
+            with self.phase("finalize"):
+                res = [row for j in range(len(key_idx)) for row in (kval[j], kvalid[j])]
+                res += [i_host[k] if t == "i" else f_host[k] for t, k in layout]
+                return self._agg_sorted_to_chunk(dag, dev, res, key_idx, vocabs, ng)
+
+        return run
+
+    def _agg_sorted_to_chunk(self, dag, dev, outs, key_idx, vocabs, ng):
+        """Sorted partials → chunk (copy of TPUEngine._agg_sorted_to_chunk)."""
+        out_fts = dag.output_types()
+        present = np.arange(ng)
+        cols: list[Column] = []
+        pos = 0
+        oi = 0
+        for ki in key_idx:
+            kval = np.asarray(outs[pos])[:ng]
+            valid = np.asarray(outs[pos + 1])[:ng] == 1
+            ft = out_fts[oi]
+            if ki in vocabs:
+                vocab = vocabs[ki]
+                data = np.empty(ng, dtype=object)
+                for j in range(ng):
+                    c = int(kval[j])
+                    data[j] = vocab[c] if valid[j] and 0 <= c < len(vocab) else None
+            else:
+                # undo the kernel's bit-pattern canonicalization
+                src_dt = dev.batch.data[dag.scan.col_offsets[ki]].dtype
+                data = kval.astype(np.int64)
+                if src_dt == np.float64:
+                    data = data.view(np.float64).copy()
+                    data[~valid] = 0.0
+                elif src_dt == np.uint64:
+                    data = data.view(np.uint64).copy()
+                    data[~valid] = 0
+                else:
+                    data[~valid] = 0
+            cols.append(Column(ft, data, valid))
+            pos += 2
+            oi += 1
+        cols.extend(self._agg_value_cols(dag, dev, outs, pos, oi, present, vocabs))
+        return Chunk(cols)
+
+    @staticmethod
+    def _device_lanes(lanes: dict, exprs) -> dict:
+        """The lanes the device reads for `exprs`. A TopN uploads every
+        scan column (its rows come back from the batch) but computes on the
+        filter and key columns only; the reference's fused program drops
+        the other decodes as dead code, and so does the port."""
+        used: set[int] = set()
+        for e in exprs:
+            e.collect_columns(used)
+        return {i: lanes[i] for i in sorted(used)}
+
+    @staticmethod
+    def _flat(x, n: int):
+        """A device value as a flat contiguous [n] lane (a 0-d constant is
+        broadcast); U64 stays U64."""
+        if isinstance(x, U64):
+            return U64(TorchEngine._flat(x.bits, n))
+        return x.reshape(-1) if x.ndim else x.expand(n).contiguous()
+
     @staticmethod
     def _valid_arg(v, dev: DeviceBatch):
         """A valid lane for the kernel: None when it is row_valid itself
         (every masked-in row is valid), else the flat bool lane."""
         if v is dev.row_valid:
             return None
-        n = dev.padded
-        return v.reshape(-1) if v.ndim else v.expand(n).contiguous()
+        return TorchEngine._flat(v, dev.padded)
 
     @staticmethod
     def _pack(outs, i_raw, f_raw):
@@ -563,7 +693,7 @@ class TorchEngine:
         if r_args:
             d, v = self._eval_device(r_args[0], lanes)
             dd = d.bits if isinstance(d, U64) else d
-            dd = dd.reshape(-1) if dd.ndim else dd.expand(n).contiguous()
+            dd = self._flat(dd, n)
             vv = self._valid_arg(v, dev)
         else:
             d, dd, vv = None, None, None
@@ -613,7 +743,7 @@ class TorchEngine:
                         [SegLane("sum_i64", ai * bi, vv)], [SegLane("sum_f64", af * bf, vv)],
                         [SegLane("sum_i64", bi * bi, vv)], [SegLane("sum_f64", bf * bf, vv)]]
             x = XP.astype(d, torch.float64)
-            x = x.reshape(-1) if x.ndim else x.expand(n).contiguous()
+            x = self._flat(x, n)
             if ok is not None:
                 x = torch.where(ok, x, 0.0)
             return [cnt(), [SegLane("sum_f64", x, vv)], [SegLane("sum_f64", x * x, vv)]]
@@ -749,3 +879,74 @@ class TorchEngine:
                 pos += 1
                 oi += 1
         return cols
+
+    # --- topn ----------------------------------------------------------------
+
+    def _lower_topn(self, dag: DAGRequest, dev: DeviceBatch, lanes, vocabs, r_conds, unsigned):
+        """Single-key TopN (ref: tpu_engine.py:1747 _lower_topn): K6 picks
+        the k best rows in lax.top_k's order; the host keeps those the
+        mask lets through, up to n."""
+        by = dag.topn.by
+        if len(by) != 1:
+            return self._lower_topn_multi(dag, dev, lanes, vocabs, r_conds, unsigned)
+        e, desc = by[0]
+        r_e = self._rewrite(e, vocabs)
+        if r_e is None:
+            return None
+        n = dag.topn.n
+        dlanes = self._device_lanes(lanes, r_conds + [r_e])
+
+        def run():
+            with self.phase("decode"):
+                l = self._decode(dev, dlanes, unsigned)
+            with self.phase("mask"):
+                mask = self._mask(r_conds, l, dev.row_valid).reshape(-1)
+            with self.phase("sort"):
+                d, v = self._eval_device(r_e, l)
+                d = self._flat(d, dev.padded)
+                if isinstance(d, U64):  # the reference's astype(int64) keeps the bits
+                    d = d.bits
+                # integer keys stay integer (exact for packed datetimes/decimals)
+                d = d.to(torch.float64) if d.dtype.is_floating_point else d.to(torch.int64)
+                idx, ok = self.topk(d.contiguous(), self._valid_arg(v, dev), mask, desc, min(n, dev.padded))
+            with self.phase("d2h"):
+                idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
+            with self.phase("finalize"):
+                idx = idx[ok]  # drop indices pointing at masked rows
+                return dev.batch.to_chunk(dag.scan.col_offsets).take(idx[:n])
+
+        return run
+
+    def _lower_topn_multi(self, dag: DAGRequest, dev: DeviceBatch, lanes, vocabs, r_conds, unsigned):
+        """Multi-key TopN (ref: tpu_engine.py:1796 _lower_topn_multi): K7
+        writes the sort operands, K8 sorts every row by them, the first n
+        row ids come back with their mask bits."""
+        r_by = []
+        for e, desc in dag.topn.by:
+            r_e = self._rewrite(e, vocabs)
+            if r_e is None:
+                return None
+            r_by.append((r_e, desc))
+        n = dag.topn.n
+        dlanes = self._device_lanes(lanes, r_conds + [r_e for r_e, _ in r_by])
+
+        def run():
+            with self.phase("decode"):
+                l = self._decode(dev, dlanes, unsigned)
+            with self.phase("mask"):
+                mask = self._mask(r_conds, l, dev.row_valid).reshape(-1)
+            with self.phase("sort"):
+                keys = []
+                for r_e, desc in r_by:
+                    d, v = self._eval_device(r_e, l)
+                    keys.append((self._flat(d, dev.padded), self._valid_arg(v, dev), desc))
+                ops = self.topn_multi_ops(mask, keys)
+                perm = self.lex_sort_perm(ops)
+                idx = perm[: min(n, dev.padded)].long()
+                ok = ops[0].data[idx] == 0
+            with self.phase("d2h"):
+                idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
+            with self.phase("finalize"):
+                return dev.batch.to_chunk(dag.scan.col_offsets).take(idx[ok][:n])
+
+        return run

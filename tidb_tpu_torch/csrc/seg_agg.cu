@@ -6,7 +6,10 @@
 // _agg_partials_device (:1527-1617). Per row i:
 //
 //   code = mixed radix over the key lanes: code = code*(dom+1) + kd,
-//          kd = key - lo + 1 for a valid key, 0 (the NULL slot) otherwise
+//          kd = key - lo + 1 for a valid key, 0 (the NULL slot) otherwise;
+//          or, in the precomputed-segment mode of the sort-based GROUP BY
+//          (tpu_engine.py:1380-1399), the row's id from K9's segment lane
+//          (csrc/sort_groups.cu), rows at or beyond nseg dropped
 //   rows with mask[i] == 0 go to the overflow slot nseg, i.e. are dropped
 //   every value lane k with ok = valid_k[i] folds its value into
 //   out[k][code] with the lane's op (a row without ok is skipped):
@@ -34,8 +37,9 @@
 // every row hits one of ~6 live slots. So when all lanes' slots fit in
 // 48 KB of shared memory (the SEG_DENSE_MAX regime, tpu_engine.py:168),
 // each block privatises them, accumulates with shared-memory atomics and
-// merges once into global memory; larger nseg (up to 65536) atomically
-// updates global memory directly. Warp-level pre-aggregation is left for
+// merges once into global memory; larger nseg (up to 65536 direct, or
+// the sort path's group capacity: 4,194,304 for TPC-H Q18's GROUP BY
+// l_orderkey at 16M rows) atomically updates global memory directly. Warp-level pre-aggregation is left for
 // a later change.
 //
 // Plain C interface (nvcc + ctypes). tt_seg_agg launches an init kernel
@@ -157,11 +161,18 @@ __device__ __forceinline__ unsigned long long* out_slot(const LaneDesc& L, int64
              : reinterpret_cast<unsigned long long*>(iout + (int64_t)L.out * nseg + seg);
 }
 
-// Segment of row i, or -1 when the row is masked out.
+// Segment of row i, or -1 when the row is masked out. With a
+// precomputed segment lane (K9's group ids) the row's id is read, and an
+// id at or beyond nseg (the overflow slot) drops the row too.
 __device__ __forceinline__ int64_t row_segment(const uint8_t* __restrict__ mask,
+                                               const int32_t* __restrict__ seg,
                                                const KeyDesc* __restrict__ keys, int nkeys,
-                                               int64_t i) {
+                                               int64_t nseg, int64_t i) {
   if (!mask[i]) return -1;
+  if (seg != nullptr) {
+    const int64_t s = seg[i];
+    return s < nseg ? s : -1;
+  }
   int64_t code = 0;
   for (int k = 0; k < nkeys; ++k) {
     const KeyDesc& K = keys[k];
@@ -208,6 +219,7 @@ __global__ void init_kernel(const LaneDesc* __restrict__ lanes, int nlanes, int6
 
 // nseg * nlanes slots privatised per block in dynamic shared memory.
 __global__ void seg_agg_shared_kernel(const uint8_t* __restrict__ mask, int64_t n,
+                                      const int32_t* __restrict__ segs,
                                       const KeyDesc* __restrict__ keys, int nkeys,
                                       const LaneDesc* __restrict__ lanes, int nlanes,
                                       int64_t nseg, int64_t* iout, double* fout) {
@@ -218,7 +230,7 @@ __global__ void seg_agg_shared_kernel(const uint8_t* __restrict__ mask, int64_t 
   __syncthreads();
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    int64_t seg = row_segment(mask, keys, nkeys, i);
+    int64_t seg = row_segment(mask, segs, keys, nkeys, nseg, i);
     if (seg < 0) continue;
     fold_row(lanes, nlanes, i, n, seg, acc, nseg, iout, fout);
   }
@@ -241,12 +253,13 @@ __global__ void seg_agg_shared_kernel(const uint8_t* __restrict__ mask, int64_t 
 }
 
 __global__ void seg_agg_global_kernel(const uint8_t* __restrict__ mask, int64_t n,
+                                      const int32_t* __restrict__ segs,
                                       const KeyDesc* __restrict__ keys, int nkeys,
                                       const LaneDesc* __restrict__ lanes, int nlanes,
                                       int64_t nseg, int64_t* iout, double* fout) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    int64_t seg = row_segment(mask, keys, nkeys, i);
+    int64_t seg = row_segment(mask, segs, keys, nkeys, nseg, i);
     if (seg < 0) continue;
     fold_row(lanes, nlanes, i, n, seg, nullptr, nseg, iout, fout);
   }
@@ -258,7 +271,8 @@ __global__ void seg_agg_global_kernel(const uint8_t* __restrict__ mask, int64_t 
 // 48 KB limit, so no opt-in attribute is needed).
 extern "C" int64_t tt_seg_agg_shared_max_bytes() { return 48 * 1024; }
 
-extern "C" int tt_seg_agg(const uint8_t* mask, int64_t n, const void* keys, int nkeys,
+extern "C" int tt_seg_agg(const uint8_t* mask, int64_t n, const int32_t* segs,
+                          const void* keys, int nkeys,
                           const void* lanes, int nlanes, int64_t nseg, int64_t* iout,
                           double* fout, int n_sms, void* stream) {
   if (nseg <= 0 || nlanes <= 0) return -1;
@@ -279,11 +293,11 @@ extern "C" int tt_seg_agg(const uint8_t* mask, int64_t n, const void* keys, int 
     int64_t blocks = (int64_t)(n_sms > 0 ? n_sms : 132) * 8;
     if (blocks > row_blocks) blocks = row_blocks;
     seg_agg_shared_kernel<<<(unsigned)blocks, kThreads, (size_t)smem, s>>>(
-        mask, n, K, nkeys, L, nlanes, nseg, iout, fout);
+        mask, n, segs, K, nkeys, L, nlanes, nseg, iout, fout);
   } else {
     if (row_blocks > ((int64_t)1 << 30)) row_blocks = (int64_t)1 << 30;
     seg_agg_global_kernel<<<(unsigned)row_blocks, kThreads, 0, s>>>(
-        mask, n, K, nkeys, L, nlanes, nseg, iout, fout);
+        mask, n, segs, K, nkeys, L, nlanes, nseg, iout, fout);
   }
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,10 @@
   lanes (the form of a reference ColumnBatch) → the port's ColumnBatch.
   It takes numpy arrays only, so both packages can be fed the same data.
 * `run_query(dag, batch, device="cuda")`: the GPU cop engine over one
-  batch, the final merge of its partial chunk, ORDER BY the group keys →
-  the result chunk.
+  batch, then the root's final step → the result chunk: for an
+  aggregation the final merge of the partial chunk, ORDER BY the group
+  keys; for a TopN the partial rows ordered by the TopN keys, first n
+  kept (the reference's TopNExec).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from .chunk.chunk import Chunk, VARLEN, col_numpy_dtype
 from .copr.dag import DAGRequest
 from .copr.gpu_engine import TorchEngine
 from .copr.tilecache import ColumnBatch
-from .executor.final_agg import merge_partials, order_by_keys
+from .executor.final_agg import merge_partials, order_by_keys, top_n
 
 
 def batch_from_numpy(table: TableInfo, columns: dict[str, np.ndarray],
@@ -52,6 +54,9 @@ def run_query(dag: DAGRequest, batch: ColumnBatch, device="cuda",
     """Answer one pushed-down query over one region batch on `device`."""
     engine = engine or TorchEngine(device)
     partial = engine.execute(dag, batch)
+    if dag.topn is not None:
+        with engine.phase("finalize"):
+            return top_n(partial, dag.topn.by, dag.topn.n)
     if dag.agg is None:
         return partial
     out_fts = [g.ret_type for g in dag.agg.group_by] + [a.ret_type for a in dag.agg.aggs]

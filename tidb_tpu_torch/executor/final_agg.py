@@ -1,15 +1,21 @@
-"""Final merge of cop partial chunks, then ORDER BY the group keys.
+"""The root's final step over cop partial chunks.
 
-The root half of a pushed-down aggregation (ref:
-tidb_tpu/executor/executors.py:1901 FinalHashAggExec, its vectorized
-merge `_merge_vectorized` :1989 and `_final_value`). Ported for the
-aggregates this slice pushes: count, sum, avg, min, max, first_row.
+* `merge_partials` + `order_by_keys`: the root half of a pushed-down
+  aggregation (ref: tidb_tpu/executor/executors.py:1901 FinalHashAggExec,
+  its vectorized merge `_merge_vectorized` :1989 and `_final_value`), then
+  ORDER BY the group keys. Ported for the aggregates the port pushes:
+  count, sum, avg, min, max, first_row.
+* `top_n`: the root half of a pushed-down TopN (ref: executors.py:1603
+  TopNExec, its `_sort_in_mem`): order the partial rows by the TopN keys,
+  keep n.
 
-Exactness: integer and decimal sums accumulate as Python ints, so partial
-sums near the int64 limit (TPC-H Q1's charge sum reaches ~1.8e18 at 16M
-rows) merge exactly, and a total that does not fit the int64 lane raises
-instead of wrapping. Decimal AVG is Dec.div + rescale, the reference's
-own rounding (_avg_dec_finish replicates the same in int64).
+Exactness: integer and decimal sums are exact. While the float64 sum of
+the magnitudes stays below 2^62 no int64 partial sum can overflow, and
+numpy adds in int64; past that guard they accumulate as Python ints, so
+partial sums near the int64 limit (TPC-H Q1's charge sum reaches ~1.8e18
+at 16M rows) merge exactly, and a total that does not fit the int64 lane
+raises instead of wrapping. Decimal AVG is Dec.div + rescale, the
+reference's own rounding (_avg_dec_finish replicates the same in int64).
 """
 
 from __future__ import annotations
@@ -28,18 +34,40 @@ MERGEABLE = ("count", "sum", "avg", "min", "max", "first_row")
 _I64 = np.iinfo(np.int64)
 
 
-def _to_i64(vals: list[int], what: str) -> np.ndarray:
+# the float64 magnitude sum that still guarantees int64 partial sums:
+# its rounding error (a relative n * 2^-53) stays far inside the 2x margin
+# to 2^63
+_SHADOW_MAX = float(1 << 62)
+
+
+def _to_i64(vals, what: str) -> np.ndarray:
+    if isinstance(vals, np.ndarray):  # _exact_sum's int64 path: fits by its guard
+        return vals
     for v in vals:
         if not _I64.min <= v <= _I64.max:
             raise OverflowError(f"{what}: exact result {v} does not fit the int64 lane")
     return np.array(vals, dtype=np.int64)
 
 
-def _exact_sum(inv, G, data, valid) -> list[int]:
+def _exact_sum_loop(inv, G, data, valid) -> list[int]:
     acc = [0] * G
     for g, x, ok in zip(inv.tolist(), data.tolist(), valid.tolist()):
         if ok:
             acc[g] += int(x)
+    return acc
+
+
+def _exact_sum(inv, G, data, valid):
+    """Exact per-group sums of an integer lane: an int64 array when the
+    float64 shadow sum of |x| per group stays below 2^62 (then no int64
+    partial sum can overflow), else Python ints from the loop."""
+    x = np.where(valid, data, np.zeros((), data.dtype))
+    shadow = np.zeros(G, dtype=np.float64)
+    np.add.at(shadow, inv, np.abs(x.astype(np.float64)))
+    if G and not shadow.max() < _SHADOW_MAX:
+        return _exact_sum_loop(inv, G, data, valid)
+    acc = np.zeros(G, dtype=np.int64)
+    np.add.at(acc, inv, x.astype(np.int64))
     return acc
 
 
@@ -128,7 +156,7 @@ def merge_partials(partials: list[Chunk], group_by: list[Expression], aggs: list
                 else:
                     sum_scale = max(col.ft.decimal, 0)
                     out_scale = max(ft.decimal, 0)
-                    q = [Dec(s, sum_scale).div(Dec(c, 0)).rescale(out_scale).value if k else 0
+                    q = [Dec(int(s), sum_scale).div(Dec(int(c), 0)).rescale(out_scale).value if k else 0
                          for s, c, k in zip(acc, cnt, ok.tolist())]
                     cols.append(Column(ft, _to_i64(q, "AVG"), ok))
                 pos += 2
@@ -154,3 +182,17 @@ def order_by_keys(chunk: Chunk, group_by: list[Expression]) -> Chunk:
     keys = [(collation_key_lane(chunk.columns[i].data, g.ret_type), chunk.columns[i].valid, False)
             for i, g in enumerate(group_by)]
     return chunk.take(_lex_argsort(keys, chunk.num_rows))
+
+
+def top_n(chunk: Chunk, by: list[tuple[Expression, bool]], n: int) -> Chunk:
+    """ORDER BY the TopN keys (collation order; NULLs first ASC, last
+    DESC; stable), first n rows."""
+    if chunk.num_rows == 0:
+        return chunk
+    keys = []
+    for e, desc in by:
+        d, v = e.eval(chunk)
+        d = np.broadcast_to(d, (chunk.num_rows,)) if np.ndim(d) == 0 else d
+        v = np.broadcast_to(v, (chunk.num_rows,)) if np.ndim(v) == 0 else v
+        keys.append((collation_key_lane(d, e.ret_type), v, desc))
+    return chunk.take(_lex_argsort(keys, chunk.num_rows)[:n])

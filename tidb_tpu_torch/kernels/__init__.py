@@ -1,9 +1,13 @@
 """Hand-written Hopper kernels of the port, their plain PyTorch versions
 and launch counters.
 
-  K1 decode_lane  (csrc/decode_lane.cu) ← tpu_engine.py:1169 _decode_lane
-  K4 seg_agg      (csrc/seg_agg.cu)     ← tpu_engine.py:1287-1304 + :175-193
-                                          + :1527-1617 _agg_partials_device
+  K1 decode_lane     (csrc/decode_lane.cu) ← tpu_engine.py:1169 _decode_lane
+  K4 seg_agg         (csrc/seg_agg.cu)     ← tpu_engine.py:1287-1304 + :175-193
+                                             + :1527-1617 _agg_partials_device
+  K6 topk            (csrc/topk.cu)        ← tpu_engine.py:1759-1781 _lower_topn
+  K7 topn_multi_ops  (csrc/topn_multi.cu)  ← tpu_engine.py:1812-1828 _lower_topn_multi
+  K8 lex_sort_perm   (csrc/lex_sort.cu)    ← tpu_engine.py:195-208 lex_sort_perm
+  K9 sort_groups     (csrc/sort_groups.cu) ← tpu_engine.py:1351-1400 _lower_agg_sorted
 
 Each wrapper runs its plain version for CPU tensors only; on a CUDA
 tensor it launches its kernel (built at first use, kernels/build.py) or
@@ -11,9 +15,14 @@ raises. `<wrapper>.launches` counts kernel launches.
 """
 
 from .decode_lane import decode_lane, decode_lane_ref
+from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
 from .seg_agg import SegKey, SegLane, seg_agg, seg_agg_ref
+from .sort_groups import sort_groups, sort_groups_ref
+from .topk import topk, topk_ref
+from .topn_multi import topn_multi_ops, topn_multi_ops_ref
 
-WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg}
+WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
+            "topn_multi": topn_multi_ops, "lex_sort": lex_sort_perm, "sort_groups": sort_groups}
 
 
 def reset_launches() -> None:

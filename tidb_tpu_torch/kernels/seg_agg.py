@@ -5,11 +5,14 @@ with _seg_sum/_seg_min/_seg_max (:175-193) and _agg_partials_device
 (:1527-1617). The CUDA kernel is csrc/seg_agg.cu (its note gives the ops
 and what bounds it); `seg_agg_ref` is the plain PyTorch version beside it.
 
-`seg_agg(mask, keys, lanes, nseg)`:
+`seg_agg(mask, keys, lanes, nseg, seg=None)`:
 
   * mask  — bool [N], the filter mask (row_valid included)
   * keys  — SegKey lanes forming the mixed-radix group code; masked rows
             go to the overflow slot nseg and are dropped
+  * seg   — or, with no keys, a precomputed int32 [N] segment lane (K9's
+            group ids, kernels/sort_groups.py): a row at or beyond nseg is
+            dropped like a masked row
   * lanes — SegLane value lanes, each with an op from OPS; rows whose
             lane `valid` is False are skipped (the reference's `ok`),
             except by first_row, which folds the index N for them
@@ -76,9 +79,11 @@ def _fill_bits(lane: SegLane) -> int:
     return f - (1 << 64) if f > np.iinfo(np.int64).max else f
 
 
-def _check(keys, lanes, nseg) -> None:
+def _check(keys, lanes, nseg, seg=None) -> None:
     if nseg <= 0:
         raise ValueError("seg_agg: nseg must be positive")
+    if seg is not None and (keys or seg.dtype != torch.int32 or seg.ndim != 1):
+        raise ValueError("seg_agg: a segment lane is int32 [N] and replaces the key lanes")
     for lane in lanes:
         if lane.op not in OPS:
             raise ValueError(f"seg_agg: unknown op {lane.op!r}")
@@ -90,8 +95,11 @@ def _check(keys, lanes, nseg) -> None:
             raise TypeError(f"seg_agg: key lanes are int32/int64, got {k.data.dtype}")
 
 
-def group_code(mask: torch.Tensor, keys: list[SegKey], nseg: int) -> torch.Tensor:
-    """Per-row segment: the mixed-radix key code, nseg for masked rows."""
+def group_code(mask: torch.Tensor, keys: list[SegKey], nseg: int, seg=None) -> torch.Tensor:
+    """Per-row segment: the mixed-radix key code (or the precomputed id),
+    nseg for masked rows and ids beyond the last segment."""
+    if seg is not None:
+        return torch.where(mask & (seg < nseg), seg.to(torch.int64), nseg)
     code = torch.zeros(mask.shape, dtype=torch.int64, device=mask.device)
     for k in keys:
         kd = k.data.to(torch.int64) - k.lo + 1
@@ -101,12 +109,12 @@ def group_code(mask: torch.Tensor, keys: list[SegKey], nseg: int) -> torch.Tenso
     return torch.where(mask, code, nseg)
 
 
-def seg_agg_ref(mask, keys, lanes, nseg):
+def seg_agg_ref(mask, keys, lanes, nseg, seg=None):
     """Plain PyTorch version of the kernel (index_add_ / scatter_reduce_)."""
-    _check(keys, lanes, nseg)
+    _check(keys, lanes, nseg, seg)
     dev = mask.device
     n = mask.shape[0]
-    seg = group_code(mask, keys, nseg)
+    seg = group_code(mask, keys, nseg, seg)
     ints, flts = [], []
     for lane in lanes:
         s = seg if lane.valid is None or lane.op == "first_row" else torch.where(lane.valid, seg, nseg)
@@ -145,7 +153,7 @@ def _lib():
     lib = library("seg_agg")
     if "seg_agg" not in _bound:
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.tt_seg_agg.argtypes = [C, L, C, I, C, I, L, C, C, I, C]
+        lib.tt_seg_agg.argtypes = [C, L, C, C, I, C, I, L, C, C, I, C]
         lib.tt_seg_agg.restype = I
         _bound.add("seg_agg")
     return lib
@@ -159,14 +167,15 @@ def _ptr(t: torch.Tensor | None, dev, n: int, what: str) -> int:
     return t.data_ptr()
 
 
-def seg_agg(mask: torch.Tensor, keys: list[SegKey], lanes: list[SegLane], nseg: int):
+def seg_agg(mask: torch.Tensor, keys: list[SegKey], lanes: list[SegLane], nseg: int,
+            seg: torch.Tensor | None = None):
     """Packed (int64 [k_i, nseg], float64 [k_f, nseg]) partials (module doc)."""
     dev = mask.device
     if dev.type == "cpu":
-        return seg_agg_ref(mask, keys, lanes, nseg)
+        return seg_agg_ref(mask, keys, lanes, nseg, seg)
     if dev.type != "cuda":
         raise ValueError(f"seg_agg: unsupported device {dev}")
-    _check(keys, lanes, nseg)
+    _check(keys, lanes, nseg, seg)
     if not lanes:
         raise ValueError("seg_agg: no value lanes")
     n = mask.shape[0]
@@ -192,7 +201,8 @@ def seg_agg(mask: torch.Tensor, keys: list[SegKey], lanes: list[SegLane], nseg: 
     fout = torch.empty((n_f, nseg), dtype=torch.float64, device=dev)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rc = _lib().tt_seg_agg(
-        _ptr(mask, dev, n, "mask"), n, kdesc.data_ptr(), len(keys), ldesc.data_ptr(), len(lanes),
+        _ptr(mask, dev, n, "mask"), n, _ptr(seg, dev, n, "segment lane"),
+        kdesc.data_ptr(), len(keys), ldesc.data_ptr(), len(lanes),
         nseg, iout.data_ptr(), fout.data_ptr(), n_sms,
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -1,0 +1,135 @@
+"""K6: the k best rows of a single-key TopN.
+
+Replaces the kernel of tidb_tpu/copr/tpu_engine.py:1759-1781
+(TPUEngine._lower_topn): the sort key built from the row mask, the key's
+validity and its data, then lax.top_k. The CUDA kernels are csrc/topk.cu
+(a radix select; its note gives the key transform and what bounds it);
+the k candidates it selects are ordered by K8 (kernels/lex_sort.py).
+`topk_ref` is the plain PyTorch version beside it.
+
+`topk(data, valid, mask, desc, k)`:
+
+  * data  — int64 or float64 [N], the evaluated key (uint64 keys come as
+            their int64 bits, as the reference's astype(int64) leaves them)
+  * valid — bool [N], or None when every row's key is non-NULL
+  * mask  — bool [N], the filter mask (row_valid included)
+  * desc  — DESC (NULLs last) or ASC (negated key, NULLs first)
+  * k     — 0 <= k <= N (a pushed LIMIT 0 asks for none)
+  → (int32 [k] row ids, bool [k] their mask bits): lax.top_k's order,
+    largest key first, equal keys lower row first. On the CPU lax.top_k
+    orders floats by their IEEE total order (+0.0 above -0.0, +NaN above
+    +inf, -NaN below -inf), and so does this.
+
+`topk` takes the plain version only for tensors on the CPU. On a CUDA
+device it launches the kernels or raises; `topk.launches` counts the
+calls that launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import library
+from .lex_sort import SortOp, lex_sort_perm
+
+_I64_MIN = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
+
+
+def _check(data, valid, mask, k):
+    n = data.shape[0]
+    if data.dtype not in (torch.int64, torch.float64) or data.shape != (n,):
+        raise TypeError(f"topk: the key is int64/float64 [N], got {data.dtype} {tuple(data.shape)}")
+    for what, t in (("valid", valid), ("mask", mask)):
+        if t is not None and (t.dtype != torch.bool or t.shape != (n,)):
+            raise TypeError(f"topk: {what} must be bool [{n}]")
+    if not 0 <= k <= n:
+        raise ValueError(f"topk: k={k} outside 0..{n}")
+    return n
+
+
+def sort_key(data, valid, mask, desc):
+    """The reference's top_k operand (tpu_engine.py:1766-1778), exactly."""
+    v = torch.ones_like(mask) if valid is None else valid
+    if data.dtype == torch.float64:
+        lo = torch.full((), float("-inf"), dtype=torch.float64, device=data.device)
+        hi = torch.full((), float("inf"), dtype=torch.float64, device=data.device)
+        neg = -data
+    else:
+        lo = torch.full((), _I64_MIN, dtype=torch.int64, device=data.device)
+        hi = torch.full((), _I64_MAX - 1, dtype=torch.int64, device=data.device)
+        neg = torch.where(data == _I64_MIN, data, -data)  # -INT64_MIN wraps onto itself
+    if desc:
+        return torch.where(mask & v, data, lo)
+    return torch.where(mask, torch.where(v, neg, hi), lo)
+
+
+def _total_order(key):
+    """int64 whose signed order is top_k's order of `key`."""
+    if key.dtype != torch.float64:
+        return key
+    b = key.view(torch.int64)
+    return torch.where(b < 0, b ^ _I64_MAX, b)
+
+
+def topk_ref(data, valid, mask, desc: bool, k: int):
+    """Plain PyTorch version: a stable descending sort of the key."""
+    _check(data, valid, mask, k)
+    order = torch.sort(_total_order(sort_key(data, valid, mask, desc)), descending=True, stable=True).indices
+    idx = order[:k].to(torch.int32)
+    return idx, mask[idx]
+
+
+_bound: set = set()
+
+
+def _lib():
+    lib = library("topk")
+    if "topk" not in _bound:
+        C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.tt_topk_state_len.argtypes = []
+        lib.tt_topk_state_len.restype = L
+        lib.tt_topk_tiles.argtypes = [L]
+        lib.tt_topk_tiles.restype = L
+        lib.tt_topk_select.argtypes = [C, I, C, C, I, L, L, C, C, C, C, I, C]
+        lib.tt_topk_select.restype = I
+        _bound.add("topk")
+    return lib
+
+
+def topk(data: torch.Tensor, valid: torch.Tensor | None, mask: torch.Tensor, desc: bool, k: int):
+    """(int32 [k] row ids, bool [k] mask bits) in lax.top_k's order."""
+    dev = data.device
+    if dev.type == "cpu":
+        return topk_ref(data, valid, mask, desc, k)
+    if dev.type != "cuda":
+        raise ValueError(f"topk: unsupported device {dev}")
+    n = _check(data, valid, mask, k)
+    if k == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev), torch.empty(0, dtype=torch.bool, device=dev)
+    for t in (data, valid, mask):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"topk: inputs must be contiguous tensors on {dev}")
+    lib = _lib()
+    U = torch.empty(n, dtype=torch.int64, device=dev)
+    state = torch.empty(lib.tt_topk_state_len(), dtype=torch.int64, device=dev)
+    tilecnt = torch.empty(lib.tt_topk_tiles(n), dtype=torch.int32, device=dev)
+    cand = torch.empty(k, dtype=torch.int32, device=dev)
+    rc = lib.tt_topk_select(
+        data.data_ptr(), int(data.dtype == torch.float64), 0 if valid is None else valid.data_ptr(),
+        mask.data_ptr(), int(bool(desc)), n, k, U.data_ptr(), state.data_ptr(), tilecnt.data_ptr(),
+        cand.data_ptr(), torch.cuda.get_device_properties(dev).multi_processor_count,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"topk: kernel launch failed (cudaError {rc})")
+    topk.launches += 1
+    # (u desc, row asc): ~u ascends as u descends; the row breaks ties
+    perm = lex_sort_perm([SortOp(~U[cand.long()], "u64"), SortOp(cand, "i32")])
+    idx = cand[perm.long()]
+    return idx, mask[idx.long()]
+
+
+topk.launches = 0

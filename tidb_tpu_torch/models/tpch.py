@@ -6,7 +6,13 @@
   (tpch.py:91-128), so the same seed gives the same rows in both packages;
 * `q1_dag` / `q6_dag`: the DAGRequests the reference planner pushes for
   tpch.Q1 and tpch.Q6 (selection + aggregation over one lineitem scan),
-  the same expression trees, types and constants.
+  the same expression trees, types and constants;
+* `topn_dag` / `multikey_topn_dag`: the TopN DAGs pushed for TOPN
+  (tpch.TOPN) and MULTIKEY_TOPN (bench.py's multikey_topn ORDER BY, with
+  l_linenumber selected: the reference planner pushes a TopN only when
+  every sort key is a column of the projection below the Sort);
+* `q18_inner_dag`: the aggregation pushed for Q18_INNER, the subquery of
+  TPC-H Q18 (spec 2.4.18; its HAVING runs above the cop).
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..catalog.schema import ColumnInfo, TableInfo
-from ..copr.dag import AggNode, DAGRequest, ScanNode, SelectionNode
+from ..copr.dag import AggNode, DAGRequest, ScanNode, SelectionNode, TopNNode
 from ..expr.aggregation import AggDesc
 from ..expr.expression import Column, Constant, make_func
 from ..mysqltypes.coretime import parse_datetime
@@ -40,6 +46,14 @@ Q6 = """SELECT SUM(l_extendedprice * l_discount) AS revenue
 FROM lineitem
 WHERE l_shipdate >= '1994-01-01' AND l_shipdate < '1995-01-01'
   AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24"""
+
+
+TOPN = "SELECT l_orderkey, l_extendedprice FROM lineitem ORDER BY l_extendedprice DESC LIMIT 100"
+
+MULTIKEY_TOPN = """SELECT l_orderkey, l_extendedprice, l_linenumber FROM lineitem
+ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber LIMIT 50"""
+
+Q18_INNER = "SELECT l_orderkey, SUM(l_quantity) FROM lineitem GROUP BY l_orderkey"
 
 
 def _nn(tp: TypeCode, **kw) -> FieldType:
@@ -162,3 +176,17 @@ def q6_dag() -> DAGRequest:
     ]
     revenue = AggDesc.make("sum", [make_func("mul", _col("l_extendedprice"), disc)])
     return DAGRequest(scan=_scan(), selection=SelectionNode(conds), agg=AggNode([], [revenue]))
+
+
+def topn_dag() -> DAGRequest:
+    return DAGRequest(scan=_scan(), topn=TopNNode([(_col("l_extendedprice"), True)], 100))
+
+
+def multikey_topn_dag() -> DAGRequest:
+    by = [(_col("l_extendedprice"), True), (_col("l_orderkey"), False), (_col("l_linenumber"), False)]
+    return DAGRequest(scan=_scan(), topn=TopNNode(by, 50))
+
+
+def q18_inner_dag() -> DAGRequest:
+    return DAGRequest(scan=_scan(), agg=AggNode([_col("l_orderkey")],
+                                                [AggDesc.make("sum", [_col("l_quantity")])]))
