@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tidb_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--rows 16000000] [--seed 42] [--reps 3]
+    python3 chip_smoke.py [--rows 16000000] [--win-rows 8000000] [--seed 42] [--reps 3]
 
 Phases, one line each; any failure exits non-zero and prints no result:
 
@@ -19,7 +19,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
               ties past a tile, the int64 limits, signed zeros and NaNs,
               k = N; K7 topn_multi's operands; K9 sort_groups with
               NULL-able, float, uint64 and dict-code keys, all rows
-              masked and a capacity below n_groups. Integers, row ids and
+              masked and a capacity below n_groups; W1 window over every
+              window function under every frame kind (default, ROWS
+              offsets, unbounded, RANGE offsets ASC/DESC with NULL keys,
+              empty frames), uint64 and float arguments with NaN and
+              ±0.0, an overflowing int64 sum, P = 1024 with n = 1 and
+              P = 2^23; W2 pack_flat over every lane kind and bool
+              lengths that are not a multiple of 64. Integers, row ids and
               group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
               (bench.py's own check); all cases run, failures are raised
               together;
@@ -33,10 +39,19 @@ Phases, one line each; any failure exits non-zero and prints no result:
               order), requires each query's kernels' launch counters to
               have moved during its runs, and reports rows/s, the median
               of --reps warm runs and a per-phase split timed with CUDA
-              events;
+              events; then the two window queries of models/tpch.py
+              (window_sum_partition, bench.py's SQL, and
+              window_rank_frames) over lineitem at --win-rows through
+              run_window on "cuda": one cold run (host prep + upload)
+              and --reps warm runs (the device-input cache), each held
+              exactly, in row order, to the port's host route
+              (mode="host"), with the scan / prep / h2d / sort / window /
+              pack / d2h / finalize split and one profiled run's idle
+              share;
  5. measure — each kernel on the main path's own inputs: held once more to
               its plain version, then timed beside it, its bytes bound and
-              the nearest single PyTorch call where there is one;
+              the nearest single PyTorch call where there is one (W1 also
+              per inner kernel, from one profiled call);
  6. the kernels JSON line, the card line, and last the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -299,6 +314,153 @@ def _same_groups(g, w, what: str) -> None:
         _same(getattr(g, name), getattr(w, name), f"{what} {name}")
 
 
+def win_lanes(rng, n: int) -> dict:
+    """Window argument and key lanes (numpy): NULLs, duplicate and negative
+    keys, floats with NaN and ±0.0, uint64 values above 2^63, an int64
+    lane whose prefix sum overflows."""
+    import numpy as np
+
+    def valid(p):
+        return rng.random(n) >= p
+
+    floats = rng.standard_normal(n) * 100
+    floats[rng.random(n) < 0.03] = np.nan
+    floats[rng.random(n) < 0.03] = 0.0
+    floats[rng.random(n) < 0.03] = -0.0
+    return {
+        "g": (rng.integers(0, 7, n), valid(0.1)),
+        "h": (rng.integers(0, 3, n).astype(np.uint64) * np.uint64(1 << 62), np.ones(n, bool)),
+        "o": (rng.integers(-40, 40, n), valid(0.1)),
+        "fk": (np.round(floats / 50), valid(0.05)),
+        "i": (rng.integers(-10**6, 10**6, n), valid(0.2)),
+        "big": (np.full(n, (1 << 62) + 12345, np.int64) * rng.choice([1, -1], n), valid(0.1)),
+        "f": (floats, valid(0.15)),
+        "u": (rng.integers(0, 1 << 63, n, dtype=np.int64).view(np.uint64)
+              | (rng.integers(0, 2, n).astype(np.uint64) << np.uint64(63)), valid(0.15)),
+        "code": (rng.integers(0, 5, n), valid(0.1)),
+    }
+
+
+def window_battery(lanes, desc: bool):
+    """(part, order, fspecs, range_lane): every window function under every
+    frame kind over one integer ORDER BY key with NULLs, ASC or DESC."""
+    import numpy as np
+
+    def f(static, args=(), frame=None, post=None):
+        return {"name": static[0], "static": static, "args": list(args), "post": post, "frame": frame}
+
+    L, d = lanes, desc
+    o = L["o"]
+    n = len(o[0])
+    vocab = np.array(["aa", "bb", "cc", "dd", "ee"])
+    fs = [
+        f(("row_number",)), f(("rank",)), f(("dense_rank",)), f(("ntile", 3)),
+        f(("cume_dist",), post=("cume_dist",)), f(("percent_rank",), post=("percent_rank",)),
+        f(("lead", 2, False), [L["i"]]),
+        f(("lag", 1, True), [L["f"], (np.full(n, -1.5), np.ones(n, bool))]),
+        f(("lead", 1, False), [L["u"]]), f(("lag", 3, False), [L["code"]], post=("decode", vocab)),
+        f(("first_value",), [L["i"]], ("rows", "pre", 2, "fol", 1)),
+        f(("last_value",), [L["f"]], ("range", "up", 0, "cur", 0)),
+        f(("nth_value", 2), [L["u"]], ("rows", "up", 0, "uf", 0)),
+        f(("first_value",), [L["code"]], ("range", "pre", 5, "fol", 5, d), post=("decode", vocab)),
+        f(("last_value",), [L["i"]], ("range", "fol", 3, "fol", 8, d)),
+        f(("nth_value", 3), [L["f"]], ("range", "pre", 6, "pre", 1, d)),
+        f(("count", False), (), ("rows", "fol", 1, "fol", 3)),
+        f(("count", True), [L["i"]], ("range", "pre", 5, "fol", 5, d)),
+        f(("count", True), [L["f"]]),
+        f(("sum", True), [L["big"]]),
+        f(("sum", True), [L["f"]], ("rows", "pre", 3, "cur", 0)),
+        f(("sum", True), [L["u"]], ("range", "pre", 10, "pre", 2, d)),
+        f(("sum", True), [L["i"]], ("rows", "fol", 5, "fol", 2)),
+        f(("sum", True), [L["i"]], ("rows", "pre", 9, "pre", 4)),
+        f(("sum", True), [L["big"]], ("range", "cur", 0, "uf", 0)),
+        f(("avg", True, "dec"), [L["i"]], ("rows", "pre", 1, "fol", 1), post=("avg_dec", 2, 6)),
+        f(("avg", True, "f"), [L["f"]], post=("avg_f",)),
+        f(("avg", True, "dec"), [L["i"]], ("range", "pre", 4, "fol", 0, d), post=("avg_dec", 0, 4)),
+        f(("min",), [L["i"]]), f(("max",), [L["f"]], ("rows", "up", 0, "fol", 2)),
+        f(("min",), [L["u"]], ("rows", "pre", 2, "uf", 0)), f(("max",), [L["u"]], ("rows", "pre", 3, "fol", 3)),
+        f(("min",), [L["f"]], ("rows", "pre", 0, "fol", 5)), f(("max",), [L["i"]], ("rows", "fol", 2, "fol", 5)),
+        f(("min",), [L["big"]], ("rows", "pre", 20, "pre", 1)),
+        f(("max",), [L["f"]], ("range", "up", 0, "fol", 5, d)),
+        f(("min",), [L["code"]], ("range", "pre", 3, "uf", 0, d), post=("decode", vocab)),
+        f(("max",), [L["i"]], ("range", "cur", 0, "uf", 0)),
+    ]
+    pres = o[0][o[1]]
+    return [L["g"], L["h"]], [(o, desc)], fs, (o[0], o[1], int(pres.min()), int(pres.max()))
+
+
+def window_cases(dev, rng):
+    """(name, W1 inputs) — the battery ASC and DESC at P = 8,192 and at
+    P = 2^23, float and multi-word order keys, P = 1024 with n = 1, one
+    partition, a partition edge past a scan tile — built by the port's own
+    host prep (executor/window_device.prepare)."""
+    from tidb_tpu_torch.executor import window_device as wd
+
+    def inputs(part, order, fspecs, n, range_lane=None):
+        words, fargs, npw, now, range_dev = wd.prepare(part, order, fspecs, n, dev, range_lane)
+        spec = (npw, now, tuple(f["static"] for f in fspecs), tuple(f.get("frame") for f in fspecs))
+        return list(words), fargs, spec, range_dev
+
+    def f(static, args=(), frame=None):
+        return {"name": static[0], "static": static, "args": list(args), "post": None, "frame": frame}
+
+    cases = []
+    for n in (5000, 8_000_000):
+        for desc in (False, True):
+            part, order, fspecs, rl = window_battery(win_lanes(rng, n), desc)
+            cases.append((f"battery n={n} {'desc' if desc else 'asc'}", inputs(part, order, fspecs, n, rl)))
+    L = win_lanes(rng, 5000)
+    fs = [f(("rank",)), f(("dense_rank",)), f(("sum", True), [L["f"]]), f(("min",), [L["f"]]),
+          f(("max",), [L["u"]]), f(("lead", 1, False), [L["f"]]), f(("last_value",), [L["i"]], ("rows", "cur", 0, "uf", 0))]
+    cases.append(("float_multiword_keys", inputs([L["h"]], [(L["fk"], True), (L["o"], False)], fs, 5000)))
+    for n, parts in ((1, True), (1024, False), (2049, True)):
+        L = win_lanes(rng, n)
+        fs = [f(("row_number",)), f(("sum", True), [L["big"]]), f(("max",), [L["f"]], ("rows", "pre", 1, "fol", 1)),
+              f(("min",), [L["u"]], ("rows", "pre", 1, "uf", 0)), f(("lag", 1, False), [L["i"]]), f(("ntile", 4))]
+        cases.append((f"edge n={n} parts={parts}", inputs([L["g"]] if parts else [], [(L["o"], False)], fs, n)))
+    return cases
+
+
+def _same_outs(got, want, what: str) -> float:
+    """W1 outputs lane by lane: ints and bools bit-exact, floats within
+    tolerance with NaN in the same rows."""
+    import torch
+
+    from tidb_tpu_torch.expr.xp_torch import U64
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} lanes vs {len(want)}")
+    err = 0.0
+    for j, (g, w) in enumerate(zip(got, want)):
+        if isinstance(g, U64) != isinstance(w, U64):
+            raise AssertionError(f"{what} lane {j}: uint64 vs not")
+        g, w = (g.bits, w.bits) if isinstance(g, U64) else (g, w)
+        if g.is_floating_point() and not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{what} lane {j}: NaN rows differ")
+        err = max(err, _same(g, w, f"{what} lane {j}", floats=g.is_floating_point()))
+    return err
+
+
+def pack_cases(dev, rng):
+    """(name, lanes) for W2: every lane kind, bool lengths off the word."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.expr.xp_torch import U64
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    for n in (1, 63, 64, 65, 1000, 8_388_608 + 3):
+        f64 = rng.standard_normal(n)
+        f64[:: 7] = np.nan
+        cases.append((f"mixed n={n}", [t(rng.random(n) < 0.5), t(rng.integers(-(1 << 62), 1 << 62, n)), t(f64),
+                                      t(f64.astype(np.float32)), U64(t(rng.integers(-(1 << 63), (1 << 63) - 1, n))),
+                                      t(rng.integers(-5, 5, n).astype(np.int32)), t(rng.random(n) < 0.01)]))
+    return cases
+
+
 def check_kernels(dev, rng) -> dict:
     """Every kernel against its plain version on the same tensors. All
     cases run; the failures are raised together at the end."""
@@ -379,6 +541,14 @@ def check_kernels(dev, rng) -> dict:
             case(f"sort_groups {cname} n={n}",
                  lambda mask=mask, keys=keys, cap_of=cap_of, cname=cname: _same_groups(
                      sort_groups(mask, keys, cap_of), sort_groups_ref(mask, keys, cap_of), cname))
+    from tidb_tpu_torch.kernels import pack_flat, pack_flat_ref, window, window_ref
+
+    for cname, (words, fargs, spec, rk) in window_cases(dev, rng):
+        case(f"window {cname}", lambda words=words, fargs=fargs, spec=spec, rk=rk, cname=cname: _same_outs(
+            window(words, fargs, spec, rk), window_ref(words, fargs, spec, rk), cname))
+    for cname, lanes in pack_cases(dev, rng):
+        case(f"pack_flat {cname}", lambda lanes=lanes, cname=cname: _same(
+            pack_flat(lanes), pack_flat_ref(lanes), cname))
     if errors:
         raise AssertionError(f"{len(errors)} of {ncase} kernel cases failed:\n" + "\n".join(errors))
     launched = K.launches()
@@ -478,22 +648,20 @@ def busy_us(spans) -> float:
     return total
 
 
-def profiled_run(dag, batch, dev, engine) -> dict:
-    """One more warm run under torch.profiler: its wall (host clock), the
-    time the card was busy (union of its kernel and copy spans) and the
-    idle share. The profiler adds host time, so the share is an upper
-    bound of the unprofiled runs'."""
+def profiled_run(fn, engine) -> dict:
+    """One more warm run of fn() under torch.profiler, with the engine's
+    timer off: its wall (host clock), the time the card was busy (union of
+    its kernel and copy spans) and the idle share. The profiler adds host
+    time, so the share is an upper bound of the unprofiled runs'."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from tidb_tpu_torch.entry import run_query
 
     engine.timer = None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        run_query(dag, batch, device=dev, engine=engine)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -502,7 +670,89 @@ def profiled_run(dag, batch, dev, engine) -> dict:
             "device_idle_share": max(0.0, 1.0 - busy / wall_us)}
 
 
-def run_main_path(dev, rows: int, seed: int, reps: int, card: str) -> dict:
+# (query, spec builder of models/tpch.py): the window queries of the main path
+WINDOW_QUERIES = (("window_sum_partition", "window_sum_partition_spec"),
+                  ("window_rank_frames", "window_rank_frames_spec"))
+WINDOW_NEEDS = ("decode_lane", "lex_sort", "window", "pack_flat")
+
+
+def run_window_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> None:
+    """The two window queries at `rows` through run_window on the card:
+    one cold run and `reps` warm runs each, exact against the port's host
+    route, their kernels' counters required to move. W1's and W2's inputs
+    of each query's last run land in out["captured"][query]."""
+    import torch
+
+    from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.entry import batch_from_numpy, run_window
+    from tidb_tpu_torch.executor import window_device as wd
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.torchenv import PhaseTimer
+
+    t0 = time.perf_counter()
+    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(rows, seed))
+    say("main.window_data", rows=rows, seed=seed, seconds=time.perf_counter() - t0)
+    for qname, builder in WINDOW_QUERIES:
+        dag, spec = getattr(tpch, builder)()
+        engine = TorchEngine(dev)
+        captured = out["captured"][qname] = {}
+        real_window, real_pack = wd.window, wd.pack_flat
+
+        def spy_window(*a, **kw):
+            captured["window"] = (a, {k: v for k, v in kw.items() if k != "phase"})
+            return real_window(*a, **kw)
+
+        def spy_pack(outs):
+            captured["pack_flat"] = outs
+            return real_pack(outs)
+
+        wd.window, wd.pack_flat = spy_window, spy_pack
+        try:
+            before = K.launches()
+            runs = []
+            for rep in range(reps + 1):  # the first run is cold: host prep + upload
+                timer = PhaseTimer(engine.device)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = run_window(dag, spec, batch, device=dev, engine=engine, timer=timer)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t, timer.totals_ms(), res))
+            after = K.launches()
+        finally:
+            wd.window, wd.pack_flat = real_window, real_pack
+        moved = {k: after[k] - before[k] for k in after}
+        idle = [k for k in WINDOW_NEEDS if moved[k] == 0]
+        if idle:
+            raise AssertionError(f"{qname}: kernels {idle} were never launched")
+        if any("prep" in r[1] for r in runs[1:]):
+            raise AssertionError(f"{qname}: a warm run missed the device-input cache")
+        t = time.perf_counter()
+        want = run_window(dag, spec, batch, device="cpu", mode="host")
+        host_s = time.perf_counter() - t
+        for i, (_, _, res) in enumerate(runs):
+            diff = chunks_equal(res, want)
+            if diff is not None:
+                raise AssertionError(f"{qname} run {i}: GPU answer differs from the host route's: {diff}\n"
+                                     f"gpu:  {res.slice(0, 3).to_pylist()}\nhost: {want.slice(0, 3).to_pylist()}")
+        if want.num_rows != rows or want.num_cols != len(spec[3]):
+            raise AssertionError(f"{qname}: {want.num_rows}x{want.num_cols} result")
+        warm = sorted(runs[1:], key=lambda x: x[0])
+        med = warm[len(warm) // 2]
+        prof = profiled_run(lambda: run_window(dag, spec, batch, device=dev, engine=engine), engine)
+        (words, _, wspec, _), _ = captured["window"]
+        out[qname] = {
+            "rows": rows, "P": words[0].numel(), "funcs": [f[0] for f in wspec[2]],
+            "cold_s": runs[0][0], "cold_phases_ms": runs[0][1],
+            "warm_median_s": med[0], "warm_s": [r[0] for r in runs[1:]], "rows_per_s": rows / med[0],
+            "phases_ms": med[1], "host_oracle_s": host_s,
+            "launches_per_run": {k: c / (reps + 1) for k, c in moved.items() if c},
+            "profiled_run": prof, "answer": want.slice(0, 3).to_pylist(), "card": card,
+        }
+        say(f"main.{qname}", **out[qname])
+
+
+def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int = 8_000_000) -> dict:
     import torch
 
     from tidb_tpu_torch import kernels as K
@@ -551,7 +801,7 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str) -> dict:
             raise AssertionError(f"{qname}: {want.num_rows} rows")
         warm = sorted(runs[1:], key=lambda x: x[0])
         med = warm[len(warm) // 2]
-        prof = profiled_run(dag, batch, dev, engine)
+        prof = profiled_run(lambda: run_query(dag, batch, device=dev, engine=engine), engine)
         out[qname] = {
             "rows": rows, "result_rows": want.num_rows, "cold_s": runs[0][0], "cold_phases_ms": runs[0][1],
             "warm_median_s": med[0], "warm_s": [r[0] for r in runs[1:]],
@@ -561,12 +811,13 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str) -> dict:
             "answer": want.slice(0, 6).to_pylist(), "card": card,
         }
         say(f"main.{qname}", **out[qname])
+    out["batch"] = batch
+    run_window_path(dev, win_rows, seed, reps, card, out)
     counts = K.launches()
     for name, c in counts.items():
         if c == 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")
     out["launches"] = counts
-    out["batch"] = batch
     return out
 
 
@@ -652,7 +903,9 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
     ]
     new, extra = measure_sort_kernels(main, max_err)
     say("measure", decode_lane=k1, decode_lane_dict=k1_dict, seg_agg=k4, **extra)
-    return entries + new
+    win, win_extra = measure_window_kernels(main, max_err)
+    say("measure.window", **win_extra)
+    return entries + new + win
 
 
 def _nbytes(*ts) -> int:
@@ -764,9 +1017,97 @@ def measure_sort_kernels(main: dict, max_err: dict):
             {"topk": k6, "topn_multi": k7, "lex_sort": k8, "sort_groups": k9, "seg_agg_segment_lane": k4s})
 
 
+def _lane_bytes(x) -> int:
+    from tidb_tpu_torch.expr.xp_torch import U64
+
+    return _nbytes(x.bits if isinstance(x, U64) else x)
+
+
+def window_kernel_split(args, kw) -> dict:
+    """Device ms per inner kernel of one W1 call (K8's included), from
+    torch.profiler's CUDA events, summed by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tidb_tpu_torch.kernels import window
+
+    window(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window(*args, **kw)
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"<.*|\(.*", "", e.name.replace("(anonymous namespace)::", "")).replace("void ", "")
+            split[name] = split.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def measure_window_kernels(main: dict, max_err: dict):
+    """W1 and W2 on each window query's own inputs: held once more to the
+    plain versions, then timed beside them with their bytes bound; W1 also
+    per inner kernel, and the nearest single PyTorch calls of its steps
+    (torch.cumsum for a prefix sum, torch.searchsorted for the RANGE
+    search, torch.cummax for the growing-frame max) on lanes of its size."""
+    import torch
+
+    from tidb_tpu_torch.kernels import pack_flat, pack_flat_ref, window, window_ref
+
+    bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    per_query = {}
+    for qname, _ in WINDOW_QUERIES:
+        cap = main["captured"][qname]
+        args, kw = cap["window"]
+        words, fargs, spec, rk = args
+        err = _same_outs(window(*args, **kw), window_ref(*args, **kw), f"window on {qname}")
+        max_err["window"] = max(max_err["window"], err)
+        outs = cap["pack_flat"]
+        _same(pack_flat(outs), pack_flat_ref(outs), f"pack_flat on {qname}")
+        P = words[0].numel()
+        w_in = sum(_nbytes(w) for w in words) + sum(_lane_bytes(d) + _nbytes(v) for fa in fargs for d, v in fa)
+        w_in += (_nbytes(rk[0], rk[1]) if rk is not None else 0)
+        w_out = sum(_lane_bytes(o) for o in outs)
+        flat = pack_flat(outs)
+        per_query[qname] = {
+            "P": P, "funcs": [f[0] for f in spec[2]],
+            "window": {"ms": time_ms(lambda: window(*args, **kw), 5),
+                       "plain_ms": time_ms(lambda: window_ref(*args, **kw), 2),
+                       "bytes": w_in + w_out, "split_ms": window_kernel_split(args, kw)},
+            "pack_flat": {"ms": time_ms(lambda: pack_flat(outs)), "plain_ms": time_ms(lambda: pack_flat_ref(outs), 3),
+                          "bytes": w_out + _nbytes(flat), "lanes": len(outs)},
+        }
+    # the nearest single PyTorch calls of W1's steps, on lanes of P rows
+    P = per_query["window_rank_frames"]["P"]
+    dev = main["captured"]["window_rank_frames"]["window"][0][0][0].device
+    lane = torch.randint(-1000, 1000, (P,), dtype=torch.int64, device=dev)
+    comp = torch.sort(lane).values
+    per_query["torch_calls"] = {
+        "P": P,
+        "cumsum_int64_ms": time_ms(lambda: torch.cumsum(lane, 0)),
+        "searchsorted_int64_ms": time_ms(lambda: torch.searchsorted(comp, comp - 7)),
+        "cummax_int64_ms": time_ms(lambda: torch.cummax(lane, 0)),
+    }
+    L = main["launches"]
+    rf = per_query["window_rank_frames"]
+    entries = [
+        {"name": "window", "route": "cuda", "source": "tidb_tpu_torch/csrc/window.cu",
+         "replaces": "tidb_tpu/executor/window_device.py:154", "launches": L["window"],
+         "max_abs_err": max_err["window"], "ms": rf["window"]["ms"], "plain_ms": rf["window"]["plain_ms"],
+         "bound_ms": bound(rf["window"]["bytes"]), "bound_by": "bytes", "library_ms": None},
+        {"name": "pack_flat", "route": "cuda", "source": "tidb_tpu_torch/csrc/pack_flat.cu",
+         "replaces": "tidb_tpu/jaxenv.py:104", "launches": L["pack_flat"],
+         "max_abs_err": max_err["pack_flat"], "ms": rf["pack_flat"]["ms"], "plain_ms": rf["pack_flat"]["plain_ms"],
+         "bound_ms": bound(rf["pack_flat"]["bytes"]), "bound_by": "bytes", "library_ms": None},
+    ]
+    return entries, per_query
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_000_000)
+    ap.add_argument("--win-rows", type=int, default=8_000_000)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
@@ -798,7 +1139,7 @@ def main(argv=None) -> int:
         rng = np.random.default_rng(args.seed)
         checked = check_kernels(dev, rng)
         say("kernels", **checked)
-        main_res = run_main_path(dev, args.rows, args.seed, args.reps, card)
+        main_res = run_main_path(dev, args.rows, args.seed, args.reps, card, args.win_rows)
         kernels = measure(dev, main_res, checked["max_abs_err"])
     except Exception as e:  # noqa: BLE001 — the script's boundary: report and fail
         import traceback

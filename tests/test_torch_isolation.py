@@ -29,8 +29,10 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_module_brings_in_neither_jax_nor_the_reference():
     mods = _modules()
     assert "tidb_tpu_torch.copr.gpu_engine" in mods and "tidb_tpu_torch.kernels.seg_agg" in mods
-    for k in ("lex_sort", "topk", "topn_multi", "sort_groups"):
+    for k in ("lex_sort", "topk", "topn_multi", "sort_groups", "window", "pack_flat"):
         assert f"tidb_tpu_torch.kernels.{k}" in mods
+    for m in ("executor.window_device", "executor.window"):
+        assert f"tidb_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"

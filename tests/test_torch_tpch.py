@@ -20,7 +20,7 @@ from tidb_tpu.session import Session
 
 from tidb_tpu_torch.chunk.chunk import Chunk
 from tidb_tpu_torch.copr.gpu_engine import TorchEngine
-from tidb_tpu_torch.entry import batch_from_numpy, run_query
+from tidb_tpu_torch.entry import batch_from_numpy, run_query, run_window
 from tidb_tpu_torch.models import tpch
 
 N = 20_000
@@ -149,3 +149,71 @@ def test_run_query_gives_the_reference_session_rows_on_the_sort_paths(ref_sessio
         assert sorted(res.to_pylist()) == sorted(want)
     assert engine.fallbacks == 0
     assert res.num_rows == len(want) > 0
+
+
+# --- the window slice: run_window against the reference Session --------------
+
+# query → (spec builder, the SELECT list as offsets of the scan + window columns)
+WINDOW_QUERIES = {"WINDOW_SUM_PARTITION": ("window_sum_partition_spec", [13]),
+                  "WINDOW_RANK_FRAMES": ("window_rank_frames_spec", [0, 13, 14, 15, 16, 17])}
+
+
+def _capture_window(s, sql, monkeypatch):
+    """The reference's WindowExec for `sql` (its plan's spec, its child's
+    pushed DAG, the engine it ran on) and the Session's rows, under
+    tidb_cop_engine='tpu'."""
+    from tidb_tpu.executor import executors as ref_ex
+
+    seen = []
+    orig = ref_ex.WindowExec.next
+
+    def spy(self):
+        out = orig(self)
+        if out is not None:
+            seen.append(dict(part_by=self.part_by, order_by=self.order_by, funcs=self.funcs,
+                             out_fts=self.out_fts, dag=self.child.dag, engine=self.last_engine))
+        return out
+
+    prev = s.vars.get("tidb_cop_engine")
+    s.vars["tidb_cop_engine"] = "tpu"
+    monkeypatch.setattr(ref_ex.WindowExec, "next", spy)
+    try:
+        rows = s.execute(sql).rows()
+    finally:
+        monkeypatch.undo()
+        s.vars["tidb_cop_engine"] = prev
+    return seen, rows
+
+
+@pytest.mark.parametrize("q", sorted(WINDOW_QUERIES))
+def test_port_builds_the_window_spec_the_planner_builds(ref_session, q, monkeypatch):
+    seen, _ = _capture_window(ref_session, getattr(tpch, q), monkeypatch)
+    assert len(seen) == 1 and seen[0]["engine"] == "tpu"
+    ref = seen[0]
+    dag, (part_by, order_by, funcs, out_fts) = getattr(tpch, WINDOW_QUERIES[q][0])()
+    assert repr(part_by) == repr(ref["part_by"])
+    assert repr(order_by) == repr(ref["order_by"])
+    assert repr(funcs) == repr(ref["funcs"])
+    assert [(f.ret_type.tp, f.ret_type.decimal, f.ret_type.flen, f.ret_type.flag) for f in funcs] == \
+        [(f.ret_type.tp, f.ret_type.decimal, f.ret_type.flen, f.ret_type.flag) for f in ref["funcs"]]
+    assert [(ft.tp, ft.decimal, ft.flag) for ft in out_fts] == [(ft.tp, ft.decimal, ft.flag) for ft in ref["out_fts"]]
+    assert dag.scan.col_offsets == ref["dag"].scan.col_offsets
+    assert dag.selection is None and ref["dag"].selection is None and ref["dag"].agg is None
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+@pytest.mark.parametrize("q", sorted(WINDOW_QUERIES))
+def test_run_window_gives_the_reference_session_rows(ref_session, q, compress, monkeypatch):
+    seen, want = _capture_window(ref_session, getattr(tpch, q), monkeypatch)
+    assert seen[0]["engine"] == "tpu"  # the reference answered on its device path
+    builder, cols = WINDOW_QUERIES[q]
+    dag, spec = getattr(tpch, builder)()
+    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(N))
+    engine = TorchEngine(device="cpu")
+    engine.tile_compression = compress
+    res = run_window(dag, spec, batch, device="cpu", engine=engine)
+    got = Chunk([res.columns[i] for i in cols]).to_pylist()
+    assert got == want  # every row, in scan order
+    assert len(got) == N and engine.fallbacks == 0
+    host = run_window(dag, spec, batch, device="cpu", mode="host")
+    assert Chunk([host.columns[i] for i in cols]).to_pylist() == want

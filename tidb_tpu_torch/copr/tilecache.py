@@ -10,7 +10,8 @@ storage) is not ported: the port's callers hand it a ColumnBatch directly
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import itertools
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -18,9 +19,14 @@ from ..chunk.chunk import Chunk, Column
 from ..catalog.schema import TableInfo
 
 
+_BATCH_UIDS = itertools.count(1)
+
+
 @dataclass
 class ColumnBatch:
-    """All rows of one (table, region) decoded into dense numpy columns."""
+    """All rows of one (table, region) decoded into dense numpy columns.
+    `uid` tells two batches apart whatever their version (the window
+    path's device-input cache keys on it)."""
 
     table: TableInfo
     handles: np.ndarray  # int64 row handles
@@ -30,6 +36,7 @@ class ColumnBatch:
     start: bytes = b""
     end: bytes = b""
     min_valid_ts: int = 0  # last table-commit ts at build time
+    uid: int = field(default_factory=lambda: next(_BATCH_UIDS), compare=False)
 
     @property
     def n_rows(self) -> int:

@@ -8,9 +8,18 @@
   aggregation the final merge of the partial chunk, ORDER BY the group
   keys; for a TopN the partial rows ordered by the TopN keys, first n
   kept (the reference's TopNExec).
+* `run_window(scan_dag, spec, batch, device="cuda", mode="tpu")`: the
+  scan through the GPU cop engine, then the port's WindowExec over its
+  rows → the scan columns plus one column per window function, in scan
+  row order (the reference's WindowExec.next over a TableReaderExec).
+  `mode` is the WindowExec engine: 'tpu' runs W1 + W2 on `device` and
+  raises on a device error; 'host' is the host oracle.
 """
 
 from __future__ import annotations
+
+import hashlib
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -20,6 +29,7 @@ from .copr.dag import DAGRequest
 from .copr.gpu_engine import TorchEngine
 from .copr.tilecache import ColumnBatch
 from .executor.final_agg import merge_partials, order_by_keys, top_n
+from .executor.window import WindowExec
 
 
 def batch_from_numpy(table: TableInfo, columns: dict[str, np.ndarray],
@@ -63,3 +73,23 @@ def run_query(dag: DAGRequest, batch: ColumnBatch, device="cuda",
     with engine.phase("finalize"):
         final = merge_partials([partial], dag.agg.group_by, dag.agg.aggs, out_fts)
         return order_by_keys(final, dag.agg.group_by)
+
+
+def run_window(scan_dag: DAGRequest, spec, batch: ColumnBatch, device="cuda",
+               engine: TorchEngine | None = None, mode: str = "tpu", timer=None) -> Chunk:
+    """One window spec (part_by, order_by, funcs, out_fts) over the rows
+    `scan_dag` reads from one region batch. `timer` (a
+    torchenv.PhaseTimer) takes the scan / prep / h2d / sort / window /
+    pack / d2h / finalize spans."""
+    part_by, order_by, funcs, out_fts = spec
+    engine = engine or TorchEngine(device)
+    with timer.phase("scan") if timer is not None else nullcontext():
+        chunk = engine.execute(scan_dag, batch)
+    prov = None
+    if scan_dag.agg is None and scan_dag.topn is None and scan_dag.limit is None:
+        # the same rows every run: a plain scan of an unchanged batch
+        digest = repr((part_by, order_by, [(f.name, f.args, f.frame) for f in funcs], scan_dag.digest()))
+        prov = (batch.table.id, batch.version, batch.uid, hashlib.sha256(digest.encode()).hexdigest()[:16])
+    w = WindowExec(chunk, part_by, order_by, funcs, out_fts, engine=mode, device=engine.device,
+                   provenance=prov, phase=timer.phase if timer is not None else None)
+    return w.next()

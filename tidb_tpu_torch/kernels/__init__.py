@@ -8,6 +8,9 @@ and launch counters.
   K7 topn_multi_ops  (csrc/topn_multi.cu)  ← tpu_engine.py:1812-1828 _lower_topn_multi
   K8 lex_sort_perm   (csrc/lex_sort.cu)    ← tpu_engine.py:195-208 lex_sort_perm
   K9 sort_groups     (csrc/sort_groups.cu) ← tpu_engine.py:1351-1400 _lower_agg_sorted
+  W1 window          (csrc/window.cu)      ← executor/window_device.py:154-442
+                                             _build_kernel.kernel (sorts with K8)
+  W2 pack_flat       (csrc/pack_flat.cu)   ← jaxenv.py:104-138 pack_flat
 
 Each wrapper runs its plain version for CPU tensors only; on a CUDA
 tensor it launches its kernel (built at first use, kernels/build.py) or
@@ -16,13 +19,16 @@ raises. `<wrapper>.launches` counts kernel launches.
 
 from .decode_lane import decode_lane, decode_lane_ref
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
+from .pack_flat import pack_flat, pack_flat_ref
 from .seg_agg import SegKey, SegLane, seg_agg, seg_agg_ref
 from .sort_groups import sort_groups, sort_groups_ref
 from .topk import topk, topk_ref
 from .topn_multi import topn_multi_ops, topn_multi_ops_ref
+from .window import window, window_ref
 
 WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
-            "topn_multi": topn_multi_ops, "lex_sort": lex_sort_perm, "sort_groups": sort_groups}
+            "topn_multi": topn_multi_ops, "lex_sort": lex_sort_perm, "sort_groups": sort_groups,
+            "window": window, "pack_flat": pack_flat}
 
 
 def reset_launches() -> None:

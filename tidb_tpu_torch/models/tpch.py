@@ -12,7 +12,13 @@
   l_linenumber selected: the reference planner pushes a TopN only when
   every sort key is a column of the projection below the Sort);
 * `q18_inner_dag`: the aggregation pushed for Q18_INNER, the subquery of
-  TPC-H Q18 (spec 2.4.18; its HAVING runs above the cop).
+  TPC-H Q18 (spec 2.4.18; its HAVING runs above the cop);
+* `window_sum_partition_spec` / `window_rank_frames_spec`: for
+  WINDOW_SUM_PARTITION (bench.py's window_sum_partition SQL) and
+  WINDOW_RANK_FRAMES (rankings, the previous row, a moving max and a
+  value-range sum per supplier), the scan DAG under the window and the
+  window spec (part_by, order_by, funcs, out_fts) the reference planner
+  builds for the same SQL (its Window plan over a full lineitem scan).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import numpy as np
 
 from ..catalog.schema import ColumnInfo, TableInfo
 from ..copr.dag import AggNode, DAGRequest, ScanNode, SelectionNode, TopNNode
-from ..expr.aggregation import AggDesc
+from ..expr.aggregation import AggDesc, Frame, WinDesc, agg_ret_type
 from ..expr.expression import Column, Constant, make_func
 from ..mysqltypes.coretime import parse_datetime
 from ..mysqltypes.datum import Datum
@@ -54,6 +60,19 @@ MULTIKEY_TOPN = """SELECT l_orderkey, l_extendedprice, l_linenumber FROM lineite
 ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber LIMIT 50"""
 
 Q18_INNER = "SELECT l_orderkey, SUM(l_quantity) FROM lineitem GROUP BY l_orderkey"
+
+WINDOW_SUM_PARTITION = """SELECT SUM(l_quantity) OVER (PARTITION BY l_returnflag, l_linestatus
+  ORDER BY l_shipdate, l_orderkey, l_linenumber) FROM lineitem"""
+
+WINDOW_RANK_FRAMES = """SELECT l_orderkey,
+  ROW_NUMBER() OVER (PARTITION BY l_suppkey ORDER BY l_orderkey),
+  RANK() OVER (PARTITION BY l_suppkey ORDER BY l_orderkey),
+  LAG(l_extendedprice) OVER (PARTITION BY l_suppkey ORDER BY l_orderkey),
+  MAX(l_extendedprice) OVER (PARTITION BY l_suppkey ORDER BY l_orderkey
+                             ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING),
+  SUM(l_quantity) OVER (PARTITION BY l_suppkey ORDER BY l_orderkey
+                        RANGE BETWEEN 1000 PRECEDING AND CURRENT ROW)
+FROM lineitem"""
 
 
 def _nn(tp: TypeCode, **kw) -> FieldType:
@@ -190,3 +209,32 @@ def multikey_topn_dag() -> DAGRequest:
 def q18_inner_dag() -> DAGRequest:
     return DAGRequest(scan=_scan(), agg=AggNode([_col("l_orderkey")],
                                                 [AggDesc.make("sum", [_col("l_quantity")])]))
+
+
+def _window(part, order, funcs):
+    out_fts = [c.ft for c in LINEITEM.visible_columns()] + [f.ret_type for f in funcs]
+    return DAGRequest(scan=_scan()), (part, order, funcs, out_fts)
+
+
+def window_sum_partition_spec():
+    """(scan DAG, (part_by, order_by, funcs, out_fts)) of WINDOW_SUM_PARTITION."""
+    part = [_col("l_returnflag"), _col("l_linestatus")]
+    order = [(_col("l_shipdate"), False), (_col("l_orderkey"), False), (_col("l_linenumber"), False)]
+    qty = _col("l_quantity")
+    return _window(part, order, [WinDesc("sum", [qty], part, order, agg_ret_type("sum", qty.ret_type))])
+
+
+def window_rank_frames_spec():
+    """(scan DAG, (part_by, order_by, funcs, out_fts)) of WINDOW_RANK_FRAMES."""
+    part = [_col("l_suppkey")]
+    order = [(_col("l_orderkey"), False)]
+    price, qty = _col("l_extendedprice"), _col("l_quantity")
+    funcs = [
+        WinDesc("row_number", [], part, order, ft_longlong()),
+        WinDesc("rank", [], part, order, ft_longlong()),
+        WinDesc("lag", [price], part, order, price.ret_type.clone()),
+        WinDesc("max", [price], part, order, price.ret_type.clone(), Frame("rows", "pre", 3, "fol", 3)),
+        WinDesc("sum", [qty], part, order, agg_ret_type("sum", qty.ret_type),
+                Frame("range", "pre", 1000, "cur", 0)),
+    ]
+    return _window(part, order, funcs)

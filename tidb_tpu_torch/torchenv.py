@@ -10,13 +10,20 @@
   fetch over its device tunnel paid a round-trip (jaxenv.py:38-48). The
   port's aggregation kernel writes its two packed matrices directly
   (kernels/seg_agg.py), so `pack_rows`/`unpack_rows` have no twin here.
+  The window path keeps the variable-length packer: W2
+  (kernels/pack_flat.py) packs on the card, `unpack_flat` below is its
+  host half (a numpy copy of jaxenv.py:141-166).
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
+
+# in-band segment kinds of a pack_flat buffer (jaxenv.py:47)
+_KIND_I64, _KIND_F64, _KIND_BOOL, _KIND_U64 = 0, 1, 2, 3
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -82,3 +89,32 @@ class _Phase:
             b = time.perf_counter()
         self.t._events.append((self.name, self.a, b))
         return False
+
+
+def unpack_flat(flat: np.ndarray) -> list[np.ndarray]:
+    """Inverse of pack_flat over the fetched int64 numpy vector
+    [n, kind0, len0, ... | seg0 | seg1 | ...]: int64, float64 (bit view),
+    uint64 (bit view) and bool segments (64 rows a word, bit j of word w is
+    row 64·w + j)."""
+    n = int(flat[0])
+    pos = 1 + 2 * n
+    out = []
+    for i in range(n):
+        kind = int(flat[1 + 2 * i])
+        L = int(flat[2 + 2 * i])
+        if kind == _KIND_BOOL:
+            W = -(-L // 64)
+            words = flat[pos: pos + W].view(np.uint64)
+            bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+            out.append(bits[:L].astype(bool))
+            pos += W
+        else:
+            seg = flat[pos: pos + L]
+            if kind == _KIND_F64:
+                out.append(seg.view(np.float64))
+            elif kind == _KIND_U64:
+                out.append(seg.view(np.uint64))
+            else:
+                out.append(seg)
+            pos += L
+    return out
