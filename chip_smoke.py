@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tidb_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--rows 16000000] [--win-rows 8000000] [--seed 42] [--reps 3]
+    python3 chip_smoke.py [--rows 16000000] [--win-rows 8000000] [--q3-rows 4000000]
+                          [--seed 42] [--reps 3]
 
 Phases, one line each; any failure exits non-zero and prints no result:
 
@@ -25,9 +26,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
               empty frames), uint64 and float arguments with NaN and
               ±0.0, an overflowing int64 sum, P = 1024 with n = 1 and
               P = 2^23; W2 pack_flat over every lane kind and bool
-              lengths that are not a multiple of 64. Integers, row ids and
+              lengths that are not a multiple of 64; P3 lut_join with
+              NULL and out-of-domain probe keys, absent LUT slots, a
+              two-key LUT and a build mask that drops rows; P7 run_agg
+              with an int64 lane whose prefix overflows, float lanes, one
+              giant run, a pad tail and ascending order; P9 block_topk
+              with ties, ±0.0, NaN, fewer scores than k, n not a multiple
+              of 1024 and n = 2^22. Integers, row ids and
               group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
-              (bench.py's own check); all cases run, failures are raised
+              (bench.py's own check; P7's float totals at run starts, the
+              rows P9 can pick); all cases run, failures are raised
               together;
  4. main path — generates lineitem (--rows, seed --seed) with the port's
               generator and runs through run_query on "cuda": TPC-H Q1
@@ -47,7 +55,15 @@ Phases, one line each; any failure exits non-zero and prints no result:
               exactly, in row order, to the port's host route
               (mode="host"), with the scan / prep / h2d / sort / window /
               pack / d2h / finalize split and one profiled run's idle
-              share;
+              share; then TPC-H Q3 and Q10 through run_mpp on "cuda"
+              over lineitem at --q3-rows (bench.py's BENCH_Q3_ROWS),
+              orders = rows/4, customers = orders/10 (tpch's
+              generated_columns, seed --seed): one cold run (host prep +
+              h2d) and --reps warm runs (which must upload nothing), each
+              answer equal in order to the port's engine on the CPU (the
+              plain versions) and to a numpy oracle of the query, with
+              the scan / lut_join / run_agg / topk / d2h / finalize split
+              and one profiled run's idle share;
  5. measure — each kernel on the main path's own inputs: held once more to
               its plain version, then timed beside it, its bytes bound and
               the nearest single PyTorch call where there is one (W1 also
@@ -461,6 +477,232 @@ def pack_cases(dev, rng):
     return cases
 
 
+# --- the MPP kernels' batteries (P3, P7, P9): numpy, so the CPU tests hold
+# the same inputs to the reference --------------------------------------
+
+
+def lut_battery(rng, n: int, B: int, sizes) -> dict:
+    """P3 inputs: probe keys with NULLs and values outside the build domain
+    on both sides, a LUT with absent slots, a build mask that drops rows,
+    build lanes of every 8-byte kind (int64 extremes, float64 with NaN and
+    -0.0) with NULLs."""
+    import numpy as np
+
+    lo = [int(rng.integers(-50, 50)) for _ in sizes]
+    stride, acc = [1] * len(sizes), 1
+    for i in range(len(sizes) - 1, -1, -1):
+        stride[i] = acc
+        acc *= sizes[i]
+    dom = acc
+    lut = np.full(dom, -1, dtype=np.int32)
+    m = max(min(B, dom) * 2 // 3, 1)
+    lut[rng.choice(dom, m, replace=False)] = rng.choice(B, m, replace=False).astype(np.int32)
+    keys = []
+    for l, sz in zip(lo, sizes):
+        v = rng.random(n) > 0.1
+        d = np.where(v, rng.integers(l - 3, l + sz + 3, n), 0).astype(np.int64)
+        keys.append((d, v))
+    f = rng.standard_normal(B) * 1e3
+    f[rng.random(B) < 0.05] = np.nan
+    f[rng.random(B) < 0.05] = -0.0
+    big = rng.integers(-(1 << 63), (1 << 63) - 1, B, dtype=np.int64)
+    gathers = [(big, rng.random(B) > 0.1), (f, rng.random(B) > 0.1), (rng.integers(0, 7, B), np.ones(B, bool))]
+    return {"keys": keys, "lo": lo, "size": list(sizes), "stride": stride, "pmask": rng.random(n) > 0.05,
+            "lut": lut, "bmask": rng.random(B) > 0.2, "brow": rng.integers(0, 1 << 40, B), "gathers": gathers}
+
+
+LUT_SHAPES = ((1, 1, (1,)), (1000, 777, (1500,)), (1000, 777, (50, 40)), (100_003, 50_000, (75_000,)),
+              (100_003, 50_000, (300, 250)))
+
+
+def run_battery(rng, L: int, case: str) -> dict:
+    """P7 inputs over a key-sorted stream: runs of 1..8 rows, masked rows
+    and all-masked runs, an int64 lane whose prefix overflows (values
+    ±(2^62 + x)), a float lane with -0.0, a count lane and the build
+    row-id lane (constant over a run's matched rows). `case`: 'runs',
+    'giant_run' (one run holds 90% of the stream), 'pad_tail' (the last
+    30% are pad rows: key 0, masked), 'asc' (ascending ORDER BY on the
+    float lane)."""
+    import numpy as np
+
+    if case == "giant_run":
+        kd = np.sort(np.where(rng.random(L) < 0.9, 1000, rng.integers(1, 2000, L))).astype(np.int64)
+    else:
+        kd = np.cumsum(rng.random(L) < 0.3).astype(np.int64) + 1
+    mask = rng.random(L) > 0.2
+    if case == "pad_tail":
+        pad = L - int(L * 0.7)
+        kd[L - pad:] = 0
+        mask[L - pad:] = False
+    runid = np.cumsum(np.concatenate([[True], kd[1:] != kd[:-1]])) - 1
+    big = np.where(rng.random(L) < 0.5, 1, -1) * ((1 << 62) + rng.integers(0, 1 << 40, L))
+    f = np.round(rng.random(L) * 1e5, 2)
+    f[rng.random(L) < 0.05] = -0.0
+    vi, vf = rng.random(L) > 0.1, rng.random(L) > 0.1
+    rid = np.where(mask, runid * 3 + 7, -1).astype(np.int64)
+    lanes = [(big.astype(np.int64), vi), (None, vi), (f, vf), (None, vf), (None, None), (rid, None)]
+    score = 2 if case == "asc" else 0
+    return {"kd": kd, "mask": mask, "lanes": lanes, "cnt_lane": 4, "rid_lane": 5, "score_lane": score,
+            "desc": case != "asc"}
+
+
+RUN_SHAPES = ((1, "runs"), (1000, "runs"), (4096, "runs"), (100_003, "runs"), (300_000, "giant_run"),
+              (65_536, "pad_tail"), (100_003, "asc"))
+
+
+def topk_battery(rng, n: int, case: str):
+    """P9 score lanes: 'ties' (ints from a small range), 'zeros' (±0.0),
+    'nan' (NaN and -NaN among floats), 'few' (fewer scores above the
+    floor than k: the rest -inf), 'few_int' (the rest -INT64_MAX, as
+    _topk_score's invalid slots, and some INT64_MIN), 'floats'."""
+    import numpy as np
+
+    if case == "ties":
+        return rng.integers(-5, 5, n).astype(np.int64)
+    if case == "few_int":
+        v = np.full(n, -((1 << 63) - 1), dtype=np.int64)
+        v[rng.choice(n, min(n, 3), replace=False)] = rng.integers(0, 100, min(n, 3))
+        v[rng.random(n) < 0.01] = -(1 << 63)
+        return v
+    v = rng.standard_normal(n) * 100
+    if case == "zeros":
+        v = np.where(rng.random(n) < 0.5, 0.0, -0.0)
+        v[rng.random(n) < 0.01] = 1.0
+    elif case == "nan":
+        v[rng.random(n) < 0.002] = np.nan
+        v[rng.random(n) < 0.002] = -np.nan
+    elif case == "few":
+        keep = rng.random(n) < 3 / max(n, 1)
+        v = np.where(keep, v, -np.inf)
+    return v
+
+
+TOPK_SHAPES = ((1, 1, "floats"), (5000, 16, "ties"), (5000, 16, "zeros"), (5000, 16, "nan"), (5000, 16, "few"),
+               (5000, 16, "few_int"), (3 * 1024 + 17, 70, "floats"), (3 * 1024 + 17, 70, "ties"),
+               (4_194_304, 10, "floats"), (4_194_304, 64, "ties"))
+
+
+def p3_args(b: dict, dev):
+    """lut_join's positional arguments on `dev` from a lut_battery."""
+    import torch
+
+    def t(a):
+        import numpy as np
+
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return ([(t(d), t(v)) for d, v in b["keys"]], b["lo"], b["size"], b["stride"], t(b["pmask"]), t(b["lut"]),
+            t(b["bmask"]), t(b["brow"]), [(t(d), t(v)) for d, v in b["gathers"]])
+
+
+def p7_args(b: dict, dev):
+    """run_agg's positional arguments on `dev` from a run_battery."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (t(b["kd"]), t(b["mask"]), [(t(d), t(v)) for d, v in b["lanes"]], b["cnt_lane"], b["rid_lane"],
+            b["score_lane"], b["desc"])
+
+
+def same_lut_join(got, want, what: str) -> float:
+    """P3 outputs: match, row ids and gathered lanes bit for bit (float
+    lanes compared as their bits: a gather moves words)."""
+    import torch
+
+    _same(got[0], want[0], f"{what} match")
+    _same(got[1], want[1], f"{what} rowid")
+    for j, ((gd, gv), (wd, wv)) in enumerate(zip(got[2], want[2])):
+        bits = (lambda x: x.view(torch.int64)) if gd.dtype == torch.float64 else (lambda x: x)
+        _same(bits(gd), bits(wd), f"{what} lane {j} data")
+        _same(gv, wv, f"{what} lane {j} valid")
+    return 0.0
+
+
+def same_run_agg(got, want, kd, what: str) -> float:
+    """P7 outputs: integer totals, group rows, validity and integer scores
+    bit for bit at every row; float totals and scores within tolerance at
+    the run starts, the only rows P9 can pick as valid. (At a run's
+    interior rows the reference's prefix difference of a float lane
+    strays from the exact suffix sum by more than the tolerance once the
+    prefix is large: ROADMAP Queue 3.)"""
+    import torch
+
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=kd.device), kd[1:] != kd[:-1]])
+    err = 0.0
+    for j, (g, w) in enumerate(zip(got[0], want[0])):
+        if g.is_floating_point():
+            err = max(err, _same(g[first], w[first], f"{what} lane {j} at run starts", floats=True))
+        else:
+            _same(g, w, f"{what} lane {j}")
+    _same(got[1], want[1], f"{what} gpos")
+    _same(got[2], want[2], f"{what} valid")
+    return max(err, _same(got[3], want[3], f"{what} score", floats=got[3].is_floating_point()))
+
+
+def same_block_topk(got, want, v, what: str) -> float:
+    """P9 picks: the same slots valid (score above the floor), and there
+    the same positions and scores; past the last valid pick the reference
+    may repeat a position."""
+    import torch
+
+    floor = float("-inf") if v.dtype == torch.float64 else -(1 << 63)
+    gv, wv = got[0] > floor, want[0] > floor
+    _same(gv, wv, f"{what} valid slots")
+    _same(got[1][gv], want[1][wv], f"{what} positions")
+    g, w = got[0][gv], want[0][wv]
+    bits = (lambda x: x.view(torch.int64)) if v.dtype == torch.float64 else (lambda x: x)
+    # -0.0 ties +0.0: the same position, so the same bits
+    _same(bits(g), bits(w), f"{what} scores")
+    return 0.0
+
+
+def same_emit(got_rows, want_rows, what: str) -> None:
+    """P9's result rows: group row and valid row everywhere, the lanes at
+    the valid slots."""
+    _same(got_rows[:2], want_rows[:2], f"{what} group/valid rows")
+    ok = want_rows[1] != 0
+    _same(got_rows[2:, ok], want_rows[2:, ok], f"{what} lanes at valid picks")
+
+
+def mpp_kernel_cases(dev, rng):
+    """(name, fn) of every P3 / P7 / P9 case: kernel against plain version."""
+    import torch
+
+    from tidb_tpu_torch.kernels import block_topk, block_topk_ref, lut_join, lut_join_ref, run_agg, run_agg_ref
+    from tidb_tpu_torch.kernels.block_topk import Emit
+
+    cases = []
+    for n, B, sizes in LUT_SHAPES:
+        args = p3_args(lut_battery(rng, n, B, sizes), dev)
+        cases.append((f"lut_join n={n} B={B} sizes={sizes}",
+                      lambda args=args: same_lut_join(lut_join(*args), lut_join_ref(*args), "lut_join")))
+    for L, case in RUN_SHAPES:
+        args = p7_args(run_battery(rng, L, case), dev)
+        cases.append((f"run_agg L={L} {case}",
+                      lambda args=args: same_run_agg(run_agg(*args), run_agg_ref(*args), args[0], "run_agg")))
+    for n, k, case in TOPK_SHAPES:
+        v = torch.from_numpy(topk_battery(rng, n, case)).to(dev)
+        valid = torch.from_numpy(rng.random(n) > 0.3).to(dev)
+        gpos = torch.from_numpy(rng.integers(0, 1 << 30, n)).to(dev)
+        lanes = [torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n)).to(dev),
+                 torch.from_numpy(rng.standard_normal(n)).to(dev)]
+
+        def p9(v=v, k=k, valid=valid, gpos=gpos, lanes=lanes, case=case):
+            rows = [torch.zeros((4, k + 3), dtype=torch.int64, device=v.device) for _ in range(2)]
+            got = block_topk(v, k, Emit(rows[0], valid, gpos, lanes))
+            want = block_topk_ref(v, k)
+            from tidb_tpu_torch.kernels.block_topk import emit_ref
+
+            emit_ref(*want, v, Emit(rows[1], valid, gpos, lanes))
+            same_emit(rows[0], rows[1], f"block_topk {case}")
+            return same_block_topk(got, want, v, f"block_topk {case}")
+        cases.append((f"block_topk n={n} k={k} {case}", p9))
+    return cases
+
+
 def check_kernels(dev, rng) -> dict:
     """Every kernel against its plain version on the same tensors. All
     cases run; the failures are raised together at the end."""
@@ -549,6 +791,8 @@ def check_kernels(dev, rng) -> dict:
     for cname, lanes in pack_cases(dev, rng):
         case(f"pack_flat {cname}", lambda lanes=lanes, cname=cname: _same(
             pack_flat(lanes), pack_flat_ref(lanes), cname))
+    for cname, fn in mpp_kernel_cases(dev, rng):
+        case(cname, fn)
     if errors:
         raise AssertionError(f"{len(errors)} of {ncase} kernel cases failed:\n" + "\n".join(errors))
     launched = K.launches()
@@ -752,7 +996,203 @@ def run_window_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) 
         say(f"main.{qname}", **out[qname])
 
 
-def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int = 8_000_000) -> dict:
+# (query, plan builder of models/tpch.py, kernels its runs must launch)
+MPP_QUERIES = (("q3_mpp", "q3_mpp_plan", ("lut_join", "run_agg", "block_topk")),
+               ("q10_mpp", "q10_mpp_plan", ("lut_join",)))
+
+
+def mpp_oracle(qname: str, li: dict, orders: dict, cust: dict) -> list[tuple]:
+    """TPC-H Q3 / Q10 in plain numpy over the generated columns: dense key
+    arrays for the joins (o_orderkey and c_custkey are 1..n), exact
+    integer decimals (price scale 2 times (1 - discount) scale 2 →
+    revenue scale 4), np.add.reduceat per order or customer, then the
+    ORDER BY and LIMIT (ties, which these data do not hold at the cut,
+    by the group key ascending). Rows as raw lane values."""
+    import numpy as np
+
+    from tidb_tpu_torch.mysqltypes.coretime import parse_datetime
+
+    day = parse_datetime("1995-03-15")
+    rev = li["l_extendedprice"] * (100 - li["l_discount"])
+    if qname == "q3_mpp":
+        cust_ok = np.zeros(len(cust["c_custkey"]) + 1, dtype=bool)
+        cust_ok[cust["c_custkey"]] = cust["c_mktsegment"] == "BUILDING"
+        order_ok = np.zeros(len(orders["o_orderkey"]) + 1, dtype=bool)
+        order_ok[orders["o_orderkey"]] = (orders["o_orderdate"] < day) & cust_ok[orders["o_custkey"]]
+        sel = np.nonzero((li["l_shipdate"] > day) & order_ok[li["l_orderkey"]])[0]
+        ok = li["l_orderkey"][sel]  # lineitem is sorted by l_orderkey
+        starts = np.nonzero(np.concatenate([[True], ok[1:] != ok[:-1]]))[0]
+        keys, sums = ok[starts], np.add.reduceat(rev[sel], starts)
+        top = np.lexsort((keys, -sums))[:10]
+        return [(int(k), int(s), int(orders["o_orderdate"][k - 1])) for k, s in zip(keys[top], sums[top])]
+    sel = np.nonzero(li["l_returnflag"] == "R")[0]
+    ck = orders["o_custkey"][li["l_orderkey"][sel] - 1]
+    order = np.argsort(ck, kind="stable")
+    ck = ck[order]
+    starts = np.nonzero(np.concatenate([[True], ck[1:] != ck[:-1]]))[0]
+    keys, sums = ck[starts], np.add.reduceat(rev[sel][order], starts)
+    top = np.lexsort((keys, -sums))[:20]
+    return [(int(k), cust["c_name"][k - 1], int(s)) for k, s in zip(keys[top], sums[top])]
+
+
+def chunk_rows(chunk) -> list[tuple]:
+    return [tuple(c.data[i] if c.data.dtype == object else int(c.data[i]) for c in chunk.columns)
+            for i in range(chunk.num_rows)]
+
+
+def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> None:
+    """Q3 and Q10 through run_mpp on the card at `rows` lineitem rows (with
+    orders = rows/4 and customers = orders/10): one cold run and `reps`
+    warm runs each, every answer equal, in order, to the port's engine on
+    the CPU (the plain versions) and to a numpy oracle; each query's
+    kernel counters must move. The kernels' inputs of each query's last
+    run land in out["captured"][query]."""
+    import torch
+
+    from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.entry import run_mpp
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.parallel import mpp_program as mp
+    from tidb_tpu_torch.parallel.mpp import MPPEngine
+    from tidb_tpu_torch.torchenv import PhaseTimer
+
+    t0 = time.perf_counter()
+    li, orders, cust = tpch.generated_columns(rows, seed)
+    tables = {"lineitem": li, "orders": orders, "customer": cust}
+    say("main.mpp_data", rows=rows, orders=len(orders["o_orderkey"]), customers=len(cust["c_custkey"]),
+        seed=seed, seconds=time.perf_counter() - t0)
+    for qname, builder, needs in MPP_QUERIES:
+        plan = getattr(tpch, builder)()
+        engine = MPPEngine(dev)
+        captured = out["captured"][qname] = {"lut_join": []}
+        real = {"lut_join": mp.lut_join, "run_agg": mp.run_agg, "block_topk": mp.block_topk}
+
+        def spy_lut(*a, **kw):
+            captured["lut_join"].append(a)
+            return real["lut_join"](*a, **kw)
+
+        def spy_run(*a, **kw):
+            captured["run_agg"] = a
+            return real["run_agg"](*a, **kw)
+
+        def spy_topk(*a, **kw):
+            captured["block_topk"] = a
+            return real["block_topk"](*a, **kw)
+
+        mp.lut_join, mp.run_agg, mp.block_topk = spy_lut, spy_run, spy_topk
+        try:
+            before = K.launches()
+            runs = []
+            for rep in range(reps + 1):  # the first run is cold: host prep + uploads
+                captured["lut_join"].clear()
+                timer = PhaseTimer(engine.device)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = run_mpp(plan, tables, device=dev, engine=engine, timer=timer)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t, timer.totals_ms(),
+                             dict(engine.last_host_s, h2d_bytes=engine.last_h2d_bytes), res))
+            after = K.launches()
+        finally:
+            mp.lut_join, mp.run_agg, mp.block_topk = real["lut_join"], real["run_agg"], real["block_topk"]
+        moved = {k: after[k] - before[k] for k in after}
+        idle = [k for k in needs if moved[k] == 0]
+        if idle:
+            raise AssertionError(f"{qname}: kernels {idle} were never launched")
+        if engine.fallbacks or engine.last_fuse_outcome != "fused":
+            raise AssertionError(f"{qname}: outcome {engine.last_fuse_outcome}, fallbacks {engine.fallback_counts}")
+        if any(r[2]["h2d_bytes"] for r in runs[1:]):
+            raise AssertionError(f"{qname}: a warm run uploaded lanes ({[r[2] for r in runs]})")
+        t = time.perf_counter()
+        cpu = run_mpp(plan, tables, device="cpu")
+        cpu_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = mpp_oracle(qname, li, orders, cust)
+        oracle_s = time.perf_counter() - t
+        if chunk_rows(cpu) != want:
+            raise AssertionError(f"{qname}: the CPU engine differs from the numpy oracle\n"
+                                 f"cpu:    {chunk_rows(cpu)[:3]}\noracle: {want[:3]}")
+        for i, (_, _, _, res) in enumerate(runs):
+            diff = chunks_equal(res, cpu)
+            if diff is not None:
+                raise AssertionError(f"{qname} run {i}: GPU answer differs from the CPU engine's: {diff}\n"
+                                     f"gpu: {chunk_rows(res)[:3]}\ncpu: {chunk_rows(cpu)[:3]}")
+        warm = sorted(runs[1:], key=lambda x: x[0])
+        med = warm[len(warm) // 2]
+        prof = profiled_run(lambda: run_mpp(plan, tables, device=dev, engine=engine), engine)
+        out[qname] = {
+            "lineitem_rows": rows, "result_rows": cpu.num_rows, "cold_s": runs[0][0],
+            "cold_phases_ms": runs[0][1], "cold_host_s": runs[0][2],
+            "warm_median_s": med[0], "warm_s": [r[0] for r in runs[1:]], "rows_per_s": rows / med[0],
+            "phases_ms": med[1], "cpu_engine_s": cpu_s, "oracle_s": oracle_s,
+            "launches_per_run": {k: c / (reps + 1) for k, c in moved.items() if c},
+            "fuse": engine.last_fuse_outcome, "fallback_reason": engine.last_fallback_reason,
+            "profiled_run": prof, "answer": want[:3], "card": card,
+        }
+        say(f"main.{qname}", **out[qname])
+
+
+def measure_mpp_kernels(main: dict, max_err: dict):
+    """P3, P7 and P9 on Q3's own inputs (P3 timed on its first level,
+    lineitem → orders, and held on every level of Q3 and Q10): held once
+    more to the plain versions, then timed beside them, their bytes bound
+    and the nearest single PyTorch calls."""
+    import torch
+
+    from tidb_tpu_torch.kernels import block_topk, block_topk_ref, lut_join, lut_join_ref, run_agg, run_agg_ref
+
+    bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    cap = main["captured"]["q3_mpp"]
+    for qname, _, _ in MPP_QUERIES:  # every level of both queries
+        for i, a in enumerate(main["captured"][qname]["lut_join"]):
+            same_lut_join(lut_join(*a), lut_join_ref(*a), f"lut_join on {qname} level {i + 1}")
+    p3 = cap["lut_join"][0]
+    keys, lo, size, stride, pmask, lut, bmask, brow, gathers = p3
+    n, B = pmask.numel(), bmask.numel()
+    p3_bytes = (_nbytes(pmask, lut, bmask, brow) + sum(_nbytes(d, v) for d, v in keys)
+                + sum(_nbytes(d, v) for d, v in gathers) + n * (1 + 8) + sum(n * 9 for _ in gathers))
+    idx = torch.clip(keys[0][0] - lo[0], 0, lut.numel() - 1)
+    bsel = torch.clip(lut[idx].to(torch.int64), 0, B - 1)
+    lane = gathers[0][0] if gathers else brow
+    k3 = {"ms": time_ms(lambda: lut_join(*p3)), "plain_ms": time_ms(lambda: lut_join_ref(*p3), 3),
+          "take_lut_ms": time_ms(lambda: torch.take(lut, idx)),
+          "take_build_lane_ms": time_ms(lambda: torch.take(lane, bsel)),
+          "bytes": p3_bytes, "n": n, "B": B, "lut_dom": lut.numel(), "gathers": len(gathers)}
+    k3["library_ms"] = k3["take_lut_ms"] + k3["take_build_lane_ms"]
+
+    p7 = cap["run_agg"]
+    kd, mask, lanes = p7[0], p7[1], p7[2]
+    max_err["run_agg"] = max(max_err["run_agg"], same_run_agg(run_agg(*p7), run_agg_ref(*p7), kd, "run_agg on Q3"))
+    L = kd.numel()
+    totals = run_agg(*p7)[0]
+    p7_bytes = (_nbytes(kd, mask) + sum(_nbytes(d, v) for d, v in lanes) + sum(_nbytes(t) for t in totals)
+                + 8 * L + L + 8 * L)
+    ilane = next(d for d, _ in lanes if d is not None and d.dtype == torch.int64)
+    k7 = {"ms": time_ms(lambda: run_agg(*p7)), "plain_ms": time_ms(lambda: run_agg_ref(*p7), 3),
+          "library_ms": time_ms(lambda: torch.cumsum(ilane, 0)), "bytes": p7_bytes, "L": L, "lanes": len(lanes),
+          "library_call": "torch.cumsum of one int64 lane"}
+
+    score, kk = cap["block_topk"][0], cap["block_topk"][1]
+    max_err["block_topk"] = max(max_err["block_topk"], same_block_topk(
+        block_topk(score, kk), block_topk_ref(score, kk), score, "block_topk on Q3"))
+    k9 = {"ms": time_ms(lambda: block_topk(score, kk)), "plain_ms": time_ms(lambda: block_topk_ref(score, kk), 3),
+          "library_ms": time_ms(lambda: torch.topk(score, kk)), "bytes": _nbytes(score), "n": score.numel(),
+          "k": kk}
+    Lc = main["launches"]
+
+    def entry(name, src, ref, meas):
+        return {"name": name, "route": "cuda", "source": f"tidb_tpu_torch/csrc/{src}",
+                "replaces": f"tidb_tpu/parallel/mpp.py:{ref}", "launches": Lc[name],
+                "max_abs_err": max_err[name], "ms": meas["ms"], "plain_ms": meas["plain_ms"],
+                "bound_ms": bound(meas["bytes"]), "bound_by": "bytes", "library_ms": meas["library_ms"]}
+
+    return ([entry("lut_join", "lut_join.cu", 1516, k3), entry("run_agg", "run_agg.cu", 1850, k7),
+             entry("block_topk", "block_topk.cu", 2008, k9)],
+            {"lut_join": k3, "run_agg": k7, "block_topk": k9})
+
+
+def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int = 8_000_000,
+                  q3_rows: int = 4_000_000) -> dict:
     import torch
 
     from tidb_tpu_torch import kernels as K
@@ -813,6 +1253,7 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
         say(f"main.{qname}", **out[qname])
     out["batch"] = batch
     run_window_path(dev, win_rows, seed, reps, card, out)
+    run_mpp_path(dev, q3_rows, seed, reps, card, out)
     counts = K.launches()
     for name, c in counts.items():
         if c == 0:
@@ -905,7 +1346,9 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
     say("measure", decode_lane=k1, decode_lane_dict=k1_dict, seg_agg=k4, **extra)
     win, win_extra = measure_window_kernels(main, max_err)
     say("measure.window", **win_extra)
-    return entries + new + win
+    mpp, mpp_extra = measure_mpp_kernels(main, max_err)
+    say("measure.mpp", **mpp_extra)
+    return entries + new + win + mpp
 
 
 def _nbytes(*ts) -> int:
@@ -1110,6 +1553,7 @@ def main(argv=None) -> int:
     ap.add_argument("--win-rows", type=int, default=8_000_000)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--q3-rows", type=int, default=4_000_000)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1139,7 +1583,7 @@ def main(argv=None) -> int:
         rng = np.random.default_rng(args.seed)
         checked = check_kernels(dev, rng)
         say("kernels", **checked)
-        main_res = run_main_path(dev, args.rows, args.seed, args.reps, card, args.win_rows)
+        main_res = run_main_path(dev, args.rows, args.seed, args.reps, card, args.win_rows, args.q3_rows)
         kernels = measure(dev, main_res, checked["max_abs_err"])
     except Exception as e:  # noqa: BLE001 — the script's boundary: report and fail
         import traceback

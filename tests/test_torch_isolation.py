@@ -29,9 +29,11 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_module_brings_in_neither_jax_nor_the_reference():
     mods = _modules()
     assert "tidb_tpu_torch.copr.gpu_engine" in mods and "tidb_tpu_torch.kernels.seg_agg" in mods
-    for k in ("lex_sort", "topk", "topn_multi", "sort_groups", "window", "pack_flat"):
+    for k in ("lex_sort", "topk", "topn_multi", "sort_groups", "window", "pack_flat", "lut_join", "run_agg",
+              "block_topk"):
         assert f"tidb_tpu_torch.kernels.{k}" in mods
-    for m in ("executor.window_device", "executor.window"):
+    for m in ("executor.window_device", "executor.window", "executor.mpp_gather", "parallel.mpp",
+              "parallel.mpp_program", "planner.fragment"):
         assert f"tidb_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

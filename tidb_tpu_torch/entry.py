@@ -14,6 +14,11 @@
   row order (the reference's WindowExec.next over a TableReaderExec).
   `mode` is the WindowExec engine: 'tpu' runs W1 + W2 on `device` and
   raises on a device error; 'host' is the host oracle.
+* `run_mpp(mplan, tables, device="cuda")`: an MPP fragment plan (a fused
+  LUT join chain, with the clustered aggregation and its top-k or with the
+  joined rows) over the numpy columns of its tables on `device`, then the
+  steps above the gather (`mplan.root_step`: the final aggregate, the
+  projection and the TopN) → the result chunk.
 """
 
 from __future__ import annotations
@@ -28,8 +33,11 @@ from .chunk.chunk import Chunk, VARLEN, col_numpy_dtype
 from .copr.dag import DAGRequest
 from .copr.gpu_engine import TorchEngine
 from .copr.tilecache import ColumnBatch
+from .executor import mpp_gather
 from .executor.final_agg import merge_partials, order_by_keys, top_n
 from .executor.window import WindowExec
+from .parallel.mpp import MPPEngine
+from .planner.fragment import MPPPlan
 
 
 def batch_from_numpy(table: TableInfo, columns: dict[str, np.ndarray],
@@ -93,3 +101,19 @@ def run_window(scan_dag: DAGRequest, spec, batch: ColumnBatch, device="cuda",
     w = WindowExec(chunk, part_by, order_by, funcs, out_fts, engine=mode, device=engine.device,
                    provenance=prov, phase=timer.phase if timer is not None else None)
     return w.next()
+
+
+def run_mpp(mplan: MPPPlan, tables: dict, device="cuda", engine: MPPEngine | None = None,
+            timer=None) -> Chunk:
+    """Answer one MPP query: `tables` maps each table name to its columns
+    ({column name: numpy lane}). `timer` (a torchenv.PhaseTimer) takes the
+    scan / lut_join / run_agg / topk / d2h / finalize spans, and host_agg
+    where the host aggregates the joined rows; the engine's
+    `last_host_s` holds the host-clock seconds of its host analysis and
+    uploads."""
+    engine = engine or MPPEngine(device)
+    engine.timer = timer
+    scans = mpp_gather.scan_datas(mplan, tables, engine)
+    partial = mpp_gather.gather(mplan, scans, engine)
+    with engine._phase("finalize"):
+        return mpp_gather.finish(mplan, mplan.root_step, partial)

@@ -1,0 +1,113 @@
+"""MPP gather (ref: tidb_tpu/executor/mpp_gather.py): the scans' numpy
+lanes in, the fragment plan through the port's MPPEngine, the host steps
+above the gather out.
+
+* `scan_datas`: one ScanData per scan fragment, its lanes projected to the
+  scan's output columns by table offset (mpp_gather.py:297-366, with the
+  caller's numpy columns in place of tile-cache batches). The (table,
+  version) identity the engine caches under is held per engine: the same
+  column arrays keep their version, new arrays get the next one.
+* `gather`: the engine's partial chunk; where the reference's mesh joined
+  the rows but could not aggregate them, the partial aggregation over the
+  joined rows (`_host_finish_agg`, mpp_gather.py:368-379, through the
+  port's host_engine._exec_agg).
+* `RootStep` / `finish`: the steps above the gather that the reference's
+  executor tree runs for the query: FinalHashAggExec (the port's
+  final_agg.merge_partials), the projection, the TopN (final_agg.top_n).
+
+The reference degrades a declined plan to its host hash join; the port
+has no host join, so a decline raises NotPortedError with the engine's
+typed reason (the decline itself is counted by the engine as in the
+reference).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..chunk.chunk import Chunk
+from ..copr.dag import AggNode, DAGRequest, ScanNode
+from ..copr.host_engine import _exec_agg
+from ..errors import NotPortedError
+from ..expr.expression import Expression
+from ..planner.fragment import MPPPlan
+from .final_agg import merge_partials, top_n
+
+
+@dataclass
+class RootStep:
+    """Above the gather: the final aggregate's output columns taken in
+    `proj` order, then ORDER BY `by` (over the projected columns) LIMIT n."""
+
+    proj: list[int]
+    by: list[tuple[Expression, bool]]
+    n: int
+
+
+def _table_lanes(engine, table_id: int, data: tuple, masks: tuple):
+    """(version, valid lanes) of a table's column arrays for the engine's
+    caches: the version stays while the caller passes the same array
+    objects (the registry holds them, so their ids stay unique), and the
+    all-true masks of columns without one are built once per version."""
+    reg = engine.table_versions
+    key = data + masks
+    old = reg.get(table_id)
+    if old is not None and len(old[0]) == len(key) and all(a is b for a, b in zip(old[0], key)):
+        return old[1], old[2]
+    valid = [np.ones(len(d), dtype=bool) if m is None else np.asarray(m, dtype=bool) for d, m in zip(data, masks)]
+    ver = 0 if old is None else old[1] + 1
+    reg[table_id] = (key, ver, valid)
+    return ver, valid
+
+
+def scan_datas(mplan: MPPPlan, tables: dict, engine, valid: dict | None = None) -> list:
+    """ScanData per scan of `mplan` from `tables[name][column]` numpy lanes
+    (`valid[name][column]`: optional NOT-NULL masks)."""
+    from ..parallel.mpp import ScanData
+
+    out = []
+    for sf in mplan.scans:
+        table = sf.ds.table
+        cols = tables[table.name]
+        given = (valid or {}).get(table.name, {})
+        names = [table.columns[pc.orig_offset].name for pc in sf.ds.out_cols]
+        data = tuple(np.asarray(cols[name]) for name in names)
+        ver, val = _table_lanes(engine, table.id, data, tuple(given.get(name) for name in names))
+        offs = [pc.orig_offset for pc in sf.ds.out_cols]
+        out.append(ScanData(sf, list(data), list(val), version=ver, shared=engine, orig_offs=offs))
+    return out
+
+
+def gather(mplan: MPPPlan, scans: list, engine, variables: dict | None = None) -> Chunk:
+    """The fragment plan's result: the partial-agg chunk (group keys, then
+    each aggregate's partial columns) when `mplan.agg` is set, else the
+    joined rows."""
+    res = engine.execute(mplan, scans, variables or {})
+    if res is None:
+        raise NotPortedError("mpp_gather.MPPGatherExec host join fallback",
+                             f"{engine._decline_key}: {engine.last_fallback_reason}")
+    chunk, agg_done = res
+    if mplan.agg is not None and not agg_done:
+        with engine._phase("host_agg"):
+            return _host_finish_agg(mplan, chunk)
+    return chunk
+
+
+def _host_finish_agg(mplan: MPPPlan, chunk: Chunk) -> Chunk:
+    """The device joined the rows; the partial aggregation runs here."""
+    pseudo = DAGRequest(ScanNode(0, list(range(chunk.num_cols)), chunk.field_types(), []))
+    pseudo.agg = AggNode(mplan.agg.group_by, mplan.agg.aggs)
+    return _exec_agg(pseudo, chunk, None)
+
+
+def finish(mplan: MPPPlan, root: RootStep | None, partial: Chunk) -> Chunk:
+    """FinalHashAggExec over the partial chunk, then the root step."""
+    if mplan.agg is None:
+        return partial
+    agg = mplan.agg
+    final = merge_partials([partial], agg.group_by, agg.aggs, [c.ft for c in agg.out_cols])
+    if root is None:
+        return final
+    return top_n(Chunk([final.columns[i] for i in root.proj]), root.by, root.n)

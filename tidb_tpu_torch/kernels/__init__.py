@@ -11,15 +11,25 @@ and launch counters.
   W1 window          (csrc/window.cu)      ← executor/window_device.py:154-442
                                              _build_kernel.kernel (sorts with K8)
   W2 pack_flat       (csrc/pack_flat.cu)   ← jaxenv.py:104-138 pack_flat
+  P3 lut_join        (csrc/lut_join.cu)    ← parallel/mpp.py:1516-1544 lut_join
+  P7 run_agg         (csrc/run_agg.cu)     ← parallel/mpp.py:1850-1913
+                                             clustered_agg_stage (+ :1984
+                                             _topk_score)
+  P9 block_topk      (csrc/block_topk.cu)  ← parallel/mpp.py:2008-2045
+                                             _block_topk (+ the result rows,
+                                             :1914-1929)
 
 Each wrapper runs its plain version for CPU tensors only; on a CUDA
 tensor it launches its kernel (built at first use, kernels/build.py) or
 raises. `<wrapper>.launches` counts kernel launches.
 """
 
+from .block_topk import block_topk, block_topk_ref
 from .decode_lane import decode_lane, decode_lane_ref
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
+from .lut_join import lut_join, lut_join_ref
 from .pack_flat import pack_flat, pack_flat_ref
+from .run_agg import run_agg, run_agg_ref
 from .seg_agg import SegKey, SegLane, seg_agg, seg_agg_ref
 from .sort_groups import sort_groups, sort_groups_ref
 from .topk import topk, topk_ref
@@ -28,7 +38,8 @@ from .window import window, window_ref
 
 WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
             "topn_multi": topn_multi_ops, "lex_sort": lex_sort_perm, "sort_groups": sort_groups,
-            "window": window, "pack_flat": pack_flat}
+            "window": window, "pack_flat": pack_flat, "lut_join": lut_join, "run_agg": run_agg,
+            "block_topk": block_topk}
 
 
 def reset_launches() -> None:

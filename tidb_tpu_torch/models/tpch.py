@@ -18,7 +18,14 @@
   WINDOW_RANK_FRAMES (rankings, the previous row, a moving max and a
   value-range sum per supplier), the scan DAG under the window and the
   window spec (part_by, order_by, funcs, out_fts) the reference planner
-  builds for the same SQL (its Window plan over a full lineitem scan).
+  builds for the same SQL (its Window plan over a full lineitem scan);
+* `ORDERS` / `CUSTOMER` and `gen_orders` / `gen_customer` /
+  `generated_columns`: the other two tables of the reference's TPC-H
+  setup (tpch.py:45-66 DDL, :129-163 generators), the same rows per seed;
+* `q3_mpp_plan` / `q10_mpp_plan` / `q18_mpp_plan`: for Q3, Q10 and Q18 the
+  MPPPlan the reference's `slice_plan` cuts from its optimized plan (the
+  plan before the engine restreams it), with the steps above the gather
+  as its `root_step` (executor/mpp_gather.RootStep).
 """
 
 from __future__ import annotations
@@ -27,11 +34,13 @@ import numpy as np
 
 from ..catalog.schema import ColumnInfo, TableInfo
 from ..copr.dag import AggNode, DAGRequest, ScanNode, SelectionNode, TopNNode
+from ..executor.mpp_gather import RootStep
 from ..expr.aggregation import AggDesc, Frame, WinDesc, agg_ret_type
 from ..expr.expression import Column, Constant, make_func
 from ..mysqltypes.coretime import parse_datetime
 from ..mysqltypes.datum import Datum
-from ..mysqltypes.field_type import NOT_NULL_FLAG, FieldType, TypeCode, ft_decimal, ft_longlong
+from ..mysqltypes.field_type import NOT_NULL_FLAG, FieldType, TypeCode, ft_decimal, ft_longlong, ft_varchar
+from ..planner.fragment import Aggregation, DataSource, JoinFrag, MPPPlan, PlanCol, ScanFrag
 from ..mysqltypes.mydecimal import dec_from_string
 
 Q1 = """SELECT l_returnflag, l_linestatus,
@@ -60,6 +69,24 @@ MULTIKEY_TOPN = """SELECT l_orderkey, l_extendedprice, l_linenumber FROM lineite
 ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber LIMIT 50"""
 
 Q18_INNER = "SELECT l_orderkey, SUM(l_quantity) FROM lineitem GROUP BY l_orderkey"
+
+Q3 = """SELECT o.o_orderkey, SUM(l.l_extendedprice * (1 - l.l_discount)) AS revenue, o.o_orderdate
+FROM customer c JOIN orders o ON c.c_custkey = o.o_custkey
+JOIN lineitem l ON l.l_orderkey = o.o_orderkey
+WHERE c.c_mktsegment = 'BUILDING' AND o.o_orderdate < '1995-03-15' AND l.l_shipdate > '1995-03-15'
+GROUP BY o.o_orderkey, o.o_orderdate
+ORDER BY revenue DESC LIMIT 10"""
+
+Q10 = """SELECT c.c_custkey, c.c_name, SUM(l.l_extendedprice * (1 - l.l_discount)) AS revenue
+FROM customer c JOIN orders o ON c.c_custkey = o.o_custkey
+JOIN lineitem l ON l.l_orderkey = o.o_orderkey
+WHERE l.l_returnflag = 'R'
+GROUP BY c.c_custkey, c.c_name ORDER BY revenue DESC, c.c_custkey LIMIT 20"""
+
+Q18 = """SELECT o.o_orderkey, SUM(l.l_quantity) AS total_qty
+FROM orders o JOIN lineitem l ON l.l_orderkey = o.o_orderkey
+GROUP BY o.o_orderkey HAVING SUM(l.l_quantity) > 100
+ORDER BY total_qty DESC, o.o_orderkey LIMIT 10"""
 
 WINDOW_SUM_PARTITION = """SELECT SUM(l_quantity) OVER (PARTITION BY l_returnflag, l_linestatus
   ORDER BY l_shipdate, l_orderkey, l_linenumber) FROM lineitem"""
@@ -102,6 +129,31 @@ LINEITEM = TableInfo(
 )
 
 
+_ORDERS_COLS = [
+    ("o_orderkey", _nn(TypeCode.Longlong)),
+    ("o_custkey", _nn(TypeCode.Longlong)),
+    ("o_orderstatus", _nn(TypeCode.String, flen=1)),
+    ("o_totalprice", _nn(TypeCode.NewDecimal, flen=15, decimal=2)),
+    ("o_orderdate", _nn(TypeCode.Date)),
+    ("o_orderpriority", _nn(TypeCode.String, flen=15)),
+    ("o_shippriority", _nn(TypeCode.Longlong)),
+]
+
+_CUSTOMER_COLS = [
+    ("c_custkey", _nn(TypeCode.Longlong)),
+    ("c_name", _nn(TypeCode.Varchar, flen=25)),
+    ("c_mktsegment", _nn(TypeCode.String, flen=10)),
+    ("c_acctbal", _nn(TypeCode.NewDecimal, flen=15, decimal=2)),
+]
+
+# o_orderkey and c_custkey are clustered BIGINT primary keys: the key is the
+# row handle, so neither table has a hidden _tidb_rowid column
+ORDERS = TableInfo(2, "orders", [ColumnInfo(20 + i, name, ft, i) for i, (name, ft) in enumerate(_ORDERS_COLS)],
+                   pk_is_handle=True)
+CUSTOMER = TableInfo(3, "customer", [ColumnInfo(30 + i, name, ft, i) for i, (name, ft) in enumerate(_CUSTOMER_COLS)],
+                     pk_is_handle=True)
+
+
 def _rand_dates(rng, n, y0=1992, y1=1998):
     """Packed date int64s uniform over [y0, y1]."""
     years = rng.integers(y0, y1 + 1, n)
@@ -136,6 +188,43 @@ def gen_lineitem(n_rows: int, seed: int = 42) -> dict[str, np.ndarray]:
         "l_commitdate": shipdate + 32 * 24 * 3600 * 1_000_000,
         "l_receiptdate": shipdate + 33 * 24 * 3600 * 1_000_000,
     }
+
+
+def gen_orders(n_orders: int, n_cust: int, seed: int = 43) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    prios = np.array(["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"], dtype=object)
+    return {
+        "o_orderkey": np.arange(1, n_orders + 1, dtype=np.int64),
+        "o_custkey": rng.integers(1, n_cust + 1, n_orders),
+        "o_orderstatus": np.where(rng.random(n_orders) < 0.5, "O", "F").astype(object),
+        "o_totalprice": rng.integers(90000, 50000000, n_orders),
+        "o_orderdate": _rand_dates(rng, n_orders),
+        "o_orderpriority": rng.choice(prios, n_orders),
+        "o_shippriority": np.zeros(n_orders, dtype=np.int64),
+    }
+
+
+def gen_customer(n_cust: int, seed: int = 44) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    segs = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"], dtype=object)
+    return {
+        "c_custkey": np.arange(1, n_cust + 1, dtype=np.int64),
+        "c_name": np.array([f"Customer#{i:09d}" for i in range(1, n_cust + 1)], dtype=object),
+        "c_mktsegment": rng.choice(segs, n_cust),
+        "c_acctbal": rng.integers(-99999, 999999, n_cust),
+    }
+
+
+def generated_columns(n_lineitem: int, seed: int = 42):
+    """The (lineitem, orders, customer) column dicts the reference's
+    setup_tpch loads: orders = rows/4, customers = orders/10."""
+    n_orders = max(n_lineitem // 4, 2)
+    n_cust = max(n_orders // 10, 2)
+    return (
+        gen_lineitem(n_lineitem, seed),
+        gen_orders(n_orders, n_cust, seed + 1),
+        gen_customer(n_cust, seed + 2),
+    )
 
 
 def _col(name: str) -> Column:
@@ -238,3 +327,101 @@ def window_rank_frames_spec():
                 Frame("range", "pre", 1000, "cur", 0)),
     ]
     return _window(part, order, funcs)
+
+
+# --- MPP plans ---------------------------------------------------------------
+#
+# The joined schema of a fragment plan is the scans' columns side by side,
+# in the order slice_plan meets them (customer, orders, lineitem for Q3 and
+# Q10; orders, lineitem for Q18). Every scan reads all visible columns.
+
+TABLES = {"lineitem": LINEITEM, "orders": ORDERS, "customer": CUSTOMER}
+
+
+def _scan_frag(table: TableInfo, alias: str, side_offset: int) -> ScanFrag:
+    cols = [PlanCol(c.name, c.ft, alias, c.offset) for c in table.visible_columns()]
+    return ScanFrag(DataSource(table, alias, cols), side_offset)
+
+
+def _jcol(frag: ScanFrag, name: str) -> Column:
+    """A column of `frag` in the joined schema."""
+    c = frag.ds.table.col_by_name(name)
+    return Column(frag.side_offset + c.offset, c.ft, c.name)
+
+
+def _lcol(frag: ScanFrag, name: str) -> Column:
+    """A column of `frag` in its scan-local schema (pushed conditions)."""
+    c = frag.ds.table.col_by_name(name)
+    return Column(c.offset, c.ft, c.name)
+
+
+def _date_of(ft: FieldType, s: str) -> Constant:
+    return Constant(Datum.t(parse_datetime(s)), ft.clone())
+
+
+def _str(s: str) -> Constant:
+    ft = ft_varchar(len(s))
+    ft.flag = 0
+    return Constant(Datum.s(s), ft)
+
+
+def _cust_orders_lineitem():
+    c = _scan_frag(CUSTOMER, "c", 0)
+    o = _scan_frag(ORDERS, "o", c.side_offset + c.n_cols)
+    li = _scan_frag(LINEITEM, "l", o.side_offset + o.n_cols)
+    co = JoinFrag(c, o, "inner", [_jcol(c, "c_custkey").idx], [_jcol(o, "o_custkey").idx])
+    root = JoinFrag(co, li, "inner", [_jcol(o, "o_orderkey").idx], [_jcol(li, "l_orderkey").idx])
+    return c, o, li, root
+
+
+def _revenue(li: ScanFrag) -> AggDesc:
+    price, disc = _jcol(li, "l_extendedprice"), _jcol(li, "l_discount")
+    return AggDesc.make("sum", [make_func("mul", price, make_func("minus", _int(1), disc))])
+
+
+def _agg(group_by: list[Column], aggs: list[AggDesc]) -> Aggregation:
+    cols = [PlanCol(f"g{i}", g.ret_type) for i, g in enumerate(group_by)]
+    cols += [PlanCol(f"a{i}", a.ret_type) for i, a in enumerate(aggs)]
+    return Aggregation(group_by, aggs, cols)
+
+
+def _out_cols(*frags: ScanFrag) -> list[PlanCol]:
+    return [pc for f in frags for pc in f.ds.out_cols]
+
+
+def q3_mpp_plan() -> MPPPlan:
+    """Q3: a fused ORDER BY revenue DESC LIMIT 10 over the partial agg;
+    above the gather the final agg, then the projection (o_orderkey,
+    revenue, o_orderdate) and the TopN."""
+    c, o, li, root = _cust_orders_lineitem()
+    c.ds.pushed_conds = [make_func("eq", _lcol(c, "c_mktsegment"), _str("BUILDING"))]
+    o.ds.pushed_conds = [make_func("lt", _lcol(o, "o_orderdate"),
+                                   _date_of(ORDERS.col_by_name("o_orderdate").ft, "1995-03-15"))]
+    li.ds.pushed_conds = [make_func("gt", _lcol(li, "l_shipdate"),
+                                    _date_of(LINEITEM.col_by_name("l_shipdate").ft, "1995-03-15"))]
+    agg = _agg([_jcol(o, "o_orderkey"), _jcol(o, "o_orderdate")], [_revenue(li)])
+    revenue = Column(1, agg.aggs[0].ret_type, "revenue")
+    return MPPPlan(root, [c, o, li], agg, _out_cols(c, o, li), topn=(0, True, 10),
+                   root_step=RootStep(proj=[0, 2, 1], by=[(revenue, True)], n=10))
+
+
+def q10_mpp_plan() -> MPPPlan:
+    """Q10: no fused TopN (two sort keys); above the gather the final
+    agg, then the TopN revenue DESC, c_custkey LIMIT 20."""
+    c, o, li, root = _cust_orders_lineitem()
+    li.ds.pushed_conds = [make_func("eq", _lcol(li, "l_returnflag"), _str("R"))]
+    agg = _agg([_jcol(c, "c_custkey"), _jcol(c, "c_name")], [_revenue(li)])
+    revenue = Column(2, agg.aggs[0].ret_type, "revenue")
+    custkey = Column(0, CUSTOMER.col_by_name("c_custkey").ft, "c_custkey")
+    return MPPPlan(root, [c, o, li], agg, _out_cols(c, o, li),
+                   root_step=RootStep(proj=[0, 1, 2], by=[(revenue, True), (custkey, False)], n=20))
+
+
+def q18_mpp_plan() -> MPPPlan:
+    """Q18's join and aggregation (its HAVING and TopN run above them):
+    one level whose build side (lineitem) has duplicate keys."""
+    o = _scan_frag(ORDERS, "o", 0)
+    li = _scan_frag(LINEITEM, "l", o.n_cols)
+    root = JoinFrag(o, li, "inner", [_jcol(o, "o_orderkey").idx], [_jcol(li, "l_orderkey").idx])
+    agg = _agg([_jcol(o, "o_orderkey")], [AggDesc.make("sum", [_jcol(li, "l_quantity")])])
+    return MPPPlan(root, [o, li], agg, _out_cols(o, li))
