@@ -29,14 +29,23 @@ Phases, one line each; any failure exits non-zero and prints no result:
               lengths that are not a multiple of 64; P3 lut_join with
               NULL and out-of-domain probe keys, absent LUT slots, a
               two-key LUT and a build mask that drops rows; P7 run_agg
-              with an int64 lane whose prefix overflows, float lanes, one
-              giant run, a pad tail and ascending order; P9 block_topk
-              with ties, ±0.0, NaN, fewer scores than k, n not a multiple
-              of 1024 and n = 2^22. Integers, row ids and
+              with an int64 lane whose prefix overflows, float lanes (one
+              with NaN and ±inf), one giant run, a pad tail and ascending
+              order; P9 block_topk with ties, ±0.0, NaN, fewer scores
+              than k, n not a multiple of 1024 and n = 2^22; P4 sort_join
+              (sort_join_battery) with unique and duplicate build keys,
+              inner and left, two keys, int32 keys, keys at the sort
+              sentinel, a capacity below the output; P5 seg_reduce
+              (seg_reduce_battery) with overflowing int64, NaN, ±inf and
+              uint64 lanes, one giant run, fewer groups than k; P6
+              rowpos_agg (rowpos_battery) with a dedicated presence lane,
+              fewer matched rows than k, B = 1,000,000; P8 dense_agg
+              (dense_battery) with dict and int keys, keys above 2^31,
+              the shared-memory and the global path. Integers, row ids and
               group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
-              (bench.py's own check; P7's float totals at run starts, the
-              rows P9 can pick); all cases run, failures are raised
-              together;
+              (bench.py's own check; P5's and P7's float totals at run
+              starts, the rows the picks can ship); all cases run,
+              failures are raised together;
  4. main path — generates lineitem (--rows, seed --seed) with the port's
               generator and runs through run_query on "cuda": TPC-H Q1
               and Q6, tpch_topn (ORDER BY l_extendedprice DESC LIMIT 100),
@@ -58,12 +67,18 @@ Phases, one line each; any failure exits non-zero and prints no result:
               share; then TPC-H Q3 and Q10 through run_mpp on "cuda"
               over lineitem at --q3-rows (bench.py's BENCH_Q3_ROWS),
               orders = rows/4, customers = orders/10 (tpch's
-              generated_columns, seed --seed): one cold run (host prep +
-              h2d) and --reps warm runs (which must upload nothing), each
-              answer equal in order to the port's engine on the CPU (the
-              plain versions) and to a numpy oracle of the query, with
-              the scan / lut_join / run_agg / topk / d2h / finalize split
-              and one profiled run's idle share;
+              generated_columns, seed --seed), and at the same scale
+              Q18 (a duplicate-key sort-probe level, P4, in rows mode: the
+              host aggregates ~4M joined rows, then HAVING and the TopN),
+              Q3 with tidb_tpu_mpp_fused OFF (q3_unfused: two unique-key
+              sort-probe levels, P4, and the sorted aggregation, P5), Q3
+              LIMIT 100 (q3_top100: the rowpos aggregation, P6) and
+              SEG_REVENUE (seg_revenue: the dense aggregation, P8): one
+              cold run (host prep + h2d) and --reps warm runs (which must
+              upload nothing), each answer equal in order to the port's
+              engine on the CPU (the plain versions) and to a numpy
+              oracle of the query, with the scan / join / aggregation /
+              d2h / finalize split and one profiled run's idle share;
  5. measure — each kernel on the main path's own inputs: held once more to
               its plain version, then timed beside it, its bytes bound and
               the nearest single PyTorch call where there is one (W1 also
@@ -522,7 +537,7 @@ def run_battery(rng, L: int, case: str) -> dict:
     row-id lane (constant over a run's matched rows). `case`: 'runs',
     'giant_run' (one run holds 90% of the stream), 'pad_tail' (the last
     30% are pad rows: key 0, masked), 'asc' (ascending ORDER BY on the
-    float lane)."""
+    float lane), 'nan' (a NaN, +inf and -inf in the float lane)."""
     import numpy as np
 
     if case == "giant_run":
@@ -538,6 +553,8 @@ def run_battery(rng, L: int, case: str) -> dict:
     big = np.where(rng.random(L) < 0.5, 1, -1) * ((1 << 62) + rng.integers(0, 1 << 40, L))
     f = np.round(rng.random(L) * 1e5, 2)
     f[rng.random(L) < 0.05] = -0.0
+    if case == "nan":  # the reference's prefix difference is NaN past these
+        f[rng.choice(L, 3, replace=False)] = [np.nan, np.inf, -np.inf]
     vi, vf = rng.random(L) > 0.1, rng.random(L) > 0.1
     rid = np.where(mask, runid * 3 + 7, -1).astype(np.int64)
     lanes = [(big.astype(np.int64), vi), (None, vi), (f, vf), (None, vf), (None, None), (rid, None)]
@@ -547,7 +564,7 @@ def run_battery(rng, L: int, case: str) -> dict:
 
 
 RUN_SHAPES = ((1, "runs"), (1000, "runs"), (4096, "runs"), (100_003, "runs"), (300_000, "giant_run"),
-              (65_536, "pad_tail"), (100_003, "asc"))
+              (65_536, "pad_tail"), (100_003, "asc"), (8192, "nan"))
 
 
 def topk_battery(rng, n: int, case: str):
@@ -703,6 +720,450 @@ def mpp_kernel_cases(dev, rng):
     return cases
 
 
+# --- the MPP modes' batteries (P4, P5, P6, P8): numpy, so the CPU tests
+# hold the same inputs to the reference --------------------------------
+
+
+def _strides(sizes):
+    stride, acc = [1] * len(sizes), 1
+    for i in range(len(sizes) - 1, -1, -1):
+        stride[i] = acc
+        acc *= sizes[i]
+    return stride, acc
+
+
+def sort_join_battery(rng, n: int, B: int, case: str) -> dict:
+    """P4 inputs. Build keys unique ('unique', 'unique_left', 'two_keys',
+    'i32', 'wide', 'sentinel') or in runs of duplicates ('dup',
+    'dup_left', 'dup_none' with no join cardinality, 'overflow' with a
+    capacity below the output); NULL and out-of-domain probe keys, masks
+    on both sides, build lanes of every 8-byte kind (int64 extremes,
+    float64 with NaN and -0.0), probe lanes and row ids to expand. 'i32'
+    truncates the packed key to int32 and gives NULL keys data whose
+    truncation wraps; 'sentinel' packs probe keys and two build keys (one
+    valid, one NULL) equal to the sort sentinel INT64_MAX, which sorts
+    them among the invalid build rows; 'wide' keys span +-2^40."""
+    import numpy as np
+
+    nk = 2 if case == "two_keys" else 1
+    dup = case in ("dup", "dup_left", "dup_none", "overflow")
+    if case == "wide":
+        dom = [1 << 41]
+    elif case == "two_keys":
+        dom = [max(B // 8, 2), 16]
+    else:
+        dom = [max(B // 3, 1) if dup else 2 * B]
+    lo = [int(rng.integers(-40, 40)) if case != "wide" else -(1 << 40) for _ in dom]
+    bkeys, pkeys = [], []
+    if dup:
+        cols = [lo[0] + rng.integers(0, dom[0], B)]
+    elif case == "two_keys":
+        flat = rng.choice(dom[0] * dom[1], B, replace=False)
+        cols = [lo[0] + flat // dom[1], lo[1] + flat % dom[1]]
+    else:
+        cols = [lo[0] + rng.choice(dom[0], B, replace=False)]
+    for j, c in enumerate(cols):
+        v = rng.random(B) > 0.08
+        bkeys.append((np.where(v, c, 0).astype(np.int64), v))
+        v = rng.random(n) > 0.08
+        p = rng.integers(lo[j] - 3, lo[j] + dom[j] + 3, n)
+        pkeys.append((np.where(v, p, 0).astype(np.int64), v))
+    stride, acc = _strides(dom)
+    key_i32 = acc < (1 << 31) - 2
+    if case == "i32":  # NULL keys' data far outside the domain: its int32 cast wraps
+        for d, v in bkeys + pkeys:
+            d[~v] = rng.integers(-(1 << 40), 1 << 40, int((~v).sum()))
+    pmask, bmask = rng.random(n) > 0.1, rng.random(B) > 0.15
+    if case == "sentinel":  # two build keys at INT64_MAX, one valid: the first in row order decides
+        key_i32, lo, stride = False, [0], [1]
+        (bd, bv), (pd, pv) = bkeys[0], pkeys[0]
+        two = rng.choice(B, 2, replace=False)
+        bd[two] = (1 << 63) - 1
+        bv[two], bmask[two] = [False, True], True
+        hit = rng.random(n) < 0.05
+        pd[hit], pv[hit] = (1 << 63) - 1, True
+    # the join cardinality on key-valid rows, as the engine's jcard
+    def packed(keys):
+        a = np.zeros(len(keys[0][0]), dtype=np.int64)
+        ok = np.ones(len(keys[0][0]), dtype=bool)
+        for (d, v), l, st in zip(keys, lo, stride):
+            a = a + (d - l) * st
+            ok &= v
+        return a, ok
+    pk, pok = packed(pkeys)
+    bk, bok = packed(bkeys)
+    bu, bc = np.unique(bk[bok], return_counts=True)
+    exp = 0
+    if len(bu):
+        ii = np.clip(np.searchsorted(bu, pk[pok]), 0, len(bu) - 1)
+        exp = int(np.sum((bu[ii] == pk[pok]) * bc[ii]))
+    left = case.endswith("_left")
+    mult = 2 if dup else 1
+    cap = 0
+    if dup:
+        C = 2 * max(n, B) + 64 if case == "dup_none" else (exp // 2 if case == "overflow" else exp + 64)
+        cap = max(C, 1) + (n if left else 0)
+    f = rng.standard_normal(B) * 1e3
+    f[rng.random(B) < 0.05] = np.nan
+    f[rng.random(B) < 0.05] = -0.0
+    gathers = [(rng.integers(-(1 << 63), (1 << 63) - 1, B, dtype=np.int64), rng.random(B) > 0.1),
+               (f, rng.random(B) > 0.1)]
+    probe_lanes = prows = []
+    if dup:
+        probe_lanes = [(rng.integers(-(1 << 62), 1 << 62, n), rng.random(n) > 0.1),
+                       (rng.standard_normal(n), rng.random(n) > 0.1)]
+        prows = [np.arange(n, dtype=np.int64) * 3, rng.integers(0, 1 << 40, n)]
+    return {"pkeys": pkeys, "bkeys": bkeys, "lo": lo, "stride": stride, "key_i32": bool(key_i32), "pmask": pmask,
+            "bmask": bmask, "brow": rng.integers(0, 1 << 40, B), "mult": mult, "left": left, "cap": cap,
+            "gathers": gathers, "probe_lanes": probe_lanes, "prows": prows}
+
+
+SORT_JOIN_SHAPES = ((1, 1, "unique"), (2000, 1500, "unique"), (2000, 1500, "unique_left"), (3000, 1000, "two_keys"),
+                    (2000, 500, "i32"), (2000, 800, "wide"), (500, 300, "sentinel"), (2000, 700, "dup"),
+                    (2000, 700, "dup_left"), (1500, 600, "dup_none"), (2000, 700, "overflow"), (1, 5, "dup"),
+                    (200_003, 100_000, "dup"), (100_003, 300_000, "unique"))
+
+
+def p4_args(b: dict, dev):
+    """sort_join's positional arguments on `dev` from a sort_join_battery."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def pairs(x):
+        return [(t(d), t(v)) for d, v in x]
+
+    return (pairs(b["pkeys"]), pairs(b["bkeys"]), b["lo"], b["stride"], b["key_i32"], t(b["pmask"]),
+            t(b["bmask"]), t(b["brow"]), b["mult"], b["left"], b["cap"], pairs(b["gathers"]),
+            pairs(b["probe_lanes"]), [t(r) for r in b["prows"]])
+
+
+def _bits_of(x):
+    import torch
+
+    return x.view(torch.int64) if x.dtype == torch.float64 else x
+
+
+def same_sort_join(got, want, what: str) -> float:
+    """P4 outputs bit for bit: mask, row ids, every gathered and expanded
+    lane (floats as their bits: joins move words), the dropped count."""
+    _same(got.mask, want.mask, f"{what} mask")
+    _same(got.rowid, want.rowid, f"{what} rowid")
+    for name, gl, wl in (("build", got.gathered, want.gathered), ("probe", got.probe_lanes, want.probe_lanes)):
+        for j, ((gd, gv), (wd, wv)) in enumerate(zip(gl, wl)):
+            _same(_bits_of(gd), _bits_of(wd), f"{what} {name} lane {j} data")
+            _same(gv, wv, f"{what} {name} lane {j} valid")
+    for j, (g, w) in enumerate(zip(got.prows, want.prows)):
+        _same(g, w, f"{what} probe row ids {j}")
+    if (got.dropped is None) != (want.dropped is None):
+        raise AssertionError(f"{what}: dropped {got.dropped} vs {want.dropped}")
+    if got.dropped is not None:
+        _same(got.dropped, want.dropped, f"{what} dropped")
+    return 0.0
+
+
+def _red_lanes(rng, n: int, spec: str):
+    """(op, data, valid) numpy lanes for P5 / P6 / P8, one letter each:
+    c count (of the value lane before it, as _agg_partials pairs them), s
+    int64 sum whose values +-(2^62 + x) overflow, f float64
+    sum with -0.0 (F: and a NaN, +inf and -inf), n float64 min with NaN and -0.0, x int64 max, m / M
+    uint64 min / max over values above and below 2^63 (as int64 bits), u
+    uint64 sum, d a min over dict codes 0..6. Each value lane comes with
+    NULLs."""
+    import numpy as np
+
+    out = []
+    for ch in spec:
+        v = rng.random(n) > 0.1
+        if ch == "c":  # the count of the value lane before it shares its NULLs
+            out.append(("count", None, out[-1][2] if out and out[-1][0] != "count" else v))
+        elif ch == "s":
+            out.append(("sum_i64", np.where(rng.random(n) < 0.5, 1, -1) * ((1 << 62) + rng.integers(0, 1 << 40, n)), v))
+        elif ch in "fF":
+            f = np.round(rng.random(n) * 1e5, 2)
+            f[rng.random(n) < 0.05] = -0.0
+            if ch == "F":
+                f[rng.choice(n, min(n, 3), replace=False)] = [np.nan, np.inf, -np.inf][:min(n, 3)]
+            out.append(("sum_f64", f, v))
+        elif ch == "n":
+            f = rng.standard_normal(n) * 100
+            f[rng.random(n) < 0.01] = np.nan
+            f[rng.random(n) < 0.05] = -0.0
+            out.append(("min_f64", f, v))
+        elif ch == "x":
+            out.append(("max_i64", rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64), v))
+        elif ch in "mMu":
+            u = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+            u[rng.random(n) < 0.5] >>= np.uint64(1)  # half below 2^63
+            out.append(({"m": "min_u64", "M": "max_u64", "u": "sum_u64"}[ch], u.view(np.int64), v))
+        elif ch == "d":
+            out.append(("min_i64", rng.integers(0, 7, n), v))
+    return out
+
+
+def seg_reduce_battery(rng, n: int, case: str) -> dict:
+    """P5 inputs: an int group key with a gcd step and NULLs and a
+    dict-coded one, masked rows, every lane kind of _red_lanes (uint64
+    min / max whose neutral takes part, a float sum whose runs past a NaN
+    or an infinity total NaN), the score on the int64 sum lane
+    (ties broken by position). 'runs': a few rows a group; 'giant_run':
+    one group holds 90% of the rows; 'few_groups': fewer groups than k;
+    'asc': ascending on the count lane (many ties); 'pow2_single': one
+    group over all 4096 rows, none masked (no doubling step of the
+    reference reaches past it)."""
+    import numpy as np
+
+    lo0, step = int(rng.integers(-1000, 1000)), 7
+    G = {"few_groups": 3, "giant_run": max(n // 50, 2)}.get(case, max(n // 4, 2))
+    g = rng.integers(0, G, n)
+    if case == "giant_run":
+        g = np.where(rng.random(n) < 0.9, 1, g)
+    k0 = lo0 + step * g
+    v0 = rng.random(n) > 0.05
+    k1 = rng.integers(0, 5, n)
+    v1 = rng.random(n) > 0.05
+    mask = rng.random(n) > 0.2
+    if case == "pow2_single":
+        k0, v0, k1, v1, mask = np.full(n, lo0), np.ones(n, bool), np.zeros(n, np.int64), np.ones(n, bool), np.ones(n, bool)
+    # radixes as the engine builds them: (hi - lo) // step + 2, vocab + 1
+    hi0 = int(k0[v0].max()) if v0.any() else lo0
+    lo = int(k0[v0].min()) if v0.any() else lo0
+    radixes = [(hi0 - lo) // step + 2, 6]
+    strides = [radixes[1], 1]
+    keys = [(k0.astype(np.int64), v0, lo, step, strides[0], True), (k1.astype(np.int64), v1, 0, 1, strides[1], False)]
+    lanes = _red_lanes(rng, n, "csfFnxmMuc")
+    score, desc, k = (0, False, 10) if case == "asc" else (1, True, 20 if case == "few_groups" else 10)
+    return {"keys": keys, "mask": mask, "lanes": lanes, "score_lane": score, "desc": desc, "k": k}
+
+
+SEG_REDUCE_SHAPES = ((1, "runs"), (1000, "runs"), (4096, "pow2_single"), (5000, "few_groups"), (100_003, "runs"),
+                     (300_000, "giant_run"), (100_003, "asc"))
+
+
+def _red_args(lanes, dev):
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels.red import RedLane
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return [RedLane(op, t(d), t(v)) for op, d, v in lanes]
+
+
+def p5_args(b: dict, dev):
+    """seg_reduce's positional arguments on `dev` from a seg_reduce_battery."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels.seg_reduce import GroupKey
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    keys = [GroupKey(t(d), t(v), lo, step, st, is_int) for d, v, lo, step, st, is_int in b["keys"]]
+    return keys, t(b["mask"]), _red_args(b["lanes"], dev), b["score_lane"], b["desc"], b["k"]
+
+
+def _same_lane(g, w, what: str, rows=None) -> float:
+    """One lane: integers bit for bit, floats within the tolerance (NaN
+    equal), at `rows` (a bool mask) or everywhere."""
+    if rows is not None:
+        g, w = g[rows], w[rows]
+    return _same(g, w, what, floats=g.is_floating_point())
+
+
+def same_seg_reduce(got, want, what: str, lanes) -> float:
+    """P5 outputs: the picks, keys, validity and (integer) scores bit for
+    bit; the totals at the valid rows (run starts: the rows the picks can
+    ship as valid) — integers exactly, floats within the tolerance."""
+    _same(got.idx, want.idx, f"{what} picks")
+    _same(got.fkey, want.fkey, f"{what} fkey")
+    _same(got.fvalid, want.fvalid, f"{what} fvalid")
+    ok = want.fvalid
+    err = _same_lane(got.score, want.score, f"{what} score", ok)
+    for j, (g, w) in enumerate(zip(got.totals, want.totals)):
+        err = max(err, _same_lane(g, w, f"{what} lane {j} ({lanes[j].op})", ok))
+    return err
+
+
+def same_rows(got, want, valid_row: int, what: str, float_rows=()) -> float:
+    """Packed result rows: every row up to the valid row bit for bit, the
+    lane rows below it at the valid picks (floats by value within the
+    tolerance)."""
+    import torch
+
+    _same(got[:valid_row + 1], want[:valid_row + 1], f"{what} key/valid rows")
+    ok = want[valid_row] != 0
+    err = 0.0
+    for r in range(valid_row + 1, got.shape[0]):
+        g, w = got[r, :ok.shape[0]][ok], want[r, :ok.shape[0]][ok]
+        if r in float_rows:
+            g, w = g.view(torch.float64), w.view(torch.float64)
+        err = max(err, _same(g, w, f"{what} row {r}", floats=r in float_rows))
+    return err
+
+
+def rowpos_battery(rng, n: int, B: int, case: str) -> dict:
+    """P6 inputs: build row ids (-1 where the join missed: masked), masked
+    rows, lanes of every kind. 'presence': a dedicated presence lane
+    first (not shipped), score on the int64 sum; 'count': the COUNT(*)
+    lane is the presence; 'few': fewer matched build rows than k (the
+    picks run out); 'wide': k 100."""
+    import numpy as np
+
+    rid = rng.integers(0, B, n)
+    if case == "few":
+        rid = rng.choice(rng.integers(0, B, 5), n)
+    hit = rng.random(n) > 0.1
+    rid = np.where(hit, rid, -1).astype(np.int64)
+    mask = hit & (rng.random(n) > 0.2)
+    if case == "count":
+        lanes, pres, score, ship = [("count", None, None)] + _red_lanes(rng, n, "sc"), 0, 1, 0
+    else:
+        lanes, pres, score, ship = [("count", None, None)] + _red_lanes(rng, n, "scfcncmcMcdc"), 0, 1, 1
+    return {"mask": mask, "rid": rid, "nseg": B, "lanes": lanes, "pres": pres, "score_lane": score,
+            "desc": True, "k": 100 if case == "wide" else 10, "ship_from": ship}
+
+
+ROWPOS_SHAPES = ((1, 1, "presence"), (5000, 4096, "presence"), (5000, 4096, "count"), (20_000, 8192, "few"),
+                 (100_003, 50_000, "wide"), (300_000, 1_000_000, "presence"))
+
+
+def p6_args(b: dict, dev):
+    """rowpos_agg's positional arguments on `dev` from a rowpos_battery."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (t(b["mask"]), t(b["rid"]), b["nseg"], _red_args(b["lanes"], dev), b["pres"], b["score_lane"],
+            b["desc"], b["k"], b["ship_from"])
+
+
+def same_rowpos(got, want, what: str, lanes) -> float:
+    """P6 outputs: the picks, group rows, validity and (integer) scores
+    bit for bit; the [B] partial lanes — integers exactly, floats within
+    the tolerance (K4 adds floats in another order)."""
+    _same(got.idx, want.idx, f"{what} picks")
+    _same(got.gidx, want.gidx, f"{what} gidx")
+    _same(got.valid, want.valid, f"{what} valid")
+    _same(got.score, want.score, f"{what} score")
+    err = 0.0
+    for j, (g, w) in enumerate(zip(got.full, want.full)):
+        err = max(err, _same_lane(g, w, f"{what} lane {j} ({lanes[j].op})"))
+    return err
+
+
+def dense_battery(rng, n: int, case: str) -> dict:
+    """P8 inputs: a dict-coded key (vocab 5) and an int key with NULLs
+    ('mixed'), one int key over a narrow domain above 2^31 ('big_keys':
+    the reference's int32 code wraps there as int64 would), a domain of
+    20,000 ('global': beyond the shared-memory slots); the count over the
+    mask, then lanes of every kind, with empty segments."""
+    import numpy as np
+
+    mask = rng.random(n) > 0.2
+    if case == "big_keys":
+        lo, dom = 3_000_000_000 + int(rng.integers(0, 1000)), 50
+        d = lo + rng.integers(0, dom, n)
+        v = rng.random(n) > 0.05
+        keys = [(np.where(v, d, 0).astype(np.int64), v, lo, dom)]
+    else:
+        dom1 = 20_000 if case == "global" else 40
+        lo1 = int(rng.integers(-100, 100))
+        d1 = lo1 + rng.integers(0, dom1 - 3, n)  # the domain's top codes stay empty
+        v0, v1 = rng.random(n) > 0.05, rng.random(n) > 0.05
+        keys = [(np.where(v0, rng.integers(0, 5, n), 0).astype(np.int64), v0, 0, 5),
+                (np.where(v1, d1, 0).astype(np.int64), v1, lo1, dom1)]
+    nseg = 1
+    for *_, dom in keys:
+        nseg *= dom + 1
+    lanes = [("count", None, None)] + _red_lanes(rng, n, "scfcncxcmcMcdc")
+    return {"mask": mask, "keys": keys, "nseg": nseg, "lanes": lanes}
+
+
+DENSE_SHAPES = ((1, "mixed"), (5000, "mixed"), (5000, "big_keys"), (100_003, "global"), (4_000_000, "mixed"))
+
+
+def p8_args(b: dict, dev):
+    """dense_agg's positional arguments on `dev` from a dense_battery."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels.dense_agg import DenseKey
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    keys = [DenseKey(t(d), t(v), lo, dom) for d, v, lo, dom in b["keys"]]
+    return t(b["mask"]), keys, b["nseg"], _red_args(b["lanes"], dev)
+
+
+def same_dense(got, want, what: str, lanes) -> float:
+    """P8 lanes: integers bit for bit, floats within the tolerance."""
+    err = 0.0
+    for j, (g, w) in enumerate(zip(got, want)):
+        err = max(err, _same_lane(g, w, f"{what} lane {j} ({lanes[j].op})"))
+    return err
+
+
+def mode_kernel_cases(dev, rng):
+    """(name, fn) of every P4 / P5 / P6 / P8 case: kernel against plain
+    version, on the batteries above (the result rows too)."""
+    import torch
+
+    from tidb_tpu_torch.kernels import (dense_agg, dense_agg_ref, rowpos_agg, rowpos_agg_ref, seg_reduce,
+                                        seg_reduce_ref, sort_join, sort_join_ref)
+
+    cases = []
+    for n, B, case in SORT_JOIN_SHAPES:
+        args = p4_args(sort_join_battery(rng, n, B, case), dev)
+        cases.append((f"sort_join n={n} B={B} {case}",
+                      lambda args=args, case=case: same_sort_join(sort_join(*args), sort_join_ref(*args),
+                                                                  f"sort_join {case}")))
+    for n, case in SEG_REDUCE_SHAPES:
+        args = p5_args(seg_reduce_battery(rng, n, case), dev)
+
+        def p5(args=args, case=case):
+            nl = len(args[2])
+            kk = min(args[5], args[1].shape[0])
+            rows = [torch.zeros((2 + nl, kk + 3), dtype=torch.int64, device=dev) for _ in range(2)]
+            got, want = seg_reduce(*args, rows=rows[0]), seg_reduce_ref(*args, rows=rows[1])
+            err = same_seg_reduce(got, want, f"seg_reduce {case}", args[2])
+            fl = {2 + j for j, ln in enumerate(args[2]) if ln.is_float}
+            return max(err, same_rows(rows[0], rows[1], 1, f"seg_reduce {case} rows", fl))
+        cases.append((f"seg_reduce n={n} {case}", p5))
+    for n, B, case in ROWPOS_SHAPES:
+        args = p6_args(rowpos_battery(rng, n, B, case), dev)
+
+        def p6(args=args, case=case):
+            from tidb_tpu_torch.kernels.rowpos_agg import picks
+
+            lanes, ship = args[3], args[8]
+            kk = picks(args[7], len(lanes), args[2])
+            rows = [torch.zeros((2 + len(lanes) - ship, kk + 2), dtype=torch.int64, device=dev) for _ in range(2)]
+            got, want = rowpos_agg(*args, rows=rows[0]), rowpos_agg_ref(*args, rows=rows[1])
+            err = same_rowpos(got, want, f"rowpos_agg {case}", lanes)
+            fl = {2 + j for j, ln in enumerate(lanes[ship:]) if ln.is_float}
+            return max(err, same_rows(rows[0], rows[1], 1, f"rowpos_agg {case} rows", fl))
+        cases.append((f"rowpos_agg n={n} B={B} {case}", p6))
+    for n, case in DENSE_SHAPES:
+        args = p8_args(dense_battery(rng, n, case), dev)
+
+        def p8(args=args, case=case):
+            lanes, nseg = args[3], args[2]
+            rows = torch.zeros((len(lanes), nseg + 2), dtype=torch.int64, device=dev)
+            got = dense_agg(*args, rows=rows)
+            return same_dense(got, dense_agg_ref(*args), f"dense_agg {case}", lanes)
+        cases.append((f"dense_agg n={n} {case}", p8))
+    return cases
+
+
 def check_kernels(dev, rng) -> dict:
     """Every kernel against its plain version on the same tensors. All
     cases run; the failures are raised together at the end."""
@@ -791,7 +1252,7 @@ def check_kernels(dev, rng) -> dict:
     for cname, lanes in pack_cases(dev, rng):
         case(f"pack_flat {cname}", lambda lanes=lanes, cname=cname: _same(
             pack_flat(lanes), pack_flat_ref(lanes), cname))
-    for cname, fn in mpp_kernel_cases(dev, rng):
+    for cname, fn in mpp_kernel_cases(dev, rng) + mode_kernel_cases(dev, rng):
         case(cname, fn)
     if errors:
         raise AssertionError(f"{len(errors)} of {ncase} kernel cases failed:\n" + "\n".join(errors))
@@ -996,42 +1457,78 @@ def run_window_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) 
         say(f"main.{qname}", **out[qname])
 
 
-# (query, plan builder of models/tpch.py, kernels its runs must launch)
-MPP_QUERIES = (("q3_mpp", "q3_mpp_plan", ("lut_join", "run_agg", "block_topk")),
-               ("q10_mpp", "q10_mpp_plan", ("lut_join",)))
+# (query, plan builder of models/tpch.py and its arguments, session
+# variables, kernels its runs must launch, fusion outcome)
+MPP_QUERIES = (
+    ("q3_mpp", ("q3_mpp_plan",), {}, ("lut_join", "run_agg", "block_topk"), "fused"),
+    ("q10_mpp", ("q10_mpp_plan",), {}, ("lut_join",), "fused"),
+    ("q18", ("q18_mpp_plan",), {}, ("sort_join", "lex_sort"), "unfused"),
+    ("q3_unfused", ("q3_mpp_plan",), {"tidb_tpu_mpp_fused": "OFF"}, ("sort_join", "lex_sort", "seg_reduce", "topk"),
+     "off"),
+    ("q3_top100", ("q3_mpp_plan", 100), {}, ("lut_join", "seg_agg", "rowpos_agg", "topk"), "fused"),
+    ("seg_revenue", ("seg_revenue_mpp_plan",), {}, ("lut_join", "dense_agg"), "fused"),
+)
+MPP_SPIED = ("lut_join", "run_agg", "block_topk", "sort_join", "seg_reduce", "rowpos_agg", "dense_agg")
+
+
+def _top(keys, sums, k):
+    """ORDER BY sum DESC, key LIMIT k."""
+    import numpy as np
+
+    return np.lexsort((keys, -sums))[:k]
 
 
 def mpp_oracle(qname: str, li: dict, orders: dict, cust: dict) -> list[tuple]:
-    """TPC-H Q3 / Q10 in plain numpy over the generated columns: dense key
-    arrays for the joins (o_orderkey and c_custkey are 1..n), exact
-    integer decimals (price scale 2 times (1 - discount) scale 2 →
-    revenue scale 4), np.add.reduceat per order or customer, then the
-    ORDER BY and LIMIT (ties, which these data do not hold at the cut,
-    by the group key ascending). Rows as raw lane values."""
+    """The MPP queries in plain numpy over the generated columns: dense key
+    arrays for the joins (o_orderkey and c_custkey are 1..n, lineitem is
+    sorted by l_orderkey), exact integer decimals (price scale 2 times
+    (1 - discount) scale 2 → revenue scale 4; AVG of a scale-2 decimal at
+    scale 6, rounded half up), np.add.reduceat per group, then HAVING,
+    ORDER BY and LIMIT (ties, which these data do not hold at the cut, by
+    the group key ascending). Rows as raw lane values."""
     import numpy as np
 
     from tidb_tpu_torch.mysqltypes.coretime import parse_datetime
 
     day = parse_datetime("1995-03-15")
     rev = li["l_extendedprice"] * (100 - li["l_discount"])
-    if qname == "q3_mpp":
+    if qname in ("q3_mpp", "q3_unfused", "q3_top100"):
         cust_ok = np.zeros(len(cust["c_custkey"]) + 1, dtype=bool)
         cust_ok[cust["c_custkey"]] = cust["c_mktsegment"] == "BUILDING"
         order_ok = np.zeros(len(orders["o_orderkey"]) + 1, dtype=bool)
         order_ok[orders["o_orderkey"]] = (orders["o_orderdate"] < day) & cust_ok[orders["o_custkey"]]
         sel = np.nonzero((li["l_shipdate"] > day) & order_ok[li["l_orderkey"]])[0]
-        ok = li["l_orderkey"][sel]  # lineitem is sorted by l_orderkey
+        ok = li["l_orderkey"][sel]
         starts = np.nonzero(np.concatenate([[True], ok[1:] != ok[:-1]]))[0]
         keys, sums = ok[starts], np.add.reduceat(rev[sel], starts)
-        top = np.lexsort((keys, -sums))[:10]
+        top = _top(keys, sums, 100 if qname == "q3_top100" else 10)
         return [(int(k), int(s), int(orders["o_orderdate"][k - 1])) for k, s in zip(keys[top], sums[top])]
+    if qname == "q18":
+        ok = li["l_orderkey"]
+        starts = np.nonzero(np.concatenate([[True], ok[1:] != ok[:-1]]))[0]
+        keys, sums = ok[starts], np.add.reduceat(li["l_quantity"], starts)
+        keep = sums > 100 * 100  # HAVING SUM(l_quantity) > 100, quantity at scale 2
+        keys, sums = keys[keep], sums[keep]
+        top = _top(keys, sums, 10)
+        return [(int(k), int(s)) for k, s in zip(keys[top], sums[top])]
+    if qname == "seg_revenue":
+        sel = np.nonzero(li["l_shipdate"] > day)[0]
+        seg = cust["c_mktsegment"][orders["o_custkey"][li["l_orderkey"][sel] - 1] - 1]
+        out = []
+        for name in sorted(set(seg.tolist())):
+            rows = sel[seg == name]
+            cnt, qty = len(rows), int(li["l_quantity"][rows].sum())
+            avg = (qty * 10 ** 4 * 2 + cnt) // (2 * cnt)  # scale 2 → 6, half up
+            out.append((name, cnt, int(rev[rows].sum()), avg, int(li["l_discount"][rows].min()),
+                        int(li["l_extendedprice"][rows].max())))
+        return out
     sel = np.nonzero(li["l_returnflag"] == "R")[0]
     ck = orders["o_custkey"][li["l_orderkey"][sel] - 1]
     order = np.argsort(ck, kind="stable")
     ck = ck[order]
     starts = np.nonzero(np.concatenate([[True], ck[1:] != ck[:-1]]))[0]
     keys, sums = ck[starts], np.add.reduceat(rev[sel][order], starts)
-    top = np.lexsort((keys, -sums))[:20]
+    top = _top(keys, sums, 20)
     return [(int(k), cust["c_name"][k - 1], int(s)) for k, s in zip(keys[top], sums[top])]
 
 
@@ -1041,12 +1538,14 @@ def chunk_rows(chunk) -> list[tuple]:
 
 
 def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> None:
-    """Q3 and Q10 through run_mpp on the card at `rows` lineitem rows (with
-    orders = rows/4 and customers = orders/10): one cold run and `reps`
-    warm runs each, every answer equal, in order, to the port's engine on
-    the CPU (the plain versions) and to a numpy oracle; each query's
-    kernel counters must move. The kernels' inputs of each query's last
-    run land in out["captured"][query]."""
+    """The MPP queries through run_mpp on the card at `rows` lineitem rows
+    (with orders = rows/4 and customers = orders/10): one cold run and
+    `reps` warm runs each, every answer equal, in order, to the port's
+    engine on the CPU (the plain versions) and to a numpy oracle; each
+    query's kernel counters must move, its fusion outcome be the
+    reference's and a warm run upload nothing. The kernels' inputs of each
+    query's extra untimed run land in out["captured"][query] (a list per
+    kernel)."""
     import torch
 
     from tidb_tpu_torch import kernels as K
@@ -1061,50 +1560,49 @@ def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> 
     tables = {"lineitem": li, "orders": orders, "customer": cust}
     say("main.mpp_data", rows=rows, orders=len(orders["o_orderkey"]), customers=len(cust["c_custkey"]),
         seed=seed, seconds=time.perf_counter() - t0)
-    for qname, builder, needs in MPP_QUERIES:
-        plan = getattr(tpch, builder)()
+    real = {k: getattr(mp, k) for k in MPP_SPIED}
+    for qname, (builder, *bargs), variables, needs, outcome in MPP_QUERIES:
+        plan = getattr(tpch, builder)(*bargs)
         engine = MPPEngine(dev)
-        captured = out["captured"][qname] = {"lut_join": []}
-        real = {"lut_join": mp.lut_join, "run_agg": mp.run_agg, "block_topk": mp.block_topk}
+        captured = out["captured"][qname] = {k: [] for k in MPP_SPIED}
 
-        def spy_lut(*a, **kw):
-            captured["lut_join"].append(a)
-            return real["lut_join"](*a, **kw)
+        def spy(name):
+            def call(*a, **kw):
+                captured[name].append((a, kw))
+                return real[name](*a, **kw)
+            return call
 
-        def spy_run(*a, **kw):
-            captured["run_agg"] = a
-            return real["run_agg"](*a, **kw)
+        def timed():
+            timer = PhaseTimer(engine.device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = run_mpp(plan, tables, device=dev, engine=engine, timer=timer, variables=variables)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t, timer.totals_ms(),
+                    dict(engine.last_host_s, h2d_bytes=engine.last_h2d_bytes), res)
 
-        def spy_topk(*a, **kw):
-            captured["block_topk"] = a
-            return real["block_topk"](*a, **kw)
-
-        mp.lut_join, mp.run_agg, mp.block_topk = spy_lut, spy_run, spy_topk
+        before = K.launches()
+        runs = [timed() for _ in range(reps + 1)]  # the first run is cold: host prep + uploads
+        # one more run, untimed, with the kernels' inputs captured
+        for k in MPP_SPIED:
+            setattr(mp, k, spy(k))
         try:
-            before = K.launches()
-            runs = []
-            for rep in range(reps + 1):  # the first run is cold: host prep + uploads
-                captured["lut_join"].clear()
-                timer = PhaseTimer(engine.device)
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                res = run_mpp(plan, tables, device=dev, engine=engine, timer=timer)
-                torch.cuda.synchronize()
-                runs.append((time.perf_counter() - t, timer.totals_ms(),
-                             dict(engine.last_host_s, h2d_bytes=engine.last_h2d_bytes), res))
-            after = K.launches()
+            spied = run_mpp(plan, tables, device=dev, engine=engine, variables=variables)
         finally:
-            mp.lut_join, mp.run_agg, mp.block_topk = real["lut_join"], real["run_agg"], real["block_topk"]
+            for k in MPP_SPIED:
+                setattr(mp, k, real[k])
+        after = K.launches()
         moved = {k: after[k] - before[k] for k in after}
         idle = [k for k in needs if moved[k] == 0]
         if idle:
             raise AssertionError(f"{qname}: kernels {idle} were never launched")
-        if engine.fallbacks or engine.last_fuse_outcome != "fused":
-            raise AssertionError(f"{qname}: outcome {engine.last_fuse_outcome}, fallbacks {engine.fallback_counts}")
+        if engine.fallbacks or engine.last_fuse_outcome != outcome:
+            raise AssertionError(f"{qname}: outcome {engine.last_fuse_outcome} (want {outcome}), "
+                                 f"fallbacks {engine.fallback_counts}")
         if any(r[2]["h2d_bytes"] for r in runs[1:]):
             raise AssertionError(f"{qname}: a warm run uploaded lanes ({[r[2] for r in runs]})")
         t = time.perf_counter()
-        cpu = run_mpp(plan, tables, device="cpu")
+        cpu = run_mpp(plan, tables, device="cpu", variables=variables)
         cpu_s = time.perf_counter() - t
         t = time.perf_counter()
         want = mpp_oracle(qname, li, orders, cust)
@@ -1112,45 +1610,63 @@ def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> 
         if chunk_rows(cpu) != want:
             raise AssertionError(f"{qname}: the CPU engine differs from the numpy oracle\n"
                                  f"cpu:    {chunk_rows(cpu)[:3]}\noracle: {want[:3]}")
-        for i, (_, _, _, res) in enumerate(runs):
+        for i, res in enumerate([r[3] for r in runs] + [spied]):
             diff = chunks_equal(res, cpu)
             if diff is not None:
                 raise AssertionError(f"{qname} run {i}: GPU answer differs from the CPU engine's: {diff}\n"
                                      f"gpu: {chunk_rows(res)[:3]}\ncpu: {chunk_rows(cpu)[:3]}")
         warm = sorted(runs[1:], key=lambda x: x[0])
         med = warm[len(warm) // 2]
-        prof = profiled_run(lambda: run_mpp(plan, tables, device=dev, engine=engine), engine)
+        prof = profiled_run(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables), engine)
+        prog = next(iter(engine._programs.values()))
+        am = prog.agg_meta
         out[qname] = {
             "lineitem_rows": rows, "result_rows": cpu.num_rows, "cold_s": runs[0][0],
             "cold_phases_ms": runs[0][1], "cold_host_s": runs[0][2],
             "warm_median_s": med[0], "warm_s": [r[0] for r in runs[1:]], "rows_per_s": rows / med[0],
             "phases_ms": med[1], "cpu_engine_s": cpu_s, "oracle_s": oracle_s,
-            "launches_per_run": {k: c / (reps + 1) for k, c in moved.items() if c},
-            "fuse": engine.last_fuse_outcome, "fallback_reason": engine.last_fallback_reason,
+            "launches_per_run": {k: c / (reps + 2) for k, c in moved.items() if c},
+            "fuse": engine.last_fuse_outcome, "fuse_reasons": engine.last_fuse_reasons,
+            "agg_mode": am["mode"] if am is not None else "rows",
+            "clustered_reason": am.get("clustered_reason") if am is not None else None,
+            "levels": [("lut" if lv.use_lut else f"sort mult {lv.mult}", lv.frag.exchange)
+                       for lv in prog.levels.values()],
+            "fallback_reason": engine.last_fallback_reason,
             "profiled_run": prof, "answer": want[:3], "card": card,
         }
         say(f"main.{qname}", **out[qname])
 
 
 def measure_mpp_kernels(main: dict, max_err: dict):
-    """P3, P7 and P9 on Q3's own inputs (P3 timed on its first level,
-    lineitem → orders, and held on every level of Q3 and Q10): held once
-    more to the plain versions, then timed beside them, their bytes bound
-    and the nearest single PyTorch calls."""
+    """The MPP kernels on the main path's own inputs, held once more to
+    their plain versions (P3 and P4 on every level of every query), then
+    timed beside them, their bytes bound and the nearest single PyTorch
+    calls: P3, P7 and P9 on Q3 (P3 on its lineitem → orders level), P4 on
+    Q18's duplicate-key level, P5 on unfused Q3, P6 on Q3 LIMIT 100, P8 on
+    SEG_REVENUE."""
     import torch
 
-    from tidb_tpu_torch.kernels import block_topk, block_topk_ref, lut_join, lut_join_ref, run_agg, run_agg_ref
+    from tidb_tpu_torch.kernels import (block_topk, block_topk_ref, dense_agg, dense_agg_ref, lut_join,
+                                        lut_join_ref, rowpos_agg, rowpos_agg_ref, run_agg, run_agg_ref,
+                                        seg_reduce, seg_reduce_ref, sort_join, sort_join_ref)
+    from tidb_tpu_torch.kernels.dense_agg import dense_code_ref
+    from tidb_tpu_torch.kernels.rowpos_agg import picks
+    from tidb_tpu_torch.kernels.seg_reduce import group_code_ref
+    from tidb_tpu_torch.kernels.sort_join import pack_keys
 
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
-    cap = main["captured"]["q3_mpp"]
-    for qname, _, _ in MPP_QUERIES:  # every level of both queries
-        for i, a in enumerate(main["captured"][qname]["lut_join"]):
+    caps = main["captured"]
+    cap = caps["q3_mpp"]
+    for qname, *_ in MPP_QUERIES:  # every join level of every query
+        for i, (a, kw) in enumerate(caps[qname]["lut_join"]):
             same_lut_join(lut_join(*a), lut_join_ref(*a), f"lut_join on {qname} level {i + 1}")
-    p3 = cap["lut_join"][0]
+        for i, (a, _) in enumerate(caps[qname]["sort_join"]):
+            same_sort_join(sort_join(*a), sort_join_ref(*a), f"sort_join on {qname} level {i + 1}")
+    p3 = cap["lut_join"][0][0]
     keys, lo, size, stride, pmask, lut, bmask, brow, gathers = p3
     n, B = pmask.numel(), bmask.numel()
-    p3_bytes = (_nbytes(pmask, lut, bmask, brow) + sum(_nbytes(d, v) for d, v in keys)
-                + sum(_nbytes(d, v) for d, v in gathers) + n * (1 + 8) + sum(n * 9 for _ in gathers))
+    p3_bytes = (_nbytes(pmask, lut, bmask, brow, *_pairs(keys), *_pairs(gathers))
+                + n * (1 + 8) + sum(n * 9 for _ in gathers))
     idx = torch.clip(keys[0][0] - lo[0], 0, lut.numel() - 1)
     bsel = torch.clip(lut[idx].to(torch.int64), 0, B - 1)
     lane = gathers[0][0] if gathers else brow
@@ -1160,24 +1676,103 @@ def measure_mpp_kernels(main: dict, max_err: dict):
           "bytes": p3_bytes, "n": n, "B": B, "lut_dom": lut.numel(), "gathers": len(gathers)}
     k3["library_ms"] = k3["take_lut_ms"] + k3["take_build_lane_ms"]
 
-    p7 = cap["run_agg"]
+    p7 = cap["run_agg"][0][0]
     kd, mask, lanes = p7[0], p7[1], p7[2]
     max_err["run_agg"] = max(max_err["run_agg"], same_run_agg(run_agg(*p7), run_agg_ref(*p7), kd, "run_agg on Q3"))
     L = kd.numel()
     totals = run_agg(*p7)[0]
-    p7_bytes = (_nbytes(kd, mask) + sum(_nbytes(d, v) for d, v in lanes) + sum(_nbytes(t) for t in totals)
+    p7_bytes = (_nbytes(kd, mask, *_pairs(lanes)) + _nbytes(*totals)
                 + 8 * L + L + 8 * L)
     ilane = next(d for d, _ in lanes if d is not None and d.dtype == torch.int64)
     k7 = {"ms": time_ms(lambda: run_agg(*p7)), "plain_ms": time_ms(lambda: run_agg_ref(*p7), 3),
           "library_ms": time_ms(lambda: torch.cumsum(ilane, 0)), "bytes": p7_bytes, "L": L, "lanes": len(lanes),
           "library_call": "torch.cumsum of one int64 lane"}
 
-    score, kk = cap["block_topk"][0], cap["block_topk"][1]
+    score, kk = cap["block_topk"][0][0][:2]
     max_err["block_topk"] = max(max_err["block_topk"], same_block_topk(
         block_topk(score, kk), block_topk_ref(score, kk), score, "block_topk on Q3"))
     k9 = {"ms": time_ms(lambda: block_topk(score, kk)), "plain_ms": time_ms(lambda: block_topk_ref(score, kk), 3),
           "library_ms": time_ms(lambda: torch.topk(score, kk)), "bytes": _nbytes(score), "n": score.numel(),
           "k": kk}
+
+    # P4 on Q18's level: orders probe lineitem, duplicate keys, 4M slots
+    p4 = caps["q18"]["sort_join"][0][0]
+    pkeys, bkeys, lo4, st4, i32, pm, bm, br, mult, left, C, g4, pl4, pr4 = p4
+    n4, B4 = pm.numel(), bm.numel()
+    m4 = n4 if mult == 1 else C
+    p4_bytes = (_nbytes(*_pairs(pkeys + bkeys + g4 + pl4), pm, bm, br, *pr4)
+                + m4 * (1 + 8) + 9 * m4 * len(g4) + (9 * m4 * len(pl4) + 8 * m4 * len(pr4) if mult > 1 else 0))
+    pk = pack_keys(pkeys, lo4, st4, i32)[0].contiguous()
+    sk = torch.sort(pack_keys(bkeys, lo4, st4, i32)[0]).values
+    k4 = {"ms": time_ms(lambda: sort_join(*p4)), "plain_ms": time_ms(lambda: sort_join_ref(*p4), 3),
+          "library_ms": time_ms(lambda: torch.searchsorted(sk, pk)),
+          "library_call": "torch.searchsorted of the packed probe keys in the sorted build keys",
+          "bytes": p4_bytes, "n": n4, "B": B4, "slots": m4, "mult": mult, "gathers": len(g4)}
+
+    def with_rows(call, a, kw):
+        rows = torch.zeros_like(kw["rows"])
+        return call(*a, rows=rows), rows
+
+    def held(call, ref, a, kw, same, what):
+        """(error, kernel rows, plain rows) of one call held to its plain version."""
+        (g, gr), (w, wr) = with_rows(call, a, kw), with_rows(ref, a, kw)
+        torch.cuda.synchronize()
+        return same(g, w, what), gr, wr
+
+    # P5 on unfused Q3: 4M rows of (o_orderkey, o_orderdate) codes
+    a5, kw5 = caps["q3_unfused"]["seg_reduce"][0]
+    err, gr, wr = held(seg_reduce, seg_reduce_ref, a5, kw5,
+                       lambda g, w, what: same_seg_reduce(g, w, what, a5[2]), "seg_reduce on unfused Q3")
+    fl = {2 + j for j, ln in enumerate(a5[2]) if ln.is_float}
+    max_err["seg_reduce"] = max(max_err["seg_reduce"], err, same_rows(gr, wr, 1, "seg_reduce rows on Q3", fl))
+    keys5, mask5, lanes5 = a5[0], a5[1], a5[2]
+    n5 = mask5.numel()
+    kk5 = min(a5[5], n5)
+    p5_in = _pairs((k.data, k.valid) for k in keys5) + _pairs((ln.data, ln.valid) for ln in lanes5)
+    p5_bytes = _nbytes(mask5, *p5_in) + 8 * kk5 * (2 + len(lanes5))
+    code = group_code_ref(keys5, mask5)
+    k5 = {"ms": time_ms(lambda: with_rows(seg_reduce, a5, kw5)),
+          "plain_ms": time_ms(lambda: with_rows(seg_reduce_ref, a5, kw5), 3),
+          "library_ms": time_ms(lambda: torch.sort(code, stable=True)),
+          "library_call": "torch.sort(stable=True) of the group code", "bytes": p5_bytes, "n": n5,
+          "lanes": len(lanes5), "k": kk5}
+
+    # P6 on Q3 LIMIT 100: 1M orders as segments
+    a6, kw6 = caps["q3_top100"]["rowpos_agg"][0]
+    err, gr, wr = held(rowpos_agg, rowpos_agg_ref, a6, kw6,
+                       lambda g, w, what: same_rowpos(g, w, what, a6[3]), "rowpos_agg on Q3 LIMIT 100")
+    fl = {2 + j for j, ln in enumerate(a6[3][a6[8]:]) if ln.is_float}
+    max_err["rowpos_agg"] = max(max_err["rowpos_agg"], err, same_rows(gr, wr, 1, "rowpos_agg rows on Q3", fl))
+    mask6, rid6, B6, lanes6 = a6[0], a6[1], a6[2], a6[3]
+    kk6 = picks(a6[7], len(lanes6), B6)
+    p6_bytes = (_nbytes(mask6, rid6, *_pairs((ln.data, ln.valid) for ln in lanes6))
+                + 8 * kk6 * (2 + len(lanes6) - a6[8]))
+    seg6 = torch.where(mask6, torch.clip(rid6, 0, B6 - 1), B6)
+    sl6 = lanes6[a6[5]]
+    val6 = sl6.data if sl6.data is not None else torch.ones_like(rid6)
+    acc6 = torch.zeros(B6 + 1, dtype=val6.dtype, device=val6.device)
+    k6 = {"ms": time_ms(lambda: with_rows(rowpos_agg, a6, kw6)),
+          "plain_ms": time_ms(lambda: with_rows(rowpos_agg_ref, a6, kw6), 3),
+          "library_ms": time_ms(lambda: acc6.zero_().index_add_(0, seg6, val6)),
+          "library_call": "index_add_ of the ORDER BY lane into the build rows", "bytes": p6_bytes,
+          "n": mask6.numel(), "B": B6, "lanes": len(lanes6), "k": kk6}
+
+    # P8 on SEG_REVENUE: 6 segments, the count and five aggregates' lanes
+    a8, kw8 = caps["seg_revenue"]["dense_agg"][0]
+    mask8, keys8, nseg8, lanes8 = a8
+    rows8 = torch.zeros_like(kw8["rows"])
+    got8 = dense_agg(*a8, rows=rows8)
+    max_err["dense_agg"] = max(max_err["dense_agg"], same_dense(got8, dense_agg_ref(*a8), "dense_agg on SEG_REVENUE",
+                                                                lanes8))
+    p8_in = _pairs((k.data, k.valid) for k in keys8) + _pairs((ln.data, ln.valid) for ln in lanes8)
+    p8_bytes = _nbytes(mask8, *p8_in) + 8 * nseg8 * len(lanes8)
+    seg8 = dense_code_ref(mask8, keys8, nseg8)
+    sums8 = torch.stack([ln.data for ln in lanes8 if ln.op == "sum_i64"], dim=1)
+    acc8 = torch.zeros((nseg8 + 1, sums8.shape[1]), dtype=torch.int64, device=sums8.device)
+    k8 = {"ms": time_ms(lambda: dense_agg(*a8, rows=rows8)), "plain_ms": time_ms(lambda: dense_agg_ref(*a8), 3),
+          "library_ms": time_ms(lambda: acc8.zero_().index_add_(0, seg8, sums8)),
+          "library_call": "index_add_ of the stacked int64 sum lanes by the precomputed segment",
+          "bytes": p8_bytes, "n": mask8.numel(), "nseg": nseg8, "lanes": len(lanes8)}
     Lc = main["launches"]
 
     def entry(name, src, ref, meas):
@@ -1187,8 +1782,11 @@ def measure_mpp_kernels(main: dict, max_err: dict):
                 "bound_ms": bound(meas["bytes"]), "bound_by": "bytes", "library_ms": meas["library_ms"]}
 
     return ([entry("lut_join", "lut_join.cu", 1516, k3), entry("run_agg", "run_agg.cu", 1850, k7),
-             entry("block_topk", "block_topk.cu", 2008, k9)],
-            {"lut_join": k3, "run_agg": k7, "block_topk": k9})
+             entry("block_topk", "block_topk.cu", 2008, k9), entry("sort_join", "sort_join.cu", 1546, k4),
+             entry("seg_reduce", "seg_reduce.cu", 1655, k5), entry("rowpos_agg", "rowpos_agg.cu", 1788, k6),
+             entry("dense_agg", "dense_agg.cu", 1960, k8)],
+            {"lut_join": k3, "run_agg": k7, "block_topk": k9, "sort_join": k4, "seg_reduce": k5,
+             "rowpos_agg": k6, "dense_agg": k8})
 
 
 def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int = 8_000_000,
@@ -1308,9 +1906,7 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
                    "torch_take_int64_codes_ms": time_ms(lambda: torch.take(ship["v"], wide))}
     m, keys, lanes, nseg = captured["mask"], captured["keys"], captured["lanes"], captured["nseg"]
     n = m.numel()
-    k4_bytes = n + sum(k.data.numel() * k.data.element_size() + (n if k.valid is not None else 0) for k in keys)
-    k4_bytes += sum((l.data.numel() * 8 if l.data is not None else 0) + (n if l.valid is not None else 0)
-                    for l in lanes)
+    k4_bytes = _nbytes(m, *_pairs((k.data, k.valid) for k in keys), *_pairs((l.data, l.valid) for l in lanes))
     k4_bytes += len(lanes) * nseg * 8
     sums = [l for l in lanes if l.op == "sum_i64"]
     seg = group_code(m, keys, nseg)
@@ -1352,7 +1948,15 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
 
 
 def _nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+    """Bytes of the distinct tensors among ts: one passed twice (an
+    aggregate's value and count lanes share their valid lane) counts once."""
+    seen = {(t.data_ptr(), t.numel() * t.element_size()) for t in ts if t is not None}
+    return sum(b for _, b in seen)
+
+
+def _pairs(pairs) -> list:
+    """The tensors of (data, valid) pairs, flattened for _nbytes."""
+    return [t for pair in pairs for t in pair]
 
 
 def _packed_word(ops):
@@ -1407,7 +2011,7 @@ def measure_sort_kernels(main: dict, max_err: dict):
     for j, (g, w) in enumerate(zip(got, want)):
         _same(g.data.view(torch.int64) if g.kind == "f64" else g.data,
               w.data.view(torch.int64) if w.kind == "f64" else w.data, f"topn_multi operand {j}")
-    k7_in = _nbytes(mask) + sum(_nbytes(getattr(kd, "bits", kd), kv) for kd, kv, _ in keys)
+    k7_in = _nbytes(mask, *_pairs((getattr(kd, "bits", kd), kv) for kd, kv, _ in keys))
     k7 = {"ms": time_ms(lambda: topn_multi_ops(mask, keys)),
           "plain_ms": time_ms(lambda: topn_multi_ops_ref(mask, keys), 3),
           "bytes": k7_in + sum(_nbytes(o.data) for o in got), "keys": len(keys)}
@@ -1427,7 +2031,7 @@ def measure_sort_kernels(main: dict, max_err: dict):
     k9 = {"ms": time_ms(lambda: sort_groups(mask, keys, cap_of)),
           "plain_ms": time_ms(lambda: sort_groups_ref(mask, keys, cap_of), 3),
           "library_ms": time_ms(lambda: torch.unique_consecutive(skey, return_inverse=True)),
-          "bytes": _nbytes(mask) + sum(_nbytes(getattr(kd, "bits", kd), kv) for kd, kv in keys)
+          "bytes": _nbytes(mask, *_pairs((getattr(kd, "bits", kd), kv) for kd, kv in keys))
           + 4 * mask.numel() + 16 * len(keys) * g.n_groups,
           "n_groups": g.n_groups, "cap": g.cap, "note": "ms includes K8 and one n_groups sync"}
 
@@ -1444,7 +2048,7 @@ def measure_sort_kernels(main: dict, max_err: dict):
     k4s = {"ms": time_ms(lambda: seg_agg(mask, no_keys, lanes, nseg, seg=seg)),
            "plain_ms": time_ms(lambda: seg_agg_ref(mask, no_keys, lanes, nseg, seg=seg), 3),
            "index_add_sum_lane_ms": time_ms(lambda: acc.zero_().index_add_(0, ids, sums)),
-           "bytes": _nbytes(mask, seg) + sum(_nbytes(l.data, l.valid) for l in lanes) + 8 * nseg * len(lanes),
+           "bytes": _nbytes(mask, seg, *_pairs((l.data, l.valid) for l in lanes)) + 8 * nseg * len(lanes),
            "nseg": nseg, "lanes": len(lanes)}
 
     L = main["launches"]

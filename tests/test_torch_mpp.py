@@ -12,11 +12,11 @@
 * The answers: `entry.run_mpp(device="cpu")` gives, in order, the rows
   the reference Session gives with MPP on (its 8-device virtual mesh) and
   with MPP off (the host join).
-* What the port does not run raises NotPortedError: Q18 (a duplicate-key
-  level), `tidb_tpu_mpp_fused` OFF, and the clustered guard that demotes
-  a wide TopN (LIMIT 100) to the rowpos mode. The reference's declines
-  are mirrored by reason on synthetic plans, one spec built by both
-  packages (`Pkg.plan`).
+* Q18 (a duplicate-key level) runs on both engines with the same fusion
+  outcome and reasons; the other modes are held in
+  test_torch_mpp_modes.py. The reference's declines are mirrored by
+  reason on synthetic plans, one spec built by both packages
+  (`Pkg.plan`).
 
 Decimals, keys, row ids and order compare exactly; floats within rtol
 1e-9 / atol 1e-6.
@@ -38,7 +38,6 @@ from tidb_tpu.planner.plans import Aggregation as RefAggregation, Join, Limit
 from tidb_tpu.session import Session
 
 from tidb_tpu_torch.entry import run_mpp
-from tidb_tpu_torch.errors import NotPortedError
 from tidb_tpu_torch.executor import mpp_gather
 from tidb_tpu_torch.models import tpch
 from tidb_tpu_torch.parallel.mpp import MPPEngine
@@ -191,45 +190,19 @@ def test_run_mpp_gives_the_reference_session_rows(session, tables, q):
     assert got == mpp == host
 
 
-def test_q18_duplicate_build_keys_are_not_ported(tables):
-    plan = tpch.q18_mpp_plan()
-    eng = MPPEngine("cpu")
-    with pytest.raises(NotPortedError, match="P4"):
-        mpp_gather.gather(plan, mpp_gather.scan_datas(plan, tables, eng), eng)
-    assert eng.last_fuse_outcome == "unfused"
-    assert eng.last_fuse_reasons == {0: "dup_build_keys"}
-
-
 def test_q18_fuse_reasons_match_the_reference(session, tables):
-    """The reference runs Q18 on its unfused program; the port raises
-    after the same analysis, with the same outcome and reasons."""
+    """Q18 runs on both engines' unfused program (a duplicate-key level:
+    P4), with the same outcome, reasons and partial chunk."""
     rplan = ref_plan(session, ref_tpch.Q18)
     ref = RefEngine()
-    assert ref.execute(rplan, ref_scans(rplan, tables, ref), make_mesh(1), {}, fused=True) is not None
+    want = ref.execute(rplan, ref_scans(rplan, tables, ref), make_mesh(1), {}, fused=True)
     eng = MPPEngine("cpu")
     plan = tpch.q18_mpp_plan()
-    with pytest.raises(NotPortedError):
-        eng.execute(plan, mpp_gather.scan_datas(plan, tables, eng), {})
+    got = eng.execute(plan, mpp_gather.scan_datas(plan, tables, eng), {})
+    assert want is not None and got is not None
     assert (eng.last_fuse_outcome, eng.last_fuse_reasons) == (ref.last_fuse_outcome, ref.last_fuse_reasons)
-
-
-@pytest.mark.parametrize("q", sorted(PLANS))
-def test_fused_off_is_not_ported(tables, q):
-    plan = PLANS[q][1]()
-    eng = MPPEngine("cpu")
-    with pytest.raises(NotPortedError, match="tidb_tpu_mpp_fused=OFF"):
-        eng.execute(plan, mpp_gather.scan_datas(plan, tables, eng), {"tidb_tpu_mpp_fused": "OFF"})
-    assert eng.last_fuse_outcome == "off"
-
-
-def test_wide_topn_demotion_to_rowpos_is_not_ported(tables):
-    """LIMIT 100 > CLUSTERED_TOPN_MAX: the reference demotes Q3 to the
-    rowpos mode (topn_too_wide), which the port does not have."""
-    plan = tpch.q3_mpp_plan()
-    plan.topn = (0, True, 100)
-    eng = MPPEngine("cpu")
-    with pytest.raises(NotPortedError, match="topn_too_wide"):
-        eng.execute(plan, mpp_gather.scan_datas(plan, tables, eng), {})
+    assert eng.last_fuse_reasons == {0: "dup_build_keys"}
+    _assert_same_chunk(want[0], got[0])
 
 
 def test_run_mpp_without_a_card_raises(tables):
@@ -257,7 +230,8 @@ class Pkg:
 
     def ft(self, kind):
         F = self.F
-        ft = {"bigint": F.ft_longlong, "double": F.ft_double, "str": lambda: F.ft_varchar(20)}[kind.rstrip("!")]()
+        ft = {"bigint": F.ft_longlong, "ubig": lambda: F.ft_longlong(True), "double": F.ft_double,
+              "str": lambda: F.ft_varchar(20)}[kind.rstrip("!")]()
         if kind.endswith("!"):
             ft.flag |= F.NOT_NULL_FLAG
         return ft
@@ -283,7 +257,8 @@ class Pkg:
     def plan(self, spec):
         """MPPPlan of `spec`: scans in slice order (the first is the
         probe), one join level per further scan (`post[i]`: level i's
-        residual ON conditions)."""
+        residual ON conditions; `kinds[i]`: its join kind, inner unless
+        given)."""
         tables = {name: self.table(i + 1, name, cols) for i, (name, cols) in enumerate(spec["tables"].items())}
         frags, off = {}, 0
         for alias in spec["scans"]:
@@ -305,8 +280,8 @@ class Pkg:
             frags[alias].ds.pushed_conds = [self.expr(c, local) for c in conds]
         root = frags[spec["scans"][0]]
         for i, (alias, (pk, bk)) in enumerate(zip(spec["scans"][1:], spec["joins"])):
-            root = self.FR.JoinFrag(root, frags[alias], "inner", [joined(k)[0] for k in pk],
-                                    [joined(k)[0] for k in bk],
+            kind = spec.get("kinds", {}).get(i, "inner")
+            root = self.FR.JoinFrag(root, frags[alias], kind, [joined(k)[0] for k in pk], [joined(k)[0] for k in bk],
                                     [self.expr(c, joined) for c in spec.get("post", {}).get(i, [])])
         agg = None
         if "agg" in spec:
@@ -329,7 +304,7 @@ def run_spec(spec, tables, valid=None, variables=None):
     one synthetic spec over the same numpy columns."""
     rplan, pplan = REF.plan(spec), PORT.plan(spec)
     ref, port = RefEngine(), MPPEngine("cpu")
-    want = ref.execute(rplan, ref_scans(rplan, tables, ref, valid), make_mesh(1), variables or {}, fused=True)
+    want = ref.execute(rplan, ref_scans(rplan, tables, ref, valid), make_mesh(1), variables or {})
     got = port.execute(pplan, mpp_gather.scan_datas(pplan, tables, port, valid), variables or {})
     return ref, port, want, got
 

@@ -14,11 +14,13 @@
   row order (the reference's WindowExec.next over a TableReaderExec).
   `mode` is the WindowExec engine: 'tpu' runs W1 + W2 on `device` and
   raises on a device error; 'host' is the host oracle.
-* `run_mpp(mplan, tables, device="cuda")`: an MPP fragment plan (a fused
-  LUT join chain, with the clustered aggregation and its top-k or with the
-  joined rows) over the numpy columns of its tables on `device`, then the
-  steps above the gather (`mplan.root_step`: the final aggregate, the
-  projection and the TopN) → the result chunk.
+* `run_mpp(mplan, tables, device="cuda", variables=None)`: an MPP
+  fragment plan (its join levels, LUT or sort-probe, and its aggregation
+  in the mode the engine chooses, or the joined rows) over the numpy
+  columns of its tables on `device`, then the steps above the gather
+  (`mplan.root_step`: the final aggregate, HAVING, the projection and the
+  TopN) → the result chunk. `variables` are session variables, such as
+  `tidb_tpu_mpp_fused` ("ON" by default).
 """
 
 from __future__ import annotations
@@ -104,16 +106,17 @@ def run_window(scan_dag: DAGRequest, spec, batch: ColumnBatch, device="cuda",
 
 
 def run_mpp(mplan: MPPPlan, tables: dict, device="cuda", engine: MPPEngine | None = None,
-            timer=None) -> Chunk:
+            timer=None, variables: dict | None = None) -> Chunk:
     """Answer one MPP query: `tables` maps each table name to its columns
     ({column name: numpy lane}). `timer` (a torchenv.PhaseTimer) takes the
-    scan / lut_join / run_agg / topk / d2h / finalize spans, and host_agg
-    where the host aggregates the joined rows; the engine's
+    scan / join (lut_join, sort_join) / aggregation (run_agg and topk,
+    rowpos_agg, seg_reduce, dense_agg) / d2h / finalize spans, and
+    host_agg where the host aggregates the joined rows; the engine's
     `last_host_s` holds the host-clock seconds of its host analysis and
     uploads."""
     engine = engine or MPPEngine(device)
     engine.timer = timer
     scans = mpp_gather.scan_datas(mplan, tables, engine)
-    partial = mpp_gather.gather(mplan, scans, engine)
+    partial = mpp_gather.gather(mplan, scans, engine, variables)
     with engine._phase("finalize"):
         return mpp_gather.finish(mplan, mplan.root_step, partial)

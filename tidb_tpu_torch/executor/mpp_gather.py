@@ -13,7 +13,8 @@ above the gather out.
   port's host_engine._exec_agg).
 * `RootStep` / `finish`: the steps above the gather that the reference's
   executor tree runs for the query: FinalHashAggExec (the port's
-  final_agg.merge_partials), the projection, the TopN (final_agg.top_n).
+  final_agg.merge_partials), the HAVING Selection over its output, the
+  projection, the TopN (final_agg.top_n).
 
 The reference degrades a declined plan to its host hash join; the port
 has no host join, so a decline raises NotPortedError with the engine's
@@ -23,13 +24,13 @@ reference).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..chunk.chunk import Chunk
 from ..copr.dag import AggNode, DAGRequest, ScanNode
-from ..copr.host_engine import _exec_agg
+from ..copr.host_engine import _eval_mask, _exec_agg
 from ..errors import NotPortedError
 from ..expr.expression import Expression
 from ..planner.fragment import MPPPlan
@@ -38,12 +39,15 @@ from .final_agg import merge_partials, top_n
 
 @dataclass
 class RootStep:
-    """Above the gather: the final aggregate's output columns taken in
-    `proj` order, then ORDER BY `by` (over the projected columns) LIMIT n."""
+    """Above the gather: the rows of the final aggregate that pass
+    `having` (conditions over its output columns), its columns taken in
+    `proj` order, then ORDER BY `by` (over the projected columns) LIMIT n
+    where `by` is given."""
 
     proj: list[int]
-    by: list[tuple[Expression, bool]]
-    n: int
+    by: list[tuple[Expression, bool]] = field(default_factory=list)
+    n: int | None = None
+    having: list[Expression] = field(default_factory=list)
 
 
 def _table_lanes(engine, table_id: int, data: tuple, masks: tuple):
@@ -110,4 +114,7 @@ def finish(mplan: MPPPlan, root: RootStep | None, partial: Chunk) -> Chunk:
     final = merge_partials([partial], agg.group_by, agg.aggs, [c.ft for c in agg.out_cols])
     if root is None:
         return final
-    return top_n(Chunk([final.columns[i] for i in root.proj]), root.by, root.n)
+    if root.having:
+        final = final.filter(_eval_mask(root.having, final))
+    out = Chunk([final.columns[i] for i in root.proj])
+    return top_n(out, root.by, root.n) if root.by else out

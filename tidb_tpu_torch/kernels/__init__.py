@@ -12,12 +12,23 @@ and launch counters.
                                              _build_kernel.kernel (sorts with K8)
   W2 pack_flat       (csrc/pack_flat.cu)   ← jaxenv.py:104-138 pack_flat
   P3 lut_join        (csrc/lut_join.cu)    ← parallel/mpp.py:1516-1544 lut_join
+  P4 sort_join       (csrc/sort_join.cu)   ← parallel/mpp.py:1546-1653 join_stage
+                                             (non-LUT level) + :1451 pack_keys;
+                                             sorts with K8
+  P5 seg_reduce      (csrc/seg_reduce.cu)  ← parallel/mpp.py:1655-1786
+                                             sorted_agg_stage at n_dev 1
+                                             (K8 sort, K6 picks)
+  P6 rowpos_agg      (csrc/rowpos_agg.cu)  ← parallel/mpp.py:1788-1848
+                                             rowpos_agg_stage at n_dev 1
+                                             (K4 scatter, K6 picks)
   P7 run_agg         (csrc/run_agg.cu)     ← parallel/mpp.py:1850-1913
                                              clustered_agg_stage (+ :1984
                                              _topk_score)
   P9 block_topk      (csrc/block_topk.cu)  ← parallel/mpp.py:2008-2045
                                              _block_topk (+ the result rows,
                                              :1914-1929)
+  P8 dense_agg       (csrc/dense_agg.cu)   ← parallel/mpp.py:1960-1973 dense
+                                             partials + :2048 _agg_partials
 
 Each wrapper runs its plain version for CPU tensors only; on a CUDA
 tensor it launches its kernel (built at first use, kernels/build.py) or
@@ -26,11 +37,15 @@ raises. `<wrapper>.launches` counts kernel launches.
 
 from .block_topk import block_topk, block_topk_ref
 from .decode_lane import decode_lane, decode_lane_ref
+from .dense_agg import dense_agg, dense_agg_ref
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
 from .lut_join import lut_join, lut_join_ref
 from .pack_flat import pack_flat, pack_flat_ref
+from .rowpos_agg import rowpos_agg, rowpos_agg_ref
 from .run_agg import run_agg, run_agg_ref
 from .seg_agg import SegKey, SegLane, seg_agg, seg_agg_ref
+from .seg_reduce import seg_reduce, seg_reduce_ref
+from .sort_join import sort_join, sort_join_ref
 from .sort_groups import sort_groups, sort_groups_ref
 from .topk import topk, topk_ref
 from .topn_multi import topn_multi_ops, topn_multi_ops_ref
@@ -39,7 +54,8 @@ from .window import window, window_ref
 WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
             "topn_multi": topn_multi_ops, "lex_sort": lex_sort_perm, "sort_groups": sort_groups,
             "window": window, "pack_flat": pack_flat, "lut_join": lut_join, "run_agg": run_agg,
-            "block_topk": block_topk}
+            "block_topk": block_topk, "sort_join": sort_join, "seg_reduce": seg_reduce,
+            "rowpos_agg": rowpos_agg, "dense_agg": dense_agg}
 
 
 def reset_launches() -> None:

@@ -5,8 +5,9 @@ compiled by `nvcc` into its own shared library and loaded with ctypes: a
 source builds in seconds, where one that includes PyTorch's extension
 headers takes minutes. All sources compile in parallel, one `nvcc` each,
 for `sm_90a` (Hopper) at -O3, into `build/kernels/` at the repository root
-(git-ignored). A library is named after its source's content hash, so an
-edited source rebuilds and an unchanged one is loaded as it is.
+(git-ignored). A library is named after the content hash of its source
+and of the shared headers (`csrc/*.cuh`), so an edited source or header
+rebuilds and an unchanged one is loaded as it is.
 
 A build failure raises with the compiler's output: no wrapper ever falls
 back to its plain version on the card.
@@ -51,7 +52,8 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

@@ -83,6 +83,21 @@ JOIN lineitem l ON l.l_orderkey = o.o_orderkey
 WHERE l.l_returnflag = 'R'
 GROUP BY c.c_custkey, c.c_name ORDER BY revenue DESC, c.c_custkey LIMIT 20"""
 
+# Q3 with a TopN too wide for the clustered mode's block top-k (the
+# reference demotes it to the rowpos mode: topn_too_wide)
+Q3_TOP100 = Q3.replace("LIMIT 10", "LIMIT 100")
+
+# TPC-H Q5's shape — revenue by one dimension attribute of the customer —
+# over the generator's three tables (c_mktsegment stands in for n_name):
+# a dense join aggregate with count, sum, avg, min and max
+SEG_REVENUE = """SELECT c.c_mktsegment, COUNT(*),
+       SUM(l.l_extendedprice * (1 - l.l_discount)) AS revenue,
+       AVG(l.l_quantity), MIN(l.l_discount), MAX(l.l_extendedprice)
+FROM customer c JOIN orders o ON c.c_custkey = o.o_custkey
+JOIN lineitem l ON l.l_orderkey = o.o_orderkey
+WHERE l.l_shipdate > '1995-03-15'
+GROUP BY c.c_mktsegment"""
+
 Q18 = """SELECT o.o_orderkey, SUM(l.l_quantity) AS total_qty
 FROM orders o JOIN lineitem l ON l.l_orderkey = o.o_orderkey
 GROUP BY o.o_orderkey HAVING SUM(l.l_quantity) > 100
@@ -389,10 +404,10 @@ def _out_cols(*frags: ScanFrag) -> list[PlanCol]:
     return [pc for f in frags for pc in f.ds.out_cols]
 
 
-def q3_mpp_plan() -> MPPPlan:
-    """Q3: a fused ORDER BY revenue DESC LIMIT 10 over the partial agg;
-    above the gather the final agg, then the projection (o_orderkey,
-    revenue, o_orderdate) and the TopN."""
+def q3_mpp_plan(limit: int = 10) -> MPPPlan:
+    """Q3: a fused ORDER BY revenue DESC LIMIT `limit` over the partial
+    agg (Q3_TOP100 with limit=100); above the gather the final agg, then
+    the projection (o_orderkey, revenue, o_orderdate) and the TopN."""
     c, o, li, root = _cust_orders_lineitem()
     c.ds.pushed_conds = [make_func("eq", _lcol(c, "c_mktsegment"), _str("BUILDING"))]
     o.ds.pushed_conds = [make_func("lt", _lcol(o, "o_orderdate"),
@@ -401,8 +416,8 @@ def q3_mpp_plan() -> MPPPlan:
                                     _date_of(LINEITEM.col_by_name("l_shipdate").ft, "1995-03-15"))]
     agg = _agg([_jcol(o, "o_orderkey"), _jcol(o, "o_orderdate")], [_revenue(li)])
     revenue = Column(1, agg.aggs[0].ret_type, "revenue")
-    return MPPPlan(root, [c, o, li], agg, _out_cols(c, o, li), topn=(0, True, 10),
-                   root_step=RootStep(proj=[0, 2, 1], by=[(revenue, True)], n=10))
+    return MPPPlan(root, [c, o, li], agg, _out_cols(c, o, li), topn=(0, True, limit),
+                   root_step=RootStep(proj=[0, 2, 1], by=[(revenue, True)], n=limit))
 
 
 def q10_mpp_plan() -> MPPPlan:
@@ -418,10 +433,28 @@ def q10_mpp_plan() -> MPPPlan:
 
 
 def q18_mpp_plan() -> MPPPlan:
-    """Q18's join and aggregation (its HAVING and TopN run above them):
-    one level whose build side (lineitem) has duplicate keys."""
+    """Q18: one level whose build side (lineitem) has duplicate keys, no
+    fused TopN (two sort keys); above the gather the final agg, the HAVING
+    SUM(l_quantity) > 100, then the TopN total_qty DESC, o_orderkey LIMIT
+    10."""
     o = _scan_frag(ORDERS, "o", 0)
     li = _scan_frag(LINEITEM, "l", o.n_cols)
     root = JoinFrag(o, li, "inner", [_jcol(o, "o_orderkey").idx], [_jcol(li, "l_orderkey").idx])
     agg = _agg([_jcol(o, "o_orderkey")], [AggDesc.make("sum", [_jcol(li, "l_quantity")])])
-    return MPPPlan(root, [o, li], agg, _out_cols(o, li))
+    qty_ft, key_ft = agg.aggs[0].ret_type, ORDERS.col_by_name("o_orderkey").ft
+    step = RootStep(proj=[0, 1], by=[(Column(1, qty_ft, "total_qty"), True), (Column(0, key_ft, "o_orderkey"), False)],
+                    n=10, having=[make_func("gt", Column(1, qty_ft, "a0"), _int(100))])
+    return MPPPlan(root, [o, li], agg, _out_cols(o, li), root_step=step)
+
+
+def seg_revenue_mpp_plan() -> MPPPlan:
+    """SEG_REVENUE: Q3's chain with the lineitem date filter, the dense
+    aggregation by c_mktsegment (5 values) with count, sum, avg, min and
+    max; above the gather the final agg and its projection."""
+    c, o, li, root = _cust_orders_lineitem()
+    li.ds.pushed_conds = [make_func("gt", _lcol(li, "l_shipdate"),
+                                    _date_of(LINEITEM.col_by_name("l_shipdate").ft, "1995-03-15"))]
+    aggs = [AggDesc.make("count", []), _revenue(li), AggDesc.make("avg", [_jcol(li, "l_quantity")]),
+            AggDesc.make("min", [_jcol(li, "l_discount")]), AggDesc.make("max", [_jcol(li, "l_extendedprice")])]
+    agg = _agg([_jcol(c, "c_mktsegment")], aggs)
+    return MPPPlan(root, [c, o, li], agg, _out_cols(c, o, li), root_step=RootStep(proj=list(range(6))))

@@ -14,22 +14,24 @@ every exchange and collective of that program is the identity
   `_clustered_splits`, `_shard_pad`, `_build_lut`, `_pack_host`;
 * `execute`: the lane layout and uploads, through a device-tensor cache
   (`_dev_put`) and a LUT cache keyed like the reference's BuildSideCache
-  sig, so a warm run uploads nothing; then the device program
-  (parallel/mpp_program.py) and the finalizers `_finalize_rowpos` /
+  sig, so a warm run uploads nothing; then the device program and the
+  finalizers `_finalize_agg` / `_finalize_topk` / `_finalize_rowpos` /
   `_finalize_rows` / `_partial_agg_cols`;
 * `fallbacks`, `fallback_counts`, `last_fallback_reason`, `_decline_key`,
   `last_fuse_outcome`, `last_fuse_reasons` and `compile_count`, under the
   reference's names and reasons.
 
-What the device program runs is the fused chain: LUT join levels (P3),
-the clustered aggregation (P7) with its block top-k (P9), or rows mode
-(the joined mask and row ids; the host finishes the aggregation). Where
-the reference would run a mode the port lacks — dense, sorted or rowpos
-aggregation (rowpos also when the clustered guards demote), a non-LUT
-join level (P4, and with it a HASH exchange) or `tidb_tpu_mpp_fused` OFF
-— `execute` raises NotPortedError naming it; it never answers through
-another path. Where the reference's `prepare` declines (returns None),
-`execute` declines with the same typed reason and returns None.
+The device program (parallel/mpp_program.py) runs every join level of
+the reference — LUT (P3) and sort-probe (P4) with unique or duplicate
+build keys, inner and left — and every aggregation mode: dense (P8),
+sorted (P5), rowpos (P6, also where the clustered guards demote),
+clustered (P7 + P9) and rows (the joined mask and row ids; the host
+finishes the aggregation), with `tidb_tpu_mpp_fused` ON or OFF. At n_dev 1
+P2's hash exchange is the identity; more devices raise NotPortedError.
+Where the reference's `prepare` declines (returns None), or a duplicate-key
+level overflows its capacity, `execute` counts the same typed reason and
+returns None (the reference then takes its host join, which the port has
+not: executor/mpp_gather raises).
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ import torch
 
 from ..chunk.chunk import Chunk, Column, col_numpy_dtype, VARLEN
 from ..copr.gpu_engine import TorchEngine, _dict_encode_lane, _upload
-from ..errors import NotPortedError
 from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFunc
 from ..expr.xp_torch import U64
 from ..planner.fragment import BROADCAST, HASH, LOCAL, JoinFrag, MPPPlan, ScanFrag
@@ -848,19 +849,13 @@ class MPPEngine:
         else:
             outcome = "unfused"
         self.last_fuse_outcome = outcome
-        if not fused:
-            raise NotPortedError("mpp.MPPEngine._build_program", "tidb_tpu_mpp_fused=OFF (P2/P4/P5 program)")
-        for l in lvls:
-            if not l.use_lut:
-                raise NotPortedError("mpp.join_stage (P4)",
-                                     f"non-LUT join level, exchange {l.frag.exchange}, "
-                                     f"reason {l.fuse_reason or 'n/a'}")
-        # from here every level is a LUT level (LOCAL: no exchange), so the
-        # stream is the only sharded scan and a stream with pushed
-        # conditions is prefiltered on the host (ref: :1154-1200)
         n_dev = N_DEV
         soj = meta["scan_of_joined"]
         stream = self._stream_source(mplan.root)
+        # which scans are sharded: the stream source + hash-side builds
+        sharded = {id(stream)} | {id(l.frag.build) for l in lvls if l.frag.exchange == HASH}
+        # the host prefilters a sharded scan only inside a fully fused chain
+        all_lut = bool(lvls) and all(l.use_lut for l in lvls)
         agm = meta["agg"]
         if agm is not None and agm["mode"] == "clustered":
             # the clustered dispatch guards (ref: :1169-1193)
@@ -870,7 +865,9 @@ class MPPEngine:
             else:
                 ss = next(s for s in scans if s.frag is stream)
                 src = meta["r_pushed"][id(ss)]
-                ssel = self._pushed_selection(ss, src) if ss.version >= 0 and src else None
+                ssel = None
+                if fused and all_lut and id(ss.frag) in sharded and ss.version >= 0 and src:
+                    ssel = self._pushed_selection(ss, src)
                 sh = hashlib.sha256(repr(src).encode()).hexdigest()[:12] if ssel is not None else ""
                 _, _, rawmax = self._clustered_splits(ss, soj[agm["rp_ck"]][1], sh, n_dev, ssel)
                 sn = len(ssel) if ssel is not None else ss.n_rows
@@ -879,26 +876,25 @@ class MPPEngine:
             if demote is not None:
                 agm["mode"], agm["rp_ck"] = "rowpos", None
                 agm["clustered_reason"] = demote
-        if agm is not None and agm["mode"] != "clustered":
-            stage = {"dense": "mpp kernel dense partials (P8)", "sorted": "mpp.sorted_agg_stage (P5)",
-                     "rowpos": "mpp.rowpos_agg_stage (P6)"}[agm["mode"]]
-            raise NotPortedError(stage, f"agg mode {agm['mode']}"
-                                 + (f", clustered_reason {agm['clustered_reason']}"
-                                    if agm.get("clustered_reason") else ""))
 
-        # device lanes per scan: the levels' probe keys and ON conditions,
-        # the aggregate arguments, and (unless prefiltered) the columns of
-        # the pushed conditions
+        # device lanes per scan: the levels' keys (a LUT level's build keys
+        # live in its LUT) and ON conditions, the aggregate arguments, the
+        # group keys of the dense and sorted modes, and (unless prefiltered)
+        # the columns of the pushed conditions
         need: dict[int, set] = {id(s): set() for s in scans}
         need_cond: dict[int, set] = {id(s): set() for s in scans}
         used: set[int] = set()
         for lvl in lvls:
-            used.update(lvl.frag.probe_keys)
+            used.update(lvl.frag.probe_keys if lvl.use_lut else lvl.frag.probe_keys + lvl.frag.build_keys)
             for c in lvl.r_post:
                 c.collect_columns(used)
-        for ra in agm["r_args"] if agm is not None else ():
-            for x in ra:
-                x.collect_columns(used)
+        if agm is not None:
+            if agm["mode"] not in ("rowpos", "clustered"):
+                for g in mplan.agg.group_by:
+                    g.collect_columns(used)
+            for ra in agm["r_args"]:
+                for x in ra:
+                    x.collect_columns(used)
         for j in used:
             sd, off = soj[j]
             need[id(sd)].add(off)
@@ -914,10 +910,10 @@ class MPPEngine:
         t_h2d = 0.0
         for s in scans:
             t1 = time.perf_counter()
-            is_sharded = s.frag is stream
+            is_sharded = id(s.frag) in sharded
             rc = meta["r_pushed"][id(s)]
             sel = None
-            if is_sharded and s.version >= 0 and rc:
+            if fused and all_lut and is_sharded and s.version >= 0 and rc:
                 sel = self._pushed_selection(s, rc)
             pref = sel is not None
             offs = sorted(need[id(s)] if pref else need[id(s)] | need_cond[id(s)])
@@ -925,7 +921,7 @@ class MPPEngine:
             tid = s.frag.ds.table.id
             ver = s.version
             h = hashlib.sha256(repr(rc).encode()).hexdigest()[:12] if pref else ""
-            if agm is not None and is_sharded:  # the clustered mode's stream
+            if agm is not None and agm["mode"] == "clustered" and s.frag is stream:
                 koff = soj[agm["rp_ck"]][1]
                 splits, L, _ = self._clustered_splits(s, koff, h, n_dev, sel)
                 total = n_dev * L
@@ -978,7 +974,7 @@ class MPPEngine:
         # scan's lanes, cached under the reference's BuildSideCache sig
         by_frag = {id(s.frag): s for s in scans}
         lut_args = {}
-        for lvl in lvls:
+        for lvl in (l for l in lvls if l.use_lut):
             bsd = by_frag[id(lvl.frag.build)]
             boffs = tuple(soj[bk][1] for bk in lvl.frag.build_keys)
             sig = ("lut", bsd.version, boffs, tuple(lvl.lut_lo), tuple(lvl.lut_stride), lvl.lut_dom)
@@ -1006,7 +1002,7 @@ class MPPEngine:
         key = self._program_key(mplan, meta, scans, shapes, n_dev)
         prog = self._programs.get(key)
         if prog is None:
-            prog = MPPProgram(self, mplan, meta, scan_arg_meta)
+            prog = MPPProgram(self, mplan, meta, scan_arg_meta, n_dev)
             self._programs[key] = prog
             self.compile_count += 1
         packed = prog(args, lut_args)
@@ -1020,7 +1016,11 @@ class MPPEngine:
                 self._fallback("capacity_overflow", f"exchange bucket overflow ({dropped} rows)")
                 return None
             if agm is not None:
-                return self._finalize_rowpos(mplan, meta, scans, outs), True
+                if agm["mode"] == "sorted":
+                    return self._finalize_topk(mplan, meta, outs), True
+                if agm["mode"] in ("rowpos", "clustered"):
+                    return self._finalize_rowpos(mplan, meta, scans, outs), True
+                return self._finalize_agg(mplan, meta, outs), True
             return self._finalize_rows(mplan, meta, scans, outs), False
 
     def _phase(self, name: str):
@@ -1126,7 +1126,7 @@ class MPPEngine:
         return cols
 
     def _finalize_rowpos(self, mplan, meta, scans, outs) -> Chunk:
-        """Clustered-mode output → partial-layout chunk: one row per exact
+        """Rowpos / clustered output → partial-layout chunk: one row per exact
         group (one build-side row); group key values gathered from the
         build scan's original numpy lanes (ref: :2128)."""
         agg = mplan.agg
@@ -1150,6 +1150,74 @@ class MPPEngine:
                 data = data.copy()
                 data[~gvalid] = None
             cols.append(Column(out_fts[oi], data, gvalid))
+            oi += 1
+        cols.extend(self._partial_agg_cols(agg, soj, outs, 2, keep, out_fts, oi))
+        return Chunk(cols)
+
+    def _finalize_agg(self, mplan, meta, outs) -> Chunk:
+        """Dense partial rows → partial-layout chunk (group keys, then per-agg
+        partial states) for the final aggregate (ref: :2158)."""
+        agg = mplan.agg
+        agg_meta = meta["agg"]
+        soj = meta["scan_of_joined"]
+        group_count = np.asarray(outs[0])
+        present = np.nonzero(group_count > 0)[0]
+        G = len(present)
+        out_fts = [g.ret_type for g in agg.group_by]
+        for a in agg.aggs:
+            out_fts.extend(ft for _, ft in a.partial_final_types())
+        cols: list[Column] = []
+        radix = [d + 1 for d in agg_meta["domains"]]
+        codes = present.copy()
+        key_vals = []
+        for r in reversed(radix):
+            key_vals.append(codes % r)
+            codes = codes // r
+        key_vals.reverse()
+        oi = 0
+        for km, kv in zip(agg_meta["key_meta"], key_vals):
+            ft = out_fts[oi]
+            valid = kv > 0
+            if km[0] == "dict":
+                vocab = km[1]
+                data = np.empty(G, dtype=object)
+                for j, c in enumerate(kv):
+                    data[j] = vocab[c - 1] if c > 0 else None
+            else:
+                data = (kv.astype(np.int64) - 1) + km[1]
+                data[~valid] = 0
+            cols.append(Column(ft, data, valid))
+            oi += 1
+        cols.extend(self._partial_agg_cols(agg, soj, outs, 1, present, out_fts, oi))
+        return Chunk(cols)
+
+    def _finalize_topk(self, mplan, meta, outs) -> Chunk:
+        """Sorted mode's k picks → partial-layout chunk (ref: :2196)."""
+        agg = mplan.agg
+        agg_meta = meta["agg"]
+        soj = meta["scan_of_joined"]
+        codes = np.asarray(outs[0])
+        valid = np.asarray(outs[1])
+        keep = np.nonzero(valid & (codes != np.iinfo(np.int64).max))[0]
+        G = len(keep)
+        codes = codes[keep]
+        out_fts = [g.ret_type for g in agg.group_by]
+        for a in agg.aggs:
+            out_fts.extend(ft for _, ft in a.partial_final_types())
+        cols: list[Column] = []
+        oi = 0
+        for km, st, radix in zip(agg_meta["key_meta"], agg_meta["strides"], agg_meta["radixes"]):
+            comp = (codes // st) % radix
+            kvalid = comp > 0
+            ft = out_fts[oi]
+            if km[0] == "dict":
+                vocab = km[1]
+                data = np.empty(G, dtype=object)
+                for j, c in enumerate(comp):
+                    data[j] = vocab[c - 1] if c > 0 else None
+            else:
+                data = np.where(kvalid, (comp - 1) * km[2] + km[1], 0).astype(np.int64)
+            cols.append(Column(ft, data, kvalid))
             oi += 1
         cols.extend(self._partial_agg_cols(agg, soj, outs, 2, keep, out_fts, oi))
         return Chunk(cols)

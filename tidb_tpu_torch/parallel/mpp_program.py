@@ -1,22 +1,31 @@
-"""The device program of a fused MPP chain on one card (ref:
+"""The device program of an MPP fragment plan on one card (ref:
 tidb_tpu/parallel/mpp.py:1402-1981 `MPPEngine._build_program` at n_dev 1,
 where every exchange and collective is the identity).
 
     scan stage  (P1, torch glue)   each scan's row ids, row validity and
-                                   lanes; a build scan's pushed conditions
-                                   through the port's `_eval_device`
-    lut_join    (P3, per level)    kernels/lut_join: probe the level's LUT,
-                                   gather the build lanes used downstream
-    run_agg     (P7)               kernels/run_agg over the aggregate
-                                   arguments (torch glue, as K2)
-    topk        (P9)               kernels/block_topk
+                                   lanes; a scan's pushed conditions (unless
+                                   prefiltered on the host) through the
+                                   port's `_eval_device`
+    join level, per JoinFrag:
+      lut_join  (P3)               kernels/lut_join: probe the level's LUT
+      sort_join (P4)               kernels/sort_join: sort the build keys,
+                                   probe; a duplicate-key level expands into
+                                   its compact slots. P2's hash exchange
+                                   before it is the identity at n_dev 1
+    aggregation, by the mode the host chose:
+      rows      —                  the root level writes [mask, row id per
+                                   scan]; the host aggregates the rows
+      clustered (P7 + P9)          kernels/run_agg, kernels/block_topk
+      rowpos    (P6)               kernels/rowpos_agg (K4 scatter, K6 picks)
+      sorted    (P5)               kernels/seg_reduce (K8 sort, K6 picks)
+      dense     (P8)               kernels/dense_agg
+                                   (aggregate arguments: torch glue, as K2)
 
-The result is the reference's packed (n+1, L) int64 matrix (jaxenv.pack_rows
-layout): the host writes the tag row and the zero drop-count row, the last
-kernel writes the output rows straight into their views — in clustered
-mode P9 writes [group row, valid, agg lanes...] for its k picks, in rows
-mode the last P3 launch writes [mask, row id per scan...]. One
-device-to-host copy then fetches it.
+The result is the reference's packed (n+1, W) int64 matrix (jaxenv.pack_rows
+layout): the host writes the tag row and the drop-count row (the sum of the
+duplicate-key levels' dropped rows, on the card), the last kernel writes the
+output rows straight into their views. One device-to-host copy then fetches
+it.
 """
 
 from __future__ import annotations
@@ -25,11 +34,17 @@ from contextlib import nullcontext
 
 import torch
 
+from ..errors import NotPortedError
 from ..expr.xp_torch import U64
 from ..kernels.block_topk import Emit, block_topk
+from ..kernels.dense_agg import DenseKey, dense_agg
 from ..kernels.lut_join import lut_join
+from ..kernels.red import RedLane, kind
+from ..kernels.rowpos_agg import picks, rowpos_agg
 from ..kernels.run_agg import run_agg
-from ..planner.fragment import ScanFrag
+from ..kernels.seg_reduce import GroupKey, seg_reduce
+from ..kernels.sort_join import capacity, sort_join
+from ..planner.fragment import HASH, ScanFrag
 from ..torchenv import _KIND_BOOL, _KIND_F64, _KIND_I64
 
 
@@ -50,13 +65,41 @@ def _cond_mask(eval_dev, conds, lanes, mask):
     return mask
 
 
+def exchange_all(n_dev: int, lanemap, mask, rowids):
+    """P2's hash exchange (ref: :1465-1481): at n_dev 1 every row already
+    lives on its owner, and the reference returns before any device work."""
+    if n_dev != 1:
+        raise NotPortedError("mpp.exchange_all (P2)", f"hash exchange across {n_dev} devices")
+    return lanemap, mask, rowids
+
+
+def _as_bool(m):
+    return m if m.dtype == torch.bool else m != 0
+
+
+class _Rows:
+    """Rows mode's packed result, allocated by the root level once its
+    output length is known."""
+
+    def __init__(self, prog):
+        self.prog = prog
+        self.packed = None
+        self.row = {id(s): 2 + i for i, s in enumerate(prog.mplan.scans)}
+
+    def alloc(self, L: int):
+        kinds = [_KIND_BOOL] + [_KIND_I64] * len(self.prog.mplan.scans)
+        self.packed = self.prog._packed(kinds, L, L)
+        return self.packed
+
+
 class MPPProgram:
     """One fragment plan's device program (the reference's jitted program
     for one program key)."""
 
-    def __init__(self, engine, mplan, meta, scan_arg_meta):
+    def __init__(self, engine, mplan, meta, scan_arg_meta, n_dev: int = 1):
         self.engine = engine
         self.mplan = mplan
+        self.n_dev = n_dev
         self.soj = meta["scan_of_joined"]
         self.r_pushed = meta["r_pushed"]
         self.levels = meta["levels"]
@@ -69,7 +112,8 @@ class MPPProgram:
             pos += 2 + 2 * len(offs)
         self.sd_by_fid = {id(sd.frag): sd for sd, _ in self.soj.values()}
         # joined columns read after their level: later probe keys, ON
-        # conditions, aggregate arguments; a level gathers only those
+        # conditions, aggregate arguments and (dense / sorted) group keys;
+        # a level gathers only those
         used: set[int] = set()
         for lvl in self.levels.values():
             used.update(lvl.frag.probe_keys)
@@ -79,7 +123,11 @@ class MPPProgram:
             for ra in self.agg_meta["r_args"]:
                 for x in ra:
                     x.collect_columns(used)
+            if self.agg_meta["mode"] in ("dense", "sorted"):
+                for g in mplan.agg.group_by:
+                    g.collect_columns(used)
         self.used = used
+        self.drops: list = []
 
     def _phase(self, name):
         t = self.engine.timer
@@ -101,19 +149,26 @@ class MPPProgram:
 
     def __call__(self, flat, luts) -> torch.Tensor:
         mplan = self.mplan
+        self.drops = []
         with self._phase("scan"):
             stages = {id(s): self.scan_stage(id(s), flat) for s in mplan.scans}
-        rows_mode = self.agg_meta is None
-        packed = None
-        if rows_mode:
-            L = stages[id(self.engine._stream_source(mplan.root))][1].shape[0]
-            kinds = [_KIND_BOOL] + [_KIND_I64] * len(mplan.scans)
-            packed = self._packed(kinds, L, L)
-        with self._phase("lut_join"):
-            lanemap, mask, rowids = self.join(mplan.root, stages, luts, packed)
-        if rows_mode:
-            return packed
-        return self.clustered(lanemap, mask, rowids)
+        rows = _Rows(self) if self.agg_meta is None else None
+        lanemap, mask, rowids = self.join(mplan.root, stages, luts, rows)
+        mode = None if self.agg_meta is None else self.agg_meta["mode"]
+        if mode is None:
+            packed = rows.packed
+        elif mode == "clustered":
+            packed = self.clustered(lanemap, mask, rowids)
+        elif mode == "rowpos":
+            packed = self.rowpos(lanemap, mask, rowids)
+        elif mode == "sorted":
+            packed = self.sorted_agg(lanemap, mask)
+        else:
+            packed = self.dense(lanemap, mask)
+        if self.drops:
+            d = self.drops[0] if len(self.drops) == 1 else torch.stack(self.drops).sum(0)
+            packed[-1].copy_(d.expand(packed.shape[1]))
+        return packed
 
     def _packed(self, kinds, L, k):
         """The (n+1, W) matrix with its tag row and zero drop row written;
@@ -130,39 +185,192 @@ class MPPProgram:
         packed[n].zero_()
         return packed
 
-    def join(self, frag, stages, luts, packed):
-        """(lanemap, mask, rowids) of a (sub)chain (ref: :1546-1561); the
+    # ------------------------------------------------------------- joins
+
+    def join(self, frag, stages, luts, rows):
+        """(lanemap, mask, rowids) of a (sub)chain (ref: :1546-1653); the
         root level of a rows-mode program writes the packed rows."""
         if isinstance(frag, ScanFrag):
             return stages[id(frag)]
-        pmap, pmask, prow = self.join(frag.probe, stages, luts, packed)
+        pmap, pmask, prow = self.join(frag.probe, stages, luts, rows)
         bmap, bmask, brow = stages[id(frag.build)]
         lvl = self.levels[id(frag)]
-        keys = [(_bits(pmap[j][0]), pmap[j][1]) for j in frag.probe_keys]
-        gather_idx = sorted(j for j in bmap if j in self.used)
-        gathers = [(_bits(bmap[j][0]), bmap[j][1]) for j in gather_idx]
-        out = {}
-        if packed is not None and frag is self.mplan.root and not lvl.r_post:
-            L = pmask.shape[0]
-            row = {id(s): 2 + i for i, s in enumerate(self.mplan.scans)}
-            out = dict(match_out=packed[1, :L], rowid_out=packed[row[id(frag.build)], :L],
-                       copies=[(r, packed[row[fid], :L]) for fid, r in prow.items()])
-        match, rowid, got = lut_join(keys, lvl.lut_lo, lvl.lut_size, lvl.lut_stride, pmask, luts[id(frag)],
-                                     bmask, brow[id(frag.build)], gathers, **out)
-        merged = dict(pmap)
-        for j, (d, v) in zip(gather_idx, got):
-            merged[j] = (U64(d) if isinstance(bmap[j][0], U64) else d, v)
-        rowids = dict(prow)
-        rowids[id(frag.build)] = rowid
-        mask = match if match.dtype == torch.bool else match != 0
+        root = rows if rows is not None and frag is self.mplan.root else None
+        direct = root if not lvl.r_post else None
+        if lvl.use_lut:
+            with self._phase("lut_join"):
+                merged, mask, rowids = self.lut_level(frag, lvl, pmap, pmask, prow, bmap, bmask, brow,
+                                                      luts[id(frag)], direct)
+        else:
+            with self._phase("sort_join"):
+                merged, mask, rowids = self.sort_level(frag, lvl, pmap, pmask, prow, bmap, bmask, brow, direct)
         if lvl.r_post:
             mask = _cond_mask(self.eval_dev, lvl.r_post, merged, mask)
-            if packed is not None and frag is self.mplan.root:
+            if root is not None:
                 L = mask.shape[0]
+                packed = root.alloc(L)
                 packed[1, :L].copy_(mask)
-                for i, s in enumerate(self.mplan.scans):
-                    packed[2 + i, :L].copy_(rowids[id(s)])
+                for s in self.mplan.scans:
+                    packed[root.row[id(s)], :L].copy_(rowids[id(s)])
         return merged, mask, rowids
+
+    def _gathers(self, bmap):
+        idx = sorted(j for j in bmap if j in self.used)
+        return idx, [(_bits(bmap[j][0]), bmap[j][1]) for j in idx]
+
+    @staticmethod
+    def _merge(into, idx, got, like):
+        for j, (d, v) in zip(idx, got):
+            into[j] = (U64(d) if isinstance(like[j][0], U64) else d, v)
+
+    def lut_level(self, frag, lvl, pmap, pmask, prow, bmap, bmask, brow, lut, rows):
+        """P3 (ref: :1516-1544)."""
+        keys = [(_bits(pmap[j][0]), pmap[j][1]) for j in frag.probe_keys]
+        gather_idx, gathers = self._gathers(bmap)
+        out = {}
+        if rows is not None:
+            L = pmask.shape[0]
+            packed = rows.alloc(L)
+            out = dict(match_out=packed[1, :L], rowid_out=packed[rows.row[id(frag.build)], :L],
+                       copies=[(r, packed[rows.row[fid], :L]) for fid, r in prow.items()])
+        match, rowid, got = lut_join(keys, lvl.lut_lo, lvl.lut_size, lvl.lut_stride, pmask, lut,
+                                     bmask, brow[id(frag.build)], gathers, **out)
+        merged = dict(pmap)
+        self._merge(merged, gather_idx, got, bmap)
+        rowids = dict(prow)
+        rowids[id(frag.build)] = rowid
+        return merged, _as_bool(match), rowids
+
+    def sort_level(self, frag, lvl, pmap, pmask, prow, bmap, bmask, brow, rows):
+        """P4 (ref: :1562-1653), after P2's exchange (the identity)."""
+        if frag.exchange == HASH:
+            pmap, pmask, prow = exchange_all(self.n_dev, pmap, pmask, prow)
+            bmap, bmask, brow = exchange_all(self.n_dev, bmap, bmask, brow)
+        pkeys = [(_bits(pmap[j][0]), pmap[j][1]) for j in frag.probe_keys]
+        bkeys = [(_bits(bmap[j][0]), bmap[j][1]) for j in frag.build_keys]
+        gather_idx, gathers = self._gathers(bmap)
+        n, B = pmask.shape[0], bmask.shape[0]
+        left = frag.kind != "inner"
+        M = lvl.mult
+        probe_idx = sorted(j for j in pmap if j in self.used) if M > 1 else []
+        plane = [(_bits(pmap[j][0]), pmap[j][1]) for j in probe_idx]
+        C = capacity(n, B, lvl.expected_out, left) if M > 1 else 0
+        fids = list(prow)
+        out = None
+        if rows is not None:
+            L = n if M == 1 else C
+            packed = rows.alloc(L)
+            out = {"mask": packed[1, :L], "rowid": packed[rows.row[id(frag.build)], :L],
+                   "prows": [packed[rows.row[fid], :L] for fid in fids]}
+        res = sort_join(pkeys, bkeys, lvl.key_lo, lvl.key_stride, lvl.key_i32, pmask, bmask,
+                        brow[id(frag.build)], M, left, C, gathers, plane, [prow[f] for f in fids], out=out)
+        if M == 1:
+            merged, rowids = dict(pmap), dict(prow)
+        else:
+            merged = {}
+            self._merge(merged, probe_idx, res.probe_lanes, pmap)
+            rowids = dict(zip(fids, res.prows))
+            self.drops.append(res.dropped)
+        self._merge(merged, gather_idx, res.gathered, bmap)
+        rowids[id(frag.build)] = res.rowid
+        return merged, _as_bool(res.mask), rowids
+
+    # ------------------------------------------------------ aggregations
+
+    def _arg(self, ra, lanemap, n):
+        """(data, valid, unsigned) of an aggregate's argument; (None, None,
+        False) for COUNT(*)."""
+        if not ra:
+            return None, None, False
+        d, v = self.eval_dev(ra[0], lanemap)
+        unsigned = isinstance(d, U64)
+        d, v = _full(d, n), _full(v, n)
+        if d.dtype == torch.float32:
+            d = d.to(torch.float64)
+        elif d.dtype != torch.float64:
+            d = d.to(torch.int64)
+        return d.contiguous(), v.contiguous(), unsigned
+
+    def partial_lanes(self, lanemap, n, sorted_mode: bool = False):
+        """The partial lanes per aggregate: `_agg_partials` (ref: :2048), or
+        sorted_agg_stage's (:1676-1698), which keeps a uint64 sum in its
+        dtype where `_agg_partials` casts it to int64."""
+        lanes = []
+        for a, ra in zip(self.mplan.agg.aggs, self.agg_meta["r_args"]):
+            d, v, unsigned = self._arg(ra, lanemap, n)
+            if a.name == "count":
+                lanes.append(RedLane("count", None, v))
+                continue
+            if d is None:  # an argument-free sum / min / max sees the constant 1
+                d = torch.ones(n, dtype=torch.int64, device=self.engine.device)
+            if a.name in ("sum", "avg"):
+                op = "sum_f64" if d.dtype == torch.float64 else ("sum_u64" if unsigned and sorted_mode else "sum_i64")
+            elif a.name in ("min", "max"):
+                op = a.name + ("_f64" if d.dtype == torch.float64 else "_u64" if unsigned else "_i64")
+            else:
+                raise NotImplementedError(a.name)
+            lanes += [RedLane(op, d, v), RedLane("count", None, v)]
+        return lanes
+
+    def dense(self, lanemap, mask):
+        """Dense partials (ref: :1960-1973): P8 writes the count lane and
+        every partial lane into the packed rows."""
+        am = self.agg_meta
+        agg = self.mplan.agg
+        n, nseg = mask.shape[0], am["nseg"]
+        with self._phase("dense_agg"):
+            keys = []
+            for g, dom, km in zip(agg.group_by, am["domains"], am["key_meta"]):
+                d, v = lanemap[g.idx]
+                keys.append(DenseKey(_bits(d).contiguous(), v.contiguous(), km[1] if km[0] == "int" else 0, dom))
+            lanes = [RedLane("count", None, None)] + self.partial_lanes(lanemap, n)
+            packed = self._packed([kind(ln.op) for ln in lanes], nseg, nseg)
+            dense_agg(mask, keys, nseg, lanes, rows=packed[1:1 + len(lanes)])
+        return packed
+
+    def sorted_agg(self, lanemap, mask):
+        """Sorted aggregation with its fused top-k (ref: :1655-1786 at
+        n_dev 1): P5 writes [group code, valid, lanes...] at the picks."""
+        am = self.agg_meta
+        agg = self.mplan.agg
+        n = mask.shape[0]
+        with self._phase("seg_reduce"):
+            keys = []
+            for g, km, st in zip(agg.group_by, am["key_meta"], am["strides"]):
+                d, v = lanemap[g.idx]
+                is_int = km[0] == "int"
+                keys.append(GroupKey(_bits(d).contiguous(), v.contiguous(), km[1] if is_int else 0,
+                                     km[2] if is_int else 1, st, is_int))
+            lanes = self.partial_lanes(lanemap, n, sorted_mode=True)
+            agg_idx, desc, k = am["topn"]
+            kk = min(k, n)
+            packed = self._packed([_KIND_I64, _KIND_BOOL] + [kind(ln.op) for ln in lanes], kk, kk)
+            seg_reduce(keys, mask, lanes, self.engine._topn_lane_pos(agg.aggs, agg_idx), desc, k,
+                       rows=packed[1:3 + len(lanes)])
+        return packed
+
+    def rowpos(self, lanemap, mask, rowids):
+        """Aggregation by build row position (ref: :1788-1848 at n_dev 1):
+        P6 writes [group row, valid, lanes...] at the picks."""
+        am = self.agg_meta
+        agg = self.mplan.agg
+        n, B = mask.shape[0], am["rp_rows"]
+        with self._phase("rowpos_agg"):
+            lanes = self.partial_lanes(lanemap, n)
+            pres, base = am["rp_presence"], 0
+            if pres is None:
+                # no aggregate lane provably equals the presence count: a
+                # dedicated one, not shipped
+                lanes.insert(0, RedLane("count", None, None))
+                pres, base = 0, 1
+            agg_idx, desc, k = am["topn"]
+            kk = picks(k, len(lanes), B)
+            shipped = lanes[base:]
+            packed = self._packed([_KIND_I64, _KIND_BOOL] + [kind(ln.op) for ln in shipped], kk, kk)
+            rowpos_agg(mask, rowids[am["rp_fid"]].contiguous(), B, lanes, pres,
+                       self.engine._topn_lane_pos(agg.aggs, agg_idx, base), desc, k, base,
+                       rows=packed[1:3 + len(shipped)])
+        return packed
 
     def clustered(self, lanemap, mask, rowids):
         """Clustered aggregation (ref: :1850-1929): P7 run totals, then P9
