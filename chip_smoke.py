@@ -41,7 +41,24 @@ Phases, one line each; any failure exits non-zero and prints no result:
               rowpos_agg (rowpos_battery) with a dedicated presence lane,
               fewer matched rows than k, B = 1,000,000; P8 dense_agg
               (dense_battery) with dict and int keys, keys above 2^31,
-              the shared-memory and the global path. Integers, row ids and
+              the shared-memory and the global path, and no key; K2/K3
+              expr_eval (expr_cases) on identical programs through the
+              kernel and its plain version: seeded random trees over all
+              16 builtins and every lane kind (int64 limits, uint64 above
+              2^63, float64 NaN / ±inf / ±0.0 / subnormals, decimals at
+              scales 0..12 with a capped product, dates, int32 codes with
+              -1, NULL rows; NULL, BIGINT UNSIGNED and float literals),
+              every derivation (values, valid lanes, var / stddev limbs,
+              bitwise rints with their edges), a 300-deep chain, a program
+              past its register budget (lanes reloaded), one holding 120
+              lanes (a smaller block, its pointer table in device memory),
+              N not a multiple of the block; K4's bitwise ops
+              (bitwise_seg_cases) in the direct and segment-lane modes at
+              nseg 1, 64, 65 and 65536 with empty segments; M1 q1_local
+              with wrapping products and codes out of range, nseg 6 / 8 /
+              12; M3 hash_repartition (repartition_battery) with negative
+              keys, all rows invalid, a cap below the largest bucket and
+              the last owner at its cap, n_dev 1 and 4. Integers, row ids and
               group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
               (bench.py's own check; P5's and P7's float totals at run
               starts, the rows the picks can ship); all cases run,
@@ -50,8 +67,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
               generator and runs through run_query on "cuda": TPC-H Q1
               and Q6, tpch_topn (ORDER BY l_extendedprice DESC LIMIT 100),
               multikey_topn (ORDER BY l_extendedprice DESC, l_orderkey,
-              l_linenumber LIMIT 50) and Q18's subquery (GROUP BY
-              l_orderkey); holds every run's answer to the port's host
+              l_linenumber LIMIT 50), Q18's subquery (GROUP BY
+              l_orderkey) and CHECKSUM (BIT_XOR / BIT_OR / BIT_AND per
+              l_returnflag: K4's bitwise ops); holds every run's answer to the port's host
               engine plus the same root step on the same data (exact, in
               order), requires each query's kernels' launch counters to
               have moved during its runs, and reports rows/s, the median
@@ -79,10 +97,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
               engine on the CPU (the plain versions) and to a numpy
               oracle of the query, with the scan / join / aggregation /
               d2h / finalize split and one profiled run's idle share;
+              then the mesh (main.mesh): entry()'s M1 step on its 4096
+              example rows, exact against the plain version and a numpy
+              recompute, and dryrun_multichip(1) over the --rows lineitem
+              already generated (M1 + the identity all_reduce, exact
+              against a numpy recompute; M3 + the identity all_to_all,
+              nothing dropped, the payload's sum kept). expr_eval must
+              launch in every query with a condition, a computed argument
+              or a filter program (Q1, Q6, CHECKSUM, both window scans,
+              Q3, q3_unfused, q3_top100, seg_revenue);
  5. measure — each kernel on the main path's own inputs: held once more to
               its plain version, then timed beside it, its bytes bound and
               the nearest single PyTorch call where there is one (W1 also
-              per inner kernel, from one profiled call);
+              per inner kernel, from one profiled call); expr_eval on Q1's,
+              Q6's, CHECKSUM's, Q3's and unfused Q3's own programs, K4's
+              bitwise ops on CHECKSUM's lanes, M1 and M3 (their warm
+              medians and rows/s) on the mesh phase's lineitem;
  6. the kernels JSON line, the card line, and last the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -137,6 +167,24 @@ def time_ms(fn, reps: int = 10) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def median_ms(fn, reps: int = 10) -> float:
+    """Median device time of single fn() calls (CUDA events around each),
+    after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
 
 
 # --- phase 3: kernels against their plain versions -----------------------
@@ -1063,12 +1111,15 @@ def dense_battery(rng, n: int, case: str) -> dict:
     """P8 inputs: a dict-coded key (vocab 5) and an int key with NULLs
     ('mixed'), one int key over a narrow domain above 2^31 ('big_keys':
     the reference's int32 code wraps there as int64 would), a domain of
-    20,000 ('global': beyond the shared-memory slots); the count over the
-    mask, then lanes of every kind, with empty segments."""
+    20,000 ('global': beyond the shared-memory slots), no key at all
+    ('no_keys'); the count over the mask, then lanes of every kind, with
+    empty segments."""
     import numpy as np
 
     mask = rng.random(n) > 0.2
-    if case == "big_keys":
+    if case == "no_keys":  # a join aggregate without GROUP BY: every row codes 0, nseg 1
+        keys = []
+    elif case == "big_keys":
         lo, dom = 3_000_000_000 + int(rng.integers(0, 1000)), 50
         d = lo + rng.integers(0, dom, n)
         v = rng.random(n) > 0.05
@@ -1087,7 +1138,8 @@ def dense_battery(rng, n: int, case: str) -> dict:
     return {"mask": mask, "keys": keys, "nseg": nseg, "lanes": lanes}
 
 
-DENSE_SHAPES = ((1, "mixed"), (5000, "mixed"), (5000, "big_keys"), (100_003, "global"), (4_000_000, "mixed"))
+DENSE_SHAPES = ((1, "mixed"), (5000, "mixed"), (5000, "big_keys"), (100_003, "global"), (4_000_000, "mixed"),
+                (1, "no_keys"), (100_003, "no_keys"))
 
 
 def p8_args(b: dict, dev):
@@ -1164,6 +1216,318 @@ def mode_kernel_cases(dev, rng):
     return cases
 
 
+# --- the expression kernel, K4's bitwise ops and the mesh kernels ---------
+
+EXPR_COLS = (("i", "i64"), ("u", "u64"), ("f", "f64"), ("d0", 0), ("d2", 2), ("d6", 6), ("d12", 12), ("dt", "date"),
+             ("c", "i32"), ("k", "i64"))
+F64_EDGES = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 5e-324, -1e-310, 2.2250738585072014e-308, 1e300,
+             0.5, 2.5, -2.5, 3.5, 1e19, -1e19, 9.2233720368547748e18)
+
+
+def expr_lanes(rng, n: int, copies: int = 1) -> dict:
+    """{column: (numpy data, numpy valid, FieldType)} over every lane kind:
+    int64 at its limits, uint64 above 2^63, float64 with NaN, ±inf, ±0.0,
+    subnormals and values past 2^63, decimals at scales 0..12, dates, int32
+    dict codes with -1, NULL rows (data zeroed). `copies` repeats the set
+    (a wide program's columns)."""
+    import numpy as np
+
+    from tidb_tpu_torch.mysqltypes import field_type as F
+
+    i64 = np.iinfo(np.int64)
+    out = {}
+    for rep in range(copies):
+        for j, (name, kind) in enumerate(EXPR_COLS):
+            if kind == "i64":
+                d = np.where(rng.random(n) < 0.2, rng.choice(np.array([i64.min, i64.max, -1, 0, 1], np.int64), n),
+                             rng.integers(-10**6, 10**6, n) if name == "i" else rng.integers(-3, 4, n))
+                ft = F.ft_longlong()
+            elif kind == "u64":
+                d = (rng.integers(0, 1 << 63, n).astype(np.uint64)
+                     | (rng.integers(0, 2, n).astype(np.uint64) << np.uint64(63))).view(np.int64)
+                ft = F.ft_longlong(unsigned=True)
+            elif kind == "f64":
+                d = np.where(rng.random(n) < 0.3, rng.choice(np.array(F64_EDGES), n), rng.standard_normal(n) * 100)
+                ft = F.ft_double()
+            elif kind == "date":
+                d = rng.integers(1992, 1999, n) * (13 * 32 * 24 * 3600 * 1_000_000) + rng.integers(0, 400, n)
+                ft = F.FieldType(F.TypeCode.Date)
+            elif kind == "i32":
+                d = rng.integers(-1, 6, n).astype(np.int32)
+                ft = F.ft_longlong()
+            else:
+                d = rng.integers(-10**12, 10**12, n)
+                ft = F.ft_decimal(30, kind)
+            v = rng.random(n) < 0.88
+            out[rep * len(EXPR_COLS) + j] = (np.where(v, d, 0).astype(d.dtype), v, ft, kind)
+    return out
+
+
+def expr_kinds(cols: dict) -> dict:
+    """The compiler's lane kinds of expr_lanes' columns (dates and
+    decimals are int64 lanes)."""
+    return {j: c[3] if c[3] in ("i64", "u64", "f64", "i32") else "i64" for j, c in cols.items()}
+
+
+def expr_tree(rng, depth: int, cols: dict):
+    """A random tree over all 16 builtins of the port (expr/builtins.py),
+    columns of `cols` and NULL, BIGINT UNSIGNED, float and decimal literals;
+    sometimes a decimal product whose scale was capped (_round_div)."""
+    from tidb_tpu_torch.expr import builtins  # noqa: F401 — the registry
+    from tidb_tpu_torch.expr.expression import FUNCS, Column, Constant, ScalarFunc, make_func
+    from tidb_tpu_torch.mysqltypes import field_type as F
+    from tidb_tpu_torch.mysqltypes.datum import Datum
+    from tidb_tpu_torch.mysqltypes.mydecimal import dec_from_string
+
+    def col(j):
+        return Column(j, cols[j][2], f"c{j}")
+
+    if depth == 0 or rng.random() < 0.25:
+        k = int(rng.integers(10))
+        if k < 6:
+            return col(int(rng.choice(list(cols))))
+        if k == 6:
+            return Constant(Datum.null(), F.ft_longlong())
+        if k == 7:
+            return Constant(Datum.u(int(rng.choice([(1 << 63) + 5, (1 << 64) - 1]))), F.ft_longlong(unsigned=True))
+        if k == 8:
+            return Constant(Datum.f(float(rng.choice([0.5, -0.0, 1e-320, 2.5, 1e19, -3.75]))), F.ft_double())
+        return Constant(Datum.d(dec_from_string(str(rng.choice(["0.05", "-12.34", "100"])))), F.ft_decimal(30, 2))
+    r = rng.random()
+    if r < 0.5:
+        op = str(rng.choice(["plus", "minus", "mul", "eq", "ne", "lt", "le", "gt", "ge", "nulleq", "and", "or"]))
+        return make_func(op, expr_tree(rng, depth - 1, cols), expr_tree(rng, depth - 1, cols))
+    if r < 0.7:
+        return make_func(str(rng.choice(["unaryminus", "not", "isnull"])), expr_tree(rng, depth - 1, cols))
+    if r < 0.88:
+        return make_func("in", *[expr_tree(rng, depth - 1, cols) for _ in range(int(rng.integers(2, 6)))])
+    decs = [j for j, c in cols.items() if isinstance(c[3], int) and c[3] >= 2]
+    a, b = int(rng.choice(decs)), int(rng.choice(decs))
+    ps = cols[a][3] + cols[b][3]
+    return ScalarFunc(FUNCS["mul"], [col(a), col(b)], F.ft_decimal(30, max(ps - 6, 0)))
+
+
+def expr_specs(rng, cols: dict) -> list:
+    """ValueSpecs of every derivation: plain values, valid lanes, the
+    var / stddev lanes of a decimal and a float, bitwise rints."""
+    from tidb_tpu_torch.expr.expression import Column
+    from tidb_tpu_torch.expr.program import ValueSpec
+
+    dec = [j for j, c in cols.items() if isinstance(c[3], int)]
+    flt = [j for j, c in cols.items() if c[3] == "f64"]
+    d, f = int(rng.choice(dec)), int(rng.choice(flt))
+    return [ValueSpec(expr_tree(rng, 3, cols)), ValueSpec(expr_tree(rng, 2, cols), "valid"),
+            ValueSpec(Column(d, cols[d][2]), "var_dec"), ValueSpec(expr_tree(rng, 2, cols), "var_f"),
+            ValueSpec(Column(f, cols[f][2]), "bit"), ValueSpec(Column(d, cols[d][2]), "bit", cols[d][3]),
+            ValueSpec(expr_tree(rng, 3, cols), "bit")]
+
+
+def _chain_expr(cols: dict, depth: int):
+    """plus over the columns, `depth` deep, both nestings alternating."""
+    from tidb_tpu_torch.expr.expression import Column, make_func
+
+    ints = [j for j, c in cols.items() if c[3] in ("i64", "i32", 0, 2, 6, 12)]
+    t = Column(ints[0], cols[ints[0]][2])
+    for k in range(depth):
+        c = Column(ints[k % len(ints)], cols[ints[k % len(ints)]][2])
+        t = make_func("plus", t, c) if k % 2 else make_func("plus", c, t)
+    return t
+
+
+def expr_cases(dev, rng):
+    """(name, fn) of every expr_eval case: kernel against plain version on
+    identical programs (random trees, every derivation, a deep chain, a
+    program past its register budget (lanes reloaded), one so wide it
+    shrinks its block and reads its pointer table from device memory, the
+    bitwise rint edges), N not a multiple of the block."""
+    import numpy as np
+
+    from tidb_tpu_torch.expr.expression import Column, make_func
+    from tidb_tpu_torch.expr.program import ValueSpec, compile_program
+    from tidb_tpu_torch.mysqltypes import field_type as F
+
+    cases = []
+    for n, ntrees in ((1, 4), (1000, 8), (100_003, 8), (2_000_003, 3)):
+        cols = expr_lanes(rng, n)
+        kinds = expr_kinds(cols)
+        for j in range(ntrees):
+            conds = [expr_tree(rng, int(rng.integers(1, 5)), cols) for _ in range(int(rng.integers(0, 4)))]
+            prog = compile_program(conds, expr_specs(rng, cols), kinds, mask=True)
+            cases.append((f"expr_eval random n={n} #{j}", prog, cols, n))
+    n = 100_003
+    cols = expr_lanes(rng, n)
+    kinds = expr_kinds(cols)
+    deep = make_func("gt", _chain_expr(cols, 300), _chain_expr(cols, 5))
+    cases.append(("expr_eval deep chain 300", compile_program([deep], [ValueSpec(_chain_expr(cols, 200))], kinds),
+                  cols, n))
+    wide = make_func("and", make_func("gt", _chain_expr(cols, 9), _chain_expr(cols, 4)),
+                     make_func("ne", _chain_expr(cols, 9), _chain_expr(cols, 3)))
+    prog = compile_program([wide], [ValueSpec(_chain_expr(cols, 7))], kinds, max_regs=6)
+    assert prog.reload and prog.nregs <= 6, "the register-split program must reload its lanes"
+    cases.append(("expr_eval register split (reload)", prog, cols, n))
+    many = expr_lanes(rng, 20_011, copies=20)  # 200 columns, 120 of them summed: 241 input lanes
+    mkinds = expr_kinds(many)
+    ints = [j for j, c in many.items() if c[3] in ("i64", 0, 2, 6, 12)]
+    s1, s2 = Column(ints[0], many[ints[0]][2]), Column(ints[-1], many[ints[-1]][2])
+    for j in ints[1:]:
+        s1 = make_func("plus", s1, Column(j, many[j][2]))
+    for j in ints[-2::-1]:
+        s2 = make_func("minus", s2, Column(j, many[j][2]))
+    prog = compile_program([make_func("lt", s1, s2)], [ValueSpec(s1), ValueSpec(s2)], mkinds)
+    assert len(prog.inputs) > 192 and prog.nregs > 60, (len(prog.inputs), prog.nregs)
+    cases.append(("expr_eval wide (120 lanes held)", prog, many, 20_011))
+    edge = {0: (np.array(F64_EDGES * 4), np.ones(len(F64_EDGES) * 4, bool), F.ft_double(), "f64")}
+    eprog = compile_program([], [ValueSpec(Column(0, edge[0][2]), "bit")], {0: "f64"}, mask=False)
+    cases.append(("expr_eval bitwise rint edges", eprog, edge, len(F64_EDGES) * 4))
+
+    def run(prog, cols, n):
+        from tidb_tpu_torch.kernels import expr_eval, expr_eval_ref
+
+        ins = _expr_ins(prog, cols, n, dev)
+        got, want = expr_eval(prog, ins, n), expr_eval_ref(prog, ins, n)
+        return _same_expr_outs(prog, got, want)
+
+    return [(name, lambda p=p, c=c, n=n: run(p, c, n)) for name, p, c, n in cases]
+
+
+def _expr_ins(prog, cols, n, dev):
+    """The program's input lanes on `dev`, in slot order (mask_in: a row
+    validity with a false tail)."""
+    import numpy as np
+    import torch
+
+    ins = []
+    for key in prog.inputs:
+        if key[0] == "mask_in":
+            a = np.ones(n, bool)
+            a[n - n // 9:] = False
+        else:
+            a = cols[key[1]][0] if key[0] == "d" else cols[key[1]][1]
+        ins.append(torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+    return ins
+
+
+def _same_expr_outs(prog, got, want) -> float:
+    """Bool lanes and int lanes bit for bit, float lanes within the
+    tolerance (NaN where NaN)."""
+    import torch
+
+    floats = {ref[1] for vo in prog.values for ref in vo.data if ref[0] == "out" and ref[2]}
+    err = 0.0
+    for j, (g, w) in enumerate(zip(got, want)):
+        if j in floats:
+            err = max(err, _same(g.view(torch.float64), w.view(torch.float64), f"output {j}", floats=True))
+        else:
+            _same(g, w, f"output {j}")
+    return err
+
+
+def bitwise_seg_cases(dev, rng):
+    """(name, fn) of K4's and_i64 / or_i64 / xor_i64, in the direct mode
+    (nseg 1: no key; else one NULL-able key whose top codes stay empty)
+    and the segment-lane mode, nseg 1, 64, 65 and 65536."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels import SegKey, SegLane, seg_agg, seg_agg_ref
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    i64 = np.iinfo(np.int64)
+    cases = []
+    for nseg in (1, 64, 65, 65536):
+        n = 200_003 if nseg == 65536 else 100_003
+        mask = t(rng.random(n) < 0.8)
+        xs = [np.where(rng.random(n) < 0.1, rng.choice(np.array([i64.min, i64.max, -1, 0], np.int64), n),
+                       rng.integers(i64.min, i64.max, n, dtype=np.int64)) for _ in range(3)]
+        lanes = [SegLane("count"), SegLane("and_i64", t(xs[0]), t(rng.random(n) < 0.9), -1),
+                 SegLane("or_i64", t(xs[1]), t(rng.random(n) < 0.9), 0), SegLane("xor_i64", t(xs[2]), None, 0)]
+        keys = [] if nseg == 1 else [SegKey(t(rng.integers(0, nseg - 4, n)), t(rng.random(n) < 0.95), 0, nseg - 1)]
+        seg = t(rng.integers(0, nseg + nseg // 16 + 2, n).astype(np.int32))
+        for mode, kw, kk in (("direct", {}, keys), ("segment-lane", {"seg": seg}, [])):
+            def k4b(mask=mask, kk=kk, lanes=lanes, nseg=nseg, kw=kw):
+                (gi, _), (wi, _) = seg_agg(mask, kk, lanes, nseg, **kw), seg_agg_ref(mask, kk, lanes, nseg, **kw)
+                return _same(gi, wi, "bitwise partials")
+            cases.append((f"seg_agg_bitwise {mode} nseg={nseg}", k4b))
+    return cases
+
+
+def q1_battery(rng, n: int, nseg: int, case: str):
+    """M1 inputs: Q1's lanes (wrapping products in 'overflow'; codes past
+    nseg and negative in 'codes')."""
+    import numpy as np
+
+    qty, price = rng.integers(100, 5100, n), rng.integers(90000, 10500000, n)
+    disc, tax = rng.integers(0, 11, n), rng.integers(0, 9, n)
+    rf, ls = rng.integers(0, 3, n), rng.integers(0, 2, n)
+    if case == "overflow":
+        price[::3] = np.iinfo(np.int64).max // 7
+    if case == "codes":
+        rf = rng.integers(-2, 6, n)
+    ship = rng.integers(0, 1000, n)
+    rv = rng.random(n) < 0.97
+    return (qty, price, disc, tax, rf, ls, ship, rv), 700
+
+
+def repartition_battery(rng, n: int, n_dev: int, case: str):
+    """M3 inputs: negative keys, some invalid rows; 'invalid' all rows
+    invalid; 'small_cap' a cap below the largest bucket; 'full_last' the
+    last owner exactly at its cap with invalid rows after it."""
+    import numpy as np
+
+    keys = rng.integers(-1000, 1000, n)
+    payload = rng.integers(-(1 << 50), 1 << 50, n)
+    valid = rng.random(n) < 0.85
+    cap = n
+    if case == "invalid":
+        valid[:] = False
+    elif case == "small_cap":
+        cap = max(1, n // (2 * n_dev))
+    elif case == "full_last":
+        keys = np.full(n, n_dev - 1) + n_dev * rng.integers(-5, 5, n)
+        valid[:] = False
+        cap = max(1, n // 3)
+        valid[:cap] = True
+    return keys, payload, valid, cap
+
+
+REPARTITION_SHAPES = ((1, 1, "mixed"), (1000, 1, "small_cap"), (4097, 4, "mixed"), (4097, 4, "invalid"),
+                      (100_003, 4, "small_cap"), (100_003, 1, "full_last"), (20_000, 4, "full_last"),
+                      (4_000_000, 4, "mixed"), (4_000_000, 1, "mixed"))
+
+
+def mesh_kernel_cases(dev, rng):
+    """(name, fn) of every M1 and M3 case against the plain versions."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels import hash_repartition, hash_repartition_ref, q1_local, q1_local_ref
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    for n, nseg, case in ((1, 6, "q1"), (1000, 6, "codes"), (100_003, 8, "overflow"), (100_003, 12, "codes"),
+                          (4_000_000, 6, "q1")):
+        lanes, cutoff = q1_battery(rng, n, nseg, case)
+        args = [t(a) for a in lanes]
+
+        def m1(args=args, nseg=nseg, cutoff=cutoff):
+            return _same(q1_local(nseg, cutoff, *args), q1_local_ref(nseg, cutoff, *args), "partials")
+        cases.append((f"q1_local n={n} nseg={nseg} {case}", m1))
+    for n, n_dev, case in REPARTITION_SHAPES:
+        keys, payload, valid, cap = repartition_battery(rng, n, n_dev, case)
+        args = (t(keys), t(payload), t(valid), n_dev, cap)
+
+        def m3(args=args):
+            for j, (g, w) in enumerate(zip(hash_repartition(*args), hash_repartition_ref(*args))):
+                _same(g, w, f"output {j}")
+            return 0.0
+        cases.append((f"hash_repartition n={n} n_dev={n_dev} {case}", m3))
+    return cases
+
+
 def check_kernels(dev, rng) -> dict:
     """Every kernel against its plain version on the same tensors. All
     cases run; the failures are raised together at the end."""
@@ -1175,7 +1539,7 @@ def check_kernels(dev, rng) -> dict:
                                         topn_multi_ops, topn_multi_ops_ref)
 
     K.reset_launches()
-    verdict = {name: 0.0 for name in K.WRAPPERS}
+    verdict = {name: 0.0 for name in K.launches()}
     errors: list[str] = []
     ncase = 0
 
@@ -1252,7 +1616,8 @@ def check_kernels(dev, rng) -> dict:
     for cname, lanes in pack_cases(dev, rng):
         case(f"pack_flat {cname}", lambda lanes=lanes, cname=cname: _same(
             pack_flat(lanes), pack_flat_ref(lanes), cname))
-    for cname, fn in mpp_kernel_cases(dev, rng) + mode_kernel_cases(dev, rng):
+    for cname, fn in (mpp_kernel_cases(dev, rng) + mode_kernel_cases(dev, rng) + expr_cases(dev, rng)
+                      + bitwise_seg_cases(dev, rng) + mesh_kernel_cases(dev, rng)):
         case(cname, fn)
     if errors:
         raise AssertionError(f"{len(errors)} of {ncase} kernel cases failed:\n" + "\n".join(errors))
@@ -1293,8 +1658,9 @@ def _decode_bytes(mirror, encs) -> int:
 
 # (query, DAG builder of models/tpch.py, kernels its runs must launch)
 QUERIES = (
-    ("q1", "q1_dag", ("decode_lane", "seg_agg")),
-    ("q6", "q6_dag", ("decode_lane", "seg_agg")),
+    ("q1", "q1_dag", ("decode_lane", "expr_eval", "seg_agg")),
+    ("q6", "q6_dag", ("decode_lane", "expr_eval", "seg_agg")),
+    ("checksum", "checksum_dag", ("decode_lane", "expr_eval", "seg_agg", "seg_agg_bitwise")),
     ("tpch_topn", "topn_dag", ("topk",)),
     ("multikey_topn", "multikey_topn_dag", ("topn_multi", "lex_sort")),
     ("q18_inner", "q18_inner_dag", ("lex_sort", "sort_groups", "seg_agg")),
@@ -1309,6 +1675,30 @@ def _spy(engine, captured: dict) -> None:
             captured[_name] = (a, kw)
             return _fn(*a, **kw)
         setattr(engine, name, wrapped)
+
+
+class ExprSpy:
+    """While active, records the (program, input lanes, rows) of every
+    expr_eval call the expression programs make (expr/program.kernel), in
+    `calls`."""
+
+    def __init__(self):
+        from tidb_tpu_torch.expr import program
+
+        self.mod = program
+        self.calls: list = []
+
+    def __enter__(self):
+        real = self.real = self.mod.kernel
+
+        def spy(prog, ins, n):
+            self.calls.append((prog, ins, n))
+            return real()(prog, ins, n)
+        self.mod.kernel = lambda: spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.kernel = self.real
 
 
 def oracle(dag, batch):
@@ -1378,7 +1768,7 @@ def profiled_run(fn, engine) -> dict:
 # (query, spec builder of models/tpch.py): the window queries of the main path
 WINDOW_QUERIES = (("window_sum_partition", "window_sum_partition_spec"),
                   ("window_rank_frames", "window_rank_frames_spec"))
-WINDOW_NEEDS = ("decode_lane", "lex_sort", "window", "pack_flat")
+WINDOW_NEEDS = ("decode_lane", "expr_eval", "lex_sort", "window", "pack_flat")
 
 
 def run_window_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> None:
@@ -1460,13 +1850,13 @@ def run_window_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) 
 # (query, plan builder of models/tpch.py and its arguments, session
 # variables, kernels its runs must launch, fusion outcome)
 MPP_QUERIES = (
-    ("q3_mpp", ("q3_mpp_plan",), {}, ("lut_join", "run_agg", "block_topk"), "fused"),
+    ("q3_mpp", ("q3_mpp_plan",), {}, ("lut_join", "expr_eval", "run_agg", "block_topk"), "fused"),
     ("q10_mpp", ("q10_mpp_plan",), {}, ("lut_join",), "fused"),
     ("q18", ("q18_mpp_plan",), {}, ("sort_join", "lex_sort"), "unfused"),
-    ("q3_unfused", ("q3_mpp_plan",), {"tidb_tpu_mpp_fused": "OFF"}, ("sort_join", "lex_sort", "seg_reduce", "topk"),
-     "off"),
-    ("q3_top100", ("q3_mpp_plan", 100), {}, ("lut_join", "seg_agg", "rowpos_agg", "topk"), "fused"),
-    ("seg_revenue", ("seg_revenue_mpp_plan",), {}, ("lut_join", "dense_agg"), "fused"),
+    ("q3_unfused", ("q3_mpp_plan",), {"tidb_tpu_mpp_fused": "OFF"},
+     ("expr_eval", "sort_join", "lex_sort", "seg_reduce", "topk"), "off"),
+    ("q3_top100", ("q3_mpp_plan", 100), {}, ("lut_join", "expr_eval", "seg_agg", "rowpos_agg", "topk"), "fused"),
+    ("seg_revenue", ("seg_revenue_mpp_plan",), {}, ("lut_join", "expr_eval", "dense_agg"), "fused"),
 )
 MPP_SPIED = ("lut_join", "run_agg", "block_topk", "sort_join", "seg_reduce", "rowpos_agg", "dense_agg")
 
@@ -1587,10 +1977,12 @@ def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> 
         for k in MPP_SPIED:
             setattr(mp, k, spy(k))
         try:
-            spied = run_mpp(plan, tables, device=dev, engine=engine, variables=variables)
+            with ExprSpy() as espy:
+                spied = run_mpp(plan, tables, device=dev, engine=engine, variables=variables)
         finally:
             for k in MPP_SPIED:
                 setattr(mp, k, real[k])
+        captured["expr_eval"] = espy.calls
         after = K.launches()
         moved = {k: after[k] - before[k] for k in after}
         idle = [k for k in needs if moved[k] == 0]
@@ -1789,6 +2181,45 @@ def measure_mpp_kernels(main: dict, max_err: dict):
              "rowpos_agg": k6, "dense_agg": k8})
 
 
+def run_mesh_path(dev, cols: dict, card: str, out: dict) -> None:
+    """The mesh entry on the card: entry()'s M1 step on its 4096 example
+    rows, held to the plain version and to an exact numpy recompute; then
+    dryrun_multichip(1) over the main path's own lineitem columns (M1 and
+    the identity all_reduce, checked exact against a numpy recompute of
+    all the rows; M3 and the identity all_to_all, which must drop nothing
+    and preserve the payload's sum). M1's and M3's inputs land in
+    out["captured"]["mesh"]."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.entry import dryrun_multichip, entry
+    from tidb_tpu_torch.kernels import q1_local_ref
+    from tidb_tpu_torch.parallel.mesh import build_q1_arrays, q1_exact
+
+    before = K.launches()
+    step, ex = entry(dev)
+    got = torch.stack(step(*ex))
+    spec, args = build_q1_arrays(4096, n_shards=1)
+    torch.cuda.synchronize()
+    _same(got, q1_local_ref(spec.nseg, spec.cutoff, *ex), "entry() step against the plain version")
+    if not np.array_equal(got.cpu().numpy(), q1_exact(spec, args)):
+        raise AssertionError("entry() step differs from the numpy recompute")
+    t = time.perf_counter()
+    res = dryrun_multichip(1, device=dev, columns=cols)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t
+    moved = {k: c - before[k] for k, c in K.launches().items()}
+    idle = [k for k in ("q1_local", "hash_repartition") if moved[k] == 0]
+    if idle:
+        raise AssertionError(f"mesh: kernels {idle} were never launched")
+    out["captured"]["mesh"] = {"spec": res["spec"], "lanes": res["lanes"]}
+    out["mesh"] = {"entry_rows": 4096, "entry_counts": got[0].tolist(), "dryrun_rows": res["rows"],
+                   "dryrun_s": dry_s, "counts": res["counts"], "exchange_total": res["exchange_total"],
+                   "dropped": res["dropped"], "launches": {k: c for k, c in moved.items() if c}, "card": card}
+    say("main.mesh", **out["mesh"])
+
+
 def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int = 8_000_000,
                   q3_rows: int = 4_000_000) -> dict:
     import torch
@@ -1800,7 +2231,8 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
     from tidb_tpu_torch.torchenv import PhaseTimer
 
     t0 = time.perf_counter()
-    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(rows, seed))
+    cols = tpch.gen_lineitem(rows, seed)
+    batch = batch_from_numpy(tpch.LINEITEM, cols)
     say("main.data", rows=rows, seed=seed, seconds=time.perf_counter() - t0)
     out = {"captured": {}}
     K.reset_launches()
@@ -1815,9 +2247,11 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
             engine.timer = PhaseTimer(engine.device)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            res = run_query(dag, batch, device=dev, engine=engine)
+            with ExprSpy() as spy:
+                res = run_query(dag, batch, device=dev, engine=engine)
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t, engine.timer.totals_ms(), res))
+        captured["expr_eval"] = spy.calls
         after = K.launches()
         moved = {k: after[k] - before[k] for k in after}
         idle = [k for k in needs if moved[k] == 0]
@@ -1852,6 +2286,7 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
     out["batch"] = batch
     run_window_path(dev, win_rows, seed, reps, card, out)
     run_mpp_path(dev, q3_rows, seed, reps, card, out)
+    run_mesh_path(dev, cols, card, out)
     counts = K.launches()
     for name, c in counts.items():
         if c == 0:
@@ -1944,7 +2379,115 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
     say("measure.window", **win_extra)
     mpp, mpp_extra = measure_mpp_kernels(main, max_err)
     say("measure.mpp", **mpp_extra)
-    return entries + new + win + mpp
+    expr, expr_extra = measure_expr_kernels(main, max_err)
+    say("measure.expr", **expr_extra)
+    mesh, mesh_extra = measure_mesh_kernels(main, max_err)
+    say("measure.mesh", **mesh_extra)
+    return entries + new + win + mpp + expr + mesh
+
+
+def measure_expr_kernels(main: dict, max_err: dict):
+    """The expression kernel on the main path's own programs and lanes
+    (Q1's, Q6's and CHECKSUM's cop programs, Q3's aggregate argument, the
+    unfused Q3's scan selections), and K4's bitwise ops on CHECKSUM's
+    lanes: held once more to the plain versions, then timed beside them
+    and their bytes bound. No single PyTorch call computes either."""
+    import torch
+
+    from tidb_tpu_torch.kernels import expr_eval, expr_eval_ref, seg_agg, seg_agg_ref
+
+    bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    cap = main["captured"]
+    per_prog = {}
+    for label, q, pick in (("q1", "q1", -1), ("q6", "q6", -1), ("checksum", "checksum", -1),
+                           ("q3_mpp_args", "q3_mpp", -1), ("q3_unfused_scan", "q3_unfused", 0)):
+        prog, ins, n = cap[q]["expr_eval"][pick]
+        got, want = expr_eval(prog, ins, n), expr_eval_ref(prog, ins, n)
+        torch.cuda.synchronize()
+        max_err["expr_eval"] = max(max_err["expr_eval"], _same_expr_outs(prog, got, want))
+        nbytes = _nbytes(*ins) + sum(n * w for w in prog.outputs)
+        per_prog[label] = {"ms": time_ms(lambda: expr_eval(prog, ins, n)),
+                           "plain_ms": time_ms(lambda: expr_eval_ref(prog, ins, n), 3), "bytes": nbytes,
+                           "bound_ms": bound(nbytes), "rows": n, "ops": len(prog.ops), "registers": prog.nregs,
+                           "inputs": len(ins), "outputs": len(prog.outputs), "reload": prog.reload}
+    (m, keys, lanes, nseg), kw = cap["checksum"]["seg_agg"]
+    (gi, _), (wi, _) = seg_agg(m, keys, lanes, nseg, **kw), seg_agg_ref(m, keys, lanes, nseg, **kw)
+    torch.cuda.synchronize()
+    _same(gi, wi, "seg_agg bitwise ints on CHECKSUM's lanes")
+    kb_bytes = (_nbytes(m, *_pairs((k.data, k.valid) for k in keys), *_pairs((ln.data, ln.valid) for ln in lanes))
+                + 8 * nseg * len(lanes))
+    kb = {"ms": time_ms(lambda: seg_agg(m, keys, lanes, nseg, **kw)),
+          "plain_ms": time_ms(lambda: seg_agg_ref(m, keys, lanes, nseg, **kw), 3), "bytes": kb_bytes,
+          "bound_ms": bound(kb_bytes), "nseg": nseg, "lanes": [ln.op for ln in lanes], "rows": m.numel()}
+    L = main["launches"]
+    q1 = per_prog["q1"]
+    entries = [
+        {"name": "expr_eval", "route": "cuda", "source": "tidb_tpu_torch/csrc/expr_eval.cu",
+         "replaces": "tidb_tpu/copr/tpu_engine.py:1021", "launches": L["expr_eval"],
+         "max_abs_err": max_err["expr_eval"], "ms": q1["ms"], "plain_ms": q1["plain_ms"],
+         "bound_ms": q1["bound_ms"], "bound_by": "bytes", "library_ms": None},
+        {"name": "seg_agg_bitwise", "route": "cuda", "source": "tidb_tpu_torch/csrc/seg_agg.cu",
+         "replaces": "tidb_tpu/copr/tpu_engine.py:1596", "launches": L["seg_agg_bitwise"],
+         "max_abs_err": max_err["seg_agg_bitwise"], "ms": kb["ms"], "plain_ms": kb["plain_ms"],
+         "bound_ms": kb["bound_ms"], "bound_by": "bytes", "library_ms": None},
+    ]
+    return entries, {"expr_eval": per_prog, "seg_agg_bitwise": kb}
+
+
+def measure_mesh_kernels(main: dict, max_err: dict):
+    """M1 and M3 on the mesh phase's own lanes (the main path's lineitem):
+    held once more to the plain versions, the warm median of single
+    launches (CUDA events), rows/s, the bytes bound and the nearest single
+    PyTorch calls (M1: index_add_ of the six stacked lanes by a
+    precomputed segment; M3: torch.argsort(stable=True) of the owner
+    lane)."""
+    import torch
+
+    from tidb_tpu_torch.kernels import hash_repartition, hash_repartition_ref, q1_local, q1_local_ref
+
+    bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    cap = main["captured"]["mesh"]
+    spec, lanes = cap["spec"], cap["lanes"]
+    qty, price, disc, tax, rf, ls, ship, rv = lanes
+    n, nseg = rv.numel(), spec.nseg
+    m1 = (nseg, spec.cutoff, *lanes)
+    got, want = q1_local(*m1), q1_local_ref(*m1)
+    torch.cuda.synchronize()
+    max_err["q1_local"] = max(max_err["q1_local"], _same(got, want, "q1_local on the main path's lineitem"))
+    mask = rv & (ship <= spec.cutoff)
+    seg = torch.where(mask, rf * 2 + ls, nseg)
+    dp = price * (100 - disc)
+    stacked = torch.stack([mask.to(torch.int64), qty, price, dp, dp * (100 + tax), disc], dim=1)
+    acc = torch.zeros((nseg + 1, 6), dtype=torch.int64, device=rv.device)
+    m1_bytes = _nbytes(*lanes) + 6 * 8 * nseg
+    k_m1 = {"median_ms": median_ms(lambda: q1_local(*m1)), "ms": time_ms(lambda: q1_local(*m1)),
+            "plain_ms": time_ms(lambda: q1_local_ref(*m1), 3),
+            "library_ms": time_ms(lambda: acc.zero_().index_add_(0, seg, stacked)),
+            "library_call": "index_add_ of the six stacked lanes by a precomputed segment", "bytes": m1_bytes,
+            "bound_ms": bound(m1_bytes), "rows": n, "nseg": nseg}
+    k_m1["rows_per_s"] = n / (k_m1["median_ms"] / 1e3)
+    keys, payload, valid = qty, price, rv
+    m3 = (keys, payload, valid, 1, n)
+    for j, (g, w) in enumerate(zip(hash_repartition(*m3), hash_repartition_ref(*m3))):
+        _same(g, w, f"hash_repartition output {j} on the main path's lineitem")
+    owner = torch.where(valid, torch.remainder(keys, 1), 1)
+    m3_bytes = _nbytes(keys, payload, valid) + n * (8 + 8 + 1) + 8
+    k_m3 = {"median_ms": median_ms(lambda: hash_repartition(*m3)), "ms": time_ms(lambda: hash_repartition(*m3)),
+            "plain_ms": time_ms(lambda: hash_repartition_ref(*m3), 3),
+            "library_ms": time_ms(lambda: torch.argsort(owner, stable=True)),
+            "library_call": "torch.argsort(stable=True) of the owner lane", "bytes": m3_bytes,
+            "bound_ms": bound(m3_bytes), "rows": n, "n_dev": 1, "cap": n}
+    k_m3["rows_per_s"] = n / (k_m3["median_ms"] / 1e3)
+    L = main["launches"]
+
+    def entry(name, src, ref, meas):
+        return {"name": name, "route": "cuda", "source": f"tidb_tpu_torch/csrc/{src}",
+                "replaces": f"tidb_tpu/parallel/mesh.py:{ref}", "launches": L[name], "max_abs_err": max_err[name],
+                "ms": meas["median_ms"], "plain_ms": meas["plain_ms"], "bound_ms": meas["bound_ms"],
+                "bound_by": "bytes", "library_ms": meas["library_ms"]}
+
+    return ([entry("q1_local", "q1_local.cu", 57, k_m1), entry("hash_repartition", "hash_repartition.cu", 104, k_m3)],
+            {"q1_local": k_m1, "hash_repartition": k_m3, "card": main["mesh"]["card"]})
 
 
 def _nbytes(*ts) -> int:

@@ -380,3 +380,23 @@ def test_q18_inner_takes_the_sort_path_and_matches_reference(compress):
     _assert_same_chunk(want, got)
     assert got.num_rows > 1 << 16
     assert list(port._gcap.values()) == list(ref._gcap.values()) == [1 << 18]
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+@pytest.mark.parametrize("x", [float("nan"), float("inf"), float("-inf"), 1e19, -1e19, 2.5],
+                         ids=["nan", "inf", "-inf", "1e19", "-1e19", "2.5"])
+def test_bitwise_aggregates_over_non_finite_and_huge_floats_match_reference(x, compress):
+    """bit_or / bit_and / bit_xor over f = [x, 3.0]: the saturating rint
+    (NaN → 0, ±inf and ±1e19 → INT64_MAX / INT64_MIN, half to even) XLA's
+    conversion gives the reference."""
+    cols = [("f", "double")]
+    rt, pt = REF.table(cols), PORT.table(cols)
+    data, valid = {"f": np.array([x, 3.0])}, {"f": np.ones(2, dtype=bool)}
+    rb, pb = _batches(data, valid, rt, pt)
+    spec = dict(aggs=[("bit_or", COL("f")), ("bit_and", COL("f")), ("bit_xor", COL("f"))])
+    ref, port = TPUEngine(), TorchEngine(device="cpu")
+    ref.tile_compression = port.tile_compression = compress
+    want = ref.execute(REF.dag(rt, **spec), rb)
+    got = port.execute(PORT.dag(pt, **spec), pb)
+    assert ref.fallbacks == port.fallbacks == 0
+    _assert_same_chunk(want, got)

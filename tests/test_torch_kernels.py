@@ -34,6 +34,7 @@ from tidb_tpu_torch.copr import tilecache as port_tilecache
 from tidb_tpu_torch.copr.gpu_engine import TorchEngine, _upload, _upload_payload
 from tidb_tpu_torch.expr.aggregation import AggDesc as PortAgg
 from tidb_tpu_torch.expr.expression import Column as PortCol
+from tidb_tpu_torch.expr.program import evaluate
 from tidb_tpu_torch.expr.xp_torch import U64
 from tidb_tpu_torch.kernels import SegKey, SegLane, decode_lane, decode_lane_ref, seg_agg, seg_agg_ref
 from tidb_tpu_torch.mysqltypes import field_type as port_ft
@@ -319,11 +320,14 @@ def test_agg_partials_match_reference(name, kind):
     pd = torch.from_numpy(d.view(np.int64) if d.dtype == np.uint64 else d)
     lane = U64(pd) if kind == "uint" else pd
     dev = SimpleNamespace(padded=n, row_valid=None)
-    outs = eng._agg_partials_device(pa, args_p, {0: (lane, torch.from_numpy(v))}, dev, nseg)
+    specs = [eng._agg_spec(pa, args_p)]
+    # the argument lanes from the expression program, as the engine builds them
+    _, vals = evaluate(eng.programs, [], [s for s in specs if s is not None], {0: (lane, torch.from_numpy(v))},
+                       None, n, mask=False)
+    lanes = eng._agg_lanes([pa], specs, vals, dev, nseg)
     T = torch.from_numpy
-    gi, gf = seg_agg(T(mask), [SegKey(T(a), T(b), lo, dom) for a, b, lo, dom in keys],
-                     [s for o in outs for s in o], nseg)
-    i_mat, f_mat, layout = eng._pack(outs, gi, gf)
+    i_mat, f_mat = seg_agg(T(mask), [SegKey(T(a), T(b), lo, dom) for a, b, lo, dom in keys], lanes, nseg)
+    layout = eng._layout(lanes)
     assert len(layout) == len(want)
     for (t, k), w in zip(layout, want):
         w = np.asarray(w)

@@ -89,7 +89,8 @@ def plan_nodes(session, sql):
 
 
 PLANS = {"q18": (ref_tpch.Q18, tpch.q18_mpp_plan), "q3_top100": (tpch.Q3_TOP100, lambda: tpch.q3_mpp_plan(100)),
-         "seg_revenue": (tpch.SEG_REVENUE, tpch.seg_revenue_mpp_plan)}
+         "seg_revenue": (tpch.SEG_REVENUE, tpch.seg_revenue_mpp_plan),
+         "scalar_revenue": (tpch.SCALAR_REVENUE, tpch.scalar_revenue_mpp_plan)}
 
 
 @pytest.mark.parametrize("q", sorted(PLANS))
@@ -156,6 +157,8 @@ ENGINE_CASES = {
     "q3_top100": (tpch.Q3_TOP100, lambda: tpch.q3_mpp_plan(100), {}, None, "rowpos", "topn_too_wide", "fused", {}),
     "q3_shuffled_stream": (ref_tpch.Q3, tpch.q3_mpp_plan, {}, _shuffled, "rowpos", "stream_not_clustered", "fused", {}),
     "seg_revenue": (tpch.SEG_REVENUE, tpch.seg_revenue_mpp_plan, {}, None, "dense", None, "fused", {}),
+    # no GROUP BY: the dense mode with no key, one segment
+    "scalar_revenue": (tpch.SCALAR_REVENUE, tpch.scalar_revenue_mpp_plan, {}, None, "dense", None, "fused", {}),
 }
 
 
@@ -314,3 +317,38 @@ def test_run_mpp_gives_the_reference_session_rows(session, tables, q):
     assert len(got) == nrows
     assert got == mpp
     assert (sorted(got) == sorted(host)) if q == "seg_revenue" else (got == host)
+
+
+
+def test_join_aggregate_without_group_by_runs_as_the_reference_dense_mode():
+    """f(fid, k, v) ⋈ d(id, w) on f.k = d.id, SUM(f.v) and COUNT(*), no
+    group key, 1,000 probe rows: the reference's dense mode with every
+    row coded 0 (nseg 1), fused, on both engines."""
+    rng = np.random.default_rng(8)
+    n, nd = 1000, 300
+    tables = {"f": {"fid": np.arange(n), "k": rng.integers(0, nd, n), "v": rng.integers(-5, 6, n)},
+              "d": {"id": np.arange(nd), "w": rng.integers(0, 100, nd)}}
+    spec = {"tables": {"f": [("fid", "bigint"), ("k", "bigint"), ("v", "bigint")],
+                       "d": [("id", "bigint"), ("w", "bigint")]},
+            "scans": ["f", "d"], "joins": [(["f.k"], ["d.id"])],
+            "agg": {"group_by": [], "aggs": [("sum", ("col", "f.v")), ("count",)]}}
+    ref, port, want, got = run_spec(spec, tables)
+    assert want is not None and got is not None and got[1] == want[1] is True
+    _assert_same_chunk(want[0], got[0])
+    assert got[0].num_rows == 1 and got[0].columns[-1].data.tolist() == [n]
+    assert _mode(port) == ("dense", None) and port.last_fuse_outcome == ref.last_fuse_outcome == "fused"
+    _same_outcome(ref, port)
+
+
+def test_scalar_revenue_gives_the_reference_session_answer():
+    """SCALAR_REVENUE through run_mpp on the CPU, against the reference
+    Session at setup_tpch(s, 20000) with MPP on: 442517679.5435."""
+    s = Session()
+    ref_tpch.setup_tpch(s, 20_000)
+    s.vars["tidb_allow_mpp"] = "ON"
+    s.vars["tidb_cop_engine"] = "auto"
+    want = _str_rows(s.must_query(tpch.SCALAR_REVENUE))
+    li, orders, cust = tpch.generated_columns(20_000, 42)
+    got = _str_rows(run_mpp(tpch.scalar_revenue_mpp_plan(), {"lineitem": li, "orders": orders, "customer": cust},
+                            device="cpu").to_pylist())
+    assert got == want == [("442517679.5435",)]

@@ -151,6 +151,31 @@ def test_run_query_gives_the_reference_session_rows_on_the_sort_paths(ref_sessio
     assert res.num_rows == len(want) > 0
 
 
+def test_port_builds_the_checksum_dag_the_planner_pushes(ref_session):
+    seen, _ = _capture(ref_session, tpch.CHECKSUM)
+    assert seen, "the reference pushed nothing to its device engine"
+    ref_dag, dag = seen[0], tpch.checksum_dag()
+    assert repr(dag.selection.conds) == repr(ref_dag.selection.conds)
+    assert repr(dag.agg.group_by) == repr(ref_dag.agg.group_by)
+    assert repr(dag.agg.aggs) == repr(ref_dag.agg.aggs)
+    assert [(ft.tp, ft.flag, ft.decimal) for ft in dag.output_types()] == \
+        [(ft.tp, ft.flag, ft.decimal) for ft in ref_dag.output_types()]
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+def test_run_query_gives_the_reference_session_rows_for_the_checksum(ref_session, compress):
+    """CHECKSUM (BIT_XOR / BIT_OR / BIT_AND per l_returnflag, one argument
+    a decimal product) through run_query: K4's bitwise ops, then the final
+    merge of the partials; as a set (no ORDER BY)."""
+    want = ref_session.execute(tpch.CHECKSUM).rows()
+    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(N))
+    engine = TorchEngine(device="cpu")
+    engine.tile_compression = compress
+    got = run_query(tpch.checksum_dag(), batch, device="cpu", engine=engine).to_pylist()
+    assert sorted(got) == sorted(want) and len(got) == 3
+    assert engine.fallbacks == 0
+
+
 # --- the window slice: run_window against the reference Session --------------
 
 # query → (spec builder, the SELECT list as offsets of the scan + window columns)

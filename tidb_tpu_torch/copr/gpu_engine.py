@@ -4,9 +4,10 @@ port's hand-written kernels (ref: tidb_tpu/copr/tpu_engine.py TPUEngine).
 The reference traces one fused XLA program per DAG. Here the same steps
 run eagerly on the card:
 
-    column lanes ──► K1 decode_lane ──► mask (expression glue) ──► one of
-    (codec payloads    (kernels/)         (expr builtins over
-     uploaded once)                         xp_torch.XP)
+    column lanes ──► K1 decode_lane ──► K2/K3 expr_eval ──► one of
+    (codec payloads    (kernels/)         one launch: the mask and every
+     uploaded once)                       argument / key lane of the DAG
+                                          (expr/program.py compiles it)
 
       direct GROUP BY   K4 seg_agg over the mixed-radix key code
       sort GROUP BY     K9 sort_groups (K8 lex_sort inside) → capped dense
@@ -20,8 +21,9 @@ _agg_sorted_to_chunk, the TopN take).
 
 What is ported: DeviceBatch (encode on the host, upload once per batch
 and device), `_lower`, `_rewrite`/`_code_cmp` with Vocab and
-_dict_encode_lane, `_eval_device`/`_mask`, the filter-only path, the
-direct-address and sort-based aggregation paths (with the reference's
+_dict_encode_lane, `_eval_device`/`_mask` (as one expression program),
+the filter-only path, the direct-address and sort-based aggregation
+paths (with the reference's
 group-capacity escalation, remembered per DAG shape), both TopN paths and
 `execute`. It declines — and counts in `fallbacks`, answering through
 host_engine.execute_dag_host — exactly the DAGs TPUEngine._lower
@@ -41,7 +43,8 @@ import torch
 from ..chunk.chunk import Chunk, Column
 from ..errors import NotPortedError
 from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFunc
-from ..expr.xp_torch import XP, U64
+from ..expr.program import ProgramCache, ValueSpec, evaluate
+from ..expr.xp_torch import U64
 from ..kernels import SegKey, SegLane, decode_lane, lex_sort_perm, seg_agg, sort_groups, topk, topn_multi_ops
 from ..mysqltypes.datum import Datum, K_STR, K_BYTES
 from ..mysqltypes.field_type import ft_longlong
@@ -61,6 +64,10 @@ SEG_DENSE_MAX = 64
 _I64 = np.iinfo(np.int64)
 
 _CMP_SWAP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
+_VAR = ("stddev_pop", "stddev_samp", "var_pop", "var_samp")
+# bitwise aggregates: K4's op and the fill of an empty segment (the
+# reference's per-bit segment_min / max / sum % 2 identities, recombined)
+_BIT = {"bit_and": ("and_i64", -1), "bit_or": ("or_i64", 0), "bit_xor": ("xor_i64", 0)}
 
 
 class Vocab(list):
@@ -234,6 +241,7 @@ class TorchEngine:
         # TPUEngine.gcap0 / _gcap)
         self.gcap0 = 1 << 16
         self._gcap: dict = {}
+        self.programs = ProgramCache()  # compiled expression programs (K2/K3)
 
     def phase(self, name: str):
         """The timer's span for `name`, or a no-op without a timer."""
@@ -376,36 +384,15 @@ class TorchEngine:
             return make_func("ge" if not present else "gt", icol, c(pos))
         return None
 
-    # --- device evaluation (K2/K3: glue over xp_torch) --------------------
+    # --- device evaluation (K2/K3: the expression kernel) -----------------
 
-    def _eval_device(self, e: Expression, lanes: dict):
-        """Recursive device eval over [T, R] lanes → (data, valid)."""
-        dev = self.device
-
-        def rec(x):
-            if isinstance(x, ExprCol):
-                return lanes[x.idx]
-            if isinstance(x, Constant):
-                v = x.scalar_value()
-                if v is None:
-                    return (torch.zeros((), dtype=torch.int64, device=dev),
-                            torch.zeros((), dtype=torch.bool, device=dev))
-                ok = torch.ones((), dtype=torch.bool, device=dev)
-                if x.ret_type.is_float():
-                    return torch.tensor(v, dtype=torch.float64, device=dev), ok
-                if isinstance(v, int) and v > _I64.max:  # BIGINT UNSIGNED literal
-                    return U64(torch.tensor(v - (1 << 64), dtype=torch.int64, device=dev)), ok
-                return torch.tensor(v, dtype=torch.int64, device=dev), ok
-            return x.eval_xp(XP, [rec(a) for a in x.args])
-
-        return rec(e)
-
-    def _mask(self, r_conds, lanes, row_valid):
-        mask = row_valid
-        for c in r_conds:
-            d, v = self._eval_device(c, lanes)
-            mask = mask & v & (d != 0)
-        return mask
+    def _evaluate(self, r_conds, specs, lanes, dev: DeviceBatch, force: bool = False):
+        """One expression program over the decoded lanes (ref: :1021
+        _eval_device, :1044 _mask): → (flat mask, [(data lanes, valid,
+        kind)] per ValueSpec). The mask is row_valid itself when there is
+        no condition, unless `force` (the filter program) launches it."""
+        mask, vals = evaluate(self.programs, r_conds, specs, lanes, dev.row_valid, dev.padded, force=force)
+        return mask.reshape(-1), vals
 
     def _decode(self, dev: DeviceBatch, lanes: dict, unsigned: set):
         """K1 over every used lane (the reference's _unflatten)."""
@@ -423,10 +410,10 @@ class TorchEngine:
         def run():
             with self.phase("decode"):
                 l = self._decode(dev, lanes, unsigned)
-            with self.phase("mask"):
-                mask = self._mask(r_conds, l, dev.row_valid)
+            with self.phase("expr_eval"):
+                mask, _ = self._evaluate(r_conds, [], l, dev, force=True)
             with self.phase("d2h"):
-                mask = mask.reshape(-1).cpu().numpy()[: dev.batch.n_rows]
+                mask = mask.cpu().numpy()[: dev.batch.n_rows]
             with self.phase("finalize"):
                 chunk = dev.batch.to_chunk(dag.scan.col_offsets).filter(mask)
                 if dag.limit is not None:
@@ -505,23 +492,23 @@ class TorchEngine:
         if not direct or nseg > DIRECT_GROUP_MAX:
             return self._lower_agg_sorted(dag, dev, lanes, vocabs, r_conds, unsigned, dev_args)
 
+        specs = [self._agg_spec(a, r_args) for a, r_args in zip(agg.aggs, dev_args)]
+
         def run():
             with self.phase("decode"):
                 l = self._decode(dev, lanes, unsigned)
-            with self.phase("mask"):
-                flat_mask = self._mask(r_conds, l, dev.row_valid).reshape(-1)
+            with self.phase("expr_eval"):
+                flat_mask, vals = self._evaluate(r_conds, [s for s in specs if s is not None], l, dev)
             with self.phase("agg_args"):
                 keys = [
                     SegKey(l[idx][0].reshape(-1), self._valid_arg(l[idx][1], dev), lo, dom)
                     for (idx, lo), dom in zip(key_cols, domains)
                 ]
-                outs = [[SegLane("count")]]  # group_count: masked-in rows per slot
-                for a, r_args in zip(agg.aggs, dev_args):
-                    outs.extend(self._agg_partials_device(a, r_args, l, dev, nseg))
+                seg_lanes = [SegLane("count")]  # group_count: masked-in rows per slot
+                seg_lanes += self._agg_lanes(agg.aggs, specs, vals, dev, nseg)
             with self.phase("seg_agg"):
-                seg_lanes = [s for o in outs for s in o]
-                i_raw, f_raw = self.seg_agg(flat_mask, keys, seg_lanes, nseg)
-                i_mat, f_mat, layout = self._pack(outs, i_raw, f_raw)
+                i_mat, f_mat = self.seg_agg(flat_mask, keys, seg_lanes, nseg)
+                layout = self._layout(seg_lanes)
             with self.phase("d2h"):
                 i_host, f_host = i_mat.cpu().numpy(), f_mat.cpu().numpy()
             with self.phase("finalize"):
@@ -563,25 +550,24 @@ class TorchEngine:
                     self._gcap[shape_key] = cap
             return cap
 
+        specs = [self._agg_spec(a, r_args) for a, r_args in zip(agg.aggs, dev_args)]
+
         def run():
             with self.phase("decode"):
                 l = self._decode(dev, lanes, unsigned)
-            with self.phase("mask"):
-                flat_mask = self._mask(r_conds, l, dev.row_valid).reshape(-1)
+            with self.phase("expr_eval"):
+                flat_mask, vals = self._evaluate(r_conds, [s for s in specs if s is not None], l, dev)
             with self.phase("sort"):
                 keys = [(self._flat(l[ki][0], dev.padded), self._valid_arg(l[ki][1], dev))
                         for ki in key_idx]
                 g = self.sort_groups(flat_mask, keys, cap_of)
             with self.phase("agg_args"):
-                outs = []
-                for a, r_args in zip(agg.aggs, dev_args):
-                    outs.extend(self._agg_partials_device(a, r_args, l, dev, g.cap))
+                seg_lanes = self._agg_lanes(agg.aggs, specs, vals, dev, g.cap)
             with self.phase("seg_agg"):
-                seg_lanes = [s for o in outs for s in o]
                 layout = []
                 if seg_lanes:
-                    i_raw, f_raw = self.seg_agg(flat_mask, [], seg_lanes, g.cap, seg=g.seg)
-                    i_mat, f_mat, layout = self._pack(outs, i_raw, f_raw)
+                    i_mat, f_mat = self.seg_agg(flat_mask, [], seg_lanes, g.cap, seg=g.seg)
+                    layout = self._layout(seg_lanes)
             with self.phase("d2h"):
                 ng = g.n_groups  # only [:n_groups] reaches the chunk
                 kval, kvalid = g.kval[:, :ng].cpu().numpy(), g.kvalid[:, :ng].cpu().numpy()
@@ -657,110 +643,80 @@ class TorchEngine:
         return TorchEngine._flat(v, dev.padded)
 
     @staticmethod
-    def _pack(outs, i_raw, f_raw):
-        """Kernel rows → the reference's packed layout (K5, torch glue).
-        Each output is one SegLane, or the 64 per-bit lanes of a bitwise
-        aggregate, recombined here into one int64 row by shifts."""
-        rows_i, rows_f, layout = [], [], []
-        ki = kf = 0
-        for o in outs:
-            if len(o) == 64:  # bit_and / bit_or / bit_xor
-                red = i_raw[ki:ki + 64]
-                ki += 64
-                shifts = torch.arange(64, dtype=torch.int64, device=red.device)[:, None]
-                layout.append(("i", len(rows_i)))
-                rows_i.append(((red & 1) << shifts).sum(dim=0))
-            elif o[0].is_float:
-                layout.append(("f", len(rows_f)))
-                rows_f.append(f_raw[kf])
+    def _layout(seg_lanes):
+        """Each SegLane's row in K4's packed matrices (K5: the int lanes
+        in order, then the float lanes), in output order."""
+        layout, ki, kf = [], 0, 0
+        for lane in seg_lanes:
+            if lane.is_float:
+                layout.append(("f", kf))
                 kf += 1
             else:
-                layout.append(("i", len(rows_i)))
-                rows_i.append(i_raw[ki])
+                layout.append(("i", ki))
                 ki += 1
-        if len(rows_i) == i_raw.shape[0]:
-            i_mat = i_raw  # no bitwise aggregate: the kernel's matrix as written
-        else:
-            i_mat = torch.stack(rows_i) if rows_i else i_raw[:0]
-        return i_mat, f_raw, layout
+        return layout
 
-    def _agg_partials_device(self, a, r_args, lanes, dev: DeviceBatch, nseg: int):
-        """SegLane specs of one aggregate's partials, in the reference's
-        output order (tpu_engine.py:1527 _agg_partials_device). Each list
-        entry is one output; bitwise aggregates give 64 per-bit lanes."""
+    @staticmethod
+    def _agg_spec(a, r_args):
+        """The expression program's output an aggregate reads (ref: the
+        argument evaluation of :1527 _agg_partials_device); None for an
+        argument-free COUNT(*)."""
+        if not r_args:
+            return None
+        x = r_args[0]
+        if a.name in ("count", "first_row"):
+            return ValueSpec(x, "valid")
+        ft = a.args[0].ret_type
+        if a.name in _VAR:
+            return ValueSpec(x, "var_dec" if ft.is_decimal() else "var_f")
+        if a.name in _BIT:
+            return ValueSpec(x, "bit", max(ft.decimal, 0) if ft.is_decimal() else -1)
+        return ValueSpec(x)
+
+    def _agg_lanes(self, aggs, specs, vals, dev: DeviceBatch, nseg: int) -> list:
+        """SegLanes of every aggregate's partials, in the reference's
+        output order (ref: :1527 _agg_partials_device), from the program's
+        outputs."""
+        it = iter(vals)
+        lanes = []
+        for a, spec in zip(aggs, specs):
+            lanes += self._agg_partials_device(a, None if spec is None else next(it), dev, nseg)
+        return lanes
+
+    def _agg_partials_device(self, a, out, dev: DeviceBatch, nseg: int) -> list:
         name = a.name
         n = dev.padded
-        if r_args:
-            d, v = self._eval_device(r_args[0], lanes)
-            dd = d.bits if isinstance(d, U64) else d
-            dd = self._flat(dd, n)
-            vv = self._valid_arg(v, dev)
-        else:
-            d, dd, vv = None, None, None
-        unsigned = isinstance(d, U64)
+        datas, vv, kind = ([], None, "i64") if out is None else (out[0], self._valid_arg(out[1], dev), out[2])
 
         def cnt():
-            return [SegLane("count", valid=vv)]
+            return SegLane("count", valid=vv)
 
         if name == "count":
             return [cnt()]
         if name in ("sum", "avg"):
-            if dd.dtype in (torch.float64, torch.float32):
-                s = SegLane("sum_f64", dd.to(torch.float64), vv)
-            else:
-                s = SegLane("sum_i64", dd.to(torch.int64), vv)
-            return [[s], cnt()]
+            d = datas[0]
+            s = SegLane("sum_f64", d, vv) if kind == "f64" else SegLane("sum_i64", d.to(torch.int64), vv)
+            return [s, cnt()]
         if name in ("min", "max"):
-            if dd.dtype.is_floating_point:
+            if kind == "f64":
                 op, big, small = "f64", float("inf"), float("-inf")
-                x = dd.to(torch.float64)
             else:
                 # sentinels in the lane's OWN dtype (uint64 / int32 codes)
-                info = np.iinfo(np.uint64 if unsigned else
-                                {torch.int32: np.int32}.get(dd.dtype, np.int64))
-                op, big, small = ("u64" if unsigned else "i64"), int(info.max), int(info.min)
-                x = dd.to(torch.int64)
-            lane = SegLane(f"{name}_{op}", x, vv, big if name == "min" else small)
-            return [[lane], cnt()]
+                info = np.iinfo({"u64": np.uint64, "i32": np.int32}.get(kind, np.int64))
+                op, big, small = ("u64" if kind == "u64" else "i64"), int(info.max), int(info.min)
+            x = datas[0] if kind == "f64" else datas[0].to(torch.int64)
+            return [SegLane(f"{name}_{op}", x, vv, big if name == "min" else small), cnt()]
         if name == "first_row":
-            return [[SegLane("first_row", valid=vv, fill=n if nseg <= SEG_DENSE_MAX else int(_I64.max))]]
-        if name in ("stddev_pop", "stddev_samp", "var_pop", "var_samp"):
+            return [SegLane("first_row", valid=vv, fill=n if nseg <= SEG_DENSE_MAX else int(_I64.max))]
+        if name in _VAR:
             # (cnt, sum, sumsq) partials; decimals ship (int64 wrap-sum,
             # float estimate) pairs of the SCALED ints and their 32-bit
             # limbs, rebuilt exactly on the host (host_engine.exact_sum64)
-            arg_ft = a.args[0].ret_type
-            ok = None if vv is None else vv
-            if arg_ft.is_decimal():
-                xi = dd.to(torch.int64)
-                if ok is not None:
-                    xi = torch.where(ok, xi, 0)
-                ai = xi >> 32  # arithmetic shift: hi limb keeps the sign
-                bi = xi - (ai << 32)  # lo limb in [0, 2^32)
-                af, bf = ai.to(torch.float64), bi.to(torch.float64)
-                return [cnt(),
-                        [SegLane("sum_i64", xi, vv)], [SegLane("sum_f64", xi.to(torch.float64), vv)],
-                        [SegLane("sum_i64", ai * ai, vv)], [SegLane("sum_f64", af * af, vv)],
-                        [SegLane("sum_i64", ai * bi, vv)], [SegLane("sum_f64", af * bf, vv)],
-                        [SegLane("sum_i64", bi * bi, vv)], [SegLane("sum_f64", bf * bf, vv)]]
-            x = XP.astype(d, torch.float64)
-            x = self._flat(x, n)
-            if ok is not None:
-                x = torch.where(ok, x, 0.0)
-            return [cnt(), [SegLane("sum_f64", x, vv)], [SegLane("sum_f64", x * x, vv)]]
-        if name in ("bit_and", "bit_or", "bit_xor"):
-            # per-bit segment min/max/sum-mod-2 over 64 bit lanes,
-            # recombined by shifts in _pack (two's complement places bit 63)
-            arg_ft = a.args[0].ret_type
-            if arg_ft.is_decimal():
-                xf = dd.to(torch.float64) / float(pow10(max(arg_ft.decimal, 0)))
-                x = torch.round(xf).to(torch.int64)
-            elif dd.dtype.is_floating_point:
-                x = torch.round(dd).to(torch.int64)
-            else:
-                x = dd.to(torch.int64)
-            op, fill = {"bit_and": ("min_i64", 1), "bit_or": ("max_i64", 0),
-                        "bit_xor": ("sum_i64", 0)}[name]
-            return [[SegLane(op, ((x >> b) & 1).contiguous(), vv, fill) for b in range(64)]]
+            ops = ["sum_i64", "sum_f64"] * 4 if len(datas) == 8 else ["sum_f64", "sum_f64"]
+            return [cnt()] + [SegLane(op, d, vv) for op, d in zip(ops, datas)]
+        if name in _BIT:
+            op, fill = _BIT[name]
+            return [SegLane(op, datas[0], vv, fill)]
         raise NotImplementedError(name)
 
     def _agg_outputs_to_chunk(self, dag, dev, outs, domains, key_cols, vocabs, nseg):
@@ -899,15 +855,12 @@ class TorchEngine:
         def run():
             with self.phase("decode"):
                 l = self._decode(dev, dlanes, unsigned)
-            with self.phase("mask"):
-                mask = self._mask(r_conds, l, dev.row_valid).reshape(-1)
+            with self.phase("expr_eval"):
+                mask, ((datas, v, kind),) = self._evaluate(r_conds, [ValueSpec(r_e)], l, dev)
             with self.phase("sort"):
-                d, v = self._eval_device(r_e, l)
-                d = self._flat(d, dev.padded)
-                if isinstance(d, U64):  # the reference's astype(int64) keeps the bits
-                    d = d.bits
-                # integer keys stay integer (exact for packed datetimes/decimals)
-                d = d.to(torch.float64) if d.dtype.is_floating_point else d.to(torch.int64)
+                # integer keys stay integer (exact for packed datetimes and
+                # decimals); a uint64 key keeps its bits, as astype(int64)
+                d = datas[0] if kind == "f64" else datas[0].to(torch.int64)
                 idx, ok = self.topk(d.contiguous(), self._valid_arg(v, dev), mask, desc, min(n, dev.padded))
             with self.phase("d2h"):
                 idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
@@ -933,13 +886,11 @@ class TorchEngine:
         def run():
             with self.phase("decode"):
                 l = self._decode(dev, dlanes, unsigned)
-            with self.phase("mask"):
-                mask = self._mask(r_conds, l, dev.row_valid).reshape(-1)
+            with self.phase("expr_eval"):
+                mask, vals = self._evaluate(r_conds, [ValueSpec(r_e) for r_e, _ in r_by], l, dev)
             with self.phase("sort"):
-                keys = []
-                for r_e, desc in r_by:
-                    d, v = self._eval_device(r_e, l)
-                    keys.append((self._flat(d, dev.padded), self._valid_arg(v, dev), desc))
+                keys = [(U64(datas[0]) if kind == "u64" else datas[0], self._valid_arg(v, dev), desc)
+                        for (datas, v, kind), (_, desc) in zip(vals, r_by)]
                 ops = self.topn_multi_ops(mask, keys)
                 perm = self.lex_sort_perm(ops)
                 idx = perm[: min(n, dev.padded)].long()

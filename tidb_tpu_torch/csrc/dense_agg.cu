@@ -6,7 +6,8 @@
 // n_dev 1 (psum / pmin / pmax are the identity there). P8 is a thin pair
 // of kernels around K4's segment-lane mode (csrc/seg_agg.cu):
 //
-//   tt_dense_code  per row the reference's int32 mixed radix: kd = v ?
+//   tt_dense_code  per row the reference's int32 mixed radix (0 with no
+//                  key: a join aggregate without GROUP BY, nseg 1): kd = v ?
 //                  int32(d) - lo + 1 : 0, code = code * (dom + 1) + kd, all
 //                  in int32 wrap (lo as the int32 jnp casts it to: a narrow
 //                  domain above 2^31 codes as it would in int64); a masked
@@ -103,7 +104,7 @@ extern "C" int tt_dense_code(const int64_t* w, int nwords, int n_sms, void* stre
   p.n = w[0];
   p.nk = (int)w[1];
   p.nseg = w[2];
-  if (p.n < 0 || p.nk < 1 || p.nk > MAXK || p.nseg < 1 || p.nseg >= (1LL << 31)) return -1;
+  if (p.n < 0 || p.nk < 0 || p.nk > MAXK || p.nseg < 1 || p.nseg >= (1LL << 31)) return -1;
   if (nwords != 5 + 4 * p.nk) return -1;
   p.mask = (const uint8_t*)w[3];
   p.seg = (int32_t*)w[4];

@@ -24,6 +24,12 @@
 //                 min/max propagate NaN)
 //   FIRST_ROW  min row index i over rows with ok, n for a masked-in row
 //              without (the reference's where(ok, i, n))  -> int64 row
+//   AND/OR/XOR_I64  &= | |= | ^= x (64-bit atomicAnd / atomicOr /
+//              atomicXor): bit_and / bit_or / bit_xor, which the
+//              reference reduces per bit over 64 lanes and recombines by
+//              shifts (tpu_engine.py:1596-1617); their fills are their
+//              identities -1 / 0 / 0, what the reference's per-bit
+//              identities give an empty segment
 //
 // Empty segments keep the lane's fill (the reference's sentinel in the
 // lane's own dtype: iinfo(dtype).max for MIN over an int32 dict-code lane,
@@ -63,6 +69,9 @@ enum Op : int32_t {
   OP_MIN_F64 = 7,
   OP_MAX_F64 = 8,
   OP_FIRST_ROW = 9,
+  OP_AND_I64 = 10,
+  OP_OR_I64 = 11,
+  OP_XOR_I64 = 12,
 };
 
 // Host-built descriptor tables (an int64 tensor on the card, laid out as
@@ -150,6 +159,15 @@ __device__ __forceinline__ void fold(int32_t op, unsigned long long* slot, int64
     case OP_FIRST_ROW:
       atomicMin(reinterpret_cast<long long*>(slot), (long long)row);
       break;
+    case OP_AND_I64:
+      atomicAnd(slot, (unsigned long long)raw);
+      break;
+    case OP_OR_I64:
+      atomicOr(slot, (unsigned long long)raw);
+      break;
+    case OP_XOR_I64:
+      atomicXor(slot, (unsigned long long)raw);
+      break;
   }
 }
 
@@ -236,7 +254,8 @@ __global__ void seg_agg_shared_kernel(const uint8_t* __restrict__ mask, int64_t 
   }
   __syncthreads();
   // merge the block's partials; a slot still at its fill is the identity
-  // of its op, so folding it changes nothing and is skipped. COUNT and
+  // of its op (the bitwise ops take no other fill), so folding it changes
+  // nothing and is skipped. COUNT and
   // FIRST_ROW fold a value, not a row, here: sum the count, min the row.
   for (int64_t t = threadIdx.x; t < total; t += blockDim.x) {
     const LaneDesc& L = lanes[t / nseg];

@@ -21,14 +21,34 @@
   (`mplan.root_step`: the final aggregate, HAVING, the projection and the
   TopN) → the result chunk. `variables` are session variables, such as
   `tidb_tpu_mpp_fused` ("ON" by default).
+* `entry(device="cuda")`: the flagship fused cop kernel (M1, TPC-H Q1's
+  scan → filter → partial aggregation of one shard) as a function and its
+  example lanes at 4096 rows (ref: __graft_entry__.entry).
+* `dryrun_multichip(n, device="cuda", columns=None)`: the distributed step
+  over n ranks (ref: __graft_entry__.dryrun_multichip): stage 1, M1 on
+  each rank's shard merged by an exact int64 all_reduce (M2), held to a
+  single-device numpy recompute; stage 2, the MPP hash exchange (M3: the
+  send buffers, then all_to_all), which must drop nothing, put every key
+  on its owner and preserve the payload's sum. n = 1 runs on `device` with
+  identity collectives, over `columns` (lineitem lanes) when given; n > 1
+  starts n gloo processes on the CPU, which run the plain versions (one
+  H100 cannot host n NCCL ranks), as the reference re-execs onto a virtual
+  CPU mesh. The reference's stage 3 (TPC-H Q3 as SQL through a Session
+  over the mesh) needs the SQL front door and MPP across devices, which
+  the port does not have yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import socket
+import subprocess
+import sys
 from contextlib import nullcontext
 
 import numpy as np
+import torch
 
 from .catalog.schema import TableInfo
 from .chunk.chunk import Chunk, VARLEN, col_numpy_dtype
@@ -39,7 +59,10 @@ from .executor import mpp_gather
 from .executor.final_agg import merge_partials, order_by_keys, top_n
 from .executor.window import WindowExec
 from .parallel.mpp import MPPEngine
+from .parallel.mesh import build_q1_arrays, distributed_q1_step, hash_repartition, q1_arrays, q1_exact, \
+    q1_local_kernel
 from .planner.fragment import MPPPlan
+from .torchenv import resolve_device
 
 
 def batch_from_numpy(table: TableInfo, columns: dict[str, np.ndarray],
@@ -120,3 +143,92 @@ def run_mpp(mplan: MPPPlan, tables: dict, device="cuda", engine: MPPEngine | Non
     partial = mpp_gather.gather(mplan, scans, engine, variables)
     with engine._phase("finalize"):
         return mpp_gather.finish(mplan, mplan.root_step, partial)
+
+
+def entry(device="cuda"):
+    """(step, example): M1 as a function of Q1's eight lanes, and those
+    lanes at 4096 rows on `device` (ref: __graft_entry__.entry)."""
+    dev = resolve_device(device)
+    spec, args = build_q1_arrays(4096, n_shards=1)
+
+    def step(qty, price, disc, tax, rf, ls, ship, row_valid):
+        return q1_local_kernel(spec, qty, price, disc, tax, rf, ls, ship, row_valid)
+
+    return step, tuple(torch.from_numpy(a).to(dev) for a in args)
+
+
+def _dryrun(n: int, rank: int, dev: torch.device, columns=None, group=None) -> dict:
+    """Stages 1 and 2 of the dryrun on this rank (module doc)."""
+    spec, args = build_q1_arrays(n * 256, n_shards=n) if columns is None else q1_arrays(columns, n)
+    per = len(args[0]) // n
+    shard = tuple(torch.from_numpy(np.ascontiguousarray(a[rank * per:(rank + 1) * per])).to(dev) for a in args)
+    # stage 1: data-parallel fused scan / filter / partial aggregation + the exact merge
+    parts = distributed_q1_step(spec, group)(*shard)
+    got = torch.stack(parts).cpu().numpy()
+    if got[0].sum() <= 0:
+        raise AssertionError("distributed Q1 produced no rows")
+    want = q1_exact(spec, args)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"dryrun_multichip({n}): distributed Q1 partials differ from the recompute")
+    # stage 2: MPP-style hash exchange; l_quantity stands in for the key
+    keys, payload, valid = shard[0], shard[1], shard[7]
+    rk, rp, rv, dropped = hash_repartition(n, group=group)(keys, payload, valid)
+    if int(dropped) != 0:
+        raise AssertionError(f"dryrun_multichip({n}): the exchange dropped {int(dropped)} rows")
+    if not bool((torch.remainder(rk[rv], n) == rank).all()):
+        raise AssertionError(f"dryrun_multichip({n}): a key landed off its owner")
+    totals = torch.stack([payload[valid].sum(), rp[rv].sum()])
+    if n > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(totals, group=group)
+    before, after = (int(x) for x in totals.cpu())
+    if before != after:
+        raise AssertionError(f"dryrun_multichip({n}): exchange sum {after} != {before}")
+    if rank == 0:
+        print(f"dryrun_multichip({n}): ok — counts={got[0].tolist()}, exchange preserved {after}", flush=True)
+    return {"rows": int(len(args[0])), "counts": got[0].tolist(), "exchange_total": after, "dropped": int(dropped),
+            "spec": spec, "lanes": shard}
+
+
+def _dryrun_rank(n: int, rank: int, port: int) -> None:
+    """One gloo rank of dryrun_multichip(n) on the CPU."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=n, rank=rank)
+    try:
+        _dryrun(n, rank, torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_multichip(n_devices: int, device="cuda", columns=None, timeout: float = 600.0):
+    """The distributed dryrun over n ranks (module doc). → rank 0's
+    summary for n = 1; None for n > 1 (the ranks print and check)."""
+    if n_devices == 1:
+        return _dryrun(1, 0, resolve_device(device), columns)
+    print(f"dryrun_multichip({n_devices}): {n_devices} gloo processes on the CPU, plain versions of M1 and M3",
+          flush=True)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = _free_port()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               f"import sys; sys.path.insert(0, {root!r}); from tidb_tpu_torch.entry import "
+                               f"_dryrun_rank; _dryrun_rank({n_devices}, {rank}, {port})"], cwd=root, env=env)
+             for rank in range(n_devices)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise RuntimeError(f"dryrun_multichip({n_devices}): ranks exited {rcs}")
+    return None

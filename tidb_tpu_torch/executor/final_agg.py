@@ -30,7 +30,7 @@ from ..expr.expression import Expression, collation_key_lane
 from ..mysqltypes.field_type import FieldType
 from ..mysqltypes.mydecimal import Dec
 
-MERGEABLE = ("count", "sum", "avg", "min", "max", "first_row")
+MERGEABLE = ("count", "sum", "avg", "min", "max", "first_row", "bit_and", "bit_or", "bit_xor")
 _I64 = np.iinfo(np.int64)
 
 
@@ -163,6 +163,15 @@ def merge_partials(partials: list[Chunk], group_by: list[Expression], aggs: list
         elif a.name in ("min", "max"):
             data, has = _minmax(a.name, inv, G, col, a.args[0].ret_type if a.args else None)
             cols.append(Column(ft, data, has))
+            pos += 1
+        elif a.name in ("bit_and", "bit_or", "bit_xor"):
+            # ref: FinalHashAggExec._merge_state — fold the partials from the
+            # identity (a NULL partial is the identity); never NULL, unsigned
+            ident = -1 if a.name == "bit_and" else 0
+            fn = {"bit_and": np.bitwise_and, "bit_or": np.bitwise_or, "bit_xor": np.bitwise_xor}[a.name]
+            acc = np.full(G, ident, dtype=np.int64)
+            fn.at(acc, inv, np.where(col.valid, col.data.astype(np.int64), ident))
+            cols.append(Column(ft, acc.view(np.uint64), np.ones(G, dtype=bool)))
             pos += 1
         else:  # first_row: the first partial row of the group wins, NULL or not
             firsts = np.full(G, n, dtype=np.int64)

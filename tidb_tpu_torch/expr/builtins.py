@@ -3,8 +3,8 @@ tidb_tpu/expr/builtins.py that the slice's DAGs and tests use (ref:
 expression/builtin_*.go).
 
 Each builtin is registered once with a type-inference rule and ONE generic
-kernel over the array namespace `xp` (expression.NP on the host,
-xp_torch.XP over tensors on the device path). Registered here:
+kernel over the array namespace `xp` (expression.NP on the host; the
+device path compiles the same rules, expr/program.py). Registered here:
 
   * arithmetic: plus, minus, mul, unaryminus (int, decimal, float)
   * comparisons: eq, ne, lt, le, gt, ge, nulleq, in

@@ -4,14 +4,11 @@ expression/expression.go).
 The reference has per-row `Eval*` plus vectorized `VecEval*` twins over
 chunk columns (expression.go:62-82) — ~279 builtin classes with generated
 vector code. Here each builtin is ONE generic array kernel written against
-an array namespace `xp`, instantiated twice:
-
-  * xp=NP (numpy plus `astype`) → the host vectorized evaluator
-  * xp=xp_torch.XP → the device lowering over torch tensors, glue between
-    the engine's hand-written kernels (the reference passes jax.numpy)
-
-Port note: tensors have no `.astype` method, so every cast in a kernel
-is written `xp.astype(x, dtype)`; both namespaces provide it.
+an array namespace `xp`; the host evaluator passes NP (numpy plus
+`astype`), so every cast in a kernel is written `xp.astype(x, dtype)`.
+The reference also hands jax.numpy to the same kernels on its device
+path (`eval_xp`). The port's device path compiles a tree instead
+(expr/program.py), by the same rules, into one kernel launch.
 
 Value representation per lane (matches chunk/tile):
   int/time/duration → int64, float → float64, decimal → int64 scaled by
@@ -147,10 +144,6 @@ class ScalarFunc(Expression):
     def eval(self, chunk: Chunk):
         avals = [a.eval(chunk) for a in self.args]
         return self.sig.kernel(NP, avals, [a.ret_type for a in self.args], self.ret_type)
-
-    def eval_xp(self, xp, avals):
-        """Device path: kernel over already-materialized (data, valid) pairs."""
-        return self.sig.kernel(xp, avals, [a.ret_type for a in self.args], self.ret_type)
 
     def collect_columns(self, out: set):
         for a in self.args:

@@ -2,8 +2,14 @@
 and launch counters.
 
   K1 decode_lane     (csrc/decode_lane.cu) ← tpu_engine.py:1169 _decode_lane
+  K2/K3 expr_eval    (csrc/expr_eval.cu)   ← tpu_engine.py:1021 _eval_device,
+                                             :1044 _mask (+ the MPP scan stage,
+                                             post-join conditions and aggregate
+                                             arguments, P1); the program comes
+                                             from expr/program.py
   K4 seg_agg         (csrc/seg_agg.cu)     ← tpu_engine.py:1287-1304 + :175-193
                                              + :1527-1617 _agg_partials_device
+                                             (its bitwise ops: K5's recombination)
   K6 topk            (csrc/topk.cu)        ← tpu_engine.py:1759-1781 _lower_topn
   K7 topn_multi_ops  (csrc/topn_multi.cu)  ← tpu_engine.py:1812-1828 _lower_topn_multi
   K8 lex_sort_perm   (csrc/lex_sort.cu)    ← tpu_engine.py:195-208 lex_sort_perm
@@ -29,18 +35,26 @@ and launch counters.
                                              :1914-1929)
   P8 dense_agg       (csrc/dense_agg.cu)   ← parallel/mpp.py:1960-1973 dense
                                              partials + :2048 _agg_partials
+  M1 q1_local        (csrc/q1_local.cu)    ← parallel/mesh.py:57 q1_local_kernel
+  M3 hash_repartition (csrc/hash_repartition.cu) ← parallel/mesh.py:104
+                                             hash_repartition (its local half;
+                                             the all_to_all is torch.distributed)
 
 Each wrapper runs its plain version for CPU tensors only; on a CUDA
 tensor it launches its kernel (built at first use, kernels/build.py) or
-raises. `<wrapper>.launches` counts kernel launches.
+raises. `<wrapper>.launches` counts kernel launches (`seg_agg.bit_launches`
+those of K4 that reduced a bitwise aggregate).
 """
 
 from .block_topk import block_topk, block_topk_ref
 from .decode_lane import decode_lane, decode_lane_ref
 from .dense_agg import dense_agg, dense_agg_ref
+from .expr_eval import expr_eval, expr_eval_ref
+from .hash_repartition import hash_repartition, hash_repartition_ref
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
 from .lut_join import lut_join, lut_join_ref
 from .pack_flat import pack_flat, pack_flat_ref
+from .q1_local import q1_local, q1_local_ref
 from .rowpos_agg import rowpos_agg, rowpos_agg_ref
 from .run_agg import run_agg, run_agg_ref
 from .seg_agg import SegKey, SegLane, seg_agg, seg_agg_ref
@@ -55,13 +69,18 @@ WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
             "topn_multi": topn_multi_ops, "lex_sort": lex_sort_perm, "sort_groups": sort_groups,
             "window": window, "pack_flat": pack_flat, "lut_join": lut_join, "run_agg": run_agg,
             "block_topk": block_topk, "sort_join": sort_join, "seg_reduce": seg_reduce,
-            "rowpos_agg": rowpos_agg, "dense_agg": dense_agg}
+            "rowpos_agg": rowpos_agg, "dense_agg": dense_agg, "expr_eval": expr_eval,
+            "q1_local": q1_local, "hash_repartition": hash_repartition}
 
 
 def reset_launches() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
+    seg_agg.bit_launches = 0
 
 
 def launches() -> dict[str, int]:
-    return {name: w.launches for name, w in WRAPPERS.items()}
+    """Launches per wrapper, and K4's bitwise ones as "seg_agg_bitwise"."""
+    out = {name: w.launches for name, w in WRAPPERS.items()}
+    out["seg_agg_bitwise"] = seg_agg.bit_launches
+    return out

@@ -16,7 +16,8 @@ PyTorch version beside them, the reference's jnp code step by step.
             reference's int32 mixed-radix code, kd = (int32(d) - lo + 1)
             * v (int32 wrap: a narrow domain of keys above 2^31 codes as
             in int64), code = code * (dom + 1) + kd; masked rows and codes
-            outside [0, nseg) are dropped (jax's scatter drops them)
+            outside [0, nseg) are dropped (jax's scatter drops them). No
+            key (an aggregate without GROUP BY) codes every row 0, nseg 1
   * lanes — red.RedLane partial lanes: the count over the mask first,
             then per aggregate (sum, cnt), (min | max, cnt) or cnt
   * rows  — optional int64 [len(lanes), W >= nseg] rows of the packed
@@ -90,8 +91,8 @@ def _check(mask, keys, nseg, lanes, rows):
     n = mask.shape[0]
     if mask.dtype != torch.bool or not 1 <= nseg < 1 << 31:
         raise TypeError("dense_agg: mask is bool [N], 1 <= nseg < 2^31")
-    if not 1 <= len(keys) <= MAX_KEYS or not 1 <= len(lanes) <= MAX_LANES:
-        raise ValueError(f"dense_agg: 1..{MAX_KEYS} keys and 1..{MAX_LANES} lanes")
+    if not 0 <= len(keys) <= MAX_KEYS or not 1 <= len(lanes) <= MAX_LANES:
+        raise ValueError(f"dense_agg: 0..{MAX_KEYS} keys and 1..{MAX_LANES} lanes")
     for k in keys:
         if k.data.dtype != torch.int64 or k.data.shape != (n,) or k.valid.dtype != torch.bool \
                 or k.valid.shape != (n,) or k.dom < 1:

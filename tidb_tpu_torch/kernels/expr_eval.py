@@ -1,0 +1,292 @@
+"""K2/K3 + P1: the expression kernel — one launch evaluates a compiled
+expression program (expr/program.py) over every row.
+
+Replaces the device evaluation of tidb_tpu/copr/tpu_engine.py:1021
+`_eval_device` and :1044 `_mask` inside the filter program (:1138-1158),
+the aggregation program's argument lanes (:1287-1304, :1527-1617) and the
+TopN keys (:1762, :1818), and of the MPP program's scan stage
+(parallel/mpp.py:1431), post-join conditions (:1557, :1649) and aggregate
+arguments (:1678, :1879, :2050). The CUDA kernel is csrc/expr_eval.cu, an
+interpreter of the program (its note gives the design and what bounds
+it); `expr_eval_ref` is the plain PyTorch version beside it, interpreting
+the same program with one torch op per instruction over whole lanes.
+
+`expr_eval(prog, ins, n)`:
+
+  * prog — an expr.program.Program
+  * ins  — one flat contiguous tensor [n] per input slot of the program,
+           in slot order: int64 / float64 / int32 data lanes (uint64 as
+           their int64 bits), bool valid lanes, the bool mask_in
+  → one tensor [n] per output slot: int64 (float64 values as their bits)
+    for an 8-byte slot, bool for a 1-byte slot
+
+Where trouble lies, and what pins it (tests/test_torch_expr.py, the
+chip_smoke.py battery):
+  * int64 wrap: adds and multiplies wrap mod 2^64 (unsigned in CUDA);
+  * float rounding: no multiply-add is contracted (the kernel uses
+    __dmul_rn / __dadd_rn / __ddiv_rn); uint64 → float64 rounds once;
+    decimals become floats by an IEEE division by the exact double 10^s;
+  * XLA's CPU float rules, which the reference runs under: subnormal
+    operands read as signed zero, subnormal results flush (not on
+    negation);
+  * float → int64 saturates with NaN → 0 (XLA's conversion), and the
+    bitwise aggregates' rint rounds half to even first.
+
+`expr_eval` takes the plain version only for tensors on the CPU. On a
+CUDA device it launches the kernel or raises; `expr_eval.launches` counts
+the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..expr.program import DOM_F, DOM_U, DOM_X, OP, SMEM_MAX, Program
+from .build import library
+
+_NAMES = {v: k for k, v in OP.items()}
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+_TWO63 = float(1 << 63)
+_DBL_MIN = 2.2250738585072014e-308
+_TWO32 = float(1 << 32)
+
+
+def _f(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.float64)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int64)
+
+
+def _daz(x: torch.Tensor) -> torch.Tensor:
+    """A subnormal as zero of its sign (XLA CPU's denormals-are-zero and
+    flush-to-zero); NaN, ±inf and normal values unchanged."""
+    return torch.where(x.abs() < _DBL_MIN, torch.copysign(torch.zeros_like(x), x), x)
+
+
+def _sat_i64(x: torch.Tensor) -> torch.Tensor:
+    """float64 → int64 as XLA converts: saturating, NaN → 0 (x already
+    integral or truncated by the caller)."""
+    safe = torch.where(torch.isnan(x) | (x.abs() >= _TWO63), 0.0, x).to(torch.int64)
+    out = torch.where(x >= _TWO63, _I64_MAX, safe)
+    out = torch.where(x <= -_TWO63, _I64_MIN, out)
+    return torch.where(torch.isnan(x), 0, out)
+
+
+def _u2f(bits: torch.Tensor) -> torch.Tensor:
+    hi = ((bits >> 32) & 0xFFFFFFFF).to(torch.float64)
+    lo = (bits & 0xFFFFFFFF).to(torch.float64)
+    return hi * _TWO32 + lo  # both halves exact: the sum rounds once
+
+
+def _nz(d: torch.Tensor, is_float: int) -> torch.Tensor:
+    return _daz(_f(d)) != 0 if is_float else d != 0
+
+
+def _round_div(num: torch.Tensor, den: int) -> torch.Tensor:
+    """expr/builtins._round_div for a positive constant divisor: exact,
+    half away from zero (|INT64_MIN| wraps and floor-divides, as there)."""
+    a = num.abs()
+    q = torch.div(a, den, rounding_mode="floor")
+    r = a - q * den
+    q = q + (2 * r >= den).to(torch.int64)
+    return q * torch.where(num < 0, -1, 1)
+
+
+def _cmp(aux: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dom, pred = aux & 3, (aux >> 2) & 7
+    if dom == DOM_F:
+        a, b = _daz(_f(a)), _daz(_f(b))
+    elif dom == DOM_U:  # unsigned order: flip the sign bits
+        a, b = a ^ _I64_MIN, b ^ _I64_MIN
+    elif dom == DOM_X:  # mixed signed / unsigned: (class, lo) order
+        ca = (a < 0).to(torch.int64) * (1 if aux >> 5 & 1 else -1)
+        cb = (b < 0).to(torch.int64) * (1 if aux >> 6 & 1 else -1)
+        eq = (ca == cb) & (a == b)
+        lt = (ca < cb) | ((ca == cb) & (a < b))
+        return [eq, ~eq, lt, lt | eq, ~(lt | eq), ~lt][pred]
+    return [a == b, a != b, a < b, a <= b, a > b, a >= b][pred]
+
+
+def expr_eval_ref(prog: Program, ins: list, n: int) -> list:
+    """Plain PyTorch version: the program, instruction by instruction,
+    over whole lanes."""
+    dev = ins[0].device if ins else torch.device("cpu")
+    D: dict = {}
+    V: dict = {}
+    outs = [torch.empty(n, dtype=torch.int64 if w == 8 else torch.bool, device=dev) for w in prog.outputs]
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    consts = prog.consts
+    for code, dst, a, b, aux in prog.ops.tolist():
+        name = _NAMES[code]
+        if name in ("LD8", "LD4"):
+            t = ins[a]
+            D[dst] = t.to(torch.int64) if name == "LD4" else _bits(t) if t.is_floating_point() else t
+            V[dst] = ones if b < 0 else ins[b]
+        elif name == "LDB":
+            D[dst], V[dst] = ins[a].to(torch.int64), ones
+        elif name == "LDK":
+            D[dst] = torch.full((n,), int(consts[a]), dtype=torch.int64, device=dev)
+            V[dst] = ones if aux else ~ones
+        elif name in ("ST8", "STV", "STB"):
+            src = D[a] if name == "ST8" else V[a] if name == "STV" else D[a] != 0
+            outs[dst].copy_(src)
+        elif name in ("IN", "MASK"):  # accumulators: read dst
+            if name == "IN":
+                e = _cmp(aux & 3 | aux & 0x60, D[a], D[b]) & V[b]
+                D[dst], V[dst] = D[dst] | e.to(torch.int64), V[dst] | ~V[b]
+            else:
+                D[dst] = (D[dst].bool() & V[a] & _nz(D[a], aux & 1)).to(torch.int64)
+                V[dst] = ones
+        else:
+            x, va = D.get(a), V.get(a)
+            y, vb = (D.get(b), V.get(b)) if name not in ("FDIVK", "IMULK", "RDIVK") else (None, None)
+            both = va & vb if vb is not None else None
+            if name == "I2F":
+                d, v = _bits(x.to(torch.float64)), va
+            elif name == "U2F":
+                d, v = _bits(_u2f(x)), va
+            elif name == "F2I":
+                d, v = _sat_i64(torch.trunc(_f(x))), va
+            elif name == "RINT":
+                d, v = _sat_i64(torch.round(_f(x))), va
+            elif name == "FDIVK":
+                # a 0-d tensor divisor: torch on CUDA multiplies by the
+                # reciprocal of a Python scalar, which is not IEEE division
+                k = torch.tensor(np.array(consts[b], dtype=np.int64).view(np.float64), device=dev)
+                d, v = _bits(_daz(_daz(_f(x)) / k)), va
+            elif name == "IMULK":
+                d, v = x * int(consts[b]), va
+            elif name == "RDIVK":
+                d, v = _round_div(x, int(consts[b])), va
+            elif name in ("IADD", "ISUB", "IMUL"):
+                d, v = {"IADD": x + y, "ISUB": x - y, "IMUL": x * y}[name], both
+            elif name in ("FADD", "FSUB", "FMUL"):
+                fx, fy = _daz(_f(x)), _daz(_f(y))
+                d, v = _bits(_daz({"FADD": fx + fy, "FSUB": fx - fy, "FMUL": fx * fy}[name])), both
+            elif name == "INEG":
+                d, v = -x, va
+            elif name == "FNEG":
+                d, v = x ^ _I64_MIN, va  # the sign bit only
+            elif name == "CMP":
+                r = _cmp(aux, x, y)
+                if aux >> 7 & 1:  # nulleq
+                    d, v = ((r & va & vb) | (~va & ~vb)).to(torch.int64), ones
+                else:
+                    d, v = r.to(torch.int64), both
+            elif name == "IN0":
+                d, v = torch.zeros_like(x), ~va
+            elif name == "INF":
+                d, v = x, vb & (x.bool() | ~va)
+            elif name == "AND":
+                ta, tb = _nz(x, aux & 1), _nz(y, aux >> 1 & 1)
+                false_any = (va & ~ta) | (vb & ~tb)
+                d, v = (ta & tb & va & vb).to(torch.int64), (va & vb) | false_any
+            elif name == "OR":
+                ta, tb = _nz(x, aux & 1) & va, _nz(y, aux >> 1 & 1) & vb
+                t = ta | tb
+                d, v = t.to(torch.int64), (va & vb) | t
+            elif name == "NOT":
+                d, v = (~_nz(x, aux & 1)).to(torch.int64), va
+            elif name == "ISNULL":
+                d, v = (~va).to(torch.int64), ones
+            elif name == "ZNULL":
+                d, v = torch.where(va, x, 0), va
+            elif name == "IHI":
+                d, v = x >> 32, va
+            elif name == "ILO":
+                d, v = x & 0xFFFFFFFF, va
+            else:
+                raise ValueError(f"expr_eval: unknown opcode {code}")
+            D[dst], V[dst] = d, v
+    return outs
+
+
+# --- the kernel ------------------------------------------------------------
+
+MAX_PTRS = 192  # input and output pointers passed by value each (csrc/expr_eval.cu)
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [("ops", ctypes.c_void_p), ("consts", ctypes.c_void_p), ("ext_in", ctypes.c_void_p),
+                ("ext_out", ctypes.c_void_p), ("n", ctypes.c_int64), ("nops", ctypes.c_int),
+                ("nk", ctypes.c_int), ("nregs", ctypes.c_int), ("n_in", ctypes.c_int), ("n_out", ctypes.c_int),
+                ("threads", ctypes.c_int), ("blocks", ctypes.c_int), ("ops_in_smem", ctypes.c_int),
+                ("smem", ctypes.c_int64),
+                ("in_ptrs", ctypes.c_int64 * MAX_PTRS), ("out_ptrs", ctypes.c_int64 * MAX_PTRS)]
+
+
+_bound: set = set()
+
+
+def _lib():
+    lib = library("expr_eval")
+    if "expr_eval" not in _bound:
+        lib.tt_expr_eval.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+        lib.tt_expr_eval.restype = ctypes.c_int
+        _bound.add("expr_eval")
+    return lib
+
+
+def launch_shape(prog: Program, n: int, n_sms: int):
+    """(threads, blocks, shared bytes, ops in shared memory) of a launch:
+    the register file (8 + 1 bytes per register and thread) sizes the
+    block; the op table joins it in shared memory when it fits."""
+    tables = 8 * (len(prog.consts) + len(prog.inputs) + len(prog.outputs))
+    ops = 20 * len(prog.ops)
+    threads = 256
+    while threads > 32 and tables + prog.nregs * threads * 9 + 16 > SMEM_MAX:
+        threads -= 32
+    regs = prog.nregs * threads * 9 + 16
+    in_smem = tables + regs + ops <= SMEM_MAX
+    smem = tables + regs + (ops if in_smem else 0)
+    if smem > SMEM_MAX:
+        raise ValueError(f"expr_eval: {prog.nregs} registers do not fit one block's shared memory")
+    blocks = max(1, min((n + threads - 1) // threads, n_sms * (2048 // threads)))
+    return threads, blocks, smem, in_smem
+
+
+def expr_eval(prog: Program, ins: list, n: int) -> list:
+    """The program's output lanes (module doc)."""
+    dev = ins[0].device if ins else torch.device("cpu")
+    if dev.type == "cpu":
+        return expr_eval_ref(prog, ins, n)
+    if dev.type != "cuda":
+        raise ValueError(f"expr_eval: unsupported device {dev}")
+    if len(ins) != len(prog.inputs):
+        raise ValueError(f"expr_eval: {len(prog.inputs)} input lanes, got {len(ins)}")
+    for t in ins:
+        if t.device != dev or not t.is_contiguous() or t.shape != (n,):
+            raise ValueError(f"expr_eval: input lanes must be contiguous [{n}] tensors on {dev}")
+        if t.element_size() not in (1, 4, 8):
+            raise TypeError(f"expr_eval: lane dtype {t.dtype}")
+    outs = [torch.empty(n, dtype=torch.int64 if w == 8 else torch.bool, device=dev) for w in prog.outputs]
+    if n == 0:
+        return outs
+    ops, consts = prog.tables(dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads, blocks, smem, in_smem = launch_shape(prog, n, n_sms)
+    p = _Params(ops=ops.data_ptr(), consts=consts.data_ptr(), n=n, nops=len(prog.ops), nk=len(prog.consts),
+                nregs=prog.nregs, n_in=len(ins), n_out=len(outs), threads=threads, blocks=blocks,
+                ops_in_smem=int(in_smem), smem=smem)
+    keep = []
+    for name, ts, fld in (("in", ins, "in_ptrs"), ("out", outs, "out_ptrs")):
+        ptrs = [t.data_ptr() for t in ts]
+        if len(ptrs) <= MAX_PTRS:
+            getattr(p, fld)[:len(ptrs)] = ptrs
+        else:  # a program this wide reads its pointer table from device memory
+            table = torch.tensor(ptrs, dtype=torch.int64).to(dev)
+            keep.append(table)
+            setattr(p, "ext_" + name, table.data_ptr())
+    rc = _lib().tt_expr_eval(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"expr_eval: kernel launch failed (cudaError {rc})")
+    expr_eval.launches += 1
+    return outs
+
+
+expr_eval.launches = 0

@@ -15,7 +15,12 @@ and what bounds it); `seg_agg_ref` is the plain PyTorch version beside it.
             dropped like a masked row
   * lanes — SegLane value lanes, each with an op from OPS; rows whose
             lane `valid` is False are skipped (the reference's `ok`),
-            except by first_row, which folds the index N for them
+            except by first_row, which folds the index N for them.
+            and_i64 / or_i64 / xor_i64 reduce bit_and / bit_or / bit_xor
+            (K5's bitwise part: the reference's 64 per-bit segment
+            min / max / sum % 2, recombined by shifts, :1596-1617); their
+            fills are their identities -1, 0 and 0, which is what the
+            reference's per-bit identities give an empty segment
   → (int64 [k_i, nseg], float64 [k_f, nseg]): lane j's result is the next
     row of the matrix its op writes, in lane order — the layout the
     reference's `_packed_program` stacks.
@@ -47,7 +52,9 @@ OPS = {
     "count": 0, "sum_i64": 1, "sum_f64": 2,
     "min_i64": 3, "max_i64": 4, "min_u64": 5, "max_u64": 6,
     "min_f64": 7, "max_f64": 8, "first_row": 9,
+    "and_i64": 10, "or_i64": 11, "xor_i64": 12,
 }
+BIT_OPS = {"and_i64": -1, "or_i64": 0, "xor_i64": 0}  # op → its identity, the only fill it takes
 FLOAT_OPS = ("sum_f64", "min_f64", "max_f64")
 _I64_MIN = -(1 << 63)
 
@@ -90,6 +97,8 @@ def _check(keys, lanes, nseg, seg=None) -> None:
         want = torch.float64 if lane.is_float else torch.int64
         if lane.op not in ("count", "first_row") and (lane.data is None or lane.data.dtype != want):
             raise TypeError(f"seg_agg: {lane.op} needs a {want} data lane")
+        if lane.op in BIT_OPS and int(lane.fill) != BIT_OPS[lane.op]:
+            raise ValueError(f"seg_agg: {lane.op} fills with its identity {BIT_OPS[lane.op]}")
     for k in keys:
         if k.data.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"seg_agg: key lanes are int32/int64, got {k.data.dtype}")
@@ -122,6 +131,8 @@ def seg_agg_ref(mask, keys, lanes, nseg, seg=None):
             dt = torch.float64 if lane.is_float else torch.int64
             vals = torch.ones(n, dtype=torch.int64, device=dev) if lane.op == "count" else lane.data
             out = torch.zeros(nseg + 1, dtype=dt, device=dev).index_add_(0, s, vals)
+        elif lane.op in BIT_OPS:
+            out = _bitwise_ref(lane, s, nseg)
         elif lane.op == "first_row":
             rows = torch.arange(n, dtype=torch.int64, device=dev)
             if lane.valid is not None:  # a NULL row folds n, as the reference's where(ok, i, n)
@@ -140,6 +151,20 @@ def seg_agg_ref(mask, keys, lanes, nseg, seg=None):
                 out.scatter_reduce_(0, s, lane.data, red)
         (flts if lane.is_float else ints).append(out[:nseg])
     return _stack(ints, torch.int64, nseg, dev), _stack(flts, torch.float64, nseg, dev)
+
+
+def _bitwise_ref(lane: SegLane, seg: torch.Tensor, nseg: int) -> torch.Tensor:
+    """AND / OR / XOR per segment bit by bit, from each bit's count of
+    ones and the segment's row count (index_add_), over the fill."""
+    dev = seg.device
+    rows = torch.zeros(nseg + 1, dtype=torch.int64, device=dev).index_add_(0, seg, torch.ones_like(lane.data))
+    out = torch.zeros(nseg + 1, dtype=torch.int64, device=dev)
+    for b in range(64):
+        ones = torch.zeros(nseg + 1, dtype=torch.int64, device=dev).index_add_(0, seg, (lane.data >> b) & 1)
+        bit = {"and_i64": ones == rows, "or_i64": ones > 0, "xor_i64": ones % 2 == 1}[lane.op]
+        out |= bit.to(torch.int64) << b
+    fill = int(lane.fill)
+    return {"and_i64": out & fill, "or_i64": out | fill, "xor_i64": out ^ fill}[lane.op]
 
 
 def _stack(rows, dt, nseg, dev):
@@ -209,7 +234,10 @@ def seg_agg(mask: torch.Tensor, keys: list[SegKey], lanes: list[SegLane], nseg: 
     if rc != 0:
         raise RuntimeError(f"seg_agg: kernel launch failed (cudaError {rc})")
     seg_agg.launches += 1
+    if any(lane.op in BIT_OPS for lane in lanes):
+        seg_agg.bit_launches += 1
     return iout, fout
 
 
 seg_agg.launches = 0
+seg_agg.bit_launches = 0  # the launches that reduced a bitwise aggregate

@@ -13,6 +13,9 @@
   every sort key is a column of the projection below the Sort);
 * `q18_inner_dag`: the aggregation pushed for Q18_INNER, the subquery of
   TPC-H Q18 (spec 2.4.18; its HAVING runs above the cop);
+* `checksum_dag`: the aggregation pushed for CHECKSUM, a per-group
+  BIT_XOR / BIT_OR / BIT_AND checksum of lineitem in the way
+  pt-table-checksum folds row checksums with BIT_XOR;
 * `window_sum_partition_spec` / `window_rank_frames_spec`: for
   WINDOW_SUM_PARTITION (bench.py's window_sum_partition SQL) and
   WINDOW_RANK_FRAMES (rankings, the previous row, a moving max and a
@@ -25,7 +28,9 @@
 * `q3_mpp_plan` / `q10_mpp_plan` / `q18_mpp_plan`: for Q3, Q10 and Q18 the
   MPPPlan the reference's `slice_plan` cuts from its optimized plan (the
   plan before the engine restreams it), with the steps above the gather
-  as its `root_step` (executor/mpp_gather.RootStep).
+  as its `root_step` (executor/mpp_gather.RootStep);
+* `scalar_revenue_mpp_plan`: the same for SCALAR_REVENUE, a join aggregate
+  without GROUP BY (Q14's and Q19's shape: the dense mode with no key).
 """
 
 from __future__ import annotations
@@ -97,6 +102,16 @@ FROM customer c JOIN orders o ON c.c_custkey = o.o_custkey
 JOIN lineitem l ON l.l_orderkey = o.o_orderkey
 WHERE l.l_shipdate > '1995-03-15'
 GROUP BY c.c_mktsegment"""
+
+# a per-group checksum of lineitem, folded with the bitwise aggregates as
+# pt-table-checksum folds its row checksums with BIT_XOR
+CHECKSUM = """SELECT l_returnflag, COUNT(*), BIT_XOR(l_orderkey), BIT_OR(l_partkey),
+       BIT_AND(l_extendedprice * (1 - l_discount))
+FROM lineitem WHERE l_shipdate <= '1998-09-02' GROUP BY l_returnflag"""
+
+# a join aggregate with no GROUP BY (TPC-H Q14's and Q19's shape)
+SCALAR_REVENUE = ("SELECT SUM(l_extendedprice * (1 - l_discount)) FROM lineitem JOIN orders "
+                  "ON l_orderkey = o_orderkey WHERE o_orderdate < '1995-03-15'")
 
 Q18 = """SELECT o.o_orderkey, SUM(l.l_quantity) AS total_qty
 FROM orders o JOIN lineitem l ON l.l_orderkey = o.o_orderkey
@@ -301,6 +316,19 @@ def q6_dag() -> DAGRequest:
     return DAGRequest(scan=_scan(), selection=SelectionNode(conds), agg=AggNode([], [revenue]))
 
 
+def checksum_dag() -> DAGRequest:
+    price, disc = _col("l_extendedprice"), _col("l_discount")
+    aggs = [
+        AggDesc.make("count", []),
+        AggDesc.make("bit_xor", [_col("l_orderkey")]),
+        AggDesc.make("bit_or", [_col("l_partkey")]),
+        AggDesc.make("bit_and", [make_func("mul", price, make_func("minus", _int(1), disc))]),
+    ]
+    return DAGRequest(scan=_scan(),
+                      selection=SelectionNode([make_func("le", _col("l_shipdate"), _date("1998-09-02"))]),
+                      agg=AggNode([_col("l_returnflag")], aggs))
+
+
 def topn_dag() -> DAGRequest:
     return DAGRequest(scan=_scan(), topn=TopNNode([(_col("l_extendedprice"), True)], 100))
 
@@ -458,3 +486,15 @@ def seg_revenue_mpp_plan() -> MPPPlan:
             AggDesc.make("min", [_jcol(li, "l_discount")]), AggDesc.make("max", [_jcol(li, "l_extendedprice")])]
     agg = _agg([_jcol(c, "c_mktsegment")], aggs)
     return MPPPlan(root, [c, o, li], agg, _out_cols(c, o, li), root_step=RootStep(proj=list(range(6))))
+
+
+def scalar_revenue_mpp_plan() -> MPPPlan:
+    """SCALAR_REVENUE: lineitem probes the date-filtered orders, one
+    aggregate and no group key; above the gather the final agg and its
+    projection."""
+    li = _scan_frag(LINEITEM, "lineitem", 0)
+    o = _scan_frag(ORDERS, "orders", li.n_cols)
+    o.ds.pushed_conds = [make_func("lt", _lcol(o, "o_orderdate"),
+                                   _date_of(ORDERS.col_by_name("o_orderdate").ft, "1995-03-15"))]
+    root = JoinFrag(li, o, "inner", [_jcol(li, "l_orderkey").idx], [_jcol(o, "o_orderkey").idx])
+    return MPPPlan(root, [li, o], _agg([], [_revenue(li)]), _out_cols(li, o), root_step=RootStep(proj=[0]))

@@ -45,6 +45,7 @@ import torch
 from ..chunk.chunk import Chunk, Column, col_numpy_dtype, VARLEN
 from ..copr.gpu_engine import TorchEngine, _dict_encode_lane, _upload
 from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFunc
+from ..expr.program import evaluate
 from ..expr.xp_torch import U64
 from ..planner.fragment import BROADCAST, HASH, LOCAL, JoinFrag, MPPPlan, ScanFrag
 from ..torchenv import resolve_device, unpack_rows
@@ -272,21 +273,19 @@ class MPPEngine:
 
     def _pushed_selection(self, sd, rc):
         """Surviving row indices (int64) of a scan's pushed conditions,
-        evaluated once per (table, version, condition set) by the port's
-        expression glue on CPU tensors (ref: :346)."""
+        evaluated once per (table, version, condition set) on the host by
+        the expression program's plain version over CPU tensors (ref:
+        :346)."""
         def compute():
-            mask = None
+            if not rc:
+                return None
+            used: set[int] = set()
             for c in rc:
-                used: set[int] = set()
                 c.collect_columns(used)
-                lanes = {off: _host_lane(*sd.lane(off)) for off in used}
-                d, v = self._host_eng._eval_device(c, lanes)
-                d = _bits(d)
-                d = torch.broadcast_to(d, (sd.n_rows,)).numpy()
-                v = torch.broadcast_to(v, (sd.n_rows,)).numpy()
-                m = v & (d != 0)
-                mask = m if mask is None else (mask & m)
-            return np.nonzero(mask)[0].astype(np.int64) if mask is not None else None
+            lanes = {off: _host_lane(*sd.lane(off)) for off in used}
+            mask, _ = evaluate(self._host_eng.programs, rc, [], lanes, torch.ones(sd.n_rows, dtype=torch.bool),
+                               sd.n_rows)
+            return np.nonzero(mask.numpy())[0].astype(np.int64)
 
         return self._cached_stat(sd, ("pushsel", repr(rc)), compute)
 
@@ -1257,12 +1256,9 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _host_lane(d: np.ndarray, v: np.ndarray):
-    """numpy lane → CPU tensors for the expression glue (uint64 lanes as
+    """numpy lane → CPU tensors for the expression program (uint64 lanes as
     U64 over their int64 bits)."""
     if d.dtype == np.uint64:
         return U64(torch.from_numpy(np.ascontiguousarray(d).view(np.int64))), torch.from_numpy(v)
     return torch.from_numpy(np.ascontiguousarray(d)), torch.from_numpy(np.ascontiguousarray(v))
 
-
-def _bits(d):
-    return d.bits if isinstance(d, U64) else d

@@ -2,10 +2,10 @@
 tidb_tpu/parallel/mpp.py:1402-1981 `MPPEngine._build_program` at n_dev 1,
 where every exchange and collective is the identity).
 
-    scan stage  (P1, torch glue)   each scan's row ids, row validity and
+    scan stage  (P1, expr_eval)    each scan's row ids, row validity and
                                    lanes; a scan's pushed conditions (unless
-                                   prefiltered on the host) through the
-                                   port's `_eval_device`
+                                   prefiltered on the host) in one
+                                   kernels/expr_eval launch
     join level, per JoinFrag:
       lut_join  (P3)               kernels/lut_join: probe the level's LUT
       sort_join (P4)               kernels/sort_join: sort the build keys,
@@ -19,7 +19,8 @@ where every exchange and collective is the identity).
       rowpos    (P6)               kernels/rowpos_agg (K4 scatter, K6 picks)
       sorted    (P5)               kernels/seg_reduce (K8 sort, K6 picks)
       dense     (P8)               kernels/dense_agg
-                                   (aggregate arguments: torch glue, as K2)
+    post-join conditions and every aggregate argument: one expr_eval launch
+    each (expr/program.py compiles the trees)
 
 The result is the reference's packed (n+1, W) int64 matrix (jaxenv.pack_rows
 layout): the host writes the tag row and the drop-count row (the sum of the
@@ -35,6 +36,7 @@ from contextlib import nullcontext
 import torch
 
 from ..errors import NotPortedError
+from ..expr.program import ValueSpec, evaluate
 from ..expr.xp_torch import U64
 from ..kernels.block_topk import Emit, block_topk
 from ..kernels.dense_agg import DenseKey, dense_agg
@@ -58,11 +60,12 @@ def _full(x, n: int):
     return torch.broadcast_to(x, (n,)) if x.dim() == 0 else x
 
 
-def _cond_mask(eval_dev, conds, lanes, mask):
-    for c in conds:
-        d, v = eval_dev(c, lanes)
-        mask = mask & _full(v, mask.shape[0]) & (_full(d, mask.shape[0]) != 0)
-    return mask
+def _cond_mask(cache, conds, lanes, mask):
+    """mask & v & (d != 0) over `conds` (ref: :1431 / :1557 / :1649): one
+    expr_eval launch, none without a condition."""
+    if not conds:
+        return mask
+    return evaluate(cache, conds, [], lanes, mask, mask.shape[0])[0]
 
 
 def exchange_all(n_dev: int, lanemap, mask, rowids):
@@ -104,7 +107,7 @@ class MPPProgram:
         self.r_pushed = meta["r_pushed"]
         self.levels = meta["levels"]
         self.agg_meta = meta["agg"]
-        self.eval_dev = engine._dev_eng._eval_device
+        self.programs = engine._dev_eng.programs
         self.arg_plan = {}
         pos = 0
         for fid, offs, _sharded, pref, unsigned in scan_arg_meta:
@@ -143,7 +146,7 @@ class MPPProgram:
             lanes[off] = (U64(d) if off in unsigned else d, flat[base + 3 + 2 * k])
         sd = self.sd_by_fid[fid]
         # a prefiltered scan's lanes hold only its surviving rows
-        mask = rv if pref else _cond_mask(self.eval_dev, self.r_pushed[id(sd)], lanes, rv)
+        mask = rv if pref else _cond_mask(self.programs, self.r_pushed[id(sd)], lanes, rv)
         joined = {sd.frag.side_offset + off: lv for off, lv in lanes.items()}
         return joined, mask, {fid: rowid}
 
@@ -205,7 +208,7 @@ class MPPProgram:
             with self._phase("sort_join"):
                 merged, mask, rowids = self.sort_level(frag, lvl, pmap, pmask, prow, bmap, bmask, brow, direct)
         if lvl.r_post:
-            mask = _cond_mask(self.eval_dev, lvl.r_post, merged, mask)
+            mask = _cond_mask(self.programs, lvl.r_post, merged, mask)
             if root is not None:
                 L = mask.shape[0]
                 packed = root.alloc(L)
@@ -277,27 +280,29 @@ class MPPProgram:
 
     # ------------------------------------------------------ aggregations
 
-    def _arg(self, ra, lanemap, n):
-        """(data, valid, unsigned) of an aggregate's argument; (None, None,
-        False) for COUNT(*)."""
-        if not ra:
-            return None, None, False
-        d, v = self.eval_dev(ra[0], lanemap)
-        unsigned = isinstance(d, U64)
-        d, v = _full(d, n), _full(v, n)
-        if d.dtype == torch.float32:
-            d = d.to(torch.float64)
-        elif d.dtype != torch.float64:
-            d = d.to(torch.int64)
-        return d.contiguous(), v.contiguous(), unsigned
+    def _args(self, lanemap, n):
+        """(data, valid, unsigned) of every aggregate's argument ((None,
+        None, False) for COUNT(*)), from one expr_eval launch (ref: :1678,
+        :1879, :2050); integer lanes as int64 (narrow lanes add as int64)."""
+        ras = self.agg_meta["r_args"]
+        _, vals = evaluate(self.programs, [], [ValueSpec(ra[0]) for ra in ras if ra], lanemap, None, n, mask=False)
+        it = iter(vals)
+        out = []
+        for ra in ras:
+            if not ra:
+                out.append((None, None, False))
+                continue
+            (d,), v, kind = next(it)
+            d = d if kind == "f64" else d.to(torch.int64)
+            out.append((d.contiguous(), _full(v, n).contiguous(), kind == "u64"))
+        return out
 
     def partial_lanes(self, lanemap, n, sorted_mode: bool = False):
         """The partial lanes per aggregate: `_agg_partials` (ref: :2048), or
         sorted_agg_stage's (:1676-1698), which keeps a uint64 sum in its
         dtype where `_agg_partials` casts it to int64."""
         lanes = []
-        for a, ra in zip(self.mplan.agg.aggs, self.agg_meta["r_args"]):
-            d, v, unsigned = self._arg(ra, lanemap, n)
+        for a, (d, v, unsigned) in zip(self.mplan.agg.aggs, self._args(lanemap, n)):
             if a.name == "count":
                 lanes.append(RedLane("count", None, v))
                 continue
@@ -381,16 +386,7 @@ class MPPProgram:
         with self._phase("run_agg"):
             kd = _bits(lanemap[am["rp_ck"]][0])
             lanes = []
-            for a, ra in zip(agg.aggs, am["r_args"]):
-                if ra:
-                    d, v = self.eval_dev(ra[0], lanemap)
-                    d, v = _full(d, n), _full(v, n)
-                    if d.dtype != torch.float64:
-                        # widen BEFORE the sum: narrow lanes add as int64
-                        d = d.to(torch.float64) if d.dtype == torch.float32 else d.to(torch.int64)
-                    d, v = d.contiguous(), v.contiguous()
-                else:
-                    d, v = None, None
+            for a, (d, v, _) in zip(agg.aggs, self._args(lanemap, n)):
                 if a.name == "count":
                     lanes.append((None, v))
                 else:  # sum / avg: the clustered guard excluded min/max
