@@ -58,7 +58,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
               with wrapping products and codes out of range, nseg 6 / 8 /
               12; M3 hash_repartition (repartition_battery) with negative
               keys, all rows invalid, a cap below the largest bucket and
-              the last owner at its cap, n_dev 1 and 4. Integers, row ids and
+              the last owner at its cap, n_dev 1 and 4; K10, the task-grid
+              modes of K1, the expression kernel and K4 (grouped_cases),
+              against the solo plain versions task by task on narrowed
+              inputs: every codec, random programs and a 241-lane one,
+              every K4 op with the bitwise ones and an all-masked task, G
+              1, 2, 3 and 64, single- and multi-tile groups at the padded
+              and a narrowed width. Integers, row ids and
               group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
               (bench.py's own check; P5's and P7's float totals at run
               starts, the rows the picks can ship); all cases run,
@@ -102,7 +108,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
               recompute, and dryrun_multichip(1) over the --rows lineitem
               already generated (M1 + the identity all_reduce, exact
               against a numpy recompute; M3 + the identity all_to_all,
-              nothing dropped, the payload's sum kept). expr_eval must
+              nothing dropped, the payload's sum kept); then the grouped
+              cop launches: main.burst, tools/bench_sched.py's workload
+              (64 point aggregations of 4,096 rows, compression ON and
+              OFF) through serial execute, unbatched execute from 64
+              threads, run_many (one gcap-64 group, one fetch) and
+              run_burst (64 threads through the LaunchBatcher), every
+              chunk bit-identical to the serial one and the host
+              engine's, with per-task p50 / p99 latencies, launches per
+              task and fetches per call, no batcher group falling back
+              to solo execute, and one profiled run_many and run_burst
+              each (the card's busy time and idle share); and
+              main.q1_regions, Q1 over the
+              --rows lineitem cut into its regions at 2,097,152 rows
+              through run_many (the full regions one group, K10 at full
+              width), merged at the root and equal to main.q1's answer;
+              each task mode must launch. expr_eval must
               launch in every query with a condition, a computed argument
               or a filter program (Q1, Q6, CHECKSUM, both window scans,
               Q3, q3_unfused, q3_top100, seg_revenue);
@@ -112,7 +133,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
               per inner kernel, from one profiled call); expr_eval on Q1's,
               Q6's, CHECKSUM's, Q3's and unfused Q3's own programs, K4's
               bitwise ops on CHECKSUM's lanes, M1 and M3 (their warm
-              medians and rows/s) on the mesh phase's lineitem;
+              medians and rows/s) on the mesh phase's lineitem, K10's
+              three task modes on the burst's and Q1 regions' own groups
+              beside the solo kernels launched G times on the same
+              tensors, and their launches alone over task tables built
+              beforehand (the rest of a call's time is the host's);
  6. the kernels JSON line, the card line, and last the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1453,6 +1478,154 @@ def bitwise_seg_cases(dev, rng):
     return cases
 
 
+# --- K10's task-grid modes (kernels/grouped.py) --------------------------------
+
+GROUP_SIZES = (1, 2, 3, 64)
+
+
+def group_shapes(r: int):
+    """(tiles, rows per tile, width) of a group: single-tile and
+    multi-tile, at the padded width and narrowed."""
+    return ((1, r, r), (1, r, r // 4), (3, r, 3 * r), (3, r, 2 * r + r // 4))
+
+
+def _cut(x, w: int):
+    return x.reshape(-1)[:w]
+
+
+def _cut_enc(enc, w: int):
+    """One task's lane narrowed to w flattened rows, as _narrow_args cuts
+    it: positional payloads keep their first w rows, rle passes whole."""
+    import torch
+
+    if isinstance(enc, torch.Tensor):
+        return _cut(enc, w)
+    if "p" in enc:
+        return {**enc, "p": _cut(enc["p"], w)}
+    if "c" in enc:
+        return {**enc, "c": _cut(enc["c"], w)}
+    return enc
+
+
+def _task_row_valid(dev, rng, t: int, r: int, w: int):
+    """A task's row_valid: its real rows a prefix of at most w rows."""
+    import torch
+
+    rv = torch.zeros(t * r, dtype=torch.bool)
+    rv[:int(rng.integers(w // 2, w + 1))] = True
+    return rv.reshape(t, r).to(dev)
+
+
+def grouped_cases(dev, rng, r: int = 4096, sizes=GROUP_SIZES, kinds=("decode", "expr", "seg")):
+    """(name, fn) of every K10 case: each task-grid wrapper (the kernel on
+    the card, the plain version on the CPU) against the SOLO plain version
+    run task by task on the task's narrowed inputs. K1 over every codec
+    (dense, pack at each code width, dict, rle, the all-valid alias); the
+    expression kernel on random programs over every lane kind and a
+    241-lane program; K4 over every op, the bitwise ones included, at nseg
+    1, 12, 65 (shared memory) and 65536 (global atomics), one task of the
+    group all masked; G in `sizes`, single- and multi-tile groups at the
+    padded and a narrowed width. Integers bit for bit, floats within
+    rtol 1e-9 / atol 1e-6 (K4's float sums: atomics order them)."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.expr.program import compile_program
+    from tidb_tpu_torch.kernels import SegLane, decode_lane_ref, expr_eval_ref, seg_agg_ref
+    from tidb_tpu_torch.kernels.grouped import decode_lane_tasks, expr_eval_tasks, seg_agg_tasks
+    from tidb_tpu_torch.kernels.seg_agg import SegKey
+
+    cases = []
+    for t, rr, w in group_shapes(r):
+        for G in sizes:
+            tag = f"G={G} [{t},{rr}] w={w}"
+            rvs = [_task_row_valid(dev, rng, t, rr, w) for _ in range(G)]
+            if "decode" in kinds:
+                per_task = [{name: enc for name, enc, _ in decode_cases(dev, rng, t, rr)} for _ in range(G)]
+                for task in per_task:
+                    task["dense"] = torch.from_numpy(rng.integers(-10**9, 10**9, (t, rr))).to(dev)
+                for codec in per_task[0]:
+                    def k1(encs=[task[codec] for task in per_task], rvs=rvs, w=w):
+                        got = decode_lane_tasks(encs, rvs, w)
+                        err = 0.0
+                        for g, (e, rv) in enumerate(zip(encs, rvs)):
+                            want = decode_lane_ref(_cut_enc(e, w), _cut(rv, w)).reshape(-1)
+                            err = max(err, _same(_cut(got[g], w), want, f"task {g}", floats=want.is_floating_point()))
+                        return err
+                    cases.append((f"decode_lane_tasks {codec} {tag}", k1))
+            if "expr" in kinds:
+                cols = [expr_lanes(rng, t * rr) for _ in range(G)]
+                conds = [expr_tree(rng, int(rng.integers(1, 5)), cols[0]) for _ in range(int(rng.integers(1, 4)))]
+                prog = compile_program(conds, expr_specs(rng, cols[0]), expr_kinds(cols[0]), mask=True)
+                ins = [_expr_ins(prog, c, t * rr, dev) for c in cols]
+                cases.append((f"expr_eval_tasks random {tag}", lambda p=prog, i=ins, w=w: _expr_tasks(p, i, w)))
+            if "seg" in kinds:
+                for nseg in (1, 12, 65, 65536):
+                    if nseg == 65536 and G == 64:
+                        continue  # the global path at G <= 3: a [64, k, 65536] plain version is slow
+                    tasks = [seg_cases(dev, rng, t * rr, nseg, all_masked=(g == G - 1 and G > 1))
+                             for g in range(G)]
+                    for keys, lanes, _ in tasks:
+                        x = [torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, t * rr, dtype=np.int64)).to(dev)
+                             for _ in range(3)]
+                        vb = torch.from_numpy(rng.random(t * rr) < 0.9).to(dev)
+                        lanes += [SegLane("and_i64", x[0], vb, -1), SegLane("or_i64", x[1], vb, 0),
+                                  SegLane("xor_i64", x[2], None, 0)]
+
+                    def k4(tasks=tasks, nseg=nseg, w=w):
+                        got_i, got_f = seg_agg_tasks([m for _, _, m in tasks], [k for k, _, _ in tasks],
+                                                     [l for _, l, _ in tasks], nseg, w)
+                        err = 0.0
+                        for g, (keys, lanes, m) in enumerate(tasks):
+                            wi, wf = seg_agg_ref(
+                                _cut(m, w), [SegKey(_cut(k.data, w), None if k.valid is None else _cut(k.valid, w),
+                                                    k.lo, k.dom) for k in keys],
+                                [SegLane(l.op, None if l.data is None else _cut(l.data, w),
+                                         None if l.valid is None else _cut(l.valid, w), l.fill) for l in lanes], nseg)
+                            _same(got_i[g], wi, f"task {g} ints")
+                            err = max(err, _same(got_f[g], wf, f"task {g} floats", True))
+                        return err
+                    cases.append((f"seg_agg_tasks nseg={nseg} {tag}", k4))
+    if "expr" in kinds:
+        # a program over 241 input lanes (the solo mode's device-memory
+        # pointer table; every task-grid launch reads its tables there)
+        n, w = 3 * r, 2 * r + 17
+        many = [expr_lanes(rng, n, copies=20) for _ in range(2)]
+        prog = _wide_program(many[0])
+        ins = [_expr_ins(prog, c, n, dev) for c in many]
+        cases.append((f"expr_eval_tasks wide (241 lanes) G=2 w={w}", lambda p=prog, i=ins, w=w: _expr_tasks(p, i, w)))
+    return cases
+
+
+def _expr_tasks(prog, ins, w: int) -> float:
+    from tidb_tpu_torch.kernels import expr_eval_ref
+    from tidb_tpu_torch.kernels.grouped import expr_eval_tasks
+
+    got = expr_eval_tasks(prog, ins, w)
+    err = 0.0
+    for g, task in enumerate(ins):
+        want = expr_eval_ref(prog, [_cut(x, w) for x in task], w)
+        err = max(err, _same_expr_outs(prog, [o[g] for o in got], want))
+    return err
+
+
+def _wide_program(many: dict):
+    """`lt(s1, s2)` with s1 / s2 sums over the int lanes of 20 column
+    copies, both returned: 241 input lanes, 60+ registers."""
+    from tidb_tpu_torch.expr.expression import Column, make_func
+    from tidb_tpu_torch.expr.program import ValueSpec, compile_program
+
+    ints = [j for j, c in many.items() if c[3] in ("i64", 0, 2, 6, 12)]
+    s1, s2 = Column(ints[0], many[ints[0]][2]), Column(ints[-1], many[ints[-1]][2])
+    for j in ints[1:]:
+        s1 = make_func("plus", s1, Column(j, many[j][2]))
+    for j in ints[-2::-1]:
+        s2 = make_func("minus", s2, Column(j, many[j][2]))
+    prog = compile_program([make_func("lt", s1, s2)], [ValueSpec(s1), ValueSpec(s2)], expr_kinds(many))
+    assert len(prog.inputs) > 192 and prog.nregs > 60, (len(prog.inputs), prog.nregs)
+    return prog
+
+
 def q1_battery(rng, n: int, nseg: int, case: str):
     """M1 inputs: Q1's lanes (wrapping products in 'overflow'; codes past
     nseg and negative in 'codes')."""
@@ -1617,7 +1790,7 @@ def check_kernels(dev, rng) -> dict:
         case(f"pack_flat {cname}", lambda lanes=lanes, cname=cname: _same(
             pack_flat(lanes), pack_flat_ref(lanes), cname))
     for cname, fn in (mpp_kernel_cases(dev, rng) + mode_kernel_cases(dev, rng) + expr_cases(dev, rng)
-                      + bitwise_seg_cases(dev, rng) + mesh_kernel_cases(dev, rng)):
+                      + bitwise_seg_cases(dev, rng) + mesh_kernel_cases(dev, rng) + grouped_cases(dev, rng)):
         case(cname, fn)
     if errors:
         raise AssertionError(f"{len(errors)} of {ncase} kernel cases failed:\n" + "\n".join(errors))
@@ -1743,11 +1916,13 @@ def busy_us(spans) -> float:
     return total
 
 
-def profiled_run(fn, engine) -> dict:
-    """One more warm run of fn() under torch.profiler, with the engine's
-    timer off: its wall (host clock), the time the card was busy (union of
-    its kernel and copy spans) and the idle share. The profiler adds host
-    time, so the share is an upper bound of the unprofiled runs'."""
+def profiled_run(fn, engine, calls: int = 1) -> dict:
+    """`calls` more warm runs of fn() in one torch.profiler session, with
+    the engine's timer off: their wall (host clock), the time the card was
+    busy (union of its kernel and copy spans), both per call, the spans
+    seen and the idle share. The profiler adds host time, so the share is
+    an upper bound of the unprofiled runs'; a session that saw no span
+    says so with device_events 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1756,13 +1931,14 @@ def profiled_run(fn, engine) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = busy_us(spans)
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3, "device_events": len(spans),
-            "device_idle_share": max(0.0, 1.0 - busy / wall_us)}
+    return {"wall_ms": wall_us / 1e3 / calls, "device_busy_ms": busy / 1e3 / calls, "device_events": len(spans),
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us), "calls": calls}
 
 
 # (query, spec builder of models/tpch.py): the window queries of the main path
@@ -2220,6 +2396,215 @@ def run_mesh_path(dev, cols: dict, card: str, out: dict) -> None:
     say("main.mesh", **out["mesh"])
 
 
+# --- the launch batcher's paths: grouped cop launches (K10) -----------------
+
+N_TASKS, ROWS_PER_TASK = 64, 4096  # tools/bench_sched.py's workload
+PROFILED_CALLS = 5  # run_many / run_burst calls in the burst's profiled session
+TASK_MODES = {"decode_lane": "decode_lane_tasks", "expr_eval": "expr_eval_tasks", "seg_agg": "seg_agg_tasks"}
+
+
+class TaskSpy:
+    """While active, records the arguments of every call of K10's three
+    task-grid wrappers the engine makes, in `calls[name]`."""
+
+    def __init__(self):
+        from tidb_tpu_torch.copr import gpu_engine
+        from tidb_tpu_torch.expr import program
+
+        self.eng, self.prog = gpu_engine, program
+        self.calls: dict = {"decode_lane_tasks": [], "expr_eval_tasks": [], "seg_agg_tasks": []}
+
+    def __enter__(self):
+        self.real = (self.eng.decode_lane_tasks, self.eng.seg_agg_tasks, self.prog.kernel_tasks)
+        real_d, real_s, real_e = self.real
+
+        def rec(name, fn):
+            def spy(*a):
+                self.calls[name].append(a)
+                return fn(*a)
+            return spy
+        self.eng.decode_lane_tasks = rec("decode_lane_tasks", real_d)
+        self.eng.seg_agg_tasks = rec("seg_agg_tasks", real_s)
+        spy_e = rec("expr_eval_tasks", real_e())
+        self.prog.kernel_tasks = lambda: spy_e
+        return self
+
+    def __exit__(self, *exc):
+        self.eng.decode_lane_tasks, self.eng.seg_agg_tasks, self.prog.kernel_tasks = self.real
+
+
+def _pcts(lat) -> dict:
+    s = sorted(lat)
+    return {"p50_ms": s[len(s) // 2] * 1e3, "p99_ms": s[min(len(s) - 1, int(len(s) * 0.99))] * 1e3,
+            "samples": len(s)}
+
+
+def _occupancy():
+    from tidb_tpu_torch.utils import metrics as M
+
+    h = M.SCHED_BATCH_OCCUPANCY
+    return h._n, h._sum, list(h._counts)
+
+
+def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
+    """tools/bench_sched.py's workload on the card: 64 point aggregations
+    of 4,096 rows each, compression ON and OFF. Serial `execute` of each
+    task, unbatched `execute` from 64 threads at once, then `run_many`
+    (one call: one group of 64, one fetch) and `run_burst` x (reps + 1)
+    (64 threads through the LaunchBatcher). Every chunk must equal the
+    serial one and the host engine's, bit for bit (the workload is all
+    INT); `run_many` must form the gcap-64 group with one fetch, the
+    batcher a multi-task launch and no group that fell back to solo
+    execute, and each task mode whose solo kernel the serial runs launched
+    must launch in `run_many` and in `run_burst`. One more `run_many` and
+    `run_burst` each run under torch.profiler. K10's inputs of the last
+    calls land in out["captured"]["burst"]."""
+    import torch
+
+    from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.copr.host_engine import execute_dag_host
+    from tidb_tpu_torch.entry import concurrent, run_burst, run_many
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.sched import LaunchBatcher
+
+    batches = tpch.point_agg_table(N_TASKS, ROWS_PER_TASK)
+    dag = tpch.point_agg_dag()
+    pairs = [(dag, b) for b in batches]
+    host = [execute_dag_host(dag, b) for b in batches]
+    out["burst"] = {}
+    for comp in (True, False):
+        label = "compression_on" if comp else "compression_off"
+        eng = TorchEngine(dev)
+        eng.tile_compression = comp
+        batcher = LaunchBatcher()
+
+        def check(chunks, what):
+            for i, (c, h) in enumerate(zip(chunks, host)):
+                diff = chunks_equal(c, h)
+                if diff is not None:
+                    raise AssertionError(f"burst {label}: {what} task {i} differs from the host engine: {diff}")
+
+        before = K.launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        serial = [eng.execute(d, b) for d, b in pairs]
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t
+        solo = {k: c - before[k] for k, c in K.launches().items()}
+        check(serial, "serial execute")
+        unbatched = []
+        for rep in range(reps + 1):
+            res, lat = concurrent(eng.execute, pairs)
+            check(res, "unbatched concurrent execute")
+            if rep:
+                unbatched += lat
+        f0, before = eng.fetches, K.launches()
+        with TaskSpy() as spy:
+            t = time.perf_counter()
+            many = run_many(pairs, dev, eng)
+            many_s = time.perf_counter() - t
+        grouped = {k: c - before[k] for k, c in K.launches().items()}
+        many_fetches = eng.fetches - f0
+        check(many, "run_many")
+        if many_fetches != 1:
+            raise AssertionError(f"burst {label}: run_many fetched {many_fetches} times, not once")
+        gcaps = sorted(((k[1], k[2]) for k in eng._vprograms), key=repr)
+        if not any(g == N_TASKS for g, _ in gcaps):
+            raise AssertionError(f"burst {label}: no group of {N_TASKS} formed ({gcaps})")
+        idle = [TASK_MODES[k] for k in TASK_MODES if solo[k] and not grouped[TASK_MODES[k]]]
+        if idle:
+            raise AssertionError(f"burst {label}: task modes {idle} never launched")
+        n0, s0, c0 = _occupancy()
+        f0, before = eng.fetches, K.launches()
+        burst = []
+        for rep in range(reps + 1):
+            res, lat = run_burst(pairs, dev, eng, batcher)
+            check(res, "run_burst")
+            if rep:
+                burst += lat
+        n1, s1, c1 = _occupancy()
+        launched = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
+        if not (n1 > n0 and s1 - s0 > n1 - n0):
+            raise AssertionError(f"burst {label}: the batcher formed no multi-task launch")
+        idle = [TASK_MODES[k] for k in TASK_MODES if solo[k] and not launched.get(TASK_MODES[k])]
+        if idle:
+            raise AssertionError(f"burst {label}: run_burst never launched task modes {idle}")
+        if batcher.serial_fallbacks:
+            raise AssertionError(f"burst {label}: {batcher.serial_fallbacks} batcher groups fell back to solo "
+                                 "execute (execute_many raised)")
+        calls = reps + 1
+        # more calls of each under torch.profiler: the card's busy time
+        # (union of its spans) against the wall, and the idle share
+        prof_many = profiled_run(lambda: run_many(pairs, dev, eng), eng, PROFILED_CALLS)
+        prof_burst = profiled_run(lambda: run_burst(pairs, dev, eng, batcher), eng, PROFILED_CALLS)
+        out["captured"].setdefault("burst", {})[label] = spy.calls
+        out["burst"][label] = {
+            "tasks": N_TASKS, "rows_per_task": ROWS_PER_TASK, "serial_s": serial_s, "run_many_s": many_s,
+            "unbatched_execute": _pcts(unbatched), "run_burst": _pcts(burst),
+            "launches_per_task": {"serial": {k: c / N_TASKS for k, c in solo.items() if c},
+                                  "run_many": {k: c / N_TASKS for k, c in grouped.items() if c},
+                                  "run_burst": {k: c / (N_TASKS * calls) for k, c in launched.items()}},
+            "fetches_per_call": {"serial_execute": 1, "run_many": many_fetches,
+                                 "run_burst": (eng.fetches - f0) / calls},
+            "batcher_launches": n1 - n0, "batcher_tasks": s1 - s0,
+            "occupancy_histogram": dict(zip(["<=1", "<=2", "<=4", "<=8", "<=16", "<=32", "<=64", "<=128", "more"],
+                                            [b - a for a, b in zip(c0, c1)])),
+            "groups": gcaps, "profiled_run_many": prof_many, "profiled_run_burst": prof_burst, "card": card,
+        }
+        say(f"main.burst.{label}", **out["burst"][label])
+
+
+def run_q1_regions_path(dev, batch, want, reps: int, card: str, out: dict) -> None:
+    """TPC-H Q1 over the main path's lineitem cut into its regions at the
+    reference's 2,097,152-row split, through run_many: the full regions
+    form one launch group (K10 at full width), the short last region
+    launches solo; the partials merge at the root (executor/final_agg).
+    The merged answer must equal main.q1's (the host oracle's). One cold
+    run (encode + h2d of every region) and `reps` warm runs."""
+    import torch
+
+    from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.entry import run_many
+    from tidb_tpu_torch.executor.final_agg import merge_partials, order_by_keys
+    from tidb_tpu_torch.models import tpch
+
+    regions = tpch.region_batches(batch)
+    dag = tpch.q1_dag()
+    pairs = [(dag, r) for r in regions]
+    fts = [g.ret_type for g in dag.agg.group_by] + [a.ret_type for a in dag.agg.aggs]
+    eng = TorchEngine(dev)
+    before = K.launches()
+    runs = []
+    for rep in range(reps + 1):
+        with TaskSpy() as spy:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            parts = run_many(pairs, dev, eng)
+            merged = order_by_keys(merge_partials(parts, dag.agg.group_by, dag.agg.aggs, fts), dag.agg.group_by)
+            runs.append(time.perf_counter() - t)
+        diff = chunks_equal(merged, want)
+        if diff is not None:
+            raise AssertionError(f"q1_regions run {rep}: merged answer differs from main.q1's: {diff}")
+    moved = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
+    idle = [m for m in TASK_MODES.values() if not moved.get(m)]
+    if idle:
+        raise AssertionError(f"q1_regions: task modes {idle} never launched")
+    out["captured"]["q1_regions"] = spy.calls
+    warm = sorted(runs[1:])
+    out["q1_regions"] = {
+        "rows": batch.n_rows, "regions": [r.n_rows for r in regions], "cold_s": runs[0],
+        "warm_median_s": warm[len(warm) // 2], "warm_s": runs[1:],
+        "one_batch_q1_warm_median_s": out["q1"]["warm_median_s"],
+        "launches_per_run": {k: c / (reps + 1) for k, c in moved.items()},
+        "groups": sorted(((k[1], k[2]) for k in eng._vprograms), key=repr),
+        "fetches_per_run": eng.fetches / (reps + 1),
+        "answer": merged.slice(0, 6).to_pylist(), "card": card,
+    }
+    say("main.q1_regions", **out["q1_regions"])
+
+
 def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int = 8_000_000,
                   q3_rows: int = 4_000_000) -> dict:
     import torch
@@ -2283,10 +2668,14 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
             "answer": want.slice(0, 6).to_pylist(), "card": card,
         }
         say(f"main.{qname}", **out[qname])
+        if qname == "q1":
+            out["q1_want"] = want
     out["batch"] = batch
     run_window_path(dev, win_rows, seed, reps, card, out)
     run_mpp_path(dev, q3_rows, seed, reps, card, out)
     run_mesh_path(dev, cols, card, out)
+    run_burst_path(dev, reps, card, out)
+    run_q1_regions_path(dev, batch, out["q1_want"], reps, card, out)
     counts = K.launches()
     for name, c in counts.items():
         if c == 0:
@@ -2383,7 +2772,9 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
     say("measure.expr", **expr_extra)
     mesh, mesh_extra = measure_mesh_kernels(main, max_err)
     say("measure.mesh", **mesh_extra)
-    return entries + new + win + mpp + expr + mesh
+    k10, k10_extra = measure_grouped_kernels(main, max_err)
+    say("measure.k10", **k10_extra)
+    return entries + new + win + mpp + expr + mesh + k10
 
 
 def measure_expr_kernels(main: dict, max_err: dict):
@@ -2488,6 +2879,146 @@ def measure_mesh_kernels(main: dict, max_err: dict):
 
     return ([entry("q1_local", "q1_local.cu", 57, k_m1), entry("hash_repartition", "hash_repartition.cu", 104, k_m3)],
             {"q1_local": k_m1, "hash_repartition": k_m3, "card": main["mesh"]["card"]})
+
+
+def _k10_decode(calls):
+    """K1's task mode over the captured calls that launch (codec lanes):
+    (run all, plain version of all, the solo kernel G times per call on the
+    same narrowed lanes, the kernels alone over tables built beforehand,
+    the host's table builds, bytes, error, calls, G) — as _k10_expr and
+    _k10_seg return them for their modes."""
+    import torch
+
+    from tidb_tpu_torch.kernels import decode_lane, decode_lane_ref
+    from tidb_tpu_torch.kernels.grouped import (_codec, decode_lane_tasks, decode_lane_tasks_prepare,
+                                                decode_lane_tasks_ref, decode_table, narrow_enc)
+
+    calls = [c for c in calls if isinstance(c[0][0], dict) and c[0][0]]
+    err, nbytes = 0.0, 0
+    for encs, rvs, w in calls:
+        got, want = decode_lane_tasks(encs, rvs, w), decode_lane_tasks_ref(encs, rvs, w)
+        torch.cuda.synchronize()
+        for g, wv in zip(got, want):
+            err = max(err, _same(g, wv, "decode_lane_tasks on the main path", floats=wv.is_floating_point()))
+        for e, o in zip(encs, got):
+            nbytes += sum(_nbytes(x[:w] if k in ("p", "c") else x) for k, x in
+                          ((k, x.reshape(-1)) for k, x in e.items() if k != "b")) + _nbytes(o)
+    gos = [decode_lane_tasks_prepare(_codec(encs[0]), encs, w, rvs[0].device)[1] for encs, rvs, w in calls]
+    outs = [torch.empty((len(encs), w), dtype=torch.int32, device=rvs[0].device) for encs, rvs, w in calls]
+    ends = [torch.cumsum(torch.stack([e["rl"] for e in encs]).to(torch.int64), 1) if "rl" in encs[0] else None
+            for encs, _, _ in calls]
+    return (lambda: [decode_lane_tasks(*c) for c in calls],
+            lambda: [decode_lane_tasks_ref(*c) for c in calls],
+            lambda: [decode_lane(narrow_enc(e, w), rv.reshape(-1)[:w]) for encs, rvs, w in calls
+                     for e, rv in zip(encs, rvs)],
+            lambda: [go() for go in gos],
+            lambda: [decode_table(_codec(encs[0]), encs, w, o, e) for (encs, _, w), o, e in zip(calls, outs, ends)],
+            nbytes, err, len(calls), len(calls[0][0]) if calls else 0)
+
+
+def _k10_expr(calls):
+    import torch
+
+    from tidb_tpu_torch.kernels import expr_eval
+    from tidb_tpu_torch.kernels.grouped import (expr_eval_tasks, expr_eval_tasks_prepare, expr_eval_tasks_ref,
+                                                expr_tables)
+
+    err, nbytes = 0.0, 0
+    for prog, ins, w in calls:
+        got, want = expr_eval_tasks(prog, ins, w), expr_eval_tasks_ref(prog, ins, w)
+        torch.cuda.synchronize()
+        for g in range(len(ins)):
+            err = max(err, _same_expr_outs(prog, [o[g] for o in got], [o[g] for o in want]))
+        nbytes += sum(_nbytes(*[x.reshape(-1)[:w] for x in task]) for task in ins) + _nbytes(*got)
+    gos = [expr_eval_tasks_prepare(prog, ins, w, ins[0][0].device)[1] for prog, ins, w in calls]
+    outs = [expr_eval_tasks_prepare(prog, ins, w, ins[0][0].device)[0] for prog, ins, w in calls]
+    return (lambda: [expr_eval_tasks(*c) for c in calls],
+            lambda: [expr_eval_tasks_ref(*c) for c in calls],
+            lambda: [expr_eval(prog, [x.reshape(-1)[:w] for x in task], w) for prog, ins, w in calls for task in ins],
+            lambda: [go() for go in gos if go is not None],
+            lambda: [expr_tables(prog, ins, o, w) for (prog, ins, w), o in zip(calls, outs)],
+            nbytes, err, len(calls), len(calls[0][1]) if calls else 0)
+
+
+def _k10_seg(calls):
+    import torch
+
+    from tidb_tpu_torch.kernels import SegKey, SegLane, seg_agg
+    from tidb_tpu_torch.kernels.grouped import seg_agg_tasks, seg_agg_tasks_prepare, seg_agg_tasks_ref, seg_desc
+
+    def cut(t, w):
+        return None if t is None else t.reshape(-1)[:w]
+
+    err, nbytes, solo = 0.0, 0, []
+    for masks, keys, lanes, nseg, w in calls:
+        (gi, gf), (wi, wf) = seg_agg_tasks(masks, keys, lanes, nseg, w), seg_agg_tasks_ref(masks, keys, lanes, nseg, w)
+        torch.cuda.synchronize()
+        _same(gi, wi, "seg_agg_tasks ints on the main path")
+        err = max(err, _same(gf, wf, "seg_agg_tasks floats on the main path", True))
+        for m, ks, ls in zip(masks, keys, lanes):
+            k2 = [SegKey(cut(k.data, w), cut(k.valid, w), k.lo, k.dom) for k in ks]
+            l2 = [SegLane(l.op, cut(l.data, w), cut(l.valid, w), l.fill) for l in ls]
+            solo.append((cut(m, w), k2, l2, nseg))
+            nbytes += _nbytes(cut(m, w), *_pairs((k.data, k.valid) for k in k2), *_pairs((l.data, l.valid) for l in l2))
+        nbytes += _nbytes(gi, gf)
+    prepared = [seg_agg_tasks_prepare(*c, c[0][0].device) for c in calls]
+    gos = [go for _, go in prepared]
+    return (lambda: [seg_agg_tasks(*c) for c in calls],
+            lambda: [seg_agg_tasks_ref(*c) for c in calls],
+            lambda: [seg_agg(*s) for s in solo],
+            lambda: [go() for go in gos],
+            lambda: [seg_desc(m, k, l, w, 0, *outs) for (m, k, l, _, w), (outs, _) in zip(calls, prepared)],
+            nbytes, err, len(calls), len(calls[0][0]) if calls else 0)
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Mean host-clock time of fn() over reps calls, after a warm-up call
+    (for host-only work: nothing is synchronized)."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def measure_grouped_kernels(main: dict, max_err: dict):
+    """K10's three task-grid modes on the main path's own group inputs
+    (the last run_many of main.burst, compression ON, and of
+    main.q1_regions): held once more to their plain versions, timed beside
+    them, their bytes bound, and — the yardstick of the work K10 replaces
+    — the solo kernel launched G times back to back on the same narrowed
+    tensors (`library_ms`: never used on the path) — and `kernel_ms`, the
+    same launches alone over tables built beforehand (`*_prepare`), so
+    that `ms` less `kernel_ms` is the wrappers' host work, of which
+    `host_tables_ms` builds the task tables. The kernels-line row
+    of K1's and K4's modes is the burst's, the expression kernel's (which
+    the point aggregation does not launch: its program has no work) Q1's
+    regions'."""
+    bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    cap = main["captured"]
+    sources = {"burst": cap["burst"]["compression_on"], "q1_regions": cap["q1_regions"]}
+    report: dict = {}
+    for src, calls in sources.items():
+        for mode, fn in (("decode_lane_tasks", _k10_decode), ("expr_eval_tasks", _k10_expr),
+                         ("seg_agg_tasks", _k10_seg)):
+            if not calls[mode]:
+                continue
+            run, plain, solo, kernel, tables, nbytes, err, ncalls, G = fn(calls[mode])
+            max_err[mode] = max(max_err[mode], err)
+            report.setdefault(src, {})[mode] = {
+                "calls": ncalls, "tasks": G, "ms": time_ms(run), "plain_ms": time_ms(plain, 3),
+                "solo_x_G_ms": time_ms(solo), "kernel_ms": time_ms(kernel), "host_tables_ms": host_ms(tables),
+                "bytes": nbytes,
+                "bound_ms": bound(nbytes)}
+    L = main["launches"]
+    entries = []
+    for mode, src in (("decode_lane_tasks", "burst"), ("expr_eval_tasks", "q1_regions"), ("seg_agg_tasks", "burst")):
+        r = report[src][mode]
+        entries.append({"name": mode, "route": "cuda", "source": f"tidb_tpu_torch/csrc/{mode[:-6]}.cu",
+                        "replaces": "tidb_tpu/copr/tpu_engine.py:1096", "launches": L[mode],
+                        "max_abs_err": max_err[mode], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["solo_x_G_ms"]})
+    return entries, report
 
 
 def _nbytes(*ts) -> int:

@@ -21,7 +21,6 @@ from tidb_tpu.copr.tpu_engine import TPUEngine
 
 from tidb_tpu_torch.copr.gpu_engine import TorchEngine
 from tidb_tpu_torch.entry import batch_from_numpy
-from tidb_tpu_torch.errors import NotPortedError
 
 RTOL, ATOL = 1e-9, 1e-6
 
@@ -304,11 +303,6 @@ def test_sorted_agg_capacity_escalation_matches_reference(gcap0):
     if port._gcap:
         (cap,) = port._gcap.values()
         assert cap >= ng and cap // 4 < ng
-
-
-def test_execute_many_is_not_ported():
-    with pytest.raises(NotPortedError):
-        TorchEngine(device="cpu").execute_many([])
 
 
 def test_function_outside_the_slice_raises_when_the_dag_is_built():

@@ -1,0 +1,201 @@
+"""K10's task-grid modes and the grouped paths' workloads, on the CPU.
+
+* chip_smoke.grouped_cases — the battery chip_smoke.py holds the kernels
+  to on the card — run here, where each wrapper takes its plain version:
+  each task mode equals the SOLO plain version run task by task on the
+  task's narrowed inputs, for every codec, G and width case;
+* models/tpch.point_agg_dag equals the DAG the reference Session pushes
+  for tools/bench_sched.py's point aggregation;
+* Q1 over lineitem cut into regions (models/tpch.region_batches), run
+  through entry.run_many and merged at the root, equals Q1 over the whole
+  batch.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+from tidb_tpu.session import Session
+
+from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+from tidb_tpu_torch.entry import batch_from_numpy, run_many, run_query
+from tidb_tpu_torch.executor.final_agg import merge_partials, order_by_keys
+from tidb_tpu_torch.models import tpch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("G", chip_smoke.GROUP_SIZES)
+@pytest.mark.parametrize("kind", ["decode", "expr", "seg"])
+def test_task_modes_equal_the_solo_plain_versions(kind, G):
+    cases = chip_smoke.grouped_cases("cpu", np.random.default_rng(7 + G), r=256, sizes=(G,), kinds=(kind,))
+    assert cases
+    failed = []
+    for name, fn in cases:
+        try:
+            fn()
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+    assert not failed, "\n".join(failed)
+
+
+def test_point_agg_dag_is_the_references():
+    s = Session()
+    s.execute("CREATE TABLE pt (id INT PRIMARY KEY, v INT, w INT)")
+    s.execute("INSERT INTO pt VALUES " + ",".join(f"({i}, {i % 997}, {(i * 7) % 131})" for i in range(3 * 1024)))
+    s.vars["tidb_enable_cop_result_cache"] = "OFF"
+    s.vars["tidb_cop_engine"] = "tpu"
+    ctl = s.store.sched
+    seen = []
+    real = ctl.batcher.execute
+
+    def capture(engine, dag, batch, **kw):
+        seen.append((dag, batch))
+        return real(engine, dag, batch, **kw)
+
+    ctl.batcher.execute = capture
+    try:
+        rows = s.must_query(tpch.POINT_AGG.format(lo=1024, hi=2048))
+    finally:
+        ctl.batcher.execute = real
+    assert len(seen) == 1
+    ref, batch = seen[0]
+    assert batch.n_rows == 1024 and int(batch.handles[0]) == 1024
+    port = tpch.point_agg_dag()
+    assert ref.selection is None and port.selection is None
+    assert ref.topn is None and port.topn is None and ref.limit is None and port.limit is None
+    assert ref.scan.col_offsets == port.scan.col_offsets
+    assert [repr(ft) for ft in ref.scan.col_fts] == [repr(ft) for ft in port.scan.col_fts]
+    assert repr(ref.agg) == repr(port.agg)
+    # and the port answers the same over the same rows
+    (b,) = [x for x in tpch.point_agg_table(3, 1024) if int(x.handles[0]) == 1024]
+    got = TorchEngine(device="cpu").execute(port, b)
+    fts = [a.ret_type for a in port.agg.aggs]
+    final = merge_partials([got], [], port.agg.aggs, fts)
+    assert [tuple(str(x) for x in r) for r in final.to_pylist()] == [tuple(r) for r in rows]
+
+
+def test_region_split_points_are_the_references():
+    li = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(5000, 3))
+    assert [r.n_rows for r in tpch.region_batches(li, 1024)] == [1024, 1024, 1024, 1024, 904]
+    assert [r.n_rows for r in tpch.region_batches(li, 4096)] == [5000]  # below 2 * split: no cut
+    n, split = 16_000_000, 1 << 21
+    cuts = list(range(split, n - split // 2, split))
+    sizes = np.diff([0] + cuts + [n]).tolist()
+    assert sizes == [split] * 7 + [1_319_936]
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+def test_q1_over_regions_equals_q1_over_the_batch(compress):
+    """Q1 over 340,000 rows cut at 2 x 65,536 rows: three 2-tile regions,
+    the last one short, form one launch group (gcap 4)."""
+    li = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(340_000, 9))
+    regions = tpch.region_batches(li, 2 << 16)
+    assert [r.n_rows for r in regions] == [131_072, 131_072, 77_856]
+    eng = TorchEngine(device="cpu")
+    eng.tile_compression = compress
+    dag = tpch.q1_dag()
+    parts = run_many([(dag, r) for r in regions], "cpu", eng)
+    fts = [g.ret_type for g in dag.agg.group_by] + [a.ret_type for a in dag.agg.aggs]
+    got = order_by_keys(merge_partials(parts, dag.agg.group_by, dag.agg.aggs, fts), dag.agg.group_by)
+    want = run_query(dag, li, device="cpu")
+    assert got.to_pylist() == want.to_pylist()
+    assert eng.fetches == 1 and eng.fallbacks == 0
+    assert [(k[1], k[2]) for k in eng._vprograms] == [(4, None)]
+
+
+def _captured_group_calls():
+    """The task-mode wrappers' arguments as the engine passes them on two
+    workloads: the point aggregation (4 tasks) and Q1 over 3 regions."""
+    eng = TorchEngine(device="cpu")
+    li = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(5000, 3))
+    with chip_smoke.TaskSpy() as spy:
+        run_many([(tpch.point_agg_dag(), b) for b in tpch.point_agg_table(4, 1024)], "cpu", eng)
+        run_many([(tpch.q1_dag(), r) for r in tpch.region_batches(li, 1536)], "cpu", eng)
+    return spy.calls
+
+
+def test_task_tables_hold_each_tasks_lanes():
+    """The task tables the CUDA modes upload, built here over CPU tensors
+    from the engine's own group inputs, hold each task's addresses and
+    scalars where csrc/{decode_lane,expr_eval,seg_agg}.cu read them —
+    checked entry by entry against the struct layouts."""
+    import torch
+
+    from tidb_tpu_torch.kernels import grouped as gk
+    from tidb_tpu_torch.kernels.seg_agg import OPS, _fill_bits
+
+    calls = _captured_group_calls()
+    seen = set()
+    for encs, rvs, w in calls["decode_lane_tasks"]:
+        kind = gk._codec(encs[0])
+        if kind in ("dense", "alias"):
+            continue
+        seen.add(kind)
+        dtype = {"pack": lambda e: e["b"].dtype, "dict": lambda e: e["v"].dtype, "rle": lambda e: e["rv"].dtype}[kind]
+        out = torch.empty((len(encs), w), dtype=dtype(encs[0]))
+        ends = torch.cumsum(torch.stack([e["rl"] for e in encs]).to(torch.int64), 1) if kind == "rle" else None
+        tab = gk.decode_table(kind, encs, w, out, ends)
+        for g, e in enumerate(encs):
+            want = {"pack": (e.get("p", out).data_ptr(), 0, 0, int(e["b"]) if "b" in e else 0),
+                    "dict": (e["c"].data_ptr(), e["v"].data_ptr(), e["v"].shape[0], 0) if "c" in e else None,
+                    "rle": (e["rv"].data_ptr(), ends[g].data_ptr(), e["rv"].shape[0], 0) if "rv" in e else None}[kind]
+            assert tuple(int(x) for x in tab[g]) == want + (out[g].data_ptr(),)
+    assert "pack" in seen
+    assert calls["expr_eval_tasks"]
+    for prog, ins, w in calls["expr_eval_tasks"]:
+        outs = [torch.empty((len(ins), w), dtype=torch.int64 if b == 8 else torch.bool) for b in prog.outputs]
+        tin, tout = gk.expr_tables(prog, ins, outs, w)
+        for g, task in enumerate(ins):
+            assert [int(x) for x in tin[g, :len(task)]] == [t.data_ptr() for t in task]
+            assert [int(x) for x in tout[g, :len(outs)]] == [o[g].data_ptr() for o in outs]
+    assert len(calls["seg_agg_tasks"]) == 2
+    for masks, keys, lanes, nseg, w in calls["seg_agg_tasks"]:
+        G, nk, nl = len(masks), len(keys[0]), len(lanes[0])
+        n_i = sum(1 for lane in lanes[0] if not lane.is_float)
+        iout, fout = torch.empty((G, n_i, nseg), dtype=torch.int64), torch.empty((G, nl - n_i, nseg))
+        base = 1 << 40
+        host = gk.seg_desc(masks, keys, lanes, w, base, iout, fout)
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        for g in range(G):
+            kaddr, laddr = G * 6 + g * 5 * nk, G * (6 + 5 * nk) + g * 4 * nl
+            assert list(host[g * 6:g * 6 + 6]) == [masks[g].data_ptr(), 0, base + 8 * kaddr, base + 8 * laddr,
+                                                   iout[g].data_ptr(), fout[g].data_ptr()]
+            for j, k in enumerate(keys[g]):
+                assert list(host[kaddr + 5 * j:kaddr + 5 * j + 5]) == [
+                    k.data.data_ptr(), ptr(k.valid), k.lo, k.dom, k.data.element_size()]
+            rows = {False: 0, True: 0}
+            for j, lane in enumerate(lanes[g]):
+                assert list(host[laddr + 4 * j:laddr + 4 * j + 4]) == [
+                    ptr(lane.data), ptr(lane.valid), _fill_bits(lane), OPS[lane.op] | (rows[lane.is_float] << 32)]
+                rows[lane.is_float] += 1
+
+
+def test_task_tables_refuse_tasks_that_differ():
+    """A task whose lane differs from task 0's in dtype, presence or
+    length is refused before any address reaches a table."""
+    import torch
+
+    from tidb_tpu_torch.kernels import grouped as gk
+
+    masks, keys, lanes, nseg, w = _captured_group_calls()["seg_agg_tasks"][0]
+    G = len(masks)
+    iout, fout = torch.empty((G, 8, nseg), dtype=torch.int64), torch.empty((G, 8, nseg))
+    bad = [list(ls) for ls in lanes]
+    j = next(j for j, lane in enumerate(bad[1]) if lane.data is not None)
+    lane = bad[1][j]
+    bad[1][j] = type(lane)(lane.op, lane.data.to(torch.int32), lane.valid, lane.fill)
+    with pytest.raises(TypeError, match="task 1"):
+        gk.seg_desc(masks, keys, bad, w, 0, iout, fout)
+    bad[1][j] = type(lane)(lane.op, lane.data, None if lane.valid is not None else lane.data != 0, lane.fill)
+    with pytest.raises(ValueError, match="present in some tasks"):
+        gk.seg_desc(masks, keys, bad, w, 0, iout, fout)
+    short = [m.reshape(-1)[: w // 2] for m in masks]
+    with pytest.raises(ValueError, match="at least"):
+        gk.seg_desc(short, keys, lanes, w, 0, iout, fout)
+    bad[1] = bad[1][:-1]
+    with pytest.raises(ValueError, match="differ from task 0"):
+        gk.seg_desc(masks, keys, bad, w, 0, iout, fout)

@@ -19,39 +19,56 @@ then the results come back to the host, which rebuilds the partial chunk
 exactly as the reference does (_agg_outputs_to_chunk,
 _agg_sorted_to_chunk, the TopN take).
 
-What is ported: DeviceBatch (encode on the host, upload once per batch
-and device), `_lower`, `_rewrite`/`_code_cmp` with Vocab and
-_dict_encode_lane, `_eval_device`/`_mask` (as one expression program),
-the filter-only path, the direct-address and sort-based aggregation
-paths (with the reference's
-group-capacity escalation, remembered per DAG shape), both TopN paths and
-`execute`. It declines — and counts in `fallbacks`, answering through
-host_engine.execute_dag_host — exactly the DAGs TPUEngine._lower
-declines. Grouped launches (`execute_many`) raise NotPortedError. Lanes,
-breakers, placement, tracing and metrics are not ported yet.
+A lowered DAG is a DevicePlan (ref: :421): `launch()` issues the kernels
+and returns the device tensors without synchronizing, `finalize(fetched)`
+rebuilds the chunk from their host copies, and `execute` is
+finalize(fetch(launch())). `execute_many` (ref: :785-886) runs many
+tasks: plans sharing a program key (the rewritten DAG plus every lane's
+codec signature) form launch groups of up to MAX_FUSE tasks. A filter or
+direct-aggregation group runs K10, the task-grid modes of K1, the
+expression kernel and K4 (kernels/grouped.py): one launch of each over
+the whole group, every task narrowed to the group's `width`. A
+sort-aggregation or TopN group runs its members' solo kernels back to
+back (the reference's tier 2; their task-grid modes are the rest of K10,
+not ported yet). Everything launched comes back with one host
+synchronization (`fetches` counts them).
+
+The engine's surface for the launch batcher (sched/batcher.py) is the
+reference's: one DeviceLane per card (one named `cpu:0` on the CPU) with
+its own circuit breaker (copr/retry.py), `place` / `release_lane`,
+`tile_bucket`. It declines — and counts in `fallbacks` and
+M.TPU_FALLBACK — exactly the DAGs TPUEngine._lower declines, answering
+through host_engine.execute_dag_host.
 """
 
 from __future__ import annotations
 
 import bisect
+import time
 from contextlib import nullcontext
-from threading import Lock
+from threading import Lock, RLock
 
 import numpy as np
 import torch
 
 from ..chunk.chunk import Chunk, Column
-from ..errors import NotPortedError
+from ..errors import CircuitBreakerOpen
 from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFunc
-from ..expr.program import ProgramCache, ValueSpec, evaluate
+from ..expr.program import ProgramCache, ValueSpec, evaluate, evaluate_tasks
 from ..expr.xp_torch import U64
 from ..kernels import SegKey, SegLane, decode_lane, lex_sort_perm, seg_agg, sort_groups, topk, topn_multi_ops
+from ..kernels.grouped import decode_lane_tasks, seg_agg_tasks
+from ..utils import memory as _mem
+from ..utils import metrics as M
+from ..utils import timeline as TL
+from ..utils import tracing
 from ..mysqltypes.datum import Datum, K_STR, K_BYTES
 from ..mysqltypes.field_type import ft_longlong
 from ..mysqltypes.mydecimal import pow10
 from ..torchenv import resolve_device
 from .dag import DAGRequest
 from .host_engine import exact_sum64, exact_sumsq64, execute_dag_host
+from .retry import CircuitBreaker, device_boundary
 from .tilecache import ColumnBatch, _pad2d, encode_data_lane, encode_valid_lane, pow2_rows
 
 TILE_ROWS = 1 << 16
@@ -152,8 +169,33 @@ def _upload_payload(pay: dict, device: torch.device) -> dict:
             out[k] = torch.tensor(int(a.view(np.int64)) if a.dtype == np.uint64 else a.item(),
                                   dtype=torch.int64 if a.dtype.itemsize == 8 else torch.int32)
         else:
-            out[k] = _upload(a, device)
+            out[k] = _to_device(a, device)
     return out
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """`_upload` with the reference's transfer accounting (:95 _to_device):
+    the bytes consume into the thread's bound statement MemTracker (which
+    may raise the quota error at the allocation site) and feed the h2d
+    transfer series and the active phase frame."""
+    _mem.consume_current(a.nbytes)
+    t0 = time.perf_counter_ns()
+    out = _upload(a, device)
+    t1 = time.perf_counter_ns()
+    M.TPU_TRANSFER_BYTES.inc(a.nbytes, dir="h2d")
+    tracing.add_phase("h2d_bytes", a.nbytes)
+    tracing.add_phase("h2d_ms", (t1 - t0) / 1e6)
+    tracing.add_phase_event("device.transfer", t0, t1, dir="h2d", bytes=int(a.nbytes))
+    return out
+
+
+def tile_shape(n_rows: int, compress: bool) -> tuple[int, int]:
+    """(tile count, row bucket) `n_rows` pad to: with compression a batch
+    up to TILE_ROWS rows pads to a power-of-two bucket, else to TILE_ROWS
+    tiles (ref: :302-305, :719 tile_bucket)."""
+    if compress and n_rows <= TILE_ROWS:
+        return 1, pow2_rows(n_rows)
+    return max((n_rows + TILE_ROWS - 1) // TILE_ROWS, 1), TILE_ROWS
 
 
 class DeviceBatch:
@@ -171,17 +213,18 @@ class DeviceBatch:
         self.device = device
         self.compress = compress
         n = batch.n_rows
-        if compress and n <= TILE_ROWS:
-            self.t, self.r = 1, pow2_rows(n)
-        else:
-            self.t, self.r = max((n + TILE_ROWS - 1) // TILE_ROWS, 1), TILE_ROWS
+        self.t, self.r = tile_shape(n, compress)
         self.padded = self.t * self.r
         self.vocabs: dict[int, Vocab] = {}
         self._data: dict[int, object] = {}
         self._valid: dict[int, object] = {}
+        # each used lane's static (data, valid) codec signature: the static
+        # half of every program key, so tasks fuse only when their lanes'
+        # codecs and aux shapes agree (ref: :313, :934)
+        self.lane_sigs: dict[int, tuple] = {}
         rv = np.zeros(self.padded, dtype=bool)
         rv[:n] = True
-        self.row_valid = _upload(rv.reshape(self.t, self.r), device)
+        self.row_valid = _to_device(rv.reshape(self.t, self.r), device)
 
     def lanes(self, off: int, phase=None):
         """(data, valid) device lanes for a table column offset — each a
@@ -200,16 +243,101 @@ class DeviceBatch:
                     self.vocabs[off] = vocab
                     d = codes
                 if self.compress:
-                    pay_d, _ = encode_data_lane(d, v, (self.t, self.r))
-                    pay_v, _ = encode_valid_lane(v, (self.t, self.r))
+                    pay_d, sig_d = encode_data_lane(d, v, (self.t, self.r))
+                    pay_v, sig_v = encode_valid_lane(v, (self.t, self.r))
                 else:
                     pay_d = pay_v = None
+                    sig_d, sig_v = ("dense",), ("dense",)
             with phase("h2d"):
-                self._data[off] = (_upload(_pad2d(d, (self.t, self.r)), self.device) if pay_d is None
+                self._data[off] = (_to_device(_pad2d(d, (self.t, self.r)), self.device) if pay_d is None
                                    else _upload_payload(pay_d, self.device))
-                self._valid[off] = (_upload(_pad2d(v, (self.t, self.r)), self.device) if pay_v is None
+                self._valid[off] = (_to_device(_pad2d(v, (self.t, self.r)), self.device) if pay_v is None
                                     else _upload_payload(pay_v, self.device))
+            self.lane_sigs[off] = (sig_d, sig_v)
         return self._data[off], self._valid[off]
+
+
+class DevicePlan:
+    """A lowered DAG split at the device→host boundary (ref: :421):
+    `launch()` issues the kernels and returns a list of device tensors
+    (and host-side values, passed through the fetch as they are) without
+    synchronizing; `finalize(fetched)` turns their host copies into the
+    result chunk. Plans with one program key `key` share a launch group
+    in `execute_many`: one task-grid launch of each kernel (K10) over
+    their `args` = (flat lanes, row_valid), each task finalized from its
+    own slice of the group's outputs."""
+
+    __slots__ = ("launch", "finalize", "key", "args", "rows")
+
+    def __init__(self, launch, finalize, key=None, args=None, rows=0):
+        self.launch = launch
+        self.finalize = finalize
+        self.key = key  # program key, shared ⇒ one task-grid launch
+        self.args = args  # (flat [data, valid] lanes per used column, row_valid)
+        self.rows = rows  # real (unpadded) row count of the batch
+
+
+class DeviceLane:
+    """One cop runner lane per card (ref: :449): the device, its own
+    circuit breaker (an open breaker drains only this lane), a launch lock
+    serializing device work, and the in-flight occupancy the placement
+    policy balances on (guarded by the engine's placement lock)."""
+
+    __slots__ = ("idx", "device", "name", "breaker", "lock", "occupancy",
+                 "launches", "ewma_ms", "faults")
+
+    def __init__(self, idx: int, device: torch.device, breaker):
+        self.idx = idx
+        self.device = device
+        self.name = f"{device.type}:{device.index if device.index is not None else idx}"
+        self.breaker = breaker
+        self.lock = RLock()
+        self.occupancy = 0  # placed-but-unfinished tasks (queued + running)
+        self.launches = 0
+        self.ewma_ms = 0.0  # observed per-task wall, fault-penalized; 0 = none yet
+        self.faults = 0
+
+
+class _lane_guard:
+    """Exclusive use of one device lane for a launch: the lane's launch
+    lock plus the timeline device-lane binding (ref: :479). Re-entrant —
+    the batcher guards around `execute_many`, which guards again."""
+
+    __slots__ = ("lane", "_scope")
+
+    def __init__(self, lane: DeviceLane):
+        self.lane = lane
+
+    def __enter__(self):
+        self.lane.lock.acquire()
+        self._scope = TL.device_scope(self.lane.name)
+        self._scope.__enter__()
+        return self.lane
+
+    def __exit__(self, *exc):
+        self._scope.__exit__(*exc)
+        self.lane.lock.release()
+        return False
+
+
+class _TaskView:
+    """One task of a launch group as the aggregate-lane builders see a
+    DeviceBatch: its row_valid and the group's (narrowed) row count."""
+
+    __slots__ = ("row_valid", "padded")
+
+    def __init__(self, row_valid, padded: int):
+        self.row_valid = row_valid
+        self.padded = padded
+
+
+# a launch group whose members run their solo kernels back to back (the
+# reference's tier 2): sort-based aggregation and TopN keys
+_BACK_TO_BACK = "back_to_back"
+
+
+def _host_of(t: torch.Tensor, buf: np.ndarray) -> np.ndarray:
+    return buf.view(np.dtype(str(t.dtype).split(".")[1])).reshape(t.shape)
 
 
 class TorchEngine:
@@ -217,7 +345,13 @@ class TorchEngine:
     "cuda" and is never swapped for the CPU on the engine's own initiative:
     without a card, construction raises unless the caller passes "cpu"."""
 
+    MAX_FUSE = 64  # largest launch group
+    # resident-lane queue depth beyond the fair share before a task
+    # spills off its resident card (ref: :508)
+    SPILL_SLACK = 3
+
     def __init__(self, device="cuda"):
+        asked = torch.device(device)
         self.device = resolve_device(device)
         self._lock = Lock()
         self.fallbacks = 0
@@ -242,38 +376,337 @@ class TorchEngine:
         self.gcap0 = 1 << 16
         self._gcap: dict = {}
         self.programs = ProgramCache()  # compiled expression programs (K2/K3)
+        # program keys (the reference's jit cache keys: one per compiled
+        # program, a launch group's (key, gcap, width) included) and each
+        # key's group program; compile_count counts the keys, as the
+        # reference counts its compiles
+        self._programs: set = set()
+        self._raw: dict = {}
+        self._vprograms: dict = {}
+        self.compile_count = 0
+        self.fetches = 0  # host synchronizations that fetched results
+        # one runner lane per card (every card when the caller named none),
+        # each with its own breaker; engine-scoped labels keep two engines'
+        # breaker series apart (ref: :531-546)
+        if self.device.type == "cuda" and asked.index is None:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [self.device]
+        eid = f"e{next(CircuitBreaker._seq)}"
+        self._all_lanes = []
+        for i, d in enumerate(devices):
+            lane = DeviceLane(i, d, None)
+            lane.breaker = CircuitBreaker(label=f"{eid}/{lane.name}")
+            self._all_lanes.append(lane)
+        self.lanes = list(self._all_lanes)
+        self._place_lock = Lock()  # atomic choose-and-bump across lanes
+        # residency by batch CONTENT (table, span, version, rows): the lane
+        # that holds a batch's upload; a stale entry only costs a re-upload
+        self._residency: dict[tuple, set] = {}
 
     def phase(self, name: str):
         """The timer's span for `name`, or a no-op without a timer."""
         return self.timer.phase(name) if self.timer is not None else nullcontext()
 
+    # --- per-device placement (ref: :557-708) -------------------------------
+
+    @staticmethod
+    def _residency_key(batch) -> tuple:
+        t = getattr(batch, "table", None)
+        return (getattr(t, "id", None), getattr(batch, "start", b""), getattr(batch, "end", b""),
+                getattr(batch, "version", None), batch.n_rows)
+
+    def _mirror_key(self, lane: DeviceLane) -> tuple:
+        return (str(lane.device), self.tile_compression)
+
+    @property
+    def breaker(self):
+        """Lane 0's breaker — the single-device view."""
+        return self.lanes[0].breaker
+
+    def set_active_lanes(self, n: int) -> None:
+        """Route cop tasks over only the first `n` lanes; 0 = every lane."""
+        n = int(n)
+        if n <= 0 or n > len(self._all_lanes):
+            n = len(self._all_lanes)
+        self.lanes = self._all_lanes[:n]
+
+    def limit_lanes(self, n: int) -> None:
+        """SHRINK the dispatch width to at most `n` lanes (never widens)."""
+        self.set_active_lanes(min(max(1, n), len(self.lanes)))
+
+    def place(self, batch: ColumnBatch, sched=None, gate_breakers: bool = False,
+              stats=None, weighted: bool = False) -> DeviceLane | None:
+        """Choose the runner lane for one cop task and bump its occupancy
+        (the caller MUST `release_lane`). The reference's policy (:597):
+        residency affinity, a spill to an idle sibling when the resident
+        lane is oversubscribed past the fair share + SPILL_SLACK, lanes
+        whose breaker rejects skipped under `gate_breakers` (None when all
+        refuse), and with `weighted` an order by (occupancy + 1) x the
+        lane's observed per-task EWMA wall."""
+        lanes = self.lanes
+        mirrors = getattr(batch, "_gpu_mirrors", None) or {}
+        rkey = self._residency_key(batch)
+        with self._place_lock:
+            if weighted:
+                seen = sorted(l.ewma_ms for l in lanes if l.ewma_ms > 0.0)
+                base = seen[len(seen) // 2] if seen else 1.0
+                cost = lambda l: ((l.occupancy + 1) * (l.ewma_ms if l.ewma_ms > 0.0 else base),  # noqa: E731
+                                  l.occupancy, l.idx)
+            else:
+                cost = lambda l: (l.occupancy, l.idx)  # noqa: E731
+            res_idx = {l.idx for l in self._all_lanes if self._mirror_key(l) in mirrors}
+            res_idx |= self._residency.get(rkey) or set()
+            order: list[DeviceLane] = []
+            resident = [l for l in lanes if l.idx in res_idx]
+            if resident:
+                r = min(resident, key=cost)
+                load = 0
+                if sched is not None:
+                    sc = getattr(sched, "scheduler", None)
+                    if sc is not None:
+                        load = sc.running() + sc.queue_depth()
+                fair = max(1.0, load / len(lanes))
+                if not (r.occupancy > fair + self.SPILL_SLACK
+                        and any(l.occupancy == 0 for l in lanes if l is not r)):
+                    order.append(r)
+            chosen_first = order[0] if order else None
+            order += sorted((l for l in lanes if l is not chosen_first), key=cost)
+            rerouted = False
+            for lane in order:
+                if gate_breakers and not lane.breaker.allow():
+                    rerouted = True
+                    continue
+                if resident and lane.idx not in res_idx:
+                    M.TPU_LANE_REROUTES.inc(device=lane.name, reason="breaker" if rerouted else "spill")
+                    if stats is not None:
+                        stats("lane_reroutes" if rerouted else "lane_spills", 1)
+                lane.occupancy += 1
+                M.TPU_LANE_OCCUPANCY.set(lane.occupancy, device=lane.name)
+                return lane
+        return None
+
+    def release_lane(self, lane: DeviceLane) -> None:
+        with self._place_lock:
+            lane.occupancy -= 1
+            M.TPU_LANE_OCCUPANCY.set(lane.occupancy, device=lane.name)
+
+    def note_lane(self, lane: DeviceLane, wall_ms: float, ok: bool = True) -> None:
+        """A placed task's observed wall: success folds into the lane's
+        EWMA; a device fault doubles the believed cost (ref: :678)."""
+        with self._place_lock:
+            if ok:
+                lane.ewma_ms = wall_ms if lane.ewma_ms <= 0.0 else 0.7 * lane.ewma_ms + 0.3 * wall_ms
+            else:
+                lane.faults += 1
+                lane.ewma_ms = max(lane.ewma_ms, wall_ms, 0.001) * 2.0
+
+    def breakers_describe(self) -> str:
+        return ", ".join(f"{l.name}:{l.breaker.state}" for l in self.lanes)
+
+    def raise_breakers_open(self) -> None:
+        """Forced device engine with EVERY lane's breaker rejecting."""
+        if len(self.lanes) == 1:
+            self.lanes[0].breaker.raise_open()
+        raise CircuitBreakerOpen(
+            f"every device lane's circuit breaker rejected the request "
+            f"(state=open on all {len(self.lanes)} lanes: "
+            f"{self.breakers_describe()}); use engine='host'/'auto' or "
+            f"wait out the cooldown"
+        )
+
     # --- public ------------------------------------------------------------
 
-    def execute(self, dag: DAGRequest, batch: ColumnBatch) -> Chunk:
-        """Run one cop DAG over one region batch → the partial chunk the
-        reference's TPUEngine.execute returns for the same inputs."""
+    @staticmethod
+    def tile_count(batch: ColumnBatch) -> int:
+        """Padded tile count at the legacy full-tile width (ref: :713)."""
+        return max((batch.n_rows + TILE_ROWS - 1) // TILE_ROWS, 1)
+
+    def tile_bucket(self, batch: ColumnBatch) -> tuple[int, int]:
+        """(tile count, row bucket) a batch pads to under the current
+        layout — the static-shape class the batcher's groups key on."""
+        return tile_shape(batch.n_rows, self.tile_compression)
+
+    def _plan_for(self, dag: DAGRequest, batch: ColumnBatch, lane: DeviceLane | None = None):
+        """The batch's mirror on the lane's card (built and uploaded at
+        first use), then the lowered plan, or None for a declined DAG."""
+        lane = lane or self.lanes[0]
         mirrors = getattr(batch, "_gpu_mirrors", None)
         if mirrors is None:
             mirrors = batch._gpu_mirrors = {}
-        mkey = (str(self.device), self.tile_compression)
+        mkey = self._mirror_key(lane)
         dev = mirrors.get(mkey)
         if dev is None:
-            dev = mirrors[mkey] = DeviceBatch(batch, self.device, compress=self.tile_compression)
-        plan = self._lower(dag, dev)
-        if plan is None:
-            with self._lock:
-                self.fallbacks += 1
-            return execute_dag_host(dag, batch)
-        return plan()
+            dev = mirrors[mkey] = DeviceBatch(batch, lane.device, compress=self.tile_compression)
+            with self._place_lock:
+                if len(self._residency) > 4096:
+                    self._residency.clear()
+                self._residency.setdefault(self._residency_key(batch), set()).add(lane.idx)
+        return self._lower(dag, dev)
 
-    def execute_many(self, items):
-        raise NotPortedError("tpu_engine.execute_many", "grouped launches (K10)")
+    def _boundary(self):
+        """The device boundary (copr/retry.device_boundary): a card's
+        faults leave the engine as DeviceTransientError / DeviceFatalError."""
+        return device_boundary(self.device.type == "cuda")
+
+    def _decline(self, dag: DAGRequest, batch: ColumnBatch) -> Chunk:
+        with self._lock:
+            self.fallbacks += 1
+        M.TPU_FALLBACK.inc(path="cop", reason="not_lowerable")
+        return execute_dag_host(dag, batch)
+
+    def execute(self, dag: DAGRequest, batch: ColumnBatch, lane: DeviceLane | None = None,
+                _solo_event: bool = True) -> Chunk:
+        """Run one cop DAG over one region batch → the partial chunk the
+        reference's TPUEngine.execute returns for the same inputs."""
+        placed = None
+        if lane is None:
+            lane = placed = self.place(batch)
+        try:
+            with _lane_guard(lane):
+                t0 = time.perf_counter_ns()
+                with self._boundary():
+                    plan = self._plan_for(dag, batch, lane)
+                    if plan is None:
+                        return self._decline(dag, batch)
+                    (fetched,) = self._fetch([plan.launch()])
+                with self.phase("finalize"):
+                    chunk = plan.finalize(fetched)
+                if _solo_event:
+                    lane.launches += 1
+                    M.TPU_LANE_LAUNCHES.inc(device=lane.name, mode="solo")
+                    tl = TL.active()
+                    if tl is not None:
+                        tl.device_event("cop.launch", "launch", t0, time.perf_counter_ns(),
+                                        launch_id=tracing._next_id(), occupancy=1, device=lane.name)
+                return chunk
+        finally:
+            if placed is not None:
+                self.release_lane(placed)
+
+    def execute_many(self, items: list, lane: DeviceLane | None = None) -> list[Chunk]:
+        """Run (DAG, batch) cop tasks with launch amortization on one lane
+        (module doc); → one partial chunk per task, each equal to its
+        solo `execute`."""
+        placed = None
+        if lane is None:
+            if items:
+                lane = placed = self.place(items[0][1])
+            else:
+                lane = self.lanes[0]
+        try:
+            with _lane_guard(lane):
+                return self._execute_many_on(items, lane)
+        finally:
+            if placed is not None:
+                self.release_lane(placed)
+
+    def _execute_many_on(self, items: list, lane: DeviceLane) -> list[Chunk]:
+        """The reference's two tiers (:800): tasks sharing a program key
+        (same rewritten DAG, tile bucket and lane codecs) form groups of
+        up to MAX_FUSE, each run as one grouped launch; everything
+        launched, grouped or single, comes back in ONE fetch.
+
+        A group narrows every task to `width` flattened rows: a
+        single-tile group to the power-of-two bucket of its largest task,
+        a multi-tile group its last tile to a power-of-two remainder
+        (None when that is the padded width). `gcap`, the next power of
+        two of the group's size, is the reference's program size class:
+        the port launches the real tasks only and keeps (key, gcap,
+        width) as the group's program key."""
+        with self._boundary():
+            plans = [self._plan_for(dag, batch, lane) for dag, batch in items]
+            results: list = [None] * len(items)
+            fusable: dict = {}  # program key -> [task index]
+            launched = []  # (task indices, outputs, stacked?) in launch order
+            for i, (plan, (dag, batch)) in enumerate(zip(plans, items)):
+                if plan is None:
+                    results[i] = self._decline(dag, batch)
+                else:
+                    fusable.setdefault(plan.key, []).append(i)
+            for key, idx_list in fusable.items():
+                for lo in range(0, len(idx_list), self.MAX_FUSE):
+                    grp = idx_list[lo:lo + self.MAX_FUSE]
+                    group = _BACK_TO_BACK  # a group of one launches solo
+                    if len(grp) > 1:
+                        t_, r_ = plans[grp[0]].args[1].shape
+                        need = max(plans[i].rows for i in grp)
+                        w = pow2_rows(need) if t_ == 1 else (t_ - 1) * r_ + pow2_rows(need - (t_ - 1) * r_)
+                        width = w if w < t_ * r_ else None
+                        group = self._vmapped_program(key, 1 << (len(grp) - 1).bit_length(), width)
+                    if group == _BACK_TO_BACK:
+                        for i in grp:
+                            launched.append(([i], plans[i].launch(), False))
+                    else:
+                        outs = group([plans[i].args for i in grp], t_ * r_ if width is None else width)
+                        launched.append((grp, outs, True))
+            fetched = self._fetch([outs for _, outs, _ in launched]) if launched else []
+        with self.phase("finalize"):
+            for (idx, _, stacked), host in zip(launched, fetched):
+                for j, i in enumerate(idx):
+                    part = [h[j] if stacked and isinstance(h, np.ndarray) else h for h in host]
+                    results[i] = plans[i].finalize(part)
+        return results
+
+    def _vmapped_program(self, key, gcap: int, width):
+        """The group program of `key` at size class `gcap` and narrowed
+        `width` (ref: :1096), counted as a program of its own."""
+        with self._lock:
+            vkey = (key, gcap, width)
+            if vkey in self._vprograms:
+                M.TPU_COMPILE_CACHE.inc(result="hit")
+            else:
+                M.TPU_COMPILE_CACHE.inc(result="miss")
+                self._vprograms[vkey] = self._raw[key]
+                self.compile_count += 1
+            return self._vprograms[vkey]
+
+    def _program(self, key, group) -> None:
+        """Record `key`'s program (a compile in the reference's count, :1051)
+        and its group program: a K10 task-grid callable, or _BACK_TO_BACK."""
+        with self._lock:
+            self._raw.setdefault(key, group)
+            if key in self._programs:
+                M.TPU_COMPILE_CACHE.inc(result="hit")
+            else:
+                M.TPU_COMPILE_CACHE.inc(result="miss")
+                self._programs.add(key)
+                self.compile_count += 1
+
+    def _fetch(self, outs: list) -> list:
+        """Device→host for every launch's outputs (a list of lists of
+        tensors and host values) with ONE host synchronization: the
+        tensors' bytes are gathered into one buffer on the card and copied
+        back once; host values pass through (ref: :119 _fetch)."""
+        tensors = [t for o in outs for t in o if isinstance(t, torch.Tensor)]
+        t0 = time.perf_counter_ns()
+        with self.phase("d2h"):
+            if tensors and tensors[0].device.type == "cuda":
+                buf = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors]).cpu().numpy()
+                host, off = [], 0
+                for t in tensors:
+                    nb = t.numel() * t.element_size()
+                    host.append(_host_of(t, buf[off:off + nb]))
+                    off += nb
+            else:
+                host = [t.numpy() for t in tensors]
+        t1 = time.perf_counter_ns()
+        nbytes = sum(h.nbytes for h in host)
+        with self._lock:
+            self.fetches += 1
+        M.TPU_EXECUTE_SECONDS.observe((t1 - t0) / 1e9)
+        M.TPU_TRANSFER_BYTES.inc(nbytes, dir="d2h")
+        tracing.add_phase("execute_ms", (t1 - t0) / 1e6)
+        tracing.add_phase("d2h_bytes", nbytes)
+        tracing.add_phase_event("device.execute", t0, t1, d2h_bytes=int(nbytes))
+        it = iter(host)
+        return [[next(it) if isinstance(t, torch.Tensor) else t for t in o] for o in outs]
 
     # --- lowering ----------------------------------------------------------
 
     def _lower(self, dag: DAGRequest, dev: DeviceBatch):
-        """→ zero-arg callable producing the result Chunk, or None if this
-        DAG can't run on device (host fallback, as the reference)."""
+        """→ the DevicePlan of `dag` over `dev`, or None if this DAG can't
+        run on device (host fallback, as the reference)."""
         scan_offs = dag.scan.col_offsets
         used: set[int] = set()
         conds = dag.selection.conds if dag.selection else []
@@ -306,12 +739,23 @@ class TorchEngine:
         # lanes of BIGINT UNSIGNED columns decode to U64 (xp_torch)
         unsigned = {i for i in used
                     if i not in vocabs and dev.batch.data[scan_offs[i]].dtype == np.uint64}
-
+        # the static half of every program key (ref: :927-936): the tile
+        # shape and each used lane's codec signature — tasks whose lanes
+        # encoded differently never share a launch group
+        sig = (dev.t, dev.r) + tuple((i, dev.lane_sigs.get(scan_offs[i], ((), ()))) for i in sorted(used))
+        low = (dev, lanes, r_conds, unsigned, sig)
         if dag.agg is not None:
-            return self._lower_agg(dag, dev, lanes, vocabs, r_conds, unsigned)
+            return self._lower_agg(dag, vocabs, *low)
         if dag.topn is not None:
-            return self._lower_topn(dag, dev, lanes, vocabs, r_conds, unsigned)
-        return self._lower_filter(dag, dev, lanes, r_conds, unsigned)
+            return self._lower_topn(dag, vocabs, *low)
+        return self._lower_filter(dag, *low)
+
+    def _plan(self, key, launch, finalize, dev: DeviceBatch, lanes: dict, group=_BACK_TO_BACK) -> DevicePlan:
+        """The DevicePlan of a lowering, its program recorded under `key`
+        with its group program."""
+        self._program(key, group)
+        flat = [x for i in sorted(lanes) for x in lanes[i]]
+        return DevicePlan(launch, finalize, key=key, args=(flat, dev.row_valid), rows=dev.batch.n_rows)
 
     # --- string/dict rewriting --------------------------------------------
 
@@ -404,27 +848,53 @@ class TorchEngine:
             out[i] = (dd, decode_lane(v, dev.row_valid))
         return out
 
+    @staticmethod
+    def _decode_tasks(argss: list, order: list, unsigned: set, width: int) -> list:
+        """K10's decode: K1's task mode over each used lane of a launch
+        group's tasks (`argss`: each task's (flat lanes, row_valid)) → per
+        task the lanes dict `_decode` gives, each lane read to `width`."""
+        rvs = [rv for _, rv in argss]
+        out = [{} for _ in argss]
+        for k, i in enumerate(order):
+            ds = decode_lane_tasks([flat[2 * k] for flat, _ in argss], rvs, width)
+            vs = decode_lane_tasks([flat[2 * k + 1] for flat, _ in argss], rvs, width)
+            for g, (d, v) in enumerate(zip(ds, vs)):
+                out[g][i] = (U64(d) if i in unsigned else d, v)
+        return out
+
     # --- filter-only --------------------------------------------------------
 
-    def _lower_filter(self, dag: DAGRequest, dev: DeviceBatch, lanes, r_conds, unsigned):
-        def run():
+    def _lower_filter(self, dag: DAGRequest, dev: DeviceBatch, lanes, r_conds, unsigned, sig):
+        """The filter program (ref: :1138): the mask comes back, the host
+        filters the batch's rows (and applies a LIMIT)."""
+        order = sorted(lanes)
+
+        def launch():
             with self.phase("decode"):
                 l = self._decode(dev, lanes, unsigned)
             with self.phase("expr_eval"):
                 mask, _ = self._evaluate(r_conds, [], l, dev, force=True)
-            with self.phase("d2h"):
-                mask = mask.cpu().numpy()[: dev.batch.n_rows]
-            with self.phase("finalize"):
-                chunk = dev.batch.to_chunk(dag.scan.col_offsets).filter(mask)
-                if dag.limit is not None:
-                    chunk = chunk.slice(0, min(dag.limit.n, chunk.num_rows))
+            return [mask]
+
+        def group(argss, width):  # K10: K1 → expression kernel, task-grid modes
+            with self.phase("decode"):
+                l = self._decode_tasks(argss, order, unsigned, width)
+            with self.phase("expr_eval"):
+                mask, _ = evaluate_tasks(self.programs, r_conds, [], l, [rv for _, rv in argss], width, force=True)
+            return [mask]
+
+        def finalize(fetched):
+            mask = fetched[0].reshape(-1)[: dev.batch.n_rows]
+            chunk = dev.batch.to_chunk(dag.scan.col_offsets).filter(mask)
+            if dag.limit is not None:
+                chunk = chunk.slice(0, min(dag.limit.n, chunk.num_rows))
             return chunk
 
-        return run
+        return self._plan(("filter", repr(r_conds), sig), launch, finalize, dev, lanes, group)
 
     # --- aggregation --------------------------------------------------------
 
-    def _lower_agg(self, dag: DAGRequest, dev: DeviceBatch, lanes, vocabs, r_conds, unsigned):
+    def _lower_agg(self, dag: DAGRequest, vocabs, dev: DeviceBatch, lanes, r_conds, unsigned, sig):
         agg = dag.agg
         gb = agg.group_by
         wide_keys = False
@@ -490,38 +960,56 @@ class TorchEngine:
         for s in domains:
             nseg *= s + 1  # +1 slot for NULL keys
         if not direct or nseg > DIRECT_GROUP_MAX:
-            return self._lower_agg_sorted(dag, dev, lanes, vocabs, r_conds, unsigned, dev_args)
+            return self._lower_agg_sorted(dag, dev, lanes, vocabs, r_conds, unsigned, dev_args, sig)
 
         specs = [self._agg_spec(a, r_args) for a, r_args in zip(agg.aggs, dev_args)]
+        vspecs = [s for s in specs if s is not None]
+        order = sorted(lanes)
 
-        def run():
+        def seg_inputs(l, vals, view):
+            """K4's key lanes and value lanes (the group count first)."""
+            keys = [SegKey(l[idx][0].reshape(-1), self._valid_arg(l[idx][1], view), lo, dom)
+                    for (idx, lo), dom in zip(key_cols, domains)]
+            seg_lanes = [SegLane("count")]  # group_count: masked-in rows per slot
+            seg_lanes += self._agg_lanes(agg.aggs, specs, vals, view, nseg)
+            return keys, seg_lanes
+
+        def launch():
             with self.phase("decode"):
                 l = self._decode(dev, lanes, unsigned)
             with self.phase("expr_eval"):
-                flat_mask, vals = self._evaluate(r_conds, [s for s in specs if s is not None], l, dev)
+                flat_mask, vals = self._evaluate(r_conds, vspecs, l, dev)
             with self.phase("agg_args"):
-                keys = [
-                    SegKey(l[idx][0].reshape(-1), self._valid_arg(l[idx][1], dev), lo, dom)
-                    for (idx, lo), dom in zip(key_cols, domains)
-                ]
-                seg_lanes = [SegLane("count")]  # group_count: masked-in rows per slot
-                seg_lanes += self._agg_lanes(agg.aggs, specs, vals, dev, nseg)
+                keys, seg_lanes = seg_inputs(l, vals, dev)
             with self.phase("seg_agg"):
                 i_mat, f_mat = self.seg_agg(flat_mask, keys, seg_lanes, nseg)
-                layout = self._layout(seg_lanes)
-            with self.phase("d2h"):
-                i_host, f_host = i_mat.cpu().numpy(), f_mat.cpu().numpy()
-            with self.phase("finalize"):
-                res = [i_host[k] if t == "i" else f_host[k] for t, k in layout]
-                chunk = self._agg_outputs_to_chunk(dag, dev, res, domains, key_cols, vocabs, nseg)
-            return chunk
+            return [i_mat, f_mat, self._layout(seg_lanes)]
 
-        return run
+        def group(argss, width):  # K10: K1 → expression kernel → K4, task-grid modes
+            rvs = [rv for _, rv in argss]
+            with self.phase("decode"):
+                ls = self._decode_tasks(argss, order, unsigned, width)
+            with self.phase("expr_eval"):
+                mask, vals = evaluate_tasks(self.programs, r_conds, vspecs, ls, rvs, width)
+            with self.phase("agg_args"):
+                per = [seg_inputs(l, v, _TaskView(rv, width)) for l, v, rv in zip(ls, vals, rvs)]
+            with self.phase("seg_agg"):
+                i_mat, f_mat = seg_agg_tasks(list(mask), [k for k, _ in per], [s for _, s in per], nseg, width)
+            return [i_mat, f_mat, self._layout(per[0][1])]
+
+        def finalize(fetched):
+            i_host, f_host, layout = fetched
+            res = [i_host[k] if t == "i" else f_host[k] for t, k in layout]
+            return self._agg_outputs_to_chunk(dag, dev, res, domains, key_cols, vocabs, nseg)
+
+        key = ("agg", repr(r_conds), repr([(a.name, repr(x)) for a, x in zip(agg.aggs, dev_args)]),
+               repr(key_cols), repr(domains), sig, nseg)
+        return self._plan(key, launch, finalize, dev, lanes, group)
 
     # --- sort-based aggregation (high-cardinality GROUP BY) -----------------
 
     def _lower_agg_sorted(self, dag: DAGRequest, dev: DeviceBatch, lanes, vocabs, r_conds, unsigned,
-                          dev_args):
+                          dev_args, sig):
         """GROUP BY over NULL-able, float, uint64 or wide key domains (ref:
         tpu_engine.py:1324 _lower_agg_sorted): K9 sorts the masked rows by
         (NULL flag, key bits) per key (through K8) and gives each row a
@@ -532,27 +1020,35 @@ class TorchEngine:
         shape — the reference's escalation, with the same capacities. The
         reference learns n_groups after a full launch and reruns at the
         new capacity; here K9 counts the groups before K4 runs, so the
-        first launch already uses the capacity the rerun would."""
+        first launch already uses the capacity the rerun would — and the
+        plan's `launch` synchronizes inside, once, to read that count.
+        The plan's key carries the capacity it was lowered at (ref:
+        :1443); an escalation records the escalated program as the
+        reference's rerun compiles it. In a launch group its members run
+        these kernels back to back (K10's sort mode is not ported yet)."""
         agg = dag.agg
         key_idx = [g.idx for g in agg.group_by]
         if not key_idx:
             return None
-        shape_key = ("aggsort", repr(r_conds),
-                     repr([(a.name, repr(x)) for a, x in zip(agg.aggs, dev_args)]),
-                     repr(key_idx), dev.t, dev.r)
+        base_key = ("aggsort", repr(r_conds), repr([(a.name, repr(x)) for a, x in zip(agg.aggs, dev_args)]),
+                    repr(key_idx), sig)
+        gcap = self._gcap.get(base_key, self.gcap0)
 
         def cap_of(ng: int) -> int:
-            with self._lock:
-                cap = self._gcap.get(shape_key, self.gcap0)
-                if ng > cap:
-                    while cap < ng:
-                        cap <<= 2
-                    self._gcap[shape_key] = cap
+            # from the capacity this plan was lowered at, as the
+            # reference's rerun escalates from its plan's (:1418)
+            cap = gcap
+            if ng > cap:
+                while cap < ng:
+                    cap <<= 2
+                with self._lock:
+                    self._gcap[base_key] = cap
+                self._program(base_key + (cap,), _BACK_TO_BACK)
             return cap
 
         specs = [self._agg_spec(a, r_args) for a, r_args in zip(agg.aggs, dev_args)]
 
-        def run():
+        def launch():
             with self.phase("decode"):
                 l = self._decode(dev, lanes, unsigned)
             with self.phase("expr_eval"):
@@ -563,22 +1059,21 @@ class TorchEngine:
                 g = self.sort_groups(flat_mask, keys, cap_of)
             with self.phase("agg_args"):
                 seg_lanes = self._agg_lanes(agg.aggs, specs, vals, dev, g.cap)
-            with self.phase("seg_agg"):
-                layout = []
-                if seg_lanes:
+            ng = g.n_groups  # only [:n_groups] reaches the chunk
+            out = [g.kval[:, :ng], g.kvalid[:, :ng], None, None, [], ng]
+            if seg_lanes:
+                with self.phase("seg_agg"):
                     i_mat, f_mat = self.seg_agg(flat_mask, [], seg_lanes, g.cap, seg=g.seg)
-                    layout = self._layout(seg_lanes)
-            with self.phase("d2h"):
-                ng = g.n_groups  # only [:n_groups] reaches the chunk
-                kval, kvalid = g.kval[:, :ng].cpu().numpy(), g.kvalid[:, :ng].cpu().numpy()
-                if layout:
-                    i_host, f_host = i_mat[:, :ng].cpu().numpy(), f_mat[:, :ng].cpu().numpy()
-            with self.phase("finalize"):
-                res = [row for j in range(len(key_idx)) for row in (kval[j], kvalid[j])]
-                res += [i_host[k] if t == "i" else f_host[k] for t, k in layout]
-                return self._agg_sorted_to_chunk(dag, dev, res, key_idx, vocabs, ng)
+                out[2:5] = [i_mat[:, :ng], f_mat[:, :ng], self._layout(seg_lanes)]
+            return out
 
-        return run
+        def finalize(fetched):
+            kval, kvalid, i_host, f_host, layout, ng = fetched
+            res = [row for j in range(len(key_idx)) for row in (kval[j], kvalid[j])]
+            res += [i_host[k] if t == "i" else f_host[k] for t, k in layout]
+            return self._agg_sorted_to_chunk(dag, dev, res, key_idx, vocabs, ng)
+
+        return self._plan(base_key + (gcap,), launch, finalize, dev, lanes)
 
     def _agg_sorted_to_chunk(self, dag, dev, outs, key_idx, vocabs, ng):
         """Sorted partials → chunk (copy of TPUEngine._agg_sorted_to_chunk)."""
@@ -838,13 +1333,13 @@ class TorchEngine:
 
     # --- topn ----------------------------------------------------------------
 
-    def _lower_topn(self, dag: DAGRequest, dev: DeviceBatch, lanes, vocabs, r_conds, unsigned):
+    def _lower_topn(self, dag: DAGRequest, vocabs, dev: DeviceBatch, lanes, r_conds, unsigned, sig):
         """Single-key TopN (ref: tpu_engine.py:1747 _lower_topn): K6 picks
         the k best rows in lax.top_k's order; the host keeps those the
         mask lets through, up to n."""
         by = dag.topn.by
         if len(by) != 1:
-            return self._lower_topn_multi(dag, dev, lanes, vocabs, r_conds, unsigned)
+            return self._lower_topn_multi(dag, vocabs, dev, lanes, r_conds, unsigned, sig)
         e, desc = by[0]
         r_e = self._rewrite(e, vocabs)
         if r_e is None:
@@ -852,7 +1347,7 @@ class TorchEngine:
         n = dag.topn.n
         dlanes = self._device_lanes(lanes, r_conds + [r_e])
 
-        def run():
+        def launch():
             with self.phase("decode"):
                 l = self._decode(dev, dlanes, unsigned)
             with self.phase("expr_eval"):
@@ -862,15 +1357,16 @@ class TorchEngine:
                 # decimals); a uint64 key keeps its bits, as astype(int64)
                 d = datas[0] if kind == "f64" else datas[0].to(torch.int64)
                 idx, ok = self.topk(d.contiguous(), self._valid_arg(v, dev), mask, desc, min(n, dev.padded))
-            with self.phase("d2h"):
-                idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
-            with self.phase("finalize"):
-                idx = idx[ok]  # drop indices pointing at masked rows
-                return dev.batch.to_chunk(dag.scan.col_offsets).take(idx[:n])
+            return [idx, ok]
 
-        return run
+        def finalize(fetched):
+            idx, ok = fetched
+            idx = idx[ok]  # drop indices pointing at masked rows
+            return dev.batch.to_chunk(dag.scan.col_offsets).take(idx[:n])
 
-    def _lower_topn_multi(self, dag: DAGRequest, dev: DeviceBatch, lanes, vocabs, r_conds, unsigned):
+        return self._plan(("topn", repr(r_conds), repr(r_e), desc, n, sig), launch, finalize, dev, lanes)
+
+    def _lower_topn_multi(self, dag: DAGRequest, vocabs, dev: DeviceBatch, lanes, r_conds, unsigned, sig):
         """Multi-key TopN (ref: tpu_engine.py:1796 _lower_topn_multi): K7
         writes the sort operands, K8 sorts every row by them, the first n
         row ids come back with their mask bits."""
@@ -883,7 +1379,7 @@ class TorchEngine:
         n = dag.topn.n
         dlanes = self._device_lanes(lanes, r_conds + [r_e for r_e, _ in r_by])
 
-        def run():
+        def launch():
             with self.phase("decode"):
                 l = self._decode(dev, dlanes, unsigned)
             with self.phase("expr_eval"):
@@ -895,9 +1391,10 @@ class TorchEngine:
                 perm = self.lex_sort_perm(ops)
                 idx = perm[: min(n, dev.padded)].long()
                 ok = ops[0].data[idx] == 0
-            with self.phase("d2h"):
-                idx, ok = idx.cpu().numpy(), ok.cpu().numpy()
-            with self.phase("finalize"):
-                return dev.batch.to_chunk(dag.scan.col_offsets).take(idx[ok][:n])
+            return [idx, ok]
 
-        return run
+        def finalize(fetched):
+            idx, ok = fetched
+            return dev.batch.to_chunk(dag.scan.col_offsets).take(idx[ok][:n])
+
+        return self._plan(("topn_multi", repr(r_conds), repr(r_by), n, sig), launch, finalize, dev, lanes)

@@ -22,6 +22,21 @@
 // output row, grid-stride, consecutive threads on consecutive rows so
 // every load and store coalesces.
 //
+// Task-grid mode (K10's decode, tidb_tpu/copr/tpu_engine.py:1096-1134
+// _vmapped_program with :1065-1094 _narrow_args): one launch decodes the
+// same lane of G tasks of a launch group. A task table of G entries
+// (TaskLane: the payload, the vocab or run ends, the pack base — a launch
+// parameter in the solo mode, per task here — and the task's output
+// row) sits in device memory; the grid's y axis is the task. Each task
+// decodes only its first `width` flattened rows into row g of a [G, width]
+// output. That narrowing is a bound on the row loop and no copy, and it
+// is exact: every later kernel masks with row_valid, and the rows dropped
+// are padding. An rle payload decodes its first `width` rows exactly as it
+// would at full width (run ends are absolute), as _narrow_args passes rle
+// payloads through untouched. The tasks of a group share the codec
+// signature (the program key carries it), so one code and value width
+// holds for the whole table.
+//
 // Plain C interface (built with nvcc, loaded with ctypes): each entry point
 // launches on the given stream, never synchronizes, and returns the
 // cudaError_t of the launch (0 = success) or -1 for an argument it does
@@ -104,7 +119,122 @@ int launch_dict(const void* codes, const void* vocab, int64_t nvocab, int elem_b
   return (int)cudaGetLastError();
 }
 
+// One task's entry of a lane's task table (an int64 [G, 5] tensor on the
+// card, laid out by kernels/grouped.py).
+struct TaskLane {
+  const void* src;  // pack codes / dict codes / rle run values
+  const void* aux;  // dict vocab / inclusive rle run ends (int64); null for pack
+  int64_t naux;     // vocab length / run count
+  int64_t base;     // pack base bits
+  void* out;        // this task's row of the [G, width] output
+};
+
+template <typename C, typename U>
+__global__ void pack_tasks_kernel(const TaskLane* __restrict__ tab, int64_t width) {
+  const TaskLane t = tab[blockIdx.y];
+  const C* __restrict__ codes = (const C*)t.src;
+  U* __restrict__ out = (U*)t.out;
+  const U base = (U)t.base;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < width;
+       i += (int64_t)gridDim.x * blockDim.x)
+    out[i] = (U)codes[i] + base;
+}
+
+template <typename C, typename V>
+__global__ void dict_tasks_kernel(const TaskLane* __restrict__ tab, int64_t width) {
+  const TaskLane t = tab[blockIdx.y];
+  const C* __restrict__ codes = (const C*)t.src;
+  const V* __restrict__ vocab = (const V*)t.aux;
+  V* __restrict__ out = (V*)t.out;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < width;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t c = (int64_t)codes[i];
+    out[i] = vocab[c < t.naux ? c : t.naux - 1];
+  }
+}
+
+template <typename V>
+__global__ void rle_tasks_kernel(const TaskLane* __restrict__ tab, int64_t width) {
+  const TaskLane t = tab[blockIdx.y];
+  const V* __restrict__ vals = (const V*)t.src;
+  const int64_t* __restrict__ ends = (const int64_t*)t.aux;
+  V* __restrict__ out = (V*)t.out;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < width;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t lo = 0, hi = t.naux;
+    while (lo < hi) {
+      int64_t mid = (lo + hi) >> 1;
+      if (ends[mid] > i) hi = mid; else lo = mid + 1;
+    }
+    out[i] = vals[lo < t.naux ? lo : t.naux - 1];
+  }
+}
+
+inline dim3 task_grid(int64_t width, int G) {
+  int64_t b = (width + kThreads - 1) / kThreads;
+  if (b > 65535) b = 65535;  // grid-stride covers the rest
+  return dim3((unsigned)(b < 1 ? 1 : b), (unsigned)G);
+}
+
 }  // namespace
+
+extern "C" int tt_decode_pack_tasks(const void* table, int G, int code_bytes, int out_bytes,
+                                    int64_t width, void* stream) {
+  if (G < 1 || G > 65535) return -1;
+  if (width <= 0) return 0;
+  const TaskLane* t = (const TaskLane*)table;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 g = task_grid(width, G);
+#define PACK(C)                                                                      \
+  if (out_bytes == 8) pack_tasks_kernel<C, uint64_t><<<g, kThreads, 0, s>>>(t, width); \
+  else if (out_bytes == 4) pack_tasks_kernel<C, uint32_t><<<g, kThreads, 0, s>>>(t, width); \
+  else return -1;
+  switch (code_bytes) {
+    case 1: PACK(uint8_t) break;
+    case 2: PACK(uint16_t) break;
+    case 4: PACK(uint32_t) break;
+    default: return -1;
+  }
+#undef PACK
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tt_decode_dict_tasks(const void* table, int G, int code_bytes, int elem_bytes,
+                                    int64_t width, void* stream) {
+  if (G < 1 || G > 65535) return -1;
+  if (width <= 0) return 0;
+  const TaskLane* t = (const TaskLane*)table;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 g = task_grid(width, G);
+#define DICT(C)                                                                      \
+  if (elem_bytes == 8) dict_tasks_kernel<C, uint64_t><<<g, kThreads, 0, s>>>(t, width); \
+  else if (elem_bytes == 4) dict_tasks_kernel<C, uint32_t><<<g, kThreads, 0, s>>>(t, width); \
+  else return -1;
+  switch (code_bytes) {
+    case 1: DICT(uint8_t) break;
+    case 2: DICT(uint16_t) break;
+    case 4: DICT(uint32_t) break;
+    default: return -1;
+  }
+#undef DICT
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tt_decode_rle_tasks(const void* table, int G, int elem_bytes, int64_t width,
+                                   void* stream) {
+  if (G < 1 || G > 65535) return -1;
+  if (width <= 0) return 0;
+  const TaskLane* t = (const TaskLane*)table;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 g = task_grid(width, G);
+  switch (elem_bytes) {
+    case 1: rle_tasks_kernel<uint8_t><<<g, kThreads, 0, s>>>(t, width); break;
+    case 4: rle_tasks_kernel<uint32_t><<<g, kThreads, 0, s>>>(t, width); break;
+    case 8: rle_tasks_kernel<uint64_t><<<g, kThreads, 0, s>>>(t, width); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int tt_decode_pack(const void* codes, int code_bytes, int64_t base_bits,
                               int out_bytes, void* out, int64_t n, void* stream) {

@@ -37,6 +37,11 @@
 // dict-code lane, 1 a valid lane) and writes its outputs (8 or 1 bytes);
 // the interpreter's per-op dispatch is the risk on long programs.
 //
+// Task-grid mode (K10, tidb_tpu/copr/tpu_engine.py:1096-1134): the same
+// program over G tasks of a launch group, one launch; each task's lanes
+// are read through its row of the pointer tables, the first `n` (the
+// group's narrowed width) rows of each.
+//
 // Plain C interface (nvcc + ctypes): kernels/expr_eval.py fills a Params
 // struct; tt_expr_eval launches on the given stream, never synchronizes,
 // and returns the cudaError_t of the launch (0 = success), or -1 for an
@@ -150,8 +155,10 @@ __global__ void expr_eval_kernel(const KParams p) {
   unsigned char* V = reinterpret_cast<unsigned char*>(R + (ll)p.nregs * T);
   Op* sops = reinterpret_cast<Op*>(V + (((ll)p.nregs * T + 15) & ~15LL));
   for (int j = t; j < p.nk; j += T) sk[j] = p.consts[j];
-  for (int j = t; j < p.n_in; j += T) sin[j] = p.ext_in ? p.ext_in[j] : p.in[j];
-  for (int j = t; j < p.n_out; j += T) sout[j] = p.ext_out ? p.ext_out[j] : p.out[j];
+  // the pointer tables: by value, or in device memory as [tasks, n] rows
+  // (a wide program, or the task-grid mode: row blockIdx.y is this task's)
+  for (int j = t; j < p.n_in; j += T) sin[j] = p.ext_in ? p.ext_in[(ll)blockIdx.y * p.n_in + j] : p.in[j];
+  for (int j = t; j < p.n_out; j += T) sout[j] = p.ext_out ? p.ext_out[(ll)blockIdx.y * p.n_out + j] : p.out[j];
   if (p.ops_in_smem)
     for (int j = t; j < p.nops; j += T) sops[j] = p.ops[j];
   __syncthreads();
@@ -277,7 +284,7 @@ struct Params {
   int64_t out_ptrs[MAX_PTRS];
 };
 
-extern "C" int tt_expr_eval(const Params* h, void* stream) {
+static int launch(const Params* h, int tasks, void* stream) {
   if (h->n < 0 || h->nops < 0 || h->nregs < 0 || h->threads < 32 || h->threads > 1024 || h->blocks < 1)
     return -1;
   if ((h->n_in > MAX_PTRS && !h->ext_in) || (h->n_out > MAX_PTRS && !h->ext_out)) return -1;
@@ -307,6 +314,17 @@ extern "C" int tt_expr_eval(const Params* h, void* stream) {
     p.out[j] = j < h->n_out && !h->ext_out ? h->out_ptrs[j] : 0;
   }
   if (h->n == 0) return 0;
-  expr_eval_kernel<<<h->blocks, h->threads, (size_t)h->smem, (cudaStream_t)stream>>>(p);
+  expr_eval_kernel<<<dim3(h->blocks, tasks), h->threads, (size_t)h->smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+extern "C" int tt_expr_eval(const Params* h, void* stream) { return launch(h, 1, stream); }
+
+// K10's task-grid mode (tidb_tpu/copr/tpu_engine.py:1096 _vmapped_program):
+// the same program over the first h->n rows of each of `tasks` tasks. The
+// pointer tables are [tasks, n_in] and [tasks, n_out] in device memory;
+// the grid's y axis is the task.
+extern "C" int tt_expr_eval_tasks(const Params* h, int tasks, void* stream) {
+  if (tasks < 1 || tasks > 65535 || !h->ext_in || !h->ext_out) return -1;
+  return launch(h, tasks, stream);
 }

@@ -48,6 +48,17 @@
 // l_orderkey at 16M rows) atomically updates global memory directly. Warp-level pre-aggregation is left for
 // a later change.
 //
+// Task-grid mode (K10's reduction, tidb_tpu/copr/tpu_engine.py:1096-1134
+// _vmapped_program over the kernel above): one launch reduces G tasks of a
+// launch group, the grid's y axis the task. A task table (TaskAgg: the
+// task's mask, key and lane descriptors and its output slices) sits in
+// device memory; each task reduces its first `width` rows (the group's
+// narrowed width: rows past a task's real rows are masked, so dropping
+// them changes no bit) into its own [k_i, nseg] / [k_f, nseg] slice of
+// the [G, k_i, nseg] / [G, k_f, nseg] outputs. The shared-memory
+// privatisation is per (block, task), with the same merge, and the
+// bitwise ops are the same atomics.
+//
 // Plain C interface (nvcc + ctypes). tt_seg_agg launches an init kernel
 // and the aggregation kernel on the given stream, never synchronizes, and
 // returns the cudaError_t of the launches (0 = success), or -1 for an
@@ -284,6 +295,66 @@ __global__ void seg_agg_global_kernel(const uint8_t* __restrict__ mask, int64_t 
   }
 }
 
+// One task's entry of the task table (kernels/grouped.py lays it out).
+struct TaskAgg {
+  const uint8_t* mask;    // bool [>= width]
+  const int32_t* seg;     // precomputed segment lane, or null (key lanes)
+  const KeyDesc* keys;    // [nkeys]
+  const LaneDesc* lanes;  // [nlanes]
+  int64_t* iout;          // this task's [k_i, nseg] slice
+  double* fout;           // this task's [k_f, nseg] slice
+};
+
+__global__ void init_tasks_kernel(const TaskAgg* __restrict__ tasks, int nlanes, int64_t nseg) {
+  const TaskAgg T = tasks[blockIdx.y];
+  int64_t total = (int64_t)nlanes * nseg;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
+       t += (int64_t)gridDim.x * blockDim.x) {
+    const LaneDesc& L = T.lanes[t / nseg];
+    *out_slot(L, T.iout, T.fout, nseg, t % nseg) = (unsigned long long)L.fill;
+  }
+}
+
+__global__ void seg_agg_tasks_shared_kernel(const TaskAgg* __restrict__ tasks, int64_t width,
+                                            int nkeys, int nlanes, int64_t nseg) {
+  extern __shared__ unsigned long long acc[];
+  const TaskAgg T = tasks[blockIdx.y];
+  int64_t total = (int64_t)nlanes * nseg;
+  for (int64_t t = threadIdx.x; t < total; t += blockDim.x)
+    acc[t] = (unsigned long long)T.lanes[t / nseg].fill;
+  __syncthreads();
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < width;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t seg = row_segment(T.mask, T.seg, T.keys, nkeys, nseg, i);
+    if (seg < 0) continue;
+    fold_row(T.lanes, nlanes, i, width, seg, acc, nseg, T.iout, T.fout);
+  }
+  __syncthreads();
+  for (int64_t t = threadIdx.x; t < total; t += blockDim.x) {
+    const LaneDesc& L = T.lanes[t / nseg];
+    unsigned long long v = acc[t];
+    if (v == (unsigned long long)L.fill) continue;
+    unsigned long long* slot = out_slot(L, T.iout, T.fout, nseg, t % nseg);
+    if (L.op == OP_COUNT)
+      atomicAdd(slot, v);
+    else if (L.op == OP_FIRST_ROW)
+      atomicMin(reinterpret_cast<long long*>(slot), (long long)v);
+    else
+      fold(L.op, slot, (int64_t)v, 0);
+  }
+}
+
+__global__ void seg_agg_tasks_global_kernel(const TaskAgg* __restrict__ tasks, int64_t width,
+                                            int nkeys, int nlanes, int64_t nseg) {
+  const TaskAgg T = tasks[blockIdx.y];
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < width;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t seg = row_segment(T.mask, T.seg, T.keys, nkeys, nseg, i);
+    if (seg < 0) continue;
+    fold_row(T.lanes, nlanes, i, width, seg, nullptr, nseg, T.iout, T.fout);
+  }
+}
+
 }  // namespace
 
 // Largest shared-memory footprint the privatised path uses (the static
@@ -317,6 +388,33 @@ extern "C" int tt_seg_agg(const uint8_t* mask, int64_t n, const int32_t* segs,
     if (row_blocks > ((int64_t)1 << 30)) row_blocks = (int64_t)1 << 30;
     seg_agg_global_kernel<<<(unsigned)row_blocks, kThreads, 0, s>>>(
         mask, n, segs, K, nkeys, L, nlanes, nseg, iout, fout);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tt_seg_agg_tasks(const void* tasks, int G, int64_t width, int nkeys, int nlanes,
+                                int64_t nseg, int n_sms, void* stream) {
+  if (nseg <= 0 || nlanes <= 0 || G < 1 || G > 65535) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const TaskAgg* T = (const TaskAgg*)tasks;
+  int64_t slots = (int64_t)nlanes * nseg;
+  int64_t init_blocks = (slots + kThreads - 1) / kThreads;
+  if (init_blocks > 65535) init_blocks = 65535;
+  init_tasks_kernel<<<dim3((unsigned)init_blocks, (unsigned)G), kThreads, 0, s>>>(T, nlanes, nseg);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || width <= 0) return err;
+  int64_t row_blocks = (width + kThreads - 1) / kThreads;
+  int64_t smem = slots * 8;
+  if (smem <= tt_seg_agg_shared_max_bytes()) {
+    // the solo mode's few blocks per SM, shared out over the tasks
+    int64_t per_task = ((int64_t)(n_sms > 0 ? n_sms : 132) * 8 + G - 1) / G;
+    int64_t blocks = row_blocks < per_task ? row_blocks : per_task;
+    seg_agg_tasks_shared_kernel<<<dim3((unsigned)blocks, (unsigned)G), kThreads, (size_t)smem, s>>>(
+        T, width, nkeys, nlanes, nseg);
+  } else {
+    if (row_blocks > 65535) row_blocks = 65535;
+    seg_agg_tasks_global_kernel<<<dim3((unsigned)row_blocks, (unsigned)G), kThreads, 0, s>>>(
+        T, width, nkeys, nlanes, nseg);
   }
   return (int)cudaGetLastError();
 }

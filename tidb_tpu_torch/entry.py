@@ -21,6 +21,14 @@
   (`mplan.root_step`: the final aggregate, HAVING, the projection and the
   TopN) → the result chunk. `variables` are session variables, such as
   `tidb_tpu_mpp_fused` ("ON" by default).
+* `run_many(pairs, device="cuda", engine=None)`: many (DAG, batch) cop
+  tasks through `TorchEngine.execute_many` → their partial chunks: tasks
+  sharing a program key run as launch groups (K10), and everything comes
+  back with one host synchronization.
+* `run_burst(pairs, device="cuda", engine=None, batcher=None)`: the same
+  tasks from one thread each, released together through a barrier, each
+  calling `LaunchBatcher.execute` (tools/bench_sched.py:_concurrent's
+  shape, `concurrent(fn, pairs)`) → (partial chunks, per-task seconds).
 * `entry(device="cuda")`: the flagship fused cop kernel (M1, TPC-H Q1's
   scan → filter → partial aggregation of one shard) as a function and its
   example lanes at 4096 rows (ref: __graft_entry__.entry).
@@ -45,6 +53,8 @@ import os
 import socket
 import subprocess
 import sys
+import threading
+import time
 from contextlib import nullcontext
 
 import numpy as np
@@ -62,6 +72,7 @@ from .parallel.mpp import MPPEngine
 from .parallel.mesh import build_q1_arrays, distributed_q1_step, hash_repartition, q1_arrays, q1_exact, \
     q1_local_kernel
 from .planner.fragment import MPPPlan
+from .sched.batcher import LaunchBatcher
 from .torchenv import resolve_device
 
 
@@ -143,6 +154,53 @@ def run_mpp(mplan: MPPPlan, tables: dict, device="cuda", engine: MPPEngine | Non
     partial = mpp_gather.gather(mplan, scans, engine, variables)
     with engine._phase("finalize"):
         return mpp_gather.finish(mplan, mplan.root_step, partial)
+
+
+def run_many(pairs: list, device="cuda", engine: TorchEngine | None = None) -> list[Chunk]:
+    """Partial chunks of many (DAG, batch) cop tasks, run as launch groups
+    on one device lane (module doc)."""
+    engine = engine or TorchEngine(device)
+    return engine.execute_many(list(pairs))
+
+
+def concurrent(fn, pairs: list):
+    """fn(dag, batch) for every pair from one thread each, released
+    together through a barrier (tools/bench_sched.py:_concurrent) →
+    (results, seconds per task). A thread's error is raised after every
+    thread has ended."""
+    n = len(pairs)
+    results: list = [None] * n
+    lat = [0.0] * n
+    errors: list = []
+    barrier = threading.Barrier(n) if n else None
+
+    def worker(i, dag, batch):
+        try:
+            barrier.wait()
+            t0 = time.perf_counter()
+            results[i] = fn(dag, batch)
+            lat[i] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i, dag, batch)) for i, (dag, batch) in enumerate(pairs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results, lat
+
+
+def run_burst(pairs: list, device="cuda", engine: TorchEngine | None = None,
+              batcher: LaunchBatcher | None = None):
+    """The tasks submitted at once from one thread each through the launch
+    batcher → (partial chunks, per-task seconds): concurrent compatible
+    tasks coalesce into launch groups of one lane."""
+    engine = engine or TorchEngine(device)
+    batcher = batcher or LaunchBatcher()
+    return concurrent(lambda dag, batch: batcher.execute(engine, dag, batch), pairs)
 
 
 def entry(device="cuda"):

@@ -608,3 +608,59 @@ def evaluate(cache: ProgramCache, conds, values, lanes: dict, mask_in, n: int, *
     if mask and not with_mask:
         m = mask_in
     return m, vals
+
+
+def kernel_tasks():
+    """kernels.expr_eval_tasks's wrapper (K10's task-grid mode), imported
+    at call time like `kernel`; a caller may replace it to observe the
+    launches."""
+    from ..kernels.grouped import expr_eval_tasks
+
+    return expr_eval_tasks
+
+
+def evaluate_tasks(cache: ProgramCache, conds, values, lanes: list, masks_in: list, width: int, *,
+                   force: bool = False):
+    """`evaluate` for the G tasks of a launch group (K10): one program,
+    from the first task's lane kinds (the group's tasks share them: the
+    program key carries every lane's codec and dtype), launched once over
+    every task's first `width` rows. `lanes[g]` and `masks_in[g]` are task
+    g's. → (mask, values): the mask is a [G, width] tensor when the
+    program computes it, else the tasks' `masks_in`; values[g] is task
+    g's list of (flat data lanes, valid lane, kind) per ValueSpec, a
+    computed lane being row g of its [G, width] output and a bare column
+    the task's own lane."""
+    used: set = set()
+    for e in list(conds) + [s.expr for s in values]:
+        e.collect_columns(used)
+    kinds = {i: lane_kind(lanes[0][i][0]) for i in used}
+    with_mask = bool(conds) or force
+    prog = cache.get(list(conds), list(values), kinds, with_mask)
+    outs = None
+    if prog.launches_kernel or force:
+        ins = []
+        for task, mask_in in zip(lanes, masks_in):
+            row = []
+            for key in prog.inputs:
+                if key[0] == "mask_in":
+                    row.append(_flat(mask_in, width))
+                else:
+                    d, v = task[key[1]]
+                    row.append(_flat(d if key[0] == "d" else v, width))
+            ins.append(row)
+        outs = kernel_tasks()(prog, ins, width)
+
+    def per_task(g, task):
+        def data(ref):
+            if ref[0] == "out":
+                t = outs[ref[1]][g]
+                return t.view(torch.float64) if ref[2] else t
+            return _flat(task[ref[1]][0], width)
+
+        def valid(ref):
+            return outs[ref[1]][g] if ref[0] == "out" else task[ref[1]][1]
+
+        return [([data(r) for r in vo.data], valid(vo.valid), vo.kind) for vo in prog.values]
+
+    mask = outs[prog.mask_slot] if prog.mask_slot is not None else list(masks_in)
+    return mask, [per_task(g, task) for g, task in enumerate(lanes)]

@@ -39,6 +39,12 @@ and launch counters.
   M3 hash_repartition (csrc/hash_repartition.cu) ← parallel/mesh.py:104
                                              hash_repartition (its local half;
                                              the all_to_all is torch.distributed)
+  K10 decode_lane_tasks, expr_eval_tasks, seg_agg_tasks (task-grid modes in
+      csrc/decode_lane.cu, csrc/expr_eval.cu, csrc/seg_agg.cu; kernels/grouped.py)
+                                           ← tpu_engine.py:1096-1134
+                                             _vmapped_program + :1065-1094
+                                             _narrow_args (a launch group's
+                                             filter / direct-aggregation program)
 
 Each wrapper runs its plain version for CPU tensors only; on a CUDA
 tensor it launches its kernel (built at first use, kernels/build.py) or
@@ -50,6 +56,7 @@ from .block_topk import block_topk, block_topk_ref
 from .decode_lane import decode_lane, decode_lane_ref
 from .dense_agg import dense_agg, dense_agg_ref
 from .expr_eval import expr_eval, expr_eval_ref
+from .grouped import decode_lane_tasks, expr_eval_tasks, seg_agg_tasks
 from .hash_repartition import hash_repartition, hash_repartition_ref
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
 from .lut_join import lut_join, lut_join_ref
@@ -70,7 +77,9 @@ WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
             "window": window, "pack_flat": pack_flat, "lut_join": lut_join, "run_agg": run_agg,
             "block_topk": block_topk, "sort_join": sort_join, "seg_reduce": seg_reduce,
             "rowpos_agg": rowpos_agg, "dense_agg": dense_agg, "expr_eval": expr_eval,
-            "q1_local": q1_local, "hash_repartition": hash_repartition}
+            "q1_local": q1_local, "hash_repartition": hash_repartition,
+            "decode_lane_tasks": decode_lane_tasks, "expr_eval_tasks": expr_eval_tasks,
+            "seg_agg_tasks": seg_agg_tasks}
 
 
 def reset_launches() -> None:

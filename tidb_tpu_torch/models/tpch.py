@@ -31,6 +31,13 @@
   as its `root_step` (executor/mpp_gather.RootStep);
 * `scalar_revenue_mpp_plan`: the same for SCALAR_REVENUE, a join aggregate
   without GROUP BY (Q14's and Q19's shape: the dense mode with no key).
+* `PT`, `point_agg_table` / `point_agg_dag`: the launch batcher's workload
+  (tools/bench_sched.py): `pt(id INT PRIMARY KEY, v INT, w INT)` cut into
+  one region batch per task's id range, and the DAG the reference pushes
+  for POINT_AGG over one range (the range is the region's span, so the
+  DAG has no selection);
+* `region_batches`: a batch cut at the reference's region split points
+  (storage/txn.py:440 region_split_size, :1600-1608 _auto_split_run).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..catalog.schema import ColumnInfo, TableInfo
+from ..copr.tilecache import ColumnBatch
 from ..copr.dag import AggNode, DAGRequest, ScanNode, SelectionNode, TopNNode
 from ..executor.mpp_gather import RootStep
 from ..expr.aggregation import AggDesc, Frame, WinDesc, agg_ret_type
@@ -498,3 +506,55 @@ def scalar_revenue_mpp_plan() -> MPPPlan:
                                    _date_of(ORDERS.col_by_name("o_orderdate").ft, "1995-03-15"))]
     root = JoinFrag(li, o, "inner", [_jcol(li, "l_orderkey").idx], [_jcol(o, "o_orderkey").idx])
     return MPPPlan(root, [li, o], _agg([], [_revenue(li)]), _out_cols(li, o), root_step=RootStep(proj=[0]))
+
+
+# --- the launch batcher's workload (tools/bench_sched.py) -------------------
+
+POINT_AGG = "SELECT COUNT(*), SUM(v), MIN(v), MAX(w) FROM pt WHERE id >= {lo} AND id < {hi}"
+
+# pt(id INT PRIMARY KEY, v INT, w INT): the clustered INT key is the row
+# handle, so the table has no hidden _tidb_rowid column
+PT = TableInfo(4, "pt", [ColumnInfo(40, "id", FieldType(TypeCode.Long, flag=NOT_NULL_FLAG), 0),
+                         ColumnInfo(41, "v", FieldType(TypeCode.Long), 1),
+                         ColumnInfo(42, "w", FieldType(TypeCode.Long), 2)], pk_is_handle=True)
+
+
+def point_agg_table(n_tasks: int, rows_per_task: int, seed: int = 0) -> list[ColumnBatch]:
+    """The rows tools/bench_sched.py inserts (:99-106: v = id % 997,
+    w = (id * 7) % 131, ids 0 .. n_tasks * rows_per_task - 1), as one
+    ColumnBatch per task's id range [i * rows, (i + 1) * rows) — the
+    region each point aggregation reads. The rows are fixed by the
+    workload; `seed` only orders nothing and is kept for the entry points'
+    uniform signature."""
+    del seed
+    out = []
+    for i in range(n_tasks):
+        ids = np.arange(i * rows_per_task, (i + 1) * rows_per_task, dtype=np.int64)
+        ones = np.ones(len(ids), dtype=bool)
+        out.append(ColumnBatch(PT, ids.copy(), [ids, ids % 997, (ids * 7) % 131], [ones, ones, ones], version=0,
+                               start=int(ids[0]).to_bytes(8, "big"), end=int(ids[-1] + 1).to_bytes(8, "big")))
+    return out
+
+
+def point_agg_dag() -> DAGRequest:
+    """The cop DAG of POINT_AGG over one id range: COUNT(*), SUM(v),
+    MIN(v), MAX(w) over a scan of all three columns."""
+    cols = [Column(c.offset, c.ft, c.name) for c in PT.columns]
+    aggs = [AggDesc.make("count", []), AggDesc.make("sum", [cols[1]]), AggDesc.make("min", [cols[1]]),
+            AggDesc.make("max", [cols[2]])]
+    scan = ScanNode(PT.id, [c.offset for c in PT.columns], [c.ft for c in PT.columns], [c.id for c in PT.columns])
+    return DAGRequest(scan=scan, agg=AggNode([], aggs))
+
+
+def region_batches(batch: ColumnBatch, split: int = 1 << 21) -> list[ColumnBatch]:
+    """`batch` cut into the regions the reference's store splits a bulk
+    ingest into: a cut at every `split`-th row short of the last half
+    region, none below 2 * split rows (_auto_split_run). 16,000,000 rows
+    give 7 regions of 2,097,152 and one of 1,319,936."""
+    n = batch.n_rows
+    cuts = list(range(split, n - split // 2, split)) if n >= 2 * split else []
+    bounds = [0] + cuts + [n]
+    return [ColumnBatch(batch.table, batch.handles[a:b], [d[a:b] for d in batch.data],
+                        [v[a:b] for v in batch.valid], batch.version, start=int(a).to_bytes(8, "big"),
+                        end=int(b).to_bytes(8, "big"))
+            for a, b in zip(bounds, bounds[1:])]
