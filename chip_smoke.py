@@ -37,9 +37,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
               inner and left, two keys, int32 keys, keys at the sort
               sentinel, a capacity below the output; P5 seg_reduce
               (seg_reduce_battery) with overflowing int64, NaN, ±inf and
-              uint64 lanes, one giant run, fewer groups than k; P6
-              rowpos_agg (rowpos_battery) with a dedicated presence lane,
-              fewer matched rows than k, B = 1,000,000; P8 dense_agg
+              uint64 lanes, one giant run, fewer groups than k, and its
+              local and final reduces over n_dev 3, 4 and 8 ranks (every
+              group arriving from n_dev peers); P6 rowpos_agg
+              (rowpos_battery) with a dedicated presence lane, fewer
+              matched rows than k, B = 1,000,000, and its picks from one
+              rank's block of build rows (n_dev 3, 4, 8; the last block
+              ragged); P2 exchange (exchange_battery) at n_dev 2, 3, 4 and
+              8 with negative keys, NULL keys of a probe side, an int32
+              key, most rows masked, one owner past its bucket and 1M
+              rows, 8-, 4- and 1-byte lanes; P8 dense_agg
               (dense_battery) with dict and int keys, keys above 2^31,
               the shared-memory and the global path, and no key; K2/K3
               expr_eval (expr_cases) on identical programs through the
@@ -103,6 +110,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
               engine on the CPU (the plain versions) and to a numpy
               oracle of the query, with the scan / join / aggregation /
               d2h / finalize split and one profiled run's idle share;
+              then main.mpp_mesh: Q3, q3_unfused, q3_top100, seg_revenue
+              and Q18 over make_mesh(4, "cuda") — four ranks sharing the
+              card, collectives through gloo — over the same tables: P2 at
+              every HASH sort-probe level (q3_unfused, Q18) and between
+              P5's reduces, P6's psum_scatter, P8's all-reduce, P7 + P9 per
+              run-aligned shard; every answer equal in order to the
+              one-device chunk, the mode asserted, nothing dropped, P2
+              launched, with cold and warm walls (Q18 one warm run), the
+              collectives' host time, P2's time against its bound and one
+              profiled run's idle share per query;
               then the mesh (main.mesh): entry()'s M1 step on its 4096
               example rows, exact against the plain version and a numpy
               recompute, and dryrun_multichip(1) over the --rows lineitem
@@ -132,7 +149,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
               the nearest single PyTorch call where there is one (W1 also
               per inner kernel, from one profiled call); expr_eval on Q1's,
               Q6's, CHECKSUM's, Q3's and unfused Q3's own programs, K4's
-              bitwise ops on CHECKSUM's lanes, M1 and M3 (their warm
+              bitwise ops on CHECKSUM's lanes, P2 on main.mpp_mesh's
+              largest exchange (the unfused Q3's second level), M1 and M3
+              (their warm
               medians and rows/s) on the mesh phase's lineitem, K10's
               three task modes on the burst's and Q1 regions' own groups
               beside the solo kernels launched G times on the same
@@ -1189,9 +1208,20 @@ def same_dense(got, want, what: str, lanes) -> float:
     return err
 
 
+# P5's local and final reduces over n_dev ranks (the exchange stands in for
+# P2 and the all_to_all: every group arrives from n_dev peers, so the final
+# runs hold n_dev fragments: the doubling's window is n_dev's power of two)
+SEG_REDUCE_MESH_SHAPES = ((1000, "runs", 3), (100_003, "runs", 4), (300_000, "giant_run", 4), (5000, "few_groups", 8))
+# P6's picks from one rank's block of build rows (the collect stands in for
+# psum_scatter / pmin / pmax: the rank's slice of its own partials)
+ROWPOS_MESH_SHAPES = ((5000, 4096, "presence", 4, 1), (20_000, 8192, "few", 3, 2),
+                      (300_000, 1_000_000, "presence", 4, 3), (5000, 4097, "count", 8, 7))
+
+
 def mode_kernel_cases(dev, rng):
     """(name, fn) of every P4 / P5 / P6 / P8 case: kernel against plain
-    version, on the batteries above (the result rows too)."""
+    version, on the batteries above (the result rows too); P5's local and
+    final reduces and P6's block picks of the multi-device modes."""
     import torch
 
     from tidb_tpu_torch.kernels import (dense_agg, dense_agg_ref, rowpos_agg, rowpos_agg_ref, seg_reduce,
@@ -1229,6 +1259,42 @@ def mode_kernel_cases(dev, rng):
             fl = {2 + j for j, ln in enumerate(lanes[ship:]) if ln.is_float}
             return max(err, same_rows(rows[0], rows[1], 1, f"rowpos_agg {case} rows", fl))
         cases.append((f"rowpos_agg n={n} B={B} {case}", p6))
+    for n, case, n_dev in SEG_REDUCE_MESH_SHAPES:
+        args = p5_args(seg_reduce_battery(rng, n, case), dev)
+
+        def p5m(args=args, case=case, n_dev=n_dev):
+            def ex(ukey, uvals, uvalid):  # every group from n_dev peers: final runs of n_dev
+                return ukey.repeat(n_dev), [v.repeat(n_dev) for v in uvals], uvalid.repeat(n_dev)
+
+            nl = len(args[2])
+            kk = min(args[5], n_dev * args[1].shape[0])
+            rows = [torch.zeros((2 + nl, kk + 3), dtype=torch.int64, device=dev) for _ in range(2)]
+            got = seg_reduce(*args, rows=rows[0], exchange=ex, n_dev=n_dev)
+            want = seg_reduce_ref(*args, rows=rows[1], exchange=ex, n_dev=n_dev)
+            err = same_seg_reduce(got, want, f"seg_reduce local+final {case}", args[2])
+            fl = {2 + j for j, ln in enumerate(args[2]) if ln.is_float}
+            return max(err, same_rows(rows[0], rows[1], 1, f"seg_reduce local+final {case} rows", fl))
+        cases.append((f"seg_reduce local+final n={n} n_dev={n_dev} {case}", p5m))
+    for n, B, case, n_dev, rank in ROWPOS_MESH_SHAPES:
+        args = p6_args(rowpos_battery(rng, n, B, case), dev)
+
+        def p6m(args=args, case=case, n_dev=n_dev, rank=rank):
+            from tidb_tpu_torch.kernels.rowpos_agg import picks
+
+            lanes, ship, B = args[3], args[8], args[2]
+            blk = -(-B // n_dev)
+
+            def collect(full, ops):  # rank's block, as the collectives leave it
+                return [f[rank * blk:(rank + 1) * blk] for f in full], rank * blk
+
+            kk = picks(args[7], len(lanes), blk)
+            rows = [torch.zeros((2 + len(lanes) - ship, kk + 2), dtype=torch.int64, device=dev) for _ in range(2)]
+            got = rowpos_agg(*args, rows=rows[0], n_dev=n_dev, collect=collect)
+            want = rowpos_agg_ref(*args, rows=rows[1], n_dev=n_dev, collect=collect)
+            err = same_rowpos(got, want, f"rowpos_agg block picks {case}", lanes)
+            fl = {2 + j for j, ln in enumerate(lanes[ship:]) if ln.is_float}
+            return max(err, same_rows(rows[0], rows[1], 1, f"rowpos_agg block picks {case} rows", fl))
+        cases.append((f"rowpos_agg block picks n={n} B={B} n_dev={n_dev} rank={rank} {case}", p6m))
     for n, case in DENSE_SHAPES:
         args = p8_args(dense_battery(rng, n, case), dev)
 
@@ -1701,6 +1767,66 @@ def mesh_kernel_cases(dev, rng):
     return cases
 
 
+def exchange_battery(rng, n: int, n_dev: int, case: str):
+    """P2 inputs: two key lanes (a wide one with negative keys, both with
+    NULLs), masked rows, lanes of 8, 4 and 1 bytes (a row id lane among
+    them). 'probe' a probe side (a row whose key is NULL owns by its row
+    index); 'i32' an int32 build key (NULL rows' keys wrap); 'masked' most
+    rows masked; 'skew' every key on one owner, past its bucket."""
+    import numpy as np
+
+    k1 = rng.integers(-(1 << 40), 1 << 40, n)
+    k2 = rng.integers(-700, 700, n)
+    v1, v2 = rng.random(n) > 0.1, rng.random(n) > 0.1
+    mask = rng.random(n) > (0.7 if case == "masked" else 0.1)
+    lo, st, key_i32 = -(1 << 20), 1 << 21, case == "i32"
+    if key_i32:
+        lo, st = -5, 3
+        k1 = np.where(v1, rng.integers(-5, 1000, n), k1)
+    if case == "skew":
+        k1, k2, v1, v2 = np.full(n, 3) + n_dev * rng.integers(-50, 50, n), np.zeros(n, np.int64), \
+            np.ones(n, bool), np.ones(n, bool)
+        lo, st = 0, 1
+    lanes = [rng.integers(-(1 << 62), 1 << 62, n), rng.standard_normal(n), rng.random(n) > 0.5,
+             rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32), np.arange(n, dtype=np.int64),
+             rng.random(n) > 0.3]
+    bcap = max(1, n // (4 * n_dev)) if case == "skew" else min(-(-n * 2 // n_dev) + 64, n)
+    return n_dev, bcap, mask, [(k1, v1, lo, st), (k2, v2, 0, 1)], key_i32, case == "probe", lanes
+
+
+EXCHANGE_SHAPES = ((1, 2, "mixed"), (5000, 2, "mixed"), (4097, 3, "probe"), (20_000, 4, "i32"), (20_000, 8, "masked"),
+                   (20_000, 8, "skew"), (100_003, 3, "skew"), (1_000_000, 4, "probe"))
+
+
+def exchange_cases(dev, rng):
+    """(name, fn) of every P2 case: the send buffer and the dropped count
+    against the plain version, bit for bit."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels import exchange, exchange_ref
+    from tidb_tpu_torch.kernels.exchange import OwnerKey
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    for n, n_dev, case in EXCHANGE_SHAPES:
+        n_dev, bcap, mask, keys, key_i32, probe, lanes = exchange_battery(rng, n, n_dev, case)
+        args = (n_dev, bcap, t(mask), [OwnerKey(t(d), t(v), lo, st) for d, v, lo, st in keys], key_i32, probe,
+                [t(x) for x in lanes])
+
+        def p2(args=args, case=case):
+            (gs, gd), (ws, wd) = exchange(*args), exchange_ref(*args)
+            _same(gs, ws, "send buffer")
+            _same(gd, wd, "dropped")
+            if (int(wd[0]) > 0) != (case == "skew"):
+                raise AssertionError(f"{case}: dropped {int(wd[0])}")
+            return 0.0
+        cases.append((f"exchange n={n} n_dev={n_dev} {case}", p2))
+    return cases
+
+
 def check_kernels(dev, rng) -> dict:
     """Every kernel against its plain version on the same tensors. All
     cases run; the failures are raised together at the end."""
@@ -1790,7 +1916,8 @@ def check_kernels(dev, rng) -> dict:
         case(f"pack_flat {cname}", lambda lanes=lanes, cname=cname: _same(
             pack_flat(lanes), pack_flat_ref(lanes), cname))
     for cname, fn in (mpp_kernel_cases(dev, rng) + mode_kernel_cases(dev, rng) + expr_cases(dev, rng)
-                      + bitwise_seg_cases(dev, rng) + mesh_kernel_cases(dev, rng) + grouped_cases(dev, rng)):
+                      + bitwise_seg_cases(dev, rng) + mesh_kernel_cases(dev, rng) + exchange_cases(dev, rng)
+                      + grouped_cases(dev, rng)):
         case(cname, fn)
     if errors:
         raise AssertionError(f"{len(errors)} of {ncase} kernel cases failed:\n" + "\n".join(errors))
@@ -2124,6 +2251,7 @@ def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> 
     t0 = time.perf_counter()
     li, orders, cust = tpch.generated_columns(rows, seed)
     tables = {"lineitem": li, "orders": orders, "customer": cust}
+    out["mpp_tables"], out["mpp_chunks"] = tables, {}
     say("main.mpp_data", rows=rows, orders=len(orders["o_orderkey"]), customers=len(cust["c_custkey"]),
         seed=seed, seconds=time.perf_counter() - t0)
     real = {k: getattr(mp, k) for k in MPP_SPIED}
@@ -2183,6 +2311,7 @@ def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> 
             if diff is not None:
                 raise AssertionError(f"{qname} run {i}: GPU answer differs from the CPU engine's: {diff}\n"
                                      f"gpu: {chunk_rows(res)[:3]}\ncpu: {chunk_rows(cpu)[:3]}")
+        out["mpp_chunks"][qname] = spied
         warm = sorted(runs[1:], key=lambda x: x[0])
         med = warm[len(warm) // 2]
         prof = profiled_run(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables), engine)
@@ -2357,14 +2486,216 @@ def measure_mpp_kernels(main: dict, max_err: dict):
              "rowpos_agg": k6, "dense_agg": k8})
 
 
+# (query of MPP_QUERIES, its aggregation mode, kernels that must launch, its
+# sort-probe levels are HASH): main.mpp_mesh over four ranks on the card
+MESH_RANKS = 4
+MESH_QUERIES = (
+    ("q3_mpp", "clustered", ("lut_join", "run_agg", "block_topk"), False),
+    ("q3_unfused", "sorted", ("exchange", "sort_join", "seg_reduce"), True),
+    ("q3_top100", "rowpos", ("lut_join", "rowpos_agg"), False),
+    ("seg_revenue", "dense", ("lut_join", "dense_agg"), False),
+    ("q18", "rows", ("exchange", "sort_join"), True),
+)
+
+
+class MeshModeSpy:
+    """While active, records what every rank hands P2, P5 and P6 in
+    parallel/mpp_program: calls["exchange"] P2's arguments, and
+    calls["seg_reduce"] / calls["rowpos_agg"] each call's (arguments,
+    keywords, what its exchange / collect returned): the collectives'
+    outputs, so that a replay needs no mesh."""
+
+    def __init__(self):
+        from tidb_tpu_torch.parallel import mpp_program
+
+        self.mp = mpp_program
+        self.calls: dict = {"exchange": [], "seg_reduce": [], "rowpos_agg": []}
+
+    def __enter__(self):
+        mp, calls = self.mp, self.calls
+        real = self.real = {name: getattr(mp, name) for name in calls}
+
+        def exchange(*a, **kw):
+            calls["exchange"].append(a)
+            return real["exchange"](*a, **kw)
+
+        def recorded(name, hook):
+            def spy(*a, **kw):
+                fn, got = kw.get(hook), []
+                if fn is not None:
+                    kw = dict(kw, **{hook: lambda *x: got.append(fn(*x)) or got[-1]})
+                res = real[name](*a, **kw)
+                calls[name].append((a, {k: v for k, v in kw.items() if k != hook}, got[0] if got else None))
+                return res
+            return spy
+        mp.exchange = exchange
+        mp.seg_reduce = recorded("seg_reduce", "exchange")
+        mp.rowpos_agg = recorded("rowpos_agg", "collect")
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.mp, name, fn)
+
+
+def hold_mesh_modes(calls: dict) -> dict:
+    """Every rank's P5 and P6 call of a mesh run (MeshModeSpy.calls)
+    replayed against its plain version on the same inputs, the recorded
+    exchange / collect outputs standing in for the collectives: P5's local
+    reduce (the groups it hands the exchange) and its final reduce, picks
+    and rows; P6's scatter into Bp build rows (the partials it hands the
+    collectives) and its block picks and rows. → the largest float error
+    per kernel."""
+    import torch
+
+    from tidb_tpu_torch.kernels import rowpos_agg, rowpos_agg_ref, seg_reduce, seg_reduce_ref
+
+    err = {"seg_reduce": 0.0, "rowpos_agg": 0.0}
+    for i, (a, kw, out) in enumerate(calls["seg_reduce"]):
+        what, lanes, handed = f"seg_reduce local+final, rank call {i}", a[2], []
+        if out is None:
+            raise AssertionError(f"{what}: no exchange at n_dev {kw['n_dev']}")
+
+        def ex(ukey, uvals, uvalid, out=out, handed=handed):
+            handed.append((ukey, uvalid, uvals))
+            return out
+        rows = [torch.zeros_like(kw["rows"]) for _ in range(2)]
+        got = seg_reduce(*a, rows=rows[0], exchange=ex, n_dev=kw["n_dev"])
+        want = seg_reduce_ref(*a, rows=rows[1], exchange=ex, n_dev=kw["n_dev"])
+        (gk, gv, gt), (wk, wv, wt) = handed
+        _same(gk, wk, f"{what}: local group keys")
+        _same(gv, wv, f"{what}: local group validity")
+        e = max(_same_lane(g, w, f"{what}: local lane {j} ({lanes[j].op})", wv)
+                for j, (g, w) in enumerate(zip(gt, wt)))
+        fl = {2 + j for j, ln in enumerate(lanes) if ln.is_float}
+        err["seg_reduce"] = max(err["seg_reduce"], e, same_seg_reduce(got, want, what, lanes),
+                                same_rows(rows[0], rows[1], 1, f"{what} rows", fl))
+    for i, (a, kw, out) in enumerate(calls["rowpos_agg"]):
+        what, lanes, handed = f"rowpos_agg block picks, rank call {i}", a[3], []
+        if out is None:
+            raise AssertionError(f"{what}: no collect at n_dev {kw['n_dev']}")
+
+        def collect(full, ops, out=out, handed=handed):
+            handed.append(full)
+            return out
+        rows = [torch.zeros_like(kw["rows"]) for _ in range(2)]
+        got = rowpos_agg(*a, rows=rows[0], n_dev=kw["n_dev"], collect=collect)
+        want = rowpos_agg_ref(*a, rows=rows[1], n_dev=kw["n_dev"], collect=collect)
+        e = max(_same_lane(g, w, f"{what}: scattered lane {j} ({lanes[j].op})")
+                for j, (g, w) in enumerate(zip(*handed)))
+        fl = {2 + j for j, ln in enumerate(lanes[a[8]:]) if ln.is_float}
+        err["rowpos_agg"] = max(err["rowpos_agg"], e, same_rowpos(got, want, what, lanes),
+                                same_rows(rows[0], rows[1], 1, f"{what} rows", fl))
+    return err
+
+
+def run_mpp_mesh_path(dev, reps: int, card: str, out: dict) -> None:
+    """main.mpp_mesh: the MPP queries of MESH_QUERIES through run_mpp over
+    make_mesh(4, "cuda") — four ranks sharing the one card, their
+    collectives through gloo — over main.mpp's tables: one cold run and
+    `reps` warm runs each (Q18 one), every answer equal in order to the
+    one-device chunk of main.mpp (held there to the CPU engine and a numpy
+    oracle), the aggregation mode asserted, nothing dropped (no
+    capacity_overflow), P2 launched where a level is HASH; the
+    collectives' host-clock time per run (the slowest rank's) and one
+    profiled run's idle share. What P2, P5 and P6 were handed in one extra
+    untimed run of the unfused Q3 and of Q3 LIMIT 100 (MeshModeSpy) lands
+    in out["captured"]["mpp_mesh"]."""
+    import torch
+
+    from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.entry import run_mpp
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.parallel.mesh import make_mesh
+    from tidb_tpu_torch.parallel.mpp import MPPEngine
+    from tidb_tpu_torch.planner.fragment import HASH
+    from tidb_tpu_torch.torchenv import PhaseTimer
+
+    tables = out["mpp_tables"]
+    specs = {q: (b, v) for q, b, v, _, _ in MPP_QUERIES}
+    mesh = make_mesh(MESH_RANKS, dev)
+    if mesh.n_dev != MESH_RANKS or mesh.backend != "gloo" or len({mesh.device(r) for r in range(MESH_RANKS)}) != 1:
+        raise AssertionError(f"mpp_mesh: {mesh.n_dev} ranks over {mesh.backend}, not four sharing one card")
+    label = f"{MESH_RANKS} ranks sharing one card, collectives through gloo (CUDA tensors staged by gloo via the host)"
+    res_all = out["mpp_mesh"] = {}
+    try:
+        for qname, mode, needs, hashed in MESH_QUERIES:
+            (builder, *bargs), variables = specs[qname]
+            plan = getattr(tpch, builder)(*bargs)
+            engine = MPPEngine(dev)
+
+            def timed():
+                timer = PhaseTimer(engine.device)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = run_mpp(plan, tables, device=dev, engine=engine, timer=timer, variables=variables, mesh=mesh)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t, timer.totals_ms(), max(mesh.collective_s), mesh.collectives[0],
+                        res)
+
+            warm = 1 if qname == "q18" else reps
+            before = K.launches()
+            runs = [timed() for _ in range(warm + 1)]
+            moved = {k: c - before[k] for k, c in K.launches().items()}
+            idle = [k for k in needs if moved[k] == 0]
+            if idle:
+                raise AssertionError(f"mpp_mesh {qname}: kernels {idle} were never launched")
+            if engine.fallbacks:
+                raise AssertionError(f"mpp_mesh {qname}: fallbacks {engine.fallback_counts} (rows dropped?)")
+            prog = next(iter(engine._programs.values()))
+            am = prog.agg_meta
+            got_mode = am["mode"] if am is not None else "rows"
+            exchanges = [lv.frag.exchange for lv in prog.levels.values() if not lv.use_lut]
+            if got_mode != mode or (hashed and (not exchanges or set(exchanges) != {HASH})):
+                raise AssertionError(f"mpp_mesh {qname}: mode {got_mode} (want {mode}), levels {exchanges}")
+            want = out["mpp_chunks"][qname]
+            for i, r in enumerate(runs):
+                diff = chunks_equal(r[4], want)
+                if diff is not None:
+                    raise AssertionError(f"mpp_mesh {qname} run {i}: differs from the one-device chunk: {diff}\n"
+                                         f"mesh: {chunk_rows(r[4])[:3]}\none:  {chunk_rows(want)[:3]}")
+            if qname in ("q3_unfused", "q3_top100"):  # P2's, P5's and P6's inputs, every rank's every call
+                with MeshModeSpy() as spy:
+                    run_mpp(plan, tables, device=dev, engine=engine, variables=variables, mesh=mesh)
+                caught = out["captured"].setdefault("mpp_mesh", {"exchange": [], "seg_reduce": [], "rowpos_agg": []})
+                for k, v in spy.calls.items():
+                    caught[k] += v
+            prof = profiled_run(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables,
+                                                mesh=mesh), engine)
+            w = sorted(runs[1:], key=lambda x: x[0])
+            med = w[len(w) // 2]
+            res_all[qname] = {
+                "ranks": MESH_RANKS, "lineitem_rows": len(tables["lineitem"]["l_orderkey"]),
+                "result_rows": want.num_rows, "cold_s": runs[0][0], "warm_median_s": med[0],
+                "warm_s": [r[0] for r in runs[1:]], "rank0_phases_ms": med[1],
+                "collectives_s": med[2], "collectives_per_rank": med[3], "collectives": label,
+                "launches_per_run": {k: c / (warm + 1) for k, c in moved.items() if c},
+                "agg_mode": got_mode, "levels": [("lut" if lv.use_lut else f"sort mult {lv.mult}", lv.frag.exchange)
+                                                 for lv in prog.levels.values()],
+                "one_device_warm_median_s": out[qname]["warm_median_s"], "dropped": 0,
+                "profiled_run": prof, "card": card,
+            }
+            say(f"main.mpp_mesh.{qname}", **res_all[qname])
+    finally:
+        mesh.close()
+    p2 = exchange_timing(out["captured"]["mpp_mesh"]["exchange"])
+    say("main.mpp_mesh", ranks=MESH_RANKS, collectives=label, queries=sorted(res_all),
+        warm_median_s={q: r["warm_median_s"] for q, r in res_all.items()},
+        cold_s={q: r["cold_s"] for q, r in res_all.items()},
+        collectives_s={q: r["collectives_s"] for q, r in res_all.items()},
+        idle_share={q: r["profiled_run"]["device_idle_share"] for q, r in res_all.items()},
+        exchange_ms=p2["ms"], exchange_bound_ms=p2["bound_ms"], exchange_rows=p2["rows"], card=card)
+
+
 def run_mesh_path(dev, cols: dict, card: str, out: dict) -> None:
     """The mesh entry on the card: entry()'s M1 step on its 4096 example
     rows, held to the plain version and to an exact numpy recompute; then
     dryrun_multichip(1) over the main path's own lineitem columns (M1 and
     the identity all_reduce, checked exact against a numpy recompute of
     all the rows; M3 and the identity all_to_all, which must drop nothing
-    and preserve the payload's sum). M1's and M3's inputs land in
-    out["captured"]["mesh"]."""
+    and preserve the payload's sum); then dryrun_multichip(2), whose stage
+    3 runs TPC-H Q3 over two ranks sharing the card. M1's and M3's inputs
+    (of the n = 1 run) land in out["captured"]["mesh"]."""
     import numpy as np
     import torch
 
@@ -2385,13 +2716,18 @@ def run_mesh_path(dev, cols: dict, card: str, out: dict) -> None:
     res = dryrun_multichip(1, device=dev, columns=cols)
     torch.cuda.synchronize()
     dry_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dryrun_multichip(2, device=dev)  # stages 1-2 in two gloo processes, stage 3 on two ranks on the card
+    torch.cuda.synchronize()
+    dry2_s = time.perf_counter() - t
     moved = {k: c - before[k] for k, c in K.launches().items()}
     idle = [k for k in ("q1_local", "hash_repartition") if moved[k] == 0]
     if idle:
         raise AssertionError(f"mesh: kernels {idle} were never launched")
     out["captured"]["mesh"] = {"spec": res["spec"], "lanes": res["lanes"]}
     out["mesh"] = {"entry_rows": 4096, "entry_counts": got[0].tolist(), "dryrun_rows": res["rows"],
-                   "dryrun_s": dry_s, "counts": res["counts"], "exchange_total": res["exchange_total"],
+                   "dryrun_s": dry_s, "dryrun2_s": dry2_s, "counts": res["counts"],
+                   "exchange_total": res["exchange_total"],
                    "dropped": res["dropped"], "launches": {k: c for k, c in moved.items() if c}, "card": card}
     say("main.mesh", **out["mesh"])
 
@@ -2673,6 +3009,7 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
     out["batch"] = batch
     run_window_path(dev, win_rows, seed, reps, card, out)
     run_mpp_path(dev, q3_rows, seed, reps, card, out)
+    run_mpp_mesh_path(dev, reps, card, out)
     run_mesh_path(dev, cols, card, out)
     run_burst_path(dev, reps, card, out)
     run_q1_regions_path(dev, batch, out["q1_want"], reps, card, out)
@@ -2768,13 +3105,124 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
     say("measure.window", **win_extra)
     mpp, mpp_extra = measure_mpp_kernels(main, max_err)
     say("measure.mpp", **mpp_extra)
+    say("measure.mpp_mesh_modes", **measure_mesh_modes(main, max_err, mpp))
+    p2, p2_extra = measure_exchange(main, max_err)
+    say("measure.exchange", **p2_extra)
     expr, expr_extra = measure_expr_kernels(main, max_err)
     say("measure.expr", **expr_extra)
     mesh, mesh_extra = measure_mesh_kernels(main, max_err)
     say("measure.mesh", **mesh_extra)
     k10, k10_extra = measure_grouped_kernels(main, max_err)
     say("measure.k10", **k10_extra)
-    return entries + new + win + mpp + expr + mesh + k10
+    return entries + new + win + mpp + p2 + expr + mesh + k10
+
+
+def exchange_timing(calls) -> dict:
+    """P2 on the largest of `calls` (main.mpp_mesh's captured exchange
+    arguments): held to its plain version, then timed beside it, its bytes
+    bound (the mask, keys and lanes read once, the send buffer written
+    once) and the nearest PyTorch calls — a stable argsort of the masked
+    owner lane and one gather per lane (never used on the path)."""
+    import torch
+
+    from tidb_tpu_torch.kernels import exchange, exchange_ref
+    from tidb_tpu_torch.kernels.exchange import layout, owner_key_ref
+
+    a = max(calls, key=lambda c: c[2].numel() * len(c[6]))
+    n_dev, bcap, mask, keys, key_i32, probe, lanes = a
+    (gs, gd), (ws, wd) = exchange(*a), exchange_ref(*a)
+    torch.cuda.synchronize()
+    _same(gs, ws, "exchange send buffer on the mesh's unfused Q3")
+    _same(gd, wd, "exchange dropped count on the mesh's unfused Q3")
+    n = mask.numel()
+    _, words = layout(lanes, bcap)
+    nbytes = _nbytes(mask, *_pairs((k.data, k.valid) for k in keys), *lanes) + n_dev * words * 8 + 8
+    own = torch.where(mask, torch.remainder(owner_key_ref(keys, key_i32, probe, n), n_dev), n_dev)
+
+    def library():
+        order = torch.argsort(own, stable=True)
+        return [t[order] for t in lanes]
+
+    return {"ms": time_ms(lambda: exchange(*a)), "plain_ms": time_ms(lambda: exchange_ref(*a), 3),
+            "library_ms": time_ms(library), "library_call": "torch.argsort(stable=True) of the masked owner lane "
+                                                            "and one gather per lane",
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "rows": n, "n_dev": n_dev, "bcap": bcap,
+            "lanes": len(lanes), "keys": len(keys), "probe": probe, "calls_captured": len(calls)}
+
+
+def measure_exchange(main: dict, max_err: dict):
+    """P2 on main.mpp_mesh's own inputs (exchange_timing: the unfused Q3's
+    largest exchange call, one rank's share of a HASH level)."""
+    k2 = exchange_timing(main["captured"]["mpp_mesh"]["exchange"])
+    entry = {"name": "exchange", "route": "cuda", "source": "tidb_tpu_torch/csrc/exchange.cu",
+             "replaces": "tidb_tpu/parallel/mpp.py:1465", "launches": main["launches"]["exchange"],
+             "max_abs_err": max_err["exchange"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+             "bound_ms": k2["bound_ms"], "bound_by": "bytes", "library_ms": k2["library_ms"]}
+    return [entry], {"exchange": k2}
+
+
+def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
+    """P5's local + final reduce and P6's block picks on main.mpp_mesh's own
+    inputs: every rank's call held to its plain version (hold_mesh_modes),
+    then the largest call of each timed beside its plain version, its
+    bytes bound and the nearest PyTorch call, the recorded exchange /
+    collect outputs standing in for the collectives (so the times hold
+    the kernels alone). The times go into the kernels line's seg_reduce
+    and rowpos_agg entries as mesh_ms, mesh_plain_ms, mesh_bound_ms and
+    mesh_library_ms."""
+    import torch
+
+    from tidb_tpu_torch.kernels import rowpos_agg, rowpos_agg_ref, seg_reduce, seg_reduce_ref
+    from tidb_tpu_torch.kernels.rowpos_agg import picks
+    from tidb_tpu_torch.kernels.seg_reduce import I64_MAX, group_code_ref
+
+    calls = main["captured"]["mpp_mesh"]
+    for name, e in hold_mesh_modes(calls).items():
+        max_err[name] = max(max_err[name], e)
+
+    a, kw, out = max(calls["seg_reduce"], key=lambda c: c[0][1].numel())
+    keys, mask, lanes, n_dev = a[0], a[1], a[2], kw["n_dev"]
+    key2, vals2, exm = out
+    n, m, nl = mask.numel(), exm.numel(), len(lanes)
+    kk = min(a[5], m)
+    rows5 = torch.zeros_like(kw["rows"])
+    ex = lambda *x: out  # noqa: E731
+    code = group_code_ref(keys, mask)
+    code2 = torch.where(exm, key2, torch.full((), I64_MAX, dtype=torch.int64, device=exm.device))
+    b5 = (_nbytes(mask, *_pairs((k.data, k.valid) for k in keys), *_pairs((ln.data, ln.valid) for ln in lanes))
+          + n * (8 + 1 + 8 * nl) + _nbytes(key2, exm, *vals2) + 8 * kk * (2 + nl))
+    k5 = {"ms": time_ms(lambda: seg_reduce(*a, rows=rows5, exchange=ex, n_dev=n_dev)),
+          "plain_ms": time_ms(lambda: seg_reduce_ref(*a, rows=rows5, exchange=ex, n_dev=n_dev), 3),
+          "library_ms": time_ms(lambda: (torch.sort(code, stable=True), torch.sort(code2, stable=True))),
+          "library_call": "torch.sort(stable=True) of the local group code and of the exchanged fragments' code",
+          "bytes": b5, "bound_ms": b5 / HBM_BYTES_PER_S * 1e3, "rows": n, "fragments": m, "n_dev": n_dev,
+          "lanes": nl, "k": kk, "calls_held": len(calls["seg_reduce"])}
+
+    a, kw, out = max(calls["rowpos_agg"], key=lambda c: c[0][0].numel())
+    mask, rid, B, lanes, n_dev = a[0], a[1], a[2], a[3], kw["n_dev"]
+    space, blk = -(-B // n_dev) * n_dev, out[0][0].numel()
+    kk = picks(a[7], len(lanes), blk)
+    rows6 = torch.zeros_like(kw["rows"])
+    col = lambda full, ops: out  # noqa: E731
+    b6 = (_nbytes(mask, rid, *_pairs((ln.data, ln.valid) for ln in lanes)) + 8 * space * len(lanes)
+          + _nbytes(*out[0]) + 8 * kk * (2 + len(lanes) - a[8]))
+    seg = torch.where(mask, torch.clip(rid, 0, B - 1), space)
+    sl = lanes[a[5]]
+    val = sl.data if sl.data is not None else torch.ones_like(rid)
+    acc = torch.zeros(space + 1, dtype=val.dtype, device=val.device)
+    k6 = {"ms": time_ms(lambda: rowpos_agg(*a, rows=rows6, n_dev=n_dev, collect=col)),
+          "plain_ms": time_ms(lambda: rowpos_agg_ref(*a, rows=rows6, n_dev=n_dev, collect=col), 3),
+          "library_ms": time_ms(lambda: acc.zero_().index_add_(0, seg, val)),
+          "library_call": "index_add_ of the ORDER BY lane into the Bp build rows",
+          "bytes": b6, "bound_ms": b6 / HBM_BYTES_PER_S * 1e3, "rows": mask.numel(), "B": B, "block": blk,
+          "n_dev": n_dev, "lanes": len(lanes), "k": kk, "calls_held": len(calls["rowpos_agg"])}
+    got = {"seg_reduce": k5, "rowpos_agg": k6}
+    for e in entries:
+        if e["name"] in got:
+            k = got[e["name"]]
+            e.update(max_abs_err=max_err[e["name"]], mesh_ms=k["ms"], mesh_plain_ms=k["plain_ms"],
+                     mesh_bound_ms=k["bound_ms"], mesh_library_ms=k["library_ms"])
+    return got
 
 
 def measure_expr_kernels(main: dict, max_err: dict):

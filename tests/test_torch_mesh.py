@@ -10,7 +10,8 @@ __graft_entry__ on the CPU.
   tests/conftest.py): negative keys, invalid rows, a cap below the
   largest bucket (drops > 0, and the reference's last-writer slot).
 * `entry()`'s step on its example lanes against the reference's.
-* `dryrun_multichip(2)`: two gloo processes, under a timeout.
+* `dryrun_multichip(2, device="cpu")`: two gloo processes, then stage 3's
+  two-rank mesh on the CPU, under a timeout.
 Integers compare exactly.
 """
 
@@ -128,12 +129,13 @@ def test_entry_matches_the_reference_entry():
 
 
 def test_dryrun_multichip_two_gloo_ranks():
-    code = "from tidb_tpu_torch.entry import dryrun_multichip; dryrun_multichip(2, timeout=120)"
+    code = "from tidb_tpu_torch.entry import dryrun_multichip; dryrun_multichip(2, device='cpu', timeout=120)"
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stderr[-2000:]
     lines = res.stdout.splitlines()
     assert "gloo processes on the CPU" in lines[0]
     assert any(line.startswith("dryrun_multichip(2): ok") for line in lines)
+    assert any(line.startswith("dryrun_multichip(2): TPC-H Q3 over a 2-rank mesh ok") for line in lines)
 
 
 def test_dryrun_multichip_one_rank_on_the_cpu():

@@ -1,9 +1,8 @@
 // P6 rowpos_agg: the rowpos MPP aggregation's own steps around K4's
 // scatter and K6's top-k.
 //
-// Replaces rowpos_agg_stage of tidb_tpu/parallel/mpp.py:1788-1848 at
-// n_dev 1 (psum_scatter / pmin / pmax are the identity there). The stage
-// is:
+// Replaces rowpos_agg_stage of tidb_tpu/parallel/mpp.py:1788-1848. The
+// stage at n_dev 1 (where psum_scatter / pmin / pmax are the identity):
 //
 //   tt_rp_seg     seg = clip(rid, 0, B - 1) as int32: the group is the
 //                 build row the join gathered (masked rows are dropped by
@@ -14,9 +13,15 @@
 //                 score = valid ? (desc ? s : -s) : floor (_topk_score
 //                 :1984; floor -INT64_MAX or -inf)
 //   (K6)          kernels/topk: the kk best scores in lax.top_k's order
-//   tt_rp_emit    gidx = valid[idx] ? idx : -1 and, into the rows of the
-//                 packed result, [gidx, valid[idx], lanes[idx]...] (the
-//                 lanes past a dedicated presence lane)
+//   tt_rp_emit    gidx = valid[idx] ? base + idx : -1 and, into the rows
+//                 of the packed result, [gidx, valid[idx], lanes[idx]...]
+//                 (the lanes past a dedicated presence lane)
+//
+// Over n_dev ranks (:1798-1846) K4 scatters into Bp = ceil(B / n_dev) *
+// n_dev rows, the mesh's collectives leave each rank its block of blk =
+// Bp / n_dev rows (psum_scatter of the sums, pmin / pmax then a slice of
+// the min / max lanes: parallel/mesh.py), and the picks entries — score,
+// K6, emit — run over that block with base = axis_index * blk.
 //
 // Bound: bytes. The score pass reads two [B] lanes and writes two; the
 // emit pass touches kk entries per lane. The scatter (K4) dominates.
@@ -72,6 +77,7 @@ struct EmitP {
   int nl;
   const int* idx;
   const uint8_t* valid;
+  ll base;
   ll* gidx;
   ll* rows;  // null: gidx only
   ll row_stride;
@@ -82,7 +88,7 @@ __global__ void emit_kernel(const EmitP p) {
   for (ll t = (ll)blockIdx.x * blockDim.x + threadIdx.x; t < p.kk; t += (ll)gridDim.x * blockDim.x) {
     const ll i = p.idx[t];
     const bool v = p.valid[i] != 0;
-    const ll g = v ? i : -1;
+    const ll g = v ? p.base + i : -1;
     p.gidx[t] = g;
     if (p.rows == nullptr) continue;
     p.rows[t] = g;
@@ -109,19 +115,20 @@ extern "C" int tt_rp_score(const int64_t* w, int nwords, int n_sms, void* stream
   return (int)cudaGetLastError();
 }
 
-// words: kk, nl, idx, valid, gidx, rows (or 0), row_stride, per shipped lane its [B] row
+// words: kk, nl, idx, valid, base, gidx, rows (or 0), row_stride, per shipped lane its [B] row
 extern "C" int tt_rp_emit(const int64_t* w, int nwords, int n_sms, void* stream) {
-  if (nwords < 7) return -1;
+  if (nwords < 8) return -1;
   EmitP p;
   p.kk = w[0];
   p.nl = (int)w[1];
-  if (p.kk < 0 || p.nl < 0 || p.nl > MAXL || nwords != 7 + p.nl) return -1;
+  if (p.kk < 0 || p.nl < 0 || p.nl > MAXL || nwords != 8 + p.nl) return -1;
   p.idx = (const int*)w[2];
   p.valid = (const uint8_t*)w[3];
-  p.gidx = (ll*)w[4];
-  p.rows = (ll*)w[5];
-  p.row_stride = w[6];
-  for (int l = 0; l < p.nl; ++l) p.lane[l] = (const ll*)w[7 + l];
+  p.base = w[4];
+  p.gidx = (ll*)w[5];
+  p.rows = (ll*)w[6];
+  p.row_stride = w[7];
+  for (int l = 0; l < p.nl; ++l) p.lane[l] = (const ll*)w[8 + l];
   if (p.kk == 0) return 0;
   emit_kernel<<<grid_for(p.kk, n_sms), BLOCK, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

@@ -2,9 +2,17 @@
 // rows sorted by a wide group code, validity and top-k score, and the
 // result rows at the k picks.
 //
-// Replaces sorted_agg_stage of tidb_tpu/parallel/mpp.py:1655-1786 at
-// n_dev 1: the group code (:1665-1673), seg_reduce (:1707-1750) and the
-// rows of finish_topk (:1752-1759). The steps:
+// Replaces sorted_agg_stage of tidb_tpu/parallel/mpp.py:1655-1786: the
+// group code (:1665-1673), seg_reduce (:1707-1750) and the rows of
+// finish_topk (:1752-1759). At n_dev 1 one reduce is the final state. Over
+// n_dev ranks (:1765-1786) the same entries run twice: a local reduce of
+// the rank's rows (tt_sr_reduce without a score), then, after P2's
+// exchange of the valid groups (csrc/exchange.cu), a final reduce of the
+// fragments received: tt_sr_code_raw keys them (the exchanged key where
+// the moved mask is set, INT64_MAX elsewhere), each lane reads the
+// neutral of its op off that mask (the reference's _neutral, equal to the
+// sentinel below), a count lane adds its counts, and the runs hold at most
+// n_dev fragments. The steps:
 //
 //   tt_sr_code    code = sum over the keys of kd * stride (int64 wrap),
 //                 kd = ((d - lo) floordiv step + 1) * v for an int key,
@@ -36,11 +44,14 @@
 // differences by rounding only, and write the positive quiet NaN where
 // the reference's NaN may be x86's negative one), min / max signed,
 // unsigned (uint64) or as floats with NaN winning. The reference's
-// distance doubling folds its neutral wherever a step reaches past the
-// run, which leaves every result unchanged except for uint64, where the
-// neutral is 2^63 - 1 (min) / 2^63 (max) in the lane's own dtype: there
-// each total is combined with it once more, unless one run spans all N
-// rows and N is a power of two (then no step reaches past it).
+// distance doubling over runs of at most max_run rows (N for a local
+// reduce, n_dev for the final one) covers the window [i, i + span) of
+// each row i, span the least power of two >= max_run, and folds its
+// neutral wherever that window reaches past i's run or past N. That
+// leaves every result unchanged except for uint64, where the neutral is
+// 2^63 - 1 (min) / 2^63 (max) in the lane's own dtype: there a row's
+// total is combined with it once more unless row i + span - 1 lies in
+// i's run.
 //
 // Bound: bytes. Every lane is gathered through the sort permutation twice
 // (heads, finish); every output is written once.
@@ -64,6 +75,7 @@ constexpr int MAXK = 8;
 struct Params {
   Lanes s;  // key = sk, order = the K8 permutation
   int score_lane, desc;
+  ll span;  // the doubling's window: the least power of two >= max_run
   const ll* code;
   ll* sk;  // scratch: the sorted code
   ull* out[MAXL];
@@ -108,16 +120,20 @@ __global__ void group_code_kernel(const CodeP p) {
   }
 }
 
+__global__ void raw_code_kernel(ll n, const uint8_t* mask, const ll* key, ll* code) {
+  for (ll i = (ll)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (ll)gridDim.x * blockDim.x)
+    code[i] = mask[i] ? key[i] : I64_MAX;
+}
+
 __global__ void gather_kernel(const Params p) {
   for (ll i = (ll)blockIdx.x * blockDim.x + threadIdx.x; i < p.s.n; i += (ll)gridDim.x * blockDim.x)
     p.sk[i] = p.code[p.s.order[i]];
 }
 
-__global__ void finish_kernel(const Params p, int pow2) {
+__global__ void finish_kernel(const Params p) {
   __shared__ SegScan::TempStorage tmp;
   const Lanes& s = p.s;
   const ll tend_full = ((ll)blockIdx.x + 1) * TILE;
-  const bool uquirk = !(pow2 && p.sk[0] == p.sk[s.n - 1]);
   ull sc[ITEMS], cur[ITEMS];
   for (int l = 0; l < s.nl; ++l) {
     const int op = s.op[l];
@@ -129,8 +145,9 @@ __global__ void finish_kernel(const Params p, int pow2) {
       if (is_sum(op)) {
         if (!is_first(s, i)) v = 0ULL;
         else if (op == OP_SUM_F64 && s.poison[l] < i) v = QNAN_BITS;  // a non-finite prefix
-      } else if (uquirk && (op == OP_MIN_U64 || op == OP_MAX_U64)) {
-        v = combine(op, v, null_bits(op));
+      } else if (op == OP_MIN_U64 || op == OP_MAX_U64) {
+        const ll e = i + p.span - 1;
+        if (!(e < s.n && p.sk[e] == p.sk[i])) v = combine(op, v, null_bits(op));
       }
       p.out[l][i] = v;
       if (l == p.score_lane) sc[j] = v;
@@ -144,6 +161,7 @@ __global__ void finish_kernel(const Params p, int pow2) {
     const bool valid = is_first(s, i) && key != I64_MAX;
     p.fvalid[i] = (uint8_t)valid;
     p.fkey[i] = valid ? key : I64_MAX;
+    if (p.score == nullptr) continue;  // a local reduce: no picks
     ull v;
     if (sop == OP_SUM_F64) {
       const double x = f64(sc[j]);
@@ -219,8 +237,16 @@ extern "C" int tt_sr_code(const int64_t* w, int nwords, int n_sms, void* stream)
   return (int)cudaGetLastError();
 }
 
-// words: n, nl, score_lane, desc, code, order, mask, per lane (op, data, valid, out),
-//        fkey, fvalid, score, scratch
+// words: n, mask, key, code
+extern "C" int tt_sr_code_raw(const int64_t* w, int nwords, int n_sms, void* stream) {
+  if (nwords != 4 || w[0] < 1) return -1;
+  raw_code_kernel<<<grid_for(w[0], n_sms), BLOCK, 0, (cudaStream_t)stream>>>(w[0], (const uint8_t*)w[1],
+                                                                             (const ll*)w[2], (ll*)w[3]);
+  return (int)cudaGetLastError();
+}
+
+// words: n, nl, score_lane, desc, span, code, order, mask, per lane (op, data, valid, out),
+//        fkey, fvalid, score (0: none), scratch
 extern "C" int tt_sr_reduce(const int64_t* w, int nwords, int n_sms, void* stream) {
   Words t{w, nwords, 0};
   Params p;
@@ -229,7 +255,10 @@ extern "C" int tt_sr_reduce(const int64_t* w, int nwords, int n_sms, void* strea
   s.nl = (int)t();
   p.score_lane = (int)t();
   p.desc = (int)t();
-  if (s.n < 1 || s.nl < 1 || s.nl > MAXL || p.score_lane < 0 || p.score_lane >= s.nl) return -1;
+  p.span = t();
+  if (s.n < 1 || s.nl < 1 || s.nl > MAXL || p.score_lane < 0 || p.score_lane >= s.nl || p.span < 1 ||
+      (p.span & (p.span - 1)) != 0)
+    return -1;
   p.code = (const ll*)t();
   s.order = (const int*)t();
   s.mask = (const uint8_t*)t();
@@ -255,11 +284,7 @@ extern "C" int tt_sr_reduce(const int64_t* w, int nwords, int n_sms, void* strea
   if (rc) return rc;
   rc = prepare(s, n_sms, st);
   if (rc) return rc;
-  // the reference's doubling folds the uint64 neutral unless one run spans
-  // all n rows (the finish kernel reads it from the sorted code) and n is a
-  // power of two
-  const int pow2 = (s.n & (s.n - 1)) == 0;
-  finish_kernel<<<(unsigned)tiles(s.n), BLOCK, 0, st>>>(p, pow2);
+  finish_kernel<<<(unsigned)tiles(s.n), BLOCK, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 

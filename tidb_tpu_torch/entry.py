@@ -14,10 +14,11 @@
   row order (the reference's WindowExec.next over a TableReaderExec).
   `mode` is the WindowExec engine: 'tpu' runs W1 + W2 on `device` and
   raises on a device error; 'host' is the host oracle.
-* `run_mpp(mplan, tables, device="cuda", variables=None)`: an MPP
-  fragment plan (its join levels, LUT or sort-probe, and its aggregation
-  in the mode the engine chooses, or the joined rows) over the numpy
-  columns of its tables on `device`, then the steps above the gather
+* `run_mpp(mplan, tables, device="cuda", variables=None, mesh=None)`: an
+  MPP fragment plan (its join levels, LUT or sort-probe, and its
+  aggregation in the mode the engine chooses, or the joined rows) over the
+  numpy columns of its tables on `device`, or over the ranks of `mesh`
+  (parallel/mesh.make_mesh(n, device)), then the steps above the gather
   (`mplan.root_step`: the final aggregate, HAVING, the projection and the
   TopN) → the result chunk. `variables` are session variables, such as
   `tidb_tpu_mpp_fused` ("ON" by default).
@@ -41,9 +42,10 @@
   identity collectives, over `columns` (lineitem lanes) when given; n > 1
   starts n gloo processes on the CPU, which run the plain versions (one
   H100 cannot host n NCCL ranks), as the reference re-execs onto a virtual
-  CPU mesh. The reference's stage 3 (TPC-H Q3 as SQL through a Session
-  over the mesh) needs the SQL front door and MPP across devices, which
-  the port does not have yet (ROADMAP).
+  CPU mesh. Stage 3 is the reference's without SQL: TPC-H Q3 from the
+  hand-built models/tpch.q3_mpp_plan through run_mpp over make_mesh(n)
+  (n ranks in this process, sharing `device` once the gloo processes have
+  exited), equal in order to the one-device answer.
 """
 
 from __future__ import annotations
@@ -69,8 +71,8 @@ from .executor import mpp_gather
 from .executor.final_agg import merge_partials, order_by_keys, top_n
 from .executor.window import WindowExec
 from .parallel.mpp import MPPEngine
-from .parallel.mesh import build_q1_arrays, distributed_q1_step, hash_repartition, q1_arrays, q1_exact, \
-    q1_local_kernel
+from .parallel.mesh import build_q1_arrays, distributed_q1_step, hash_repartition, make_mesh, q1_arrays, \
+    q1_exact, q1_local_kernel
 from .planner.fragment import MPPPlan
 from .sched.batcher import LaunchBatcher
 from .torchenv import resolve_device
@@ -140,18 +142,20 @@ def run_window(scan_dag: DAGRequest, spec, batch: ColumnBatch, device="cuda",
 
 
 def run_mpp(mplan: MPPPlan, tables: dict, device="cuda", engine: MPPEngine | None = None,
-            timer=None, variables: dict | None = None) -> Chunk:
+            timer=None, variables: dict | None = None, mesh=None) -> Chunk:
     """Answer one MPP query: `tables` maps each table name to its columns
-    ({column name: numpy lane}). `timer` (a torchenv.PhaseTimer) takes the
-    scan / join (lut_join, sort_join) / aggregation (run_agg and topk,
-    rowpos_agg, seg_reduce, dense_agg) / d2h / finalize spans, and
+    ({column name: numpy lane}); `mesh` (parallel/mesh.make_mesh) runs the
+    plan over its ranks, one rank on `device` without one. `timer` (a
+    torchenv.PhaseTimer) takes rank 0's scan / exchange / join (lut_join,
+    sort_join) / aggregation (run_agg and topk, rowpos_agg, seg_reduce,
+    dense_agg, collectives) spans and the d2h / finalize spans, and
     host_agg where the host aggregates the joined rows; the engine's
     `last_host_s` holds the host-clock seconds of its host analysis and
     uploads."""
     engine = engine or MPPEngine(device)
     engine.timer = timer
     scans = mpp_gather.scan_datas(mplan, tables, engine)
-    partial = mpp_gather.gather(mplan, scans, engine, variables)
+    partial = mpp_gather.gather(mplan, scans, engine, variables, mesh)
     with engine._phase("finalize"):
         return mpp_gather.finish(mplan, mplan.root_step, partial)
 
@@ -266,11 +270,38 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+Q3_DRYRUN_ROWS = 20_000  # the reference's stage 3 (setup_tpch(s, 20_000))
+
+
+def _dryrun_q3(n: int, device) -> int:
+    """Stage 3: TPC-H Q3 over an n-rank mesh on `device` against one
+    device (ref: __graft_entry__.py:124-143) → the answer's row count."""
+    from .models import tpch
+
+    li, orders, cust = tpch.generated_columns(Q3_DRYRUN_ROWS, 42)
+    tables = {"lineitem": li, "orders": orders, "customer": cust}
+    want = run_mpp(tpch.q3_mpp_plan(), tables, device=device).to_pylist()
+    mesh = make_mesh(n, device)
+    try:
+        got = run_mpp(tpch.q3_mpp_plan(), tables, device=device, mesh=mesh).to_pylist()
+    finally:
+        mesh.close()
+    if not want or got != want:
+        raise AssertionError(f"dryrun_multichip({n}): Q3 over {n} ranks differs from one device\n"
+                             f"mesh: {got[:3]}\none:  {want[:3]}")
+    print(f"dryrun_multichip({n}): TPC-H Q3 over a {n}-rank mesh ok — {len(got)} rows, equal to one device",
+          flush=True)
+    return len(got)
+
+
 def dryrun_multichip(n_devices: int, device="cuda", columns=None, timeout: float = 600.0):
     """The distributed dryrun over n ranks (module doc). → rank 0's
-    summary for n = 1; None for n > 1 (the ranks print and check)."""
+    summary for n = 1 (with stage 3's row count, "q3_rows"); None for
+    n > 1 (the ranks print and check)."""
     if n_devices == 1:
-        return _dryrun(1, 0, resolve_device(device), columns)
+        res = _dryrun(1, 0, resolve_device(device), columns)
+        res["q3_rows"] = _dryrun_q3(1, device)
+        return res
     print(f"dryrun_multichip({n_devices}): {n_devices} gloo processes on the CPU, plain versions of M1 and M3",
           flush=True)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -289,4 +320,5 @@ def dryrun_multichip(n_devices: int, device="cuda", columns=None, timeout: float
                 p.wait()
     if any(rcs):
         raise RuntimeError(f"dryrun_multichip({n_devices}): ranks exited {rcs}")
+    _dryrun_q3(n_devices, device)
     return None

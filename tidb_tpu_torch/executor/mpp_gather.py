@@ -7,7 +7,8 @@ above the gather out.
   caller's numpy columns in place of tile-cache batches). The (table,
   version) identity the engine caches under is held per engine: the same
   column arrays keep their version, new arrays get the next one.
-* `gather`: the engine's partial chunk; where the reference's mesh joined
+* `gather`: the engine's partial chunk over a mesh of ranks (one rank by
+  default); where the reference's mesh joined
   the rows but could not aggregate them, the partial aggregation over the
   joined rows (`_host_finish_agg`, mpp_gather.py:368-379, through the
   port's host_engine._exec_agg).
@@ -84,11 +85,12 @@ def scan_datas(mplan: MPPPlan, tables: dict, engine, valid: dict | None = None) 
     return out
 
 
-def gather(mplan: MPPPlan, scans: list, engine, variables: dict | None = None) -> Chunk:
-    """The fragment plan's result: the partial-agg chunk (group keys, then
-    each aggregate's partial columns) when `mplan.agg` is set, else the
-    joined rows."""
-    res = engine.execute(mplan, scans, variables or {})
+def gather(mplan: MPPPlan, scans: list, engine, variables: dict | None = None, mesh=None) -> Chunk:
+    """The fragment plan's result over `mesh` (parallel/mesh.Mesh; None:
+    one rank on the engine's device): the partial-agg chunk (group keys,
+    then each aggregate's partial columns) when `mplan.agg` is set, else
+    the joined rows."""
+    res = engine.execute(mplan, scans, variables or {}, mesh=mesh)
     if res is None:
         raise NotPortedError("mpp_gather.MPPGatherExec host join fallback",
                              f"{engine._decline_key}: {engine.last_fallback_reason}")

@@ -22,11 +22,12 @@ and launch counters.
                                              (non-LUT level) + :1451 pack_keys;
                                              sorts with K8
   P5 seg_reduce      (csrc/seg_reduce.cu)  ← parallel/mpp.py:1655-1786
-                                             sorted_agg_stage at n_dev 1
-                                             (K8 sort, K6 picks)
+                                             sorted_agg_stage (K8 sort, K6 picks;
+                                             its local and final reduces over
+                                             n_dev ranks)
   P6 rowpos_agg      (csrc/rowpos_agg.cu)  ← parallel/mpp.py:1788-1848
-                                             rowpos_agg_stage at n_dev 1
-                                             (K4 scatter, K6 picks)
+                                             rowpos_agg_stage (K4 scatter, K6
+                                             picks; per block over n_dev ranks)
   P7 run_agg         (csrc/run_agg.cu)     ← parallel/mpp.py:1850-1913
                                              clustered_agg_stage (+ :1984
                                              _topk_score)
@@ -39,6 +40,10 @@ and launch counters.
   M3 hash_repartition (csrc/hash_repartition.cu) ← parallel/mesh.py:104
                                              hash_repartition (its local half;
                                              the all_to_all is torch.distributed)
+  P2 exchange        (csrc/exchange.cu)    ← parallel/mpp.py:1465-1514
+                                             exchange_all + :1451 pack_keys (the
+                                             owner buckets; the all_to_all is the
+                                             mesh's, parallel/mesh.py)
   K10 decode_lane_tasks, expr_eval_tasks, seg_agg_tasks (task-grid modes in
       csrc/decode_lane.cu, csrc/expr_eval.cu, csrc/seg_agg.cu; kernels/grouped.py)
                                            ← tpu_engine.py:1096-1134
@@ -55,6 +60,7 @@ those of K4 that reduced a bitwise aggregate).
 from .block_topk import block_topk, block_topk_ref
 from .decode_lane import decode_lane, decode_lane_ref
 from .dense_agg import dense_agg, dense_agg_ref
+from .exchange import exchange, exchange_ref
 from .expr_eval import expr_eval, expr_eval_ref
 from .grouped import decode_lane_tasks, expr_eval_tasks, seg_agg_tasks
 from .hash_repartition import hash_repartition, hash_repartition_ref
@@ -77,7 +83,7 @@ WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
             "window": window, "pack_flat": pack_flat, "lut_join": lut_join, "run_agg": run_agg,
             "block_topk": block_topk, "sort_join": sort_join, "seg_reduce": seg_reduce,
             "rowpos_agg": rowpos_agg, "dense_agg": dense_agg, "expr_eval": expr_eval,
-            "q1_local": q1_local, "hash_repartition": hash_repartition,
+            "q1_local": q1_local, "hash_repartition": hash_repartition, "exchange": exchange,
             "decode_lane_tasks": decode_lane_tasks, "expr_eval_tasks": expr_eval_tasks,
             "seg_agg_tasks": seg_agg_tasks}
 

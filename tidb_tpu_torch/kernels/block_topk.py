@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .build import library
+from .build import count, library
 
 BLK = 1024
 MAX_K = 512  # each merge round keeps at most half of its 1024 entries
@@ -231,7 +231,7 @@ def block_topk(v, k: int, emit: Emit | None = None):
                      + [rows[i].data_ptr() for i in range(rows.shape[0])] + [idx.data_ptr(), vals.data_ptr()],
                      dtype=np.int64)
     merge(cu, cp, k, words)
-    block_topk.launches += 1
+    count(block_topk)
     return vals, idx
 
 

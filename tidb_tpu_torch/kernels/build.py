@@ -30,8 +30,16 @@ ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 last_build: dict = {}  # seconds and ptxas report of the last build in this process
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """wrapper.<attr> += 1 under one lock (a mesh's ranks launch from
+    threads at once)."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def nvcc_path() -> str:

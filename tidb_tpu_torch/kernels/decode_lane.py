@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from .build import library
+from .build import count, library
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -119,7 +119,7 @@ def decode_lane(enc, row_valid: torch.Tensor) -> torch.Tensor:
                                vals.shape[0], out.data_ptr(), n, stream)
     if rc != 0:
         raise RuntimeError(f"decode_lane: kernel launch failed (cudaError {rc})")
-    decode_lane.launches += 1
+    count(decode_lane)
     return out
 
 

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from . import red
-from .build import library
+from .build import count, library
 from .seg_agg import seg_agg
 
 MAX_KEYS, MAX_LANES = 8, 32
@@ -154,7 +154,7 @@ def dense_agg(mask, keys, nseg: int, lanes, rows=None) -> list:
     if rows is None:
         rows = torch.empty((len(lanes), nseg), dtype=torch.int64, device=dev)
     _call("tt_dense_emit", [len(lanes), nseg, rows.data_ptr(), rows.stride(0)] + [t.data_ptr() for t in srcs], dev)
-    dense_agg.launches += 1
+    count(dense_agg)
     return _views(rows, lanes, nseg)
 
 

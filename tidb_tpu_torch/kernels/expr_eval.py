@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..expr.program import DOM_F, DOM_U, DOM_X, OP, SMEM_MAX, Program
-from .build import library
+from .build import count, library
 
 _NAMES = {v: k for k, v in OP.items()}
 _I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
@@ -285,7 +285,7 @@ def expr_eval(prog: Program, ins: list, n: int) -> list:
     rc = _lib().tt_expr_eval(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"expr_eval: kernel launch failed (cudaError {rc})")
-    expr_eval.launches += 1
+    count(expr_eval)
     return outs
 
 

@@ -47,7 +47,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import library
+from .build import count, library
 from .decode_lane import decode_lane_ref
 from .expr_eval import _Params, expr_eval_ref, launch_shape
 from .seg_agg import OPS, SegKey, SegLane, _check, _fill_bits, seg_agg_ref
@@ -165,7 +165,7 @@ def decode_lane_tasks(encs: list, row_valids: list, width: int) -> list:
         raise ValueError(f"decode_lane_tasks: unsupported device {dev}")
     out, go = decode_lane_tasks_prepare(kind, encs, width, dev)
     go()
-    decode_lane_tasks.launches += 1
+    count(decode_lane_tasks)
     return list(out)
 
 
@@ -262,7 +262,7 @@ def expr_eval_tasks(prog, ins: list, width: int) -> list:
     if width == 0:
         return outs
     go()
-    expr_eval_tasks.launches += 1
+    count(expr_eval_tasks)
     return outs
 
 
@@ -350,7 +350,7 @@ def seg_agg_tasks(masks: list, keys: list, lanes: list, nseg: int, width: int):
         raise ValueError(f"seg_agg_tasks: unsupported device {dev}")
     (iout, fout), go = seg_agg_tasks_prepare(masks, keys, lanes, nseg, width, dev)
     go()
-    seg_agg_tasks.launches += 1
+    count(seg_agg_tasks)
     return iout, fout
 
 

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from .build import library
+from .build import count, library
 
 MAX_DEV = 1024
 
@@ -120,7 +120,7 @@ def hash_repartition(keys, payload, valid, n_dev: int, cap: int):
                                  dropped.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hash_repartition: kernel launch failed (cudaError {rc})")
-    hash_repartition.launches += 1
+    count(hash_repartition)
     return buf_k, buf_p, buf_v, dropped
 
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..expr.xp_torch import U64
-from .build import library
+from .build import count, library
 
 KINDS = {"i32": 0, "i64": 1, "u64": 2, "f64": 3}
 _I64_MIN = -(1 << 63)
@@ -171,7 +171,7 @@ def lex_sort_perm(ops) -> torch.Tensor:
     orand = torch.empty(2 * len(ops), dtype=torch.int64, device=dev)
     _raise(lib.tt_lex_orand(desc.data_ptr(), len(ops), n, orand.data_ptr(), n_sms, stream), "orand")
     words = plan_words(orand.cpu().numpy().view(np.uint64))  # the one sync: pass count follows the data
-    lex_sort_perm.launches += 1
+    count(lex_sort_perm)
     if not words or n == 0:  # every operand constant: row order is the sorted order
         return torch.arange(n, dtype=torch.int32, device=dev)
     key_a = torch.empty(n, dtype=torch.int64, device=dev)

@@ -36,7 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import library
+from .build import count, library
 
 _I64 = np.iinfo(np.int64)
 MAX_KEYS, MAX_GATHERS, MAX_COPIES = 4, 32, 8
@@ -147,7 +147,7 @@ def lut_join(keys, lo, size, stride, pmask, lut, bmask, brow, gathers, match_out
                             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lut_join: kernel launch failed (cudaError {rc})")
-    lut_join.launches += 1
+    count(lut_join)
     return match, rowid, out
 
 

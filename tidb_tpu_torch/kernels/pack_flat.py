@@ -22,7 +22,7 @@ import torch
 
 from ..expr.xp_torch import U64
 from ..torchenv import _KIND_BOOL, _KIND_F64, _KIND_I64, _KIND_U64
-from .build import library
+from .build import count, library
 
 # source kinds of csrc/pack_flat.cu's segment table
 _S_B64, _S_I32, _S_F32, _S_BOOL = 0, 1, 2, 3
@@ -123,7 +123,7 @@ def pack_flat(outs) -> torch.Tensor:
                              torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pack_flat: kernel launch failed (cudaError {rc})")
-    pack_flat.launches += 1
+    count(pack_flat)
     return out
 
 

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from .build import library
+from .build import count, library
 
 N_SUMS = 6
 
@@ -93,7 +93,7 @@ def q1_local(nseg: int, cutoff: int, qty, price, disc, tax, rf, ls, ship, row_va
                             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"q1_local: kernel launch failed (cudaError {rc})")
-    q1_local.launches += 1
+    count(q1_local)
     return out
 
 

@@ -157,3 +157,23 @@ def topk_score_ordered(val: torch.Tensor, valid: torch.Tensor, desc: bool, unsig
         floor = torch.full((), -I64_MAX, dtype=torch.int64, device=val.device)
     s = torch.where(valid, val if desc else -val, floor)
     return s ^ I64_MIN if unsigned else s
+
+
+def fold(op: str, parts: torch.Tensor) -> torch.Tensor:
+    """The devices' partials of one lane, [n_dev, ...], combined in device
+    order: the reference's psum / pmin / pmax of the lane (`red`, :1972;
+    psum_scatter and pmin / pmax before a slice, :1798-1846). Sums and
+    counts add (int64 modulo 2^64, float64 left to right), min / max take
+    the unsigned order for a uint64 lane (its int64 bits) and propagate NaN
+    as jnp.minimum / jnp.maximum do; `parts` is float64 for an f64 op, int64
+    otherwise."""
+    if op == "count" or op.startswith("sum"):
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc
+    pick = torch.minimum if op.startswith("min") else torch.maximum
+    acc = ordered(parts[0], op)
+    for p in parts[1:]:
+        acc = pick(acc, ordered(p, op))
+    return ordered(acc, op)

@@ -1,9 +1,10 @@
 """P6: the rowpos MPP aggregation — partials scattered by the group's
 build row, then the k best build rows by the fused ORDER BY aggregate.
 
-Replaces `rowpos_agg_stage` of tidb_tpu/parallel/mpp.py:1788-1848 at
-n_dev 1 (where psum_scatter / pmin / pmax are the identity), with the
-lanes of `_agg_partials` (:2048-2080). The B-wide scatter is K4's
+Replaces `rowpos_agg_stage` of tidb_tpu/parallel/mpp.py:1788-1848, with
+the lanes of `_agg_partials` (:2048-2080): at n_dev 1 (where psum_scatter
+/ pmin / pmax are the identity), and over n_dev ranks, where the
+collectives between the scatter and the picks come from the caller. The B-wide scatter is K4's
 segment-lane mode (kernels/seg_agg.py), whose partials are the
 reference's bit for bit (its NULL rows skipped, where the reference folds
 a sentinel equal to the op's identity; a uint64 min / max lane, whose
@@ -15,7 +16,7 @@ validity and score per build row, and the result rows at the picks.
 reference's jnp code step by step.
 
 `rowpos_agg(mask, rid, nseg, lanes, pres, score_lane, desc, k, ship_from,
-rows=None)`:
+rows=None, n_dev=1, collect=None)`:
 
   * mask  — bool [N], the chain's row mask
   * rid   — int64 [N], the build row id of the group level per row
@@ -29,10 +30,15 @@ rows=None)`:
             presence lane)
   * rows  — optional int64 [2 + len(lanes) - ship_from, W >= kk] rows of
             the packed result: [gidx, valid, lanes...] at the picks
+  * n_dev / collect — over n_dev > 1 ranks the scatter fills Bp =
+            ceil(nseg / n_dev) * n_dev rows, and collect(full, ops) →
+            (the rank's block of every lane, [blk] each; the block's first
+            build row) applies the reference's collectives (psum_scatter,
+            pmin / pmax and a slice); the picks run over that block
   → RowposAgg(idx, gidx, valid, full, score): kk = min(max(k,
-    len(lanes) + 4), nseg) picks in lax.top_k's order, gidx =
-    where(valid[idx], idx, -1), valid = presence > 0 per build row, the
-    [nseg] partial lanes and the top-k score.
+    len(lanes) + 4), rows picked from) picks in lax.top_k's order, gidx =
+    where(valid[idx], base + idx, -1), valid = presence > 0 per build row,
+    the partial lanes picked from and the top-k score.
 
 Integer lanes are bit-exact with the reference; float sums differ by
 summation order (K4 adds with atomics).
@@ -51,7 +57,7 @@ import numpy as np
 import torch
 
 from . import red
-from .build import library
+from .build import count, library
 from .seg_agg import seg_agg
 from .topk import topk, topk_ref
 
@@ -71,17 +77,23 @@ def picks(k: int, n_lanes: int, nseg: int) -> int:
     return min(max(k, n_lanes + 4), nseg)
 
 
-def rowpos_agg_ref(mask, rid, nseg, lanes, pres, score_lane, desc, k, ship_from, rows=None) -> RowposAgg:
+def rowpos_agg_ref(mask, rid, nseg, lanes, pres, score_lane, desc, k, ship_from, rows=None, n_dev=1,
+                   collect=None) -> RowposAgg:
     """Plain PyTorch version: the reference's stage, step by step."""
     dev = mask.device
-    seg = torch.where(mask, torch.clip(rid, 0, nseg - 1), nseg)
-    full = [red.scatter_ref(red.values_ref(ln, mask), seg, nseg, ln.op) for ln in lanes]
+    space = -(-nseg // n_dev) * n_dev
+    seg = torch.where(mask, torch.clip(rid, 0, nseg - 1), space)
+    full = [red.scatter_ref(red.values_ref(ln, mask), seg, space, ln.op) for ln in lanes]
+    base = 0
+    if collect is not None:
+        full, base = collect(full, [ln.op for ln in lanes])
+    blk = full[0].shape[0]
     valid = full[pres] > 0
     score = red.topk_score_ordered(full[score_lane], valid, desc, False)
-    kk = picks(k, len(lanes), nseg)
-    idx, _ = topk_ref(score, None, torch.ones(nseg, dtype=torch.bool, device=dev), True, kk)
+    kk = picks(k, len(lanes), blk)
+    idx, _ = topk_ref(score, None, torch.ones(blk, dtype=torch.bool, device=dev), True, kk)
     i = idx.long()
-    gidx = torch.where(valid[i], i, torch.full((), -1, dtype=torch.int64, device=dev))
+    gidx = torch.where(valid[i], base + i, torch.full((), -1, dtype=torch.int64, device=dev))
     if rows is not None:
         rows[0, :kk] = gidx
         rows[1, :kk] = valid[i].to(torch.int64)
@@ -129,22 +141,23 @@ def _call(fn, words, dev):
 
 
 def rowpos_agg(mask, rid, nseg: int, lanes, pres: int, score_lane: int, desc: bool, k: int, ship_from: int,
-               rows=None) -> RowposAgg:
+               rows=None, n_dev: int = 1, collect=None) -> RowposAgg:
     """The rowpos aggregation and its top-k picks (module doc)."""
     dev = mask.device
     n = _check(mask, rid, nseg, lanes, pres, score_lane, ship_from, k)
     if dev.type == "cpu":
-        return rowpos_agg_ref(mask, rid, nseg, lanes, pres, score_lane, desc, k, ship_from, rows)
+        return rowpos_agg_ref(mask, rid, nseg, lanes, pres, score_lane, desc, k, ship_from, rows, n_dev, collect)
     if dev.type != "cuda":
         raise ValueError(f"rowpos_agg: unsupported device {dev}")
-    if nseg >= 1 << 31:
+    space = -(-nseg // n_dev) * n_dev
+    if space >= 1 << 31:
         raise ValueError(f"rowpos_agg: {nseg} build rows exceed the int32 segment lane")
     for t in [mask, rid] + [t for ln in lanes for t in (ln.data, ln.valid) if t is not None]:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"rowpos_agg: inputs must be contiguous tensors on {dev}")
     seg = torch.empty(n, dtype=torch.int32, device=dev)
     _call("tt_rp_seg", [n, nseg, rid.data_ptr(), seg.data_ptr()], dev)
-    iout, fout = seg_agg(mask, [], [red.seg_lane(ln) for ln in lanes], nseg, seg=seg)
+    iout, fout = seg_agg(mask, [], [red.seg_lane(ln) for ln in lanes], space, seg=seg)
     full, ni, nf = [], 0, 0
     for ln in lanes:
         if ln.is_float:
@@ -153,23 +166,28 @@ def rowpos_agg(mask, rid, nseg: int, lanes, pres: int, score_lane: int, desc: bo
         else:
             full.append(iout[ni])
             ni += 1
-    valid = torch.empty(nseg, dtype=torch.bool, device=dev)
+    base = 0
+    if collect is not None:
+        full, base = collect(full, [ln.op for ln in lanes])
+        full = [f.contiguous() for f in full]
+    blk = full[0].shape[0]
+    valid = torch.empty(blk, dtype=torch.bool, device=dev)
     sc = full[score_lane]
-    score = torch.empty(nseg, dtype=sc.dtype, device=dev)
-    _call("tt_rp_score", [nseg, int(bool(desc)), int(sc.dtype == torch.float64), full[pres].data_ptr(),
+    score = torch.empty(blk, dtype=sc.dtype, device=dev)
+    _call("tt_rp_score", [blk, int(bool(desc)), int(sc.dtype == torch.float64), full[pres].data_ptr(),
                           sc.data_ptr(), valid.data_ptr(), score.data_ptr()], dev)
-    kk = picks(k, len(lanes), nseg)
-    idx, _ = topk(score, None, torch.ones(nseg, dtype=torch.bool, device=dev), True, kk)
+    kk = picks(k, len(lanes), blk)
+    idx, _ = topk(score, None, torch.ones(blk, dtype=torch.bool, device=dev), True, kk)
     gidx = torch.empty(kk, dtype=torch.int64, device=dev)
     shipped = full[ship_from:]
     if rows is not None and (rows.dtype != torch.int64 or rows.dim() != 2 or rows.shape[0] != 2 + len(shipped)
                              or rows.shape[1] < kk or rows.stride(1) != 1):
         raise TypeError(f"rowpos_agg: the result rows are int64 [{2 + len(shipped)}, >= {kk}], rows contiguous")
-    words = [kk, len(shipped), idx.data_ptr(), valid.data_ptr(), gidx.data_ptr(),
+    words = [kk, len(shipped), idx.data_ptr(), valid.data_ptr(), base, gidx.data_ptr(),
              0 if rows is None else rows.data_ptr(), 0 if rows is None else rows.stride(0)]
     words += [f.data_ptr() for f in shipped]
     _call("tt_rp_emit", words, dev)
-    rowpos_agg.launches += 1
+    count(rowpos_agg)
     return RowposAgg(idx, gidx, valid, full, score)
 
 

@@ -39,7 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import library
+from .build import count, library
 
 _I64_MAX = (1 << 63) - 1
 MAX_LANES = 16
@@ -150,7 +150,7 @@ def run_agg(kd, mask, lanes, cnt_lane: int, rid_lane: int, score_lane: int, desc
     rc = lib.tt_run_agg(w.ctypes.data, len(w), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"run_agg: kernel launch failed (cudaError {rc})")
-    run_agg.launches += 1
+    count(run_agg)
     return totals, gpos, valid, score
 
 

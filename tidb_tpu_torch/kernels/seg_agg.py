@@ -46,7 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .build import library
+from .build import count, library
 
 OPS = {
     "count": 0, "sum_i64": 1, "sum_f64": 2,
@@ -233,9 +233,9 @@ def seg_agg(mask: torch.Tensor, keys: list[SegKey], lanes: list[SegLane], nseg: 
     )
     if rc != 0:
         raise RuntimeError(f"seg_agg: kernel launch failed (cudaError {rc})")
-    seg_agg.launches += 1
+    count(seg_agg)
     if any(lane.op in BIT_OPS for lane in lanes):
-        seg_agg.bit_launches += 1
+        count(seg_agg, "bit_launches")
     return iout, fout
 
 

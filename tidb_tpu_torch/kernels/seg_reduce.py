@@ -1,16 +1,18 @@
 """P5: the sorted MPP aggregation — wide group keys reduced in sorted
 runs, then the k best groups by the fused ORDER BY aggregate.
 
-Replaces `sorted_agg_stage` of tidb_tpu/parallel/mpp.py:1655-1786 at
-n_dev 1 (where its exchange is not reached): the gcd-compressed group
-code (:1665-1673), `seg_reduce` (:1707-1750) and `finish_topk`
-(:1752-1759). The CUDA kernels are csrc/seg_reduce.cu (their note gives
+Replaces `sorted_agg_stage` of tidb_tpu/parallel/mpp.py:1655-1786: the
+gcd-compressed group code (:1665-1673), `seg_reduce` (:1707-1750) and
+`finish_topk` (:1752-1759); over n_dev ranks also its local reduce, the
+exchange of whole groups to their owners and the final reduce
+(:1765-1786). The CUDA kernels are csrc/seg_reduce.cu (their note gives
 the steps and the bound); the code is sorted by K8 (kernels/lex_sort.py,
 stable as `jnp.argsort`) and the k best are picked by K6 (kernels/topk.py,
 `lax.top_k`'s order). `seg_reduce_ref` is the plain PyTorch version
 beside them, the reference's jnp code step by step.
 
-`seg_reduce(keys, mask, lanes, score_lane, desc, k, rows=None)`:
+`seg_reduce(keys, mask, lanes, score_lane, desc, k, rows=None,
+exchange=None, n_dev=1)`:
 
   * keys  — [GroupKey(data int64 [N], valid bool [N], lo, step, stride,
             is_int)]: an int key contributes ((d - lo) // step + 1) * v,
@@ -21,11 +23,19 @@ beside them, the reference's jnp code step by step.
   * score_lane / desc / k — the fused ORDER BY lane, its direction, LIMIT
   * rows  — optional int64 [2 + len(lanes), W >= kk] rows of the packed
             result: [fkey, valid, lane...] at the picks are written there
+  * exchange — over n_dev > 1 ranks: fn(ukey, uvals, uvalid) of the local
+            reduce's groups (in sorted order, as below) → (key int64 [M],
+            [lane values [M]], moved mask bool [M]), the fragments this
+            rank owns after P2's exchange (the mesh's all_to_all inside);
+            they are reduced again, keyed where the mask is set and
+            INT64_MAX elsewhere, each lane at its neutral off the mask (a
+            count lane now sums counts), in runs of at most n_dev
   → SegReduce(idx, fkey, fvalid, totals, score), in sorted order: at a
     run's first row the run's totals (sum lanes 0 elsewhere, min / max
     lanes the suffix of the run), fvalid = run start & code != INT64_MAX,
     fkey = where(fvalid, code, INT64_MAX), the top-k score, and idx the
-    kk = min(k, N) picks in lax.top_k's order.
+    kk = min(k, N) picks in lax.top_k's order — of the final reduce (N = M)
+    where there is an exchange.
 
 Integer sums are bit-exact with the reference (modulo 2^64); float sums
 are direct run sums in the kernel and the plain version alike, where the
@@ -36,6 +46,10 @@ reference's difference does (written as the positive quiet NaN; the
 reference's NaN from inf - inf is x86's negative one, which orders
 differently only among NaN scores). Min / max propagate NaN as
 jnp.minimum / jnp.maximum do.
+
+Min / max lanes double their window as the reference's up to the run
+bound (N, or n_dev in the final reduce); a uint64 lane then folds the
+reference's neutral where the window reaches past the run (`span`).
 
 `seg_reduce` takes the plain version only for tensors on the CPU. On a
 CUDA device it launches the kernels or raises; `seg_reduce.launches`
@@ -51,7 +65,7 @@ import numpy as np
 import torch
 
 from . import red
-from .build import library
+from .build import count, library
 from .lex_sort import SortOp, lex_sort_perm
 from .topk import topk, topk_ref
 
@@ -92,9 +106,21 @@ def _shift(a, d, fill):
     return torch.cat([a[d:], torch.full((d,), fill, dtype=a.dtype, device=a.device)])
 
 
-def seg_reduce_ref(keys, mask, lanes, score_lane, desc, k, rows=None) -> SegReduce:
-    """Plain PyTorch version: the reference's stage, step by step."""
-    code = group_code_ref(keys, mask)
+def span(max_run: int) -> int:
+    """The window of the reference's distance doubling over runs of at most
+    max_run rows: the least power of two >= max_run."""
+    return 1 << max(int(max_run) - 1, 0).bit_length()
+
+
+def final_op(op: str) -> str:
+    """A lane's op in the final reduce: a count adds the fragments' counts."""
+    return "sum_i64" if op == "count" else op
+
+
+def _reduce_ref(code, mask, lanes, max_run: int):
+    """(fkey, fvalid, totals) of the rows sorted by `code` (module doc);
+    min / max lanes double their window up to max_run (ref: seg_reduce,
+    :1707-1750)."""
     n = code.shape[0]
     order = torch.sort(code, stable=True).indices
     sk = code[order]
@@ -136,7 +162,7 @@ def seg_reduce_ref(keys, mask, lanes, score_lane, desc, k, rows=None) -> SegRedu
             fill_t = torch.full((), fill, dtype=o.dtype, device=dev)
             pick = torch.minimum if ln.op.startswith("min") else torch.maximum
             d = 1
-            while d < n:
+            while d < max_run:  # max_run <= n
                 same = torch.cat([sk[d:] == sk[:-d], torch.zeros(d, dtype=torch.bool, device=dev)])
                 o = pick(o, torch.where(same, _shift(o, d, fill), fill_t))
                 d *= 2
@@ -144,13 +170,32 @@ def seg_reduce_ref(keys, mask, lanes, score_lane, desc, k, rows=None) -> SegRedu
         totals.append(a)
     fvalid = first & (sk != I64_MAX)
     fkey = torch.where(fvalid, sk, torch.full((), I64_MAX, dtype=torch.int64, device=dev))
+    return fkey, fvalid, totals
+
+
+def _picks_ref(lanes, fkey, fvalid, totals, score_lane, desc, k, rows):
+    n = fkey.shape[0]
     sl = lanes[score_lane]
     score = red.topk_score_ordered(totals[score_lane], fvalid, desc, sl.op.endswith("u64"))
-    kk = min(k, n)
-    pick_idx, _ = topk_ref(score, None, torch.ones(n, dtype=torch.bool, device=dev), True, kk)
+    pick_idx, _ = topk_ref(score, None, torch.ones(n, dtype=torch.bool, device=fkey.device), True, min(k, n))
     if rows is not None:
         emit_ref(rows, pick_idx, fkey, fvalid, totals)
     return SegReduce(pick_idx, fkey, fvalid, totals, score)
+
+
+def seg_reduce_ref(keys, mask, lanes, score_lane, desc, k, rows=None, exchange=None, n_dev: int = 1) -> SegReduce:
+    """Plain PyTorch version: the reference's stage, step by step."""
+    code = group_code_ref(keys, mask)
+    n = code.shape[0]
+    if exchange is None:
+        fkey, fvalid, totals = _reduce_ref(code, mask, lanes, n)
+        return _picks_ref(lanes, fkey, fvalid, totals, score_lane, desc, k, rows)
+    ukey, uvalid, uvals = _reduce_ref(code, mask, lanes, n)
+    key2, vals2, exm = exchange(ukey, uvals, uvalid)
+    code2 = torch.where(exm, key2, torch.full((), I64_MAX, dtype=torch.int64, device=exm.device))
+    lanes2 = [red.RedLane(final_op(ln.op), v) for ln, v in zip(lanes, vals2)]
+    fkey, fvalid, totals = _reduce_ref(code2, exm, lanes2, n_dev)
+    return _picks_ref(lanes2, fkey, fvalid, totals, score_lane, desc, k, rows)
 
 
 def emit_ref(rows, idx, fkey, fvalid, totals) -> None:
@@ -185,7 +230,7 @@ _bound: set = set()
 def _lib():
     lib = library("seg_reduce")
     if "seg_reduce" not in _bound:
-        for fn in ("tt_sr_code", "tt_sr_reduce", "tt_sr_emit"):
+        for fn in ("tt_sr_code", "tt_sr_code_raw", "tt_sr_reduce", "tt_sr_emit"):
             getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             getattr(lib, fn).restype = ctypes.c_int
         lib.tt_sr_scratch_words.argtypes = [ctypes.c_int64, ctypes.c_int]
@@ -216,12 +261,37 @@ def emit(rows, idx, fkey, fvalid, totals) -> None:
     _call("tt_sr_emit", words, dev)
 
 
-def seg_reduce(keys, mask, lanes, score_lane: int, desc: bool, k: int, rows=None) -> SegReduce:
+def _reduce(code, mask, lanes, score_lane: int, desc: bool, max_run: int, with_score: bool):
+    """_reduce_ref on the card (K8 sort, then tt_sr_reduce): (fkey, fvalid,
+    totals, score or None)."""
+    dev = code.device
+    n = code.shape[0]
+    order = lex_sort_perm([SortOp(code, "i64")])
+    totals = [torch.empty(n, dtype=torch.float64 if ln.is_float else torch.int64, device=dev) for ln in lanes]
+    fkey = torch.empty(n, dtype=torch.int64, device=dev)
+    fvalid = torch.empty(n, dtype=torch.bool, device=dev)
+    score = None
+    if with_score:
+        sdt = torch.float64 if lanes[score_lane].is_float else torch.int64
+        score = torch.empty(n, dtype=sdt, device=dev)
+    scratch = torch.empty(_lib().tt_sr_scratch_words(n, len(lanes)), dtype=torch.int64, device=dev)
+    words = [n, len(lanes), score_lane, int(bool(desc)), span(max_run), code.data_ptr(), order.data_ptr(),
+             mask.data_ptr()]
+    for ln, t in zip(lanes, totals):
+        words += [red.OPS[ln.op], 0 if ln.data is None else ln.data.data_ptr(),
+                  0 if ln.valid is None else ln.valid.data_ptr(), t.data_ptr()]
+    words += [fkey.data_ptr(), fvalid.data_ptr(), 0 if score is None else score.data_ptr(), scratch.data_ptr()]
+    _call("tt_sr_reduce", words, dev)
+    return fkey, fvalid, totals, score
+
+
+def seg_reduce(keys, mask, lanes, score_lane: int, desc: bool, k: int, rows=None, exchange=None,
+               n_dev: int = 1) -> SegReduce:
     """The sorted aggregation and its top-k picks (module doc)."""
     dev = mask.device
     n = _check(keys, mask, lanes, score_lane, k)
     if dev.type == "cpu":
-        return seg_reduce_ref(keys, mask, lanes, score_lane, desc, k, rows)
+        return seg_reduce_ref(keys, mask, lanes, score_lane, desc, k, rows, exchange, n_dev)
     if dev.type != "cuda":
         raise ValueError(f"seg_reduce: unsupported device {dev}")
     ts = [mask] + [t for kk in keys for t in (kk.data, kk.valid)]
@@ -234,24 +304,24 @@ def seg_reduce(keys, mask, lanes, score_lane: int, desc: bool, k: int, rows=None
     for kk in keys:
         words += [kk.data.data_ptr(), kk.valid.data_ptr(), kk.lo, kk.step, kk.stride, int(kk.is_int)]
     _call("tt_sr_code", words, dev)
-    order = lex_sort_perm([SortOp(code, "i64")])
-    totals = [torch.empty(n, dtype=torch.float64 if ln.is_float else torch.int64, device=dev) for ln in lanes]
-    fkey = torch.empty(n, dtype=torch.int64, device=dev)
-    fvalid = torch.empty(n, dtype=torch.bool, device=dev)
-    sdt = torch.float64 if lanes[score_lane].is_float else torch.int64
-    score = torch.empty(n, dtype=sdt, device=dev)
-    scratch = torch.empty(_lib().tt_sr_scratch_words(n, len(lanes)), dtype=torch.int64, device=dev)
-    words = [n, len(lanes), score_lane, int(bool(desc)), code.data_ptr(), order.data_ptr(), mask.data_ptr()]
-    for ln, t in zip(lanes, totals):
-        words += [red.OPS[ln.op], 0 if ln.data is None else ln.data.data_ptr(),
-                  0 if ln.valid is None else ln.valid.data_ptr(), t.data_ptr()]
-    words += [fkey.data_ptr(), fvalid.data_ptr(), score.data_ptr(), scratch.data_ptr()]
-    _call("tt_sr_reduce", words, dev)
-    kk = min(k, n)
-    idx, _ = topk(score, None, torch.ones(n, dtype=torch.bool, device=dev), True, kk)
+    if exchange is None:
+        fkey, fvalid, totals, score = _reduce(code, mask, lanes, score_lane, desc, n, True)
+    else:  # the local reduce, P2's exchange of its groups, the final reduce
+        ukey, uvalid, uvals, _ = _reduce(code, mask, lanes, score_lane, desc, n, False)
+        key2, vals2, exm = exchange(ukey, uvals, uvalid)
+        m = exm.shape[0]
+        if key2.shape != (m,) or exm.dtype != torch.bool or len(vals2) != len(lanes):
+            raise TypeError("seg_reduce: the exchange returns (key int64 [M], one lane per lane, bool [M])")
+        lanes = [red.RedLane(final_op(ln.op), v.contiguous()) for ln, v in zip(lanes, vals2)]
+        red.check_lanes(lanes, m, "seg_reduce")
+        code = torch.empty(m, dtype=torch.int64, device=dev)
+        _call("tt_sr_code_raw", [m, exm.data_ptr(), key2.contiguous().data_ptr(), code.data_ptr()], dev)
+        fkey, fvalid, totals, score = _reduce(code, exm, lanes, score_lane, desc, n_dev, True)
+    n_out = fkey.shape[0]
+    idx, _ = topk(score, None, torch.ones(n_out, dtype=torch.bool, device=dev), True, min(k, n_out))
     if rows is not None:
         emit(rows, idx, fkey, fvalid, totals)
-    seg_reduce.launches += 1
+    count(seg_reduce)
     return SegReduce(idx, fkey, fvalid, totals, score)
 
 

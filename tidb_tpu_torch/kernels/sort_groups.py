@@ -41,7 +41,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .build import library
+from .build import count, library
 from .lex_sort import DBL_MIN, KINDS, SortOp, lex_sort_perm, lex_sort_perm_ref, sort_op
 
 _I64_MIN = -(1 << 63)
@@ -178,7 +178,7 @@ def sort_groups(mask: torch.Tensor, keys, cap_of) -> Groups:
     kd = torch.tensor(desc, dtype=torch.int64).to(dev)
     ko = torch.tensor(kops, dtype=torch.int64).to(dev)
     _raise(lib.tt_sg_ops(mask.data_ptr(), n, kd.data_ptr(), len(keys), flag.data_ptr(), n_sms, stream), "ops")
-    sort_groups.launches += 1
+    count(sort_groups)
     perm = lex_sort_perm(ops)
     tiles = lib.tt_sg_tiles(n)
     tilecnt = torch.empty(tiles + 1, dtype=torch.int32, device=dev)

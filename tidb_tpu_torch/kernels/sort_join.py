@@ -46,7 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .build import library
+from .build import count, library
 from .lex_sort import SortOp, lex_sort_perm
 
 I64_MAX = (1 << 63) - 1
@@ -63,9 +63,16 @@ class SortJoin(NamedTuple):
     dropped: torch.Tensor | None
 
 
-def capacity(rows: int, B: int, expected_out: int | None, left: bool) -> int:
-    """Output slots of a duplicate-key level at n_dev 1 (ref: :1601-1611)."""
-    C = 2 * max(rows, B) + 64 if expected_out is None else expected_out + 64
+def capacity(rows: int, B: int, expected_out: int | None, left: bool, n_dev: int = 1) -> int:
+    """Output slots of a duplicate-key level (ref: :1601-1611): the exact
+    bound at n_dev 1, else a per-device share with 2x skew slack; `rows`
+    and `B` are the level's probe and build rows on this device."""
+    if expected_out is None:
+        C = 2 * max(rows, B) + 64
+    elif n_dev == 1:
+        C = expected_out + 64
+    else:
+        C = min(2 * (expected_out // n_dev) + 64 + rows, 2 * max(rows, B) + 64)
     return C + rows if left else C
 
 
@@ -260,7 +267,7 @@ def sort_join(pkeys, bkeys, lo, stride, key_i32, pmask, bmask, brow, mult, left,
                 raise TypeError(f"sort_join: a copied row-id row is int64 [{n}]")
             words += [s.data_ptr(), t.data_ptr()]
         _call("tt_sj_probe1", words, dev)
-        sort_join.launches += 1
+        count(sort_join)
         return SortJoin(mask, rowid, gathered, list(probe_lanes), list(prows), None)
     cnt = torch.empty(n, dtype=torch.int32, device=dev)
     lft = torch.empty(n, dtype=torch.int64, device=dev)
@@ -284,7 +291,7 @@ def sort_join(pkeys, bkeys, lo, stride, key_i32, pmask, bmask, brow, mult, left,
         words += [s.data_ptr(), t.data_ptr()]
     words += [mask.data_ptr(), rowid.data_ptr()]
     _call("tt_sj_expand", words, dev)
-    sort_join.launches += 1
+    count(sort_join)
     return SortJoin(mask, rowid, gathered, plan, prow_out, scal[1:2])
 
 

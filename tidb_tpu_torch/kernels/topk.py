@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from .build import library
+from .build import count, library
 from .lex_sort import SortOp, lex_sort_perm
 
 _I64_MIN = -(1 << 63)
@@ -125,7 +125,7 @@ def topk(data: torch.Tensor, valid: torch.Tensor | None, mask: torch.Tensor, des
     )
     if rc != 0:
         raise RuntimeError(f"topk: kernel launch failed (cudaError {rc})")
-    topk.launches += 1
+    count(topk)
     # (u desc, row asc): ~u ascends as u descends; the row breaks ties
     perm = lex_sort_perm([SortOp(~U[cand.long()], "u64"), SortOp(cand, "i32")])
     idx = cand[perm.long()]

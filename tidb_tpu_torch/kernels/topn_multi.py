@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from .build import library
+from .build import count, library
 from .lex_sort import KINDS, SortOp, sort_op
 
 
@@ -101,7 +101,7 @@ def topn_multi_ops(mask: torch.Tensor, keys) -> list[SortOp]:
     )
     if rc != 0:
         raise RuntimeError(f"topn_multi: kernel launch failed (cudaError {rc})")
-    topn_multi_ops.launches += 1
+    count(topn_multi_ops)
     return ops
 
 

@@ -56,7 +56,7 @@ from contextlib import nullcontext
 import torch
 
 from ..expr.xp_torch import U64
-from .build import library
+from .build import count, library
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
 
 _I64_MIN = -(1 << 63)
@@ -455,7 +455,7 @@ def _window_cuda(words, fargs, spec, range_key, phase) -> list:
         perm = lex_sort_perm(_words_ops(words))
     with phase("window"):
         outs = _cuda_body(words, fargs, funcspecs, framespecs, range_key, perm, npw, P, dev)
-    window.launches += 1
+    count(window)
     return outs
 
 

@@ -1,8 +1,14 @@
 """MPP engine, host half (ref: tidb_tpu/parallel/mpp.py MPPEngine).
 
 The reference compiles a fragment plan (planner/fragment.py) into one SPMD
-program over a device mesh. The port runs on one H100, so n_dev is 1 and
-every exchange and collective of that program is the identity
+program over a device mesh. The port keeps its single controller: one
+engine runs the host half once, lays out every scan per rank of a
+parallel/mesh.Mesh (a sharded scan's block to each rank, a replicated
+scan and every LUT whole), runs one MPPProgram per rank on the mesh's
+threads, and assembles the ranks' packed results as the reference's
+out_specs do (dense: rank 0's, replicated by its psum; every other mode
+concatenated along dim 1 in rank order, `P(None, axis)`). Without a mesh
+it runs on one rank, where every exchange and collective is the identity
 (mpp.py:1478-1481, :1810-1812). This module is the host half, copied:
 
 * `ScanData` and `_Level`; `prepare` with `_restream_largest`, the
@@ -12,9 +18,11 @@ every exchange and collective of that program is the identity
 * the stat caches, `_pushed_selection` (the stream's pushed conditions
   resolved on the host; the device sees only the survivors),
   `_clustered_splits`, `_shard_pad`, `_build_lut`, `_pack_host`;
-* `execute`: the lane layout and uploads, through a device-tensor cache
-  (`_dev_put`) and a LUT cache keyed like the reference's BuildSideCache
-  sig, so a warm run uploads nothing; then the device program and the
+* `execute`: the lane layout (padded to a multiple of n_dev rows, or cut
+  at `_clustered_splits`) and uploads, through a device-tensor cache
+  (`_dev_put`; ranks sharing a device take views of one upload) and a LUT
+  cache keyed like the reference's BuildSideCache sig, so a warm run
+  uploads nothing; then the device program on every rank and the
   finalizers `_finalize_agg` / `_finalize_topk` / `_finalize_rowpos` /
   `_finalize_rows` / `_partial_agg_cols`;
 * `fallbacks`, `fallback_counts`, `last_fallback_reason`, `_decline_key`,
@@ -26,10 +34,11 @@ the reference — LUT (P3) and sort-probe (P4) with unique or duplicate
 build keys, inner and left — and every aggregation mode: dense (P8),
 sorted (P5), rowpos (P6, also where the clustered guards demote),
 clustered (P7 + P9) and rows (the joined mask and row ids; the host
-finishes the aggregation), with `tidb_tpu_mpp_fused` ON or OFF. At n_dev 1
-P2's hash exchange is the identity; more devices raise NotPortedError.
-Where the reference's `prepare` declines (returns None), or a duplicate-key
-level overflows its capacity, `execute` counts the same typed reason and
+finishes the aggregation), with `tidb_tpu_mpp_fused` ON or OFF, and P2's
+hash exchange at the HASH levels over more than one rank. Where the
+reference's `prepare` declines (returns None), or an exchange bucket or a
+duplicate-key level overflows its capacity, `execute` counts the same
+typed reason and
 returns None (the reference then takes its host join, which the port has
 not: executor/mpp_gather raises).
 """
@@ -49,11 +58,11 @@ from ..expr.program import evaluate
 from ..expr.xp_torch import U64
 from ..planner.fragment import BROADCAST, HASH, LOCAL, JoinFrag, MPPPlan, ScanFrag
 from ..torchenv import resolve_device, unpack_rows
+from .mesh import make_mesh
 from .mpp_program import MPPProgram
 
 I64_MAX = np.iinfo(np.int64).max
 DIRECT_GROUP_MAX = 1 << 16
-N_DEV = 1  # one card: the mesh of the reference has one device
 
 
 class ScanData:
@@ -125,9 +134,9 @@ class _Level:
 
 
 class MPPEngine:
-    """The port's MPP engine on one device (ref: MPPEngine). `device`
-    defaults to "cuda" and is never swapped for the CPU on the engine's
-    own initiative."""
+    """The port's MPP engine (ref: MPPEngine): `device` is where it runs
+    without a mesh; it defaults to "cuda" and is never swapped for the CPU
+    on the engine's own initiative."""
 
     DEV_CACHE_BYTES = 4 << 30  # device-tensor cache budget
     STAT_CACHE_BYTES = 1 << 30
@@ -289,12 +298,13 @@ class MPPEngine:
 
         return self._cached_stat(sd, ("pushsel", repr(rc)), compute)
 
-    def _dev_put(self, key, build):
-        """Device tensor for `key`, uploading build() on a miss; stale
-        versions of the same (table, tag) are evicted, the rest LRU under
-        DEV_CACHE_BYTES (ref: :371)."""
+    def _dev_put(self, key, build, device=None):
+        """Device tensor for `key`, uploading build() to `device` (the
+        engine's by default) on a miss; stale versions of the same (table,
+        tag) are evicted, the rest LRU under DEV_CACHE_BYTES (ref: :371)."""
+        device = self.device if device is None else device
         if key is None:
-            arr = _upload(build(), self.device)
+            arr = _upload(build(), device)
             self.last_h2d_bytes += _nbytes(arr)
             return arr
         hit = self._dev_cache.get(key)
@@ -304,7 +314,7 @@ class MPPEngine:
         tid, ver, tag = key[0], key[1], key[2]
         for k in [k for k in self._dev_cache if k[0] == tid and k[2] == tag and k[1] != ver]:
             self._dev_cache_nbytes -= _nbytes(self._dev_cache.pop(k))
-        arr = _upload(build(), self.device)
+        arr = _upload(build(), device)
         self.last_h2d_bytes += _nbytes(arr)
         self._dev_cache[key] = arr
         self._dev_cache_nbytes += _nbytes(arr)
@@ -821,11 +831,13 @@ class MPPEngine:
 
     # ------------------------------------------------------------- dispatch
 
-    def execute(self, mplan: MPPPlan, scans: list[ScanData], variables: dict, fused: bool | None = None):
-        """Run the fragment plan → (Chunk, agg_done): the partial-agg
-        chunk (clustered mode, agg_done True) or the joined rows (rows
-        mode; agg_done False when an aggregation is left to the host), or
-        None when the plan declines (the typed reason is counted)."""
+    def execute(self, mplan: MPPPlan, scans: list[ScanData], variables: dict, fused: bool | None = None,
+                mesh=None):
+        """Run the fragment plan over `mesh` (None: one rank on the
+        engine's device) → (Chunk, agg_done): the partial-agg chunk
+        (agg_done True) or the joined rows (rows mode; agg_done False when
+        an aggregation is left to the host), or None when the plan
+        declines (the typed reason is counted)."""
         self.last_fallback_reason = ""
         self._decline_key = "not_supported"
         self.last_host_s = {}
@@ -848,7 +860,32 @@ class MPPEngine:
         else:
             outcome = "unfused"
         self.last_fuse_outcome = outcome
-        n_dev = N_DEV
+        if mesh is None:
+            mesh = make_mesh(1, self.device)
+        n_dev = mesh.n_dev
+        devs = [mesh.device(r) for r in range(n_dev)]
+        one_device = all(d == devs[0] for d in devs)
+
+        def put(key, build, per=None):
+            """One tensor per rank: the rank's block of `per` rows of a
+            sharded lane, a replicated one whole; ranks sharing a device
+            take views of one upload, a rank on its own card its own."""
+            def block(t, r):
+                return t if per is None else t[r * per:(r + 1) * per]
+
+            if one_device:
+                t = self._dev_put(key, build, devs[0])
+                return [block(t, r) for r in range(n_dev)]
+            host = []
+
+            def built():
+                if not host:
+                    host.append(build())
+                return host[0]
+
+            return [self._dev_put(None if key is None else key + (str(d),),
+                                  lambda r=r: block(built(), r), d) for r, d in enumerate(devs)]
+
         soj = meta["scan_of_joined"]
         stream = self._stream_source(mplan.root)
         # which scans are sharded: the stream source + hash-side builds
@@ -902,9 +939,10 @@ class MPPEngine:
                 c.collect_columns(need_cond[id(s)])
 
         # flatten args per scan (mplan.scans order): rowid, row_valid, then
-        # (data, valid) per needed offset; a prefiltered stream uploads only
-        # the survivors of its pushed conditions
-        args, scan_arg_meta, shapes = [], [], []
+        # (data, valid) per needed offset, a list per rank; a prefiltered
+        # stream uploads only the survivors of its pushed conditions
+        args: list[list] = [[] for _ in range(n_dev)]
+        scan_arg_meta, shapes = [], []
         t_prep = time.perf_counter() - t0
         t_h2d = 0.0
         for s in scans:
@@ -921,6 +959,8 @@ class MPPEngine:
             ver = s.version
             h = hashlib.sha256(repr(rc).encode()).hexdigest()[:12] if pref else ""
             if agm is not None and agm["mode"] == "clustered" and s.frag is stream:
+                # the stream laid out shard by shard at run-aligned splits:
+                # no group straddles two ranks
                 koff = soj[agm["rp_ck"]][1]
                 splits, L, _ = self._clustered_splits(s, koff, h, n_dev, sel)
                 total = n_dev * L
@@ -950,51 +990,62 @@ class MPPEngine:
             def ck(tag, _tid=tid, _ver=ver, _tot=total, _sh=is_sharded):
                 return None if _ver < 0 else (_tid, _ver, tag, _tot, _sh)
 
+            per = total // n_dev if is_sharded else None
             t_prep += time.perf_counter() - t1
             t1 = time.perf_counter()
+            lanes = []
             if pref:
-                args.append(self._dev_put(ck(tg(("frowid", h))), lambda: lay(sel)))
+                lanes.append(put(ck(tg(("frowid", h))), lambda: lay(sel), per))
             else:
-                args.append(self._dev_put(ck(tg("rowid")), lambda: lay(np.arange(n, dtype=np.int64))))
-            args.append(self._dev_put(ck(tg(("frv", h) if pref else "rv")), _rv))
+                lanes.append(put(ck(tg("rowid")), lambda: lay(np.arange(n, dtype=np.int64)), per))
+            lanes.append(put(ck(tg(("frv", h) if pref else "rv")), _rv, per))
             for off in offs:
                 if pref:
-                    args.append(self._dev_put(ck(tg(("fd", off, h))), lambda _o=off: lay(s.lane(_o)[0][sel])))
-                    args.append(self._dev_put(ck(tg(("fv", off, h))), lambda _o=off: lay(s.lane(_o)[1][sel])))
+                    lanes.append(put(ck(tg(("fd", off, h))), lambda _o=off: lay(s.lane(_o)[0][sel]), per))
+                    lanes.append(put(ck(tg(("fv", off, h))), lambda _o=off: lay(s.lane(_o)[1][sel]), per))
                 else:
-                    args.append(self._dev_put(ck(tg(("d", off))), lambda _o=off: lay(s.lane(_o)[0])))
-                    args.append(self._dev_put(ck(tg(("v", off))), lambda _o=off: lay(s.lane(_o)[1])))
+                    lanes.append(put(ck(tg(("d", off))), lambda _o=off: lay(s.lane(_o)[0]), per))
+                    lanes.append(put(ck(tg(("v", off))), lambda _o=off: lay(s.lane(_o)[1]), per))
+            for r in range(n_dev):
+                args[r] += [lane[r] for lane in lanes]
             t_h2d += time.perf_counter() - t1
             unsigned = {off for off in offs if s.lane(off)[0].dtype == np.uint64}
             scan_arg_meta.append((id(s.frag), offs, is_sharded, pref, unsigned))
             shapes.append((total, is_sharded, offs, pref))
 
-        # LUT levels: the device-resident build structure, after every
-        # scan's lanes, cached under the reference's BuildSideCache sig
+        # LUT levels: the device-resident build structure, replicated, after
+        # every scan's lanes, cached under the reference's BuildSideCache sig
         by_frag = {id(s.frag): s for s in scans}
-        lut_args = {}
+        lut_args: list[dict] = [{} for _ in range(n_dev)]
         for lvl in (l for l in lvls if l.use_lut):
             bsd = by_frag[id(lvl.frag.build)]
             boffs = tuple(soj[bk][1] for bk in lvl.frag.build_keys)
             sig = ("lut", bsd.version, boffs, tuple(lvl.lut_lo), tuple(lvl.lut_stride), lvl.lut_dom)
             key = (bsd.frag.ds.table.id, sig) if bsd.version >= 0 else None
-            lut = self._lut_cache.get(key) if key is not None else None
-            if lut is None:
-                t1 = time.perf_counter()
-                host = self._build_lut(lvl, soj)
-                t_prep += time.perf_counter() - t1
-                t1 = time.perf_counter()
-                lut = _upload(host, self.device)
-                self.last_h2d_bytes += _nbytes(lut)
-                t_h2d += time.perf_counter() - t1
-                if key is not None:
-                    for k in [k for k in self._lut_cache if k[0] == key[0] and k[1][2:] == sig[2:]]:
-                        del self._lut_cache[k]  # an older version of the same structure
-                    self._lut_cache[key] = lut
-            lut_args[id(lvl.frag)] = lut
-        if self.device.type == "cuda":
+            per_dev = {}
+            for d in dict.fromkeys(devs):
+                dkey = None if key is None else key + (str(d),)
+                lut = self._lut_cache.get(dkey) if dkey is not None else None
+                if lut is None:
+                    t1 = time.perf_counter()
+                    host = self._build_lut(lvl, soj)
+                    t_prep += time.perf_counter() - t1
+                    t1 = time.perf_counter()
+                    lut = _upload(host, d)
+                    self.last_h2d_bytes += _nbytes(lut)
+                    t_h2d += time.perf_counter() - t1
+                    if dkey is not None:
+                        # an older version of the same structure goes
+                        for k in [k for k in self._lut_cache
+                                  if k[0] == dkey[0] and k[1][2:] == sig[2:] and k[2] == dkey[2]]:
+                            del self._lut_cache[k]
+                        self._lut_cache[dkey] = lut
+                per_dev[d] = lut
+            for r, d in enumerate(devs):
+                lut_args[r][id(lvl.frag)] = per_dev[d]
+        for d in sorted({d for d in devs if d.type == "cuda"}, key=str):
             t1 = time.perf_counter()
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(d)
             t_h2d += time.perf_counter() - t1
         self.last_host_s = {"prep": t_prep, "h2d": t_h2d}
 
@@ -1004,7 +1055,12 @@ class MPPEngine:
             prog = MPPProgram(self, mplan, meta, scan_arg_meta, n_dev)
             self._programs[key] = prog
             self.compile_count += 1
-        packed = prog(args, lut_args)
+        timer = self.timer
+        packs = mesh.run(lambda r: prog(args[r], lut_args[r], mesh, r, timer if r == 0 else None))
+        if n_dev == 1 or (agm is not None and agm["mode"] == "dense"):
+            packed = packs[0]  # psum'd: every rank holds the same rows
+        else:  # P(None, axis): the ranks' matrices side by side
+            packed = torch.cat([p.to(packs[0].device) for p in packs], dim=1)
         with self._phase("d2h"):
             packed = packed.cpu().numpy()
         with self._phase("finalize"):
