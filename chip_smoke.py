@@ -71,7 +71,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
               inputs: every codec, random programs and a 241-lane one,
               every K4 op with the bitwise ones and an all-masked task, G
               1, 2, 3 and 64, single- and multi-tile groups at the padded
-              and a narrowed width. Integers, row ids and
+              and a narrowed width; and K10's sort modes
+              (sort_grouped_cases): K6's task grid (int64 keys at
+              INT64_MIN / INT64_MAX - 1, floats with NaN, ±inf, ±0.0 and
+              subnormals, NULL keys, both orders, k up to the
+              width), K7's with K8 after it (every key kind, uint64),
+              K9's (NULL-able int and float, uint64 and dict-code keys,
+              group counts that differ by task) with K4's segment-lane
+              form over its ids, and K8's task-leading key alone (every
+              operand kind, ties, a key wider than 64 bits), tasks of
+              different real row counts, one all masked. Integers, row ids and
               group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
               (bench.py's own check; P5's and P7's float totals at run
               starts, the rows the picks can ship); all cases run,
@@ -140,7 +149,19 @@ Phases, one line each; any failure exits non-zero and prints no result:
               --rows lineitem cut into its regions at 2,097,152 rows
               through run_many (the full regions one group, K10 at full
               width), merged at the root and equal to main.q1's answer;
-              each task mode must launch. expr_eval must
+              each task mode must launch; main.regions_sorted, tpch_topn,
+              multikey_topn and Q18's subquery over the same regions
+              through run_many (K6's, K7's and K9's task modes with K8's
+              task-leading key, Q18's escalating from gcap0 inside its
+              group), merged at the root (the TopN over the partial rows;
+              the final aggregation) and equal to the one-batch answers,
+              with one fetch a run and the sort kernels launched solo only
+              for the short region; the burst also runs the point TopN
+              and multi-key TopN mixes (64 x 4,096 rows), with no solo
+              K6 / K7 / K8 / K9 inside run_many's group, and both at a
+              LIMIT past the narrowed width (8 tasks, LIMIT 8,192: every
+              row kept, equal to serial execute and the host engine's,
+              the task mode launched once). expr_eval must
               launch in every query with a condition, a computed argument
               or a filter program (Q1, Q6, CHECKSUM, both window scans,
               Q3, q3_unfused, q3_top100, seg_revenue);
@@ -156,7 +177,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
               three task modes on the burst's and Q1 regions' own groups
               beside the solo kernels launched G times on the same
               tensors, and their launches alone over task tables built
-              beforehand (the rest of a call's time is the host's);
+              beforehand (the rest of a call's time is the host's); the
+              sort modes (K6, K7, K8, K9 and K4's segment-lane form) on
+              the regions' and the TopN bursts' own groups, with
+              torch.topk over the [G, width] key and a batched stable
+              torch.sort of one packed word as K6's and K8's yardsticks;
  6. the kernels JSON line, the card line, and last the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1582,7 +1607,10 @@ def _task_row_valid(dev, rng, t: int, r: int, w: int):
     return rv.reshape(t, r).to(dev)
 
 
-def grouped_cases(dev, rng, r: int = 4096, sizes=GROUP_SIZES, kinds=("decode", "expr", "seg")):
+GROUP_KINDS = ("decode", "expr", "seg", "topk", "topn_multi", "sort_groups", "lex_sort")
+
+
+def grouped_cases(dev, rng, r: int = 4096, sizes=GROUP_SIZES, kinds=GROUP_KINDS):
     """(name, fn) of every K10 case: each task-grid wrapper (the kernel on
     the card, the plain version on the CPU) against the SOLO plain version
     run task by task on the task's narrowed inputs. K1 over every codec
@@ -1591,8 +1619,9 @@ def grouped_cases(dev, rng, r: int = 4096, sizes=GROUP_SIZES, kinds=("decode", "
     241-lane program; K4 over every op, the bitwise ones included, at nseg
     1, 12, 65 (shared memory) and 65536 (global atomics), one task of the
     group all masked; G in `sizes`, single- and multi-tile groups at the
-    padded and a narrowed width. Integers bit for bit, floats within
-    rtol 1e-9 / atol 1e-6 (K4's float sums: atomics order them)."""
+    padded and a narrowed width; and the sort modes (sort_grouped_cases).
+    Integers bit for bit, floats within rtol 1e-9 / atol 1e-6 (K4's float
+    sums: atomics order them)."""
     import numpy as np
     import torch
 
@@ -1660,7 +1689,177 @@ def grouped_cases(dev, rng, r: int = 4096, sizes=GROUP_SIZES, kinds=("decode", "
         prog = _wide_program(many[0])
         ins = [_expr_ins(prog, c, n, dev) for c in many]
         cases.append((f"expr_eval_tasks wide (241 lanes) G=2 w={w}", lambda p=prog, i=ins, w=w: _expr_tasks(p, i, w)))
+    return cases + sort_grouped_cases(dev, rng, r, sizes, kinds)
+
+
+F_SPECIALS = (float("-inf"), -1.5, -0.0, 0.0, 1.5, float("inf"), float("nan"), -float("nan"), 5e-324,
+              -2.5e-308, 2.5e-308)
+I64_EDGES = (-(1 << 63), -(1 << 63) + 1, -1, 0, 1, (1 << 63) - 2, (1 << 63) - 1)
+
+
+def _task_masks(dev, rng, rvs):
+    """Each task's filter mask: its row_valid and 80 % of the rows; the
+    last task of a group of two or more masks every row."""
+    import torch
+
+    out = []
+    for g, rv in enumerate(rvs):
+        keep = torch.from_numpy(rng.random(rv.numel()) < 0.8).to(dev)
+        m = rv.reshape(-1) & keep
+        out.append(torch.zeros_like(m) if g == len(rvs) - 1 and len(rvs) > 1 else m)
+    return out
+
+
+def _sort_key_lane(dev, rng, n: int, case: str, scale: int = 1):
+    """One task's key lane for the sort modes' batteries."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.expr.xp_torch import U64
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if case == "price":
+        return t(rng.integers(90000, 10500000, n))
+    if case == "orderkey":
+        return t(np.sort(rng.integers(1, max(n // (4 * scale), 2), n)))
+    if case == "limits":
+        return t(rng.choice(np.array(I64_EDGES, dtype=np.int64), n))
+    if case == "floats":
+        return t(rng.choice(np.array(F_SPECIALS), n))
+    if case == "u64":
+        return U64(t(rng.integers(0, 3, n) + (1 << 62) * rng.integers(-2, 2, n)))
+    if case == "codes":
+        return t(rng.integers(0, 7, n).astype(np.int32))
+    return t(rng.integers(-5, 50, n))
+
+
+def sort_grouped_cases(dev, rng, r: int, sizes, kinds):
+    """(name, fn) of the sort modes of K10 against the SOLO plain versions
+    task by task on narrowed inputs: K6 (int64 price, int64 keys at
+    INT64_MIN / INT64_MAX - 1 with many ties, floats with NaN, ±inf, ±0.0
+    and subnormals; NULL keys; both orders; k below the width and at it —
+    a LIMIT past the width reaches K6 as k = width, the engine's clamp,
+    which check_limit_past_width holds on the card), K7 with K8 after it (every key kind, uint64 and NULLs), K9
+    (sorted int keys whose group counts differ by task, NULL-able int and
+    float keys, uint64 and dict-code keys, the int64 limits) with K4's
+    segment-lane mode over its ids, and K8's task-leading mode alone (every
+    operand kind, ties, a key wider than 64 bits, constant operands). Every
+    group has tasks of different real row counts narrowed to one width,
+    the last task (G > 1) all masked; G in `sizes`, single- and
+    multi-tile."""
+    import torch
+
+    from tidb_tpu_torch.kernels import SegLane, lex_sort_perm_ref, seg_agg_ref, topk_ref, topn_multi_ops_ref
+    from tidb_tpu_torch.kernels.grouped import (_cut, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks,
+                                                topk_tasks, topn_multi_ops_tasks)
+
+    def bits(x):
+        return x.view(torch.int64) if x.dtype == torch.float64 else x
+
+    cases = []
+    for t, rr, w in group_shapes(r):
+        n = t * rr
+        for G in sizes:
+            tag = f"G={G} [{t},{rr}] w={w}"
+            rvs = [_task_row_valid(dev, rng, t, rr, w) for _ in range(G)]
+            masks = _task_masks(dev, rng, rvs)
+            valids = [torch.from_numpy(rng.random(n) < 0.9).to(dev) for _ in range(G)]
+            if "topk" in kinds:
+                for case, k in (("price", min(100, w)), ("limits", min(5000, w)), ("floats", w)):
+                    datas = [_sort_key_lane(dev, rng, n, case) for _ in range(G)]
+                    vs = [None] * G if case == "price" else valids
+                    for desc in (True, False):
+                        def k6(datas=datas, vs=vs, masks=masks, desc=desc, k=k, w=w, G=G):
+                            gi, go = topk_tasks(datas, vs, masks, desc, k, w)
+                            for g in range(G):
+                                wi, wo = topk_ref(_cut(datas[g], w), _cut(vs[g], w), _cut(masks[g], w), desc, k)
+                                _same(gi[g], wi, f"task {g} rows")
+                                _same(go[g], wo, f"task {g} ok bits")
+                        cases.append((f"topk_tasks {case} desc={desc} k={k} {tag}", k6))
+            if "topn_multi" in kinds:
+                keys = [[(_sort_key_lane(dev, rng, n, "price"), None, True),
+                         (_sort_key_lane(dev, rng, n, "codes"), v, False),
+                         (_sort_key_lane(dev, rng, n, "floats"), v, True),
+                         (_sort_key_lane(dev, rng, n, "u64"), None, False),
+                         (_sort_key_lane(dev, rng, n, "limits"), v, True)] for v in valids]
+
+                def k7(keys=keys, masks=masks, w=w, G=G):
+                    ops = topn_multi_ops_tasks(masks, keys, w)
+                    perm = lex_sort_perm_tasks(ops, w)
+                    for g in range(G):
+                        want = topn_multi_ops_ref(_cut(masks[g], w), [(_cut(d, w), _cut(v, w), s) for d, v, s in keys[g]])
+                        for j, (o, wo) in enumerate(zip(ops, want)):
+                            if o.kind != wo.kind:
+                                raise AssertionError(f"operand {j}: kind {o.kind} vs {wo.kind}")
+                            _same(bits(o.data[g * w:(g + 1) * w]), bits(wo.data), f"task {g} operand {j}")
+                        _same(perm[g * w:(g + 1) * w] - g * w, lex_sort_perm_ref(want), f"task {g} perm")
+                cases.append((f"topn_multi_tasks {tag}", k7))
+            if "sort_groups" in kinds:
+                for case, spec in (("orderkey", [("orderkey", False)]), ("nullable_int_float", [("ints", True), ("floats", True)]),
+                                   ("u64_codes", [("u64", False), ("codes", True)]), ("limits", [("limits", True)])):
+                    keys = [[(_sort_key_lane(dev, rng, n, c, scale=g + 1), v if nullable else None) for c, nullable in spec]
+                            for g, v in enumerate(valids)]
+                    cases.append((f"sort_groups_tasks {case} {tag}", lambda keys=keys, masks=masks, w=w: _k9_tasks(masks, keys, w)))
+                keys = [[(_sort_key_lane(dev, rng, n, "orderkey", scale=g + 1), None)] for g in range(G)]
+                lanes = [seg_cases(dev, rng, n, 1)[1] for _ in range(G)]
+                for ls in lanes:
+                    x = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype="int64")).to(dev)
+                    ls += [SegLane("and_i64", x, valids[0], -1), SegLane("xor_i64", x, None, 0)]
+
+                def k4(keys=keys, lanes=lanes, masks=masks, w=w):
+                    grp = sort_groups_tasks(masks, keys, w)
+                    total = sum(grp.counts)
+                    if not total:
+                        return 0.0
+                    gi, gf = seg_agg_tasks(masks, [[] for _ in masks], lanes, total, w, segs=list(grp.seg),
+                                           counts=grp.counts)
+                    off, err = 0, 0.0
+                    for g, c in enumerate(grp.counts):
+                        if c:
+                            cut = [SegLane(l.op, _cut(l.data, w), _cut(l.valid, w), l.fill) for l in lanes[g]]
+                            wi, wf = seg_agg_ref(_cut(masks[g], w), [], cut, c, seg=_cut(grp.seg[g], w) - off)
+                            _same(gi[:, off:off + c], wi, f"task {g} ints")
+                            err = max(err, _same(gf[:, off:off + c], wf, f"task {g} floats", True))
+                        off += c
+                    return err
+                cases.append((f"seg_agg_tasks segment-lane {tag}", k4))
+            if "lex_sort" in kinds:
+                per = [sort_cases(dev, rng, w) for _ in range(G)]
+                for j, (cname, ops0) in enumerate(per[0]):
+                    ops = [type(o)(torch.cat([p[j][1][q].data for p in per]), o.kind) for q, o in enumerate(ops0)]
+
+                    def k8(ops=ops, w=w, G=G):
+                        got = lex_sort_perm_tasks(ops, w)
+                        for g in range(G):
+                            want = lex_sort_perm_ref([type(o)(o.data[g * w:(g + 1) * w], o.kind) for o in ops])
+                            _same(got[g * w:(g + 1) * w] - g * w, want, f"task {g}")
+                    cases.append((f"lex_sort_tasks {cname} {tag}", k8))
     return cases
+
+
+def _k9_tasks(masks, keys, w: int) -> None:
+    """K9's task mode against its solo plain version task by task (at
+    capacity n_groups), the ids offset by the earlier tasks' counts."""
+    import torch
+
+    from tidb_tpu_torch.kernels import sort_groups_ref
+    from tidb_tpu_torch.kernels.grouped import _cut, sort_groups_tasks
+
+    got = sort_groups_tasks(masks, keys, w)
+    want = [sort_groups_ref(_cut(m, w), [(_cut(d, w), _cut(v, w)) for d, v in ks], lambda ng: ng)
+            for m, ks in zip(masks, keys)]
+    counts = [x.n_groups for x in want]
+    if got.counts != counts:
+        raise AssertionError(f"n_groups {got.counts} vs {counts}")
+    total, off = sum(counts), 0
+    for g, x in enumerate(want):
+        _same(got.perm[g * w:(g + 1) * w] - g * w, x.perm, f"task {g} perm")
+        _same(got.seg[g], torch.where(x.seg < x.n_groups, x.seg + off, total).to(torch.int32), f"task {g} seg")
+        _same(got.kval[:, off:off + x.n_groups], x.kval, f"task {g} kval")
+        _same(got.kvalid[:, off:off + x.n_groups], x.kvalid, f"task {g} kvalid")
+        off += x.n_groups
 
 
 def _expr_tasks(prog, ins, w: int) -> float:
@@ -2736,37 +2935,56 @@ def run_mesh_path(dev, cols: dict, card: str, out: dict) -> None:
 
 N_TASKS, ROWS_PER_TASK = 64, 4096  # tools/bench_sched.py's workload
 PROFILED_CALLS = 5  # run_many / run_burst calls in the burst's profiled session
-TASK_MODES = {"decode_lane": "decode_lane_tasks", "expr_eval": "expr_eval_tasks", "seg_agg": "seg_agg_tasks"}
+# each solo kernel and its task-grid mode (K10)
+TASK_MODES = {"decode_lane": "decode_lane_tasks", "expr_eval": "expr_eval_tasks", "seg_agg": "seg_agg_tasks",
+              "topk": "topk_tasks", "topn_multi": "topn_multi_tasks", "lex_sort": "lex_sort_tasks",
+              "sort_groups": "sort_groups_tasks"}
+AGG_TASK_MODES = ("decode_lane_tasks", "expr_eval_tasks", "seg_agg_tasks")  # a filter / direct aggregation's
+SORT_SOLO = ("topk", "topn_multi", "sort_groups", "lex_sort")  # never launched inside a group
+# the task-grid wrappers the engine calls (copr/gpu_engine's names)
+SPIED_TASKS = ("decode_lane_tasks", "seg_agg_tasks", "topk_tasks", "topn_multi_ops_tasks", "lex_sort_perm_tasks",
+               "sort_groups_tasks")
 
 
 class TaskSpy:
-    """While active, records the arguments of every call of K10's three
-    task-grid wrappers the engine makes, in `calls[name]`."""
+    """While active, records the (arguments, keywords) of every call of
+    K10's task-grid wrappers the engine makes, in `calls[name]` (the
+    expression kernel's under "expr_eval_tasks"); `task_args` picks them
+    out."""
 
     def __init__(self):
         from tidb_tpu_torch.copr import gpu_engine
         from tidb_tpu_torch.expr import program
 
         self.eng, self.prog = gpu_engine, program
-        self.calls: dict = {"decode_lane_tasks": [], "expr_eval_tasks": [], "seg_agg_tasks": []}
+        self.calls: dict = {name: [] for name in SPIED_TASKS + ("expr_eval_tasks",)}
 
     def __enter__(self):
-        self.real = (self.eng.decode_lane_tasks, self.eng.seg_agg_tasks, self.prog.kernel_tasks)
-        real_d, real_s, real_e = self.real
+        self.real = {name: getattr(self.eng, name) for name in SPIED_TASKS}
+        self.real_e = self.prog.kernel_tasks
 
         def rec(name, fn):
-            def spy(*a):
-                self.calls[name].append(a)
-                return fn(*a)
+            def spy(*a, **kw):
+                self.calls[name].append((a, kw))
+                return fn(*a, **kw)
             return spy
-        self.eng.decode_lane_tasks = rec("decode_lane_tasks", real_d)
-        self.eng.seg_agg_tasks = rec("seg_agg_tasks", real_s)
-        spy_e = rec("expr_eval_tasks", real_e())
+        for name, fn in self.real.items():
+            setattr(self.eng, name, rec(name, fn))
+        spy_e = rec("expr_eval_tasks", self.real_e())
         self.prog.kernel_tasks = lambda: spy_e
         return self
 
     def __exit__(self, *exc):
-        self.eng.decode_lane_tasks, self.eng.seg_agg_tasks, self.prog.kernel_tasks = self.real
+        for name, fn in self.real.items():
+            setattr(self.eng, name, fn)
+        self.prog.kernel_tasks = self.real_e
+
+
+def task_args(calls: dict, name: str, keywords: bool = False) -> list:
+    """The calls of `name` a TaskSpy recorded that passed no keywords, as
+    their arguments; with `keywords`, those that did, as (arguments,
+    keywords) — K4's mode over K9's task-grid ids."""
+    return [(a, kw) if keywords else a for a, kw in calls.get(name, ()) if bool(kw) == keywords]
 
 
 def _pcts(lat) -> dict:
@@ -2782,19 +3000,29 @@ def _occupancy():
     return h._n, h._sum, list(h._counts)
 
 
+# (mix, DAG builder of models/tpch.py) over tools/bench_sched.py's rows:
+# the point aggregation, and the point TopN and multi-key TopN
+BURST_MIXES = (("point_agg", "point_agg_dag"), ("point_topn", "point_topn_dag"),
+               ("point_topn_multi", "point_topn_multi_dag"))
+
+
 def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
-    """tools/bench_sched.py's workload on the card: 64 point aggregations
-    of 4,096 rows each, compression ON and OFF. Serial `execute` of each
-    task, unbatched `execute` from 64 threads at once, then `run_many`
-    (one call: one group of 64, one fetch) and `run_burst` x (reps + 1)
-    (64 threads through the LaunchBatcher). Every chunk must equal the
-    serial one and the host engine's, bit for bit (the workload is all
-    INT); `run_many` must form the gcap-64 group with one fetch, the
-    batcher a multi-task launch and no group that fell back to solo
-    execute, and each task mode whose solo kernel the serial runs launched
-    must launch in `run_many` and in `run_burst`. One more `run_many` and
-    `run_burst` each run under torch.profiler. K10's inputs of the last
-    calls land in out["captured"]["burst"]."""
+    """tools/bench_sched.py's workload on the card: 64 tasks of 4,096 rows
+    each, compression ON and OFF, for each mix of BURST_MIXES (point
+    aggregations, point TopNs, point multi-key TopNs). Serial `execute` of
+    each task, unbatched `execute` from 64 threads at once, then
+    `run_many` (one call: one group of 64, one fetch) and `run_burst` x
+    (reps + 1) (64 threads through the LaunchBatcher). Every chunk must
+    equal the serial one and the host engine's, bit for bit (the workload
+    is all INT); `run_many` must form the gcap-64 group with one fetch,
+    launch each sort mode (K6's, K7's, K8's) once for the group and no
+    solo K6, K7, K8 or K9 inside it, the batcher a multi-task launch and
+    no group that fell back to solo execute, and each task mode whose solo
+    kernel the serial runs launched must launch in `run_many` and in
+    `run_burst`. More `run_many` and `run_burst` calls run under
+    torch.profiler. K10's inputs of the last calls land in
+    out["captured"]["burst"] (the point aggregation's under its label,
+    the others' under "<mix>.<label>")."""
     import torch
 
     from tidb_tpu_torch import kernels as K
@@ -2805,93 +3033,148 @@ def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
     from tidb_tpu_torch.sched import LaunchBatcher
 
     batches = tpch.point_agg_table(N_TASKS, ROWS_PER_TASK)
-    dag = tpch.point_agg_dag()
-    pairs = [(dag, b) for b in batches]
-    host = [execute_dag_host(dag, b) for b in batches]
     out["burst"] = {}
-    for comp in (True, False):
-        label = "compression_on" if comp else "compression_off"
-        eng = TorchEngine(dev)
-        eng.tile_compression = comp
-        batcher = LaunchBatcher()
+    for mix, builder in BURST_MIXES:
+        dag = getattr(tpch, builder)()
+        pairs = [(dag, b) for b in batches]
+        host = [execute_dag_host(dag, b) for b in batches]
+        for comp in (True, False):
+            label = "compression_on" if comp else "compression_off"
+            key = label if mix == "point_agg" else f"{mix}.{label}"
+            eng = TorchEngine(dev)
+            eng.tile_compression = comp
+            batcher = LaunchBatcher()
 
-        def check(chunks, what):
-            for i, (c, h) in enumerate(zip(chunks, host)):
-                diff = chunks_equal(c, h)
-                if diff is not None:
-                    raise AssertionError(f"burst {label}: {what} task {i} differs from the host engine: {diff}")
+            def check(chunks, what):
+                for i, (c, h) in enumerate(zip(chunks, host)):
+                    diff = chunks_equal(c, h)
+                    if diff is not None:
+                        raise AssertionError(f"burst {key}: {what} task {i} differs from the host engine: {diff}")
 
-        before = K.launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        serial = [eng.execute(d, b) for d, b in pairs]
-        torch.cuda.synchronize()
-        serial_s = time.perf_counter() - t
-        solo = {k: c - before[k] for k, c in K.launches().items()}
-        check(serial, "serial execute")
-        unbatched = []
-        for rep in range(reps + 1):
-            res, lat = concurrent(eng.execute, pairs)
-            check(res, "unbatched concurrent execute")
-            if rep:
-                unbatched += lat
-        f0, before = eng.fetches, K.launches()
-        with TaskSpy() as spy:
+            before = K.launches()
+            torch.cuda.synchronize()
             t = time.perf_counter()
+            serial = [eng.execute(d, b) for d, b in pairs]
+            torch.cuda.synchronize()
+            serial_s = time.perf_counter() - t
+            solo = {k: c - before[k] for k, c in K.launches().items()}
+            check(serial, "serial execute")
+            unbatched = []
+            for rep in range(reps + 1):
+                res, lat = concurrent(eng.execute, pairs)
+                check(res, "unbatched concurrent execute")
+                if rep:
+                    unbatched += lat
+            f0, before = eng.fetches, K.launches()
+            with TaskSpy() as spy:
+                t = time.perf_counter()
+                many = run_many(pairs, dev, eng)
+                many_s = time.perf_counter() - t
+            grouped = {k: c - before[k] for k, c in K.launches().items()}
+            many_fetches = eng.fetches - f0
+            check(many, "run_many")
+            for i, (c, so) in enumerate(zip(many, serial)):
+                diff = chunks_equal(c, so)
+                if diff is not None:
+                    raise AssertionError(f"burst {key}: run_many task {i} differs from its serial execute: {diff}")
+            if many_fetches != 1:
+                raise AssertionError(f"burst {key}: run_many fetched {many_fetches} times, not once")
+            gcaps = sorted(((k[1], k[2]) for k in eng._vprograms), key=repr)
+            if not any(g == N_TASKS for g, _ in gcaps):
+                raise AssertionError(f"burst {key}: no group of {N_TASKS} formed ({gcaps})")
+            idle = [TASK_MODES[k] for k in TASK_MODES if solo[k] and not grouped[TASK_MODES[k]]]
+            if idle:
+                raise AssertionError(f"burst {key}: task modes {idle} never launched")
+            inside = {k: grouped[k] for k in SORT_SOLO if grouped[k]}
+            if inside:
+                raise AssertionError(f"burst {key}: solo kernels {inside} launched inside the group")
+            not_once = {TASK_MODES[k]: grouped[TASK_MODES[k]] for k in SORT_SOLO
+                        if solo[k] and grouped[TASK_MODES[k]] != 1}
+            if not_once:
+                raise AssertionError(f"burst {key}: sort modes {not_once} not launched once for the group")
+            n0, s0, c0 = _occupancy()
+            f0, before = eng.fetches, K.launches()
+            burst = []
+            for rep in range(reps + 1):
+                res, lat = run_burst(pairs, dev, eng, batcher)
+                check(res, "run_burst")
+                if rep:
+                    burst += lat
+            n1, s1, c1 = _occupancy()
+            launched = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
+            if not (n1 > n0 and s1 - s0 > n1 - n0):
+                raise AssertionError(f"burst {key}: the batcher formed no multi-task launch")
+            idle = [TASK_MODES[k] for k in TASK_MODES if solo[k] and not launched.get(TASK_MODES[k])]
+            if idle:
+                raise AssertionError(f"burst {key}: run_burst never launched task modes {idle}")
+            if batcher.serial_fallbacks:
+                raise AssertionError(f"burst {key}: {batcher.serial_fallbacks} batcher groups fell back to solo "
+                                     "execute (execute_many raised)")
+            calls = reps + 1
+            # more calls of each under torch.profiler: the card's busy time
+            # (union of its spans) against the wall, and the idle share
+            prof_many = profiled_run(lambda: run_many(pairs, dev, eng), eng, PROFILED_CALLS)
+            prof_burst = profiled_run(lambda: run_burst(pairs, dev, eng, batcher), eng, PROFILED_CALLS)
+            out["captured"].setdefault("burst", {})[key] = spy.calls
+            out["burst"][key] = {
+                "mix": mix, "tasks": N_TASKS, "rows_per_task": ROWS_PER_TASK, "serial_s": serial_s,
+                "run_many_s": many_s, "unbatched_execute": _pcts(unbatched), "run_burst": _pcts(burst),
+                "launches_per_task": {"serial": {k: c / N_TASKS for k, c in solo.items() if c},
+                                      "run_many": {k: c / N_TASKS for k, c in grouped.items() if c},
+                                      "run_burst": {k: c / (N_TASKS * calls) for k, c in launched.items()}},
+                "fetches_per_call": {"serial_execute": 1, "run_many": many_fetches,
+                                     "run_burst": (eng.fetches - f0) / calls},
+                "batcher_launches": n1 - n0, "batcher_tasks": s1 - s0,
+                "occupancy_histogram": dict(zip(["<=1", "<=2", "<=4", "<=8", "<=16", "<=32", "<=64", "<=128",
+                                                 "more"], [b - a for a, b in zip(c0, c1)])),
+                "groups": gcaps, "profiled_run_many": prof_many, "profiled_run_burst": prof_burst, "card": card,
+            }
+            say(f"main.burst.{key}", **out["burst"][key])
+    check_limit_past_width(dev, batches[:8], out)
+
+
+def check_limit_past_width(dev, batches, out: dict) -> None:
+    """The burst's TopN mixes at LIMIT 2 * ROWS_PER_TASK, past the width
+    every task is narrowed to (its 4,096 rows), compression ON and OFF:
+    one run_many forms one group whose K6 / K7 task mode takes k = width,
+    launches it once, fetches once, and every task's chunk equals its
+    serial `execute` and the host engine's."""
+    from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.copr.host_engine import execute_dag_host
+    from tidb_tpu_torch.entry import run_many
+    from tidb_tpu_torch.models import tpch
+
+    res = {}
+    for mix, builder in BURST_MIXES[1:]:
+        dag = getattr(tpch, builder)()
+        dag.topn.n = 2 * ROWS_PER_TASK
+        pairs = [(dag, b) for b in batches]
+        mode = "topk_tasks" if mix == "point_topn" else "topn_multi_tasks"
+        for comp in (True, False):
+            key = f"{mix}.{'compression_on' if comp else 'compression_off'}"
+            eng = TorchEngine(dev)
+            eng.tile_compression = comp
+            serial = [eng.execute(d, b) for d, b in pairs]
+            f0, before = eng.fetches, K.launches()
             many = run_many(pairs, dev, eng)
-            many_s = time.perf_counter() - t
-        grouped = {k: c - before[k] for k, c in K.launches().items()}
-        many_fetches = eng.fetches - f0
-        check(many, "run_many")
-        if many_fetches != 1:
-            raise AssertionError(f"burst {label}: run_many fetched {many_fetches} times, not once")
-        gcaps = sorted(((k[1], k[2]) for k in eng._vprograms), key=repr)
-        if not any(g == N_TASKS for g, _ in gcaps):
-            raise AssertionError(f"burst {label}: no group of {N_TASKS} formed ({gcaps})")
-        idle = [TASK_MODES[k] for k in TASK_MODES if solo[k] and not grouped[TASK_MODES[k]]]
-        if idle:
-            raise AssertionError(f"burst {label}: task modes {idle} never launched")
-        n0, s0, c0 = _occupancy()
-        f0, before = eng.fetches, K.launches()
-        burst = []
-        for rep in range(reps + 1):
-            res, lat = run_burst(pairs, dev, eng, batcher)
-            check(res, "run_burst")
-            if rep:
-                burst += lat
-        n1, s1, c1 = _occupancy()
-        launched = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
-        if not (n1 > n0 and s1 - s0 > n1 - n0):
-            raise AssertionError(f"burst {label}: the batcher formed no multi-task launch")
-        idle = [TASK_MODES[k] for k in TASK_MODES if solo[k] and not launched.get(TASK_MODES[k])]
-        if idle:
-            raise AssertionError(f"burst {label}: run_burst never launched task modes {idle}")
-        if batcher.serial_fallbacks:
-            raise AssertionError(f"burst {label}: {batcher.serial_fallbacks} batcher groups fell back to solo "
-                                 "execute (execute_many raised)")
-        calls = reps + 1
-        # more calls of each under torch.profiler: the card's busy time
-        # (union of its spans) against the wall, and the idle share
-        prof_many = profiled_run(lambda: run_many(pairs, dev, eng), eng, PROFILED_CALLS)
-        prof_burst = profiled_run(lambda: run_burst(pairs, dev, eng, batcher), eng, PROFILED_CALLS)
-        out["captured"].setdefault("burst", {})[label] = spy.calls
-        out["burst"][label] = {
-            "tasks": N_TASKS, "rows_per_task": ROWS_PER_TASK, "serial_s": serial_s, "run_many_s": many_s,
-            "unbatched_execute": _pcts(unbatched), "run_burst": _pcts(burst),
-            "launches_per_task": {"serial": {k: c / N_TASKS for k, c in solo.items() if c},
-                                  "run_many": {k: c / N_TASKS for k, c in grouped.items() if c},
-                                  "run_burst": {k: c / (N_TASKS * calls) for k, c in launched.items()}},
-            "fetches_per_call": {"serial_execute": 1, "run_many": many_fetches,
-                                 "run_burst": (eng.fetches - f0) / calls},
-            "batcher_launches": n1 - n0, "batcher_tasks": s1 - s0,
-            "occupancy_histogram": dict(zip(["<=1", "<=2", "<=4", "<=8", "<=16", "<=32", "<=64", "<=128", "more"],
-                                            [b - a for a, b in zip(c0, c1)])),
-            "groups": gcaps, "profiled_run_many": prof_many, "profiled_run_burst": prof_burst, "card": card,
-        }
-        say(f"main.burst.{label}", **out["burst"][label])
+            moved = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
+            widths = [w for _, w in ((k[1], k[2]) for k in eng._vprograms)]
+            for i, (c, so, (d, b)) in enumerate(zip(many, serial, pairs)):
+                for what, want in (("its serial execute", so), ("the host engine", execute_dag_host(d, b))):
+                    diff = chunks_equal(c, want)
+                    if diff is not None:
+                        raise AssertionError(f"limit_past_width {key}: task {i} differs from {what}: {diff}")
+                if c.num_rows != b.n_rows:
+                    raise AssertionError(f"limit_past_width {key}: task {i} kept {c.num_rows} of {b.n_rows} rows")
+            if eng.fetches - f0 != 1 or moved.get(mode) != 1 or any(moved.get(k) for k in SORT_SOLO):
+                raise AssertionError(f"limit_past_width {key}: fetches {eng.fetches - f0}, launches {moved}")
+            res[key] = {"tasks": len(pairs), "limit": dag.topn.n, "widths": widths, "launches": moved}
+    out["burst"]["limit_past_width"] = res
+    say("main.burst.limit_past_width", **res)
 
 
-def run_q1_regions_path(dev, batch, want, reps: int, card: str, out: dict) -> None:
+def run_q1_regions_path(dev, batch, regions, want, reps: int, card: str, out: dict) -> None:
     """TPC-H Q1 over the main path's lineitem cut into its regions at the
     reference's 2,097,152-row split, through run_many: the full regions
     form one launch group (K10 at full width), the short last region
@@ -2906,7 +3189,6 @@ def run_q1_regions_path(dev, batch, want, reps: int, card: str, out: dict) -> No
     from tidb_tpu_torch.executor.final_agg import merge_partials, order_by_keys
     from tidb_tpu_torch.models import tpch
 
-    regions = tpch.region_batches(batch)
     dag = tpch.q1_dag()
     pairs = [(dag, r) for r in regions]
     fts = [g.ret_type for g in dag.agg.group_by] + [a.ret_type for a in dag.agg.aggs]
@@ -2924,7 +3206,7 @@ def run_q1_regions_path(dev, batch, want, reps: int, card: str, out: dict) -> No
         if diff is not None:
             raise AssertionError(f"q1_regions run {rep}: merged answer differs from main.q1's: {diff}")
     moved = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
-    idle = [m for m in TASK_MODES.values() if not moved.get(m)]
+    idle = [m for m in AGG_TASK_MODES if not moved.get(m)]
     if idle:
         raise AssertionError(f"q1_regions: task modes {idle} never launched")
     out["captured"]["q1_regions"] = spy.calls
@@ -2939,6 +3221,99 @@ def run_q1_regions_path(dev, batch, want, reps: int, card: str, out: dict) -> No
         "answer": merged.slice(0, 6).to_pylist(), "card": card,
     }
     say("main.q1_regions", **out["q1_regions"])
+
+
+# (query of the main path, DAG builder of models/tpch.py, its task mode):
+# the sort-based paths over the regions
+REGION_QUERIES = (("tpch_topn", "topn_dag", "topk_tasks"), ("multikey_topn", "multikey_topn_dag", "topn_multi_tasks"),
+                  ("q18_inner", "q18_inner_dag", "sort_groups_tasks"))
+
+
+def merged_regions(dag, parts):
+    """The root's step over the regions' partial chunks: the TopN over
+    their rows in region order, or the final aggregation ordered by the
+    group keys (as main.q1_regions merges Q1)."""
+    from tidb_tpu_torch.chunk.chunk import Chunk
+    from tidb_tpu_torch.executor.final_agg import merge_partials, order_by_keys, top_n
+
+    if dag.topn is not None:
+        return top_n(Chunk.concat_all(parts), dag.topn.by, dag.topn.n)
+    fts = [g.ret_type for g in dag.agg.group_by] + [a.ret_type for a in dag.agg.aggs]
+    return order_by_keys(merge_partials(parts, dag.agg.group_by, dag.agg.aggs, fts), dag.agg.group_by)
+
+
+def launch_classes(engine, pairs) -> tuple[int, int]:
+    """(multi-task groups, tasks launched solo) of one run_many of at most
+    MAX_FUSE `pairs` on `engine`: the tasks' program keys, as execute_many
+    groups them (after the runs: lowering again records no new program)."""
+    from collections import Counter
+
+    sizes = Counter(engine._plan_for(dag, batch).key for dag, batch in pairs).values()
+    return sum(1 for c in sizes if c > 1), sum(1 for c in sizes if c == 1)
+
+
+def run_regions_sorted_path(dev, regions, wants: dict, reps: int, card: str, out: dict) -> None:
+    """The slice at full width: tpch_topn (K6's task mode), multikey_topn
+    (K7's + K8's) and Q18's subquery (K9's + K8's + K4's segment-lane
+    mode) over the main path's lineitem in its regions, through run_many:
+    the full regions form one launch group, the short last one launches
+    solo. The partials merge at the root (merged_regions), and each merged
+    answer must equal, in order, the query's one-batch answer (main.<q>,
+    held to the host engine). Per run: one fetch, the query's sort mode
+    and K8's task-leading mode launched once per group, its solo kernels
+    (K6 / K7 / K9, and K8) only for the solo region. One cold run (the
+    TopNs upload every column), `reps` warm runs and one profiled run."""
+    import torch
+
+    from tidb_tpu_torch import kernels as K
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.entry import run_many
+    from tidb_tpu_torch.models import tpch
+
+    out["regions_sorted"] = {}
+    solo_of = {"topk_tasks": "topk", "topn_multi_tasks": "topn_multi", "sort_groups_tasks": "sort_groups"}
+    for qname, builder, mode in REGION_QUERIES:
+        dag = getattr(tpch, builder)()
+        pairs = [(dag, r) for r in regions]
+        eng = TorchEngine(dev)
+        before, runs = K.launches(), []
+        for rep in range(reps + 1):
+            with TaskSpy() as spy:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                parts = run_many(pairs, dev, eng)
+                merged = merged_regions(dag, parts)
+                runs.append(time.perf_counter() - t)
+            diff = chunks_equal(merged, wants[qname])
+            if diff is not None:
+                raise AssertionError(f"regions_sorted.{qname} run {rep}: merged answer differs from main.{qname}'s: "
+                                     f"{diff}")
+        calls = reps + 1
+        moved = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
+        groups, singles = launch_classes(eng, pairs)
+        want = {mode: groups, "lex_sort_tasks": groups, solo_of[mode]: singles, "lex_sort": singles}
+        if mode == "sort_groups_tasks":
+            want["seg_agg_tasks"] = groups
+        got = {k: moved.get(k, 0) / calls for k in want}
+        if got != want:
+            raise AssertionError(f"regions_sorted.{qname}: launches per run {got}, want {want} (the sort kernels "
+                                 "run solo only for a group of one)")
+        if eng.fetches != calls:
+            raise AssertionError(f"regions_sorted.{qname}: {eng.fetches} fetches in {calls} runs")
+        fetches = eng.fetches
+        prof = profiled_run(lambda: run_many(pairs, dev, eng), eng)
+        out["captured"].setdefault("regions_sorted", {})[qname] = spy.calls
+        warm = sorted(runs[1:])
+        out["regions_sorted"][qname] = {
+            "rows": sum(r.n_rows for r in regions), "regions": [r.n_rows for r in regions], "cold_s": runs[0],
+            "warm_median_s": warm[len(warm) // 2], "warm_s": runs[1:],
+            "one_batch_warm_median_s": out[qname]["warm_median_s"],
+            "launches_per_run": {k: c / calls for k, c in moved.items()},
+            "groups": sorted(((k[1], k[2]) for k in eng._vprograms), key=repr), "gcap": sorted(eng._gcap.values()),
+            "compile_count": eng.compile_count, "fetches_per_run": fetches / calls, "profiled_run": prof,
+            "answer": merged.slice(0, 4).to_pylist(), "card": card,
+        }
+        say(f"main.regions_sorted.{qname}", **out["regions_sorted"][qname])
 
 
 def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int = 8_000_000,
@@ -3004,15 +3379,17 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
             "answer": want.slice(0, 6).to_pylist(), "card": card,
         }
         say(f"main.{qname}", **out[qname])
-        if qname == "q1":
-            out["q1_want"] = want
+        if qname in ("q1",) + tuple(q for q, _, _ in REGION_QUERIES):
+            out[f"{qname}_want"] = want
     out["batch"] = batch
     run_window_path(dev, win_rows, seed, reps, card, out)
     run_mpp_path(dev, q3_rows, seed, reps, card, out)
     run_mpp_mesh_path(dev, reps, card, out)
     run_mesh_path(dev, cols, card, out)
     run_burst_path(dev, reps, card, out)
-    run_q1_regions_path(dev, batch, out["q1_want"], reps, card, out)
+    regions = tpch.region_batches(batch)
+    run_q1_regions_path(dev, batch, regions, out["q1_want"], reps, card, out)
+    run_regions_sorted_path(dev, regions, {q: out.pop(f"{q}_want") for q, _, _ in REGION_QUERIES}, reps, card, out)
     counts = K.launches()
     for name, c in counts.items():
         if c == 0:
@@ -3419,6 +3796,154 @@ def _k10_seg(calls):
             nbytes, err, len(calls), len(calls[0][0]) if calls else 0)
 
 
+def _k10_topk(calls):
+    """K6's task mode over the captured calls, as _k10_decode (the kernels
+    alone: the select over its prepared table; K8's ordering after it is
+    K8's mode), and the nearest single PyTorch call: torch.topk along dim
+    -1 of the [G, width] sort key."""
+    import torch
+
+    from tidb_tpu_torch.kernels import topk
+    from tidb_tpu_torch.kernels.grouped import _cut, topk_tasks, topk_tasks_prepare, topk_tasks_ref
+    from tidb_tpu_torch.kernels.topk import sort_key, topk_table
+
+    err, nbytes, solo, keys2d = 0.0, 0, [], []
+    for datas, valids, masks, desc, k, w in calls:
+        (gi, go), (wi, wo) = topk_tasks(datas, valids, masks, desc, k, w), topk_tasks_ref(datas, valids, masks, desc, k, w)
+        torch.cuda.synchronize()
+        _same(gi, wi, "topk_tasks rows on the main path")
+        _same(go, wo, "topk_tasks ok bits on the main path")
+        cut = [(_cut(d, w), _cut(v, w), _cut(m, w)) for d, v, m in zip(datas, valids, masks)]
+        solo += [(d, v, m, desc, k) for d, v, m in cut]
+        nbytes += sum(_nbytes(*c) for c in cut) + 5 * gi.numel()
+        keys2d.append((torch.stack([sort_key(d, v, m, desc) for d, v, m in cut]), k))
+    gos = [topk_tasks_prepare(*c, c[0][0].device)[1] for c in calls]
+    return (lambda: [topk_tasks(*c) for c in calls], lambda: [topk_tasks_ref(*c) for c in calls],
+            lambda: [topk(*x) for x in solo], lambda: [go() for go in gos],
+            lambda: [topk_table(c[0], c[1], c[2], c[5], c[0][0].get_device()) for c in calls],
+            nbytes, err, len(calls), len(calls[0][0]) if calls else 0,
+            lambda: [torch.topk(x, k, dim=-1) for x, k in keys2d])
+
+
+def _k10_multi(calls):
+    """K7's task mode over the captured calls, as _k10_decode."""
+    import torch
+
+    from tidb_tpu_torch.kernels import topn_multi_ops
+    from tidb_tpu_torch.kernels.grouped import (_cut, sort_op, topn_multi_ops_tasks, topn_multi_ops_tasks_prepare,
+                                                topn_multi_ops_tasks_ref)
+    from tidb_tpu_torch.kernels.tables import lane_table
+
+    err, nbytes, solo = 0.0, 0, []
+    for masks, keys, w in calls:
+        got, want = topn_multi_ops_tasks(masks, keys, w), topn_multi_ops_tasks_ref(masks, keys, w)
+        torch.cuda.synchronize()
+        for j, (g, wv) in enumerate(zip(got, want)):
+            _same(g.data.view(torch.int64) if g.kind == "f64" else g.data,
+                  wv.data.view(torch.int64) if wv.kind == "f64" else wv.data, f"topn_multi_tasks operand {j}")
+        for m, ks in zip(masks, keys):
+            cut = [(_cut(d, w), _cut(v, w), desc) for d, v, desc in ks]
+            solo.append((_cut(m, w), cut))
+            nbytes += _nbytes(_cut(m, w), *[getattr(d, "bits", d) for d, _, _ in cut], *[v for _, v, _ in cut])
+        nbytes += sum(_nbytes(o.data) for o in got)
+    gos = [topn_multi_ops_tasks_prepare(*c, c[0][0].device)[1] for c in calls]
+    return (lambda: [topn_multi_ops_tasks(*c) for c in calls], lambda: [topn_multi_ops_tasks_ref(*c) for c in calls],
+            lambda: [topn_multi_ops(*x) for x in solo], lambda: [go() for go in gos],
+            lambda: [lane_table(m, [[(sort_op(d), v) for d, v, _ in ks] for ks in keys], w, m[0].get_device(), "k7")
+                     for m, keys, w in calls],
+            nbytes, err, len(calls), len(calls[0][0]) if calls else 0, None)
+
+
+def _k10_lexsort(calls):
+    """K8's task-leading mode over the captured calls (it has no task
+    table: the kernels are the call), and the nearest single PyTorch call:
+    a batched torch.sort(stable=True) along dim -1 of one packed word per
+    row, [G, width] (None when the operands need more than 63 bits)."""
+    import torch
+
+    from tidb_tpu_torch.kernels import SortOp, lex_sort_perm
+    from tidb_tpu_torch.kernels.grouped import lex_sort_perm_tasks, lex_sort_perm_tasks_ref
+
+    err, nbytes, solo, words = 0.0, 0, [], []
+    for ops, w in calls:
+        _same(lex_sort_perm_tasks(ops, w), lex_sort_perm_tasks_ref(ops, w), "lex_sort_tasks on the main path")
+        n = ops[0].data.numel()
+        solo += [[SortOp(o.data[g * w:(g + 1) * w], o.kind) for o in ops] for g in range(n // w)]
+        nbytes += sum(_nbytes(o.data) for o in ops) + 4 * n
+        word = _packed_word(ops)
+        words.append(None if word is None else word.reshape(-1, w))
+    library = None if any(x is None for x in words) else (
+        lambda: [torch.sort(x, dim=-1, stable=True) for x in words])
+    return (lambda: [lex_sort_perm_tasks(*c) for c in calls], lambda: [lex_sort_perm_tasks_ref(*c) for c in calls],
+            lambda: [lex_sort_perm(x) for x in solo], None, None,
+            nbytes, err, len(calls), calls[0][0][0].data.numel() // calls[0][1] if calls else 0, library)
+
+
+def _k10_groups(calls):
+    """K9's task mode over the captured calls, as _k10_decode (the kernels
+    alone: the ops kernel over its prepared table; the rest of a call
+    waits on K8's and its own count read), and the solo K9 row's nearest
+    single PyTorch call over the same tasks: torch.unique_consecutive over
+    every task's first key, sorted within the task, task after task."""
+    import torch
+
+    from tidb_tpu_torch.kernels import sort_groups
+    from tidb_tpu_torch.kernels.grouped import (_cut, sort_groups_tasks, sort_groups_tasks_prepare,
+                                                sort_groups_tasks_ref, sort_op)
+    from tidb_tpu_torch.kernels.tables import lane_table
+
+    err, nbytes, solo, skeys = 0.0, 0, [], []
+    for masks, keys, w in calls:
+        _k9_tasks(masks, keys, w)
+        got = sort_groups_tasks(masks, keys, w)
+        for m, ks in zip(masks, keys):
+            cut = [(_cut(d, w), _cut(v, w)) for d, v in ks]
+            solo.append((_cut(m, w), cut, lambda ng: ng))
+            nbytes += _nbytes(_cut(m, w), *[getattr(d, "bits", d) for d, _ in cut], *[v for _, v in cut])
+        nbytes += 4 * got.seg.numel() + 16 * len(keys[0]) * sum(got.counts)
+        first = torch.stack([getattr(d, "bits", d).reshape(-1)[:w] for (d, _), *_ in keys])
+        skeys.append(torch.sort(first, dim=-1).values.reshape(-1))
+    gos = [sort_groups_tasks_prepare(*c, c[0][0].device)[2] for c in calls]
+    return (lambda: [sort_groups_tasks(*c) for c in calls], lambda: [sort_groups_tasks_ref(*c) for c in calls],
+            lambda: [sort_groups(*x) for x in solo], lambda: [go() for go in gos],
+            lambda: [lane_table(m, [[(sort_op(d), v) for d, v in ks] for ks in keys], w, m[0].get_device(), "k9")
+                     for m, keys, w in calls],
+            nbytes, err, len(calls), len(calls[0][0]) if calls else 0,
+            lambda: [torch.unique_consecutive(x, return_inverse=True) for x in skeys])
+
+
+def _k10_segs(calls):
+    """K4's task mode over K9's task-grid ids (the sort GROUP BY's
+    segment-lane calls), as _k10_seg: the solo kernel per task on its
+    narrowed lanes and its own ids."""
+    import torch
+
+    from tidb_tpu_torch.kernels import SegLane, seg_agg
+    from tidb_tpu_torch.kernels.grouped import _cut, seg_agg_tasks, seg_agg_tasks_prepare, seg_agg_tasks_ref, seg_desc
+
+    err, nbytes, solo = 0.0, 0, []
+    for (masks, keys, lanes, nseg, w), kw in calls:
+        (gi, gf), (wi, wf) = (seg_agg_tasks(masks, keys, lanes, nseg, w, **kw),
+                              seg_agg_tasks_ref(masks, keys, lanes, nseg, w, **kw))
+        torch.cuda.synchronize()
+        _same(gi, wi, "seg_agg_tasks segment-lane ints on the main path")
+        err = max(err, _same(gf, wf, "seg_agg_tasks segment-lane floats on the main path", True))
+        off = 0
+        for m, ls, sg, c in zip(masks, lanes, kw["segs"], kw["counts"]):
+            cut = [SegLane(l.op, _cut(l.data, w), _cut(l.valid, w), l.fill) for l in ls]
+            if c:
+                solo.append((_cut(m, w), [], cut, c, _cut(sg, w) - off))
+            off += c
+            nbytes += _nbytes(_cut(m, w), _cut(sg, w), *_pairs((l.data, l.valid) for l in cut))
+        nbytes += _nbytes(gi, gf)
+    prepared = [seg_agg_tasks_prepare(*a, a[0][0].device, kw["segs"]) for a, kw in calls]
+    return (lambda: [seg_agg_tasks(*a, **kw) for a, kw in calls],
+            lambda: [seg_agg_tasks_ref(*a, **kw) for a, kw in calls],
+            lambda: [seg_agg(m, k, l, c, seg=sg) for m, k, l, c, sg in solo], lambda: [go() for _, go in prepared],
+            lambda: [seg_desc(a[0], a[1], a[2], a[4], 0, *outs, kw["segs"]) for (a, kw), (outs, _) in zip(calls, prepared)],
+            nbytes, err, len(calls), len(calls[0][0][0]) if calls else 0, None)
+
+
 def host_ms(fn, reps: int = 10) -> float:
     """Mean host-clock time of fn() over reps calls, after a warm-up call
     (for host-only work: nothing is synchronized)."""
@@ -3430,42 +3955,67 @@ def host_ms(fn, reps: int = 10) -> float:
 
 
 def measure_grouped_kernels(main: dict, max_err: dict):
-    """K10's three task-grid modes on the main path's own group inputs
-    (the last run_many of main.burst, compression ON, and of
-    main.q1_regions): held once more to their plain versions, timed beside
-    them, their bytes bound, and — the yardstick of the work K10 replaces
-    — the solo kernel launched G times back to back on the same narrowed
-    tensors (`library_ms`: never used on the path) — and `kernel_ms`, the
-    same launches alone over tables built beforehand (`*_prepare`), so
-    that `ms` less `kernel_ms` is the wrappers' host work, of which
-    `host_tables_ms` builds the task tables. The kernels-line row
-    of K1's and K4's modes is the burst's, the expression kernel's (which
-    the point aggregation does not launch: its program has no work) Q1's
-    regions'."""
+    """K10's task-grid modes on the main path's own group inputs (the last
+    run_many of each main.burst mix, compression ON, of main.q1_regions
+    and of each main.regions_sorted query): held once more to their plain
+    versions, timed beside them, their bytes bound, and — the yardstick of
+    the work K10 replaces — the solo kernel launched G times back to back
+    on the same narrowed tensors (`solo_x_G_ms`: never used on the path)
+    — and `kernel_ms`, the same launches alone over tables built
+    beforehand (`*_prepare`; for K6 the select, for K9 the ops kernel, for
+    K8 none: it has no table), so that `ms` less `kernel_ms` is the
+    wrappers' host work (and, for K6, K8 and K9, their one sync each), of
+    which `host_tables_ms` builds the task tables. K6's, K8's and K9's
+    modes also give the nearest single PyTorch call (`library_ms`:
+    torch.topk over the [G, width] sort key; a batched stable torch.sort
+    over one packed word; torch.unique_consecutive over every task's
+    sorted key, the solo K9 row's yardstick). The kernels-line row of K1's and K4's modes is the
+    burst's, the expression kernel's (which the point aggregation does not
+    launch: its program has no work) Q1's regions', and the sort modes'
+    the regions' (the slice at full width); K1's, the expression kernel's and K4's rows keep the
+    solo kernel x G in `library_ms`."""
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
     cap = main["captured"]
-    sources = {"burst": cap["burst"]["compression_on"], "q1_regions": cap["q1_regions"]}
+    sources = {"burst": cap["burst"]["compression_on"], "q1_regions": cap["q1_regions"],
+               "burst.point_topn": cap["burst"]["point_topn.compression_on"],
+               "burst.point_topn_multi": cap["burst"]["point_topn_multi.compression_on"]}
+    sources.update({f"regions.{q}": calls for q, calls in cap["regions_sorted"].items()})
+    modes = (("decode_lane_tasks", "decode_lane_tasks", _k10_decode), ("expr_eval_tasks", "expr_eval_tasks", _k10_expr),
+             ("seg_agg_tasks", "seg_agg_tasks", _k10_seg), ("seg_agg_tasks segment-lane", "seg_agg_tasks", _k10_segs),
+             ("topk_tasks", "topk_tasks", _k10_topk), ("topn_multi_tasks", "topn_multi_ops_tasks", _k10_multi),
+             ("lex_sort_tasks", "lex_sort_perm_tasks", _k10_lexsort), ("sort_groups_tasks", "sort_groups_tasks", _k10_groups))
     report: dict = {}
     for src, calls in sources.items():
-        for mode, fn in (("decode_lane_tasks", _k10_decode), ("expr_eval_tasks", _k10_expr),
-                         ("seg_agg_tasks", _k10_seg)):
-            if not calls[mode]:
+        for mode, spied, fn in modes:
+            picked = task_args(calls, spied, keywords=mode.endswith("segment-lane"))
+            if not picked:
                 continue
-            run, plain, solo, kernel, tables, nbytes, err, ncalls, G = fn(calls[mode])
-            max_err[mode] = max(max_err[mode], err)
-            report.setdefault(src, {})[mode] = {
+            run, plain, solo, kernel, tables, nbytes, err, ncalls, G, *library = fn(picked)
+            name = mode.split()[0]
+            max_err[name] = max(max_err[name], err)
+            r = report.setdefault(src, {})[mode] = {
                 "calls": ncalls, "tasks": G, "ms": time_ms(run), "plain_ms": time_ms(plain, 3),
-                "solo_x_G_ms": time_ms(solo), "kernel_ms": time_ms(kernel), "host_tables_ms": host_ms(tables),
-                "bytes": nbytes,
+                "solo_x_G_ms": time_ms(solo), "kernel_ms": None if kernel is None else time_ms(kernel),
+                "host_tables_ms": 0.0 if tables is None else host_ms(tables), "bytes": nbytes,
                 "bound_ms": bound(nbytes)}
+            if library and library[0] is not None:
+                r["library_ms"] = time_ms(library[0])
     L = main["launches"]
     entries = []
-    for mode, src in (("decode_lane_tasks", "burst"), ("expr_eval_tasks", "q1_regions"), ("seg_agg_tasks", "burst")):
+    rows = (("decode_lane_tasks", "burst", "decode_lane.cu"), ("expr_eval_tasks", "q1_regions", "expr_eval.cu"),
+            ("seg_agg_tasks", "burst", "seg_agg.cu"), ("topk_tasks", "regions.tpch_topn", "topk.cu"),
+            ("topn_multi_tasks", "regions.multikey_topn", "topn_multi.cu"),
+            ("lex_sort_tasks", "regions.multikey_topn", "lex_sort.cu"),
+            ("sort_groups_tasks", "regions.q18_inner", "sort_groups.cu"))
+    for mode, src, cu in rows:
         r = report[src][mode]
-        entries.append({"name": mode, "route": "cuda", "source": f"tidb_tpu_torch/csrc/{mode[:-6]}.cu",
+        # K1's, the expression kernel's and K4's rows keep the solo kernel x G as their yardstick; the
+        # sort modes give the nearest single PyTorch call, where there is one
+        lib = r["solo_x_G_ms"] if mode in AGG_TASK_MODES else r.get("library_ms")
+        entries.append({"name": mode, "route": "cuda", "source": f"tidb_tpu_torch/csrc/{cu}",
                         "replaces": "tidb_tpu/copr/tpu_engine.py:1096", "launches": L[mode],
                         "max_abs_err": max_err[mode], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["solo_x_G_ms"]})
+                        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": lib})
     return entries, report
 
 
@@ -3512,10 +4062,11 @@ def measure_sort_kernels(main: dict, max_err: dict):
 
     from tidb_tpu_torch.kernels import (lex_sort_perm, lex_sort_perm_ref, seg_agg, seg_agg_ref, sort_groups,
                                         sort_groups_ref, topk, topk_ref, topn_multi_ops, topn_multi_ops_ref)
-    from tidb_tpu_torch.kernels.topk import sort_key
+    from tidb_tpu_torch.kernels.topk import select_prepare, sort_key
 
     cap = main["captured"]
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    topk_select = lambda d, v, m, desc, k: select_prepare([d], [v], [m], desc, k, d.numel(), d.device)  # noqa: E731
 
     (d, v, m, desc, k), _ = cap["tpch_topn"]["topk"]
     (gi, go), (wi, wo) = topk(d, v, m, desc, k), topk_ref(d, v, m, desc, k)
@@ -3523,8 +4074,13 @@ def measure_sort_kernels(main: dict, max_err: dict):
     _same(gi, wi, "topk rows on tpch_topn")
     _same(go, wo, "topk ok bits on tpch_topn")
     sk = sort_key(d, v, m, desc)
+    # the select alone over a prepared one-task table, and the host's
+    # preparation of it: the table's build and pinned copy, the outputs'
+    # allocation (`ms` less both: K8's ordering and its one sync)
+    _, select = topk_select(d, v, m, desc, k)
     k6 = {"ms": time_ms(lambda: topk(d, v, m, desc, k)), "plain_ms": time_ms(lambda: topk_ref(d, v, m, desc, k), 3),
           "library_ms": time_ms(lambda: torch.topk(sk, k)), "bytes": _nbytes(d, v, m) + k * 5,
+          "select_ms": time_ms(select), "prepare_host_ms": host_ms(lambda: topk_select(d, v, m, desc, k)),
           "rows": d.numel(), "k": k, "desc": desc}
 
     (mask, keys), _ = cap["multikey_topn"]["topn_multi_ops"]

@@ -8,7 +8,11 @@
   for tools/bench_sched.py's point aggregation;
 * Q1 over lineitem cut into regions (models/tpch.region_batches), run
   through entry.run_many and merged at the root, equals Q1 over the whole
-  batch.
+  batch; so do the sort-based paths of chip_smoke's main.regions_sorted
+  (tpch_topn, multikey_topn, Q18's subquery: K10's K6 / K7 / K9 modes);
+* models/tpch.point_topn_dag / point_topn_multi_dag equal the DAGs the
+  reference Session pushes, and the burst's TopN mixes through run_many
+  equal their serial executes and the host engine.
 """
 
 import os
@@ -19,9 +23,11 @@ import pytest
 
 from tidb_tpu.session import Session
 
+from tidb_tpu_torch.copr import gpu_engine
 from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+from tidb_tpu_torch.copr.host_engine import execute_dag_host
 from tidb_tpu_torch.entry import batch_from_numpy, run_many, run_query
-from tidb_tpu_torch.executor.final_agg import merge_partials, order_by_keys
+from tidb_tpu_torch.executor.final_agg import merge_partials, order_by_keys, top_n
 from tidb_tpu_torch.models import tpch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -29,7 +35,7 @@ import chip_smoke  # noqa: E402
 
 
 @pytest.mark.parametrize("G", chip_smoke.GROUP_SIZES)
-@pytest.mark.parametrize("kind", ["decode", "expr", "seg"])
+@pytest.mark.parametrize("kind", chip_smoke.GROUP_KINDS)
 def test_task_modes_equal_the_solo_plain_versions(kind, G):
     cases = chip_smoke.grouped_cases("cpu", np.random.default_rng(7 + G), r=256, sizes=(G,), kinds=(kind,))
     assert cases
@@ -40,6 +46,96 @@ def test_task_modes_equal_the_solo_plain_versions(kind, G):
         except AssertionError as e:
             failed.append(f"{name}: {e}")
     assert not failed, "\n".join(failed)
+
+
+def _pt_session():
+    s = Session()
+    s.execute("CREATE TABLE pt (id INT PRIMARY KEY, v INT, w INT)")
+    s.execute("INSERT INTO pt VALUES " + ",".join(f"({i}, {i % 997}, {(i * 7) % 131})" for i in range(3 * 1024)))
+    s.vars["tidb_enable_cop_result_cache"] = "OFF"
+    s.vars["tidb_cop_engine"] = "tpu"
+    return s
+
+
+@pytest.mark.parametrize("sql,builder", [(tpch.POINT_TOPN, "point_topn_dag"),
+                                         (tpch.POINT_TOPN_MULTI, "point_topn_multi_dag")], ids=["topn", "topn_multi"])
+def test_point_topn_dags_are_the_references(sql, builder):
+    s = _pt_session()
+    ctl = s.store.sched
+    seen = []
+    real = ctl.batcher.execute
+
+    def capture(engine, dag, batch, **kw):
+        seen.append((dag, batch))
+        return real(engine, dag, batch, **kw)
+
+    ctl.batcher.execute = capture
+    try:
+        rows = s.must_query(sql.format(lo=1024, hi=2048))
+    finally:
+        ctl.batcher.execute = real
+    assert len(seen) == 1
+    ref, batch = seen[0]
+    port = getattr(tpch, builder)()
+    assert ref.selection is None and port.selection is None and ref.agg is None and port.agg is None
+    assert ref.scan.col_offsets == port.scan.col_offsets
+    assert [repr(ft) for ft in ref.scan.col_fts] == [repr(ft) for ft in port.scan.col_fts]
+    assert repr(ref.topn.by) == repr(port.topn.by) and ref.topn.n == port.topn.n == 10
+    (b,) = [x for x in tpch.point_agg_table(3, 1024) if int(x.handles[0]) == 1024]
+    got = top_n(TorchEngine(device="cpu").execute(port, b), port.topn.by, port.topn.n)
+    assert [tuple(str(x) for x in r) for r in got.to_pylist()] == [tuple(r) for r in rows]
+
+
+@pytest.mark.parametrize("builder", ["point_topn_dag", "point_topn_multi_dag"])
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+def test_point_topn_burst_equals_serial_execute_and_host(builder, compress):
+    """main.burst's TopN mixes at 16 tasks: one group, one fetch, each
+    task's chunk its serial execute's and the host engine's."""
+    dag = getattr(tpch, builder)()
+    pairs = [(dag, b) for b in tpch.point_agg_table(16, 1024)]
+    eng = TorchEngine(device="cpu")
+    eng.tile_compression = compress
+    with chip_smoke.TaskSpy() as spy:
+        got = run_many(pairs, "cpu", eng)
+    serial = [TorchEngine(device="cpu").execute(d, b) for d, b in pairs]
+    for g, so, (d, b) in zip(got, serial, pairs):
+        assert chip_smoke.chunks_equal(g, so) is None
+        assert chip_smoke.chunks_equal(g, execute_dag_host(d, b)) is None
+    # compression OFF pads each task to a 64Ki tile, narrowed to its 1,024 rows
+    assert eng.fetches == 1 and [(k[1], k[2]) for k in eng._vprograms] == [(16, None if compress else 1024)]
+    mode = "topk_tasks" if dag.topn.by[0][1] else "topn_multi_ops_tasks"
+    assert len(spy.calls[mode]) == 1
+
+
+@pytest.mark.parametrize("query", [q for q, _, _ in chip_smoke.REGION_QUERIES])
+@pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])
+def test_sorted_paths_over_regions_equal_the_one_batch_answers(query, compress, monkeypatch):
+    """main.regions_sorted at 60,000 rows cut at 16,384: four regions, one
+    launch group (the short last region pads to the same bucket); direct
+    addressing capped at 1,024 keys so that Q18's subquery sorts, and
+    gcap0 at 256 so that it escalates inside its group. The merged answer
+    equals the query over the whole batch, with one fetch a run."""
+    _, builder, mode = next(x for x in chip_smoke.REGION_QUERIES if x[0] == query)
+    monkeypatch.setattr(gpu_engine, "DIRECT_GROUP_MAX", 1024)
+    li = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(60_000, 42))
+    regions = tpch.region_batches(li, 16384)
+    dag = getattr(tpch, builder)()
+    eng = TorchEngine(device="cpu")
+    eng.tile_compression = compress
+    eng.gcap0 = 256
+    want = chip_smoke.oracle(dag, li)
+    assert chip_smoke.chunks_equal(run_query(dag, li, device="cpu"), want) is None
+    for rep in range(2):
+        with chip_smoke.TaskSpy() as spy:
+            merged = chip_smoke.merged_regions(dag, run_many([(dag, r) for r in regions], "cpu", eng))
+        assert chip_smoke.chunks_equal(merged, want) is None
+        assert eng.fetches == rep + 1 and eng.fallbacks == 0
+        spied = {"topk_tasks": "topk_tasks", "topn_multi_tasks": "topn_multi_ops_tasks"}.get(mode, mode)
+        assert len(spy.calls[spied]) == 1
+    assert chip_smoke.launch_classes(eng, [(dag, r) for r in regions]) == (1, 0)
+    if query == "q18_inner":
+        assert sorted(eng._gcap.values()) == [4096]
+        assert len(chip_smoke.task_args(spy.calls, "seg_agg_tasks", keywords=True)) == 1
 
 
 def test_point_agg_dag_is_the_references():
@@ -115,7 +211,7 @@ def _captured_group_calls():
     with chip_smoke.TaskSpy() as spy:
         run_many([(tpch.point_agg_dag(), b) for b in tpch.point_agg_table(4, 1024)], "cpu", eng)
         run_many([(tpch.q1_dag(), r) for r in tpch.region_batches(li, 1536)], "cpu", eng)
-    return spy.calls
+    return {name: chip_smoke.task_args(spy.calls, name) for name in spy.calls}
 
 
 def test_task_tables_hold_each_tasks_lanes():
@@ -199,3 +295,43 @@ def test_task_tables_refuse_tasks_that_differ():
     bad[1] = bad[1][:-1]
     with pytest.raises(ValueError, match="differ from task 0"):
         gk.seg_desc(masks, keys, bad, w, 0, iout, fout)
+
+
+def test_sort_task_tables_hold_each_tasks_lanes(monkeypatch):
+    """The task tables of K6's, K7's and K9's modes and K4's segment-lane
+    form, built here over CPU tensors from the engine's own group inputs
+    (the point TopNs, Q18's subquery over regions), hold each task's
+    addresses where csrc/{topk,topn_multi,sort_groups,seg_agg}.cu read
+    them."""
+    import torch
+
+    from tidb_tpu_torch.kernels import grouped as gk
+    from tidb_tpu_torch.kernels.tables import lane_table
+    from tidb_tpu_torch.kernels.topk import topk_table
+
+    monkeypatch.setattr(gpu_engine, "DIRECT_GROUP_MAX", 1024)
+    eng = TorchEngine(device="cpu")
+    li = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(30_000, 5))
+    with chip_smoke.TaskSpy() as spy:
+        for dag in (tpch.point_topn_dag(), tpch.point_topn_multi_dag()):
+            run_many([(dag, b) for b in tpch.point_agg_table(4, 1024)], "cpu", eng)
+        run_many([(tpch.q18_inner_dag(), r) for r in tpch.region_batches(li, 8192)], "cpu", eng)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    ((datas, valids, masks, desc, k, w),) = chip_smoke.task_args(spy.calls, "topk_tasks")
+    tab = topk_table(datas, valids, masks, w, -1)
+    assert [list(r) for r in tab] == [[ptr(d), ptr(v), ptr(m)] for d, v, m in zip(datas, valids, masks)]
+    for name in ("topn_multi_ops_tasks", "sort_groups_tasks"):
+        ((masks, keys, w),) = chip_smoke.task_args(spy.calls, name)
+        tab = lane_table(masks, [[(gk.sort_op(x[0]), x[1]) for x in ks] for ks in keys], w, -1, name)
+        for g, (m, ks) in enumerate(zip(masks, keys)):
+            want = [m.data_ptr()] + [p for x in ks for p in (gk.sort_op(x[0]).data.data_ptr(), ptr(x[1]))]
+            assert list(tab[g]) == want
+    (((masks, keys, lanes, nseg, w), kw),) = chip_smoke.task_args(spy.calls, "seg_agg_tasks", keywords=True)
+    n_i = sum(1 for lane in lanes[0] if not lane.is_float)
+    iout, fout = torch.empty((n_i, nseg), dtype=torch.int64), torch.empty((len(lanes[0]) - n_i, nseg))
+    host = gk.seg_desc(masks, keys, lanes, w, 1 << 40, iout, fout, kw["segs"])
+    G = len(masks)
+    assert sum(kw["counts"]) == nseg and G > 1
+    for g in range(G):  # one shared output pair, each task's own segment lane
+        assert list(host[g * 6:g * 6 + 2]) == [masks[g].data_ptr(), kw["segs"][g].data_ptr()]
+        assert list(host[g * 6 + 4:g * 6 + 6]) == [iout.data_ptr(), fout.data_ptr()]

@@ -14,6 +14,8 @@ run eagerly on the card:
                         group ids → K4 seg_agg in its segment-lane mode
       single-key TopN   K6 topk (radix select; K8 orders the k rows)
       multi-key TopN    K7 topn_multi_ops → K8 lex_sort_perm → first n
+      a launch group    K10: the task-grid modes of the same kernels
+                        (kernels/grouped.py; module doc below)
 
 then the results come back to the host, which rebuilds the partial chunk
 exactly as the reference does (_agg_outputs_to_chunk,
@@ -24,13 +26,13 @@ and returns the device tensors without synchronizing, `finalize(fetched)`
 rebuilds the chunk from their host copies, and `execute` is
 finalize(fetch(launch())). `execute_many` (ref: :785-886) runs many
 tasks: plans sharing a program key (the rewritten DAG plus every lane's
-codec signature) form launch groups of up to MAX_FUSE tasks. A filter or
-direct-aggregation group runs K10, the task-grid modes of K1, the
-expression kernel and K4 (kernels/grouped.py): one launch of each over
-the whole group, every task narrowed to the group's `width`. A
-sort-aggregation or TopN group runs its members' solo kernels back to
-back (the reference's tier 2; their task-grid modes are the rest of K10,
-not ported yet). Everything launched comes back with one host
+codec signature) form launch groups of up to MAX_FUSE tasks. Every group
+of two or more runs K10 (kernels/grouped.py): one launch of each kernel's
+task-grid mode over the whole group, every task narrowed to the group's
+`width` — K1 and the expression kernel, then K4 (filter, direct GROUP
+BY), K9 + K8 + K4 (sort GROUP BY: one host read of the group's counts),
+K6 + K8 (single-key TopN) or K7 + K8 (multi-key TopN); a group of one
+launches its solo kernels. Everything launched comes back with one host
 synchronization (`fetches` counts them).
 
 The engine's surface for the launch batcher (sched/batcher.py) is the
@@ -57,7 +59,8 @@ from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFun
 from ..expr.program import ProgramCache, ValueSpec, evaluate, evaluate_tasks
 from ..expr.xp_torch import U64
 from ..kernels import SegKey, SegLane, decode_lane, lex_sort_perm, seg_agg, sort_groups, topk, topn_multi_ops
-from ..kernels.grouped import decode_lane_tasks, seg_agg_tasks
+from ..kernels.grouped import (decode_lane_tasks, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks, topk_tasks,
+                               topn_multi_ops_tasks)
 from ..utils import memory as _mem
 from ..utils import metrics as M
 from ..utils import timeline as TL
@@ -331,9 +334,10 @@ class _TaskView:
         self.padded = padded
 
 
-# a launch group whose members run their solo kernels back to back (the
-# reference's tier 2): sort-based aggregation and TopN keys
-_BACK_TO_BACK = "back_to_back"
+def _stacked(host: list, j: int) -> list:
+    """Task j's part of a group's fetched outputs: row j of each stacked
+    array (host values pass as they are)."""
+    return [h[j] if isinstance(h, np.ndarray) else h for h in host]
 
 
 def _host_of(t: torch.Tensor, buf: np.ndarray) -> np.ndarray:
@@ -618,7 +622,9 @@ class TorchEngine:
             plans = [self._plan_for(dag, batch, lane) for dag, batch in items]
             results: list = [None] * len(items)
             fusable: dict = {}  # program key -> [task index]
-            launched = []  # (task indices, outputs, stacked?) in launch order
+            # (task indices, outputs, split: (fetched, j) -> task j's part or
+            # None for a solo launch) in launch order
+            launched = []
             for i, (plan, (dag, batch)) in enumerate(zip(plans, items)):
                 if plan is None:
                     results[i] = self._decline(dag, batch)
@@ -627,25 +633,22 @@ class TorchEngine:
             for key, idx_list in fusable.items():
                 for lo in range(0, len(idx_list), self.MAX_FUSE):
                     grp = idx_list[lo:lo + self.MAX_FUSE]
-                    group = _BACK_TO_BACK  # a group of one launches solo
-                    if len(grp) > 1:
-                        t_, r_ = plans[grp[0]].args[1].shape
-                        need = max(plans[i].rows for i in grp)
-                        w = pow2_rows(need) if t_ == 1 else (t_ - 1) * r_ + pow2_rows(need - (t_ - 1) * r_)
-                        width = w if w < t_ * r_ else None
-                        group = self._vmapped_program(key, 1 << (len(grp) - 1).bit_length(), width)
-                    if group == _BACK_TO_BACK:
-                        for i in grp:
-                            launched.append(([i], plans[i].launch(), False))
-                    else:
-                        outs = group([plans[i].args for i in grp], t_ * r_ if width is None else width)
-                        launched.append((grp, outs, True))
+                    if len(grp) == 1:  # a group of one launches solo
+                        launched.append((grp, plans[grp[0]].launch(), None))
+                        continue
+                    t_, r_ = plans[grp[0]].args[1].shape
+                    need = max(plans[i].rows for i in grp)
+                    w = pow2_rows(need) if t_ == 1 else (t_ - 1) * r_ + pow2_rows(need - (t_ - 1) * r_)
+                    width = w if w < t_ * r_ else None
+                    group = self._vmapped_program(key, 1 << (len(grp) - 1).bit_length(), width)
+                    # a group's outputs, with the function that cuts out each task's
+                    outs, split = group([plans[i].args for i in grp], t_ * r_ if width is None else width)
+                    launched.append((grp, outs, split))
             fetched = self._fetch([outs for _, outs, _ in launched]) if launched else []
         with self.phase("finalize"):
-            for (idx, _, stacked), host in zip(launched, fetched):
+            for (idx, _, split), host in zip(launched, fetched):
                 for j, i in enumerate(idx):
-                    part = [h[j] if stacked and isinstance(h, np.ndarray) else h for h in host]
-                    results[i] = plans[i].finalize(part)
+                    results[i] = plans[i].finalize(host if split is None else split(host, j))
         return results
 
     def _vmapped_program(self, key, gcap: int, width):
@@ -661,11 +664,14 @@ class TorchEngine:
                 self.compile_count += 1
             return self._vprograms[vkey]
 
-    def _program(self, key, group) -> None:
+    def _program(self, key, group=None) -> None:
         """Record `key`'s program (a compile in the reference's count, :1051)
-        and its group program: a K10 task-grid callable, or _BACK_TO_BACK."""
+        and its group program, the K10 task-grid callable (None: an
+        escalated sort-aggregation capacity, whose group program the first
+        plan lowered at that capacity records)."""
         with self._lock:
-            self._raw.setdefault(key, group)
+            if group is not None:
+                self._raw.setdefault(key, group)
             if key in self._programs:
                 M.TPU_COMPILE_CACHE.inc(result="hit")
             else:
@@ -750,9 +756,11 @@ class TorchEngine:
             return self._lower_topn(dag, vocabs, *low)
         return self._lower_filter(dag, *low)
 
-    def _plan(self, key, launch, finalize, dev: DeviceBatch, lanes: dict, group=_BACK_TO_BACK) -> DevicePlan:
+    def _plan(self, key, launch, finalize, dev: DeviceBatch, lanes: dict, group) -> DevicePlan:
         """The DevicePlan of a lowering, its program recorded under `key`
-        with its group program."""
+        with its group program: `group(argss, width)` → (outputs, split),
+        `split(fetched, j)` cutting task j's part out of the fetched
+        outputs (`_stacked`: row j of each)."""
         self._program(key, group)
         flat = [x for i in sorted(lanes) for x in lanes[i]]
         return DevicePlan(launch, finalize, key=key, args=(flat, dev.row_valid), rows=dev.batch.n_rows)
@@ -849,13 +857,16 @@ class TorchEngine:
         return out
 
     @staticmethod
-    def _decode_tasks(argss: list, order: list, unsigned: set, width: int) -> list:
+    def _decode_tasks(argss: list, order: list, unsigned: set, width: int, only=None) -> list:
         """K10's decode: K1's task mode over each used lane of a launch
-        group's tasks (`argss`: each task's (flat lanes, row_valid)) → per
-        task the lanes dict `_decode` gives, each lane read to `width`."""
+        group's tasks (`argss`: each task's (flat lanes, row_valid), in
+        `order`) → per task the lanes dict `_decode` gives, each lane read
+        to `width`; with `only`, just those lanes."""
         rvs = [rv for _, rv in argss]
         out = [{} for _ in argss]
         for k, i in enumerate(order):
+            if only is not None and i not in only:
+                continue
             ds = decode_lane_tasks([flat[2 * k] for flat, _ in argss], rvs, width)
             vs = decode_lane_tasks([flat[2 * k + 1] for flat, _ in argss], rvs, width)
             for g, (d, v) in enumerate(zip(ds, vs)):
@@ -881,7 +892,7 @@ class TorchEngine:
                 l = self._decode_tasks(argss, order, unsigned, width)
             with self.phase("expr_eval"):
                 mask, _ = evaluate_tasks(self.programs, r_conds, [], l, [rv for _, rv in argss], width, force=True)
-            return [mask]
+            return [mask], _stacked
 
         def finalize(fetched):
             mask = fetched[0].reshape(-1)[: dev.batch.n_rows]
@@ -995,7 +1006,7 @@ class TorchEngine:
                 per = [seg_inputs(l, v, _TaskView(rv, width)) for l, v, rv in zip(ls, vals, rvs)]
             with self.phase("seg_agg"):
                 i_mat, f_mat = seg_agg_tasks(list(mask), [k for k, _ in per], [s for _, s in per], nseg, width)
-            return [i_mat, f_mat, self._layout(per[0][1])]
+            return [i_mat, f_mat, self._layout(per[0][1])], _stacked
 
         def finalize(fetched):
             i_host, f_host, layout = fetched
@@ -1024,8 +1035,16 @@ class TorchEngine:
         plan's `launch` synchronizes inside, once, to read that count.
         The plan's key carries the capacity it was lowered at (ref:
         :1443); an escalation records the escalated program as the
-        reference's rerun compiles it. In a launch group its members run
-        these kernels back to back (K10's sort mode is not ported yet)."""
+        reference's rerun compiles it.
+
+        A launch group (K10) runs the task-grid modes: K1, the expression
+        kernel, K9 over every task (K8 sorting by (task, mask, keys) once),
+        one host read of every task's n_groups, and K4 over all the tasks'
+        rows into their groups, numbered on across the tasks. Then, task by
+        task, a count above the plan's capacity escalates it as the
+        reference's per-task rerun does (:1413-1440): the same `_gcap`,
+        programs and compile count. No task reruns: the counts, not the
+        capacity, size the outputs."""
         agg = dag.agg
         key_idx = [g.idx for g in agg.group_by]
         if not key_idx:
@@ -1043,16 +1062,18 @@ class TorchEngine:
                     cap <<= 2
                 with self._lock:
                     self._gcap[base_key] = cap
-                self._program(base_key + (cap,), _BACK_TO_BACK)
+                self._program(base_key + (cap,))
             return cap
 
         specs = [self._agg_spec(a, r_args) for a, r_args in zip(agg.aggs, dev_args)]
+        vspecs = [s for s in specs if s is not None]
+        order = sorted(lanes)
 
         def launch():
             with self.phase("decode"):
                 l = self._decode(dev, lanes, unsigned)
             with self.phase("expr_eval"):
-                flat_mask, vals = self._evaluate(r_conds, [s for s in specs if s is not None], l, dev)
+                flat_mask, vals = self._evaluate(r_conds, vspecs, l, dev)
             with self.phase("sort"):
                 keys = [(self._flat(l[ki][0], dev.padded), self._valid_arg(l[ki][1], dev))
                         for ki in key_idx]
@@ -1067,13 +1088,49 @@ class TorchEngine:
                 out[2:5] = [i_mat[:, :ng], f_mat[:, :ng], self._layout(seg_lanes)]
             return out
 
+        def group(argss, width):  # K10: K1 → expression kernel → K9 (K8) → K4, task-grid modes
+            rvs = [rv for _, rv in argss]
+            views = [_TaskView(rv, width) for rv in rvs]
+            with self.phase("decode"):
+                ls = self._decode_tasks(argss, order, unsigned, width)
+            with self.phase("expr_eval"):
+                masks, vals = evaluate_tasks(self.programs, r_conds, vspecs, ls, rvs, width)
+            masks = [m.reshape(-1) for m in masks]
+            with self.phase("sort"):
+                keys = [[(self._flat(l[ki][0], width), self._valid_arg(l[ki][1], view)) for ki in key_idx]
+                        for l, view in zip(ls, views)]
+                g = sort_groups_tasks(masks, keys, width)
+                for ng in g.counts:  # the reference's per-task reruns, in task order
+                    cap_of(ng)
+            total = sum(g.counts)
+            with self.phase("agg_args"):
+                per = [self._agg_lanes(agg.aggs, specs, v, view, total) for v, view in zip(vals, views)]
+            outs = [g.kval, g.kvalid, None, None, []]
+            if per[0]:
+                with self.phase("seg_agg"):
+                    if total:
+                        i_mat, f_mat = seg_agg_tasks(masks, [[] for _ in masks], per, total, width,
+                                                     segs=list(g.seg), counts=g.counts)
+                    else:  # no group in any task: nothing to reduce
+                        n_i = sum(1 for lane in per[0] if not lane.is_float)
+                        i_mat = torch.empty((n_i, 0), dtype=torch.int64, device=masks[0].device)
+                        f_mat = torch.empty((len(per[0]) - n_i, 0), dtype=torch.float64, device=masks[0].device)
+                outs[2:5] = [i_mat, f_mat, self._layout(per[0])]
+            offs = np.cumsum([0] + g.counts).tolist()
+
+            def split(host, j):  # task j's groups: columns offs[j]:offs[j + 1]
+                a, b = offs[j], offs[j + 1]
+                return [h[:, a:b] if isinstance(h, np.ndarray) else h for h in host] + [b - a]
+
+            return outs, split
+
         def finalize(fetched):
             kval, kvalid, i_host, f_host, layout, ng = fetched
             res = [row for j in range(len(key_idx)) for row in (kval[j], kvalid[j])]
             res += [i_host[k] if t == "i" else f_host[k] for t, k in layout]
             return self._agg_sorted_to_chunk(dag, dev, res, key_idx, vocabs, ng)
 
-        return self._plan(base_key + (gcap,), launch, finalize, dev, lanes)
+        return self._plan(base_key + (gcap,), launch, finalize, dev, lanes, group)
 
     def _agg_sorted_to_chunk(self, dag, dev, outs, key_idx, vocabs, ng):
         """Sorted partials → chunk (copy of TPUEngine._agg_sorted_to_chunk)."""
@@ -1336,7 +1393,10 @@ class TorchEngine:
     def _lower_topn(self, dag: DAGRequest, vocabs, dev: DeviceBatch, lanes, r_conds, unsigned, sig):
         """Single-key TopN (ref: tpu_engine.py:1747 _lower_topn): K6 picks
         the k best rows in lax.top_k's order; the host keeps those the
-        mask lets through, up to n."""
+        mask lets through, up to n. A launch group (K10) runs K6's task
+        grid, k = min(n, width) a task (the rows past `width` are masked,
+        so the chunk is solo's), and one K8 task-leading sort of every
+        task's candidates."""
         by = dag.topn.by
         if len(by) != 1:
             return self._lower_topn_multi(dag, vocabs, dev, lanes, r_conds, unsigned, sig)
@@ -1359,17 +1419,36 @@ class TorchEngine:
                 idx, ok = self.topk(d.contiguous(), self._valid_arg(v, dev), mask, desc, min(n, dev.padded))
             return [idx, ok]
 
+        order = sorted(lanes)
+
+        def group(argss, width):  # K10: K1 → expression kernel → K6 (K8), task-grid modes
+            rvs = [rv for _, rv in argss]
+            with self.phase("decode"):
+                ls = self._decode_tasks(argss, order, unsigned, width, only=dlanes)
+            with self.phase("expr_eval"):
+                masks, vals = evaluate_tasks(self.programs, r_conds, [ValueSpec(r_e)], ls, rvs, width)
+            with self.phase("sort"):
+                datas, valids = [], []
+                for ((ds, v, kind),), rv in zip(vals, rvs):
+                    d = ds[0] if kind == "f64" else ds[0].to(torch.int64)
+                    datas.append(self._flat(d, width).contiguous())
+                    valids.append(self._valid_arg(v, _TaskView(rv, width)))
+                idx, ok = topk_tasks(datas, valids, [m.reshape(-1) for m in masks], desc, min(n, width), width)
+            return [idx, ok], _stacked
+
         def finalize(fetched):
             idx, ok = fetched
             idx = idx[ok]  # drop indices pointing at masked rows
             return dev.batch.to_chunk(dag.scan.col_offsets).take(idx[:n])
 
-        return self._plan(("topn", repr(r_conds), repr(r_e), desc, n, sig), launch, finalize, dev, lanes)
+        return self._plan(("topn", repr(r_conds), repr(r_e), desc, n, sig), launch, finalize, dev, lanes, group)
 
     def _lower_topn_multi(self, dag: DAGRequest, vocabs, dev: DeviceBatch, lanes, r_conds, unsigned, sig):
         """Multi-key TopN (ref: tpu_engine.py:1796 _lower_topn_multi): K7
         writes the sort operands, K8 sorts every row by them, the first n
-        row ids come back with their mask bits."""
+        row ids come back with their mask bits. A launch group (K10) runs
+        K7's task grid and one K8 sort by (task, operands); each task
+        keeps its first min(n, width) rows."""
         r_by = []
         for e, desc in dag.topn.by:
             r_e = self._rewrite(e, vocabs)
@@ -1393,8 +1472,27 @@ class TorchEngine:
                 ok = ops[0].data[idx] == 0
             return [idx, ok]
 
+        order = sorted(lanes)
+
+        def group(argss, width):  # K10: K1 → expression kernel → K7 → K8, task-grid modes
+            rvs = [rv for _, rv in argss]
+            with self.phase("decode"):
+                ls = self._decode_tasks(argss, order, unsigned, width, only=dlanes)
+            with self.phase("expr_eval"):
+                masks, vals = evaluate_tasks(self.programs, r_conds, [ValueSpec(r_e) for r_e, _ in r_by], ls, rvs,
+                                             width)
+            with self.phase("sort"):
+                keys = [[(U64(ds[0]) if kind == "u64" else ds[0], self._valid_arg(v, _TaskView(rv, width)), desc)
+                         for (ds, v, kind), (_, desc) in zip(task, r_by)] for task, rv in zip(vals, rvs)]
+                ops = topn_multi_ops_tasks([m.reshape(-1) for m in masks], keys, width)
+                G = len(argss)
+                rows = lex_sort_perm_tasks(ops, width).long().reshape(G, width)[:, :min(n, width)]
+                ok = ops[0].data[rows] == 0
+                idx = rows - torch.arange(G, device=rows.device)[:, None] * width
+            return [idx, ok], _stacked
+
         def finalize(fetched):
             idx, ok = fetched
             return dev.batch.to_chunk(dag.scan.col_offsets).take(idx[ok][:n])
 
-        return self._plan(("topn_multi", repr(r_conds), repr(r_by), n, sig), launch, finalize, dev, lanes)
+        return self._plan(("topn_multi", repr(r_conds), repr(r_by), n, sig), launch, finalize, dev, lanes, group)

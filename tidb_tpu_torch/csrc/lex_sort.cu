@@ -12,8 +12,9 @@
 //      range, least significant operand lowest, into 64-bit composite
 //      words. A flag operand costs one bit, a constant operand none.
 //   3. Per word, least significant word first: build_keys gathers the
-//      word's fields through the permutation so far, then one 8-bit LSD
-//      pass per 8 bits of the word, each three kernels:
+//      word's fields through the permutation so far (a task field, the
+//      row's task = row / task_width, is computed, not read), then one
+//      8-bit LSD pass per 8 bits of the word, each three kernels:
 //        hist_kernel    per-tile digit histogram (warp-aggregated shared
 //                       atomics), digit-major [256, tiles]
 //        scan_digits    exclusive scan of each digit's tile counts, and
@@ -36,6 +37,15 @@
 //        flushed (on the CPU as on the TPU), so every subnormal folds to
 //        +0.0 too: |x| < DBL_MIN is zero here.
 //
+// Task-leading mode (K10's sort, tidb_tpu/copr/tpu_engine.py:1096-1134
+// vmapping lex_sort_perm over a launch group): G tasks' rows laid out as
+// [G, width] sort by (task, operands...). The host puts the task, row /
+// width, into the most significant ceil(log2 G) bits of the last word;
+// no task lane is materialized. The passes stay LSD and stable, so task
+// g's sorted rows are exactly perm[g*width, (g+1)*width) in its own
+// stable order: a segmented sort with fixed segments in one radix sort,
+// with one OR/AND (and one host read) for the whole group.
+//
 // Bound: bytes. The operands are read once by orand_kernel and once per
 // word by build_keys; each pass reads and writes 12 bytes a row (8-byte
 // key, 4-byte row id). Passes follow the data: TPC-H lineitem's
@@ -53,7 +63,7 @@ namespace {
 
 using u64 = unsigned long long;
 
-enum Kind : int32_t { K_I32 = 0, K_I64 = 1, K_U64 = 2, K_F64 = 3 };
+enum Kind : int32_t { K_I32 = 0, K_I64 = 1, K_U64 = 2, K_F64 = 3, K_TASK = 4 };
 
 constexpr u64 kSign = 0x8000000000000000ULL;
 constexpr double kDblMin = 2.2250738585072014e-308;  // smallest normal double
@@ -70,7 +80,7 @@ struct OpDesc {  // kernels/lex_sort.py packs these as int64 pairs
 };
 
 struct FieldDesc {  // int64 triples: ptr, kind | src_shift << 32, width | dst_shift << 32
-  const void* data;
+  const void* data;  // null for K_TASK
   int32_t kind;
   int32_t src_shift;
   int32_t width;
@@ -140,7 +150,7 @@ __global__ void orand_kernel(const OpDesc* __restrict__ ops, int nops, int64_t n
   }
 }
 
-__global__ void build_keys(const FieldDesc* __restrict__ f, int nf, int64_t n,
+__global__ void build_keys(const FieldDesc* __restrict__ f, int nf, int64_t n, int64_t task_width,
                            const int32_t* __restrict__ perm_in, u64* __restrict__ keys,
                            int32_t* __restrict__ vals) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -148,7 +158,8 @@ __global__ void build_keys(const FieldDesc* __restrict__ f, int nf, int64_t n,
     const int64_t row = perm_in != nullptr ? (int64_t)perm_in[i] : i;
     u64 key = 0ULL;
     for (int j = 0; j < nf; ++j) {
-      u64 u = ordered(f[j].data, f[j].kind, row) >> f[j].src_shift;
+      u64 u = (f[j].kind == K_TASK ? (u64)(row / task_width) : ordered(f[j].data, f[j].kind, row)) >>
+              f[j].src_shift;
       if (f[j].width < 64) u &= (1ULL << f[j].width) - 1ULL;
       key |= u << f[j].dst_shift;
     }
@@ -323,17 +334,19 @@ extern "C" int tt_lex_orand(const void* ops, int nops, int64_t n, u64* orand, in
 
 // Stable sort of rows by one composite word of `bits` bits (1..64), after
 // the permutation perm_in (null = identity); the sorted row ids land in
-// perm_out. key_a/key_b: u64 [n]; val_a/val_b: int32 [n]; counts: int32
+// perm_out. A K_TASK field reads row / task_width (task_width >= 1).
+// key_a/key_b: u64 [n]; val_a/val_b: int32 [n]; counts: int32
 // [tt_lex_counts_len(n)]; totals: int32 [256].
 extern "C" int tt_lex_sort_word(const void* fields, int nfields, int bits, int64_t n,
-                                const int32_t* perm_in, u64* key_a, u64* key_b, int32_t* val_a,
-                                int32_t* val_b, int32_t* counts, int32_t* totals,
-                                int32_t* perm_out, int n_sms, void* stream) {
-  if (nfields <= 0 || bits <= 0 || bits > 64 || n <= 0 || n > 0x7fffffffLL) return -1;
+                                int64_t task_width, const int32_t* perm_in, u64* key_a,
+                                u64* key_b, int32_t* val_a, int32_t* val_b, int32_t* counts,
+                                int32_t* totals, int32_t* perm_out, int n_sms, void* stream) {
+  if (nfields <= 0 || bits <= 0 || bits > 64 || n <= 0 || n > 0x7fffffffLL || task_width <= 0)
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t tiles = (n + kTile - 1) / kTile;
   build_keys<<<grid_for(n, n_sms, 16), kThreads, 0, s>>>((const FieldDesc*)fields, nfields, n,
-                                                         perm_in, key_a, val_a);
+                                                         task_width, perm_in, key_a, val_a);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int passes = (bits + 7) / 8;

@@ -57,7 +57,11 @@
 // them changes no bit) into its own [k_i, nseg] / [k_f, nseg] slice of
 // the [G, k_i, nseg] / [G, k_f, nseg] outputs. The shared-memory
 // privatisation is per (block, task), with the same merge, and the
-// bitwise ops are the same atomics.
+// bitwise ops are the same atomics. A sort GROUP BY's launch group reads
+// each task's row of K9's task-grid segment lane instead of keys: the
+// group ids run on across the tasks, so every task folds into ONE shared
+// [k_i, nseg] / [k_f, nseg] pair (nseg = the group's total n_groups),
+// filled once; a task's rows reach only its own segments.
 //
 // Plain C interface (nvcc + ctypes). tt_seg_agg launches an init kernel
 // and the aggregation kernel on the given stream, never synchronizes, and
@@ -392,15 +396,19 @@ extern "C" int tt_seg_agg(const uint8_t* mask, int64_t n, const int32_t* segs,
   return (int)cudaGetLastError();
 }
 
+// shared_out: every task's output slices are one [k_i, nseg] / [k_f,
+// nseg] pair (segment lanes numbering the groups on across the tasks),
+// filled once.
 extern "C" int tt_seg_agg_tasks(const void* tasks, int G, int64_t width, int nkeys, int nlanes,
-                                int64_t nseg, int n_sms, void* stream) {
+                                int64_t nseg, int shared_out, int n_sms, void* stream) {
   if (nseg <= 0 || nlanes <= 0 || G < 1 || G > 65535) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const TaskAgg* T = (const TaskAgg*)tasks;
   int64_t slots = (int64_t)nlanes * nseg;
   int64_t init_blocks = (slots + kThreads - 1) / kThreads;
   if (init_blocks > 65535) init_blocks = 65535;
-  init_tasks_kernel<<<dim3((unsigned)init_blocks, (unsigned)G), kThreads, 0, s>>>(T, nlanes, nseg);
+  init_tasks_kernel<<<dim3((unsigned)init_blocks, shared_out ? 1u : (unsigned)G), kThreads, 0, s>>>(
+      T, nlanes, nseg);
   int err = (int)cudaGetLastError();
   if (err != 0 || width <= 0) return err;
   int64_t row_blocks = (width + kThreads - 1) / kThreads;

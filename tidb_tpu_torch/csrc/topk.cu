@@ -34,6 +34,16 @@
 // (kernels/topk.py), which is lax.top_k's order: equal keys keep the lower
 // index first.
 //
+// Every kernel runs over a task grid: the solo TopN is a grid of one
+// task, and K10's task-grid mode (tidb_tpu/copr/tpu_engine.py:1096-1134
+// vmapping the kernel above over a launch group) one of G tasks. One radix
+// select per task, the task on the grid's y axis, each through its row of
+// a task table (its key, valid and mask lanes, read to the group's
+// `width`), with its own state row: its own OR / AND, so a digit constant
+// within a task costs that task nothing, and its own threshold. Each task
+// collects k = min(n, width) candidates with their mask bits; K8's
+// task-leading mode orders all G * k of them by (task, u desc, row asc).
+//
 // Bound: bytes. The key's 8 bytes and two 1-byte flags are read once;
 // u (8 bytes a row) is written once and read once per varying digit and
 // twice by the collect. TPC-H's extendedprice key varies in 24 bits:
@@ -57,11 +67,18 @@ constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr int kScanThreads = 1024;
 
-// state (u64 [8 + 256]): OR, AND, threshold prefix, rem, gt counter, -, -, -, hist[256]
-enum { S_OR = 0, S_AND = 1, S_PREFIX = 2, S_REM = 3, S_GT = 4, S_HIST = 8 };
+// state (u64 [8 + 256] a task): OR, AND, threshold prefix, rem, gt
+// counter, -, -, -, hist[256]
+enum { S_OR = 0, S_AND = 1, S_PREFIX = 2, S_REM = 3, S_GT = 4, S_HIST = 8, S_LEN = S_HIST + 256 };
+
+// Every kernel below runs one task per grid row (blockIdx.y; blockIdx.x
+// for the one-block kernels): task y's keys are U[y * n, (y + 1) * n), its
+// state row state[y * S_LEN], its tile counts tilecnt[y * tiles] and its k
+// candidates cand[y * k]. The solo mode is the grid of one task.
 
 __global__ void topk_init(u64* state, int64_t k) {
-  for (int t = threadIdx.x; t < S_HIST + 256; t += blockDim.x) state[t] = 0ULL;
+  state += (int64_t)blockIdx.x * S_LEN;
+  for (int t = threadIdx.x; t < S_LEN; t += blockDim.x) state[t] = 0ULL;
   __syncthreads();
   if (threadIdx.x == 0) {
     state[S_AND] = ~0ULL;
@@ -74,10 +91,16 @@ __device__ __forceinline__ u64 total_order(double x) {
   return (b & kSign) ? ~b : (b | kSign);
 }
 
-__global__ void topk_keys(const void* __restrict__ data, int is_float,
-                          const uint8_t* __restrict__ valid, const uint8_t* __restrict__ mask,
-                          int desc, int64_t n, u64* __restrict__ U, u64* state) {
+// Task y through its row of the task table: (data, valid or 0, mask).
+__global__ void topk_keys(const long long* __restrict__ tasks, int is_float, int desc, int64_t n,
+                          u64* __restrict__ U, u64* state) {
   __shared__ u64 s_or[kWarps], s_and[kWarps];
+  const long long* T = tasks + 3 * (int64_t)blockIdx.y;
+  const void* data = (const void*)T[0];
+  const uint8_t* valid = (const uint8_t*)T[1];
+  const uint8_t* mask = (const uint8_t*)T[2];
+  U += (int64_t)blockIdx.y * n;
+  state += (int64_t)blockIdx.y * S_LEN;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   u64 o = 0ULL, a = ~0ULL;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -131,6 +154,8 @@ __device__ __forceinline__ bool constant_digit(const u64* state, int shift) {
 }
 
 __global__ void topk_hist(const u64* __restrict__ U, int64_t n, int shift, u64* state) {
+  U += (int64_t)blockIdx.y * n;
+  state += (int64_t)blockIdx.y * S_LEN;
   if (constant_digit(state, shift)) return;
   __shared__ unsigned int h[256];
   h[threadIdx.x] = 0u;
@@ -154,6 +179,7 @@ __global__ void topk_hist(const u64* __restrict__ U, int64_t n, int shift, u64* 
 
 __global__ void topk_pick(u64* state, int shift) {
   if (threadIdx.x != 0) return;
+  state += (int64_t)blockIdx.x * S_LEN;
   if (constant_digit(state, shift)) {
     state[S_PREFIX] |= ((state[S_AND] >> shift) & 0xFFULL) << shift;
     return;
@@ -176,6 +202,9 @@ __global__ void topk_pick(u64* state, int shift) {
 __global__ void topk_eqcount(const u64* __restrict__ U, int64_t n, const u64* state,
                              int32_t* __restrict__ tilecnt) {
   __shared__ int32_t ws[kWarps];
+  U += (int64_t)blockIdx.y * n;
+  state += (int64_t)blockIdx.y * S_LEN;
+  tilecnt += (int64_t)blockIdx.y * gridDim.x;
   const u64 T = state[S_PREFIX];
   const int64_t tile = (int64_t)blockIdx.x * kTile;
   int32_t c = 0;
@@ -193,9 +222,10 @@ __global__ void topk_eqcount(const u64* __restrict__ U, int64_t n, const u64* st
   }
 }
 
-// One block: exclusive scan of x[0..len) in place.
+// One block a task: exclusive scan of the task's x[0..len) in place.
 __global__ void scan_excl(int32_t* __restrict__ x, int64_t len) {
   __shared__ int32_t ws[kScanThreads / 32];
+  x += (int64_t)blockIdx.x * len;
   constexpr int nw = kScanThreads / 32;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   int32_t carry = 0;
@@ -224,9 +254,17 @@ __global__ void scan_excl(int32_t* __restrict__ x, int64_t len) {
   }
 }
 
+// okc gets each candidate's mask bit, read through the task table.
 __global__ void topk_collect(const u64* __restrict__ U, int64_t n, int64_t k, u64* state,
-                             const int32_t* __restrict__ tileoff, int32_t* __restrict__ cand) {
+                             const int32_t* __restrict__ tileoff, int32_t* __restrict__ cand,
+                             const long long* __restrict__ tasks, uint8_t* __restrict__ okc) {
   __shared__ int32_t ws[kWarps];
+  U += (int64_t)blockIdx.y * n;
+  state += (int64_t)blockIdx.y * S_LEN;
+  tileoff += (int64_t)blockIdx.y * gridDim.x;
+  cand += (int64_t)blockIdx.y * k;
+  const uint8_t* mask = (const uint8_t*)tasks[3 * (int64_t)blockIdx.y + 2];
+  okc += (int64_t)blockIdx.y * k;
   const u64 T = state[S_PREFIX];
   const int64_t rem = (int64_t)state[S_REM];
   const int64_t ngt = k - rem;
@@ -241,6 +279,7 @@ __global__ void topk_collect(const u64* __restrict__ U, int64_t n, int64_t k, u6
     if (i < n && u > T) {
       const u64 pos = atomicAdd(&state[S_GT], 1ULL);
       cand[pos] = (int32_t)i;
+      okc[pos] = mask[i];
     }
     const unsigned bal = __ballot_sync(0xffffffffu, eq);
     if (lane == 0) ws[w] = __popc(bal);
@@ -252,7 +291,10 @@ __global__ void topk_collect(const u64* __restrict__ U, int64_t n, int64_t k, u6
     }
     if (eq) {
       const int64_t rank = carry + before + __popc(bal & lt);
-      if (rank < rem) cand[ngt + rank] = (int32_t)i;
+      if (rank < rem) {
+        cand[ngt + rank] = (int32_t)i;
+        okc[ngt + rank] = mask[i];
+      }
     }
     carry += total;
     __syncthreads();
@@ -262,33 +304,40 @@ __global__ void topk_collect(const u64* __restrict__ U, int64_t n, int64_t k, u6
 }  // namespace
 
 // Int64 slots of the `state` scratch.
-extern "C" int64_t tt_topk_state_len() { return S_HIST + 256; }
+extern "C" int64_t tt_topk_state_len() { return S_LEN; }
 
 // Int32 slots of the `tilecnt` scratch for n rows.
 extern "C" int64_t tt_topk_tiles(int64_t n) { return (n + kTile - 1) / kTile; }
 
-// cand (int32 [k]) gets the rows of the k largest keys, unordered; U is
-// u64 [n] scratch (the ordered keys, kept for the ordering step).
-extern "C" int tt_topk_select(const void* data, int is_float, const uint8_t* valid,
-                              const uint8_t* mask, int desc, int64_t n, int64_t k, u64* U,
-                              u64* state, int32_t* tilecnt, int32_t* cand, int n_sms,
-                              void* stream) {
-  if (n <= 0 || n > 0x7fffffffLL || k <= 0 || k > n) return -1;
+// G tasks through the task table (int64 [G, 3]: data, valid or 0, mask),
+// each task's first `width` rows (the solo call is G = 1); cand (int32 [G, k])
+// gets each task's k candidates (task-local rows, unordered) and okc
+// (bool [G, k]) their mask bits. U: u64 [G, width]; state: u64 [G,
+// tt_topk_state_len()]; tilecnt: int32 [G, tt_topk_tiles(width)].
+extern "C" int tt_topk_select_tasks(const void* tasks, int G, int is_float, int desc,
+                                    int64_t width, int64_t k, u64* U, u64* state,
+                                    int32_t* tilecnt, int32_t* cand, uint8_t* okc, int n_sms,
+                                    void* stream) {
+  if (G < 1 || G > 65535 || width <= 0 || width > 0x7fffffffLL || k <= 0 || k > width) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)(n_sms > 0 ? n_sms : 132) * 8;
-  if (blocks > cap) blocks = cap;
-  topk_init<<<1, 256, 0, s>>>(state, k);
-  topk_keys<<<(unsigned)blocks, kThreads, 0, s>>>(data, is_float, valid, mask, desc, n, U, state);
+  const long long* T = (const long long*)tasks;
+  int64_t blocks = (width + kThreads - 1) / kThreads;
+  // n_sms * 8 blocks, shared out over the tasks
+  const int64_t per_task = ((int64_t)(n_sms > 0 ? n_sms : 132) * 8 + G - 1) / G;
+  if (blocks > per_task) blocks = per_task;
+  const dim3 grid((unsigned)blocks, (unsigned)G);
+  topk_init<<<G, 256, 0, s>>>(state, k);
+  topk_keys<<<grid, kThreads, 0, s>>>(T, is_float, desc, width, U, state);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   for (int shift = 56; shift >= 0; shift -= 8) {
-    topk_hist<<<(unsigned)blocks, kThreads, 0, s>>>(U, n, shift, state);
-    topk_pick<<<1, 32, 0, s>>>(state, shift);
+    topk_hist<<<grid, kThreads, 0, s>>>(U, width, shift, state);
+    topk_pick<<<G, 32, 0, s>>>(state, shift);
   }
-  const int64_t tiles = (n + kTile - 1) / kTile;
-  topk_eqcount<<<(unsigned)tiles, kThreads, 0, s>>>(U, n, state, tilecnt);
-  scan_excl<<<1, kScanThreads, 0, s>>>(tilecnt, tiles);
-  topk_collect<<<(unsigned)tiles, kThreads, 0, s>>>(U, n, k, state, tilecnt, cand);
+  const int64_t tiles = (width + kTile - 1) / kTile;
+  const dim3 tgrid((unsigned)tiles, (unsigned)G);
+  topk_eqcount<<<tgrid, kThreads, 0, s>>>(U, width, state, tilecnt);
+  scan_excl<<<G, kScanThreads, 0, s>>>(tilecnt, tiles);
+  topk_collect<<<tgrid, kThreads, 0, s>>>(U, width, k, state, tilecnt, cand, T, okc);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,14 @@
 // K8 (csrc/lex_sort.cu) then sorts rows by (flag, null_0, val_0, ...)
 // and the engine keeps the first n row ids with their mask bits.
 //
+// Task-grid mode (K10's multi-key TopN, tidb_tpu/copr/tpu_engine.py:
+// 1096-1134 vmapping the kernel above over a launch group): G tasks, the
+// grid's y axis the task, each through its row of the task table (its
+// mask and key lanes, read to the group's `width`), their operands into
+// slice y of [G, width] lanes; K8's task-leading mode sorts them by (task,
+// operands), and task y's first min(n, width) sorted rows are its answer.
+// The solo mode is G = 1.
+//
 // Bound: bytes. It reads the mask byte and each key's data and valid byte
 // once, and writes 4 bytes of flag plus 4 + 4/8 bytes per key.
 //
@@ -27,34 +35,42 @@ namespace {
 
 enum Kind : int32_t { K_I32 = 0, K_I64 = 1, K_U64 = 2, K_F64 = 3 };
 
-struct KeyDesc {  // kernels/topn_multi.py packs these as int64 5-tuples
-  const void* data;
-  const uint8_t* valid;  // null = all valid
+// Host-built table (kernels/topn_multi.py packs it as int64): G task rows
+// of 1 + 2 * nkeys addresses (mask, then per key its data and its valid
+// lane, 0 = all valid), then nkeys KeyDesc rows shared by the tasks.
+struct KeyDesc {
   int32_t kind;
   int32_t desc;
-  int32_t* null_out;
-  void* val_out;
+  int32_t* null_out;  // [G * width]
+  void* val_out;      // [G * width], the key's own width
 };
 
-__global__ void topn_multi_ops_kernel(const uint8_t* __restrict__ mask, int64_t n,
+// Task blockIdx.y's rows 0..width into slice y of the outputs.
+__global__ void topn_multi_ops_kernel(const long long* __restrict__ tasks, int64_t width,
                                       const KeyDesc* __restrict__ keys, int nkeys,
                                       int32_t* __restrict__ flag) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+  const long long* T = tasks + (int64_t)blockIdx.y * (1 + 2 * nkeys);
+  const uint8_t* mask = (const uint8_t*)T[0];
+  const int64_t base = (int64_t)blockIdx.y * width;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < width;
        i += (int64_t)gridDim.x * blockDim.x) {
-    flag[i] = mask[i] ? 0 : 1;
+    const int64_t o = base + i;
+    flag[o] = mask[i] ? 0 : 1;
     for (int j = 0; j < nkeys; ++j) {
       const KeyDesc& K = keys[j];
-      const bool v = K.valid == nullptr || K.valid[i] != 0;
-      K.null_out[i] = (K.desc ? !v : v) ? 1 : 0;
+      const void* data = (const void*)T[1 + 2 * j];
+      const uint8_t* valid = (const uint8_t*)T[2 + 2 * j];
+      const bool v = valid == nullptr || valid[i] != 0;
+      K.null_out[o] = (K.desc ? !v : v) ? 1 : 0;
       if (K.kind == K_I32) {
-        int32_t x = v ? ((const int32_t*)K.data)[i] : 0;
-        ((int32_t*)K.val_out)[i] = K.desc ? ~x : x;
+        int32_t x = v ? ((const int32_t*)data)[i] : 0;
+        ((int32_t*)K.val_out)[o] = K.desc ? ~x : x;
       } else if (K.kind == K_F64) {
-        double x = v ? ((const double*)K.data)[i] : 0.0;
-        ((double*)K.val_out)[i] = K.desc ? -x : x;
+        double x = v ? ((const double*)data)[i] : 0.0;
+        ((double*)K.val_out)[o] = K.desc ? -x : x;
       } else {
-        long long x = v ? ((const long long*)K.data)[i] : 0LL;
-        ((long long*)K.val_out)[i] = K.desc ? ~x : x;
+        long long x = v ? ((const long long*)data)[i] : 0LL;
+        ((long long*)K.val_out)[o] = K.desc ? ~x : x;
       }
     }
   }
@@ -62,14 +78,16 @@ __global__ void topn_multi_ops_kernel(const uint8_t* __restrict__ mask, int64_t 
 
 }  // namespace
 
-extern "C" int tt_topn_multi_ops(const uint8_t* mask, int64_t n, const void* keys, int nkeys,
-                                 int32_t* flag, int n_sms, void* stream) {
-  if (n < 0 || nkeys < 0) return -1;
-  if (n == 0) return 0;
-  int64_t blocks = (n + 255) / 256;
-  const int64_t cap = (int64_t)(n_sms > 0 ? n_sms : 132) * 16;
-  if (blocks > cap) blocks = cap;
-  topn_multi_ops_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      mask, n, (const KeyDesc*)keys, nkeys, flag);
+// The operands of G tasks (tasks / keys: the table above; flag and every
+// key's outputs [G * width]).
+extern "C" int tt_topn_multi_ops(const void* tasks, int G, int64_t width, const void* keys,
+                                 int nkeys, int32_t* flag, int n_sms, void* stream) {
+  if (width < 0 || nkeys < 0 || G < 1 || G > 65535) return -1;
+  if (width == 0) return 0;
+  int64_t blocks = (width + 255) / 256;
+  const int64_t per_task = ((int64_t)(n_sms > 0 ? n_sms : 132) * 16 + G - 1) / G;
+  if (blocks > per_task) blocks = per_task;
+  topn_multi_ops_kernel<<<dim3((unsigned)blocks, (unsigned)G), 256, 0, (cudaStream_t)stream>>>(
+      (const long long*)tasks, width, (const KeyDesc*)keys, nkeys, flag);
   return (int)cudaGetLastError();
 }

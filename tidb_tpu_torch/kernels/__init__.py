@@ -44,12 +44,16 @@ and launch counters.
                                              exchange_all + :1451 pack_keys (the
                                              owner buckets; the all_to_all is the
                                              mesh's, parallel/mesh.py)
-  K10 decode_lane_tasks, expr_eval_tasks, seg_agg_tasks (task-grid modes in
-      csrc/decode_lane.cu, csrc/expr_eval.cu, csrc/seg_agg.cu; kernels/grouped.py)
+  K10 decode_lane_tasks, expr_eval_tasks, seg_agg_tasks, topk_tasks,
+      topn_multi_ops_tasks, lex_sort_perm_tasks, sort_groups_tasks (task-grid
+      modes in csrc/decode_lane.cu, csrc/expr_eval.cu, csrc/seg_agg.cu,
+      csrc/topk.cu, csrc/topn_multi.cu, csrc/sort_groups.cu, and K8's
+      task-leading key in csrc/lex_sort.cu; kernels/grouped.py)
                                            ← tpu_engine.py:1096-1134
                                              _vmapped_program + :1065-1094
                                              _narrow_args (a launch group's
-                                             filter / direct-aggregation program)
+                                             filter, direct- and sort-
+                                             aggregation and TopN programs)
 
 Each wrapper runs its plain version for CPU tensors only; on a CUDA
 tensor it launches its kernel (built at first use, kernels/build.py) or
@@ -62,7 +66,8 @@ from .decode_lane import decode_lane, decode_lane_ref
 from .dense_agg import dense_agg, dense_agg_ref
 from .exchange import exchange, exchange_ref
 from .expr_eval import expr_eval, expr_eval_ref
-from .grouped import decode_lane_tasks, expr_eval_tasks, seg_agg_tasks
+from .grouped import (decode_lane_tasks, expr_eval_tasks, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks,
+                      topk_tasks, topn_multi_ops_tasks)
 from .hash_repartition import hash_repartition, hash_repartition_ref
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
 from .lut_join import lut_join, lut_join_ref
@@ -85,7 +90,8 @@ WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
             "rowpos_agg": rowpos_agg, "dense_agg": dense_agg, "expr_eval": expr_eval,
             "q1_local": q1_local, "hash_repartition": hash_repartition, "exchange": exchange,
             "decode_lane_tasks": decode_lane_tasks, "expr_eval_tasks": expr_eval_tasks,
-            "seg_agg_tasks": seg_agg_tasks}
+            "seg_agg_tasks": seg_agg_tasks, "topk_tasks": topk_tasks, "topn_multi_tasks": topn_multi_ops_tasks,
+            "lex_sort_tasks": lex_sort_perm_tasks, "sort_groups_tasks": sort_groups_tasks}
 
 
 def reset_launches() -> None:

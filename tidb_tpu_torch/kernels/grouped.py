@@ -1,17 +1,21 @@
-"""K10: the grouped program — task-grid modes of K1, the expression kernel
-and K4.
+"""K10: the grouped program — the task-grid modes of K1, the expression
+kernel, K4, K6, K7 and K9, and K8's task-leading key.
 
 Replaces tidb_tpu/copr/tpu_engine.py:1096-1134 `_vmapped_program` (with
 :1065-1094 `_narrow_args`): the reference stacks the (lanes, row_valid)
 of a launch group's tasks on a new leading axis, narrows every task to
 `width` flattened rows and vmaps the per-task program over it, all in one
-jitted dispatch. The per-task program of a filter or a direct-address
-aggregation is K1 → the expression kernel → K4 in the port, so K10 is a
-task-grid mode of each of those three kernels: one launch covers the G
-tasks of a group, the grid's y axis being the task, each task addressed
-through a table in device memory (csrc/decode_lane.cu, csrc/expr_eval.cu,
-csrc/seg_agg.cu say how). Nothing is stacked: a task's lanes stay where
-its batch uploaded them and its table entry points at them.
+jitted dispatch. The port's per-task programs are K1 → the expression
+kernel → K4 (a filter, a direct-address aggregation), → K9 (K8) → K4 (a
+sort GROUP BY), → K6 (K8) (a single-key TopN) or → K7 → K8 (a multi-key
+TopN), so K10 is a task-grid mode of each of those kernels: one launch
+covers the G tasks of a group, the grid's y axis being the task, each
+task addressed through a table in device memory (csrc/decode_lane.cu,
+csrc/expr_eval.cu, csrc/seg_agg.cu, csrc/topk.cu, csrc/topn_multi.cu,
+csrc/sort_groups.cu say how). Nothing is stacked: a task's lanes stay
+where its batch uploaded them and its table entry points at them. The
+sorts are one radix sort over the group: K8 puts the row's task in the
+top bits of its key, so each task's sorted rows stay in its own slice.
 
 Narrowing is a bound on every row loop: each task's first `width`
 flattened rows are read (the group's narrowed width, or its padded one).
@@ -26,9 +30,20 @@ the rows past a task's real rows contribute nothing.
   expr_eval_tasks(prog, ins, width)
       the same program over every task's input lanes → one [G, width]
       tensor per output slot
-  seg_agg_tasks(masks, keys, lanes, nseg, width)
+  seg_agg_tasks(masks, keys, lanes, nseg, width, segs=None, counts=None)
       every task's K4 reduction → (int64 [G, k_i, nseg], float64
-      [G, k_f, nseg])
+      [G, k_f, nseg]); with K9's task-grid ids (`segs`, `counts`) every
+      task's groups in ONE (int64 [k_i, nseg], float64 [k_f, nseg]) pair
+  lex_sort_perm_tasks(ops, width)
+      K8 over [G * width] operands by (task, operands) → int32 [G * width];
+      task g's sorted rows are its slice g
+  topk_tasks(datas, valids, masks, desc, k, width)
+      each task's K6 TopN → (int32 [G, k] task-local rows, bool [G, k])
+  topn_multi_ops_tasks(masks, keys, width)
+      each task's K7 operands → K8's operands over [G * width]
+  sort_groups_tasks(masks, keys, width)
+      each task's K9 groups → TaskGroups(perm, counts (one host read),
+      seg [G, width] numbered on across the tasks, kval / kvalid [k, Σ])
 
 Each plain version is the solo plain version applied task by task to the
 task's narrowed inputs, then stacked; a wrapper takes it only for tensors
@@ -36,21 +51,36 @@ on the CPU, and on CUDA tensors launches its kernel or raises.
 `<wrapper>.launches` counts the launches.
 
 A wrapper on the card is `<wrapper>_prepare` (outputs, task table built
-a column at a time by `decode_table` / `expr_tables` / `seg_desc` and
-copied up, and a `go()` that enqueues the kernel) followed by one `go()`.
+a column at a time by `decode_table` / `expr_tables` / `seg_desc` here,
+`topk.topk_table` or `tables.lane_table` and copied up, and a `go()` that
+enqueues the kernel) followed by one `go()`; K8's mode has no table (its
+operands are the group's own [G, width] lanes). K6's, K7's and K9's
+solo wrappers launch the same kernels as a grid of one task.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..expr.xp_torch import U64
 from .build import count, library
 from .decode_lane import decode_lane_ref
 from .expr_eval import _Params, expr_eval_ref, launch_shape
+from .lex_sort import SortOp, check_on, lex_sort_perm_ref, sort_op
+from .lex_sort import launch as sort_launch
 from .seg_agg import OPS, SegKey, SegLane, _check, _fill_bits, seg_agg_ref
+from .sort_groups import finish as sort_groups_finish
+from .sort_groups import ops_prepare as sort_groups_prepare
+from .sort_groups import sort_groups_ref
+from .tables import ptrs, to_card
+from .topk import select_prepare as topk_tasks_prepare  # K6's task mode up to its launch
+from .topk import topk_ref
+from .topn_multi import ops_prepare as topn_multi_prepare
+from .topn_multi import topn_multi_ops_ref
 
 _C, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _bound: set = set()
@@ -69,18 +99,10 @@ def _lib(stem: str):
             lib.tt_expr_eval_tasks.argtypes = [ctypes.POINTER(_Params), _I, _C]
             lib.tt_expr_eval_tasks.restype = _I
         else:
-            lib.tt_seg_agg_tasks.argtypes = [_C, _I, _L, _I, _I, _L, _I, _C]
+            lib.tt_seg_agg_tasks.argtypes = [_C, _I, _L, _I, _I, _L, _I, _I, _C]
             lib.tt_seg_agg_tasks.restype = _I
         _bound.add(stem)
     return lib
-
-
-def _table(host: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host-built int64 table on the card, copied from pinned memory
-    without a host synchronization (the copy is ordered before the launch
-    on the current stream). The caller keeps the result alive until the
-    launch is enqueued."""
-    return torch.from_numpy(np.ascontiguousarray(host, dtype=np.int64)).pin_memory().to(dev, non_blocking=True)
 
 
 def _stream(dev: torch.device) -> int:
@@ -93,27 +115,6 @@ def _rows(out: torch.Tensor, G: int) -> np.ndarray:
     if out.numel() == 0:
         return np.zeros(G, dtype=np.int64)
     return out.data_ptr() + np.arange(G, dtype=np.int64) * (out.stride(0) * out.element_size())
-
-
-def _ptrs(ts: list, width: int, dev: int, dtype, what: str) -> np.ndarray:
-    """The addresses of the tensors `ts` (0 for None), each checked as the
-    kernel reads it: on card `dev` (its index; -1 is the CPU), contiguous,
-    at least `width` elements, and of `dtype` unless that is None. The
-    tensors of one table column are all present or all None."""
-    out = np.zeros(len(ts), dtype=np.int64)
-    absent = 0
-    for g, t in enumerate(ts):
-        if t is None:
-            absent += 1
-            continue
-        if t.get_device() != dev or t.numel() < width or not t.is_contiguous():
-            raise ValueError(f"{what}: a contiguous tensor of at least {width} rows on device {dev} is needed")
-        if dtype is not None and t.dtype != dtype:
-            raise TypeError(f"{what}: task {g} has {t.dtype}, task 0 {dtype}")
-        out[g] = t.data_ptr()
-    if 0 < absent < len(ts):
-        raise ValueError(f"{what}: present in some tasks and absent in others")
-    return out
 
 
 # --- K1's task mode ----------------------------------------------------------
@@ -182,7 +183,7 @@ def decode_lane_tasks_prepare(kind: str, encs: list, width: int, dev: torch.devi
     out = torch.empty((len(encs), width), dtype=dtype, device=dev)
     # rle: inclusive run ends of every task at once (glue, as the solo mode's)
     ends = torch.cumsum(torch.stack([e["rl"] for e in encs]).to(torch.int64), 1) if kind == "rle" else None
-    tab = _table(decode_table(kind, encs, width, out, ends), dev)
+    tab = to_card(decode_table(kind, encs, width, out, ends), dev)
     lib, G = _lib("decode_lane"), len(encs)
     if kind == "pack":
         args = (lib.tt_decode_pack_tasks, tab.data_ptr(), G, encs[0]["p"].element_size(), out.element_size(), width)
@@ -212,20 +213,20 @@ def decode_table(kind: str, encs: list, width: int, out: torch.Tensor, ends=None
         codes = [e["p"] for e in encs]
         if len({c.element_size() for c in codes}) != 1 or len({e["b"].dtype for e in encs}) != 1:
             raise ValueError("decode_lane_tasks: pack code widths or base dtypes differ")
-        tab[:, 0] = _ptrs(codes, width, dev, codes[0].dtype, "decode_lane_tasks: pack codes")
+        tab[:, 0] = ptrs(codes, width, dev, codes[0].dtype, "decode_lane_tasks: pack codes")
         tab[:, 3] = [int(e["b"]) for e in encs]
     elif kind == "dict":
         codes, vocabs = [e["c"] for e in encs], [e["v"] for e in encs]
         if len({(v.dtype, v.shape) for v in vocabs}) != 1 or len({c.element_size() for c in codes}) != 1:
             raise ValueError("decode_lane_tasks: dict vocab shapes or code widths differ")
-        tab[:, 0] = _ptrs(codes, width, dev, codes[0].dtype, "decode_lane_tasks: dict codes")
-        tab[:, 1] = _ptrs(vocabs, 1, dev, vocabs[0].dtype, "decode_lane_tasks: dict vocab")
+        tab[:, 0] = ptrs(codes, width, dev, codes[0].dtype, "decode_lane_tasks: dict codes")
+        tab[:, 1] = ptrs(vocabs, 1, dev, vocabs[0].dtype, "decode_lane_tasks: dict vocab")
         tab[:, 2] = vocabs[0].shape[0]
     else:
         vals = [e["rv"] for e in encs]
         if len({(v.dtype, v.shape) for v in vals}) != 1:
             raise ValueError("decode_lane_tasks: rle run arrays differ in shape")
-        tab[:, 0] = _ptrs(vals, 1, dev, vals[0].dtype, "decode_lane_tasks: rle values")
+        tab[:, 0] = ptrs(vals, 1, dev, vals[0].dtype, "decode_lane_tasks: rle values")
         tab[:, 1] = _rows(ends, G)
         tab[:, 2] = vals[0].shape[0]
     return tab
@@ -279,7 +280,7 @@ def expr_eval_tasks_prepare(prog, ins: list, width: int, dev: torch.device):
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     threads, blocks, smem, in_smem = launch_shape(prog, width, n_sms)
     blocks = max(1, min(blocks, -(-n_sms * (2048 // threads) // G)))  # the solo grid, shared out
-    t_in, t_out = _table(tin, dev), _table(tout, dev)
+    t_in, t_out = to_card(tin, dev), to_card(tout, dev)
     p = _Params(ops=ops.data_ptr(), consts=consts.data_ptr(), ext_in=t_in.data_ptr(), ext_out=t_out.data_ptr(),
                 n=width, nops=len(prog.ops), nk=len(prog.consts), nregs=prog.nregs, n_in=len(prog.inputs),
                 n_out=len(prog.outputs), threads=threads, blocks=blocks, ops_in_smem=int(in_smem), smem=smem)
@@ -305,7 +306,7 @@ def expr_tables(prog, ins: list, outs: list, width: int) -> tuple:
         dtype = ins[0][j].dtype
         if ins[0][j].element_size() not in (1, 4, 8):
             raise TypeError(f"expr_eval_tasks: input slot {j} dtype {dtype}")
-        tin[:, j] = _ptrs([task[j] for task in ins], width, dev, dtype, f"expr_eval_tasks: input slot {j}")
+        tin[:, j] = ptrs([task[j] for task in ins], width, dev, dtype, f"expr_eval_tasks: input slot {j}")
     tout = np.zeros((G, max(n_out, 1)), dtype=np.int64)
     for j, o in enumerate(outs):
         tout[:, j] = _rows(o, G)
@@ -327,52 +328,76 @@ def _narrow_lane(lane: SegLane, width: int) -> SegLane:
     return SegLane(lane.op, cut(lane.data), cut(lane.valid), lane.fill)
 
 
-def seg_agg_tasks_ref(masks: list, keys: list, lanes: list, nseg: int, width: int):
+def seg_agg_tasks_ref(masks: list, keys: list, lanes: list, nseg: int, width: int, segs=None, counts=None):
     """Plain version: K4's plain version on each task's narrowed lanes,
-    stacked."""
+    stacked; with `segs`, on each task's ids less its offset (its groups
+    are [off, off + counts[g])), concatenated along the segment axis."""
+    if segs is not None:
+        offs = np.concatenate([[0], np.cumsum(counts)]).tolist()
+        n_i = sum(1 for lane in lanes[0] if not lane.is_float)
+        empty = (torch.empty((n_i, 0), dtype=torch.int64), torch.empty((len(lanes[0]) - n_i, 0), dtype=torch.float64))
+        per = [seg_agg_ref(m.reshape(-1)[:width], [], [_narrow_lane(l, width) for l in ls], c,
+                           seg=sg.reshape(-1)[:width] - off) if c else empty
+               for m, ls, sg, c, off in zip(masks, lanes, segs, counts, offs)]
+        return torch.cat([i for i, _ in per], 1), torch.cat([f for _, f in per], 1)
     per = [seg_agg_ref(m.reshape(-1)[:width], [_narrow_key(k, width) for k in ks],
                        [_narrow_lane(l, width) for l in ls], nseg)
            for m, ks, ls in zip(masks, keys, lanes)]
     return torch.stack([i for i, _ in per]), torch.stack([f for _, f in per])
 
 
-def seg_agg_tasks(masks: list, keys: list, lanes: list, nseg: int, width: int):
+def _seg_check(keys: list, nseg: int, segs, counts) -> None:
+    if segs is None:
+        return
+    if any(keys) or counts is None or len(segs) != len(keys) or len(counts) != len(keys) or sum(counts) != nseg:
+        raise ValueError("seg_agg_tasks: a segment lane per task, no keys, and counts summing to nseg")
+
+
+def seg_agg_tasks(masks: list, keys: list, lanes: list, nseg: int, width: int, segs=None, counts=None):
     """Every task's packed partials, stacked on the task axis (module doc).
     `keys[g]` / `lanes[g]` are task g's SegKey / SegLane lists: the same
-    ops, fills, key bounds and dtypes in every task."""
+    ops, fills, key bounds and dtypes in every task. With `segs` (int32
+    lanes, K9's task-grid ids: task g's groups are the `counts[g]` ids
+    after the earlier tasks', nseg their sum) and empty key lists, every
+    task folds into ONE (int64 [k_i, nseg], float64 [k_f, nseg]) pair."""
     G = len(masks)
     if G == 0 or len(keys) != G or len(lanes) != G:
         raise ValueError("seg_agg_tasks: one mask, key list and lane list per task")
+    _seg_check(keys, nseg, segs, counts)
     dev = masks[0].device
     if dev.type == "cpu":
-        return seg_agg_tasks_ref(masks, keys, lanes, nseg, width)
+        return seg_agg_tasks_ref(masks, keys, lanes, nseg, width, segs, counts)
     if dev.type != "cuda":
         raise ValueError(f"seg_agg_tasks: unsupported device {dev}")
-    (iout, fout), go = seg_agg_tasks_prepare(masks, keys, lanes, nseg, width, dev)
+    (iout, fout), go = seg_agg_tasks_prepare(masks, keys, lanes, nseg, width, dev, segs)
     go()
     count(seg_agg_tasks)
     return iout, fout
 
 
-def seg_agg_tasks_prepare(masks: list, keys: list, lanes: list, nseg: int, width: int, dev: torch.device):
+def seg_agg_tasks_prepare(masks: list, keys: list, lanes: list, nseg: int, width: int, dev: torch.device,
+                          segs=None):
     """K4's task mode up to its launch: the [G, k_i, nseg] / [G, k_f,
-    nseg] outputs, the descriptor table on the card, and `go()`, which
-    enqueues the kernels over them (each call starts the outputs anew from
-    the fills)."""
+    nseg] outputs (with `segs`: the one shared [k_i, nseg] / [k_f, nseg]
+    pair), the descriptor table on the card, and `go()`, which enqueues
+    the kernels over them (each call starts the outputs anew from the
+    fills)."""
     _check(keys[0], lanes[0], nseg)
     if not lanes[0]:
         raise ValueError("seg_agg_tasks: no value lanes")
     G, nk, nl = len(masks), len(keys[0]), len(lanes[0])
     n_i = sum(1 for lane in lanes[0] if not lane.is_float)
-    iout = torch.empty((G, n_i, nseg), dtype=torch.int64, device=dev)
-    fout = torch.empty((G, nl - n_i, nseg), dtype=torch.float64, device=dev)
+    lead = () if segs is not None else (G,)
+    iout = torch.empty(lead + (n_i, nseg), dtype=torch.int64, device=dev)
+    fout = torch.empty(lead + (nl - n_i, nseg), dtype=torch.float64, device=dev)
     desc = torch.empty(G * (6 + 5 * nk + 4 * nl), dtype=torch.int64, device=dev)
-    desc.copy_(torch.from_numpy(seg_desc(masks, keys, lanes, width, desc.data_ptr(), iout, fout)).pin_memory(),
+    desc.copy_(torch.from_numpy(seg_desc(masks, keys, lanes, width, desc.data_ptr(), iout, fout, segs)).pin_memory(),
                non_blocking=True)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def go():
-        rc = _lib("seg_agg").tt_seg_agg_tasks(desc.data_ptr(), G, width, nk, nl, nseg, n_sms, _stream(dev))
+        rc = _lib("seg_agg").tt_seg_agg_tasks(desc.data_ptr(), G, width, nk, nl, nseg, int(segs is not None), n_sms,
+                                              _stream(dev))
         if rc != 0:
             raise RuntimeError(f"seg_agg_tasks: kernel launch failed (cudaError {rc})")
 
@@ -390,11 +415,12 @@ def seg_agg_tasks_check(keys: list, lanes: list) -> None:
 
 
 def seg_desc(masks: list, keys: list, lanes: list, width: int, base: int, iout: torch.Tensor,
-             fout: torch.Tensor) -> np.ndarray:
+             fout: torch.Tensor, segs=None) -> np.ndarray:
     """K4's descriptor table, to be copied to the int64 tensor at `base`
     (laid out as the structs of csrc/seg_agg.cu): G TaskAgg entries, then
     every task's KeyDesc rows, then every task's LaneDesc rows. Built a
-    column at a time over the tasks."""
+    column at a time over the tasks. With `segs`, each task's segment
+    lane and the one shared output pair."""
     seg_agg_tasks_check(keys, lanes)
     G, nk, nl = len(masks), len(keys[0]), len(lanes[0])
     dev = iout.get_device()
@@ -402,22 +428,26 @@ def seg_desc(masks: list, keys: list, lanes: list, width: int, base: int, iout: 
     host = np.zeros(G * (6 + 5 * nk + 4 * nl), dtype=np.int64)
     task, keyd, laned = host[:k0].reshape(G, 6), host[k0:l0].reshape(G, nk, 5), host[l0:].reshape(G, nl, 4)
     g = np.arange(G, dtype=np.int64)
-    task[:, 0] = _ptrs(masks, width, dev, torch.bool, "seg_agg_tasks: mask")
+    task[:, 0] = ptrs(masks, width, dev, torch.bool, "seg_agg_tasks: mask")
     task[:, 2] = base + 8 * (k0 + g * 5 * nk)
     task[:, 3] = base + 8 * (l0 + g * 4 * nl)
-    task[:, 4], task[:, 5] = _rows(iout, G), _rows(fout, G)
+    if segs is None:
+        task[:, 4], task[:, 5] = _rows(iout, G), _rows(fout, G)
+    else:
+        task[:, 1] = ptrs(segs, width, dev, torch.int32, "seg_agg_tasks: segment lane")
+        task[:, 4], task[:, 5] = (t.data_ptr() if t.numel() else 0 for t in (iout, fout))
     for j, k in enumerate(keys[0]):
         col = [ks[j] for ks in keys]
-        keyd[:, j, 0] = _ptrs([c.data for c in col], width, dev, k.data.dtype, "seg_agg_tasks: key data")
-        keyd[:, j, 1] = _ptrs([c.valid for c in col], width, dev, None, "seg_agg_tasks: key valid")
+        keyd[:, j, 0] = ptrs([c.data for c in col], width, dev, k.data.dtype, "seg_agg_tasks: key data")
+        keyd[:, j, 1] = ptrs([c.valid for c in col], width, dev, None, "seg_agg_tasks: key valid")
         keyd[:, j, 2:] = (k.lo, k.dom, k.data.element_size())
     n_i = n_f = 0
     for j, lane in enumerate(lanes[0]):
         col = [ls[j] for ls in lanes]
         what = f"seg_agg_tasks: {lane.op}"
-        laned[:, j, 0] = _ptrs([c.data for c in col], width, dev, None if lane.data is None else lane.data.dtype,
+        laned[:, j, 0] = ptrs([c.data for c in col], width, dev, None if lane.data is None else lane.data.dtype,
                                what + " data")
-        laned[:, j, 1] = _ptrs([c.valid for c in col], width, dev, None, what + " valid")
+        laned[:, j, 1] = ptrs([c.valid for c in col], width, dev, None, what + " valid")
         laned[:, j, 2] = _fill_bits(lane)
         laned[:, j, 3] = OPS[lane.op] | ((n_f if lane.is_float else n_i) << 32)  # its output row
         n_f, n_i = (n_f + 1, n_i) if lane.is_float else (n_f, n_i + 1)
@@ -425,3 +455,194 @@ def seg_desc(masks: list, keys: list, lanes: list, width: int, base: int, iout: 
 
 
 seg_agg_tasks.launches = 0
+
+
+# --- K8's task-leading mode ----------------------------------------------------
+
+
+def lex_sort_perm_tasks_ref(ops, width: int) -> torch.Tensor:
+    """Plain version: K8's plain version on each task's slice of the
+    operands, its permutation offset to the task's rows, concatenated."""
+    ops = [sort_op(o) for o in ops]
+    n = _tasks_of(ops[0].data.shape[0], width, "lex_sort_perm_tasks")
+    parts = [lex_sort_perm_ref([SortOp(o.data[g * width:(g + 1) * width], o.kind) for o in ops]) + g * width
+             for g in range(n)]
+    return torch.cat(parts) if parts else torch.empty(0, dtype=torch.int32, device=ops[0].data.device)
+
+
+def lex_sort_perm_tasks(ops, width: int) -> torch.Tensor:
+    """int32 [G * width]: G tasks' rows (the operands laid out [G, width])
+    sorted by (task, operands), stably — task g's sorted rows are
+    perm[g * width:(g + 1) * width]. One radix sort and one OR/AND sync
+    for the whole group (csrc/lex_sort.cu, task-leading mode); it has no
+    task table (the operands are the group's own [G, width] lanes)."""
+    ops = [sort_op(o) for o in ops]
+    dev = ops[0].data.device
+    if dev.type == "cpu":
+        return lex_sort_perm_tasks_ref(ops, width)
+    if dev.type != "cuda":
+        raise ValueError(f"lex_sort_perm_tasks: unsupported device {dev}")
+    n = check_on(ops, "lex_sort_perm_tasks")
+    _tasks_of(n, width, "lex_sort_perm_tasks")
+    return sort_launch(ops, n, width, lex_sort_perm_tasks)
+
+
+def _tasks_of(n: int, width: int, what: str) -> int:
+    if width <= 0 or n % width:
+        raise ValueError(f"{what}: {n} rows are not whole tasks of {width}")
+    return n // width
+
+
+lex_sort_perm_tasks.launches = 0
+
+
+def _cut(x, width: int):
+    """A task's lane (a tensor, an xp_torch.U64 or None) narrowed to its
+    first `width` flattened rows."""
+    if x is None:
+        return None
+    if isinstance(x, U64):
+        return U64(x.bits.reshape(-1)[:width])
+    return x.reshape(-1)[:width]
+
+
+# --- K6's task mode -------------------------------------------------------------
+
+
+def _topk_in(datas: list, valids: list, masks: list, k: int, width: int) -> int:
+    G = len(datas)
+    if G == 0 or len(valids) != G or len(masks) != G:
+        raise ValueError("topk_tasks: one key, valid lane and mask per task")
+    if datas[0].dtype not in (torch.int64, torch.float64):
+        raise TypeError(f"topk_tasks: the key is int64/float64, got {datas[0].dtype}")
+    if not 0 <= k <= width:
+        raise ValueError(f"topk_tasks: k={k} outside 0..{width}")
+    return G
+
+
+def topk_tasks_ref(datas: list, valids: list, masks: list, desc: bool, k: int, width: int):
+    """Plain version: K6's plain version on each task's narrowed lanes,
+    stacked."""
+    _topk_in(datas, valids, masks, k, width)
+    per = [topk_ref(_cut(d, width), _cut(v, width), _cut(m, width), desc, k) for d, v, m in zip(datas, valids, masks)]
+    return torch.stack([i for i, _ in per]), torch.stack([o for _, o in per])
+
+
+def topk_tasks(datas: list, valids: list, masks: list, desc: bool, k: int, width: int):
+    """(int32 [G, k] task-local row ids, bool [G, k] their mask bits): each
+    task's k best rows of its first `width`, in lax.top_k's order (K6's
+    module doc) — one radix select per task over the task grid, then one
+    K8 task-leading sort of all G * k candidates by (task, key desc, row)."""
+    G = _topk_in(datas, valids, masks, k, width)
+    dev = datas[0].device
+    if dev.type == "cpu":
+        return topk_tasks_ref(datas, valids, masks, desc, k, width)
+    if dev.type != "cuda":
+        raise ValueError(f"topk_tasks: unsupported device {dev}")
+    if k == 0:
+        return torch.empty((G, 0), dtype=torch.int32, device=dev), torch.empty((G, 0), dtype=torch.bool, device=dev)
+    (U, cand, okc), go = topk_tasks_prepare(datas, valids, masks, desc, k, width, dev)
+    go()
+    count(topk_tasks)
+    # (task, u desc, row asc): ~u ascends as u descends; the row breaks ties
+    rows = (cand.long() + torch.arange(G, device=dev)[:, None] * width).reshape(-1)
+    perm = lex_sort_perm_tasks([SortOp(~U.reshape(-1)[rows], "u64"), SortOp(cand.reshape(-1), "i32")], k).long()
+    return cand.reshape(-1)[perm].reshape(G, k), okc.reshape(-1)[perm].reshape(G, k)
+
+
+topk_tasks.launches = 0
+
+
+# --- K7's task mode -------------------------------------------------------------
+
+
+def topn_multi_ops_tasks_ref(masks: list, keys: list, width: int) -> list:
+    """Plain version: K7's plain version on each task's narrowed lanes,
+    each operand's tasks concatenated ([G * width])."""
+    per = [topn_multi_ops_ref(_cut(m, width), [(_cut(d, width), _cut(v, width), desc) for d, v, desc in ks])
+           for m, ks in zip(masks, keys)]
+    return [SortOp(torch.cat([p[j].data for p in per]), op.kind) for j, op in enumerate(per[0])]
+
+
+def topn_multi_ops_tasks(masks: list, keys: list, width: int) -> list:
+    """K8's operands for G tasks' multi-key TopN, each [G * width] with task
+    g's rows in slice g (K7's module doc: `keys[g]` is task g's [(data,
+    valid, desc)], the same kinds and orders in every task)."""
+    if not masks or len(keys) != len(masks):
+        raise ValueError("topn_multi_ops_tasks: one mask and key list per task")
+    dev = masks[0].device
+    if dev.type == "cpu":
+        return topn_multi_ops_tasks_ref(masks, keys, width)
+    if dev.type != "cuda":
+        raise ValueError(f"topn_multi_ops_tasks: unsupported device {dev}")
+    ops, go = topn_multi_ops_tasks_prepare(masks, keys, width, dev)
+    if width:
+        go()
+    count(topn_multi_ops_tasks)
+    return ops
+
+
+def topn_multi_ops_tasks_prepare(masks: list, keys: list, width: int, dev: torch.device):
+    """K7's task mode up to its launch: (the operands, `go()`); the task
+    table is built a column at a time (topn_multi.ops_prepare)."""
+    return topn_multi_prepare(masks, [[(sort_op(d), v, bool(desc)) for d, v, desc in ks] for ks in keys], width, dev)
+
+
+topn_multi_ops_tasks.launches = 0
+
+
+# --- K9's task mode -------------------------------------------------------------
+
+
+@dataclass
+class TaskGroups:
+    perm: torch.Tensor  # int32 [G * width]: K8's task-leading permutation
+    counts: list  # n_groups of each task (host ints, one read)
+    seg: torch.Tensor  # int32 [G, width], row order: the row's group id,
+    #                    numbered on across the tasks; masked rows get the total
+    kval: torch.Tensor  # int64 [nkeys, total]: each group's key bits
+    kvalid: torch.Tensor  # int64 [nkeys, total]: 1 non-NULL, 0 NULL
+
+
+def sort_groups_tasks_ref(masks: list, keys: list, width: int) -> TaskGroups:
+    """Plain version: K9's plain version on each task's narrowed lanes at
+    capacity n_groups, its ids offset by the earlier tasks' counts."""
+    per = [sort_groups_ref(_cut(m, width), [(_cut(d, width), _cut(v, width)) for d, v in ks], lambda ng: ng)
+           for m, ks in zip(masks, keys)]
+    counts = [g.n_groups for g in per]
+    total, offs = sum(counts), np.concatenate([[0], np.cumsum(counts)]).tolist()
+    seg = [torch.where(g.seg < g.n_groups, g.seg + off, total).to(torch.int32) for g, off in zip(per, offs)]
+    return TaskGroups(torch.cat([g.perm + i * width for i, g in enumerate(per)]), counts, torch.stack(seg),
+                      torch.cat([g.kval for g in per], 1), torch.cat([g.kvalid for g in per], 1))
+
+
+def sort_groups_tasks(masks: list, keys: list, width: int) -> TaskGroups:
+    """Dense group ids of G tasks' sort GROUP BY (K9's module doc; `keys[g]`
+    is task g's [(data, valid)]): the ops kernel over the task grid, one
+    K8 task-leading sort, the group counts of every task read in ONE host
+    sync, and the group ids numbered on across the tasks, uncapped."""
+    if not masks or len(keys) != len(masks) or not keys[0]:
+        raise ValueError("sort_groups_tasks: one mask and a non-empty key list per task")
+    dev = masks[0].device
+    if dev.type == "cpu":
+        return sort_groups_tasks_ref(masks, keys, width)
+    if dev.type != "cuda":
+        raise ValueError(f"sort_groups_tasks: unsupported device {dev}")
+    if not 0 < len(masks) * width < 1 << 31:
+        raise ValueError(f"sort_groups_tasks: {len(masks)} x {width} rows outside 1..2^31-1")
+    ops, ko, go = sort_groups_tasks_prepare(masks, keys, width, dev)
+    go()
+    count(sort_groups_tasks)
+    perm = lex_sort_perm_tasks(ops, width)
+    counts, _, seg, kval, kvalid = sort_groups_finish(ops, ko, perm, len(masks), width, lambda total: total)
+    return TaskGroups(perm, counts, seg.reshape(len(masks), width), kval, kvalid)
+
+
+def sort_groups_tasks_prepare(masks: list, keys: list, width: int, dev: torch.device):
+    """K9's task mode up to its ops launch: (K8's operands, the key-operand
+    table, `go()`); the task table is built a column at a time
+    (sort_groups.ops_prepare)."""
+    return sort_groups_prepare(masks, [[(sort_op(d), v) for d, v in ks] for ks in keys], width, dev)
+
+
+sort_groups_tasks.launches = 0

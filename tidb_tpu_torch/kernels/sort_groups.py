@@ -32,6 +32,11 @@ beside it.
 `sort_groups` takes the plain version only for tensors on the CPU. On a
 CUDA device it launches the kernels or raises; `sort_groups.launches`
 counts the calls that launched.
+
+`ops_prepare` / `finish` drive the kernels for G tasks; the solo call is
+G = 1, and K10's task-grid mode is kernels/grouped.py
+`sort_groups_tasks` (the group ids numbered on across the tasks, one
+host read of every task's n_groups).
 """
 
 from __future__ import annotations
@@ -39,10 +44,12 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .build import count, library
 from .lex_sort import DBL_MIN, KINDS, SortOp, lex_sort_perm, lex_sort_perm_ref, sort_op
+from .tables import dev_index, lane_table, to_card
 
 _I64_MIN = -(1 << 63)
 
@@ -135,11 +142,11 @@ def _lib():
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.tt_sg_tiles.argtypes = [L]
         lib.tt_sg_tiles.restype = L
-        lib.tt_sg_ops.argtypes = [C, L, C, I, C, I, C]
+        lib.tt_sg_ops.argtypes = [C, I, L, C, I, C, I, C]
         lib.tt_sg_ops.restype = I
-        lib.tt_sg_count.argtypes = [C, C, I, C, L, C, C]
+        lib.tt_sg_count.argtypes = [C, C, I, C, I, L, C, C, C]
         lib.tt_sg_count.restype = I
-        lib.tt_sg_segments.argtypes = [C, C, I, C, L, C, L, C, C, C, C]
+        lib.tt_sg_segments.argtypes = [C, C, I, C, I, L, C, L, C, C, C, C]
         lib.tt_sg_segments.restype = I
         _bound.add("sort_groups")
     return lib
@@ -150,6 +157,60 @@ def _raise(rc: int, what: str) -> None:
         raise RuntimeError(f"sort_groups: {what} launch failed (cudaError {rc})")
 
 
+def ops_prepare(masks: list, keys: list, width: int, dev: torch.device):
+    """The ops kernel of G tasks up to its launch: (K8's operands over the
+    [G * width] outputs, the key-operand table on the card, `go()`, which
+    enqueues the kernel). `masks[g]` is task g's mask, `keys[g]` its
+    checked [(SortOp, valid)] (the same kinds in every task); each is read
+    to `width` rows."""
+    G, nk = len(masks), len(keys[0])
+    n = G * width
+    flag = torch.empty(n, dtype=torch.int32, device=dev)
+    ops, kops = [SortOp(flag, "i32")], []
+    tasks = lane_table(masks, keys, width, dev_index(dev), "sort_groups")
+    kdesc = np.zeros((nk, 3), dtype=np.int64)  # the table's key rows, shared by the tasks
+    for j, (op, _) in enumerate(keys[0]):
+        null = torch.empty(n, dtype=torch.int32, device=dev)
+        val = torch.empty(n, dtype=torch.int64, device=dev)
+        ops += [SortOp(null, "i32"), SortOp(val, "i64")]
+        kdesc[j] = (KINDS[op.kind], null.data_ptr(), val.data_ptr())
+        kops.append([null.data_ptr(), val.data_ptr()])
+    tab = to_card(np.concatenate([tasks.reshape(-1), kdesc.reshape(-1)]), dev)
+    ko = to_card(np.array(kops, dtype=np.int64), dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def go():
+        _raise(_lib().tt_sg_ops(tab.data_ptr(), G, width, tab.data_ptr() + 8 * tasks.size, nk, flag.data_ptr(),
+                                n_sms, torch.cuda.current_stream(dev).cuda_stream), "ops")
+
+    return ops, ko, go
+
+
+def finish(ops: list, ko: torch.Tensor, perm: torch.Tensor, G: int, width: int, cap_of):
+    """Count and number the groups of K8's sorted operands: → (n_groups
+    per task, capacity, seg, kval, kvalid). One host read of the counts;
+    `cap_of(total)` chooses the capacity."""
+    dev, nk = perm.device, len(ops) // 2
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tilecnt = torch.empty(G * lib.tt_sg_tiles(width) + 1, dtype=torch.int32, device=dev)
+    counts = torch.empty(G, dtype=torch.int32, device=dev)
+    _raise(lib.tt_sg_count(ops[0].data.data_ptr(), ko.data_ptr(), nk, perm.data_ptr(), G, width,
+                           tilecnt.data_ptr(), counts.data_ptr(), stream), "count")
+    per_task = counts.cpu().tolist()  # sync: the capacity follows n_groups
+    cap = int(cap_of(sum(per_task)))
+    seg = torch.empty(G * width, dtype=torch.int32, device=dev)
+    kval = torch.full((nk, cap), _I64_MIN, dtype=torch.int64, device=dev)
+    kvalid = torch.full((nk, cap), -1, dtype=torch.int64, device=dev)
+    if cap > 0:
+        _raise(lib.tt_sg_segments(ops[0].data.data_ptr(), ko.data_ptr(), nk, perm.data_ptr(), G, width,
+                                  tilecnt.data_ptr(), cap, seg.data_ptr(), kval.data_ptr(), kvalid.data_ptr(),
+                                  stream), "segments")
+    else:  # no group at all: every row is past the (empty) capacity
+        seg.zero_()
+    return per_task, cap, seg, kval, kvalid
+
+
 def sort_groups(mask: torch.Tensor, keys, cap_of) -> Groups:
     """Sorted dense group ids (module doc)."""
     dev = mask.device
@@ -158,40 +219,13 @@ def sort_groups(mask: torch.Tensor, keys, cap_of) -> Groups:
     if dev.type != "cuda":
         raise ValueError(f"sort_groups: unsupported device {dev}")
     n, keys = _keys_in(mask, keys)
-    for t in [mask] + [t for op, v in keys for t in (op.data, v) if t is not None]:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"sort_groups: inputs must be contiguous tensors on {dev}")
     if not 0 < n < 1 << 31:
         raise ValueError(f"sort_groups: {n} rows outside 1..2^31-1")
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    flag = torch.empty(n, dtype=torch.int32, device=dev)
-    ops, desc, kops = [SortOp(flag, "i32")], [], []
-    for op, valid in keys:
-        null = torch.empty(n, dtype=torch.int32, device=dev)
-        val = torch.empty(n, dtype=torch.int64, device=dev)
-        ops += [SortOp(null, "i32"), SortOp(val, "i64")]
-        desc.append([op.data.data_ptr(), 0 if valid is None else valid.data_ptr(), KINDS[op.kind],
-                     null.data_ptr(), val.data_ptr()])
-        kops.append([null.data_ptr(), val.data_ptr()])
-    kd = torch.tensor(desc, dtype=torch.int64).to(dev)
-    ko = torch.tensor(kops, dtype=torch.int64).to(dev)
-    _raise(lib.tt_sg_ops(mask.data_ptr(), n, kd.data_ptr(), len(keys), flag.data_ptr(), n_sms, stream), "ops")
+    ops, ko, go = ops_prepare([mask], [keys], n, dev)
+    go()
     count(sort_groups)
     perm = lex_sort_perm(ops)
-    tiles = lib.tt_sg_tiles(n)
-    tilecnt = torch.empty(tiles + 1, dtype=torch.int32, device=dev)
-    _raise(lib.tt_sg_count(flag.data_ptr(), ko.data_ptr(), len(keys), perm.data_ptr(), n,
-                           tilecnt.data_ptr(), stream), "count")
-    ng = int(tilecnt[tiles])  # sync: the capacity follows n_groups
-    cap = int(cap_of(ng))
-    seg = torch.empty(n, dtype=torch.int32, device=dev)
-    kval = torch.full((len(keys), cap), _I64_MIN, dtype=torch.int64, device=dev)
-    kvalid = torch.full((len(keys), cap), -1, dtype=torch.int64, device=dev)
-    _raise(lib.tt_sg_segments(flag.data_ptr(), ko.data_ptr(), len(keys), perm.data_ptr(), n,
-                              tilecnt.data_ptr(), cap, seg.data_ptr(), kval.data_ptr(),
-                              kvalid.data_ptr(), stream), "segments")
+    (ng,), cap, seg, kval, kvalid = finish(ops, ko, perm, 1, n, cap_of)
     return Groups(perm, ng, cap, seg, kval, kvalid)
 
 

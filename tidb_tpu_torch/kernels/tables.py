@@ -1,0 +1,71 @@
+"""Task tables: the int64 tables of device addresses through which a
+task-grid kernel reads each task's lanes (the grid's y axis is the task,
+row g of the table its lanes). Shared by the solo wrappers, which launch
+their kernels as a grid of one task, and by K10's task-grid modes
+(kernels/grouped.py).
+
+  ptrs(ts, width, dev, dtype, what)   one column: the tensors' addresses,
+                                      each checked as the kernel reads it
+  lane_table(masks, keys, width, dev, what)
+                                      K7's and K9's [G, 1 + 2 * nkeys]
+                                      table (mask, then per key data, valid)
+  to_card(host, dev)                  a host-built table on the card, with
+                                      no host synchronization
+  dev_index(dev)                      the card's index, as get_device()
+                                      gives it for a tensor
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def dev_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def to_card(host: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host-built int64 table on the card, copied from pinned memory
+    without a host synchronization (the copy is ordered before the launch
+    on the current stream). The caller keeps the result alive until the
+    launch is enqueued."""
+    return torch.from_numpy(np.ascontiguousarray(host, dtype=np.int64)).pin_memory().to(dev, non_blocking=True)
+
+
+def ptrs(ts: list, width: int, dev: int, dtype, what: str) -> np.ndarray:
+    """The addresses of the tensors `ts` (0 for None), each checked as the
+    kernel reads it: on card `dev` (its index; -1 is the CPU), contiguous,
+    at least `width` elements, and of `dtype` unless that is None. The
+    tensors of one table column are all present or all None."""
+    out = np.zeros(len(ts), dtype=np.int64)
+    absent = 0
+    for g, t in enumerate(ts):
+        if t is None:
+            absent += 1
+            continue
+        if t.get_device() != dev or t.numel() < width or not t.is_contiguous():
+            raise ValueError(f"{what}: a contiguous tensor of at least {width} rows on device {dev} is needed")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{what}: task {g} has {t.dtype}, task 0 {dtype}")
+        out[g] = t.data_ptr()
+    if 0 < absent < len(ts):
+        raise ValueError(f"{what}: present in some tasks and absent in others")
+    return out
+
+
+def lane_table(masks: list, keys: list, width: int, dev: int, what: str) -> np.ndarray:
+    """The [G, 1 + 2 * nkeys] task table of K7's and K9's kernels
+    (csrc/topn_multi.cu, csrc/sort_groups.cu): each task's mask, then per
+    key its data and valid lanes (`keys[g][j]` = (SortOp, valid, ...)),
+    built a column at a time; every key's kind is task 0's."""
+    G, nk = len(masks), len(keys[0])
+    tab = np.zeros((G, 1 + 2 * nk), dtype=np.int64)
+    tab[:, 0] = ptrs(masks, width, dev, torch.bool, f"{what}: mask")
+    for j, (op, *_) in enumerate(keys[0]):
+        col = [ks[j] for ks in keys]
+        if any(c[0].kind != op.kind for c in col):
+            raise TypeError(f"{what}: key {j} differs in kind across the tasks")
+        tab[:, 1 + 2 * j] = ptrs([c[0].data for c in col], width, dev, op.data.dtype, f"{what}: key {j}")
+        tab[:, 2 + 2 * j] = ptrs([c[1] for c in col], width, dev, torch.bool, f"{what}: key {j} valid")
+    return tab

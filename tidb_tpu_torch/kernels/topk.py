@@ -23,16 +23,22 @@ the k candidates it selects are ordered by K8 (kernels/lex_sort.py).
 `topk` takes the plain version only for tensors on the CPU. On a CUDA
 device it launches the kernels or raises; `topk.launches` counts the
 calls that launched.
+
+The select runs over a task table (csrc/topk.cu: one radix select per
+task, each with its own state); `topk` is its grid of one task, and K10's
+task-grid mode is kernels/grouped.py `topk_tasks`.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .build import count, library
 from .lex_sort import SortOp, lex_sort_perm
+from .tables import dev_index, ptrs, to_card
 
 _I64_MIN = -(1 << 63)
 _I64_MAX = (1 << 63) - 1
@@ -93,14 +99,52 @@ def _lib():
         lib.tt_topk_state_len.restype = L
         lib.tt_topk_tiles.argtypes = [L]
         lib.tt_topk_tiles.restype = L
-        lib.tt_topk_select.argtypes = [C, I, C, C, I, L, L, C, C, C, C, I, C]
-        lib.tt_topk_select.restype = I
+        lib.tt_topk_select_tasks.argtypes = [C, I, I, I, L, L, C, C, C, C, C, I, C]
+        lib.tt_topk_select_tasks.restype = I
         _bound.add("topk")
     return lib
 
 
+def topk_table(datas: list, valids: list, masks: list, width: int, dev: int) -> np.ndarray:
+    """The [G, 3] task table of csrc/topk.cu: key, valid (0 = all valid),
+    mask, a column at a time."""
+    host = np.zeros((len(datas), 3), dtype=np.int64)
+    host[:, 0] = ptrs(datas, width, dev, datas[0].dtype, "topk: key")
+    host[:, 1] = ptrs(valids, width, dev, torch.bool, "topk: valid")
+    host[:, 2] = ptrs(masks, width, dev, torch.bool, "topk: mask")
+    return host
+
+
+def select_prepare(datas: list, valids: list, masks: list, desc: bool, k: int, width: int, dev: torch.device):
+    """The radix select of G tasks up to its launch: ((u64 keys [G, width],
+    int32 candidates [G, k], bool mask bits [G, k]), `go()`, which
+    enqueues the select over the task table on the card). Task g's k
+    candidates are its rows (of its first `width`) holding the k largest
+    keys, unordered."""
+    G = len(datas)
+    tab = to_card(topk_table(datas, valids, masks, width, dev_index(dev)), dev)
+    lib = _lib()
+    U = torch.empty((G, width), dtype=torch.int64, device=dev)
+    state = torch.empty((G, lib.tt_topk_state_len()), dtype=torch.int64, device=dev)
+    tilecnt = torch.empty((G, lib.tt_topk_tiles(width)), dtype=torch.int32, device=dev)
+    cand = torch.empty((G, k), dtype=torch.int32, device=dev)
+    okc = torch.empty((G, k), dtype=torch.bool, device=dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    is_float = int(datas[0].dtype == torch.float64)
+
+    def go(tab=tab):
+        rc = lib.tt_topk_select_tasks(tab.data_ptr(), G, is_float, int(bool(desc)), width, k, U.data_ptr(),
+                                      state.data_ptr(), tilecnt.data_ptr(), cand.data_ptr(), okc.data_ptr(), n_sms,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"topk: kernel launch failed (cudaError {rc})")
+
+    return (U, cand, okc), go
+
+
 def topk(data: torch.Tensor, valid: torch.Tensor | None, mask: torch.Tensor, desc: bool, k: int):
-    """(int32 [k] row ids, bool [k] mask bits) in lax.top_k's order."""
+    """(int32 [k] row ids, bool [k] mask bits) in lax.top_k's order: the
+    select as a grid of one task, then K8."""
     dev = data.device
     if dev.type == "cpu":
         return topk_ref(data, valid, mask, desc, k)
@@ -109,27 +153,12 @@ def topk(data: torch.Tensor, valid: torch.Tensor | None, mask: torch.Tensor, des
     n = _check(data, valid, mask, k)
     if k == 0:
         return torch.empty(0, dtype=torch.int32, device=dev), torch.empty(0, dtype=torch.bool, device=dev)
-    for t in (data, valid, mask):
-        if t is not None and (t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"topk: inputs must be contiguous tensors on {dev}")
-    lib = _lib()
-    U = torch.empty(n, dtype=torch.int64, device=dev)
-    state = torch.empty(lib.tt_topk_state_len(), dtype=torch.int64, device=dev)
-    tilecnt = torch.empty(lib.tt_topk_tiles(n), dtype=torch.int32, device=dev)
-    cand = torch.empty(k, dtype=torch.int32, device=dev)
-    rc = lib.tt_topk_select(
-        data.data_ptr(), int(data.dtype == torch.float64), 0 if valid is None else valid.data_ptr(),
-        mask.data_ptr(), int(bool(desc)), n, k, U.data_ptr(), state.data_ptr(), tilecnt.data_ptr(),
-        cand.data_ptr(), torch.cuda.get_device_properties(dev).multi_processor_count,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"topk: kernel launch failed (cudaError {rc})")
+    (U, cand, okc), go = select_prepare([data], [valid], [mask], desc, k, n, dev)
+    go()
     count(topk)
     # (u desc, row asc): ~u ascends as u descends; the row breaks ties
-    perm = lex_sort_perm([SortOp(~U[cand.long()], "u64"), SortOp(cand, "i32")])
-    idx = cand[perm.long()]
-    return idx, mask[idx.long()]
+    perm = lex_sort_perm([SortOp(~U[0][cand[0].long()], "u64"), SortOp(cand[0], "i32")]).long()
+    return cand[0][perm], okc[0][perm]
 
 
 topk.launches = 0

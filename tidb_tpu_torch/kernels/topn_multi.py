@@ -19,16 +19,22 @@ rows by what it writes. The CUDA kernel is csrc/topn_multi.cu;
 `topn_multi_ops` takes the plain version only for tensors on the CPU. On
 a CUDA device it launches the kernel or raises;
 `topn_multi_ops.launches` counts the launches.
+
+`ops_prepare` builds the kernel's task table for G tasks; the solo call
+is G = 1, and K10's task-grid mode is kernels/grouped.py
+`topn_multi_ops_tasks`.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .build import count, library
 from .lex_sort import KINDS, SortOp, sort_op
+from .tables import dev_index, lane_table, to_card
 
 
 def _ops_in(mask, keys):
@@ -67,10 +73,41 @@ def _lib():
     lib = library("topn_multi")
     if "topn_multi" not in _bound:
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.tt_topn_multi_ops.argtypes = [C, L, C, I, C, I, C]
+        lib.tt_topn_multi_ops.argtypes = [C, I, L, C, I, C, I, C]
         lib.tt_topn_multi_ops.restype = I
         _bound.add("topn_multi")
     return lib
+
+
+def ops_prepare(masks: list, keys: list, width: int, dev: torch.device):
+    """The kernel over G tasks up to its launch: (K8's operands over the
+    [G * width] outputs, `go()`, which enqueues the kernel over its table
+    on the card). `masks[g]` is task g's mask, `keys[g]` its checked
+    [(SortOp, valid, desc)] (the same kinds and orders in every task);
+    each is read to `width` rows."""
+    G, nk = len(masks), len(keys[0])
+    n = G * width
+    flag = torch.empty(n, dtype=torch.int32, device=dev)
+    ops = [SortOp(flag, "i32")]
+    tasks = lane_table(masks, keys, width, dev_index(dev), "topn_multi")
+    kdesc = np.zeros((nk, 3), dtype=np.int64)  # the table's key rows, shared by the tasks
+    for j, (op, _, is_desc) in enumerate(keys[0]):
+        if any(ks[j][2] != is_desc for ks in keys):
+            raise ValueError(f"topn_multi: key {j} differs in order across the tasks")
+        null = torch.empty(n, dtype=torch.int32, device=dev)
+        val = torch.empty(n, dtype=op.data.dtype, device=dev)
+        ops += [SortOp(null, "i32"), SortOp(val, op.kind)]
+        kdesc[j] = (KINDS[op.kind] | (int(is_desc) << 32), null.data_ptr(), val.data_ptr())
+    tab = to_card(np.concatenate([tasks.reshape(-1), kdesc.reshape(-1)]), dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def go():
+        rc = _lib().tt_topn_multi_ops(tab.data_ptr(), G, width, tab.data_ptr() + 8 * tasks.size, nk,
+                                      flag.data_ptr(), n_sms, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"topn_multi: kernel launch failed (cudaError {rc})")
+
+    return ops, go
 
 
 def topn_multi_ops(mask: torch.Tensor, keys) -> list[SortOp]:
@@ -81,26 +118,9 @@ def topn_multi_ops(mask: torch.Tensor, keys) -> list[SortOp]:
     if dev.type != "cuda":
         raise ValueError(f"topn_multi: unsupported device {dev}")
     n, keys = _ops_in(mask, keys)
-    for t in [mask] + [t for op, v, _ in keys for t in (op.data, v) if t is not None]:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"topn_multi: inputs must be contiguous tensors on {dev}")
-    flag = torch.empty(n, dtype=torch.int32, device=dev)
-    ops = [SortOp(flag, "i32")]
-    desc = []
-    for op, valid, is_desc in keys:
-        null = torch.empty(n, dtype=torch.int32, device=dev)
-        val = torch.empty_like(op.data)
-        ops += [SortOp(null, "i32"), SortOp(val, op.kind)]
-        desc.append([op.data.data_ptr(), 0 if valid is None else valid.data_ptr(),
-                     KINDS[op.kind] | (int(is_desc) << 32), null.data_ptr(), val.data_ptr()])
-    kd = torch.tensor(desc or [[0] * 5], dtype=torch.int64).to(dev)
-    rc = _lib().tt_topn_multi_ops(
-        mask.data_ptr(), n, kd.data_ptr(), len(keys), flag.data_ptr(),
-        torch.cuda.get_device_properties(dev).multi_processor_count,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"topn_multi: kernel launch failed (cudaError {rc})")
+    ops, go = ops_prepare([mask], [keys], n, dev)
+    if n:
+        go()
     count(topn_multi_ops)
     return ops
 

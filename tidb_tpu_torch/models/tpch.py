@@ -35,7 +35,8 @@
   (tools/bench_sched.py): `pt(id INT PRIMARY KEY, v INT, w INT)` cut into
   one region batch per task's id range, and the DAG the reference pushes
   for POINT_AGG over one range (the range is the region's span, so the
-  DAG has no selection);
+  DAG has no selection); `point_topn_dag` / `point_topn_multi_dag`: the
+  TopN DAGs pushed for POINT_TOPN / POINT_TOPN_MULTI over the same rows;
 * `region_batches`: a batch cut at the reference's region split points
   (storage/txn.py:440 region_split_size, :1600-1608 _auto_split_run).
 """
@@ -544,6 +545,27 @@ def point_agg_dag() -> DAGRequest:
             AggDesc.make("max", [cols[2]])]
     scan = ScanNode(PT.id, [c.offset for c in PT.columns], [c.ft for c in PT.columns], [c.id for c in PT.columns])
     return DAGRequest(scan=scan, agg=AggNode([], aggs))
+
+
+POINT_TOPN = "SELECT id, v, w FROM pt WHERE id >= {lo} AND id < {hi} ORDER BY v DESC LIMIT 10"
+POINT_TOPN_MULTI = "SELECT id, v, w FROM pt WHERE id >= {lo} AND id < {hi} ORDER BY w, v DESC LIMIT 10"
+
+
+def _pt_topn(by) -> DAGRequest:
+    cols = [Column(c.offset, c.ft, c.name) for c in PT.columns]
+    scan = ScanNode(PT.id, [c.offset for c in PT.columns], [c.ft for c in PT.columns], [c.id for c in PT.columns])
+    return DAGRequest(scan=scan, topn=TopNNode([(cols[i], desc) for i, desc in by], 10))
+
+
+def point_topn_dag() -> DAGRequest:
+    """The cop DAG of POINT_TOPN over one id range: ORDER BY v DESC LIMIT
+    10 over a scan of all three columns (no selection, as POINT_AGG's)."""
+    return _pt_topn([(1, True)])
+
+
+def point_topn_multi_dag() -> DAGRequest:
+    """The cop DAG of POINT_TOPN_MULTI: ORDER BY w, v DESC LIMIT 10."""
+    return _pt_topn([(2, False), (1, True)])
 
 
 def region_batches(batch: ColumnBatch, split: int = 1 << 21) -> list[ColumnBatch]:
