@@ -16,9 +16,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
               K1 decode_lane over every codec; K4 seg_agg over every op
               (nseg 1..65536) and in its segment-lane mode at nseg
               4,194,304; K8 lex_sort over every operand kind, ties and a
-              key wider than 64 bits; K6 topk with NULLs, masked rows,
-              ties past a tile, the int64 limits, signed zeros and NaNs,
-              k = N; K7 topn_multi's operands; K9 sort_groups with
+              key wider than 64 bits, a 26-bit word (4-byte keys), a
+              48-bit one and a 2-bit key of ties, at n = 1, 5, a tile
+              (4,096 rows of 8-byte keys, 6,144 of 4-byte ones) less one,
+              at it and plus one, 100,000 and the main path's 16M; K6
+              topk with NULLs, masked rows, ties past a tile, the int64
+              limits, signed zeros, NaNs and ±inf, k = 1, k = N, every
+              row tied, k at K6's ordering cap (4,096) and one past it
+              (K8 orders those); K7 topn_multi's operands; K9 sort_groups with
               NULL-able, float, uint64 and dict-code keys, all rows
               masked and a capacity below n_groups; W1 window over every
               window function under every frame kind (default, ROWS
@@ -80,7 +85,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
               group counts that differ by task) with K4's segment-lane
               form over its ids, and K8's task-leading key alone (every
               operand kind, ties, a key wider than 64 bits), tasks of
-              different real row counts, one all masked. Integers, row ids and
+              different real row counts, one all masked; and K6's and
+              K8's task modes at the edges of their designs
+              (sort_edge_cases: G = 1, 7 and 64 tasks of 1,000, 4,095,
+              4,097 and 6,145 rows; 4- and 8-byte words, ties; k = 1,
+              100, the cap, one past it and the width). Integers, row ids and
               group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
               (bench.py's own check; P5's and P7's float totals at run
               starts, the rows the picks can ship); all cases run,
@@ -182,6 +191,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
               the regions' and the TopN bursts' own groups, with
               torch.topk over the [G, width] key and a batched stable
               torch.sort of one packed word as K6's and K8's yardsticks;
+              K9's yardstick is torch.unique over the packed word of the
+              operands it hands K8, and K9's, P4's and P5's K8 share is
+              timed alone (`k8_ms`); P4, P5 and P7 have no single call
+              that computes their function (library_ms null; the calls
+              that do part of it are reported under their own names);
  6. the kernels JSON line, the card line, and last the result line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -192,6 +206,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import re
@@ -345,9 +360,16 @@ def seg_cases(dev, rng, n: int, nseg: int, all_masked: bool = False, overflow: b
     return keys, lanes, mask
 
 
-def sort_cases(dev, rng, n: int):
+SORT_CASES = ("multikey_topn", "floats_codes", "wide_u64_i64", "all_equal", "one_bit_ties", "word32", "word64",
+              "ties")
+
+
+def sort_cases(dev, rng, n: int, names=SORT_CASES):
     """(name, K8 operands) over every operand kind, ties and a key wider
-    than one 64-bit word."""
+    than one 64-bit word; 'word32' packs into one word of 26 bits (4-byte
+    keys, and 32 bits with the task field of 64 tasks), 'word64' into one
+    of 48 bits (8-byte keys), 'ties' is a 2-bit key (one pass, every row
+    tied with a quarter of the others)."""
     import numpy as np
     import torch
 
@@ -356,30 +378,40 @@ def sort_cases(dev, rng, n: int):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    zero = t(np.zeros(n, np.int32))
     specials = np.array([-np.inf, -1.5, -0.0, 0.0, 1.5, np.inf, np.nan, -np.nan, 2.5e-308])
-    return [
-        ("multikey_topn", [SortOp(t((rng.random(n) < 0.02).astype(np.int32)), "i32"), SortOp(zero, "i32"),
-                           SortOp(t(~rng.integers(90000, 10500000, n)), "i64"), SortOp(zero, "i32"),
-                           SortOp(t(np.sort(rng.integers(1, max(n // 4, 2), n))), "i64"), SortOp(zero, "i32"),
-                           SortOp(t(rng.integers(1, 8, n)), "i64")]),
-        ("floats_codes", [SortOp(t(rng.integers(-2, 2, n).astype(np.int32)), "i32"),
-                          SortOp(t(rng.choice(specials, n)), "f64")]),
-        ("wide_u64_i64", [SortOp(t(rng.integers(0, 4, n)), "u64"),
-                          SortOp(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)), "u64"),
-                          SortOp(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)), "i64"),
-                          SortOp(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)), "i64")]),
-        ("all_equal", [SortOp(t(np.full(n, 7, np.int64)), "i64")]),
-        ("one_bit_ties", [SortOp(t(rng.integers(0, 2, n).astype(np.int32)), "i32")]),
-    ]
+    i64 = lambda lo, hi: SortOp(t(rng.integers(lo, hi, n, dtype=np.int64)), "i64")  # noqa: E731
+    full = lambda: i64(-(1 << 63), (1 << 63) - 1)  # noqa: E731
+
+    def multikey():
+        zero = t(np.zeros(n, np.int32))
+        return [SortOp(t((rng.random(n) < 0.02).astype(np.int32)), "i32"), SortOp(zero, "i32"),
+                SortOp(t(~rng.integers(90000, 10500000, n)), "i64"), SortOp(zero, "i32"),
+                SortOp(t(np.sort(rng.integers(1, max(n // 4, 2), n))), "i64"), SortOp(zero, "i32"),
+                SortOp(t(rng.integers(1, 8, n)), "i64")]
+
+    build = {
+        "multikey_topn": multikey,
+        "floats_codes": lambda: [SortOp(t(rng.integers(-2, 2, n).astype(np.int32)), "i32"),
+                                 SortOp(t(rng.choice(specials, n)), "f64")],
+        "wide_u64_i64": lambda: [SortOp(t(rng.integers(0, 4, n)), "u64"), SortOp(full().data, "u64"), full(), full()],
+        "all_equal": lambda: [SortOp(t(np.full(n, 7, np.int64)), "i64")],
+        "one_bit_ties": lambda: [SortOp(t(rng.integers(0, 2, n).astype(np.int32)), "i32")],
+        "word32": lambda: [SortOp(t(rng.integers(0, 1 << 10, n).astype(np.int32)), "i32"), i64(0, 1 << 16)],
+        "word64": lambda: [i64(0, 1 << 30), i64(-(1 << 17), 1 << 17)],
+        "ties": lambda: [i64(0, 4)],
+    }
+    return [(name, build[name]()) for name in names]
 
 
 def topk_cases(dev, rng, n: int):
     """(name, (data, valid, mask, desc, k)) for K6: the main path's key and
     the edges — NULLs, masked rows, ties past one tile, the int64 limits,
-    signed zeros and NaNs, k = N."""
+    signed zeros and NaNs, ±inf, k = 1, k = N, every row tied, and k at
+    the kernel's ordering cap and one past it (K8 orders those)."""
     import numpy as np
     import torch
+
+    from tidb_tpu_torch.kernels.topk import ORDER_CAP
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -400,7 +432,13 @@ def topk_cases(dev, rng, n: int):
                   (f"int64_limits_{desc}", (limits, v_rand, t(m_rand), desc, min(5000, n)))]
     cases += [("all_masked", (price, None, t(np.zeros(n, bool)), True, min(50, n))),
               ("all_equal_ties", (t(np.full(n, 3, np.int64)), None, t(m_all), True, min(5000, n))),
-              ("k_is_n", (price, v_rand, t(m_rand), False, n))]
+              ("k_is_n", (price, v_rand, t(m_rand), False, n)),
+              ("k_1", (price, v_rand, t(m_rand), True, 1)),
+              ("every_row_tied", (t(np.full(n, -7, np.int64)), None, t(np.ones(n, bool)), False, min(100, n))),
+              ("float_specials_k100", (specials, v_rand, t(m_rand), True, min(100, n)))]
+    if n > ORDER_CAP:  # the kernel orders k up to its cap, K8 above it
+        cases += [("k_at_cap", (price, v_rand, t(m_all), True, ORDER_CAP)),
+                  ("k_cap_plus_1", (specials, v_rand, t(m_rand), False, ORDER_CAP + 1))]
     return cases
 
 
@@ -1839,6 +1877,63 @@ def sort_grouped_cases(dev, rng, r: int, sizes, kinds):
     return cases
 
 
+EDGE_GROUP_SIZES = (1, 7, 64)
+# task widths: below one tile, a tile of 8-byte keys (4,096 rows) less one
+# and plus one, a tile of 4-byte keys (6,144) plus one
+EDGE_WIDTHS = (1000, 4095, 4097, 6145)
+
+
+def sort_edge_cases(dev, rng, G: int, widths=EDGE_WIDTHS):
+    """(name, fn) of K6's and K8's task modes at the edges of their
+    designs, G tasks of each width, against the solo plain versions task
+    by task. K8: a 26-bit word (4-byte keys; 32 bits with the task field
+    of 64 tasks), a 48-bit word (8-byte keys), a 2-bit key of ties. K6: an
+    int64 price key, a key every row ties on, float keys with NaN, ±inf,
+    ±0.0 and subnormals (NULL-able); k = 1, 100, the ordering cap and one
+    past it (K8 orders those) and k = width; random masks, the last task
+    (G > 1) all masked."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels import lex_sort_perm_ref, topk_ref
+    from tidb_tpu_torch.kernels.grouped import lex_sort_perm_tasks, topk_tasks
+    from tidb_tpu_torch.kernels.topk import ORDER_CAP
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    for w in widths:
+        tag = f"G={G} w={w}"
+        for cname in ("word32", "word64", "ties"):
+            per = [sort_cases(dev, rng, w, (cname,))[0][1] for _ in range(G)]
+            ops = [type(o)(torch.cat([p[q].data for p in per]), o.kind) for q, o in enumerate(per[0])]
+
+            def k8(ops=ops, w=w, G=G):
+                got = lex_sort_perm_tasks(ops, w)
+                for g in range(G):
+                    want = lex_sort_perm_ref([type(o)(o.data[g * w:(g + 1) * w], o.kind) for o in ops])
+                    _same(got[g * w:(g + 1) * w] - g * w, want, f"task {g}")
+            cases.append((f"lex_sort_tasks edge {cname} {tag}", k8))
+        masks = [t(np.zeros(w, bool) if g == G - 1 and G > 1 else rng.random(w) < 0.8) for g in range(G)]
+        valids = [t(rng.random(w) < 0.9) for _ in range(G)]
+        keys = {"price": ([t(rng.integers(90000, 10500000, w)) for _ in range(G)], [None] * G),
+                "tied": ([t(np.full(w, 11, np.int64)) for _ in range(G)], [None] * G),
+                "floats": ([t(rng.choice(np.array(F_SPECIALS), w)) for _ in range(G)], valids)}
+        for case, (datas, vs) in keys.items():
+            for j, k in enumerate(sorted({1, min(100, w), min(ORDER_CAP, w), min(ORDER_CAP + 1, w), w})):
+                desc = j % 2 == 0
+
+                def k6(datas=datas, vs=vs, masks=masks, desc=desc, k=k, w=w, G=G):
+                    gi, go = topk_tasks(datas, vs, masks, desc, k, w)
+                    for g in range(G):
+                        wi, wo = topk_ref(datas[g], vs[g], masks[g], desc, k)
+                        _same(gi[g], wi, f"task {g} rows")
+                        _same(go[g], wo, f"task {g} ok bits")
+                cases.append((f"topk_tasks edge {case} desc={desc} k={k} {tag}", k6))
+    return cases
+
+
 def _k9_tasks(masks, keys, w: int) -> None:
     """K9's task mode against its solo plain version task by task (at
     capacity n_groups), the ids offset by the earlier tasks' counts."""
@@ -2080,7 +2175,9 @@ def check_kernels(dev, rng) -> dict:
             _same(gi, wi, "ints")
             return _same(gf, wf, "floats", True)
         case(f"seg_agg segment-lane n={n} nseg={nseg}", k4s)
-    for n in (T_MAIN * R_MAIN, 1, 5, 4096, 4097, 100_000):
+    # n: the main path's, below one tile, and a tile of 8-byte keys (4,096
+    # rows) and of 4-byte keys (6,144) less one, at it and plus one
+    for n in (T_MAIN * R_MAIN, 1, 5, 4095, 4096, 4097, 6143, 6144, 6145, 100_000):
         for cname, ops in sort_cases(dev, rng, n):
             if n == T_MAIN * R_MAIN and cname in ("all_equal", "one_bit_ties"):
                 continue
@@ -2116,7 +2213,7 @@ def check_kernels(dev, rng) -> dict:
             pack_flat(lanes), pack_flat_ref(lanes), cname))
     for cname, fn in (mpp_kernel_cases(dev, rng) + mode_kernel_cases(dev, rng) + expr_cases(dev, rng)
                       + bitwise_seg_cases(dev, rng) + mesh_kernel_cases(dev, rng) + exchange_cases(dev, rng)
-                      + grouped_cases(dev, rng)):
+                      + grouped_cases(dev, rng) + [c for G in EDGE_GROUP_SIZES for c in sort_edge_cases(dev, rng, G)]):
         case(cname, fn)
     if errors:
         raise AssertionError(f"{len(errors)} of {ncase} kernel cases failed:\n" + "\n".join(errors))
@@ -2539,7 +2636,9 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     timed beside them, their bytes bound and the nearest single PyTorch
     calls: P3, P7 and P9 on Q3 (P3 on its lineitem → orders level), P4 on
     Q18's duplicate-key level, P5 on unfused Q3, P6 on Q3 LIMIT 100, P8 on
-    SEG_REVENUE."""
+    SEG_REVENUE. P4, P5 and P7 have no call that computes their function
+    (`library_ms` None); the calls that do part of it are reported under
+    their own names, and P4's and P5's K8 share as `k8_ms`."""
     import torch
 
     from tidb_tpu_torch.kernels import (block_topk, block_topk_ref, dense_agg, dense_agg_ref, lut_join,
@@ -2551,6 +2650,8 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     from tidb_tpu_torch.kernels.sort_join import pack_keys
 
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    # the kernel modules (the package re-exports their wrappers' names)
+    p4_module, p5_module = (importlib.import_module(f"tidb_tpu_torch.kernels.{m}") for m in ("sort_join", "seg_reduce"))
     caps = main["captured"]
     cap = caps["q3_mpp"]
     for qname, *_ in MPP_QUERIES:  # every join level of every query
@@ -2580,9 +2681,11 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     p7_bytes = (_nbytes(kd, mask, *_pairs(lanes)) + _nbytes(*totals)
                 + 8 * L + L + 8 * L)
     ilane = next(d for d, _ in lanes if d is not None and d.dtype == torch.int64)
+    # no single call computes P7's function: the cumsum of one of its lanes
+    # does less work (below P7's own bound), so it is reported apart
     k7 = {"ms": time_ms(lambda: run_agg(*p7)), "plain_ms": time_ms(lambda: run_agg_ref(*p7), 3),
-          "library_ms": time_ms(lambda: torch.cumsum(ilane, 0)), "bytes": p7_bytes, "L": L, "lanes": len(lanes),
-          "library_call": "torch.cumsum of one int64 lane"}
+          "library_ms": None, "cumsum_one_lane_ms": time_ms(lambda: torch.cumsum(ilane, 0)), "bytes": p7_bytes,
+          "L": L, "lanes": len(lanes)}
 
     score, kk = cap["block_topk"][0][0][:2]
     max_err["block_topk"] = max(max_err["block_topk"], same_block_topk(
@@ -2600,9 +2703,12 @@ def measure_mpp_kernels(main: dict, max_err: dict):
                 + m4 * (1 + 8) + 9 * m4 * len(g4) + (9 * m4 * len(pl4) + 8 * m4 * len(pr4) if mult > 1 else 0))
     pk = pack_keys(pkeys, lo4, st4, i32)[0].contiguous()
     sk = torch.sort(pack_keys(bkeys, lo4, st4, i32)[0]).values
+    # no single call computes P4's join; searchsorted into a build side that
+    # is already sorted does less (reported apart), and K8's share is timed
+    p4_k8_ops, p4_k8 = k8_inside(p4_module, lambda: sort_join(*p4))
     k4 = {"ms": time_ms(lambda: sort_join(*p4)), "plain_ms": time_ms(lambda: sort_join_ref(*p4), 3),
-          "library_ms": time_ms(lambda: torch.searchsorted(sk, pk)),
-          "library_call": "torch.searchsorted of the packed probe keys in the sorted build keys",
+          "library_ms": None, "k8_ms": p4_k8, "k8_calls": len(p4_k8_ops),
+          "searchsorted_presorted_ms": time_ms(lambda: torch.searchsorted(sk, pk)),
           "bytes": p4_bytes, "n": n4, "B": B4, "slots": m4, "mult": mult, "gathers": len(g4)}
 
     def with_rows(call, a, kw):
@@ -2627,10 +2733,13 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     p5_in = _pairs((k.data, k.valid) for k in keys5) + _pairs((ln.data, ln.valid) for ln in lanes5)
     p5_bytes = _nbytes(mask5, *p5_in) + 8 * kk5 * (2 + len(lanes5))
     code = group_code_ref(keys5, mask5)
+    # no single call computes P5's sorted aggregation; a sort of its group
+    # code alone does less (reported apart), and K8's share is timed
+    p5_k8_ops, p5_k8 = k8_inside(p5_module, lambda: with_rows(seg_reduce, a5, kw5))
     k5 = {"ms": time_ms(lambda: with_rows(seg_reduce, a5, kw5)),
           "plain_ms": time_ms(lambda: with_rows(seg_reduce_ref, a5, kw5), 3),
-          "library_ms": time_ms(lambda: torch.sort(code, stable=True)),
-          "library_call": "torch.sort(stable=True) of the group code", "bytes": p5_bytes, "n": n5,
+          "library_ms": None, "k8_ms": p5_k8, "k8_calls": len(p5_k8_ops),
+          "sort_group_code_ms": time_ms(lambda: torch.sort(code, stable=True)), "bytes": p5_bytes, "n": n5,
           "lanes": len(lanes5), "k": kk5}
 
     # P6 on Q3 LIMIT 100: 1M orders as segments
@@ -3015,9 +3124,12 @@ def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
     (reps + 1) (64 threads through the LaunchBatcher). Every chunk must
     equal the serial one and the host engine's, bit for bit (the workload
     is all INT); `run_many` must form the gcap-64 group with one fetch,
-    launch each sort mode (K6's, K7's, K8's) once for the group and no
-    solo K6, K7, K8 or K9 inside it, the batcher a multi-task launch and
-    no group that fell back to solo execute, and each task mode whose solo
+    launch each sort mode (K6's, K7's, K8's) that the serial runs' solo
+    kernels need once for the group and no solo K6, K7, K8 or K9 inside
+    it — and for the point TopN (k = 10, which K6 orders itself) no K8 at
+    all, in the serial runs or in `run_many` (`k8_launches`) — the
+    batcher a multi-task launch and no group that fell back to solo
+    execute, and each task mode whose solo
     kernel the serial runs launched must launch in `run_many` and in
     `run_burst`. More `run_many` and `run_burst` calls run under
     torch.profiler. K10's inputs of the last calls land in
@@ -3029,6 +3141,7 @@ def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
     from tidb_tpu_torch.copr.gpu_engine import TorchEngine
     from tidb_tpu_torch.copr.host_engine import execute_dag_host
     from tidb_tpu_torch.entry import concurrent, run_burst, run_many
+    from tidb_tpu_torch.kernels.topk import orders_in_kernel
     from tidb_tpu_torch.models import tpch
     from tidb_tpu_torch.sched import LaunchBatcher
 
@@ -3092,6 +3205,10 @@ def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
                         if solo[k] and grouped[TASK_MODES[k]] != 1}
             if not_once:
                 raise AssertionError(f"burst {key}: sort modes {not_once} not launched once for the group")
+            k8 = {"serial": solo["lex_sort"], "run_many": grouped["lex_sort"] + grouped["lex_sort_tasks"]}
+            if mix == "point_topn" and orders_in_kernel(dag.topn.n) and any(k8.values()):
+                raise AssertionError(f"burst {key}: K8 launched {k8} for a TopN whose k = {dag.topn.n} K6 orders "
+                                     "itself")
             n0, s0, c0 = _occupancy()
             f0, before = eng.fetches, K.launches()
             burst = []
@@ -3123,7 +3240,7 @@ def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
                                       "run_many": {k: c / N_TASKS for k, c in grouped.items() if c},
                                       "run_burst": {k: c / (N_TASKS * calls) for k, c in launched.items()}},
                 "fetches_per_call": {"serial_execute": 1, "run_many": many_fetches,
-                                     "run_burst": (eng.fetches - f0) / calls},
+                                     "run_burst": (eng.fetches - f0) / calls}, "k8_launches": k8,
                 "batcher_launches": n1 - n0, "batcher_tasks": s1 - s0,
                 "occupancy_histogram": dict(zip(["<=1", "<=2", "<=4", "<=8", "<=16", "<=32", "<=64", "<=128",
                                                  "more"], [b - a for a, b in zip(c0, c1)])),
@@ -3261,13 +3378,15 @@ def run_regions_sorted_path(dev, regions, wants: dict, reps: int, card: str, out
     answer must equal, in order, the query's one-batch answer (main.<q>,
     held to the host engine). Per run: one fetch, the query's sort mode
     and K8's task-leading mode launched once per group, its solo kernels
-    (K6 / K7 / K9, and K8) only for the solo region. One cold run (the
+    (K6 / K7 / K9, and K8) only for the solo region — and for tpch_topn
+    (LIMIT 100, within K6's ordering cap) no K8 at all. One cold run (the
     TopNs upload every column), `reps` warm runs and one profiled run."""
     import torch
 
     from tidb_tpu_torch import kernels as K
     from tidb_tpu_torch.copr.gpu_engine import TorchEngine
     from tidb_tpu_torch.entry import run_many
+    from tidb_tpu_torch.kernels.topk import orders_in_kernel
     from tidb_tpu_torch.models import tpch
 
     out["regions_sorted"] = {}
@@ -3291,7 +3410,9 @@ def run_regions_sorted_path(dev, regions, wants: dict, reps: int, card: str, out
         calls = reps + 1
         moved = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
         groups, singles = launch_classes(eng, pairs)
-        want = {mode: groups, "lex_sort_tasks": groups, solo_of[mode]: singles, "lex_sort": singles}
+        # K6 orders its own rows up to its cap: then no K8 at all
+        k8 = 0 if mode == "topk_tasks" and orders_in_kernel(dag.topn.n) else 1
+        want = {mode: groups, "lex_sort_tasks": k8 * groups, solo_of[mode]: singles, "lex_sort": k8 * singles}
         if mode == "sort_groups_tasks":
             want["seg_agg_tasks"] = groups
         got = {k: moved.get(k, 0) / calls for k in want}
@@ -3798,9 +3919,9 @@ def _k10_seg(calls):
 
 def _k10_topk(calls):
     """K6's task mode over the captured calls, as _k10_decode (the kernels
-    alone: the select over its prepared table; K8's ordering after it is
-    K8's mode), and the nearest single PyTorch call: torch.topk along dim
-    -1 of the [G, width] sort key."""
+    alone: the select and, for k within K6's cap, its ordering over its
+    prepared table), and the single PyTorch call that computes the same
+    function: torch.topk along dim -1 of the [G, width] sort key."""
     import torch
 
     from tidb_tpu_torch.kernels import topk
@@ -3962,9 +4083,10 @@ def measure_grouped_kernels(main: dict, max_err: dict):
     the work K10 replaces — the solo kernel launched G times back to back
     on the same narrowed tensors (`solo_x_G_ms`: never used on the path)
     — and `kernel_ms`, the same launches alone over tables built
-    beforehand (`*_prepare`; for K6 the select, for K9 the ops kernel, for
-    K8 none: it has no table), so that `ms` less `kernel_ms` is the
-    wrappers' host work (and, for K6, K8 and K9, their one sync each), of
+    beforehand (`*_prepare`; for K6 the select and its ordering, for K9
+    the ops kernel, for K8 none: it has no table), so that `ms` less
+    `kernel_ms` is the wrappers' host work (and, for K8 and K9, their one
+    sync each; K6 within its ordering cap has none), of
     which `host_tables_ms` builds the task tables. K6's, K8's and K9's
     modes also give the nearest single PyTorch call (`library_ms`:
     torch.topk over the [G, width] sort key; a batched stable torch.sort
@@ -4053,19 +4175,42 @@ def _packed_word(ops):
     return word
 
 
+def k8_inside(module, fn) -> tuple[list, float]:
+    """(the operands of every K8 call one fn() makes through `module` — a
+    kernel module that imports lex_sort_perm by name — caught on one run,
+    and the mean device ms of those K8 calls alone): the share of K8 in a
+    kernel that sorts with it."""
+    from tidb_tpu_torch.kernels import lex_sort_perm
+
+    seen, real = [], module.lex_sort_perm
+
+    def spy(ops):
+        seen.append(ops)
+        return real(ops)
+    module.lex_sort_perm = spy
+    try:
+        fn()
+    finally:
+        module.lex_sort_perm = real
+    return seen, time_ms(lambda: [lex_sort_perm(ops) for ops in seen])
+
+
 def measure_sort_kernels(main: dict, max_err: dict):
     """K6-K9 (and K4's segment-lane mode) on the main path's own inputs:
     held once more to the plain versions on exactly those tensors, then
-    timed beside the plain version, the bytes bound and the nearest single
-    PyTorch call."""
+    timed beside the plain version, the bytes bound and the single
+    PyTorch call that computes the same function, where there is one
+    (K9's: torch.unique over the packed word of the operands K9 hands
+    K8). K9's `k8_ms` is the share of its K8 call."""
     import torch
 
     from tidb_tpu_torch.kernels import (lex_sort_perm, lex_sort_perm_ref, seg_agg, seg_agg_ref, sort_groups,
                                         sort_groups_ref, topk, topk_ref, topn_multi_ops, topn_multi_ops_ref)
-    from tidb_tpu_torch.kernels.topk import select_prepare, sort_key
+    from tidb_tpu_torch.kernels.topk import orders_in_kernel, select_prepare, sort_key
 
     cap = main["captured"]
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    k9_module = importlib.import_module("tidb_tpu_torch.kernels.sort_groups")  # the package re-exports the wrapper's name
     topk_select = lambda d, v, m, desc, k: select_prepare([d], [v], [m], desc, k, d.numel(), d.device)  # noqa: E731
 
     (d, v, m, desc, k), _ = cap["tpch_topn"]["topk"]
@@ -4074,14 +4219,14 @@ def measure_sort_kernels(main: dict, max_err: dict):
     _same(gi, wi, "topk rows on tpch_topn")
     _same(go, wo, "topk ok bits on tpch_topn")
     sk = sort_key(d, v, m, desc)
-    # the select alone over a prepared one-task table, and the host's
-    # preparation of it: the table's build and pinned copy, the outputs'
-    # allocation (`ms` less both: K8's ordering and its one sync)
+    # the kernels alone over a prepared one-task table (the select and,
+    # for k within the cap, the ordering), and the host's preparation of
+    # it: the table's build and pinned copy, the outputs' allocation
     _, select = topk_select(d, v, m, desc, k)
     k6 = {"ms": time_ms(lambda: topk(d, v, m, desc, k)), "plain_ms": time_ms(lambda: topk_ref(d, v, m, desc, k), 3),
           "library_ms": time_ms(lambda: torch.topk(sk, k)), "bytes": _nbytes(d, v, m) + k * 5,
           "select_ms": time_ms(select), "prepare_host_ms": host_ms(lambda: topk_select(d, v, m, desc, k)),
-          "rows": d.numel(), "k": k, "desc": desc}
+          "rows": d.numel(), "k": k, "desc": desc, "ordered_in_kernel": orders_in_kernel(k)}
 
     (mask, keys), _ = cap["multikey_topn"]["topn_multi_ops"]
     got, want = topn_multi_ops(mask, keys), topn_multi_ops_ref(mask, keys)
@@ -4106,12 +4251,18 @@ def measure_sort_kernels(main: dict, max_err: dict):
     torch.cuda.synchronize()
     _same_groups(g, w, "sort_groups on q18_inner")
     skey = torch.sort(keys[0][0]).values
+    k9_ops, k9_k8 = k8_inside(k9_module, lambda: sort_groups(mask, keys, cap_of))
+    k9_word = _packed_word(k9_ops[0])
     k9 = {"ms": time_ms(lambda: sort_groups(mask, keys, cap_of)),
           "plain_ms": time_ms(lambda: sort_groups_ref(mask, keys, cap_of), 3),
-          "library_ms": time_ms(lambda: torch.unique_consecutive(skey, return_inverse=True)),
+          "library_ms": None if k9_word is None else time_ms(
+              lambda: torch.unique(k9_word, sorted=True, return_inverse=True)),
+          "library_call": "torch.unique(sorted=True, return_inverse=True) of the packed word of K9's K8 operands",
+          "k8_ms": k9_k8, "k8_calls": len(k9_ops),
+          "unique_consecutive_sorted_key_ms": time_ms(lambda: torch.unique_consecutive(skey, return_inverse=True)),
           "bytes": _nbytes(mask, *_pairs((getattr(kd, "bits", kd), kv) for kd, kv in keys))
           + 4 * mask.numel() + 16 * len(keys) * g.n_groups,
-          "n_groups": g.n_groups, "cap": g.cap, "note": "ms includes K8 and one n_groups sync"}
+          "n_groups": g.n_groups, "cap": g.cap, "note": "ms includes K8 (k8_ms) and one n_groups sync"}
 
     (mask, no_keys, lanes, nseg), kw = cap["q18_inner"]["seg_agg"]
     seg = kw["seg"]

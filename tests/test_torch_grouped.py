@@ -3,7 +3,8 @@
 * chip_smoke.grouped_cases — the battery chip_smoke.py holds the kernels
   to on the card — run here, where each wrapper takes its plain version:
   each task mode equals the SOLO plain version run task by task on the
-  task's narrowed inputs, for every codec, G and width case;
+  task's narrowed inputs, for every codec, G and width case; so do
+  chip_smoke.sort_edge_cases (K6's and K8's modes at their designs' edges);
 * models/tpch.point_agg_dag equals the DAG the reference Session pushes
   for tools/bench_sched.py's point aggregation;
 * Q1 over lineitem cut into regions (models/tpch.region_batches), run
@@ -39,6 +40,22 @@ import chip_smoke  # noqa: E402
 def test_task_modes_equal_the_solo_plain_versions(kind, G):
     cases = chip_smoke.grouped_cases("cpu", np.random.default_rng(7 + G), r=256, sizes=(G,), kinds=(kind,))
     assert cases
+    failed = []
+    for name, fn in cases:
+        try:
+            fn()
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+    assert not failed, "\n".join(failed)
+
+
+@pytest.mark.parametrize("G", chip_smoke.EDGE_GROUP_SIZES)
+def test_sort_edges_equal_the_solo_plain_versions(G):
+    """chip_smoke.sort_edge_cases — K6's and K8's task modes at the edges of
+    their designs (4- and 8-byte words, widths around a tile, k at the
+    ordering cap and past it, every row tied) — hold here too."""
+    cases = chip_smoke.sort_edge_cases("cpu", np.random.default_rng(11 + G), G)
+    assert {name.split()[0] for name, _ in cases} == {"topk_tasks", "lex_sort_tasks"}
     failed = []
     for name, fn in cases:
         try:

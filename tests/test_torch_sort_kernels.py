@@ -126,7 +126,136 @@ def test_radix_plan_skips_constant_operands_and_packs_flags():
     # a constant operand, a 1-bit flag and a 3-bit value share one word
     orand = np.array([0b1, 0b0, 5, 5, 0b1110, 0b0010], dtype=np.uint64)
     assert plan_words(orand) == [([(2, 2, 2, 0), (0, 0, 1, 2)], 3)]
+    assert plan_words(orand)[0].key_bytes == 4 and plan_words(orand)[0].passes == 1
     assert plan_words(np.array([7, 7], dtype=np.uint64)) == []
+
+
+def _orand(ops) -> np.ndarray:
+    us = [ordered_key(op).numpy().view(np.uint64) ^ np.uint64(1 << 63) for op in ops]
+    return np.array([x for u in us for x in (np.bitwise_or.reduce(u), np.bitwise_and.reduce(u))], dtype=np.uint64)
+
+
+def _emulate_passes(ops, words, width: int) -> np.ndarray:
+    """numpy model of csrc/lex_sort.cu's passes: per word, the keys built
+    through the permutation so far (4-byte when the word fits 32 bits; the
+    task field is row // width), then one stable 8-bit pass per digit, least
+    significant first."""
+    u = [(ordered_key(op).numpy().view(np.uint64) ^ np.uint64(1 << 63)) for op in ops]
+    perm = np.arange(len(u[0]))
+    for word in words:
+        key = np.zeros(len(perm), dtype=np.uint64)
+        for k, src, w, dst in word.fields:
+            f = (perm // width).astype(np.uint64) if k < 0 else u[k][perm] >> np.uint64(src)
+            key |= (f & np.uint64((1 << w) - 1 if w < 64 else (1 << 64) - 1)) << np.uint64(dst)
+        if word.key_bytes == 4:
+            assert (key >> np.uint64(32)).max() == 0, "a 4-byte word holds bits past 32"
+            key = key.astype(np.uint32)
+        for p in range(word.passes):
+            order = np.argsort((key >> key.dtype.type(8 * p)) & 0xFF, kind="stable")
+            perm, key = perm[order], key[order]
+    return perm
+
+
+def _np_lexsort(arrays, kinds) -> np.ndarray:
+    lanes = []
+    for a, k in zip(arrays, kinds):
+        key, nan = _np_order_key(a, k)
+        lanes.append(key)
+        if nan is not None:
+            lanes.append(nan)
+    return np.lexsort(lanes[::-1])
+
+
+WORD_CASES = {  # (numpy arrays, kinds), most significant first: a 4-byte word, an 8-byte one, two words
+    "word32": lambda n, rng: ([rng.integers(0, 1 << 10, n).astype(np.int32), rng.integers(0, 1 << 16, n)],
+                              ["i32", "i64"]),
+    "word64": lambda n, rng: ([rng.integers(0, 1 << 30, n), rng.integers(-(1 << 17), 1 << 17, n)], ["i64", "i64"]),
+    "ties": lambda n, rng: ([rng.integers(0, 4, n)], ["i64"]),
+}
+
+
+@pytest.mark.parametrize("G", [1, 7, 64])
+@pytest.mark.parametrize("case", SORT_CASES + list(WORD_CASES))
+def test_pass_plan_with_task_field_matches_np_lexsort_per_task(case, G):
+    """The plan K8's task-leading mode runs (the task in the top bits of the
+    last word, 4-byte keys for a word of at most 32 bits), emulated pass by
+    pass, sorts each task's rows as np.lexsort does."""
+    rng = np.random.default_rng(G * 31 + len(case))
+    w = 97
+    parts = [WORD_CASES[case](w, rng) if case in WORD_CASES else _operands(case, w, rng) for _ in range(G)]
+    kinds = parts[0][1]
+    arrays = [np.concatenate([p[0][j] for p in parts]) for j in range(len(kinds))]
+    ops = _sort_ops(arrays, kinds)
+    words = plan_words(_orand(ops), (G - 1).bit_length())
+    if not words:  # every operand constant: row order is the sorted order
+        assert case == "all_equal"
+        return
+    task = [f for wd in words for f in wd.fields if f[0] < 0]
+    assert len(task) == (1 if G > 1 else 0)
+    if task:  # the most significant field of the last word, at its used top
+        assert task[0] == words[-1].fields[-1] and task[0][3] + task[0][2] == words[-1].bits
+    for wd in words:
+        assert wd.key_bytes == (4 if wd.bits <= 32 else 8) and wd.passes == (wd.bits + 7) // 8
+    got = _emulate_passes(ops, words, w)
+    for g in range(G):
+        want = _np_lexsort([a[g * w:(g + 1) * w] for a in arrays], kinds) + g * w
+        assert got[g * w:(g + 1) * w].tolist() == want.tolist(), g
+
+
+def test_word_widths_follow_the_varying_bits():
+    """32 varying bits → one 4-byte word; 33 → one 8-byte word; the task
+    field counts toward the width."""
+    def orand(*widths):
+        return np.array([x for wd in widths for x in ((1 << wd) - 1, 0)], dtype=np.uint64)
+    assert [(w.bits, w.key_bytes) for w in plan_words(orand(20, 12))] == [(32, 4)]
+    assert [(w.bits, w.key_bytes) for w in plan_words(orand(20, 13))] == [(33, 8)]
+    assert [(w.bits, w.key_bytes) for w in plan_words(orand(26), 6)] == [(32, 4)]
+    assert [(w.bits, w.key_bytes) for w in plan_words(orand(26), 7)] == [(33, 8)]
+    assert [(w.bits, w.key_bytes) for w in plan_words(orand(40, 30))] == [(30, 4), (40, 8)]
+
+
+def test_field_table_is_one_upload_of_every_words_fields():
+    """csrc/lex_sort.cu's FieldDesc rows (address or 0 for the task field,
+    kind | src << 32, width | dst << 32) of every word, in plan order, with
+    each word's first row: one table, one pinned copy."""
+    from tidb_tpu_torch.kernels.lex_sort import KINDS, TASK_KIND, Word, field_table, op_table
+
+    rng = np.random.default_rng(2)
+    arrays, kinds = _operands("wider_than_a_word", 50, rng)
+    ops = _sort_ops(arrays, kinds)
+    words = plan_words(_orand(ops), 3)
+    assert len(words) >= 2 and all(isinstance(w, Word) for w in words)
+    table, offs = field_table(ops, words)
+    assert table.dtype == np.int64 and table.shape == (sum(len(w.fields) for w in words), 3)
+    assert offs == np.cumsum([0] + [len(w.fields) for w in words[:-1]]).tolist()
+    for w, off in zip(words, offs):
+        for j, (k, src, width, dst) in enumerate(w.fields):
+            row = table[off + j]
+            if k < 0:
+                assert row.tolist() == [0, TASK_KIND, width | (dst << 32)]
+            else:
+                assert row.tolist() == [ops[k].data.data_ptr(), KINDS[ops[k].kind] | (src << 32), width | (dst << 32)]
+    assert op_table(ops).tolist() == [[op.data.data_ptr(), KINDS[op.kind]] for op in ops]
+
+
+def test_sort_profile_instruments_every_phase_of_the_pass():
+    """sort_profile.py's clock copy of csrc/lex_sort.cu: every phase mark
+    lands once in pass_kernel, in order, and the read-out entry exists."""
+    import os
+    import re
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import sort_profile
+
+    from tidb_tpu_torch.kernels.build import CSRC
+
+    src = (CSRC / "lex_sort.cu").read_text()
+    out = sort_profile.instrumented(src)
+    body = out[out.index("pass_kernel(const KeyT*"):out.index("int grid_for(")]
+    marks = [int(m) for m in re.findall(r"long long clk(\d) = clock64\(\);", body)]
+    assert marks == list(range(7)) and len(sort_profile.PHASES) == 6
+    assert 'extern "C" int tt_clk(' in out and src.count("clock64") == 0
 
 
 # --- K6 topk ---------------------------------------------------------------
@@ -204,6 +333,96 @@ def test_topk_rejects_what_it_does_not_take():
     assert idx.numel() == ok.numel() == 0
     with pytest.raises(TypeError):
         topk(d.to(torch.int32), None, m, True, 2)
+
+
+def test_topk_orders_its_rows_itself_up_to_the_kernels_cap():
+    """The route choice: K6 orders k <= ORDER_CAP rows in the kernel (no K8,
+    no host read), above it K8 orders them; the cap is csrc/topk.cu's."""
+    import importlib
+    import re
+    from pathlib import Path
+
+    topk_module = importlib.import_module("tidb_tpu_torch.kernels.topk")  # the package re-exports the wrapper's name
+
+    cap = topk_module.ORDER_CAP
+    src = (Path(topk_module.__file__).parent.parent / "csrc" / "topk.cu").read_text()
+    assert re.search(r"constexpr int kOrderCap = (\d+);", src).group(1) == str(cap) and cap >= 2048
+    assert topk_module.orders_in_kernel(1) and topk_module.orders_in_kernel(cap)
+    assert not topk_module.orders_in_kernel(cap + 1)
+
+
+def _emulate_select(u: np.ndarray, k: int) -> list:
+    """numpy model of csrc/topk.cu's select over one task: digits of the
+    96-bit key (u, ~row) from the top, constant digits of u skipped, the
+    candidates read from every row until they fit a buffer of width / 8,
+    those above the threshold output a pass later, the rest at the end,
+    then ordered by (u desc, row asc) → row ids."""
+    width = len(u)
+    dig_of = lambda x, r, d: (x >> (8 * (d - 4))) & 0xFF if d >= 4 else (r >> (8 * d)) & 0xFF  # noqa: E731
+    vary = int(np.bitwise_or.reduce(u)) ^ int(np.bitwise_and.reduce(u))
+    pre, known, pend, rem, ncand = [0, 0], [0, 0], -1, k, width
+    done, bcap, src, out = k == width, (width + 7) // 8, None, []
+
+    def classify(x, row):
+        r = ~row & 0xFFFFFFFF
+        if (x & known[0]) != (pre[0] & known[0]) or (r & known[1]) != (pre[1] & known[1]):
+            return -1
+        if pend < 0:
+            return 0
+        d, c = dig_of(x, r, pend), dig_of(pre[0], pre[1], pend)
+        return 1 if d > c else (0 if d == c else -1)
+
+    rdig = (max(width - 1, 0).bit_length() + 7) // 8
+    for dig in [d for d in range(11, -1, -1) if d >= 4 or d < rdig]:
+        if done or (dig >= 4 and (vary >> (8 * (dig - 4))) & 0xFF == 0):
+            continue
+        cands = src if src is not None else [(int(x), i) for i, x in enumerate(u)]
+        write = src is not None or ncand <= bcap
+        hist, kept = [0] * 256, []
+        for x, row in cands:
+            c = classify(x, row)
+            out += [(x, row)] if c == 1 else []
+            if c == 0:
+                hist[dig_of(x, ~row & 0xFFFFFFFF, dig)] += 1
+                kept.append((x, row))
+        assert sum(hist) == ncand
+        incl = 0
+        for dd in range(255, -1, -1):
+            excl, incl = incl, incl + hist[dd]
+            if excl < rem <= incl:
+                break
+        pre[dig < 4] |= dd << (8 * (dig - 4 if dig >= 4 else dig))
+        if pend >= 0:
+            known[pend < 4] |= 0xFF << (8 * (pend - 4 if pend >= 4 else pend))
+        pend, rem, ncand = dig, rem - excl, hist[dd]
+        done = ncand == rem
+        if write:
+            assert len(kept) <= bcap
+            src = kept
+    assert done
+    out += [(x, row) for x, row in (src if src is not None else [(int(x), i) for i, x in enumerate(u)])
+            if classify(x, row) >= 0]
+    assert len(out) == k
+    return [row for _, row in sorted(out, key=lambda p: (-p[0], p[1]))]
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, 257, 1000])
+@pytest.mark.parametrize("case", ["price", "duplicates", "int64_limits", "float_specials", "uint64_bits", "tied"])
+def test_select_plan_matches_lax_top_k(case, k):
+    """csrc/topk.cu's select, emulated in numpy over the kernel's own u
+    (the key's order-preserving form), keeps exactly lax.top_k's rows in
+    its order: ties past the buffer, every row tied, k = width."""
+    from tidb_tpu_torch.kernels.topk import _total_order, sort_key
+
+    rng = np.random.default_rng(k * 13 + len(case))
+    n = 1000
+    d = np.full(n, 4, np.int64) if case == "tied" else _topk_data(case, n, rng)
+    v = rng.random(n) < 0.8
+    m = rng.random(n) < 0.7
+    for desc in (True, False):
+        u = _total_order(sort_key(_t(d), _t(v), _t(m), desc)).numpy().view(np.uint64) ^ np.uint64(1 << 63)
+        want_idx, _ = _ref_topk(d, v, m, desc, k)
+        assert _emulate_select(u, k) == want_idx.tolist()
 
 
 # --- K7 topn_multi ---------------------------------------------------------

@@ -7,9 +7,10 @@ of a launch group's tasks on a new leading axis, narrows every task to
 `width` flattened rows and vmaps the per-task program over it, all in one
 jitted dispatch. The port's per-task programs are K1 → the expression
 kernel → K4 (a filter, a direct-address aggregation), → K9 (K8) → K4 (a
-sort GROUP BY), → K6 (K8) (a single-key TopN) or → K7 → K8 (a multi-key
-TopN), so K10 is a task-grid mode of each of those kernels: one launch
-covers the G tasks of a group, the grid's y axis being the task, each
+sort GROUP BY), → K6 (a single-key TopN; K8 orders its rows only for k
+above topk.ORDER_CAP) or → K7 → K8 (a multi-key TopN), so K10 is a
+task-grid mode of each of those kernels: one launch covers the G tasks
+of a group, the grid's y axis being the task, each
 task addressed through a table in device memory (csrc/decode_lane.cu,
 csrc/expr_eval.cu, csrc/seg_agg.cu, csrc/topk.cu, csrc/topn_multi.cu,
 csrc/sort_groups.cu say how). Nothing is stacked: a task's lanes stay
@@ -77,8 +78,8 @@ from .sort_groups import finish as sort_groups_finish
 from .sort_groups import ops_prepare as sort_groups_prepare
 from .sort_groups import sort_groups_ref
 from .tables import ptrs, to_card
+from .topk import orders_in_kernel, topk_ref
 from .topk import select_prepare as topk_tasks_prepare  # K6's task mode up to its launch
-from .topk import topk_ref
 from .topn_multi import ops_prepare as topn_multi_prepare
 from .topn_multi import topn_multi_ops_ref
 
@@ -531,8 +532,10 @@ def topk_tasks_ref(datas: list, valids: list, masks: list, desc: bool, k: int, w
 def topk_tasks(datas: list, valids: list, masks: list, desc: bool, k: int, width: int):
     """(int32 [G, k] task-local row ids, bool [G, k] their mask bits): each
     task's k best rows of its first `width`, in lax.top_k's order (K6's
-    module doc) — one radix select per task over the task grid, then one
-    K8 task-leading sort of all G * k candidates by (task, key desc, row)."""
+    module doc) — one radix select per task over the task grid, which
+    orders each task's rows itself for k up to topk.ORDER_CAP (no host
+    read); above it one K8 task-leading sort of all G * k rows by (task,
+    key desc, row)."""
     G = _topk_in(datas, valids, masks, k, width)
     dev = datas[0].device
     if dev.type == "cpu":
@@ -541,12 +544,13 @@ def topk_tasks(datas: list, valids: list, masks: list, desc: bool, k: int, width
         raise ValueError(f"topk_tasks: unsupported device {dev}")
     if k == 0:
         return torch.empty((G, 0), dtype=torch.int32, device=dev), torch.empty((G, 0), dtype=torch.bool, device=dev)
-    (U, cand, okc), go = topk_tasks_prepare(datas, valids, masks, desc, k, width, dev)
+    (cand, candu, okc), go = topk_tasks_prepare(datas, valids, masks, desc, k, width, dev)
     go()
     count(topk_tasks)
+    if orders_in_kernel(k):
+        return cand, okc
     # (task, u desc, row asc): ~u ascends as u descends; the row breaks ties
-    rows = (cand.long() + torch.arange(G, device=dev)[:, None] * width).reshape(-1)
-    perm = lex_sort_perm_tasks([SortOp(~U.reshape(-1)[rows], "u64"), SortOp(cand.reshape(-1), "i32")], k).long()
+    perm = lex_sort_perm_tasks([SortOp(~candu.reshape(-1), "u64"), SortOp(cand.reshape(-1), "i32")], k).long()
     return cand.reshape(-1)[perm].reshape(G, k), okc.reshape(-1)[perm].reshape(G, k)
 
 

@@ -2,8 +2,10 @@
 
 Replaces tidb_tpu/copr/tpu_engine.py:195-208 lex_sort_perm: operands are
 given most significant first, rows that tie on all of them keep their
-row order. The CUDA kernels are csrc/lex_sort.cu (an LSD radix sort over
-packed composite words; its note says what bounds it);
+row order. The CUDA kernels are csrc/lex_sort.cu (a one-sweep LSD radix
+sort over packed composite words: an up-front histogram per word, then
+one launch per 8-bit pass with decoupled look-back; 4-byte keys for a
+word of at most 32 bits; its note says what bounds it);
 `lex_sort_perm_ref` is the plain PyTorch version beside it (one stable
 torch.sort per operand, least significant first — the reference's own
 recipe).
@@ -31,12 +33,14 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..expr.xp_torch import U64
 from .build import count, library
+from .tables import sm_count
 
 KINDS = {"i32": 0, "i64": 1, "u64": 2, "f64": 3}
 TASK_KIND = 4  # a word field holding the row's task, row / task_width (K_TASK)
@@ -109,22 +113,41 @@ def lex_sort_perm_ref(ops) -> torch.Tensor:
     return perm.to(torch.int32)
 
 
-def plan_words(orand: np.ndarray, task_bits: int = 0) -> list[tuple[list[tuple[int, int, int, int]], int]]:
+class Word(NamedTuple):
+    """One composite word of the radix plan: its fields (operand,
+    src_shift, width, dst_shift), least significant first, and its bits."""
+
+    fields: list
+    bits: int
+
+    @property
+    def key_bytes(self) -> int:
+        """The bytes of the word's keys in the kernels: 4 when it fits 32 bits
+        (a pass then moves 8 bytes a row less), else 8."""
+        return 4 if self.bits <= 32 else 8
+
+    @property
+    def passes(self) -> int:
+        return (self.bits + 7) // 8
+
+
+def plan_words(orand: np.ndarray, task_bits: int = 0) -> list[Word]:
     """Composite words from each operand's (OR, AND) of ordered keys.
 
-    → [(fields, bits)], least significant word first; a field is
+    → [Word(fields, bits)], least significant word first; a field is
     (operand, src_shift, width, dst_shift): the operand's varying bit
     range lo..hi, packed above the less significant operands' fields.
     A constant operand gets no field; a word never splits a field. With
     `task_bits`, the row's task (operand -1) is the most significant
-    field, `task_bits` wide. No operand varying → [] (row order is the
-    sorted order, within each task too)."""
+    field, `task_bits` wide, at the top of the word's used bits (so in a
+    word of at most 32 bits it stays below bit 32). No operand varying →
+    [] (row order is the sorted order, within each task too)."""
     words, fields, used = [], [], 0
 
     def add(k, lo, width):
         nonlocal fields, used
         if used + width > 64:
-            words.append((fields, used))
+            words.append(Word(fields, used))
             fields, used = [], 0
         fields.append((k, lo, width, used))
         used += width
@@ -138,8 +161,28 @@ def plan_words(orand: np.ndarray, task_bits: int = 0) -> list[tuple[list[tuple[i
         return []
     if task_bits:
         add(-1, 0, task_bits)
-    words.append((fields, used))
+    words.append(Word(fields, used))
     return words
+
+
+def op_table(ops: list[SortOp]) -> np.ndarray:
+    """int64 [nops, 2] (address, kind): the host array tt_lex_orand hands to
+    its kernel as parameters."""
+    return np.array([[op.data.data_ptr(), KINDS[op.kind]] for op in ops], dtype=np.int64).reshape(-1, 2)
+
+
+def field_table(ops: list[SortOp], words: list[Word]) -> tuple[np.ndarray, list[int]]:
+    """Every word's field descriptors in ONE int64 [F, 3] table — (address
+    or 0 for the task field, kind | src_shift << 32, width | dst_shift <<
+    32), csrc/lex_sort.cu's FieldDesc — words in plan order; and each
+    word's first row in it. The call uploads it in one pinned copy."""
+    rows, offs = [], []
+    for word in words:
+        offs.append(len(rows))
+        for k, src, width, dst in word.fields:
+            rows.append([0, TASK_KIND, width | (dst << 32)] if k < 0 else
+                        [ops[k].data.data_ptr(), KINDS[ops[k].kind] | (src << 32), width | (dst << 32)])
+    return np.array(rows, dtype=np.int64).reshape(-1, 3), offs
 
 
 _bound: set = set()
@@ -149,11 +192,11 @@ def _lib():
     lib = library("lex_sort")
     if "lex_sort" not in _bound:
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.tt_lex_counts_len.argtypes = [L]
-        lib.tt_lex_counts_len.restype = L
+        lib.tt_lex_flags_len.argtypes = [L]
+        lib.tt_lex_flags_len.restype = L
         lib.tt_lex_orand.argtypes = [C, I, L, C, I, C]
         lib.tt_lex_orand.restype = I
-        lib.tt_lex_sort_word.argtypes = [C, I, I, L, L, C, C, C, C, C, C, C, C, I, C]
+        lib.tt_lex_sort_word.argtypes = [C, I, I, I, L, L, C, C, C, C, C, C, C, C, I, C, I, C]
         lib.tt_lex_sort_word.restype = I
         _bound.add("lex_sort")
     return lib
@@ -181,39 +224,58 @@ def launch(ops: list[SortOp], n: int, task_width: int, counted) -> torch.Tensor:
     """The kernels over checked CUDA operands → int32 [n] permutation. With
     `task_width`, the rows are n / task_width tasks of task_width rows and
     sort by (task, operands) (the task-leading mode). `counted` is the
-    wrapper whose launches the call counts, after the one sync."""
+    wrapper whose launches the call counts, after the one host read.
+
+    Per call: one read of the OR/AND (the pass count follows the data) and
+    one upload of every word's fields, both through one pinned buffer; one
+    device buffer for the OR/AND, the fields, the zeroed scratch (the
+    up-front counts, the tile counters, the look-back flags), the keys and
+    the row ids; then per word one build_keys launch and one launch per
+    8-bit pass."""
     dev = ops[0].data.device
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    desc = torch.tensor([[op.data.data_ptr(), KINDS[op.kind]] for op in ops], dtype=torch.int64).to(dev)
-    orand = torch.empty(2 * len(ops), dtype=torch.int64, device=dev)
-    _raise(lib.tt_lex_orand(desc.data_ptr(), len(ops), n, orand.data_ptr(), n_sms, stream), "orand")
+    cs = torch.cuda.current_stream(dev)
+    stream = cs.cuda_stream
+    n_sms = sm_count(dev)
+    nops = len(ops)
+    nf = 3 * (nops + 1)  # at most one field an operand, and the task's
+    max_passes = 8 * (nops + 1)
+    flags_len = lib.tt_lex_flags_len(n)
+    # int64 slots of `buf`: OR/AND, fields, then the scratch — counts (uint32
+    # [passes, 256]), tile counters (uint32 [passes]), flags — then two
+    # key arrays, two row-id arrays and a permutation for a middle word
+    zero0 = 2 * nops + nf
+    keys0 = zero0 + 128 * max_passes + max_passes // 2 + flags_len
+    buf = torch.empty(keys0 + 2 * n + n + (n + 1) // 2, dtype=torch.int64, device=dev)
+    base = buf.data_ptr()
+    pin = torch.empty(2 * nops + nf, dtype=torch.int64, pin_memory=True)
+    desc = op_table(ops)  # kept alive through the call: the launch copies it into kernel parameters
+    _raise(lib.tt_lex_orand(desc.ctypes.data, nops, n, base, n_sms, stream), "orand")
+    pin[:2 * nops].copy_(buf[:2 * nops], non_blocking=True)
+    cs.synchronize()  # the one host read
     tasks = n // task_width if task_width else 1
-    # the one sync: pass count follows the data
-    words = plan_words(orand.cpu().numpy().view(np.uint64), (tasks - 1).bit_length())
+    words = plan_words(pin[:2 * nops].numpy().view(np.uint64), (tasks - 1).bit_length())
     count(counted)
     if not words or n == 0:  # every operand constant: row order is the sorted order
         return torch.arange(n, dtype=torch.int32, device=dev)
-    key_a = torch.empty(n, dtype=torch.int64, device=dev)
-    key_b = torch.empty_like(key_a)
-    val_a = torch.empty(n, dtype=torch.int32, device=dev)
-    val_b = torch.empty_like(val_a)
-    counts = torch.empty(lib.tt_lex_counts_len(n), dtype=torch.int32, device=dev)
-    totals = torch.empty(256, dtype=torch.int32, device=dev)
-    perms = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
-    perm = None
-    for j, (fields, bits) in enumerate(words):
-        fd = torch.tensor([[0, TASK_KIND, width | (dst << 32)] if k < 0 else
-                           [ops[k].data.data_ptr(), KINDS[ops[k].kind] | (src << 32), width | (dst << 32)]
-                           for k, src, width, dst in fields], dtype=torch.int64).to(dev)
-        out = perms[j % 2]
+    table, offs = field_table(ops, words)
+    pin.numpy()[2 * nops:2 * nops + table.size] = table.reshape(-1)
+    buf[2 * nops:2 * nops + table.size].copy_(pin[2 * nops:2 * nops + table.size], non_blocking=True)  # the one upload
+    buf[zero0:zero0 + 128 * max_passes + max_passes // 2 + flags_len].zero_()
+    counts, ctrs, flags = 8 * zero0, 8 * zero0 + 1024 * max_passes, 8 * (keys0 - flags_len)
+    keys, vals, mid = 8 * keys0, 8 * (keys0 + 2 * n), 8 * (keys0 + 3 * n)
+    perm_out = torch.empty(n, dtype=torch.int32, device=dev)
+    perm = 0
+    for j, word in enumerate(words):
+        # the words alternate between the two permutations, the last into perm_out
+        out = perm_out.data_ptr() if (len(words) - 1 - j) % 2 == 0 else base + mid
+        done = sum(w.passes for w in words[:j])
         _raise(lib.tt_lex_sort_word(
-            fd.data_ptr(), len(fields), bits, n, task_width or n, 0 if perm is None else perm.data_ptr(),
-            key_a.data_ptr(), key_b.data_ptr(), val_a.data_ptr(), val_b.data_ptr(),
-            counts.data_ptr(), totals.data_ptr(), out.data_ptr(), n_sms, stream), "sort word")
+            base + 8 * 2 * nops + 24 * offs[j], len(word.fields), word.bits, word.key_bytes, n, task_width or n,
+            perm, base + keys, base + keys + 8 * n, base + vals, base + vals + 4 * n, base + counts + 1024 * done,
+            base + ctrs + 4 * done, base + flags, done, out, n_sms, stream), "sort word")
         perm = out
-    return perm
+    return perm_out
 
 
 def lex_sort_perm(ops) -> torch.Tensor:

@@ -13,9 +13,12 @@ their kernels as a grid of one task, and by K10's task-grid modes
                                       no host synchronization
   dev_index(dev)                      the card's index, as get_device()
                                       gives it for a tensor
+  sm_count(dev)                       the card's SM count, looked up once
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -23,6 +26,17 @@ import torch
 
 def dev_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors, looked up once per card (the
+    lookup costs tens of microseconds of a small call's host time)."""
+    return _sm_count(dev_index(dev))
 
 
 def to_card(host: np.ndarray, dev: torch.device) -> torch.Tensor:

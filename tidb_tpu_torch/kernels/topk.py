@@ -3,9 +3,11 @@
 Replaces the kernel of tidb_tpu/copr/tpu_engine.py:1759-1781
 (TPUEngine._lower_topn): the sort key built from the row mask, the key's
 validity and its data, then lax.top_k. The CUDA kernels are csrc/topk.cu
-(a radix select; its note gives the key transform and what bounds it);
-the k candidates it selects are ordered by K8 (kernels/lex_sort.py).
-`topk_ref` is the plain PyTorch version beside it.
+(a radix select over (key, ~row) that keeps its candidates in a compact
+buffer once they are few, then orders its k rows itself in shared
+memory; its note gives the key transform and what bounds it). For k above
+ORDER_CAP the k rows come out unordered and K8 (kernels/lex_sort.py)
+orders them. `topk_ref` is the plain PyTorch version beside it.
 
 `topk(data, valid, mask, desc, k)`:
 
@@ -38,7 +40,7 @@ import torch
 
 from .build import count, library
 from .lex_sort import SortOp, lex_sort_perm
-from .tables import dev_index, ptrs, to_card
+from .tables import dev_index, ptrs, sm_count, to_card
 
 _I64_MIN = -(1 << 63)
 _I64_MAX = (1 << 63) - 1
@@ -88,6 +90,15 @@ def topk_ref(data, valid, mask, desc: bool, k: int):
     return idx, mask[idx]
 
 
+ORDER_CAP = 4096  # the largest k K6 orders itself: csrc/topk.cu's kOrderCap (it refuses a larger one)
+
+
+def orders_in_kernel(k: int) -> bool:
+    """Whether K6 orders its k outputs itself (k <= ORDER_CAP: no K8 call
+    and no host read), or leaves them to K8's (u desc, row asc) sort."""
+    return k <= ORDER_CAP
+
+
 _bound: set = set()
 
 
@@ -97,9 +108,9 @@ def _lib():
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.tt_topk_state_len.argtypes = []
         lib.tt_topk_state_len.restype = L
-        lib.tt_topk_tiles.argtypes = [L]
-        lib.tt_topk_tiles.restype = L
-        lib.tt_topk_select_tasks.argtypes = [C, I, I, I, L, L, C, C, C, C, C, I, C]
+        lib.tt_topk_buf_cap.argtypes = [L]
+        lib.tt_topk_buf_cap.restype = L
+        lib.tt_topk_select_tasks.argtypes = [C, I, I, I, L, L, C, C, C, C, C, C, I, I, C]
         lib.tt_topk_select_tasks.restype = I
         _bound.add("topk")
     return lib
@@ -116,35 +127,41 @@ def topk_table(datas: list, valids: list, masks: list, width: int, dev: int) -> 
 
 
 def select_prepare(datas: list, valids: list, masks: list, desc: bool, k: int, width: int, dev: torch.device):
-    """The radix select of G tasks up to its launch: ((u64 keys [G, width],
-    int32 candidates [G, k], bool mask bits [G, k]), `go()`, which
-    enqueues the select over the task table on the card). Task g's k
-    candidates are its rows (of its first `width`) holding the k largest
-    keys, unordered."""
+    """The radix select of G tasks up to its launch: ((int32 rows [G, k],
+    uint64 u [G, k] as int64 bits, bool mask bits [G, k]), `go()`, which
+    enqueues the select over the task table on the card). Task g's k rows
+    are its rows (of its first `width`) holding the k largest keys: in
+    lax.top_k's order when orders_in_kernel(k), else unordered (with their
+    u, the order-preserving key, for K8)."""
     G = len(datas)
     tab = to_card(topk_table(datas, valids, masks, width, dev_index(dev)), dev)
     lib = _lib()
-    U = torch.empty((G, width), dtype=torch.int64, device=dev)
-    state = torch.empty((G, lib.tt_topk_state_len()), dtype=torch.int64, device=dev)
-    tilecnt = torch.empty((G, lib.tt_topk_tiles(width)), dtype=torch.int32, device=dev)
-    cand = torch.empty((G, k), dtype=torch.int32, device=dev)
+    slen, bcap = lib.tt_topk_state_len(), lib.tt_topk_buf_cap(width)
+    # the outputs' u, the state and the buffers' u in one int64 allocation;
+    # the rows and the buffers' rows in one int32
+    wide = torch.empty(G * (k + slen + 2 * bcap), dtype=torch.int64, device=dev)
+    narrow = torch.empty(G * (k + 2 * bcap), dtype=torch.int32, device=dev)
+    candu, cand = wide[:G * k].view(G, k), narrow[:G * k].view(G, k)
     okc = torch.empty((G, k), dtype=torch.bool, device=dev)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_sms = sm_count(dev)
     is_float = int(datas[0].dtype == torch.float64)
 
     def go(tab=tab):
-        rc = lib.tt_topk_select_tasks(tab.data_ptr(), G, is_float, int(bool(desc)), width, k, U.data_ptr(),
-                                      state.data_ptr(), tilecnt.data_ptr(), cand.data_ptr(), okc.data_ptr(), n_sms,
+        w0, n0 = wide.data_ptr(), narrow.data_ptr()
+        rc = lib.tt_topk_select_tasks(tab.data_ptr(), G, is_float, int(bool(desc)), width, k, w0 + 8 * G * k,
+                                      w0 + 8 * G * (k + slen), n0 + 4 * G * k, cand.data_ptr(), candu.data_ptr(),
+                                      okc.data_ptr(), int(orders_in_kernel(k)), n_sms,
                                       torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"topk: kernel launch failed (cudaError {rc})")
 
-    return (U, cand, okc), go
+    return (cand, candu, okc), go
 
 
 def topk(data: torch.Tensor, valid: torch.Tensor | None, mask: torch.Tensor, desc: bool, k: int):
     """(int32 [k] row ids, bool [k] mask bits) in lax.top_k's order: the
-    select as a grid of one task, then K8."""
+    select as a grid of one task, which orders its own rows for k up to
+    ORDER_CAP (no host read); above it K8 orders them."""
     dev = data.device
     if dev.type == "cpu":
         return topk_ref(data, valid, mask, desc, k)
@@ -153,11 +170,13 @@ def topk(data: torch.Tensor, valid: torch.Tensor | None, mask: torch.Tensor, des
     n = _check(data, valid, mask, k)
     if k == 0:
         return torch.empty(0, dtype=torch.int32, device=dev), torch.empty(0, dtype=torch.bool, device=dev)
-    (U, cand, okc), go = select_prepare([data], [valid], [mask], desc, k, n, dev)
+    (cand, candu, okc), go = select_prepare([data], [valid], [mask], desc, k, n, dev)
     go()
     count(topk)
+    if orders_in_kernel(k):
+        return cand[0], okc[0]
     # (u desc, row asc): ~u ascends as u descends; the row breaks ties
-    perm = lex_sort_perm([SortOp(~U[0][cand[0].long()], "u64"), SortOp(cand[0], "i32")]).long()
+    perm = lex_sort_perm([SortOp(~candu[0], "u64"), SortOp(cand[0], "i32")]).long()
     return cand[0][perm], okc[0][perm]
 
 
