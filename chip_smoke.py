@@ -30,14 +30,23 @@ Phases, one line each; any failure exits non-zero and prints no result:
               offsets, unbounded, RANGE offsets ASC/DESC with NULL keys,
               empty frames), uint64 and float arguments with NaN and
               ±0.0, an overflowing int64 sum, P = 1024 with n = 1 and
-              P = 2^23; W2 pack_flat over every lane kind and bool
+              P = 2^23, and the edges of its sorted-order design
+              (window_edge_battery: one partition of all rows,
+              single-row partitions, partitions and peer groups crossing
+              2,048-row tiles, LAG / LEAD offsets past a tile, ROWS min /
+              max frames of 201 and 3,011 rows (the sparse table), P
+              below a tile); W2 pack_flat over every lane kind and bool
               lengths that are not a multiple of 64; P3 lut_join with
               NULL and out-of-domain probe keys, absent LUT slots, a
               two-key LUT and a build mask that drops rows; P7 run_agg
               with an int64 lane whose prefix overflows, float lanes (one
               with NaN and ±inf), one giant run, a pad tail and ascending
               order; P9 block_topk with ties, ±0.0, NaN, fewer scores
-              than k, n not a multiple of 1024 and n = 2^22; P4 sort_join
+              than k, n not a multiple of 1024 and n = 2^22, and the edges
+              of its two launches (TOPK_EDGE_SHAPES: equal keys, sorted
+              lanes, every winner in one chunk, winners tied across chunk
+              edges, NaN / ±0.0 / ±inf, the int64 floor, n = 1, 1023,
+              1024, 1025 and kk x 1024 ± 1, kk 1, 16 and 512); P4 sort_join
               (sort_join_battery) with unique and duplicate build keys,
               inner and left, two keys, int32 keys, keys at the sort
               sentinel, a capacity below the output; P5 seg_reduce
@@ -176,8 +185,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
               Q3, q3_unfused, q3_top100, seg_revenue);
  5. measure — each kernel on the main path's own inputs: held once more to
               its plain version, then timed beside it, its bytes bound and
-              the nearest single PyTorch call where there is one (W1 also
-              per inner kernel, from one profiled call); expr_eval on Q1's,
+              the nearest single PyTorch call where there is one (W1 over
+              each window's own sort, computed once, so K8 stays out of
+              its time, with its launches per call and its time per inner
+              kernel from one profiled call); expr_eval on Q1's,
               Q6's, CHECKSUM's, Q3's and unfused Q3's own programs, K4's
               bitwise ops on CHECKSUM's lanes, P2 on main.mpp_mesh's
               largest exchange (the unfused Q3's second level), M1 and M3
@@ -575,6 +586,65 @@ def window_battery(lanes, desc: bool):
     return [L["g"], L["h"]], [(o, desc)], fs, (o[0], o[1], int(pres.min()), int(pres.max()))
 
 
+def window_edge_battery(rng):
+    """[(name, part, order, fspecs, n, range_lane)] at the edges of W1's
+    sorted-order design (numpy; a scan tile is 2,048 sorted rows): one
+    partition of all rows, single-row partitions, partitions and peer
+    groups crossing tile edges, LAG / LEAD offsets past a tile, ROWS min /
+    max frames wider than a direct pass (the sparse table: 201 rows) and
+    wider than a tile (3,011 rows), P below a tile (n 700 and 1)."""
+    import numpy as np
+
+    def f(static, args=(), frame=None, post=None):
+        return {"name": static[0], "static": static, "args": list(args), "post": post, "frame": frame}
+
+    def every(L, n):
+        return [f(("row_number",)), f(("rank",)), f(("dense_rank",)), f(("ntile", 5)),
+                f(("cume_dist",), post=("cume_dist",)), f(("percent_rank",), post=("percent_rank",)),
+                f(("lag", 1, False), [L["i"]]), f(("lead", 2, True), [L["f"], (np.full(n, 2.5), np.ones(n, bool))]),
+                f(("first_value",), [L["u"]], ("rows", "pre", 3, "cur", 0)),
+                f(("last_value",), [L["i"]], ("range", "cur", 0, "uf", 0)),
+                f(("nth_value", 2), [L["f"]], ("rows", "up", 0, "fol", 1)),
+                f(("count", True), [L["i"]], ("rows", "pre", 2, "fol", 2)), f(("count", False), ()),
+                f(("sum", True), [L["big"]]), f(("sum", True), [L["f"]], ("rows", "pre", 5, "fol", 5)),
+                f(("avg", True, "f"), [L["f"]], ("range", "cur", 0, "uf", 0), post=("avg_f",)),
+                f(("min",), [L["i"]]), f(("max",), [L["u"]], ("rows", "cur", 0, "uf", 0)),
+                f(("max",), [L["f"]], ("rows", "pre", 3, "fol", 3)), f(("min",), [L["big"]], ("rows", "pre", 1, "pre", 0))]
+
+    cases = []
+    n = 5000
+    L = win_lanes(rng, n)
+    o = L["o"]
+    pres = o[0][o[1]]
+    rl = (o[0], o[1], int(pres.min()), int(pres.max()))
+    cases.append(("one_partition", [], [(o, False)], every(L, n)
+                  + [f(("sum", True), [L["i"]], ("range", "pre", 7, "fol", 3, False))], n, rl))
+    n = 3000
+    L = win_lanes(rng, n)
+    solo = (rng.permutation(n).astype(np.int64), np.ones(n, bool))
+    cases.append(("single_row_partitions", [solo], [(L["o"], True)], every(L, n), n, None))
+    n = 6000  # partitions of 2,047 / 2,050 / 1 / 1,902 rows: their edges fall around the tiles' at 2,048 and 4,096
+    L = win_lanes(rng, n)
+    g = rng.permutation(np.repeat(np.arange(4), [2047, 2050, 1, 1902])).astype(np.int64)
+    peers = (rng.integers(0, 3, n).astype(np.int64), np.ones(n, bool))  # peer groups of ~700 rows
+    cases.append(("tile_edges", [(g, np.ones(n, bool))], [(peers, False)], every(L, n), n, None))
+    n = 9000
+    L = win_lanes(rng, n)
+    two = (np.arange(n) % 2).astype(np.int64)
+    cases.append(("offsets_past_a_tile", [(two, np.ones(n, bool))], [(L["o"], False)],
+                  [f(("lag", 2500, False), [L["i"]]), f(("lead", 3000, True), [L["u"], L["u"]]),
+                   f(("lag", 4499, False), [L["f"]]), f(("lead", 4500, False), [L["i"]])], n, None))
+    cases.append(("wide_rows_frames", [(two, np.ones(n, bool))], [(L["o"], True)],
+                  [f(("max",), [L["f"]], ("rows", "pre", 100, "fol", 100)),
+                   f(("min",), [L["u"]], ("rows", "pre", 3000, "fol", 10)),
+                   f(("max",), [L["i"]], ("rows", "fol", 1, "fol", 2500)),
+                   f(("min",), [L["f"]], ("rows", "pre", 64, "pre", 2))], n, None))
+    for n in (700, 1):
+        L = win_lanes(rng, n)
+        cases.append((f"below_a_tile_n{n}", [L["g"]], [(L["o"], False)], every(L, n), n, None))
+    return cases
+
+
 def window_cases(dev, rng):
     """(name, W1 inputs) — the battery ASC and DESC at P = 8,192 and at
     P = 2^23, float and multi-word order keys, P = 1024 with n = 1, one
@@ -604,6 +674,8 @@ def window_cases(dev, rng):
         fs = [f(("row_number",)), f(("sum", True), [L["big"]]), f(("max",), [L["f"]], ("rows", "pre", 1, "fol", 1)),
               f(("min",), [L["u"]], ("rows", "pre", 1, "uf", 0)), f(("lag", 1, False), [L["i"]]), f(("ntile", 4))]
         cases.append((f"edge n={n} parts={parts}", inputs([L["g"]] if parts else [], [(L["o"], False)], fs, n)))
+    for name, part, order, fspecs, n, rl in window_edge_battery(rng):
+        cases.append((f"sorted-order edge {name}", inputs(part, order, fspecs, n, rl)))
     return cases
 
 
@@ -754,6 +826,51 @@ TOPK_SHAPES = ((1, 1, "floats"), (5000, 16, "ties"), (5000, 16, "zeros"), (5000,
                (4_194_304, 10, "floats"), (4_194_304, 64, "ties"))
 
 
+# P9's edges (the two-launch design): equal keys everywhere, sorted lanes,
+# every winner in one chunk, winners tied across chunk edges, NaN / ±0.0 /
+# ±inf, the int64 floor, n around a chunk and around kk chunks, kk 1, 16
+# and 512
+TOPK_EDGE_SHAPES = ((5000, 16, "all_equal"), (5000, 16, "ascending"), (5000, 16, "descending"),
+                    (20_000, 16, "one_chunk"), (8192, 16, "edge_ties"), (5000, 16, "specials"),
+                    (5000, 16, "int_floor"), (1, 1, "floats"), (1023, 16, "floats"), (1024, 16, "ties"),
+                    (1025, 16, "floats"), (16 * 1024 - 1, 16, "ties"), (16 * 1024 + 1, 16, "floats"),
+                    (5000, 1, "ties"), (1025, 512, "floats"), (512 * 1024 - 1, 512, "ties"),
+                    (512 * 1024 + 1, 512, "floats"), (20_000, 512, "all_equal"))
+
+
+def topk_edge_battery(rng, n: int, case: str):
+    """P9 score lanes at the edges of the two-launch design (numpy):
+    TOPK_EDGE_SHAPES's cases, and topk_battery's for the rest."""
+    import numpy as np
+
+    if case == "all_equal":
+        return np.full(n, 7, dtype=np.int64)
+    if case == "ascending":
+        return np.arange(n, dtype=np.float64)
+    if case == "descending":
+        return np.arange(n, dtype=np.int64)[::-1].copy()
+    if case == "one_chunk":  # chunk 3 holds every winner, with ties
+        v = rng.integers(-100, 100, n).astype(np.int64)
+        v[3072:4096] = 1000 + rng.integers(0, 5, 1024)
+        return v
+    if case == "edge_ties":  # equal winners on both sides of chunk edges
+        v = rng.integers(-100, 100, n).astype(np.int64)
+        for c in range(1, n // 1024):
+            v[c * 1024 - 1: c * 1024 + 1] = 500
+        return v
+    if case == "specials":
+        v = rng.standard_normal(n) * 100
+        at = rng.choice(n, 14, replace=False)
+        v[at] = [np.nan, -np.nan, np.nan, np.nan, -np.nan, 0.0, -0.0, 0.0, -0.0, np.inf, np.inf, -np.inf, -np.inf,
+                 np.inf]
+        return v
+    if case == "int_floor":  # fewer scores above INT64_MIN than k
+        v = np.full(n, -(1 << 63), dtype=np.int64)
+        v[rng.choice(n, 5, replace=False)] = rng.integers(-(1 << 62), 1 << 62, 5)
+        return v
+    return topk_battery(rng, n, case)
+
+
 def p3_args(b: dict, dev):
     """lut_join's positional arguments on `dev` from a lut_battery."""
     import torch
@@ -872,6 +989,12 @@ def mpp_kernel_cases(dev, rng):
             same_emit(rows[0], rows[1], f"block_topk {case}")
             return same_block_topk(got, want, v, f"block_topk {case}")
         cases.append((f"block_topk n={n} k={k} {case}", p9))
+    for n, k, case in TOPK_EDGE_SHAPES:
+        v = torch.from_numpy(topk_edge_battery(rng, n, case)).to(dev)
+
+        def p9_edge(v=v, k=k, case=case):
+            return same_block_topk(block_topk(v, k), block_topk_ref(v, k), v, f"block_topk {case}")
+        cases.append((f"block_topk edge n={n} k={k} {case}", p9_edge))
     return cases
 
 
@@ -2692,7 +2815,7 @@ def measure_mpp_kernels(main: dict, max_err: dict):
         block_topk(score, kk), block_topk_ref(score, kk), score, "block_topk on Q3"))
     k9 = {"ms": time_ms(lambda: block_topk(score, kk)), "plain_ms": time_ms(lambda: block_topk_ref(score, kk), 3),
           "library_ms": time_ms(lambda: torch.topk(score, kk)), "bytes": _nbytes(score), "n": score.numel(),
-          "k": kk}
+          "k": kk, **kernel_split(lambda: block_topk(score, kk))}
 
     # P4 on Q18's level: orders probe lineitem, duplicate keys, 4M slots
     p4 = caps["q18"]["sort_join"][0][0]
@@ -4299,38 +4422,56 @@ def _lane_bytes(x) -> int:
     return _nbytes(x.bits if isinstance(x, U64) else x)
 
 
-def window_kernel_split(args, kw) -> dict:
-    """Device ms per inner kernel of one W1 call (K8's included), from
-    torch.profiler's CUDA events, summed by kernel name."""
+def kernel_split(call, tries: int = 3) -> dict:
+    """{"split_ms": device ms per inner kernel of one call (summed by
+    kernel name), "launches": the kernels it launched} from torch.profiler's
+    CUDA events, after a warm-up call. A session can miss its first kernel,
+    so a marker kernel of torch's (left out of the split, as are torch's own
+    kernels: the profiled calls launch none) opens it; a session that saw
+    none of the call's kernels is tried again. Late in a long run the
+    profiler has seen none of the port's kernels in some sessions (twice,
+    on different calls, on the same card): then both values are None and
+    `profiler_saw_no_kernels` says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tidb_tpu_torch.kernels import window
-
-    window(*args, **kw)
+    call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        window(*args, **kw)
-        torch.cuda.synchronize()
-    split: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    marker = torch.zeros(1, device="cuda")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            marker.add_(1)
+            torch.cuda.synchronize()
+            call()
+            torch.cuda.synchronize()
+        split: dict = {}
+        launches = 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or e.name.startswith(("void at::", "at::", "Memset")):
+                continue
             name = re.sub(r"<.*|\(.*", "", e.name.replace("(anonymous namespace)::", "")).replace("void ", "")
             split[name] = split.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+            launches += not name.startswith("Memcpy")
+        if launches:
+            return {"split_ms": dict(sorted(split.items(), key=lambda kv: -kv[1])), "launches": launches}
+    return {"split_ms": None, "launches": None, "profiler_saw_no_kernels": True}
 
 
 def measure_window_kernels(main: dict, max_err: dict):
     """W1 and W2 on each window query's own inputs: held once more to the
-    plain versions, then timed beside them with their bytes bound; W1 also
-    per inner kernel, and the nearest single PyTorch calls of its steps
+    plain versions, then timed beside them with their bytes bound. W1 is
+    timed over the query's own sort (perm from K8, computed once), so K8
+    stays out of its time (`ms`; `with_sort_ms` is K8 and W1 together); its
+    launches per call and device ms per inner kernel come from one profiled
+    call. Beside them the nearest single PyTorch calls of its steps
     (torch.cumsum for a prefix sum, torch.searchsorted for the RANGE
     search, torch.cummax for the growing-frame max) on lanes of its size."""
     import torch
 
-    from tidb_tpu_torch.kernels import pack_flat, pack_flat_ref, window, window_ref
+    from tidb_tpu_torch.kernels import lex_sort_perm, pack_flat, pack_flat_ref, window, window_ref
 
+    W = importlib.import_module("tidb_tpu_torch.kernels.window")  # the package re-exports the wrapper's name
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
     per_query = {}
     for qname, _ in WINDOW_QUERIES:
@@ -4338,19 +4479,28 @@ def measure_window_kernels(main: dict, max_err: dict):
         args, kw = cap["window"]
         words, fargs, spec, rk = args
         err = _same_outs(window(*args, **kw), window_ref(*args, **kw), f"window on {qname}")
+        perm = lex_sort_perm(W._words_ops(words))
+        err = max(err, _same_outs(W.window_sorted(*args, perm), W.window_sorted_ref(*args, perm),
+                                  f"window after its sort on {qname}"))
         max_err["window"] = max(max_err["window"], err)
         outs = cap["pack_flat"]
         _same(pack_flat(outs), pack_flat_ref(outs), f"pack_flat on {qname}")
         P = words[0].numel()
-        w_in = sum(_nbytes(w) for w in words) + sum(_lane_bytes(d) + _nbytes(v) for fa in fargs for d, v in fa)
+        w_in = sum(_nbytes(w) for w in words) + _nbytes(*(t for fa in fargs for d, v in fa
+                                                          for t in (d.bits if hasattr(d, "bits") else d, v)))
         w_in += (_nbytes(rk[0], rk[1]) if rk is not None else 0)
         w_out = sum(_lane_bytes(o) for o in outs)
         flat = pack_flat(outs)
+        prof = kernel_split(lambda: W.window_sorted(*args, perm))
         per_query[qname] = {
             "P": P, "funcs": [f[0] for f in spec[2]],
-            "window": {"ms": time_ms(lambda: window(*args, **kw), 5),
-                       "plain_ms": time_ms(lambda: window_ref(*args, **kw), 2),
-                       "bytes": w_in + w_out, "split_ms": window_kernel_split(args, kw)},
+            "window": {"ms": time_ms(lambda: W.window_sorted(*args, perm), 5),
+                       "plain_ms": time_ms(lambda: W.window_sorted_ref(*args, perm), 2),
+                       "with_sort_ms": time_ms(lambda: window(*args, **kw), 5),
+                       "with_sort_plain_ms": time_ms(lambda: window_ref(*args, **kw), 2),
+                       "k8_ms": time_ms(lambda: lex_sort_perm(W._words_ops(words)), 5),
+                       "bytes": w_in + _nbytes(perm) + w_out, "launches_per_call": prof.pop("launches"),
+                       **prof},
             "pack_flat": {"ms": time_ms(lambda: pack_flat(outs)), "plain_ms": time_ms(lambda: pack_flat_ref(outs), 3),
                           "bytes": w_out + _nbytes(flat), "lanes": len(outs)},
         }

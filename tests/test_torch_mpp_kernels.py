@@ -6,6 +6,15 @@ on the CPU.
   fewer scores above the floor than k, n not a multiple of 1024; the
   valid picks (score above the floor) agree in slot, position and score.
   `topk_score` against `MPPEngine._topk_score`.
+* P9's two launches (csrc/block_topk.cu) as a numpy model — the chunk
+  maxima, the radix select of the kk best chunks and their worst maximum
+  T, each picked chunk's kk best entries no worse than T, the merge's
+  select and sort — against `block_topk_ref` and the reference on
+  chip_smoke.py's edge battery (TOPK_EDGE_SHAPES: equal keys, sorted
+  lanes, every winner in one chunk, winners tied across chunk edges, NaN /
+  ±0.0 / ±inf, the int64 floor, n = 1, 1023, 1024, 1025 and kk × 1024 ± 1,
+  kk 1, 16 and 512): every pick above the floor in the same slot, position
+  and bits.
 * P3 and P7 through the one-device program: synthetic plans built by
   both packages from one spec (test_torch_mpp.Pkg) run on the
   reference's MPPEngine over `make_mesh(1)` and on the port's
@@ -31,8 +40,8 @@ import math
 import numpy as np
 import pytest
 import torch
-from chip_smoke import (LUT_SHAPES, RUN_SHAPES, TOPK_SHAPES, lut_battery, p3_args, p7_args, run_battery,
-                        same_block_topk, topk_battery)
+from chip_smoke import (LUT_SHAPES, RUN_SHAPES, TOPK_EDGE_SHAPES, TOPK_SHAPES, lut_battery, p3_args, p7_args,
+                        run_battery, same_block_topk, topk_battery, topk_edge_battery)
 from test_torch_engine import _assert_same_chunk
 from test_torch_mpp import run_spec
 
@@ -68,6 +77,129 @@ def test_block_topk_reference_order_on_the_main_path_size():
     same_block_topk(block_topk_ref(t, k),
                     (torch.from_numpy(np.asarray(rv).copy()), torch.from_numpy(np.asarray(ri).astype(np.int64))),
                     t, "floats 2^22")
+
+
+# --- P9's two launches, modelled in numpy ----------------------------------------
+
+CHUNK = 1024
+NONE = (1 << 63) - 1
+U = np.uint64
+
+
+def order_keys(v: np.ndarray) -> np.ndarray:
+    """csrc/block_topk.cu's order_key: uint64 keys whose order is the
+    score's (NaN highest, -0.0 = +0.0, int64 with its sign bit flipped)."""
+    if v.dtype == np.float64:
+        b = np.where(v == 0.0, 0.0, v).view(U)
+        u = np.where(b >> U(63) == U(1), ~b, b | U(1 << 63))
+        return np.where(np.isnan(v), ~U(0), u)
+    return v.view(U) ^ U(1 << 63)
+
+
+def radix_select(u: np.ndarray, p: np.ndarray, keep: np.ndarray, k: int) -> np.ndarray:
+    """block_select: the indices (in list order) of the k best kept entries
+    of a list in position order — 8-bit digits from the top of u, stopping
+    once the entries on the chosen prefix are exactly those still needed;
+    of the entries on the prefix, the first in list order."""
+    idx = np.flatnonzero(keep & (p != NONE))
+    if len(idx) <= k:
+        return idx
+    prefix, mask, need = U(0), U(0), k
+    for shift in range(56, -8, -8):
+        on = idx[(u[idx] & mask) == prefix]
+        hist = np.bincount(((u[on] >> U(shift)) & U(0xFF)).astype(np.int64), minlength=256)
+        above = 0
+        for d in range(255, -1, -1):
+            if above + hist[d] >= need:
+                break
+            above += hist[d]
+        need -= above
+        prefix |= U(d) << U(shift)
+        mask |= U(0xFF) << U(shift)
+        if hist[d] == need:
+            break
+    m = u[idx] & mask
+    return np.sort(np.concatenate([idx[m > prefix], idx[m == prefix][:need]]))
+
+
+def model_block_topk(v: np.ndarray, kk: int):
+    """(vals, idx) by csrc/block_topk.cu's plan, step by step."""
+    n = len(v)
+    u = order_keys(v)
+    nb = -(-n // CHUNK)
+    # launch 1: each chunk's best (key, position), no sort; then the kq best
+    # chunk maxima in chunk order, and T, the worst of them (no cut when
+    # there are fewer than kk chunks)
+    mu, mp = np.empty(nb, U), np.empty(nb, np.int64)
+    for c in range(nb):
+        seg = u[c * CHUNK:(c + 1) * CHUNK]
+        j = int(np.flatnonzero(seg == seg.max())[0])
+        mu[c], mp[c] = seg[j], c * CHUNK + j
+    sel = radix_select(mu, mp, np.ones(nb, bool), min(kk, nb))
+    picked = mp[sel] // CHUNK
+    assert np.all(np.diff(picked) > 0)
+    if nb >= kk:
+        low = sel[mu[sel] == mu[sel].min()]
+        tu, tp = mu[low[-1]], mp[low[-1]]
+    else:
+        tu, tp = U(0), NONE
+    # launch 2: per picked chunk its kk best entries no worse than T, in
+    # position order; the merge of the lists, its kk best, sorted
+    lu, lp = [], []
+    for c in picked:
+        cu = u[c * CHUNK:(c + 1) * CHUNK]
+        cp = np.arange(c * CHUNK, c * CHUNK + len(cu))
+        s = radix_select(cu, cp, (cu > tu) | ((cu == tu) & (cp <= tp)), kk)
+        assert len(s) <= kk
+        lu.append(cu[s])
+        lp.append(cp[s])
+    lu, lp = np.concatenate(lu), np.concatenate(lp)
+    assert np.all(np.diff(lp) > 0)  # the merged list is in position order
+    s = radix_select(lu, lp, np.ones(len(lu), bool), kk)
+    assert len(s) == kk
+    order = np.lexsort((lp[s], ~lu[s]))
+    idx = lp[s][order]
+    return v[idx], idx
+
+
+def same_picks(got, want, v: np.ndarray, what: str) -> None:
+    """Every slot whose wanted score is not the floor (NaN included): the
+    same position and the same bits. At the floor the reference may repeat
+    a position."""
+    floor = -np.inf if v.dtype == np.float64 else -(1 << 63)
+    gv, gi = (np.asarray(x) for x in got)
+    wv, wi = (np.asarray(x) for x in want)
+    real = ~(wv == floor)
+    assert real.any() or len(wv) == 0
+    assert np.array_equal(gi[real], wi[real]), what
+    assert np.array_equal(gv[real].view(np.int64), v[wi[real]].view(np.int64)), what
+    assert np.array_equal(gv.view(np.int64), v[gi].view(np.int64)), what
+
+
+@pytest.mark.parametrize("n,kk,case", TOPK_EDGE_SHAPES, ids=[f"{c}-n{n}-k{k}" for n, k, c in TOPK_EDGE_SHAPES])
+def test_two_launch_model_matches_the_plain_version(n, kk, case):
+    v = topk_edge_battery(np.random.default_rng(n + kk), n, case)
+    got = model_block_topk(v, kk)
+    want = block_topk_ref(torch.from_numpy(v), kk)
+    same_picks(got, (want[0].numpy(), want[1].numpy()), v, case)
+
+
+@pytest.mark.parametrize("n,kk,case", [s for s in TOPK_EDGE_SHAPES if s[1] <= 16] + SMALL_TOPK,
+                         ids=[f"{c}-n{n}-k{k}" for n, k, c in [s for s in TOPK_EDGE_SHAPES if s[1] <= 16] + SMALL_TOPK])
+def test_two_launch_model_matches_the_reference(n, kk, case):
+    rng = np.random.default_rng(n + kk)
+    v = topk_edge_battery(rng, n, case)
+    rv, ri = RefEngine._block_topk(jnp.asarray(v), kk)
+    same_picks(model_block_topk(v, kk), (np.asarray(rv), np.asarray(ri).astype(np.int64)), v, case)
+
+
+def test_radix_select_stops_early_and_keeps_list_order_on_ties():
+    u = np.array([5, 9, 9, 3, 9, 9], dtype=U)
+    p = np.arange(6)
+    assert radix_select(u, p, np.ones(6, bool), 3).tolist() == [1, 2, 4]  # the first three 9s
+    assert radix_select(u, p, np.ones(6, bool), 5).tolist() == [0, 1, 2, 4, 5]
+    assert radix_select(u, p, np.array([1, 0, 1, 1, 1, 1], bool), 2).tolist() == [2, 4]
+    assert radix_select(u, p, np.ones(6, bool), 6).tolist() == list(range(6))
 
 
 @pytest.mark.parametrize("dtype", ["int64", "float64"])
@@ -174,6 +306,32 @@ def test_float_run_totals_at_run_starts_are_exact_within_tolerance():
     assert np.allclose(ref_diff, exact, rtol=RTOL, atol=ATOL)
     starts_exact = np.array([math.fsum(x[a:z + 1]) for a, z in zip(first, ends)])
     assert np.allclose(got[first], starts_exact, rtol=RTOL, atol=ATOL)
+
+
+def test_a_short_float_run_after_a_large_prefix_keeps_its_low_bits():
+    """P7's plain version sums a float run directly at its first row: the
+    reference's prefix difference there (on the card: 3.3e9 of prefix
+    before a run of 147.11) was 1.6e-6 off, past atol 1e-6, where the
+    kernel's direct sum is exact; here 2e12 of prefix. Past a non-finite row the prefix differences (and the
+    reference's NaN / inf) stay."""
+    n = 40_001
+    kd = np.arange(n, dtype=np.int64)  # a run a row
+    x = np.full(n, 49_999_999.37)
+    x[-1] = 147.11
+    x[n // 2] = np.inf
+    mask = np.ones(n, bool)
+    x[-2] = 0.07
+    lanes = [(torch.from_numpy(x), None), (None, None)]
+    totals = run_agg_ref(torch.from_numpy(kd), torch.from_numpy(mask), lanes, 1, 1, 0, True)[0][0].numpy()
+    assert totals[n // 2 - 1] == 49_999_999.37 and np.isinf(totals[n // 2])
+    with np.errstate(invalid="ignore"):
+        prefix = np.cumsum(x)  # the reference's recipe past the inf: NaN
+        assert np.isnan(totals[-1]) and np.isnan(prefix[-1] - prefix[-2])
+    x[n // 2] = 1.0
+    totals = run_agg_ref(torch.from_numpy(kd), torch.from_numpy(mask), lanes, 1, 1, 0, True)[0][0].numpy()
+    assert totals[-1] == 147.11 and totals[-2] == 0.07
+    prefix = np.cumsum(x)
+    assert abs((prefix[-1] - prefix[-2]) - 147.11) > 1e-6  # what the prefix difference gives
 
 
 # --- through the one-device program ----------------------------------------

@@ -260,9 +260,9 @@ def run_device_window(part_lanes, order_lanes, fspecs, n: int, device="cuda", pr
     words, fargs, n_pwords, n_owords, range_dev = prepare(part_lanes, order_lanes, fspecs, n, dev,
                                                            range_lane, phase)
     if cache_key is not None:
-        nbytes = sum(_nbytes(w) for w in words) + sum(
-            _nbytes(d) + _nbytes(v) for fa in fargs for d, v in fa
-        ) + (_nbytes(range_dev[0]) + _nbytes(range_dev[1]) if range_dev is not None else 0)
+        lanes = {id(t): t for fa in fargs for pair in fa for t in pair}  # a shared lane once
+        nbytes = sum(_nbytes(w) for w in words) + sum(_nbytes(t) for t in lanes.values()) + (
+            _nbytes(range_dev[0]) + _nbytes(range_dev[1]) if range_dev is not None else 0)
         fspecs_meta = [{k: v for k, v in f.items() if k != "args"} for f in fspecs]
         _input_cache_put(
             cache_key,
@@ -298,14 +298,25 @@ def prepare(part_lanes, order_lanes, fspecs, n: int, device, range_lane=None, ph
             order_items += _canon_key_items(np.asarray(d), np.asarray(v), bool(desc))
         pwords = _pack_words(part_items, n, P)
         owords = _pack_words(order_items, n, P)
-        host_args = [[pad(np.asarray(d), np.asarray(v)) for d, v in f["args"]] for f in fspecs]
+        host_args = [[(d, v) for d, v in f["args"]] for f in fspecs]
         host_range = None
         if range_lane is not None:
             d0, v0, gmin, gmax = range_lane
             host_range = pad(np.asarray(d0), np.asarray(v0)) + (int(gmin), int(gmax))
     with phase("h2d"):
         words = tuple(torch.from_numpy(w).to(dev) for w in pwords + owords)
-        fargs = tuple(tuple((_to_device(d, dev), _to_device(v, dev)) for d, v in fa) for fa in host_args)
+        # a lane that several functions take (LAG(x) and MAX(x) OVER ...) is
+        # padded, uploaded and gathered by W1 once
+        lanes: dict = {}
+
+        def lane(d, v):
+            key = (id(d), id(v))
+            if key not in lanes:
+                pd, pv = pad(np.asarray(d), np.asarray(v))
+                lanes[key] = (_to_device(pd, dev), _to_device(pv, dev))
+            return lanes[key]
+
+        fargs = tuple(tuple(lane(d, v) for d, v in fa) for fa in host_args)
         range_dev = None
         if host_range is not None:
             range_dev = (_to_device(host_range[0], dev), _to_device(host_range[1], dev)) + host_range[2:]

@@ -3,10 +3,12 @@ by position), and the rows of the clustered aggregation's result.
 
 Replaces tidb_tpu/parallel/mpp.py:2008-2045 (`_block_topk`) and the tail
 of `clustered_agg_stage` (:1914-1929). The CUDA kernels are
-csrc/block_topk.cu (bitonic block sorts: block maxima, the best blocks,
-their best entries; its note gives the order and the bound);
-`block_topk_ref` is the plain PyTorch version beside it, the reference's
-block-maximum extraction step by step.
+csrc/block_topk.cu: two launches a call, no host read — the chunk maxima
+by warp reductions and, in the last block, the kk best chunks; then the
+kk best entries of each of those chunks and, in the last block, their
+merge, sort and result rows (its note gives the order, the argument and
+the bound). `block_topk_ref` is the plain PyTorch version beside it, the
+reference's block-maximum extraction step by step.
 
 `block_topk(v, k, emit=None)`:
 
@@ -38,9 +40,10 @@ import numpy as np
 import torch
 
 from .build import count, library
+from .tables import sm_count, stream_scratch
 
 BLK = 1024
-MAX_K = 512  # each merge round keeps at most half of its 1024 entries
+MAX_K = 512  # the final picks are sorted by one 512-thread block
 MAX_LANES = 32
 _I64_MIN = -(1 << 63)
 
@@ -159,10 +162,10 @@ def _lib():
     lib = library("block_topk")
     if "block_topk" not in _bound:
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.tt_bt_select.argtypes = [C, I, L, C, I, I, C, C, C]
-        lib.tt_bt_select.restype = I
-        lib.tt_bt_merge.argtypes = [C, C, L, I, C, C, C, I, L, C, I, C]
-        lib.tt_bt_merge.restype = I
+        lib.tt_bt_scratch_words.argtypes = [L, I]
+        lib.tt_bt_scratch_words.restype = L
+        lib.tt_bt_run.argtypes = [C, I, L, I, C, C, C, C, I, I, C]
+        lib.tt_bt_run.restype = I
         _bound.add("block_topk")
     return lib
 
@@ -185,52 +188,19 @@ def block_topk(v, k: int, emit: Emit | None = None):
             raise ValueError(f"block_topk: inputs must be contiguous tensors on {dev}")
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    is_float = int(v.dtype == torch.float64)
-
-    def check(rc):
-        if rc != 0:
-            raise RuntimeError(f"block_topk: kernel launch failed (cudaError {rc})")
-
-    def select(picked, nblocks, kk):
-        u = torch.empty(nblocks * kk, dtype=torch.int64, device=dev)
-        p = torch.empty(nblocks * kk, dtype=torch.int64, device=dev)
-        check(lib.tt_bt_select(v.data_ptr(), is_float, n, 0 if picked is None else picked.data_ptr(),
-                               nblocks, kk, u.data_ptr(), p.data_ptr(), stream))
-        return u, p
-
-    def merge(u, p, kk, words=None):
-        """Rounds of 1024-entry sorts until one block's top kk remain."""
-        while True:
-            m = u.shape[0]
-            blocks = -(-m // BLK)
-            last = blocks == 1
-            ou = torch.empty(blocks * kk, dtype=torch.int64, device=dev)
-            op = torch.empty(blocks * kk, dtype=torch.int64, device=dev)
-            w = words if last and words is not None else None
-            check(lib.tt_bt_merge(u.data_ptr(), p.data_ptr(), m, kk, ou.data_ptr(), op.data_ptr(), v.data_ptr(),
-                                  is_float, n, 0 if w is None else w.ctypes.data, 0 if w is None else len(w),
-                                  stream))
-            u, p = ou, op
-            if last:
-                return u, p
-
-    nb = -(-n // BLK)
-    bu, bp = select(None, nb, 1)  # block maxima
-    _, best = merge(bu, bp, k)  # positions of the k best block maxima
-    cu, cp = select(best, k, k)  # the k best entries of each of those blocks
     idx = torch.empty(k, dtype=torch.int64, device=dev)
     vals = torch.empty(k, dtype=v.dtype, device=dev)
-    if emit is None:
-        rows, lanes, valid, gpos = torch.empty((2, k), dtype=torch.int64, device=dev), [], None, None
-    else:
-        rows, lanes, valid, gpos = emit.rows, list(emit.lanes), emit.valid, emit.gpos
-    if valid is None:
-        valid = torch.zeros(n, dtype=torch.bool, device=dev)
-        gpos = torch.zeros(n, dtype=torch.int64, device=dev)
-    words = np.array([len(lanes), valid.data_ptr(), gpos.data_ptr()] + [x.data_ptr() for x in lanes]
-                     + [rows[i].data_ptr() for i in range(rows.shape[0])] + [idx.data_ptr(), vals.data_ptr()],
-                     dtype=np.int64)
-    merge(cu, cp, k, words)
+    words = None
+    if emit is not None:
+        words = np.array([len(emit.lanes), emit.valid.data_ptr(), emit.gpos.data_ptr()]
+                         + [x.data_ptr() for x in emit.lanes]
+                         + [emit.rows[i].data_ptr() for i in range(emit.rows.shape[0])], dtype=np.int64)
+    with stream_scratch("block_topk", dev, lib.tt_bt_scratch_words(n, k)) as ws:
+        rc = lib.tt_bt_run(v.data_ptr(), int(v.dtype == torch.float64), n, k, ws.data_ptr(), idx.data_ptr(),
+                           vals.data_ptr(), 0 if words is None else words.ctypes.data,
+                           0 if words is None else len(words), sm_count(dev), stream)
+    if rc != 0:
+        raise RuntimeError(f"block_topk: kernel launch failed (cudaError {rc})")
     count(block_topk)
     return vals, idx
 

@@ -20,7 +20,9 @@ reference's cumsum and run-end gathers step by step.
             the ORDER BY aggregate
   * desc  — ORDER BY DESC
   → (totals, gpos, valid, score): per lane the sum from each row to the
-    end of its run (at a run's first row: the run's total), the group's
+    end of its run (at a run's first row: the run's total; the plain
+    version sums a float run there directly, past the lane's first
+    non-finite row it keeps the reference's prefix differences), the group's
     build row (rid_sum // cnt, -1 where cnt is 0), run start & cnt > 0,
     and the top-k score (where(valid, ±total, floor))
 
@@ -77,7 +79,19 @@ def run_agg_ref(kd, mask, lanes, cnt_lane: int, rid_lane: int, score_lane: int, 
     def run_sum(vals):
         c = torch.cumsum(vals, 0)
         prev = torch.cat([torch.zeros(1, dtype=c.dtype, device=c.device), c[:-1]])
-        return c[rend] - prev
+        out = c[rend] - prev
+        if vals.dtype != torch.float64:
+            return out
+        # a float run's total, at its first row, summed directly when the
+        # run ends before the lane's first non-finite row: the difference
+        # of two large prefixes loses a short run's low bits (a 147.11 run
+        # after a 3.3e9 prefix came out 1.6e-6 off). Past that row the
+        # prefix differences stay, with the reference's NaN / inf
+        run = torch.cumsum(first.to(torch.int64), 0) - 1
+        direct = torch.zeros(nloc, dtype=vals.dtype, device=vals.device).index_add_(0, run, vals)
+        poison = torch.where(torch.isfinite(vals), torch.full((), nloc, dtype=torch.int64, device=kd.device),
+                             idx).min()
+        return torch.where(first & (rend < poison), direct[run], out)
 
     totals = [run_sum(_lane_values(mask, d, v)) for d, v in lanes]
     match_cnt, rid_sum = totals[cnt_lane], totals[rid_lane]

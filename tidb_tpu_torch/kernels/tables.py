@@ -14,11 +14,16 @@ their kernels as a grid of one task, and by K10's task-grid modes
   dev_index(dev)                      the card's index, as get_device()
                                       gives it for a tensor
   sm_count(dev)                       the card's SM count, looked up once
+  stream_scratch(name, dev, words)    a kernel's int64 scratch on the
+                                      current stream, zeroed once when
+                                      allocated, held for one call
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -83,3 +88,27 @@ def lane_table(masks: list, keys: list, width: int, dev: int, what: str) -> np.n
         tab[:, 1 + 2 * j] = ptrs([c[0].data for c in col], width, dev, op.data.dtype, f"{what}: key {j}")
         tab[:, 2 + 2 * j] = ptrs([c[1] for c in col], width, dev, torch.bool, f"{what}: key {j} valid")
     return tab
+
+
+_scratch: dict = {}
+_scratch_locks: dict = {}
+_scratch_guard = threading.Lock()
+
+
+@contextlib.contextmanager
+def stream_scratch(name: str, dev: torch.device, words: int):
+    """An int64 buffer of at least `words` words for kernel `name` on the
+    current stream of card `dev`, kept from call to call. It is zeroed when
+    it is allocated (or grown); a kernel that needs words at zero leaves
+    them at zero when it ends, so no call zeroes it again. The lock held
+    while the caller enqueues its launches keeps two threads on one stream
+    from interleaving their calls' launches over the one buffer."""
+    key = (name, dev_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    with _scratch_guard:
+        lock = _scratch_locks.setdefault(key, threading.Lock())
+    with lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros(max(words, 2 * (0 if buf is None else buf.numel())), dtype=torch.int64, device=dev)
+            _scratch[key] = buf
+        yield buf

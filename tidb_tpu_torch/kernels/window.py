@@ -28,17 +28,26 @@ in the order pack_flat takes them (the reference's :436-440):
 The CUDA kernels are csrc/window.cu; `window` drives them:
 
   1. K8 (kernels/lex_sort) over the words → perm (int32)       "sort"
-  2. partition and peer start flags; a hand-written device-wide scan of
-     each gives pid and peer_id; each start's row is scattered to
-     start_pos[id], so first = start_pos[id], last = start_pos[id+1] - 1
-  3. per function its frame (fs, fe, nonempty) clipped to the partition;
-     RANGE offsets binary-search the row's own partition
-  4. count/sum/avg from inclusive prefix sums (int64 wraps in two's
-     complement, as the reference's); rankings and offsets from the
-     bounds; min/max from a segmented prefix (growing frames) or suffix
-     (shrinking frames) scan, or a sparse table for both-bounded ROWS
-     frames; NaN propagates as jnp.minimum/maximum propagate it
-  5. every output written at perm[i] (the scatter back)      "window"
+  2. `plan` lays out the call: every argument lane (and the RANGE key's
+     search lane) to gather once, the prefix scans over them, the sparse
+     tables, each function's row of the kernel's table, the record of a
+     sorted row and the output lanes                          "window"
+  3. gather passes through perm (the sort words; the lanes' data; their
+     valid bytes; the inverse permutation), each with a footprint L2
+     serves; one look-back sweep of the sorted words gives pid and peer
+     id, and each partition's and peer group's first row
+  4. one look-back sweep for each prefix scan: (count, sum) — int64 sums
+     wrap in two's complement, as the reference's — a count, or the
+     segmented min / max of a growing or shrinking frame
+  5. every function over the sorted rows into one record a row: frames
+     clipped to the partition, RANGE offsets searched in the row's own
+     partition, min / max of a ROWS frame of at most LOOP_WIDTH rows read
+     directly, wider ones from a sparse table; NaN propagates as
+     jnp.minimum / maximum propagate it
+  6. one pass in input order: row j reads its record at inv[j] and writes
+     every output lane, coalesced
+
+`window_sorted` is steps 2-6 alone, given perm: W1's time apart from K8.
 
 `window_ref` is the plain PyTorch version beside it, the reference's own
 recipe step for step (torch.cummax/cummin/cumsum, torch.searchsorted over
@@ -52,15 +61,19 @@ from __future__ import annotations
 
 import ctypes
 from contextlib import nullcontext
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..expr.xp_torch import U64
 from .build import count, library
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
+from .tables import stream_scratch
 
 _I64_MIN = -(1 << 63)
 _I64_MAX = (1 << 63) - 1
+MAX_WORDS = 64  # sort words the bounds kernel takes (csrc/window.cu MAXW)
 
 
 def frame_width(frkey) -> int:
@@ -371,11 +384,14 @@ def _ref_body(words, fargs, funcspecs, framespecs, range_key, perm, iota, npw, n
 _KIND_CODE = {"up": 0, "pre": 1, "cur": 2, "fol": 3, "uf": 4}
 _RANK_CODE = {"row_number": 0, "rank": 1, "dense_rank": 2, "ntile": 3, "cume_dist": 4, "percent_rank": 5}
 _VALUE_CODE = {"first_value": 0, "last_value": 1, "nth_value": 2}
-# scan modes of tt_win_scan: a u8 flag lane; valid[perm] counts; int64 /
-# float64 sums of where(valid, data, 0)[perm]
-_SCAN_FLAG, _SCAN_COUNT, _SCAN_SUM_I64, _SCAN_SUM_F64 = 0, 1, 2, 3
-# value types of the min/max kernels
-_MM_I64, _MM_U64, _MM_F64 = 0, 1, 2
+# function codes of funcs_kernel; scan kinds of tt_win_scan; min / max value
+# types and modes
+_F_RANK, _F_SHIFT, _F_VALUE, _F_COUNT, _F_SUM, _F_MINMAX = range(6)
+_S_PAIR_I64, _S_PAIR_F64, _S_COUNT, _S_SEG = range(4)
+_MM_I64, _MM_U64, _MM_F64 = range(3)
+_MODE_PREFIX, _MODE_SUFFIX, _MODE_LOOP, _MODE_TABLE = range(4)
+_B_NONE, _B_BYTE, _B_WORD = range(3)  # a function's second output in its record
+_OUT_WORD, _OUT_BYTE, _OUT_ONE = range(3)
 
 _bound: set = set()
 
@@ -385,20 +401,15 @@ def _lib():
     if "window" not in _bound:
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         sigs = {
-            "tt_win_tile": ([], L),
-            "tt_win_flags": ([C, I, I, L, C, C, C, I, C], I),
-            "tt_win_scan": ([I, L, C, C, C, C, C, C], I),
-            "tt_win_bounds": ([L, C, C, C, C, C, C], I),
-            "tt_win_range_key": ([L, C, C, C, L, L, I, C, C], I),
-            "tt_win_frame": ([L, I, I, L, I, L, I, I, C, C, C, C, C, C, C, C, C], I),
-            "tt_win_rank": ([I, L, C, C, C, C, C, C, L, C, C, C, C], I),
-            "tt_win_shift": ([L, C, C, L, C, C, C, C, C, C, C], I),
-            "tt_win_value": ([I, L, C, C, C, C, L, C, C, C, C, C], I),
-            "tt_win_agg": ([I, L, C, C, C, C, C, C, C, C, C], I),
-            "tt_win_mm_masked": ([I, I, L, C, C, C, C, C], I),
-            "tt_win_mm_scan": ([I, I, I, L, C, C, C, C, C], I),
-            "tt_win_mm_level": ([I, I, L, C, L, C, C], I),
-            "tt_win_mm_out": ([I, I, I, L, C, C, C, C, C, C, I, C, C, C, C], I),
+            "tt_win_loop_width": ([], L),
+            "tt_win_max_funcs": ([], L),
+            "tt_win_scratch_words": ([L], L),
+            "tt_win_gather": ([L, C, I, C, I, C, I, C, C], I),
+            "tt_win_bounds": ([L, I, I, C, C, C, C, C, C, C], I),
+            "tt_win_scan": ([I, L, C, C, C, C, C, C, C], I),
+            "tt_win_levels": ([I, I, L, C, C, I, C, C], I),
+            "tt_win_funcs": ([L, C, C, C, C, C, C, I, I, I, C, I, C, C], I),
+            "tt_win_out": ([L, C, C, I, I, C, C], I),
         }
         for name, (args, res) in sigs.items():
             fn = getattr(lib, name)
@@ -411,37 +422,22 @@ def _ptr(t) -> int:
     return 0 if t is None else (t.bits if isinstance(t, U64) else t).data_ptr()
 
 
-class _Launcher:
-    """Launch helpers bound to one device, stream and library."""
-
-    def __init__(self, dev: torch.device, P: int):
-        self.lib = _lib()
-        self.dev, self.P = dev, P
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
-        self.n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tile = self.lib.tt_win_tile()
-        self.nb = (P + tile - 1) // tile
-        # three-phase scan partials: one (flag, 8-byte value) pair per tile
-        self.partials = torch.empty(2 * self.nb, dtype=torch.int64, device=dev)
-
-    def call(self, name: str, *args) -> None:
-        rc = getattr(self.lib, name)(*args)
-        if rc != 0:
-            raise RuntimeError(f"window: {name} launch failed (cudaError {rc})")
-
-    def empty(self, dtype=torch.int64):
-        return torch.empty(self.P, dtype=dtype, device=self.dev)
-
-    def scan(self, mode: int, perm, data=None, valid=None, dtype=torch.int64):
-        out = self.empty(dtype)
-        self.call("tt_win_scan", mode, self.P, _ptr(perm), _ptr(data), _ptr(valid), out.data_ptr(),
-                  self.partials.data_ptr(), self.stream)
-        return out
+def _table(rows) -> np.ndarray:
+    return np.array(rows, dtype=np.int64).reshape(len(rows), -1) if rows else np.zeros((0, 1), dtype=np.int64)
 
 
 def _window_cuda(words, fargs, spec, range_key, phase) -> list:
+    P = _check_cuda(words, fargs, spec, range_key)
+    with phase("sort"):
+        perm = lex_sort_perm(_words_ops(words))
+    with phase("window"):
+        outs = _cuda_body(words, fargs, spec, range_key, perm, P)
+    count(window)
+    return outs
+
+
+def _check_cuda(words, fargs, spec, range_key) -> int:
     P = _check(words, fargs, spec, range_key)
-    npw, now, funcspecs, framespecs = spec
     dev = words[0].device
     tensors = list(words) + [t for fa in fargs for d, v in fa for t in (d.bits if isinstance(d, U64) else d, v)]
     if range_key is not None:
@@ -451,144 +447,270 @@ def _window_cuda(words, fargs, spec, range_key, phase) -> list:
             raise ValueError(f"window: inputs must be contiguous tensors on {dev}")
     if P >= 1 << 31:
         raise ValueError(f"window: {P} rows exceed the int32 row ids")
-    with phase("sort"):
-        perm = lex_sort_perm(_words_ops(words))
-    with phase("window"):
-        outs = _cuda_body(words, fargs, funcspecs, framespecs, range_key, perm, npw, P, dev)
-    count(window)
-    return outs
+    if len(words) > MAX_WORDS:
+        raise ValueError(f"window: {len(words)} sort words; the bounds kernel takes at most {MAX_WORDS}")
+    return P
 
 
-def _cuda_body(words, fargs, funcspecs, framespecs, range_key, perm, npw, P, dev):
-    K = _Launcher(dev, P)
-    u8, i64 = torch.uint8, torch.int64
-    wdesc = torch.tensor([[w.data_ptr(), 0 if w.dtype == torch.int32 else 1] for w in words],
-                         dtype=torch.int64).to(dev)
-    pstart, ostart = K.empty(torch.bool), K.empty(torch.bool)
-    K.call("tt_win_flags", wdesc.data_ptr(), len(words), npw, P, perm.data_ptr(), pstart.data_ptr(),
-           ostart.data_ptr(), K.n_sms, K.stream)
-    pcs = K.scan(_SCAN_FLAG, None, pstart)  # pid + 1
-    ocs = K.scan(_SCAN_FLAG, None, ostart)  # peer_id + 1 (dense_rank's dcs)
-    pstart_pos = torch.empty(P + 1, dtype=i64, device=dev)
-    ostart_pos = torch.empty(P + 1, dtype=i64, device=dev)
-    pfirst, plast, peer_first, peer_last = K.empty(), K.empty(), K.empty(), K.empty()
-    K.call("tt_win_bounds", P, pstart.data_ptr(), pcs.data_ptr(), pstart_pos.data_ptr(),
-           pfirst.data_ptr(), plast.data_ptr(), K.stream)
-    K.call("tt_win_bounds", P, ostart.data_ptr(), ocs.data_ptr(), ostart_pos.data_ptr(),
-           peer_first.data_ptr(), peer_last.data_ptr(), K.stream)
-    del pstart_pos, ostart_pos
+class Plan(NamedTuple):
+    """W1's launches for one call, as tensors (kernels/window.py builds it;
+    `_launch` hands its addresses to csrc/window.cu):
+
+      gathers  [(mode, data, valid, gd, gv, gmin, gmax, desc)]: each lane
+               gathered into sorted order once (mode 0 data and valid, 1
+               valid alone into gv, 2 the RANGE key's search lane into gd)
+      scans    [(kind, gd, gv, cnt, out)]: the prefix scans over them
+      tables   [(mm_type, is_max, gd, gv, L, levels 1 .. L - 1)]
+      funcs    per function its row of funcs_kernel's table (a dict; the
+               lanes as tensors, `lv0` its first level in `levels`)
+      levels   every sparse table's levels, in order
+      outs     the output lanes, as `window` returns them
+      out_rows [(output, kind, record slot)] (kind: a word, a byte, the
+               constant 1; a byte's slot counts bytes)
+      n8       the record's value words; then a word of valid bytes for
+               each MAX_FUNCS functions (function f's at byte f %
+               MAX_FUNCS), then a padding word to whole 16-byte records
+      stride   the record's int64 words
+      rk       the RANGE key's gathered search lane, or None"""
+    gathers: list
+    scans: list
+    tables: list
+    funcs: list
+    levels: list
+    outs: list
+    out_rows: list
+    n8: int
+    stride: int
+    rk: object
+
+
+_FUNC_KEYS = ("code", "sub", "has_frame", "rows", "sk", "so", "ek", "eo", "use_range", "desc", "k", "gd", "gv", "dd",
+              "dv", "cnt", "sum", "acc", "mm_type", "is_max", "mm_mode", "L", "lv0", "a_slot", "b_kind", "b_slot")
+_FUNC_LANES = ("gd", "gv", "dd", "dv", "cnt", "sum", "acc")
+LOOP_WIDTH = 64  # a ROWS min / max this wide or narrower is read directly (csrc/window.cu LOOP_W)
+MAX_FUNCS = 8  # functions a funcs launch takes, whose valid bytes fill one record word (csrc/window.cu MAXF)
+
+
+def plan(fargs, spec, range_key, P: int, dev) -> Plan:
+    """The lanes, scans and records of one W1 call over P rows on `dev`
+    (allocated, not yet written)."""
+    _, _, funcspecs, framespecs = spec
+    i32, i64, b8 = torch.int32, torch.int64, torch.bool
+
+    def lane(dtype=i64):
+        return torch.empty(P, dtype=dtype, device=dev)
+
+    gathers: dict = {}
+
+    def gathered(d, v):
+        t = None if d is None else (d.bits if isinstance(d, U64) else d)
+        key = (0 if t is None else t.data_ptr(), v.data_ptr())
+        if t is None:  # a valid lane alone: any gather of it serves
+            key = next((k for k in gathers if len(k) == 2 and k[1] == key[1]), key)
+        if key not in gathers:
+            gd = None if t is None else lane()
+            gathers[key] = (0 if t is not None else 1, t, v, gd, lane(b8), 0, 0, 0)
+        return gathers[key][3], gathers[key][4]
+
     rk = None
     if range_key is not None and any(fr is not None and len(fr) > 5 for fr in framespecs):
         desc = next(fr[5] for fr in framespecs if fr is not None and len(fr) > 5)
         kd, kv, gmin, gmax = range_key
-        rk = K.empty()
-        K.call("tt_win_range_key", P, perm.data_ptr(), kd.data_ptr(), kv.data_ptr(), int(gmin), int(gmax),
-               int(bool(desc)), rk.data_ptr(), K.stream)
+        rk = lane()
+        gathers[("rk",)] = (2, kd, kv, rk, None, int(gmin), int(gmax), int(bool(desc)))
 
-    frames: dict = {}
+    scans: dict = {}
 
-    def frame_of(frkey):
-        """(fs, fe, ne) with ne None for the default frame (all true)."""
-        if frkey is None:
-            return pfirst, peer_last, None
-        if frkey not in frames:
-            unit, sk, so, ek, eo = frkey[:5]
-            use_range = unit == "range" and len(frkey) > 5 and (sk in ("pre", "fol") or ek in ("pre", "fol"))
-            fs, fe, ne = K.empty(), K.empty(), K.empty(torch.bool)
-            K.call("tt_win_frame", P, int(unit == "rows"), _KIND_CODE[sk], int(so), _KIND_CODE[ek], int(eo),
-                   int(use_range), int(bool(frkey[5])) if use_range else 0,
-                   pfirst.data_ptr(), plast.data_ptr(), peer_first.data_ptr(), peer_last.data_ptr(),
-                   _ptr(rk if use_range else None), fs.data_ptr(), fe.data_ptr(), ne.data_ptr(), K.stream)
-            frames[frkey] = (fs, fe, ne)
-        return frames[frkey]
+    def pair(gd, gv, is_f):
+        key = ("pair", gd.data_ptr(), gv.data_ptr())
+        if key not in scans:
+            scans[key] = (_S_PAIR_F64 if is_f else _S_PAIR_I64, gd, gv, lane(i32), lane())
+        return scans[key][3], scans[key][4]
+
+    def counts(gv):
+        key = next((k for k in scans if k[0] == "pair" and k[2] == gv.data_ptr()), ("count", gv.data_ptr()))
+        if key not in scans:
+            scans[key] = (_S_COUNT, None, gv, lane(i32), None)
+        return scans[key][3]
+
+    def seg(mm, is_max, rev, gd, gv):
+        key = ("seg", mm, is_max, rev, gd.data_ptr(), gv.data_ptr())
+        if key not in scans:
+            scans[key] = (_S_SEG + mm * 4 + is_max * 2 + rev, gd, gv, None, lane())
+        return scans[key][4]
 
     def like(d):
         t = torch.empty(P, dtype=(d.bits if isinstance(d, U64) else d).dtype, device=dev)
         return U64(t) if isinstance(d, U64) else t
 
-    outs = []
+    tables, levels, funcs, outs, out_rows, n8 = [], [], [], [], [], 0
     for f, (fs, frkey) in enumerate(zip(funcspecs, framespecs)):
         name = fs[0]
         args = fargs[f]
+        row = dict.fromkeys(_FUNC_KEYS, 0)
+        row.update(dict.fromkeys(_FUNC_LANES), k=1)
+        if frkey is not None and name not in _RANK_CODE and name not in ("lead", "lag"):
+            unit, sk, so, ek, eo = frkey[:5]
+            use_range = unit == "range" and len(frkey) > 5 and (sk in ("pre", "fol") or ek in ("pre", "fol"))
+            row.update(has_frame=1, rows=int(unit == "rows"), sk=_KIND_CODE[sk], so=int(so), ek=_KIND_CODE[ek],
+                       eo=int(eo), use_range=int(use_range), desc=int(bool(frkey[5])) if use_range else 0)
         if name in _RANK_CODE:
-            a = K.empty()
-            pair = name in ("cume_dist", "percent_rank")
-            b = K.empty() if pair else K.empty(torch.bool)
-            K.call("tt_win_rank", _RANK_CODE[name], P, perm.data_ptr(), pfirst.data_ptr(), plast.data_ptr(),
-                   peer_first.data_ptr(), peer_last.data_ptr(), ocs.data_ptr(),
-                   int(fs[1]) if name == "ntile" else 1, a.data_ptr(),
-                   b.data_ptr() if pair else 0, 0 if pair else b.data_ptr(), K.stream)
-            outs += [a, b]
+            two = name in ("cume_dist", "percent_rank")
+            row.update(code=_F_RANK, sub=_RANK_CODE[name], k=int(fs[1]) if name == "ntile" else 1)
+            a, b, bk = lane(), (lane() if two else lane(b8)), (_B_WORD if two else _B_NONE)
         elif name in ("lead", "lag"):
             off, has_default = fs[1], fs[2]
-            (d, v) = args[0]
-            dd, dv = args[1] if has_default else (None, None)
-            od, ov = like(d), K.empty(torch.bool)
-            K.call("tt_win_shift", P, perm.data_ptr(), pcs.data_ptr(), int(off if name == "lead" else -off),
-                   _ptr(d), v.data_ptr(), _ptr(dd), _ptr(dv), _ptr(od), ov.data_ptr(), K.stream)
-            outs += [od, ov]
+            d, v = args[0]
+            gd, gv = gathered(d, v)
+            row.update(code=_F_SHIFT, k=int(off if name == "lead" else -off), gd=gd, gv=gv)
+            if has_default:
+                dd, dv = gathered(*args[1])
+                row.update(dd=dd, dv=dv)
+            a, b, bk = like(d), lane(b8), _B_BYTE
         elif name in _VALUE_CODE:
-            (d, v) = args[0]
-            fsb, feb, ne = frame_of(frkey)
-            od, ov = like(d), K.empty(torch.bool)
-            K.call("tt_win_value", _VALUE_CODE[name], P, perm.data_ptr(), fsb.data_ptr(), feb.data_ptr(),
-                   _ptr(ne), int(fs[1]) if name == "nth_value" else 1, _ptr(d), v.data_ptr(), _ptr(od),
-                   ov.data_ptr(), K.stream)
-            outs += [od, ov]
-        elif name in ("count", "sum", "avg"):
-            fsb, feb, ne = frame_of(frkey)
-            if name == "count":
-                cnt_cs = K.scan(_SCAN_COUNT, perm, None, args[0][1]) if fs[1] else None
-                a, b = K.empty(), K.empty(torch.bool)
-                K.call("tt_win_agg", 0, P, perm.data_ptr(), fsb.data_ptr(), feb.data_ptr(), _ptr(ne),
-                       _ptr(cnt_cs), 0, a.data_ptr(), b.data_ptr(), K.stream)
-                outs += [a, b]
-                continue
-            (d, v) = args[0]
+            d, v = args[0]
+            gd, gv = gathered(d, v)
+            row.update(code=_F_VALUE, sub=_VALUE_CODE[name], k=int(fs[1]) if name == "nth_value" else 1, gd=gd,
+                       gv=gv)
+            a, b, bk = like(d), lane(b8), _B_BYTE
+        elif name == "count":
+            if fs[1]:
+                row.update(cnt=counts(gathered(None, args[0][1])[1]))
+            row.update(code=_F_COUNT)
+            a, b, bk = lane(), lane(b8), _B_NONE
+        elif name in ("sum", "avg"):
+            d, v = args[0]
             is_f = not isinstance(d, U64) and d.dtype == torch.float64
-            cnt_cs = K.scan(_SCAN_COUNT, perm, None, v)
-            sum_cs = K.scan(_SCAN_SUM_F64 if is_f else _SCAN_SUM_I64, perm, d, v,
-                            torch.float64 if is_f else torch.int64)
+            gd, gv = gathered(d, v)
+            cnt, sums = pair(gd, gv, is_f)
+            row.update(code=_F_SUM, sub=(0 if name == "sum" else 2) + int(is_f), cnt=cnt, sum=sums)
             a = like(d)
-            b = K.empty(torch.bool) if name == "sum" else K.empty()
-            kind = (1 if name == "sum" else 3) + int(is_f)
-            K.call("tt_win_agg", kind, P, perm.data_ptr(), fsb.data_ptr(), feb.data_ptr(), _ptr(ne),
-                   cnt_cs.data_ptr(), sum_cs.data_ptr(), _ptr(a), b.data_ptr(), K.stream)
-            outs += [a, b]
+            b, bk = (lane(b8), _B_BYTE) if name == "sum" else (lane(), _B_WORD)
         elif name in ("min", "max"):
-            (d, v) = args[0]
+            d, v = args[0]
             mm = _MM_U64 if isinstance(d, U64) else (_MM_F64 if d.dtype == torch.float64 else _MM_I64)
             is_max = int(name == "max")
-            fsb, feb, ne = frame_of(frkey)
-            cnt_cs = K.scan(_SCAN_COUNT, perm, None, v)
-            masked = K.empty()
-            K.call("tt_win_mm_masked", mm, is_max, P, perm.data_ptr(), _ptr(d), v.data_ptr(),
-                   masked.data_ptr(), K.stream)
+            gd, gv = gathered(d, v)
+            row.update(code=_F_MINMAX, mm_type=mm, is_max=is_max, gd=gd, gv=gv)
             if frkey is None or frkey[1] == "up" or frkey[3] == "uf":
-                mode = 0 if (frkey is None or frkey[1] == "up") else 1
-                acc = K.empty()
-                K.call("tt_win_mm_scan", mm, is_max, mode, P, masked.data_ptr(), pstart.data_ptr(),
-                       acc.data_ptr(), K.partials.data_ptr(), K.stream)
-                levels, table = [acc], None
+                rev = int(not (frkey is None or frkey[1] == "up"))
+                row.update(mm_mode=_MODE_SUFFIX if rev else _MODE_PREFIX, acc=seg(mm, is_max, rev, gd, gv),
+                           cnt=counts(gv))
+            elif frkey[0] == "rows" and frame_width(frkey) <= LOOP_WIDTH:
+                row.update(mm_mode=_MODE_LOOP)
             else:
-                mode = 2
                 L = max(1, frame_width(frkey).bit_length())
-                levels = [masked]
-                for k in range(1, L):
-                    nxt = K.empty()
-                    K.call("tt_win_mm_level", mm, is_max, P, levels[-1].data_ptr(), 1 << (k - 1),
-                           nxt.data_ptr(), K.stream)
-                    levels.append(nxt)
-                table = torch.tensor([t.data_ptr() for t in levels], dtype=torch.int64).to(dev)
-            od, ov = like(d), K.empty(torch.bool)
-            K.call("tt_win_mm_out", mm, is_max, mode, P, perm.data_ptr(), fsb.data_ptr(), feb.data_ptr(),
-                   _ptr(ne), cnt_cs.data_ptr(), levels[0].data_ptr(), len(levels), _ptr(table),
-                   _ptr(od), ov.data_ptr(), K.stream)
-            del levels, table, masked  # the sparse table's levels go back to the allocator
-            outs += [od, ov]
+                lvs = [lane() for _ in range(L - 1)]
+                tables.append((mm, is_max, gd, gv, L, lvs))
+                row.update(mm_mode=_MODE_TABLE, L=L, lv0=len(levels), cnt=counts(gv))
+                levels += lvs
+            a, b, bk = like(d), lane(b8), _B_BYTE
         else:  # pragma: no cover — guarded by SUPPORTED
             raise AssertionError(name)
-    return outs
+        row.update(a_slot=n8, b_kind=bk)
+        n8 += 1
+        if bk == _B_WORD:
+            row["b_slot"] = n8
+            n8 += 1
+        funcs.append(row)
+        outs += [a, b]
+    for f, (row, a, b) in enumerate(zip(funcs, outs[::2], outs[1::2])):
+        if row["b_kind"] == _B_BYTE:  # byte f % MAX_FUNCS of the byte word after the value words
+            row["b_slot"] = 8 * (n8 + f // MAX_FUNCS) + f % MAX_FUNCS
+        out_rows += [(a, _OUT_WORD, row["a_slot"]),
+                     (b, {_B_WORD: _OUT_WORD, _B_BYTE: _OUT_BYTE, _B_NONE: _OUT_ONE}[row["b_kind"]], row["b_slot"])]
+    stride = n8 + -(-len(funcs) // MAX_FUNCS)
+    stride += stride & 1  # records of whole 16-byte units
+    return Plan(list(gathers.values()), list(scans.values()), tables, funcs, levels, outs, out_rows, n8, stride, rk)
+
+
+def _gather_parts(mode: int, parts: int) -> int:
+    """What a gather pass with `parts` (1 data, 2 valid bytes) moves of a
+    lane of `mode` (csrc/window.cu lane_parts)."""
+    if mode == 2:
+        return 3 if parts & 1 else 0
+    return (2 if mode == 1 else 3) & parts
+
+
+def _launch(pl: Plan, words, npw: int, perm, P: int, dev) -> list:
+    """Every kernel of csrc/window.cu for the plan, on the current stream."""
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    i32 = torch.int32
+
+    def call(name, *args):
+        rc = getattr(lib, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"window: {name} launch failed (cudaError {rc})")
+
+    sorted_words = [torch.empty(P, dtype=w.dtype, device=dev) for w in words]
+    kinds = [0 if w.dtype == torch.int32 else 1 for w in words]
+    wtab = _table([[w.data_ptr(), k, sw.data_ptr()] for w, k, sw in zip(words, kinds, sorted_words)])
+    stab = _table([[sw.data_ptr(), k] for sw, k in zip(sorted_words, kinds)])
+    gtab = _table([[_ptr(d), _ptr(v), _ptr(gd), _ptr(gv), gmin, gmax, mode, desc]
+                   for mode, d, v, gd, gv, gmin, gmax, desc in pl.gathers])
+    ftab = _table([[_ptr(row[k]) if k in _FUNC_LANES else row[k] for k in _FUNC_KEYS] for row in pl.funcs])
+    ltab = _table([[t.data_ptr()] for t in pl.levels])
+    otab = _table([[_ptr(o), kind, slot] for o, kind, slot in pl.out_rows])
+    inv, pid, oid = (torch.empty(P, dtype=i32, device=dev) for _ in range(3))
+    ppos, opos = (torch.empty(P + 1, dtype=i32, device=dev) for _ in range(2))
+    rec = torch.empty(P * pl.stride, dtype=torch.int64, device=dev)
+    # four gather passes, each with a footprint L2 serves: the sort words;
+    # the lanes' data words; their valid bytes (8 MB lanes, which L2 keeps
+    # when no 64 MB lane streams beside them); the inverse permutation
+    # (random 4-byte stores, whole in L2 before they reach memory)
+    for nw, ng, parts, inv_ptr in ((len(words), 0, 0, 0), (0, len(pl.gathers), 1, 0), (0, len(pl.gathers), 2, 0),
+                                   (0, 0, 0, inv.data_ptr())):
+        if nw or inv_ptr or any(_gather_parts(g[0], parts) for g in pl.gathers[:ng]):
+            call("tt_win_gather", P, perm.data_ptr(), nw, wtab.ctypes.data, ng, gtab.ctypes.data, parts, inv_ptr,
+                 stream)
+    with stream_scratch("window", dev, lib.tt_win_scratch_words(P)) as ws:
+        call("tt_win_bounds", P, len(words), npw, stab.ctypes.data, pid.data_ptr(), oid.data_ptr(),
+             ppos.data_ptr(), opos.data_ptr(), ws.data_ptr(), stream)
+        for kind, gd, gv, cnt, out in pl.scans:
+            call("tt_win_scan", kind, P, _ptr(gd), gv.data_ptr(), pid.data_ptr(), _ptr(cnt), _ptr(out),
+                 ws.data_ptr(), stream)
+    for mm, is_max, gd, gv, L, lvs in pl.tables:
+        lv = _table([[t.data_ptr()] for t in lvs])
+        call("tt_win_levels", mm, is_max, P, gd.data_ptr(), gv.data_ptr(), L, lv.ctypes.data, stream)
+    call("tt_win_funcs", P, pid.data_ptr(), oid.data_ptr(), ppos.data_ptr(), opos.data_ptr(), _ptr(pl.rk),
+         rec.data_ptr(), pl.stride, pl.n8, len(ftab), ftab.ctypes.data, len(pl.levels), ltab.ctypes.data, stream)
+    call("tt_win_out", P, inv.data_ptr(), rec.data_ptr(), pl.stride, len(otab), otab.ctypes.data, stream)
+    return pl.outs
+
+
+def _cuda_body(words, fargs, spec, range_key, perm, P):
+    """The kernels of csrc/window.cu after the sort (module doc)."""
+    dev = words[0].device
+    lib = _lib()
+    if (lib.tt_win_loop_width(), lib.tt_win_max_funcs()) != (LOOP_WIDTH, MAX_FUNCS):
+        raise RuntimeError("window: csrc/window.cu's LOOP_W / MAXF differ from kernels/window.py's")
+    return _launch(plan(fargs, spec, range_key, P, dev), words, spec[0], perm, P, dev)
+
+
+def window_sorted_ref(words, fargs, spec, range_key, perm) -> list:
+    """Plain PyTorch version of `window_sorted` (window_ref after its sort)."""
+    P = _check(words, fargs, spec, range_key)
+    npw, now, funcspecs, framespecs = spec
+    iota = torch.arange(P, dtype=torch.int64, device=words[0].device)
+    return _ref_body(words, fargs, funcspecs, framespecs, range_key, perm.to(torch.int64), iota, npw, now, P)
+
+
+def window_sorted(words, fargs, spec, range_key, perm) -> list:
+    """W1 after the sort: every function of the spec, in input row order,
+    given `perm`, the sorted order of `words` (as lex_sort_perm gives it).
+    `window` is K8, then this; timing it alone keeps K8 out of W1's time.
+    The plain version for CPU tensors; on a CUDA device the kernels."""
+    dev = words[0].device
+    if dev.type == "cpu":
+        return window_sorted_ref(words, fargs, spec, range_key, perm)
+    P = _check(words, fargs, spec, range_key)
+    if dev.type != "cuda":
+        raise ValueError(f"window: unsupported device {dev}")
+    _check_cuda(words, fargs, spec, range_key)
+    if perm.dtype != torch.int32 or perm.shape != (P,) or perm.device != dev or not perm.is_contiguous():
+        raise ValueError(f"window: perm must be int32 [{P}] on {dev}")
+    return _cuda_body(words, fargs, spec, range_key, perm, P)
 
 
 def window(words, fargs, spec, range_key=None, phase=None) -> list:
