@@ -73,7 +73,18 @@ Phases, one line each; any failure exits non-zero and prints no result:
               bitwise rints with their edges), a 300-deep chain, a program
               past its register budget (lanes reloaded), one holding 120
               lanes (a smaller block, its pointer table in device memory),
-              N not a multiple of the block; K4's bitwise ops
+              N not a multiple of the block, and the edges of the
+              interpreter's design (expr_edge_cases: n of 1, 2 and 3,
+              below the 4 rows a thread takes, and not a multiple of 4 x
+              a block; a program at REG_BUDGET that reloads its lanes;
+              programs that together hold every opcode); K4 at the edges
+              of its design (seg_edge_cases: nseg 1 with every row in one
+              slot, in the register and the warp modes; a warp's 128 rows
+              in one segment and in 32; NaN and ±inf among peers; int64
+              sums that wrap in one warp's fold; first_row with NULL
+              peers; n of 1 to a grid-stride past the card; the last
+              block's merge over 1 to 528 partials; the task grid with
+              ragged tasks and its shared outputs); K4's bitwise ops
               (bitwise_seg_cases) in the direct and segment-lane modes at
               nseg 1, 64, 65 and 65536 with empty segments; M1 q1_local
               with wrapping products and codes out of range, nseg 6 / 8 /
@@ -190,7 +201,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
               its time, with its launches per call and its time per inner
               kernel from one profiled call); expr_eval on Q1's,
               Q6's, CHECKSUM's, Q3's and unfused Q3's own programs, K4's
-              bitwise ops on CHECKSUM's lanes, P2 on main.mpp_mesh's
+              bitwise ops on CHECKSUM's lanes, K4 on Q1's, Q6's,
+              CHECKSUM's and Q18's subquery's own lanes (the call, its
+              kernel alone over a table built beforehand, the plain
+              version, the bound, the launch plan), P5's and P6's mesh
+              calls with the K8, K4 and K6 calls inside them timed
+              apart, P2 on main.mpp_mesh's
               largest exchange (the unfused Q3's second level), M1 and M3
               (their warm
               medians and rows/s) on the mesh phase's lineitem, K10's
@@ -1730,6 +1746,172 @@ def bitwise_seg_cases(dev, rng):
     return cases
 
 
+def seg_edge_cases(dev, rng):
+    """(name, fn) of K4 at the edges of its design (csrc/seg_agg.cu), each
+    against its plain version: nseg 1 with every row in one slot (the
+    register mode at up to 4 lanes, the warp mode past them); the 128 rows
+    a warp takes at once all in one segment, and in 32 distinct segments
+    (each row a thread takes its own); NaN and ±inf among peers for
+    min / max_f64; int64 sums that wrap inside one warp's fold; first_row
+    with NULL rows among peers and segments of NULL rows only; the bitwise
+    ops among peers; n of 1, below a block, and not a multiple of the 4
+    rows a thread takes; block counts from 1 to a grid-stride past the
+    card's (the last block's merge over 1, 2, 264 and 528 partials); the
+    task grid with tasks whose real rows end at different points and its
+    shared-output mode over segment lanes (group counts that differ, one
+    task with no group), in the warp and the global modes."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels import SegKey, SegLane, seg_agg, seg_agg_ref
+    from tidb_tpu_torch.kernels.grouped import seg_agg_tasks, seg_agg_tasks_ref
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    i64 = np.iinfo(np.int64)
+    specials = np.array([np.nan, -np.inf, np.inf, -0.0, 0.0, 1.5, -2.5, 5e-324])
+
+    def lanes_of(n, full: bool):
+        valid = t(rng.random(n) < 0.5)
+        big = t(np.where(rng.random(n) < 0.5, i64.max - rng.integers(0, 1000, n), (1 << 62) + rng.integers(0, 9, n)))
+        f = np.where(rng.random(n) < 0.2, rng.choice(specials, n), rng.standard_normal(n))
+        u = t(rng.integers(i64.min, i64.max, n, dtype=np.int64))
+        ls = [SegLane("sum_i64", big, None), SegLane("min_f64", t(f), valid, float("inf")),
+              SegLane("first_row", None, valid, n), SegLane("xor_i64", u, None, 0)]
+        if full:
+            ls += [SegLane("count", None, valid), SegLane("max_f64", t(f), None, float("-inf")),
+                   SegLane("min_u64", u, valid, (1 << 64) - 1), SegLane("max_i64", big, valid, int(i64.min)),
+                   SegLane("and_i64", u, valid, -1), SegLane("or_i64", u, None, 0),
+                   SegLane("sum_f64", t(np.nan_to_num(f, posinf=7.0, neginf=-7.0)), valid), SegLane("count")]
+        return ls
+
+    def check(mask, keys, lanes, nseg, seg=None):
+        kw = {} if seg is None else {"seg": seg}
+        (gi, gf), (wi, wf) = seg_agg(mask, keys, lanes, nseg, **kw), seg_agg_ref(mask, keys, lanes, nseg, **kw)
+        _same(gi, wi, "ints")
+        return _same(gf, wf, "floats", True)
+
+    cases = []
+    for n in (1, 3, 5, 130, 2047, 2049, 2048 * 264, 2048 * 264 * 2 + 7):
+        mask = t(np.ones(n, bool))
+        for full in (False, True):
+            ls = lanes_of(n, full)
+            cases.append((f"seg_agg edges one slot n={n} lanes={len(ls)}",
+                          lambda mask=mask, ls=ls: check(mask, [], ls, 1)))
+    for n in (128, 4096 + 77, 100_003):
+        rows = np.arange(n)
+        ls = lanes_of(n, True)
+        mask = t(rng.random(n) < 0.9)
+        one = t(((rows // 128) % 5).astype(np.int32))  # a warp's 128 rows: one segment
+        cases.append((f"seg_agg edges warp in one segment n={n}",
+                      lambda mask=mask, k=one, ls=ls: check(mask, [SegKey(k, None, 0, 5)], ls, 6)))
+        distinct = t(((rows // 4) % 32).astype(np.int32))  # each thread's 4 rows: a segment of their own
+        cases.append((f"seg_agg edges 32 distinct segments n={n}",
+                      lambda mask=mask, k=distinct, ls=ls: check(mask, [SegKey(k, None, 0, 32)], ls, 33)))
+        nulls = t((rows // 128) % 3 != 1)  # every third warp's rows NULL: first_row folds n there
+        ls2 = [SegLane("first_row", None, nulls, n), SegLane("count", None, nulls), SegLane("sum_i64", t(rows), nulls)]
+        cases.append((f"seg_agg edges first_row NULL peers n={n}",
+                      lambda mask=mask, k=one, ls=ls2: check(mask, [SegKey(k, None, 0, 5)], ls, 6)))
+    # Q1's shape at block counts 1, 2, 264 and 528 (2,048 rows a block's pass)
+    for n in (2048, 4097, 2048 * 264, 2048 * 528 + 3):
+        keys, lanes, mask = seg_cases(dev, rng, n, NSEG_MAIN)
+        cases.append((f"seg_agg edges merge n={n}", lambda m=mask, k=keys, ls=lanes: check(m, k, ls, NSEG_MAIN)))
+    # the task grid: real rows ending at different points; the shared-output mode
+    for G, width, nseg in ((5, 4096 + 5, 12), (3, 70_001, 65536)):
+        masks, keys, lanes = [], [], []
+        for g in range(G):
+            kk, ls, m = seg_cases(dev, rng, width, nseg)
+            m[width - g * (width // (G + 1)):] = False
+            masks.append(m)
+            keys.append(kk)
+            lanes.append(ls)
+
+        def k4t(masks=masks, keys=keys, lanes=lanes, nseg=nseg, w=width):
+            (gi, gf), (wi, wf) = (seg_agg_tasks(masks, keys, lanes, nseg, w),
+                                  seg_agg_tasks_ref(masks, keys, lanes, nseg, w))
+            _same(gi, wi, "ints")
+            return _same(gf, wf, "floats", True)
+        cases.append((f"seg_agg_tasks edges ragged G={G} nseg={nseg}", k4t))
+        counts = [int(c) for c in rng.integers(1, 40 if nseg == 12 else 30_000, G)]
+        counts[1] = 0
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        segs = [t((offs[g] + rng.integers(0, max(counts[g], 1), width) if counts[g] else
+                   np.full(width, offs[-1])).astype(np.int32)) for g in range(G)]
+
+        def k4s(masks=masks, lanes=lanes, segs=segs, counts=counts, w=width):
+            tot = sum(counts)
+            (gi, gf), (wi, wf) = (seg_agg_tasks(masks, [[]] * len(masks), lanes, tot, w, segs=segs, counts=counts),
+                                  seg_agg_tasks_ref(masks, [[]] * len(masks), lanes, tot, w, segs=segs,
+                                                    counts=counts))
+            _same(gi, wi, "ints")
+            return _same(gf, wf, "floats", True)
+        cases.append((f"seg_agg_tasks edges shared outputs G={G} groups={sum(counts)}", k4s))
+    return cases
+
+
+def expr_edge_cases(dev, rng):
+    """(name, fn) of the expression kernel at the edges of its design
+    (csrc/expr_eval.cu): n of 1 and 2, below the 4 rows a thread takes, and
+    not a multiple of 4 x a block; a program at REG_BUDGET that reloads its
+    lanes (360 input lanes: the pointer table in device memory); and
+    programs that together hold every opcode (`expr_opcodes`)."""
+    from tidb_tpu_torch.expr.expression import Column, make_func
+    from tidb_tpu_torch.expr.program import REG_BUDGET, ValueSpec, compile_program
+
+    cases = []
+    for n in (1, 2, 3, 5, 1023, 4 * 256 + 3, 4 * 256 * 7 + 1, 100_001):
+        cols = expr_lanes(rng, n)
+        kinds = expr_kinds(cols)
+        for j, prog in enumerate(_opcode_programs(rng, cols, kinds)):
+            cases.append((f"expr_eval edges n={n} #{j}", prog, cols, n))
+    many = expr_lanes(rng, 20_011, copies=30)
+    ints = [j for j, c in many.items() if c[3] in ("i64", 0, 2, 6, 12)]
+    s1, s2 = Column(ints[0], many[ints[0]][2]), Column(ints[-1], many[ints[-1]][2])
+    for j in ints[1:]:
+        s1 = make_func("plus", s1, Column(j, many[j][2]))
+    for j in ints[-2::-1]:
+        s2 = make_func("minus", s2, Column(j, many[j][2]))
+    prog = compile_program([make_func("lt", s1, s2)], [ValueSpec(s1), ValueSpec(s2)], expr_kinds(many))
+    assert prog.reload and prog.nregs <= REG_BUDGET and len(prog.inputs) > 192, (prog.nregs, len(prog.inputs))
+    cases.append(("expr_eval edges at REG_BUDGET (reload)", prog, many, 20_011))
+
+    def run(prog, cols, n):
+        from tidb_tpu_torch.kernels import expr_eval, expr_eval_ref
+
+        ins = _expr_ins(prog, cols, n, dev)
+        return _same_expr_outs(prog, expr_eval(prog, ins, n), expr_eval_ref(prog, ins, n))
+
+    return [(name, lambda p=p, c=c, n=n: run(p, c, n)) for name, p, c, n in cases]
+
+
+def _opcode_programs(rng, cols, kinds) -> list:
+    """Programs over expr_lanes' columns that together hold every opcode
+    but NOP: random trees with every derivation, drawn until they hold all
+    the others but F2I, and a float lane's var_dec limbs (F2I)."""
+    from tidb_tpu_torch.expr.expression import Column
+    from tidb_tpu_torch.expr.program import OP, ValueSpec, compile_program
+
+    progs = []
+    want = set(OP) - {"NOP", "F2I"}
+    while len(progs) < 64 and not want <= expr_opcodes(progs):
+        conds = [expr_tree(rng, int(rng.integers(2, 5)), cols) for _ in range(int(rng.integers(1, 4)))]
+        progs.append(compile_program(conds, expr_specs(rng, cols), kinds, mask=True))
+    f = next(j for j, c in cols.items() if c[3] == "f64")
+    progs.append(compile_program([], [ValueSpec(Column(f, cols[f][2]), "var_dec")], kinds, mask=False))
+    missing = set(OP) - {"NOP"} - expr_opcodes(progs)
+    assert not missing, f"the battery's programs miss opcodes {sorted(missing)}"
+    return progs
+
+
+def expr_opcodes(progs) -> set:
+    """The opcode names the programs hold."""
+    from tidb_tpu_torch.expr.program import OP
+
+    names = {v: k for k, v in OP.items()}
+    return {names[int(c)] for p in progs for c in p.ops[:, 0]}
+
+
 # --- K10's task-grid modes (kernels/grouped.py) --------------------------------
 
 GROUP_SIZES = (1, 2, 3, 64)
@@ -2335,6 +2517,7 @@ def check_kernels(dev, rng) -> dict:
         case(f"pack_flat {cname}", lambda lanes=lanes, cname=cname: _same(
             pack_flat(lanes), pack_flat_ref(lanes), cname))
     for cname, fn in (mpp_kernel_cases(dev, rng) + mode_kernel_cases(dev, rng) + expr_cases(dev, rng)
+                      + expr_edge_cases(dev, rng) + seg_edge_cases(dev, rng)
                       + bitwise_seg_cases(dev, rng) + mesh_kernel_cases(dev, rng) + exchange_cases(dev, rng)
                       + grouped_cases(dev, rng) + [c for G in EDGE_GROUP_SIZES for c in sort_edge_cases(dev, rng, G)]):
         case(cname, fn)
@@ -3720,8 +3903,10 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bytes"] / HBM_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "library_ms": None},
     ]
+    k4_queries = measure_seg_agg_queries(main, max_err)
+    entries[1].update(max_abs_err=max_err["seg_agg"], kernel_ms=k4_queries["q1"]["kernel_ms"])
     new, extra = measure_sort_kernels(main, max_err)
-    say("measure", decode_lane=k1, decode_lane_dict=k1_dict, seg_agg=k4, **extra)
+    say("measure", decode_lane=k1, decode_lane_dict=k1_dict, seg_agg=k4, seg_agg_queries=k4_queries, **extra)
     win, win_extra = measure_window_kernels(main, max_err)
     say("measure.window", **win_extra)
     mpp, mpp_extra = measure_mpp_kernels(main, max_err)
@@ -3782,15 +3967,48 @@ def measure_exchange(main: dict, max_err: dict):
     return [entry], {"exchange": k2}
 
 
+def measure_seg_agg_queries(main: dict, max_err: dict) -> dict:
+    """K4 on each cop query's own inputs (Q1, Q6, CHECKSUM's bitwise form
+    and Q18's subquery over K9's ids, the global mode): held to the plain
+    version, then timed — the call (`ms`), its kernel alone over a table
+    built beforehand (`kernel_ms`: the rest of `ms` is the wrapper's host
+    work, which a small call does not hide), the plain version — beside
+    the bytes bound and the launch plan (mode, block size, blocks)."""
+    import torch
+
+    from tidb_tpu_torch.kernels import seg_agg, seg_agg_ref
+    from tidb_tpu_torch.kernels.tables import sm_count
+
+    SA = importlib.import_module("tidb_tpu_torch.kernels.seg_agg")
+    out = {}
+    for q in ("q1", "q6", "checksum", "q18_inner"):
+        (m, keys, lanes, nseg), kw = main["captured"][q]["seg_agg"]
+        seg = kw.get("seg")
+        (gi, gf), (wi, wf) = seg_agg(m, keys, lanes, nseg, **kw), seg_agg_ref(m, keys, lanes, nseg, **kw)
+        torch.cuda.synchronize()
+        _same(gi, wi, f"seg_agg ints on {q}'s lanes")
+        max_err["seg_agg"] = max(max_err["seg_agg"], _same(gf, wf, f"seg_agg floats on {q}'s lanes", True))
+        _, go = SA.seg_agg_prepare(m, keys, lanes, nseg, seg)
+        p = SA.plan(m.numel(), 1, len(keys), len(lanes), nseg, sm_count(m.device))
+        nbytes = (_nbytes(m, seg, *_pairs((k.data, k.valid) for k in keys), *_pairs((ln.data, ln.valid) for ln in lanes))
+                  + 8 * nseg * len(lanes))
+        out[q] = {"ms": time_ms(lambda: seg_agg(m, keys, lanes, nseg, **kw)), "kernel_ms": time_ms(go),
+                  "plain_ms": time_ms(lambda: seg_agg_ref(m, keys, lanes, nseg, **kw), 3), "bytes": nbytes,
+                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "rows": m.numel(), "nseg": nseg, "lanes": len(lanes),
+                  "mode": p.mode, "threads": p.threads, "blocks": p.blocks}
+    return out
+
+
 def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
     """P5's local + final reduce and P6's block picks on main.mpp_mesh's own
     inputs: every rank's call held to its plain version (hold_mesh_modes),
     then the largest call of each timed beside its plain version, its
     bytes bound and the nearest PyTorch call, the recorded exchange /
     collect outputs standing in for the collectives (so the times hold
-    the kernels alone). The times go into the kernels line's seg_reduce
-    and rowpos_agg entries as mesh_ms, mesh_plain_ms, mesh_bound_ms and
-    mesh_library_ms."""
+    the kernels alone), and the kernels each calls timed apart (K8 and K6
+    in P5, K4 and K6 in P6: `own_ms` is the call less them). The times go
+    into the kernels line's seg_reduce and rowpos_agg entries as mesh_ms,
+    mesh_plain_ms, mesh_bound_ms, mesh_library_ms and mesh_own_ms."""
     import torch
 
     from tidb_tpu_torch.kernels import rowpos_agg, rowpos_agg_ref, seg_reduce, seg_reduce_ref
@@ -3803,11 +4021,12 @@ def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
 
     a, kw, out = max(calls["seg_reduce"], key=lambda c: c[0][1].numel())
     keys, mask, lanes, n_dev = a[0], a[1], a[2], kw["n_dev"]
+    a5, n5 = a, n_dev
     key2, vals2, exm = out
     n, m, nl = mask.numel(), exm.numel(), len(lanes)
     kk = min(a[5], m)
     rows5 = torch.zeros_like(kw["rows"])
-    ex = lambda *x: out  # noqa: E731
+    ex = lambda *x, out=out: out  # noqa: E731 — this call's exchange outputs (out is rebound below)
     code = group_code_ref(keys, mask)
     code2 = torch.where(exm, key2, torch.full((), I64_MAX, dtype=torch.int64, device=exm.device))
     b5 = (_nbytes(mask, *_pairs((k.data, k.valid) for k in keys), *_pairs((ln.data, ln.valid) for ln in lanes))
@@ -3824,7 +4043,7 @@ def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
     space, blk = -(-B // n_dev) * n_dev, out[0][0].numel()
     kk = picks(a[7], len(lanes), blk)
     rows6 = torch.zeros_like(kw["rows"])
-    col = lambda full, ops: out  # noqa: E731
+    col = lambda full, ops, out=out: out  # noqa: E731
     b6 = (_nbytes(mask, rid, *_pairs((ln.data, ln.valid) for ln in lanes)) + 8 * space * len(lanes)
           + _nbytes(*out[0]) + 8 * kk * (2 + len(lanes) - a[8]))
     seg = torch.where(mask, torch.clip(rid, 0, B - 1), space)
@@ -3837,12 +4056,21 @@ def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
           "library_call": "index_add_ of the ORDER BY lane into the Bp build rows",
           "bytes": b6, "bound_ms": b6 / HBM_BYTES_PER_S * 1e3, "rows": mask.numel(), "B": B, "block": blk,
           "n_dev": n_dev, "lanes": len(lanes), "k": kk, "calls_held": len(calls["rowpos_agg"])}
+    # each call's own time apart from the kernels it calls: K8 and K6 in
+    # P5, K4 and K6 in P6
+    mods = {name: importlib.import_module(f"tidb_tpu_torch.kernels.{name}") for name in ("seg_reduce", "rowpos_agg")}
+    for k, name, run, inner in ((k5, "seg_reduce", lambda: seg_reduce(*a5, rows=rows5, exchange=ex, n_dev=n5),
+                                 ("lex_sort_perm", "topk")),
+                                (k6, "rowpos_agg", lambda: rowpos_agg(*a, rows=rows6, n_dev=n_dev, collect=col),
+                                 ("seg_agg", "topk"))):
+        parts = {f"{w}_ms": calls_inside(mods[name], w, run)[1] for w in inner}
+        k.update(parts, own_ms=k["ms"] - sum(parts.values()))
     got = {"seg_reduce": k5, "rowpos_agg": k6}
     for e in entries:
         if e["name"] in got:
             k = got[e["name"]]
             e.update(max_abs_err=max_err[e["name"]], mesh_ms=k["ms"], mesh_plain_ms=k["plain_ms"],
-                     mesh_bound_ms=k["bound_ms"], mesh_library_ms=k["library_ms"])
+                     mesh_bound_ms=k["bound_ms"], mesh_library_ms=k["library_ms"], mesh_own_ms=k["own_ms"])
     return got
 
 
@@ -3851,11 +4079,14 @@ def measure_expr_kernels(main: dict, max_err: dict):
     (Q1's, Q6's and CHECKSUM's cop programs, Q3's aggregate argument, the
     unfused Q3's scan selections), and K4's bitwise ops on CHECKSUM's
     lanes: held once more to the plain versions, then timed beside them
-    and their bytes bound. No single PyTorch call computes either."""
+    and their bytes bound — the expression kernel's call (`ms`) and its
+    launch alone over Params built beforehand (`kernel_ms`). No single
+    PyTorch call computes either."""
     import torch
 
     from tidb_tpu_torch.kernels import expr_eval, expr_eval_ref, seg_agg, seg_agg_ref
 
+    EE = importlib.import_module("tidb_tpu_torch.kernels.expr_eval")
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
     cap = main["captured"]
     per_prog = {}
@@ -3866,7 +4097,8 @@ def measure_expr_kernels(main: dict, max_err: dict):
         torch.cuda.synchronize()
         max_err["expr_eval"] = max(max_err["expr_eval"], _same_expr_outs(prog, got, want))
         nbytes = _nbytes(*ins) + sum(n * w for w in prog.outputs)
-        per_prog[label] = {"ms": time_ms(lambda: expr_eval(prog, ins, n)),
+        _, go = EE.expr_eval_prepare(prog, ins, n)
+        per_prog[label] = {"ms": time_ms(lambda: expr_eval(prog, ins, n)), "kernel_ms": time_ms(go),
                            "plain_ms": time_ms(lambda: expr_eval_ref(prog, ins, n), 3), "bytes": nbytes,
                            "bound_ms": bound(nbytes), "rows": n, "ops": len(prog.ops), "registers": prog.nregs,
                            "inputs": len(ins), "outputs": len(prog.outputs), "reload": prog.reload}
@@ -3885,7 +4117,7 @@ def measure_expr_kernels(main: dict, max_err: dict):
         {"name": "expr_eval", "route": "cuda", "source": "tidb_tpu_torch/csrc/expr_eval.cu",
          "replaces": "tidb_tpu/copr/tpu_engine.py:1021", "launches": L["expr_eval"],
          "max_abs_err": max_err["expr_eval"], "ms": q1["ms"], "plain_ms": q1["plain_ms"],
-         "bound_ms": q1["bound_ms"], "bound_by": "bytes", "library_ms": None},
+         "bound_ms": q1["bound_ms"], "bound_by": "bytes", "library_ms": None, "kernel_ms": q1["kernel_ms"]},
         {"name": "seg_agg_bitwise", "route": "cuda", "source": "tidb_tpu_torch/csrc/seg_agg.cu",
          "replaces": "tidb_tpu/copr/tpu_engine.py:1596", "launches": L["seg_agg_bitwise"],
          "max_abs_err": max_err["seg_agg_bitwise"], "ms": kb["ms"], "plain_ms": kb["plain_ms"],
@@ -4013,7 +4245,8 @@ def _k10_seg(calls):
     import torch
 
     from tidb_tpu_torch.kernels import SegKey, SegLane, seg_agg
-    from tidb_tpu_torch.kernels.grouped import seg_agg_tasks, seg_agg_tasks_prepare, seg_agg_tasks_ref, seg_desc
+    from tidb_tpu_torch.kernels.grouped import seg_agg_tasks, seg_agg_tasks_prepare, seg_agg_tasks_ref
+    from tidb_tpu_torch.kernels.seg_agg import seg_desc
 
     def cut(t, w):
         return None if t is None else t.reshape(-1)[:w]
@@ -4163,7 +4396,8 @@ def _k10_segs(calls):
     import torch
 
     from tidb_tpu_torch.kernels import SegLane, seg_agg
-    from tidb_tpu_torch.kernels.grouped import _cut, seg_agg_tasks, seg_agg_tasks_prepare, seg_agg_tasks_ref, seg_desc
+    from tidb_tpu_torch.kernels.grouped import _cut, seg_agg_tasks, seg_agg_tasks_prepare, seg_agg_tasks_ref
+    from tidb_tpu_torch.kernels.seg_agg import seg_desc
 
     err, nbytes, solo = 0.0, 0, []
     for (masks, keys, lanes, nseg, w), kw in calls:
@@ -4298,24 +4532,30 @@ def _packed_word(ops):
     return word
 
 
-def k8_inside(module, fn) -> tuple[list, float]:
-    """(the operands of every K8 call one fn() makes through `module` — a
-    kernel module that imports lex_sort_perm by name — caught on one run,
-    and the mean device ms of those K8 calls alone): the share of K8 in a
-    kernel that sorts with it."""
-    from tidb_tpu_torch.kernels import lex_sort_perm
+def calls_inside(module, name: str, fn) -> tuple[list, float]:
+    """(the (args, kwargs) of every call of `module.name` — a kernel
+    wrapper another kernel's module imports by name — that one fn() makes,
+    caught on one run, and the mean device ms of those calls alone): the
+    share of that kernel in the one that calls it."""
+    seen, real = [], getattr(module, name)
 
-    seen, real = [], module.lex_sort_perm
-
-    def spy(ops):
-        seen.append(ops)
-        return real(ops)
-    module.lex_sort_perm = spy
+    def spy(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+    setattr(module, name, spy)
     try:
         fn()
     finally:
-        module.lex_sort_perm = real
-    return seen, time_ms(lambda: [lex_sort_perm(ops) for ops in seen])
+        setattr(module, name, real)
+    return seen, time_ms(lambda: [real(*a, **kw) for a, kw in seen]) if seen else 0.0
+
+
+def k8_inside(module, fn) -> tuple[list, float]:
+    """(the operands of every K8 call one fn() makes through `module`,
+    and the mean device ms of those K8 calls alone): calls_inside for
+    lex_sort_perm."""
+    seen, ms = calls_inside(module, "lex_sort_perm", fn)
+    return [a[0] for a, _ in seen], ms
 
 
 def measure_sort_kernels(main: dict, max_err: dict):

@@ -239,7 +239,7 @@ def test_task_tables_hold_each_tasks_lanes():
     import torch
 
     from tidb_tpu_torch.kernels import grouped as gk
-    from tidb_tpu_torch.kernels.seg_agg import OPS, _fill_bits
+    from tidb_tpu_torch.kernels.seg_agg import OPS, _fill_bits, seg_desc
 
     calls = _captured_group_calls()
     seen = set()
@@ -271,7 +271,7 @@ def test_task_tables_hold_each_tasks_lanes():
         n_i = sum(1 for lane in lanes[0] if not lane.is_float)
         iout, fout = torch.empty((G, n_i, nseg), dtype=torch.int64), torch.empty((G, nl - n_i, nseg))
         base = 1 << 40
-        host = gk.seg_desc(masks, keys, lanes, w, base, iout, fout)
+        host = seg_desc(masks, keys, lanes, w, base, iout, fout)
         ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
         for g in range(G):
             kaddr, laddr = G * 6 + g * 5 * nk, G * (6 + 5 * nk) + g * 4 * nl
@@ -293,6 +293,7 @@ def test_task_tables_refuse_tasks_that_differ():
     import torch
 
     from tidb_tpu_torch.kernels import grouped as gk
+    from tidb_tpu_torch.kernels.seg_agg import seg_desc
 
     masks, keys, lanes, nseg, w = _captured_group_calls()["seg_agg_tasks"][0]
     G = len(masks)
@@ -302,16 +303,16 @@ def test_task_tables_refuse_tasks_that_differ():
     lane = bad[1][j]
     bad[1][j] = type(lane)(lane.op, lane.data.to(torch.int32), lane.valid, lane.fill)
     with pytest.raises(TypeError, match="task 1"):
-        gk.seg_desc(masks, keys, bad, w, 0, iout, fout)
+        seg_desc(masks, keys, bad, w, 0, iout, fout)
     bad[1][j] = type(lane)(lane.op, lane.data, None if lane.valid is not None else lane.data != 0, lane.fill)
     with pytest.raises(ValueError, match="present in some tasks"):
-        gk.seg_desc(masks, keys, bad, w, 0, iout, fout)
+        seg_desc(masks, keys, bad, w, 0, iout, fout)
     short = [m.reshape(-1)[: w // 2] for m in masks]
     with pytest.raises(ValueError, match="at least"):
-        gk.seg_desc(short, keys, lanes, w, 0, iout, fout)
+        seg_desc(short, keys, lanes, w, 0, iout, fout)
     bad[1] = bad[1][:-1]
     with pytest.raises(ValueError, match="differ from task 0"):
-        gk.seg_desc(masks, keys, bad, w, 0, iout, fout)
+        seg_desc(masks, keys, bad, w, 0, iout, fout)
 
 
 def test_sort_task_tables_hold_each_tasks_lanes(monkeypatch):
@@ -323,6 +324,7 @@ def test_sort_task_tables_hold_each_tasks_lanes(monkeypatch):
     import torch
 
     from tidb_tpu_torch.kernels import grouped as gk
+    from tidb_tpu_torch.kernels.seg_agg import seg_desc
     from tidb_tpu_torch.kernels.tables import lane_table
     from tidb_tpu_torch.kernels.topk import topk_table
 
@@ -346,7 +348,7 @@ def test_sort_task_tables_hold_each_tasks_lanes(monkeypatch):
     (((masks, keys, lanes, nseg, w), kw),) = chip_smoke.task_args(spy.calls, "seg_agg_tasks", keywords=True)
     n_i = sum(1 for lane in lanes[0] if not lane.is_float)
     iout, fout = torch.empty((n_i, nseg), dtype=torch.int64), torch.empty((len(lanes[0]) - n_i, nseg))
-    host = gk.seg_desc(masks, keys, lanes, w, 1 << 40, iout, fout, kw["segs"])
+    host = seg_desc(masks, keys, lanes, w, 1 << 40, iout, fout, kw["segs"])
     G = len(masks)
     assert sum(kw["counts"]) == nseg and G > 1
     for g in range(G):  # one shared output pair, each task's own segment lane

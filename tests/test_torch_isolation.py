@@ -59,7 +59,8 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
+    for script in ("chip_smoke.py", "sort_profile.py", "k4_profile.py"):
+        yield os.path.join(ROOT, script)
 
 
 def test_no_source_imports_jax_or_the_reference():

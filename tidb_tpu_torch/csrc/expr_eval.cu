@@ -11,16 +11,43 @@
 // (tidb_tpu_torch/expr/program.py) into a typed register program, and
 // this kernel interprets it.
 //
-// Design. One thread per row, grid-stride. At block start the constant
-// pool, the lane pointers and (when they fit) the ops are copied into
-// shared memory, so every warp reads the same op and takes the same
-// branch. Each register is 8 data bytes (int64, or a double's bits) and
-// a valid byte, in shared memory laid out [register][thread]; the host
-// sizes the block from the program's register count. Per row the thread
-// loads each input lane once (held in a register until its last use),
-// computes every condition into the mask and every value output, and
-// stores each output once: one launch per program, where the reference's
-// trace (and the port's earlier glue) issued one array op per tree node.
+// Bound: bytes. Each row reads its input lanes (8 bytes a data lane, 4 a
+// dict-code lane, 1 a valid lane) and writes its outputs (8 or 1 bytes).
+// An interpreter stands between a kernel and that bound twice: each op's
+// decode and dispatch, and a register file in shared memory that every
+// op reads and writes. The design:
+//
+//   * U = 4 rows per thread. A thread takes U consecutive rows at a time;
+//     each op is decoded and dispatched once for its U rows, and each of
+//     its register reads serves U rows. A warp's U-row groups are
+//     adjacent, so its loads stay coalesced: an 8-byte lane is read as two
+//     16-byte loads a thread, a 4-byte lane as one, a byte lane as one
+//     4-byte load (scalar loads at the end of a lane or for a lane that is
+//     not 16-byte aligned); stores likewise.
+//   * Loads ahead of arithmetic. The compiler emits a program's lane loads
+//     first (expr/program.py); the kernel runs that prefix as a load
+//     phase, one load op's U rows in flight at a time (four independent
+//     loads a thread, 32 warps an SM), before any arithmetic. Holding more
+//     ops' rows in flight costs a thread registers or a block shared
+//     memory, and on the card that lost more than it gained: two ops' rows
+//     in registers spilled, and cp.async copies of every op's rows into
+//     shared memory (no registers held) ran slower than loads op by op and
+//     their staging cost a block an SM (PERF.md, Findings). A program that
+//     reloads its lanes (one past its register budget) keeps its loads
+//     where they are, each issuing U independent loads.
+//   * The register file in shared memory: data [register][U][thread] (8
+//     bytes, conflict-free), validity [register][thread] as one byte of U
+//     bits, so three-valued logic and the NULL propagation of arithmetic
+//     are one bitwise op for U rows. The host sizes the block from the
+//     program's registers (nregs * (8U + 1) bytes a thread) and launches
+//     enough blocks to fill every SM (kernels/expr_eval.py launch_shape).
+//   * At block start the constant pool, the lane pointers and (when they
+//     fit) the ops are copied into shared memory, so every warp reads the
+//     same op and takes the same branch.
+//
+// Per row group the thread computes every condition into the mask and
+// every value output, and stores each output once: one launch per
+// program, where the reference's trace issued one array op per tree node.
 //
 // Arithmetic, as the reference's XLA CPU program computes it:
 //   * int64 adds, subtracts and multiplies wrap (done in unsigned);
@@ -33,14 +60,10 @@
 //   * comparisons in the domain the compiler chose: signed, unsigned,
 //     double (NaN: only `ne` holds) or mixed signed/unsigned (class, lo).
 //
-// Bound: bytes. Each row reads its input lanes (8 bytes a data lane, 4 a
-// dict-code lane, 1 a valid lane) and writes its outputs (8 or 1 bytes);
-// the interpreter's per-op dispatch is the risk on long programs.
-//
 // Task-grid mode (K10, tidb_tpu/copr/tpu_engine.py:1096-1134): the same
-// program over G tasks of a launch group, one launch; each task's lanes
-// are read through its row of the pointer tables, the first `n` (the
-// group's narrowed width) rows of each.
+// kernel body over G tasks of a launch group, one launch; each task's
+// lanes are read through its row of the pointer tables, the first `n`
+// (the group's narrowed width) rows of each.
 //
 // Plain C interface (nvcc + ctypes): kernels/expr_eval.py fills a Params
 // struct; tt_expr_eval launches on the given stream, never synchronizes,
@@ -50,12 +73,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 typedef long long ll;
 typedef unsigned long long ull;
 
 constexpr int MAX_PTRS = 192;
+constexpr int U = 4;   // rows per thread (expr/program.py ROWS)
+constexpr unsigned ALLV = (1u << U) - 1;
 
 enum Code : int32_t {
   NOP = 0, LD8, LD4, LDB, LDK, I2F, U2F, F2I, RINT, FDIVK, IMULK, RDIVK,
@@ -74,7 +101,7 @@ struct KParams {
   const ll* ext_in;
   const ll* ext_out;
   ll n;
-  int nops, nk, nregs, n_in, n_out, ops_in_smem;
+  int nops, nk, nregs, n_in, n_out, ops_in_smem, nld;
   ll in[MAX_PTRS];
   ll out[MAX_PTRS];
 };
@@ -145,14 +172,101 @@ __device__ __forceinline__ bool compare(int aux, ll a, ll b) {
   }
 }
 
-__global__ void expr_eval_kernel(const KParams p) {
+__device__ __forceinline__ bool aligned(ll p, int bytes) { return (p & (bytes - 1)) == 0; }
+
+// The U rows from r0 of a lane (past n: 0). `full`: every row is below n.
+__device__ __forceinline__ void ld8(ll base, ll r0, ll n, bool full, ll (&d)[U]) {
+  const ll* q = reinterpret_cast<const ll*>(base) + r0;
+  if (full && aligned(base, 16)) {
+    const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(q));
+    const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(q) + 1);
+    d[0] = a.x;
+    d[1] = a.y;
+    d[2] = b.x;
+    d[3] = b.y;
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) d[u] = r0 + u < n ? __ldg(q + u) : 0;
+}
+
+__device__ __forceinline__ void ld4(ll base, ll r0, ll n, bool full, ll (&d)[U]) {
+  const int32_t* q = reinterpret_cast<const int32_t*>(base) + r0;
+  if (full && aligned(base, 16)) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(q));
+    d[0] = a.x;
+    d[1] = a.y;
+    d[2] = a.z;
+    d[3] = a.w;
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) d[u] = r0 + u < n ? (ll)__ldg(q + u) : 0;
+}
+
+// bit u: byte r0 + u of a byte lane is nonzero
+__device__ __forceinline__ unsigned ldbits(ll base, ll r0, ll n, bool full) {
+  const unsigned char* q = reinterpret_cast<const unsigned char*>(base) + r0;
+  if (full && aligned(base, 4)) {
+    const unsigned m = __vcmpne4(__ldg(reinterpret_cast<const unsigned*>(q)), 0u);
+    return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) | ((m >> 28) & 8u);
+  }
+  unsigned b = 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (r0 + u < n && __ldg(q + u)) b |= 1u << u;
+  return b;
+}
+
+__device__ __forceinline__ void st8(ll base, ll r0, ll n, bool full, const ll (&d)[U]) {
+  ll* q = reinterpret_cast<ll*>(base) + r0;
+  if (full && aligned(base, 16)) {
+    reinterpret_cast<longlong2*>(q)[0] = make_longlong2(d[0], d[1]);
+    reinterpret_cast<longlong2*>(q)[1] = make_longlong2(d[2], d[3]);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (r0 + u < n) q[u] = d[u];
+}
+
+// bytes r0 .. r0 + U - 1 of a bool lane: bit u of `bits`
+__device__ __forceinline__ void stbits(ll base, ll r0, ll n, bool full, unsigned bits) {
+  unsigned char* q = reinterpret_cast<unsigned char*>(base) + r0;
+  if (full && aligned(base, 4)) {
+    *reinterpret_cast<unsigned*>(q) = (bits & 1u) | ((bits & 2u) << 7) | ((bits & 4u) << 14) | ((bits & 8u) << 21);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (r0 + u < n) q[u] = (bits >> u) & 1u;
+}
+
+// A load op's U rows: data and validity bits.
+__device__ __forceinline__ void load_op(const Op& o, const ll* sin, ll r0, ll n, bool full, ll (&d)[U],
+                                        unsigned& v) {
+  if (o.code == LDB) {
+    const unsigned b = ldbits(sin[o.a], r0, n, full);
+#pragma unroll
+    for (int u = 0; u < U; ++u) d[u] = (b >> u) & 1u;
+    v = ALLV;
+    return;
+  }
+  if (o.code == LD8)
+    ld8(sin[o.a], r0, n, full, d);
+  else
+    ld4(sin[o.a], r0, n, full, d);
+  v = o.b < 0 ? ALLV : ldbits(sin[o.b], r0, n, full);
+}
+
+__global__ void __launch_bounds__(256, 4) expr_eval_kernel(const KParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = blockDim.x, t = threadIdx.x;
   ll* sk = reinterpret_cast<ll*>(smem);
   ll* sin = sk + p.nk;
   ll* sout = sin + p.n_in;
   ll* R = sout + p.n_out;
-  unsigned char* V = reinterpret_cast<unsigned char*>(R + (ll)p.nregs * T);
+  unsigned char* V = reinterpret_cast<unsigned char*>(R + (ll)p.nregs * U * T);
   Op* sops = reinterpret_cast<Op*>(V + (((ll)p.nregs * T + 15) & ~15LL));
   for (int j = t; j < p.nk; j += T) sk[j] = p.consts[j];
   // the pointer tables: by value, or in device memory as [tasks, n] rows
@@ -163,110 +277,209 @@ __global__ void expr_eval_kernel(const KParams p) {
     for (int j = t; j < p.nops; j += T) sops[j] = p.ops[j];
   __syncthreads();
   const Op* ops = p.ops_in_smem ? sops : p.ops;
-#define RD(r) R[(ll)(r) * T + t]
-#define VD(r) V[(ll)(r) * T + t]
-  for (ll i = (ll)blockIdx.x * T + t; i < p.n; i += (ll)gridDim.x * T) {
-    for (int k = 0; k < p.nops; ++k) {
+#define RD(r, u) R[((ll)(r) * U + (u)) * T + t]
+#define VB(r) V[(ll)(r) * T + t]
+#define FOR_U _Pragma("unroll") for (int u = 0; u < U; ++u)
+  const ll n = p.n, groups = (n + U - 1) / U;
+  for (ll g = (ll)blockIdx.x * T + t; g < groups; g += (ll)gridDim.x * T) {
+    const ll r0 = g * U;
+    const bool full = r0 + U <= n;
+    // the load phase: each load op's U rows in flight, then into the
+    // register file
+    for (int k = 0; k < p.nld; ++k) {
+      ll d[U];
+      unsigned v;
+      const Op& o = ops[k];
+      load_op(o, sin, r0, n, full, d, v);
+      FOR_U RD(o.dst, u) = d[u];
+      VB(o.dst) = (unsigned char)v;
+    }
+    for (int k = p.nld; k < p.nops; ++k) {
       const Op o = ops[k];
-      ll d = 0;
-      unsigned char v = 1;
+      ll d[U];
+      unsigned v = ALLV;
       switch (o.code) {
         case LD8:
-          d = reinterpret_cast<const ll*>(sin[o.a])[i];
-          v = o.b < 0 ? 1 : reinterpret_cast<const unsigned char*>(sin[o.b])[i] != 0;
-          break;
         case LD4:
-          d = (ll) reinterpret_cast<const int32_t*>(sin[o.a])[i];
-          v = o.b < 0 ? 1 : reinterpret_cast<const unsigned char*>(sin[o.b])[i] != 0;
-          break;
         case LDB:
-          d = reinterpret_cast<const unsigned char*>(sin[o.a])[i] != 0;
+          load_op(o, sin, r0, n, full, d, v);
           break;
         case LDK:
-          d = sk[o.a];
-          v = (unsigned char)o.aux;
+          FOR_U d[u] = sk[o.a];
+          v = o.aux ? ALLV : 0u;
           break;
-        case I2F: d = as_i(__ll2double_rn(RD(o.a))); v = VD(o.a); break;
-        case U2F: d = as_i(__ull2double_rn((ull)RD(o.a))); v = VD(o.a); break;
-        case F2I: d = sat_i64(trunc(as_f(RD(o.a)))); v = VD(o.a); break;
-        case RINT: d = sat_i64(rint(as_f(RD(o.a)))); v = VD(o.a); break;
-        case FDIVK: d = as_i(daz(__ddiv_rn(daz(as_f(RD(o.a))), as_f(sk[o.b])))); v = VD(o.a); break;
-        case IMULK: d = (ll)((ull)RD(o.a) * (ull)sk[o.b]); v = VD(o.a); break;
-        case RDIVK: d = round_div(RD(o.a), sk[o.b]); v = VD(o.a); break;
-        case IADD: d = (ll)((ull)RD(o.a) + (ull)RD(o.b)); v = VD(o.a) & VD(o.b); break;
-        case ISUB: d = (ll)((ull)RD(o.a) - (ull)RD(o.b)); v = VD(o.a) & VD(o.b); break;
-        case IMUL: d = (ll)((ull)RD(o.a) * (ull)RD(o.b)); v = VD(o.a) & VD(o.b); break;
+        case I2F:
+          FOR_U d[u] = as_i(__ll2double_rn(RD(o.a, u)));
+          v = VB(o.a);
+          break;
+        case U2F:
+          FOR_U d[u] = as_i(__ull2double_rn((ull)RD(o.a, u)));
+          v = VB(o.a);
+          break;
+        case F2I:
+          FOR_U d[u] = sat_i64(trunc(as_f(RD(o.a, u))));
+          v = VB(o.a);
+          break;
+        case RINT:
+          FOR_U d[u] = sat_i64(rint(as_f(RD(o.a, u))));
+          v = VB(o.a);
+          break;
+        case FDIVK: {
+          const double k = as_f(sk[o.b]);
+          FOR_U d[u] = as_i(daz(__ddiv_rn(daz(as_f(RD(o.a, u))), k)));
+          v = VB(o.a);
+          break;
+        }
+        case IMULK: {
+          const ull k = (ull)sk[o.b];
+          FOR_U d[u] = (ll)((ull)RD(o.a, u) * k);
+          v = VB(o.a);
+          break;
+        }
+        case RDIVK: {
+          const ll k = sk[o.b];
+          FOR_U d[u] = round_div(RD(o.a, u), k);
+          v = VB(o.a);
+          break;
+        }
+        case IADD:
+          FOR_U d[u] = (ll)((ull)RD(o.a, u) + (ull)RD(o.b, u));
+          v = VB(o.a) & VB(o.b);
+          break;
+        case ISUB:
+          FOR_U d[u] = (ll)((ull)RD(o.a, u) - (ull)RD(o.b, u));
+          v = VB(o.a) & VB(o.b);
+          break;
+        case IMUL:
+          FOR_U d[u] = (ll)((ull)RD(o.a, u) * (ull)RD(o.b, u));
+          v = VB(o.a) & VB(o.b);
+          break;
         case FADD:
-          d = as_i(daz(__dadd_rn(daz(as_f(RD(o.a))), daz(as_f(RD(o.b))))));
-          v = VD(o.a) & VD(o.b);
+          FOR_U d[u] = as_i(daz(__dadd_rn(daz(as_f(RD(o.a, u))), daz(as_f(RD(o.b, u))))));
+          v = VB(o.a) & VB(o.b);
           break;
         case FSUB:
-          d = as_i(daz(__dsub_rn(daz(as_f(RD(o.a))), daz(as_f(RD(o.b))))));
-          v = VD(o.a) & VD(o.b);
+          FOR_U d[u] = as_i(daz(__dsub_rn(daz(as_f(RD(o.a, u))), daz(as_f(RD(o.b, u))))));
+          v = VB(o.a) & VB(o.b);
           break;
         case FMUL:
-          d = as_i(daz(__dmul_rn(daz(as_f(RD(o.a))), daz(as_f(RD(o.b))))));
-          v = VD(o.a) & VD(o.b);
+          FOR_U d[u] = as_i(daz(__dmul_rn(daz(as_f(RD(o.a, u))), daz(as_f(RD(o.b, u))))));
+          v = VB(o.a) & VB(o.b);
           break;
-        case INEG: d = (ll)(0ULL - (ull)RD(o.a)); v = VD(o.a); break;
-        case FNEG: d = RD(o.a) ^ (ll)0x8000000000000000ULL; v = VD(o.a); break;
+        case INEG:
+          FOR_U d[u] = (ll)(0ULL - (ull)RD(o.a, u));
+          v = VB(o.a);
+          break;
+        case FNEG:
+          FOR_U d[u] = RD(o.a, u) ^ (ll)0x8000000000000000ULL;
+          v = VB(o.a);
+          break;
         case CMP: {
-          const unsigned char va = VD(o.a), vb = VD(o.b);
-          const bool r = compare(o.aux, RD(o.a), RD(o.b));
+          const unsigned va = VB(o.a), vb = VB(o.b);
           if ((o.aux >> 7) & 1) {  // nulleq: NULL <=> NULL holds, never NULL
-            d = (r && va && vb) || (!va && !vb);
+            FOR_U {
+              const bool a_ok = (va >> u) & 1, b_ok = (vb >> u) & 1;
+              d[u] = (compare(o.aux, RD(o.a, u), RD(o.b, u)) && a_ok && b_ok) || (!a_ok && !b_ok);
+            }
           } else {
-            d = r;
+            FOR_U d[u] = compare(o.aux, RD(o.a, u), RD(o.b, u));
             v = va & vb;
           }
           break;
         }
-        case IN0: d = 0; v = !VD(o.a); break;
+        case IN0:
+          FOR_U d[u] = 0;
+          v = ~(unsigned)VB(o.a) & ALLV;
+          break;
         case IN: {  // dst accumulates (hit, any_null)
-          const unsigned char vb = VD(o.b);
-          const bool e = compare(o.aux & 0x63, RD(o.a), RD(o.b)) && vb;
-          d = RD(o.dst) | (ll)e;
-          v = VD(o.dst) | !vb;
+          const unsigned vb = VB(o.b);
+          FOR_U d[u] = RD(o.dst, u) | (ll)(compare(o.aux & 0x63, RD(o.a, u), RD(o.b, u)) && ((vb >> u) & 1));
+          v = (VB(o.dst) | ~vb) & ALLV;
           break;
         }
         case INF: {
-          const ll hit = RD(o.a);
-          d = hit;
-          v = VD(o.b) && (hit != 0 || !VD(o.a));
+          const unsigned va = VB(o.a), vb = VB(o.b);
+          v = 0;
+          FOR_U {
+            const ll hit = RD(o.a, u);
+            d[u] = hit;
+            if (((vb >> u) & 1) && (hit != 0 || !((va >> u) & 1))) v |= 1u << u;
+          }
           break;
         }
         case AND: {
-          const unsigned char va = VD(o.a), vb = VD(o.b);
-          const bool ta = nz(RD(o.a), o.aux & 1), tb = nz(RD(o.b), (o.aux >> 1) & 1);
-          const bool false_any = (va && !ta) || (vb && !tb);
-          d = ta && tb && va && vb;
-          v = (va && vb) || false_any;
+          const unsigned va = VB(o.a), vb = VB(o.b);
+          unsigned ta = 0, tb = 0;
+          FOR_U {
+            ta |= (unsigned)nz(RD(o.a, u), o.aux & 1) << u;
+            tb |= (unsigned)nz(RD(o.b, u), (o.aux >> 1) & 1) << u;
+          }
+          const unsigned all = ta & tb & va & vb;
+          FOR_U d[u] = (all >> u) & 1;
+          v = (va & vb) | (va & ~ta) | (vb & ~tb);  // known, or some side known false
           break;
         }
         case OR: {
-          const unsigned char va = VD(o.a), vb = VD(o.b);
-          const bool tr = (nz(RD(o.a), o.aux & 1) && va) || (nz(RD(o.b), (o.aux >> 1) & 1) && vb);
-          d = tr;
-          v = (va && vb) || tr;
+          const unsigned va = VB(o.a), vb = VB(o.b);
+          unsigned tr = 0;
+          FOR_U tr |= (unsigned)((nz(RD(o.a, u), o.aux & 1) && ((va >> u) & 1)) ||
+                                 (nz(RD(o.b, u), (o.aux >> 1) & 1) && ((vb >> u) & 1)))
+                      << u;
+          FOR_U d[u] = (tr >> u) & 1;
+          v = (va & vb) | tr;
           break;
         }
-        case NOT: d = !nz(RD(o.a), o.aux & 1); v = VD(o.a); break;
-        case ISNULL: d = !VD(o.a); break;
-        case MASK: d = RD(o.dst) != 0 && VD(o.a) && nz(RD(o.a), o.aux & 1); break;
-        case ZNULL: d = VD(o.a) ? RD(o.a) : 0; v = VD(o.a); break;
-        case IHI: d = RD(o.a) >> 32; v = VD(o.a); break;
-        case ILO: d = RD(o.a) & 0xFFFFFFFFLL; v = VD(o.a); break;
-        case ST8: reinterpret_cast<ll*>(sout[o.dst])[i] = RD(o.a); continue;
-        case STV: reinterpret_cast<unsigned char*>(sout[o.dst])[i] = VD(o.a); continue;
-        case STB: reinterpret_cast<unsigned char*>(sout[o.dst])[i] = RD(o.a) != 0; continue;
-        default: continue;
+        case NOT:
+          FOR_U d[u] = !nz(RD(o.a, u), o.aux & 1);
+          v = VB(o.a);
+          break;
+        case ISNULL: {
+          const unsigned va = VB(o.a);
+          FOR_U d[u] = !((va >> u) & 1);
+          break;
+        }
+        case MASK: {
+          const unsigned va = VB(o.a);
+          FOR_U d[u] = RD(o.dst, u) != 0 && ((va >> u) & 1) && nz(RD(o.a, u), o.aux & 1);
+          break;
+        }
+        case ZNULL: {
+          const unsigned va = VB(o.a);
+          FOR_U d[u] = ((va >> u) & 1) ? RD(o.a, u) : 0;
+          v = va;
+          break;
+        }
+        case IHI:
+          FOR_U d[u] = RD(o.a, u) >> 32;
+          v = VB(o.a);
+          break;
+        case ILO:
+          FOR_U d[u] = RD(o.a, u) & 0xFFFFFFFFLL;
+          v = VB(o.a);
+          break;
+        case ST8:
+          FOR_U d[u] = RD(o.a, u);
+          st8(sout[o.dst], r0, n, full, d);
+          continue;
+        case STV:
+          stbits(sout[o.dst], r0, n, full, VB(o.a));
+          continue;
+        case STB: {
+          unsigned b = 0;
+          FOR_U b |= (unsigned)(RD(o.a, u) != 0) << u;
+          stbits(sout[o.dst], r0, n, full, b);
+          continue;
+        }
+        default:
+          continue;
       }
-      RD(o.dst) = d;
-      VD(o.dst) = v;
+      FOR_U RD(o.dst, u) = d[u];
+      VB(o.dst) = (unsigned char)v;
     }
   }
 #undef RD
-#undef VD
+#undef VB
+#undef FOR_U
 }
 
 }  // namespace
@@ -278,25 +491,38 @@ struct Params {
   const void* ext_in;
   const void* ext_out;
   int64_t n;
-  int nops, nk, nregs, n_in, n_out, threads, blocks, ops_in_smem;
+  int nops, nk, nregs, n_in, n_out, threads, blocks, ops_in_smem, nld;
   int64_t smem;
   int64_t in_ptrs[MAX_PTRS];
   int64_t out_ptrs[MAX_PTRS];
 };
 
 static int launch(const Params* h, int tasks, void* stream) {
-  if (h->n < 0 || h->nops < 0 || h->nregs < 0 || h->threads < 32 || h->threads > 1024 || h->blocks < 1)
+  if (h->n < 0 || h->nops < 0 || h->nregs < 0 || h->threads < 32 || h->threads > 256 || h->blocks < 1 ||
+      h->nld < 0 || h->nld > h->nops)
     return -1;
   if ((h->n_in > MAX_PTRS && !h->ext_in) || (h->n_out > MAX_PTRS && !h->ext_out)) return -1;
-  const int64_t need = 8LL * (h->nk + h->n_in + h->n_out) + 8LL * h->nregs * h->threads +
+  const int64_t need = 8LL * (h->nk + h->n_in + h->n_out) + 8LL * U * h->nregs * h->threads +
                        ((int64_t)h->nregs * h->threads + 15) / 16 * 16 +
                        (h->ops_in_smem ? 20LL * h->nops : 0);
-  if (need > h->smem || h->smem > 227 * 1024) return -1;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(expr_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    attr = true;
+  // The opt-in limit (less the kernel's static shared memory) is the
+  // function's attribute on each device: set once a device, a bit each (a
+  // mesh's ranks launch from threads at once; setting it twice does no harm).
+  static std::atomic<unsigned long long> set_on{0};
+  static std::atomic<int> dyn_max{-1};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return (int)cudaGetLastError();
+  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
+  if (bit == 0 || !(set_on.load(std::memory_order_acquire) & bit)) {
+    cudaFuncAttributes fa;
+    if (cudaFuncGetAttributes(&fa, expr_eval_kernel) != cudaSuccess) return (int)cudaGetLastError();
+    const int lim = 227 * 1024 - (int)fa.sharedSizeBytes;
+    if (cudaFuncSetAttribute(expr_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lim) != cudaSuccess)
+      return (int)cudaGetLastError();
+    dyn_max.store(lim);
+    set_on.fetch_or(bit, std::memory_order_release);
   }
+  if (need > h->smem || h->smem > dyn_max.load()) return -1;
   KParams p;
   p.ops = (const Op*)h->ops;
   p.consts = (const ll*)h->consts;
@@ -309,6 +535,7 @@ static int launch(const Params* h, int tasks, void* stream) {
   p.n_in = h->n_in;
   p.n_out = h->n_out;
   p.ops_in_smem = h->ops_in_smem;
+  p.nld = h->nld;
   for (int j = 0; j < MAX_PTRS; ++j) {
     p.in[j] = j < h->n_in && !h->ext_in ? h->in_ptrs[j] : 0;
     p.out[j] = j < h->n_out && !h->ext_out ? h->out_ptrs[j] : 0;

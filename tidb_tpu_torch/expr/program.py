@@ -43,12 +43,14 @@ A program computes, in one pass over the rows:
 A bare column needs no work: its lanes come back as they were given.
 
 Each input lane is loaded once per row into a register and held until
-its last use. Registers are allocated by liveness after a Sethi-Ullman
-ordering of the tree, and the kernel sizes its register file from the
-program. When the held lanes would need more registers than one block's
-shared memory holds (or than `max_regs`), the program reloads a lane at
-each use instead, which needs about log2(tree size) registers: no
-expression is declined for its depth or width.
+its last use; the loads come first in the program (the kernel's load
+phase issues them together, ahead of any arithmetic). Registers are
+allocated by liveness after a Sethi-Ullman ordering of the tree, and the
+kernel sizes its register file from the program. When the loads first
+would need more registers than REG_BUDGET (or than `max_regs`), each lane
+is loaded at its first use; when even that does not fit, the program
+reloads a lane at each use, which needs about log2(tree size) registers:
+no expression is declined for its depth or width.
 
 An engine keeps its programs in a `ProgramCache`, keyed by the trees'
 structure (every node's FieldType included), the lane kinds and the
@@ -91,9 +93,12 @@ for _n in ("IADD", "ISUB", "IMUL", "FADD", "FSUB", "FMUL", "CMP", "AND", "OR", "
     _REGS[_n] = (1, 1, 1)
 
 SMEM_MAX = 227 * 1024  # a block's shared memory on Hopper (bytes)
-# registers (8 data bytes and a valid byte each) a block of 32 threads can
-# hold beside a program's tables: the register budget of a program
-REG_BUDGET = (SMEM_MAX - 64 * 1024) // (32 * 9)
+ROWS = 4  # rows a thread of the kernel evaluates at once (csrc/expr_eval.cu U)
+# registers (8 data bytes a row and a valid bit a row, in one byte, for
+# ROWS rows) a block of 32 threads can hold beside a program's tables: the
+# register budget of a program
+REG_BUDGET = (SMEM_MAX - 64 * 1024) // (32 * (8 * ROWS + 1))
+LOADS = ("LD8", "LD4", "LDB")  # the lane loads, which a program emits first
 _I64_MAX = (1 << 63) - 1
 
 
@@ -136,6 +141,15 @@ class Program:
     @property
     def launches_kernel(self) -> bool:
         return len(self.ops) > 0
+
+    @property
+    def loads(self) -> int:
+        """The leading run of lane loads: the kernel's load phase."""
+        names = {OP[n] for n in LOADS}
+        k = 0
+        while k < len(self.ops) and int(self.ops[k, 0]) in names:
+            k += 1
+        return k
 
     def tables(self, device: torch.device):
         """(ops, consts) on `device`, uploaded once."""
@@ -467,11 +481,14 @@ def _allocate(code: list, nv: int):
     return out, top
 
 
-def _compile(conds, values, lane_kinds, with_mask: bool, reload: bool):
+def _compile(conds, values, lane_kinds, with_mask: bool, reload: bool, hoist: bool = False):
     em = _Emitter(lane_kinds, reload)
     mask_slot = em.mask(conds) if with_mask else None
     outs = [em.value(s) for s in values]
-    ops, nregs = _allocate(em.code, em.nv)
+    code = em.code
+    if hoist:  # every lane load first, in order: the kernel's load phase, ahead of any arithmetic
+        code = [c for c in code if c[0] in LOADS] + [c for c in code if c[0] not in LOADS]
+    ops, nregs = _allocate(code, em.nv)
     return Program(ops, np.array(em.consts, dtype=np.int64), nregs, em.inputs, em.outputs, mask_slot, outs, reload)
 
 
@@ -500,13 +517,14 @@ def compile_program(conds, values=(), lane_kinds=None, *, mask: bool = True, max
     | "f64"}). `max_regs` caps the register file (default REG_BUDGET)."""
     lane_kinds = dict(lane_kinds or {})
     cap = REG_BUDGET if max_regs is None else max_regs
-    prog = _compile(list(conds), list(values), lane_kinds, mask, reload=False)
-    if prog.nregs > cap:
-        prog = _compile(list(conds), list(values), lane_kinds, mask, reload=True)
-        if prog.nregs > cap:
-            raise ValueError(f"expression program: {prog.nregs} live registers exceed {cap} even with "
-                             "every lane reloaded at its use")
-    return prog
+    # the loads first where the registers allow it, else each lane loaded at
+    # its first use, else reloaded at each use
+    for reload, hoist in ((False, True), (False, False), (True, False)):
+        prog = _compile(list(conds), list(values), lane_kinds, mask, reload=reload, hoist=hoist)
+        if prog.nregs <= cap:
+            return prog
+    raise ValueError(f"expression program: {prog.nregs} live registers exceed {cap} even with "
+                     "every lane reloaded at its use")
 
 
 class ProgramCache:

@@ -34,7 +34,9 @@ chip_smoke.py battery):
 
 `expr_eval` takes the plain version only for tensors on the CPU. On a
 CUDA device it launches the kernel or raises; `expr_eval.launches` counts
-the launches.
+the launches. `launch_shape` sizes a launch from the program's registers
+(tests/test_torch_launch_plans.py); `expr_eval_prepare` stops short of
+the launch.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ import ctypes
 import numpy as np
 import torch
 
-from ..expr.program import DOM_F, DOM_U, DOM_X, OP, SMEM_MAX, Program
+from ..expr.program import DOM_F, DOM_U, DOM_X, OP, ROWS, SMEM_MAX, Program
 from .build import count, library
+from .tables import sm_count
 
 _NAMES = {v: k for k, v in OP.items()}
 _I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
@@ -216,7 +219,7 @@ class _Params(ctypes.Structure):
                 ("ext_out", ctypes.c_void_p), ("n", ctypes.c_int64), ("nops", ctypes.c_int),
                 ("nk", ctypes.c_int), ("nregs", ctypes.c_int), ("n_in", ctypes.c_int), ("n_out", ctypes.c_int),
                 ("threads", ctypes.c_int), ("blocks", ctypes.c_int), ("ops_in_smem", ctypes.c_int),
-                ("smem", ctypes.c_int64),
+                ("nld", ctypes.c_int), ("smem", ctypes.c_int64),
                 ("in_ptrs", ctypes.c_int64 * MAX_PTRS), ("out_ptrs", ctypes.c_int64 * MAX_PTRS)]
 
 
@@ -232,21 +235,48 @@ def _lib():
     return lib
 
 
+MAX_THREADS = 256  # a block's threads at most (the kernel's launch bounds)
+MIN_BLOCKS = 4  # blocks of MAX_THREADS an SM holds (the launch bounds: at most 64 registers a thread)
+SM_THREADS = MAX_THREADS * MIN_BLOCKS  # resident threads of an SM, by registers
+SM_SMEM = 228 * 1024  # shared memory of an SM (bytes)
+
+
+def register_bytes(nregs: int, threads: int) -> int:
+    """Shared bytes of a block's register file: ROWS 8-byte data words a
+    register and thread, and a byte of ROWS valid bits (rounded to 16)."""
+    return 8 * ROWS * nregs * threads + (nregs * threads + 15) // 16 * 16
+
+
+def _shape(prog: Program, threads: int):
+    """(shared bytes, ops in shared memory, resident blocks an SM) of a
+    block of `threads`, or None when its register file does not fit."""
+    tables = 8 * (len(prog.consts) + len(prog.inputs) + len(prog.outputs))
+    regs = register_bytes(prog.nregs, threads)
+    if tables + regs > SMEM_MAX:
+        return None
+    in_smem = tables + regs + 20 * len(prog.ops) <= SMEM_MAX
+    smem = tables + regs + (20 * len(prog.ops) if in_smem else 0)
+    return smem, in_smem, max(1, min(SM_THREADS // threads, SM_SMEM // (smem + 1024)))
+
+
 def launch_shape(prog: Program, n: int, n_sms: int):
     """(threads, blocks, shared bytes, ops in shared memory) of a launch:
-    the register file (8 + 1 bytes per register and thread) sizes the
-    block; the op table joins it in shared memory when it fits."""
-    tables = 8 * (len(prog.consts) + len(prog.inputs) + len(prog.outputs))
-    ops = 20 * len(prog.ops)
-    threads = 256
-    while threads > 32 and tables + prog.nregs * threads * 9 + 16 > SMEM_MAX:
-        threads -= 32
-    regs = prog.nregs * threads * 9 + 16
-    in_smem = tables + regs + ops <= SMEM_MAX
-    smem = tables + regs + (ops if in_smem else 0)
-    if smem > SMEM_MAX:
-        raise ValueError(f"expr_eval: {prog.nregs} registers do not fit one block's shared memory")
-    blocks = max(1, min((n + threads - 1) // threads, n_sms * (2048 // threads)))
+    the register file (nregs * (8 * ROWS + 1) bytes a thread) sizes the
+    block — of the multiples of 32 up to MAX_THREADS whose file fits, the
+    one that keeps the most threads on an SM (the largest of equals); the
+    op table joins it in shared memory when it fits; the grid is as many
+    blocks as every SM holds at once, or fewer when the rows run out, each
+    thread taking ROWS rows at a time."""
+    best = None
+    for threads in range(MAX_THREADS, 31, -32):
+        shape = _shape(prog, threads)
+        if shape is not None and (best is None or shape[2] * threads > best[3] * best[0]):
+            best = (threads,) + shape
+    if best is None:
+        raise ValueError(f"expression program: {prog.nregs} registers do not fit one block's shared memory")
+    threads, smem, in_smem, per_sm = best
+    groups = -(-n // ROWS)
+    blocks = max(1, min(-(-groups // threads), n_sms * per_sm))
     return threads, blocks, smem, in_smem
 
 
@@ -257,6 +287,17 @@ def expr_eval(prog: Program, ins: list, n: int) -> list:
         return expr_eval_ref(prog, ins, n)
     if dev.type != "cuda":
         raise ValueError(f"expr_eval: unsupported device {dev}")
+    outs, go = expr_eval_prepare(prog, ins, n)
+    if go is not None:
+        go()
+        count(expr_eval)
+    return outs
+
+
+def expr_eval_prepare(prog: Program, ins: list, n: int):
+    """The call on the card up to its launch: the outputs, and `go()`,
+    which enqueues the kernel over them (None when n is 0)."""
+    dev = ins[0].device
     if len(ins) != len(prog.inputs):
         raise ValueError(f"expr_eval: {len(prog.inputs)} input lanes, got {len(ins)}")
     for t in ins:
@@ -266,13 +307,12 @@ def expr_eval(prog: Program, ins: list, n: int) -> list:
             raise TypeError(f"expr_eval: lane dtype {t.dtype}")
     outs = [torch.empty(n, dtype=torch.int64 if w == 8 else torch.bool, device=dev) for w in prog.outputs]
     if n == 0:
-        return outs
+        return outs, None
     ops, consts = prog.tables(dev)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    threads, blocks, smem, in_smem = launch_shape(prog, n, n_sms)
+    threads, blocks, smem, in_smem = launch_shape(prog, n, sm_count(dev))
     p = _Params(ops=ops.data_ptr(), consts=consts.data_ptr(), n=n, nops=len(prog.ops), nk=len(prog.consts),
                 nregs=prog.nregs, n_in=len(ins), n_out=len(outs), threads=threads, blocks=blocks,
-                ops_in_smem=int(in_smem), smem=smem)
+                ops_in_smem=int(in_smem), nld=prog.loads, smem=smem)
     keep = []
     for name, ts, fld in (("in", ins, "in_ptrs"), ("out", outs, "out_ptrs")):
         ptrs = [t.data_ptr() for t in ts]
@@ -282,11 +322,13 @@ def expr_eval(prog: Program, ins: list, n: int) -> list:
             table = torch.tensor(ptrs, dtype=torch.int64).to(dev)
             keep.append(table)
             setattr(p, "ext_" + name, table.data_ptr())
-    rc = _lib().tt_expr_eval(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"expr_eval: kernel launch failed (cudaError {rc})")
-    count(expr_eval)
-    return outs
+
+    def go(keep=keep):
+        rc = _lib().tt_expr_eval(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"expr_eval: kernel launch failed (cudaError {rc})")
+
+    return outs, go
 
 
 expr_eval.launches = 0

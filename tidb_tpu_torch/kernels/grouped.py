@@ -52,11 +52,12 @@ on the CPU, and on CUDA tensors launches its kernel or raises.
 `<wrapper>.launches` counts the launches.
 
 A wrapper on the card is `<wrapper>_prepare` (outputs, task table built
-a column at a time by `decode_table` / `expr_tables` / `seg_desc` here,
-`topk.topk_table` or `tables.lane_table` and copied up, and a `go()` that
-enqueues the kernel) followed by one `go()`; K8's mode has no table (its
-operands are the group's own [G, width] lanes). K6's, K7's and K9's
-solo wrappers launch the same kernels as a grid of one task.
+a column at a time by `decode_table` / `expr_tables` here,
+`seg_agg.seg_desc`, `topk.topk_table` or `tables.lane_table` and copied
+up, and a `go()` that enqueues the kernel) followed by one `go()`; K8's
+mode has no table (its operands are the group's own [G, width] lanes).
+K4's, K6's, K7's and K9's solo wrappers launch the same kernels as a
+grid of one task.
 """
 
 from __future__ import annotations
@@ -73,11 +74,13 @@ from .decode_lane import decode_lane_ref
 from .expr_eval import _Params, expr_eval_ref, launch_shape
 from .lex_sort import SortOp, check_on, lex_sort_perm_ref, sort_op
 from .lex_sort import launch as sort_launch
-from .seg_agg import OPS, SegKey, SegLane, _check, _fill_bits, seg_agg_ref
+from .seg_agg import SegKey, SegLane, _check, seg_agg_ref, upload_desc
+from .seg_agg import launch as seg_launch
+from .seg_agg import plan as seg_plan
 from .sort_groups import finish as sort_groups_finish
 from .sort_groups import ops_prepare as sort_groups_prepare
 from .sort_groups import sort_groups_ref
-from .tables import ptrs, to_card
+from .tables import ptrs, rows, sm_count, to_card
 from .topk import orders_in_kernel, topk_ref
 from .topk import select_prepare as topk_tasks_prepare  # K6's task mode up to its launch
 from .topn_multi import ops_prepare as topn_multi_prepare
@@ -96,26 +99,15 @@ def _lib(stem: str):
             lib.tt_decode_rle_tasks.argtypes = [_C, _I, _I, _L, _C]
             for f in (lib.tt_decode_pack_tasks, lib.tt_decode_dict_tasks, lib.tt_decode_rle_tasks):
                 f.restype = _I
-        elif stem == "expr_eval":
+        else:
             lib.tt_expr_eval_tasks.argtypes = [ctypes.POINTER(_Params), _I, _C]
             lib.tt_expr_eval_tasks.restype = _I
-        else:
-            lib.tt_seg_agg_tasks.argtypes = [_C, _I, _L, _I, _I, _L, _I, _I, _C]
-            lib.tt_seg_agg_tasks.restype = _I
         _bound.add(stem)
     return lib
 
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _rows(out: torch.Tensor, G: int) -> np.ndarray:
-    """Addresses of the G rows of a contiguous [G, ...] tensor (0 when it
-    is empty: no kernel reads a row of it)."""
-    if out.numel() == 0:
-        return np.zeros(G, dtype=np.int64)
-    return out.data_ptr() + np.arange(G, dtype=np.int64) * (out.stride(0) * out.element_size())
 
 
 # --- K1's task mode ----------------------------------------------------------
@@ -209,7 +201,7 @@ def decode_table(kind: str, encs: list, width: int, out: torch.Tensor, ends=None
     dtype and shape."""
     G, dev = len(encs), out.get_device()
     tab = np.zeros((G, 5), dtype=np.int64)
-    tab[:, 4] = _rows(out, G)
+    tab[:, 4] = rows(out, G)
     if kind == "pack":
         codes = [e["p"] for e in encs]
         if len({c.element_size() for c in codes}) != 1 or len({e["b"].dtype for e in encs}) != 1:
@@ -228,7 +220,7 @@ def decode_table(kind: str, encs: list, width: int, out: torch.Tensor, ends=None
         if len({(v.dtype, v.shape) for v in vals}) != 1:
             raise ValueError("decode_lane_tasks: rle run arrays differ in shape")
         tab[:, 0] = ptrs(vals, 1, dev, vals[0].dtype, "decode_lane_tasks: rle values")
-        tab[:, 1] = _rows(ends, G)
+        tab[:, 1] = rows(ends, G)
         tab[:, 2] = vals[0].shape[0]
     return tab
 
@@ -278,13 +270,15 @@ def expr_eval_tasks_prepare(prog, ins: list, width: int, dev: torch.device):
         return outs, None
     tin, tout = expr_tables(prog, ins, outs, width)
     ops, consts = prog.tables(dev)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_sms = sm_count(dev)
     threads, blocks, smem, in_smem = launch_shape(prog, width, n_sms)
-    blocks = max(1, min(blocks, -(-n_sms * (2048 // threads) // G)))  # the solo grid, shared out
+    solo = launch_shape(prog, 1 << 62, n_sms)[1]  # the grid that fills the card
+    blocks = max(1, min(blocks, -(-solo // G)))  # the solo grid, shared out over the tasks
     t_in, t_out = to_card(tin, dev), to_card(tout, dev)
     p = _Params(ops=ops.data_ptr(), consts=consts.data_ptr(), ext_in=t_in.data_ptr(), ext_out=t_out.data_ptr(),
                 n=width, nops=len(prog.ops), nk=len(prog.consts), nregs=prog.nregs, n_in=len(prog.inputs),
-                n_out=len(prog.outputs), threads=threads, blocks=blocks, ops_in_smem=int(in_smem), smem=smem)
+                n_out=len(prog.outputs), threads=threads, blocks=blocks, ops_in_smem=int(in_smem),
+                nld=prog.loads, smem=smem)
 
     def go(keep=(t_in, t_out, ops, consts)):
         rc = _lib("expr_eval").tt_expr_eval_tasks(ctypes.byref(p), G, _stream(dev))
@@ -310,7 +304,7 @@ def expr_tables(prog, ins: list, outs: list, width: int) -> tuple:
         tin[:, j] = ptrs([task[j] for task in ins], width, dev, dtype, f"expr_eval_tasks: input slot {j}")
     tout = np.zeros((G, max(n_out, 1)), dtype=np.int64)
     for j, o in enumerate(outs):
-        tout[:, j] = _rows(o, G)
+        tout[:, j] = rows(o, G)
     return tin, tout
 
 
@@ -336,7 +330,9 @@ def seg_agg_tasks_ref(masks: list, keys: list, lanes: list, nseg: int, width: in
     if segs is not None:
         offs = np.concatenate([[0], np.cumsum(counts)]).tolist()
         n_i = sum(1 for lane in lanes[0] if not lane.is_float)
-        empty = (torch.empty((n_i, 0), dtype=torch.int64), torch.empty((len(lanes[0]) - n_i, 0), dtype=torch.float64))
+        dev = masks[0].device  # a task with no group adds empty columns on the tasks' device
+        empty = (torch.empty((n_i, 0), dtype=torch.int64, device=dev),
+                 torch.empty((len(lanes[0]) - n_i, 0), dtype=torch.float64, device=dev))
         per = [seg_agg_ref(m.reshape(-1)[:width], [], [_narrow_lane(l, width) for l in ls], c,
                            seg=sg.reshape(-1)[:width] - off) if c else empty
                for m, ls, sg, c, off in zip(masks, lanes, segs, counts, offs)]
@@ -380,9 +376,9 @@ def seg_agg_tasks_prepare(masks: list, keys: list, lanes: list, nseg: int, width
                           segs=None):
     """K4's task mode up to its launch: the [G, k_i, nseg] / [G, k_f,
     nseg] outputs (with `segs`: the one shared [k_i, nseg] / [k_f, nseg]
-    pair), the descriptor table on the card, and `go()`, which enqueues
-    the kernels over them (each call starts the outputs anew from the
-    fills)."""
+    pair), the descriptor table on the card (one pinned copy), and `go()`,
+    which enqueues the kernel over them by `seg_agg.plan` (each call writes
+    every output anew)."""
     _check(keys[0], lanes[0], nseg)
     if not lanes[0]:
         raise ValueError("seg_agg_tasks: no value lanes")
@@ -391,68 +387,13 @@ def seg_agg_tasks_prepare(masks: list, keys: list, lanes: list, nseg: int, width
     lead = () if segs is not None else (G,)
     iout = torch.empty(lead + (n_i, nseg), dtype=torch.int64, device=dev)
     fout = torch.empty(lead + (nl - n_i, nseg), dtype=torch.float64, device=dev)
-    desc = torch.empty(G * (6 + 5 * nk + 4 * nl), dtype=torch.int64, device=dev)
-    desc.copy_(torch.from_numpy(seg_desc(masks, keys, lanes, width, desc.data_ptr(), iout, fout, segs)).pin_memory(),
-               non_blocking=True)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    desc = upload_desc(masks, keys, lanes, width, iout, fout, segs)
+    p = seg_plan(width, G, nk, nl, nseg, sm_count(dev), shared_out=segs is not None)
 
     def go():
-        rc = _lib("seg_agg").tt_seg_agg_tasks(desc.data_ptr(), G, width, nk, nl, nseg, int(segs is not None), n_sms,
-                                              _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"seg_agg_tasks: kernel launch failed (cudaError {rc})")
+        seg_launch(desc, G, width, nk, nl, nseg, segs is not None, p, "seg_agg_tasks")
 
     return (iout, fout), go
-
-
-def seg_agg_tasks_check(keys: list, lanes: list) -> None:
-    """Every task's key and lane shapes against task 0's: the same count,
-    ops, fills and key bounds (dtypes are checked with the pointers)."""
-    k0 = [(k.lo, k.dom) for k in keys[0]]
-    l0 = [(l.op, l.fill) for l in lanes[0]]
-    for g in range(1, len(keys)):
-        if [(k.lo, k.dom) for k in keys[g]] != k0 or [(l.op, l.fill) for l in lanes[g]] != l0:
-            raise ValueError(f"seg_agg_tasks: task {g}'s lanes differ from task 0's")
-
-
-def seg_desc(masks: list, keys: list, lanes: list, width: int, base: int, iout: torch.Tensor,
-             fout: torch.Tensor, segs=None) -> np.ndarray:
-    """K4's descriptor table, to be copied to the int64 tensor at `base`
-    (laid out as the structs of csrc/seg_agg.cu): G TaskAgg entries, then
-    every task's KeyDesc rows, then every task's LaneDesc rows. Built a
-    column at a time over the tasks. With `segs`, each task's segment
-    lane and the one shared output pair."""
-    seg_agg_tasks_check(keys, lanes)
-    G, nk, nl = len(masks), len(keys[0]), len(lanes[0])
-    dev = iout.get_device()
-    k0, l0 = G * 6, G * (6 + 5 * nk)
-    host = np.zeros(G * (6 + 5 * nk + 4 * nl), dtype=np.int64)
-    task, keyd, laned = host[:k0].reshape(G, 6), host[k0:l0].reshape(G, nk, 5), host[l0:].reshape(G, nl, 4)
-    g = np.arange(G, dtype=np.int64)
-    task[:, 0] = ptrs(masks, width, dev, torch.bool, "seg_agg_tasks: mask")
-    task[:, 2] = base + 8 * (k0 + g * 5 * nk)
-    task[:, 3] = base + 8 * (l0 + g * 4 * nl)
-    if segs is None:
-        task[:, 4], task[:, 5] = _rows(iout, G), _rows(fout, G)
-    else:
-        task[:, 1] = ptrs(segs, width, dev, torch.int32, "seg_agg_tasks: segment lane")
-        task[:, 4], task[:, 5] = (t.data_ptr() if t.numel() else 0 for t in (iout, fout))
-    for j, k in enumerate(keys[0]):
-        col = [ks[j] for ks in keys]
-        keyd[:, j, 0] = ptrs([c.data for c in col], width, dev, k.data.dtype, "seg_agg_tasks: key data")
-        keyd[:, j, 1] = ptrs([c.valid for c in col], width, dev, None, "seg_agg_tasks: key valid")
-        keyd[:, j, 2:] = (k.lo, k.dom, k.data.element_size())
-    n_i = n_f = 0
-    for j, lane in enumerate(lanes[0]):
-        col = [ls[j] for ls in lanes]
-        what = f"seg_agg_tasks: {lane.op}"
-        laned[:, j, 0] = ptrs([c.data for c in col], width, dev, None if lane.data is None else lane.data.dtype,
-                               what + " data")
-        laned[:, j, 1] = ptrs([c.valid for c in col], width, dev, None, what + " valid")
-        laned[:, j, 2] = _fill_bits(lane)
-        laned[:, j, 3] = OPS[lane.op] | ((n_f if lane.is_float else n_i) << 32)  # its output row
-        n_f, n_i = (n_f + 1, n_i) if lane.is_float else (n_f, n_i + 1)
-    return host
 
 
 seg_agg_tasks.launches = 0

@@ -35,18 +35,28 @@ Where trouble lies, and what pins it (tests/test_torch_kernels.py):
 
 `seg_agg` takes the plain version only for tensors on the CPU. On a CUDA
 device it launches the kernel or raises; `seg_agg.launches` counts the
-launches.
+launches. There the solo call is the kernel's task grid as a grid of one
+task (K10's mode, kernels/grouped.py, is the same kernel over G tasks):
+`plan` picks the mode (registers, warp pre-aggregation into per-warp
+slots, or global atomics), the block and the blocks per task;
+`seg_desc` lays out the task table, which goes up in one pinned copy
+(`upload_desc`); `launch` enqueues it with the stream's tickets and
+partials (tables.stream_scratch) when blocks merge; `seg_agg_prepare`
+stops short of the launch (tests/test_torch_launch_plans.py checks the
+plans, the table and a numpy model of the warp pre-aggregation).
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .build import count, library
+from .tables import ptrs, rows, sm_count, stream_scratch
 
 OPS = {
     "count": 0, "sum_i64": 1, "sum_f64": 2,
@@ -57,6 +67,7 @@ OPS = {
 BIT_OPS = {"and_i64": -1, "or_i64": 0, "xor_i64": 0}  # op → its identity, the only fill it takes
 FLOAT_OPS = ("sum_f64", "min_f64", "max_f64")
 _I64_MIN = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
 
 
 @dataclass
@@ -81,9 +92,9 @@ class SegLane:
 
 def _fill_bits(lane: SegLane) -> int:
     if lane.is_float:
-        return int(np.array(lane.fill, dtype=np.float64).view(np.int64))
+        return struct.unpack("<q", struct.pack("<d", float(lane.fill)))[0]
     f = int(lane.fill)
-    return f - (1 << 64) if f > np.iinfo(np.int64).max else f
+    return f - (1 << 64) if f > _I64_MAX else f
 
 
 def _check(keys, lanes, nseg, seg=None) -> None:
@@ -171,6 +182,122 @@ def _stack(rows, dt, nseg, dev):
     return torch.stack(rows) if rows else torch.zeros((0, nseg), dtype=dt, device=dev)
 
 
+# --- the kernel ------------------------------------------------------------
+
+ROWS = 4  # rows a thread takes at a time (csrc/seg_agg.cu U)
+REG_LANES = 4  # MODE_REG's lane limit: nseg 1 with at most this many lanes
+MAX_THREADS = 512  # a block's threads at most (the kernel's launch bounds: two blocks an SM)
+WARP_SLOTS_BYTES = 96 * 1024  # the warps' private slots of one block at most
+SM_SMEM = 228 * 1024  # shared memory of an SM (bytes)
+MERGE_BYTES = 1 << 20  # partials the last block folds, at most, past one block an SM
+MODES = {"reg": 0, "warp": 1, "global": 2}
+LANE_DESC, KEY_DESC, TASK_DESC = 4, 5, 6  # int64 words of LaneDesc, KeyDesc and TaskAgg
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch of csrc/seg_agg.cu: its mode, block size, blocks per task
+    (the grid's x extent; y is the task), shared bytes, and `parts`, the
+    words of the partials [G * blocks, nlanes * nseg] its blocks merge
+    through (0 when nothing merges)."""
+
+    mode: str
+    threads: int
+    blocks: int
+    smem: int
+    parts: int
+
+
+def desc_bytes(nkeys: int, nlanes: int) -> int:
+    """Shared bytes of the descriptors a block copies (csrc desc_bytes):
+    lane and key descriptors, the active-lane and source-lane ints and
+    their count, rounded up to 16."""
+    return (nlanes * 8 * LANE_DESC + nkeys * 8 * KEY_DESC + 8 * nlanes + 4 + 15) // 16 * 16
+
+
+def plan(width: int, G: int, nkeys: int, nlanes: int, nseg: int, n_sms: int, shared_out: bool = False) -> Plan:
+    """The launch of G tasks of `width` rows (csrc/seg_agg.cu's note gives
+    the modes): registers for nseg 1 and at most REG_LANES lanes; the warp
+    mode while 4 or more warps' slots (nlanes * nseg each) fit
+    WARP_SLOTS_BYTES, with up to 16 warps a block; else global atomics.
+    Blocks per task follow the task's width, up to what the card holds at
+    once shared out over the tasks (so a group of G tasks fills the card as
+    one solo launch does) and, past one block an SM, to MERGE_BYTES of
+    partials for the last block to fold."""
+    S = nlanes * nseg
+    if nseg == 1 and nlanes <= REG_LANES:
+        mode, threads = "reg", MAX_THREADS
+    elif WARP_SLOTS_BYTES // (8 * S) >= 4:
+        mode, threads = "warp", 32 * min(MAX_THREADS // 32, WARP_SLOTS_BYTES // (8 * S))
+    else:
+        mode, threads = "global", 256
+    smem = desc_bytes(nkeys, nlanes)
+    if mode != "global":
+        smem += 8 * max(threads // 32 * S, threads)
+    per_sm = max(1, min(2 * MAX_THREADS // threads, SM_SMEM // (smem + 1024)))
+    need = max(1, -(-width // (threads * ROWS)))
+    blocks = min(need, max(1, -(-n_sms * per_sm // G)))
+    if mode == "global":
+        blocks = min(blocks, 65535)
+    else:
+        merged = G if shared_out else 1  # tasks whose partials one last block folds
+        blocks = min(blocks, max(-(-n_sms // G), MERGE_BYTES // (8 * S * merged), 1))
+    merges = mode != "global" and (blocks > 1 or (shared_out and G > 1))
+    return Plan(mode, threads, blocks, smem, G * blocks * S if merges else 0)
+
+
+def seg_agg_tasks_check(keys: list, lanes: list) -> None:
+    """Every task's key and lane shapes against task 0's: the same count,
+    ops, fills and key bounds (dtypes are checked with the pointers)."""
+    k0 = [(k.lo, k.dom) for k in keys[0]]
+    l0 = [(l.op, l.fill) for l in lanes[0]]
+    for g in range(1, len(keys)):
+        if [(k.lo, k.dom) for k in keys[g]] != k0 or [(l.op, l.fill) for l in lanes[g]] != l0:
+            raise ValueError(f"seg_agg_tasks: task {g}'s lanes differ from task 0's")
+
+
+def seg_desc(masks: list, keys: list, lanes: list, width: int, base: int, iout: torch.Tensor,
+             fout: torch.Tensor, segs=None) -> np.ndarray:
+    """K4's descriptor table, to be copied to the int64 tensor at `base`
+    (laid out as the structs of csrc/seg_agg.cu): G TaskAgg entries, then
+    every task's KeyDesc rows, then every task's LaneDesc rows. Built a
+    column at a time over the tasks. Without `segs`, `iout` / `fout` are
+    [G, k, nseg] and task g writes row g; with `segs`, each task's segment
+    lane and the one shared output pair."""
+    seg_agg_tasks_check(keys, lanes)
+    G, nk, nl = len(masks), len(keys[0]), len(lanes[0])
+    dev = iout.get_device()
+    k0, l0 = G * TASK_DESC, G * (TASK_DESC + KEY_DESC * nk)
+    host = np.zeros(G * (TASK_DESC + KEY_DESC * nk + LANE_DESC * nl), dtype=np.int64)
+    task = host[:k0].reshape(G, TASK_DESC)
+    keyd, laned = host[k0:l0].reshape(G, nk, KEY_DESC), host[l0:].reshape(G, nl, LANE_DESC)
+    g = np.arange(G, dtype=np.int64)
+    task[:, 0] = ptrs(masks, width, dev, torch.bool, "seg_agg_tasks: mask")
+    task[:, 2] = base + 8 * (k0 + g * KEY_DESC * nk)
+    task[:, 3] = base + 8 * (l0 + g * LANE_DESC * nl)
+    if segs is None:
+        task[:, 4], task[:, 5] = rows(iout, G), rows(fout, G)
+    else:
+        task[:, 1] = ptrs(segs, width, dev, torch.int32, "seg_agg_tasks: segment lane")
+        task[:, 4], task[:, 5] = (t.data_ptr() if t.numel() else 0 for t in (iout, fout))
+    for j, k in enumerate(keys[0]):
+        col = [ks[j] for ks in keys]
+        keyd[:, j, 0] = ptrs([c.data for c in col], width, dev, k.data.dtype, "seg_agg_tasks: key data")
+        keyd[:, j, 1] = ptrs([c.valid for c in col], width, dev, None, "seg_agg_tasks: key valid")
+        keyd[:, j, 2:] = (k.lo, k.dom, k.data.element_size())
+    n_i = n_f = 0
+    for j, lane in enumerate(lanes[0]):
+        col = [ls[j] for ls in lanes]
+        what = f"seg_agg_tasks: {lane.op}"
+        laned[:, j, 0] = ptrs([c.data for c in col], width, dev, None if lane.data is None else lane.data.dtype,
+                              what + " data")
+        laned[:, j, 1] = ptrs([c.valid for c in col], width, dev, None, what + " valid")
+        laned[:, j, 2] = _fill_bits(lane)
+        laned[:, j, 3] = OPS[lane.op] | ((n_f if lane.is_float else n_i) << 32)  # its output row
+        n_f, n_i = (n_f + 1, n_i) if lane.is_float else (n_f, n_i + 1)
+    return host
+
+
 _bound: set = set()
 
 
@@ -178,65 +305,118 @@ def _lib():
     lib = library("seg_agg")
     if "seg_agg" not in _bound:
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.tt_seg_agg.argtypes = [C, L, C, C, I, C, I, L, C, C, I, C]
-        lib.tt_seg_agg.restype = I
+        lib.tt_seg_agg_tasks.argtypes = [C, I, L, I, I, L, I, I, I, I, L, C, C, C]
+        lib.tt_seg_agg_tasks.restype = I
         _bound.add("seg_agg")
     return lib
 
 
-def _ptr(t: torch.Tensor | None, dev, n: int, what: str) -> int:
-    if t is None:
-        return 0
-    if t.device != dev or not t.is_contiguous() or t.shape != (n,):
+def solo_desc(mask, keys, lanes, base: int, iout: torch.Tensor, fout: torch.Tensor, seg=None) -> np.ndarray:
+    """seg_desc of one task from Python ints, for the solo wrapper, which
+    has checked every lane already: a solo call's host time is most of a
+    small call's, and seg_desc at G 1 takes about six times as long
+    (k4_profile.py's host phase times both, and the calls with each)."""
+    ptr = lambda t: 0 if t is None or t.numel() == 0 else t.data_ptr()  # noqa: E731
+    k0 = TASK_DESC
+    l0 = k0 + KEY_DESC * len(keys)
+    words = [mask.data_ptr(), ptr(seg), base + 8 * k0, base + 8 * l0, ptr(iout), ptr(fout)]
+    for k in keys:
+        words += [k.data.data_ptr(), ptr(k.valid), k.lo, k.dom, k.data.element_size()]
+    rows = [0, 0]
+    for lane in lanes:
+        words += [ptr(lane.data), ptr(lane.valid), _fill_bits(lane), OPS[lane.op] | rows[lane.is_float] << 32]
+        rows[lane.is_float] += 1
+    return np.array(words, dtype=np.int64)
+
+
+def upload_desc(masks, keys, lanes, width, iout, fout, segs=None, solo: bool = False) -> torch.Tensor:
+    """The descriptor table on the card, in one pinned copy (ordered before
+    the launch on the current stream; the caller keeps the result alive
+    until the launch is enqueued). `solo`: one task whose lanes the caller
+    has checked (`solo_desc`)."""
+    nk, nl = len(keys[0]), len(lanes[0])
+    desc = torch.empty(len(masks) * (TASK_DESC + KEY_DESC * nk + LANE_DESC * nl), dtype=torch.int64,
+                       device=iout.device)
+    if solo:
+        host = solo_desc(masks[0], keys[0], lanes[0], desc.data_ptr(), iout, fout, None if segs is None else segs[0])
+    else:
+        host = seg_desc(masks, keys, lanes, width, desc.data_ptr(), iout, fout, segs)
+    desc.copy_(torch.from_numpy(host).pin_memory(), non_blocking=True)
+    return desc
+
+
+TICKETS = 1 << 16  # ticket words at the head of the scratch: one a task, G < 65536
+
+
+def launch(desc: torch.Tensor, G: int, width: int, nkeys: int, nlanes: int, nseg: int, shared_out: bool,
+           p: Plan, what: str) -> None:
+    """Enqueue csrc/seg_agg.cu over the table `desc` by plan `p` on the
+    current stream, with the stream's scratch when the plan merges: its
+    first TICKETS words are the tickets (zero, and left at zero), the
+    partials follow, so no call's partials reach another's tickets."""
+    dev = desc.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if not p.parts:
+        rc = _lib().tt_seg_agg_tasks(desc.data_ptr(), G, width, nkeys, nlanes, nseg, int(shared_out),
+                                     MODES[p.mode], p.threads, p.blocks, p.smem, 0, 0, stream)
+    else:
+        with stream_scratch("seg_agg", dev, TICKETS + p.parts) as buf:
+            base = buf.data_ptr()
+            rc = _lib().tt_seg_agg_tasks(desc.data_ptr(), G, width, nkeys, nlanes, nseg, int(shared_out),
+                                         MODES[p.mode], p.threads, p.blocks, p.smem, base, base + 8 * TICKETS,
+                                         stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
+
+
+def _ptr(t: torch.Tensor | None, dev, n: int, what: str) -> None:
+    if t is not None and (t.device != dev or not t.is_contiguous() or t.shape != (n,)):
         raise ValueError(f"seg_agg: {what} must be a contiguous [{n}] tensor on {dev}")
-    return t.data_ptr()
 
 
 def seg_agg(mask: torch.Tensor, keys: list[SegKey], lanes: list[SegLane], nseg: int,
             seg: torch.Tensor | None = None):
-    """Packed (int64 [k_i, nseg], float64 [k_f, nseg]) partials (module doc)."""
+    """Packed (int64 [k_i, nseg], float64 [k_f, nseg]) partials (module doc):
+    on the card, csrc/seg_agg.cu's task grid launched as a grid of one task."""
     dev = mask.device
     if dev.type == "cpu":
         return seg_agg_ref(mask, keys, lanes, nseg, seg)
     if dev.type != "cuda":
         raise ValueError(f"seg_agg: unsupported device {dev}")
+    outs, go = seg_agg_prepare(mask, keys, lanes, nseg, seg)
+    go()
+    count(seg_agg)
+    if any(lane.op in BIT_OPS for lane in lanes):
+        count(seg_agg, "bit_launches")
+    return outs
+
+
+def seg_agg_prepare(mask: torch.Tensor, keys: list[SegKey], lanes: list[SegLane], nseg: int,
+                    seg: torch.Tensor | None = None):
+    """The solo call on the card up to its launch: the outputs, the one-task
+    table on the card (one pinned copy), and `go()`, which enqueues the
+    kernel by `plan` (each call writes every output anew)."""
+    dev = mask.device
     _check(keys, lanes, nseg, seg)
     if not lanes:
         raise ValueError("seg_agg: no value lanes")
     n = mask.shape[0]
     if mask.dtype != torch.bool:
         raise TypeError("seg_agg: mask must be bool")
-    # descriptor tables, laid out as KeyDesc / LaneDesc in csrc/seg_agg.cu
-    kd = np.zeros((max(len(keys), 1), 5), dtype=np.int64)
-    for j, k in enumerate(keys):
-        kd[j] = (_ptr(k.data, dev, n, "key data"), _ptr(k.valid, dev, n, "key valid"),
-                 k.lo, k.dom, k.data.element_size())
-    ld = np.zeros((len(lanes), 4), dtype=np.int64)
-    n_i = n_f = 0
-    for j, lane in enumerate(lanes):
-        if lane.is_float:
-            out_row, n_f = n_f, n_f + 1
-        else:
-            out_row, n_i = n_i, n_i + 1
-        ld[j] = (_ptr(lane.data, dev, n, f"{lane.op} data"), _ptr(lane.valid, dev, n, f"{lane.op} valid"),
-                 _fill_bits(lane), OPS[lane.op] | (out_row << 32))
-    kdesc = torch.from_numpy(kd).to(dev)
-    ldesc = torch.from_numpy(ld).to(dev)
-    iout = torch.empty((n_i, nseg), dtype=torch.int64, device=dev)
+    for what, t in [("mask", mask), ("segment lane", seg)] + [(w, t) for k in keys for w, t in
+                                                             (("key data", k.data), ("key valid", k.valid))] \
+            + [(f"{l.op} {w}", t) for l in lanes for w, t in (("data", l.data), ("valid", l.valid))]:
+        _ptr(t, dev, n, what)
+    n_f = sum(1 for lane in lanes if lane.is_float)
+    iout = torch.empty((len(lanes) - n_f, nseg), dtype=torch.int64, device=dev)
     fout = torch.empty((n_f, nseg), dtype=torch.float64, device=dev)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rc = _lib().tt_seg_agg(
-        _ptr(mask, dev, n, "mask"), n, _ptr(seg, dev, n, "segment lane"),
-        kdesc.data_ptr(), len(keys), ldesc.data_ptr(), len(lanes),
-        nseg, iout.data_ptr(), fout.data_ptr(), n_sms,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"seg_agg: kernel launch failed (cudaError {rc})")
-    count(seg_agg)
-    if any(lane.op in BIT_OPS for lane in lanes):
-        count(seg_agg, "bit_launches")
-    return iout, fout
+    desc = upload_desc([mask], [keys], [lanes], n, iout, fout, None if seg is None else [seg], solo=True)
+    p = plan(n, 1, len(keys), len(lanes), nseg, sm_count(dev))
+
+    def go():
+        launch(desc, 1, n, len(keys), len(lanes), nseg, False, p, "seg_agg")
+
+    return (iout, fout), go
 
 
 seg_agg.launches = 0

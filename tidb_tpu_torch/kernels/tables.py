@@ -6,6 +6,8 @@ their kernels as a grid of one task, and by K10's task-grid modes
 
   ptrs(ts, width, dev, dtype, what)   one column: the tensors' addresses,
                                       each checked as the kernel reads it
+  rows(out, G)                        the addresses of a [G, ...] tensor's
+                                      rows
   lane_table(masks, keys, width, dev, what)
                                       K7's and K9's [G, 1 + 2 * nkeys]
                                       table (mask, then per key data, valid)
@@ -71,6 +73,14 @@ def ptrs(ts: list, width: int, dev: int, dtype, what: str) -> np.ndarray:
     if 0 < absent < len(ts):
         raise ValueError(f"{what}: present in some tasks and absent in others")
     return out
+
+
+def rows(out: torch.Tensor, G: int) -> np.ndarray:
+    """Addresses of the G rows of a contiguous [G, ...] tensor (0 when it
+    is empty: no kernel reads a row of it)."""
+    if out.numel() == 0:
+        return np.zeros(G, dtype=np.int64)
+    return out.data_ptr() + np.arange(G, dtype=np.int64) * (out.stride(0) * out.element_size())
 
 
 def lane_table(masks: list, keys: list, width: int, dev: int, what: str) -> np.ndarray:
