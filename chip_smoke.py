@@ -48,12 +48,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
               edges, NaN / ±0.0 / ±inf, the int64 floor, n = 1, 1023,
               1024, 1025 and kk x 1024 ± 1, kk 1, 16 and 512); P4 sort_join
               (sort_join_battery) with unique and duplicate build keys,
-              inner and left, two keys, int32 keys, keys at the sort
-              sentinel, a capacity below the output; P5 seg_reduce
-              (seg_reduce_battery) with overflowing int64, NaN, ±inf and
-              uint64 lanes, one giant run, fewer groups than k, and its
-              local and final reduces over n_dev 3, 4 and 8 ranks (every
-              group arriving from n_dev peers); P6 rowpos_agg
+              inner and left, two keys, int32 keys (left joins too),
+              keys at the sort sentinel, a capacity below the output,
+              95% / all / no rows masked (4M probes into 1M build rows
+              among them), one key owning more than an expansion tile of
+              slots; P5 seg_reduce (seg_reduce_battery) with overflowing
+              int64, NaN, ±inf and uint64 lanes, one giant run, fewer
+              groups than k, 95% / all / no rows masked (4M rows among
+              them), valid codes at the sentinel, more picks than valid
+              rows, NaN and floor scores, and its local and final reduces
+              over n_dev 2, 3, 4 and 8 ranks (every group arriving from
+              n_dev peers); P6 rowpos_agg
               (rowpos_battery) with a dedicated presence lane, fewer
               matched rows than k, B = 1,000,000, and its picks from one
               rank's block of build rows (n_dev 3, 4, 8; the last block
@@ -1036,11 +1041,19 @@ def sort_join_battery(rng, n: int, B: int, case: str) -> dict:
     truncates the packed key to int32 and gives NULL keys data whose
     truncation wraps; 'sentinel' packs probe keys and two build keys (one
     valid, one NULL) equal to the sort sentinel INT64_MAX, which sorts
-    them among the invalid build rows; 'wide' keys span +-2^40."""
+    them among the invalid build rows; 'wide' keys span +-2^40.
+    'masked95' / 'dup_masked95' mask 95% of both sides' rows (the
+    compaction keeps few build rows), 'all_masked' / 'dup_all_masked'
+    every build row (none kept), 'none_masked' no row and no key of either
+    side (every build row kept); 'skew' gives one build key most of the
+    rows, so each probe row on it owns more than an expansion tile of
+    slots; 'i32_left' / 'i32_dup_left' are left joins over the wrapping
+    int32 keys of 'i32'."""
     import numpy as np
 
     nk = 2 if case == "two_keys" else 1
-    dup = case in ("dup", "dup_left", "dup_none", "overflow")
+    dup = case in ("dup", "dup_left", "dup_none", "overflow", "dup_masked95", "dup_all_masked", "none_masked",
+                   "skew", "i32_dup_left")
     if case == "wide":
         dom = [1 << 41]
     elif case == "two_keys":
@@ -1049,7 +1062,9 @@ def sort_join_battery(rng, n: int, B: int, case: str) -> dict:
         dom = [max(B // 3, 1) if dup else 2 * B]
     lo = [int(rng.integers(-40, 40)) if case != "wide" else -(1 << 40) for _ in dom]
     bkeys, pkeys = [], []
-    if dup:
+    if case == "skew":  # two thirds of the build rows on one key
+        cols = [lo[0] + np.where(rng.random(B) < 2 / 3, 0, rng.integers(0, dom[0], B))]
+    elif dup:
         cols = [lo[0] + rng.integers(0, dom[0], B)]
     elif case == "two_keys":
         flat = rng.choice(dom[0] * dom[1], B, replace=False)
@@ -1064,10 +1079,23 @@ def sort_join_battery(rng, n: int, B: int, case: str) -> dict:
         pkeys.append((np.where(v, p, 0).astype(np.int64), v))
     stride, acc = _strides(dom)
     key_i32 = acc < (1 << 31) - 2
-    if case == "i32":  # NULL keys' data far outside the domain: its int32 cast wraps
+    if case.startswith("i32"):  # NULL keys' data far outside the domain: its int32 cast wraps
         for d, v in bkeys + pkeys:
             d[~v] = rng.integers(-(1 << 40), 1 << 40, int((~v).sum()))
     pmask, bmask = rng.random(n) > 0.1, rng.random(B) > 0.15
+    if "masked95" in case:
+        pmask, bmask = rng.random(n) > 0.95, rng.random(B) > 0.95
+    elif "all_masked" in case:
+        bmask[:] = False
+    elif case == "none_masked":
+        pmask[:], bmask[:] = True, True
+        for d, v in bkeys + pkeys:
+            d[~v] = d[v][0] if v.any() else 0
+            v[:] = True
+    elif case == "skew":
+        pkeys[0][0][:n // 10] = lo[0]  # a tenth of the probe rows on the heavy key
+        pkeys[0][1][:n // 10] = True
+        pmask[:n // 10] = True
     if case == "sentinel":  # two build keys at INT64_MAX, one valid: the first in row order decides
         key_i32, lo, stride = False, [0], [1]
         (bd, bv), (pd, pv) = bkeys[0], pkeys[0]
@@ -1115,7 +1143,10 @@ def sort_join_battery(rng, n: int, B: int, case: str) -> dict:
 SORT_JOIN_SHAPES = ((1, 1, "unique"), (2000, 1500, "unique"), (2000, 1500, "unique_left"), (3000, 1000, "two_keys"),
                     (2000, 500, "i32"), (2000, 800, "wide"), (500, 300, "sentinel"), (2000, 700, "dup"),
                     (2000, 700, "dup_left"), (1500, 600, "dup_none"), (2000, 700, "overflow"), (1, 5, "dup"),
-                    (200_003, 100_000, "dup"), (100_003, 300_000, "unique"))
+                    (200_003, 100_000, "dup"), (100_003, 300_000, "unique"), (4000, 3000, "masked95"),
+                    (4000, 3000, "dup_masked95"), (2000, 1500, "all_masked"), (2000, 700, "dup_all_masked"),
+                    (2000, 700, "none_masked"), (300, 3000, "skew"), (2000, 500, "i32_left"),
+                    (2000, 500, "i32_dup_left"), (4_000_000, 1_000_000, "masked95"))
 
 
 def p4_args(b: dict, dev):
@@ -1206,7 +1237,14 @@ def seg_reduce_battery(rng, n: int, case: str) -> dict:
     one group holds 90% of the rows; 'few_groups': fewer groups than k;
     'asc': ascending on the count lane (many ties); 'pow2_single': one
     group over all 4096 rows, none masked (no doubling step of the
-    reference reaches past it)."""
+    reference reaches past it). 'masked95' masks 95% of the rows and
+    'all_masked' every row (the compaction keeps few or none: the picks
+    take masked positions past the groups), 'none_masked' none;
+    'sentinel' gives a few valid rows the code INT64_MAX (they sort among
+    the masked rows); 'kk_above' asks for more picks than there are valid
+    rows; 'floor_nan' scores ascending on the float sum with NaN and
+    infinities (scores of NaN with the sign set rank below the floor,
+    -inf at it) and asks for more picks than groups."""
     import numpy as np
 
     lo0, step = int(rng.integers(-1000, 1000)), 7
@@ -1221,19 +1259,38 @@ def seg_reduce_battery(rng, n: int, case: str) -> dict:
     mask = rng.random(n) > 0.2
     if case == "pow2_single":
         k0, v0, k1, v1, mask = np.full(n, lo0), np.ones(n, bool), np.zeros(n, np.int64), np.ones(n, bool), np.ones(n, bool)
+    if case in ("masked95", "floor_nan"):
+        mask = rng.random(n) > 0.95
+    elif case == "all_masked":
+        mask[:] = False
+    elif case == "none_masked":
+        mask[:] = True
     # radixes as the engine builds them: (hi - lo) // step + 2, vocab + 1
     hi0 = int(k0[v0].max()) if v0.any() else lo0
     lo = int(k0[v0].min()) if v0.any() else lo0
     radixes = [(hi0 - lo) // step + 2, 6]
     strides = [radixes[1], 1]
-    keys = [(k0.astype(np.int64), v0, lo, step, strides[0], True), (k1.astype(np.int64), v1, 0, 1, strides[1], False)]
+    k1 = k1.astype(np.int64)
+    if case == "sentinel":  # (d1 + 1) * 1 + kd0 * stride0 wraps onto INT64_MAX at a few valid rows
+        at = rng.choice(n, min(n, 5), replace=False)
+        mask[at], v0[at], v1[at] = True, True, True
+        kd0 = ((k0[at] - lo) // step + 1) * strides[0]
+        k1[at] = np.int64((1 << 63) - 1) - kd0 - 1
+    keys = [(k0.astype(np.int64), v0, lo, step, strides[0], True), (k1, v1, 0, 1, strides[1], False)]
     lanes = _red_lanes(rng, n, "csfFnxmMuc")
     score, desc, k = (0, False, 10) if case == "asc" else (1, True, 20 if case == "few_groups" else 10)
+    if case == "floor_nan":
+        score, desc = 3, False
+    k = {"masked95": 1000, "all_masked": 20, "kk_above": n, "floor_nan": 1000}.get(case, k)
     return {"keys": keys, "mask": mask, "lanes": lanes, "score_lane": score, "desc": desc, "k": k}
 
 
 SEG_REDUCE_SHAPES = ((1, "runs"), (1000, "runs"), (4096, "pow2_single"), (5000, "few_groups"), (100_003, "runs"),
-                     (300_000, "giant_run"), (100_003, "asc"))
+                     (300_000, "giant_run"), (100_003, "asc"), (5000, "masked95"), (4096, "all_masked"),
+                     (5000, "none_masked"), (3000, "kk_above"), (5000, "floor_nan"), (4_000_000, "masked95"))
+# valid rows whose code is the sentinel: the reference's INT64_MAX run then
+# holds their totals (at a row that is no valid run start)
+SEG_REDUCE_EDGE_SHAPES = ((5000, "sentinel"), (100_003, "sentinel"))
 
 
 def _red_args(lanes, dev):
@@ -1413,7 +1470,9 @@ def same_dense(got, want, what: str, lanes) -> float:
 # P5's local and final reduces over n_dev ranks (the exchange stands in for
 # P2 and the all_to_all: every group arrives from n_dev peers, so the final
 # runs hold n_dev fragments: the doubling's window is n_dev's power of two)
-SEG_REDUCE_MESH_SHAPES = ((1000, "runs", 3), (100_003, "runs", 4), (300_000, "giant_run", 4), (5000, "few_groups", 8))
+SEG_REDUCE_MESH_SHAPES = ((1000, "runs", 3), (100_003, "runs", 4), (300_000, "giant_run", 4), (5000, "few_groups", 8),
+                          (5000, "masked95", 4), (4096, "all_masked", 2), (5000, "none_masked", 3),
+                          (5000, "sentinel", 4), (5000, "floor_nan", 2))
 # P6's picks from one rank's block of build rows (the collect stands in for
 # psum_scatter / pmin / pmax: the rank's slice of its own partials)
 ROWPOS_MESH_SHAPES = ((5000, 4096, "presence", 4, 1), (20_000, 8192, "few", 3, 2),
@@ -1435,7 +1494,7 @@ def mode_kernel_cases(dev, rng):
         cases.append((f"sort_join n={n} B={B} {case}",
                       lambda args=args, case=case: same_sort_join(sort_join(*args), sort_join_ref(*args),
                                                                   f"sort_join {case}")))
-    for n, case in SEG_REDUCE_SHAPES:
+    for n, case in SEG_REDUCE_SHAPES + SEG_REDUCE_EDGE_SHAPES:
         args = p5_args(seg_reduce_battery(rng, n, case), dev)
 
         def p5(args=args, case=case):
@@ -2952,7 +3011,7 @@ def measure_mpp_kernels(main: dict, max_err: dict):
                                         seg_reduce, seg_reduce_ref, sort_join, sort_join_ref)
     from tidb_tpu_torch.kernels.dense_agg import dense_code_ref
     from tidb_tpu_torch.kernels.rowpos_agg import picks
-    from tidb_tpu_torch.kernels.seg_reduce import group_code_ref
+    from tidb_tpu_torch.kernels.seg_reduce import I64_MAX, group_code_ref
     from tidb_tpu_torch.kernels.sort_join import pack_keys
 
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
@@ -3014,8 +3073,18 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     p4_k8_ops, p4_k8 = k8_inside(p4_module, lambda: sort_join(*p4))
     k4 = {"ms": time_ms(lambda: sort_join(*p4)), "plain_ms": time_ms(lambda: sort_join_ref(*p4), 3),
           "library_ms": None, "k8_ms": p4_k8, "k8_calls": len(p4_k8_ops),
+          "k8_rows": [op[0].data.numel() for op in p4_k8_ops],
           "searchsorted_presorted_ms": time_ms(lambda: torch.searchsorted(sk, pk)),
           "bytes": p4_bytes, "n": n4, "B": B4, "slots": m4, "mult": mult, "gathers": len(g4)}
+    # P4 on q3_unfused's first level: 4M lineitem probes into the 1M orders
+    # (unique keys; the orders the date filter drops sort at the sentinel)
+    q = caps["q3_unfused"]["sort_join"][0][0]
+    qn, qB = q[5].numel(), q[6].numel()
+    q_bytes = _nbytes(*_pairs(q[0] + q[1] + q[11]), q[5], q[6], q[7]) + qn * (1 + 8) + 9 * qn * len(q[11])
+    q_k8_ops, q_k8 = k8_inside(p4_module, lambda: sort_join(*q))
+    k4["q3_level1"] = {"ms": time_ms(lambda: sort_join(*q)), "plain_ms": time_ms(lambda: sort_join_ref(*q), 3),
+                       "k8_ms": q_k8, "k8_rows": [op[0].data.numel() for op in q_k8_ops], "n": qn, "B": qB,
+                       "bytes": q_bytes, "bound_ms": bound(q_bytes), "gathers": len(q[11])}
 
     def with_rows(call, a, kw):
         rows = torch.zeros_like(kw["rows"])
@@ -3036,15 +3105,20 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     keys5, mask5, lanes5 = a5[0], a5[1], a5[2]
     n5 = mask5.numel()
     kk5 = min(a5[5], n5)
-    p5_in = _pairs((k.data, k.valid) for k in keys5) + _pairs((ln.data, ln.valid) for ln in lanes5)
-    p5_bytes = _nbytes(mask5, *p5_in) + 8 * kk5 * (2 + len(lanes5))
     code = group_code_ref(keys5, mask5)
+    # what this run's data needs: the mask, and the keys and lanes of the
+    # rows it keeps (a masked row's code is the sentinel whatever its keys)
+    kept5 = int((code != I64_MAX).sum())
+    row_bytes = sum(t.element_size() for t in _pairs((k.data, k.valid) for k in keys5)
+                    + [t for ln in lanes5 for t in (ln.data, ln.valid) if t is not None])
+    p5_bytes = _nbytes(mask5) + kept5 * row_bytes + 8 * kk5 * (2 + len(lanes5))
     # no single call computes P5's sorted aggregation; a sort of its group
     # code alone does less (reported apart), and K8's share is timed
     p5_k8_ops, p5_k8 = k8_inside(p5_module, lambda: with_rows(seg_reduce, a5, kw5))
     k5 = {"ms": time_ms(lambda: with_rows(seg_reduce, a5, kw5)),
           "plain_ms": time_ms(lambda: with_rows(seg_reduce_ref, a5, kw5), 3),
-          "library_ms": None, "k8_ms": p5_k8, "k8_calls": len(p5_k8_ops),
+          "library_ms": None, "k8_ms": p5_k8, "k8_calls": len(p5_k8_ops), "kept_rows": kept5,
+          "k8_rows": [op[0].data.numel() for op in p5_k8_ops],
           "sort_group_code_ms": time_ms(lambda: torch.sort(code, stable=True)), "bytes": p5_bytes, "n": n5,
           "lanes": len(lanes5), "k": kk5}
 
@@ -4063,8 +4137,11 @@ def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
                                  ("lex_sort_perm", "topk")),
                                 (k6, "rowpos_agg", lambda: rowpos_agg(*a, rows=rows6, n_dev=n_dev, collect=col),
                                  ("seg_agg", "topk"))):
-        parts = {f"{w}_ms": calls_inside(mods[name], w, run)[1] for w in inner}
+        parts = {f"{w}_ms": (k8_inside(mods[name], run)[1] if w == "lex_sort_perm"
+                             else calls_inside(mods[name], w, run)[1]) for w in inner}
         k.update(parts, own_ms=k["ms"] - sum(parts.values()))
+    k5["k8_rows"] = [op[0].data.numel() for op in k8_inside(mods["seg_reduce"], lambda: seg_reduce(
+        *a5, rows=rows5, exchange=ex, n_dev=n5))[0]]
     got = {"seg_reduce": k5, "rowpos_agg": k6}
     for e in entries:
         if e["name"] in got:
@@ -4553,8 +4630,12 @@ def calls_inside(module, name: str, fn) -> tuple[list, float]:
 def k8_inside(module, fn) -> tuple[list, float]:
     """(the operands of every K8 call one fn() makes through `module`,
     and the mean device ms of those K8 calls alone): calls_inside for
-    lex_sort_perm."""
-    seen, ms = calls_inside(module, "lex_sort_perm", fn)
+    lex_sort_perm, or for kernels/compact's launch where the module sorts
+    the rows its compaction kept (P4, P5)."""
+    if hasattr(module, "lex_sort_perm"):
+        seen, ms = calls_inside(module, "lex_sort_perm", fn)
+    else:
+        seen, ms = calls_inside(importlib.import_module("tidb_tpu_torch.kernels.compact"), "launch", fn)
     return [a[0] for a, _ in seen], ms
 
 

@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""Time P4 (csrc/sort_join.cu) and P5 (csrc/seg_reduce.cu) on the MPP
+main path's own inputs, on one NVIDIA GPU.
+
+    python3 mpp_profile.py [--seed 42] [--q3-rows 4000000] [--reps 5] [--tree DIR ...]
+
+For each --tree (another checkout of the repository: an earlier commit,
+say) and this checkout, each in a fresh process, in turns (the trees, then
+the same in reverse order), one JSON object a run under "runs":
+
+  q3_unfused / q18   run_mpp over chip_smoke.py's tables (--q3-rows
+                     lineitem rows): the median wall ms of --reps warm runs
+                     and that run's phase spans (ms)
+  mesh_q3_unfused    the same over make_mesh(4, "cuda") (four ranks sharing
+                     the card, gloo), one warm run
+  p5                 P5's call on unfused Q3 (the rows of the packed
+                     result as the engine passes them): ms, and the K8
+                     calls inside it (their rows and ms; own_ms is the call
+                     less them)
+  p5_mesh            P5's largest rank call of mesh q3_unfused (local
+                     reduce, the recorded exchange, final reduce), likewise
+  p4_q18, p4_q3_1, p4_q3_2
+                     P4's call on Q18's duplicate-key level and on
+                     q3_unfused's two unique-key levels (lineitem → orders,
+                     then → customer), likewise
+
+Each tree runs its own chip_smoke.py helpers and its own kernels, built in
+its own build/. Every call is held to its plain version before it is
+timed. Without a card, or without the repository beside it, it exits
+non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _k8_entry(module):
+    """(module, name) through which `module` calls K8: lex_sort_perm where
+    the wrapper calls it by that name, else kernels/compact's launch."""
+    if hasattr(module, "lex_sort_perm"):
+        return module, "lex_sort_perm"
+    return importlib.import_module("tidb_tpu_torch.kernels.compact"), "launch"
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock ms of fn() through a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def _with_k8(cs, module, fn) -> dict:
+    """ms of fn() (CUDA events over 10 calls), of the K8 calls inside it
+    (their row counts), the host clock's median call, and the device time
+    by kernel of one profiled call (`split_ms`, `device_ms` their sum)."""
+    where, name = _k8_entry(module)
+    seen, k8_ms = cs.calls_inside(where, name, fn)
+    rows = [a[1] if name == "launch" else a[0][0].data.numel() if hasattr(a[0][0], "data") else a[0][0].numel()
+            for a, _ in seen]
+    ms = cs.time_ms(fn)
+    split = cs.kernel_split(fn)
+    dev_ms = sum(split["split_ms"].values()) if split.get("split_ms") else None
+    return {"ms": ms, "k8_ms": k8_ms, "k8_rows": rows, "own_ms": ms - k8_ms, "host_ms": _host_ms(fn),
+            "device_ms": dev_ms, **split}
+
+
+def host(rows: int, seed: int, reps: int) -> dict:
+    """One tree's measurements (module doc), in this process."""
+    import torch
+
+    import chip_smoke as cs
+    from tidb_tpu_torch.entry import run_mpp
+    from tidb_tpu_torch.kernels import seg_reduce, seg_reduce_ref, sort_join, sort_join_ref
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.parallel import mpp_program as mp
+    from tidb_tpu_torch.parallel.mesh import make_mesh
+    from tidb_tpu_torch.parallel.mpp import MPPEngine
+    from tidb_tpu_torch.torchenv import PhaseTimer
+
+    dev = torch.device("cuda")
+    li, orders, cust = tpch.generated_columns(rows, seed)
+    tables = {"lineitem": li, "orders": orders, "customer": cust}
+    specs = {q: (b, v) for q, b, v, _, _ in cs.MPP_QUERIES}
+    p4m, p5m = (importlib.import_module(f"tidb_tpu_torch.kernels.{m}") for m in ("sort_join", "seg_reduce"))
+    out: dict = {}
+    caps: dict = {}
+
+    def query(qname, mesh=None, warm=reps):
+        (builder, *bargs), variables = specs[qname]
+        plan = getattr(tpch, builder)(*bargs)
+        engine = MPPEngine(dev)
+
+        def timed():
+            timer = PhaseTimer(engine.device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_mpp(plan, tables, device=dev, engine=engine, timer=timer, variables=variables, mesh=mesh)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3, timer.totals_ms()
+
+        runs = sorted([timed() for _ in range(warm + 1)][1:], key=lambda r: r[0])
+        med = runs[len(runs) // 2]
+        return plan, engine, variables, {"wall_ms": med[0], "walls_ms": [r[0] for r in runs], "spans_ms": med[1]}
+
+    for qname in ("q3_unfused", "q18"):
+        plan, engine, variables, out[qname] = query(qname)
+        got = caps[qname] = {"sort_join": [], "seg_reduce": []}
+        real = {k: getattr(mp, k) for k in got}
+
+        def spy(name, real=real, got=got):
+            def call(*a, **kw):
+                got[name].append((a, kw))
+                return real[name](*a, **kw)
+            return call
+        for k in got:
+            setattr(mp, k, spy(k))
+        try:
+            run_mpp(plan, tables, device=dev, engine=engine, variables=variables)
+        finally:
+            for k, fn in real.items():
+                setattr(mp, k, fn)
+
+    def p4(a, what):
+        cs.same_sort_join(sort_join(*a), sort_join_ref(*a), what)
+        n, B = a[5].numel(), a[6].numel()
+        return {"n": n, "B": B, "mult": a[8], **_with_k8(cs, p4m, lambda: sort_join(*a))}
+
+    out["p4_q18"] = p4(caps["q18"]["sort_join"][0][0], "sort_join on Q18")
+    for i, (a, _) in enumerate(caps["q3_unfused"]["sort_join"]):
+        out[f"p4_q3_{i + 1}"] = p4(a, f"sort_join on q3_unfused level {i + 1}")
+    a5, kw5 = caps["q3_unfused"]["seg_reduce"][0]
+    rows5 = [torch.zeros_like(kw5["rows"]) for _ in range(2)]
+    cs.same_seg_reduce(seg_reduce(*a5, rows=rows5[0]), seg_reduce_ref(*a5, rows=rows5[1]), "seg_reduce on Q3",
+                       a5[2])
+    cs.same_rows(rows5[0], rows5[1], 1, "seg_reduce rows on Q3", {2 + j for j, ln in enumerate(a5[2]) if ln.is_float})
+    out["p5"] = {"n": a5[1].numel(), **_with_k8(cs, p5m, lambda: seg_reduce(*a5, rows=rows5[0]))}
+
+    mesh = make_mesh(4, dev)
+    try:
+        plan, engine, variables, out["mesh_q3_unfused"] = query("q3_unfused", mesh, warm=1)
+        with cs.MeshModeSpy() as spy:
+            run_mpp(plan, tables, device=dev, engine=engine, variables=variables, mesh=mesh)
+    finally:
+        mesh.close()
+    cs.hold_mesh_modes({"seg_reduce": spy.calls["seg_reduce"], "rowpos_agg": []})
+    a, kw, got = max(spy.calls["seg_reduce"], key=lambda c: c[0][1].numel())
+    rows_m = torch.zeros_like(kw["rows"])
+    ex = lambda *x, got=got: got  # noqa: E731 — the rank's recorded exchange outputs
+    out["p5_mesh"] = {"n": a[1].numel(), "fragments": got[2].numel(), "n_dev": kw["n_dev"],
+                      **_with_k8(cs, p5m, lambda: seg_reduce(*a, rows=rows_m, exchange=ex, n_dev=kw["n_dev"]))}
+    return out
+
+
+def worker(tree: str, rows: int, seed: int, reps: int) -> dict:
+    """One tree's measurements in a fresh process rooted at `tree`."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--host-of", tree, "--q3-rows", str(rows),
+                        "--seed", str(seed), "--reps", str(reps)], capture_output=True, text=True, cwd=tree)
+    if r.returncode != 0:
+        raise RuntimeError(f"mpp_profile: the run in {tree} failed (exit {r.returncode}):\n{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--q3-rows", type=int, default=4_000_000)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--tree", action="append", default=[], help="another checkout, timed in turns with this one")
+    ap.add_argument("--host-of", help=argparse.SUPPRESS)  # the worker: one tree's measurements
+    args = ap.parse_args(argv)
+    try:
+        import torch
+    except ImportError as e:
+        print(f"mpp_profile: FAILED: {e}", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("mpp_profile: FAILED: torch.cuda.is_available() is False: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.host_of or ROOT)
+    if not os.path.isdir(os.path.join(root, "tidb_tpu_torch")):
+        print(f"mpp_profile: FAILED: no tidb_tpu_torch/ in {root}: run it from the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, root)
+    if args.host_of:
+        print(json.dumps(host(args.q3_rows, args.seed, args.reps)), flush=True)
+        return 0
+    import chip_smoke as cs
+
+    card = cs.card_line()
+    trees = [os.path.abspath(t) for t in args.tree] + [ROOT]
+    runs = [(t, worker(t, args.q3_rows, args.seed, args.reps)) for t in trees + trees[::-1]]
+    print(json.dumps({"runs": [{"tree": os.path.relpath(t, ROOT), **r} for t, r in runs], "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,7 +31,7 @@ def test_importing_every_module_brings_in_neither_jax_nor_the_reference():
     assert "tidb_tpu_torch.copr.gpu_engine" in mods and "tidb_tpu_torch.kernels.seg_agg" in mods
     for k in ("lex_sort", "topk", "topn_multi", "sort_groups", "window", "pack_flat", "lut_join", "run_agg",
               "block_topk", "sort_join", "seg_reduce", "rowpos_agg", "dense_agg", "red", "expr_eval", "q1_local",
-              "hash_repartition", "grouped", "exchange"):
+              "hash_repartition", "grouped", "exchange", "compact"):
         assert f"tidb_tpu_torch.kernels.{k}" in mods
     for m in ("executor.window_device", "executor.window", "executor.mpp_gather", "parallel.mpp",
               "parallel.mpp_program", "planner.fragment", "expr.program", "parallel.mesh", "copr.retry",

@@ -12,7 +12,7 @@
 // The reference takes, at every row, c[rend] - c[i - 1] over the lane's
 // prefix sum c: the sum of x from i to the end of i's run. This kernel
 // computes the same suffix-in-run sums directly with the segmented run
-// scan of seg_scan.cuh (shared with P5, csrc/seg_reduce.cu): tile heads,
+// scan of seg_scan.cuh (P5, csrc/seg_reduce.cu, shares its combines): tile heads,
 // carries, then finish_kernel's reverse segmented scan per tile, and per
 // row
 //

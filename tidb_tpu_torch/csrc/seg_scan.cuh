@@ -1,6 +1,11 @@
-// The segmented run scan shared by P5 (seg_reduce.cu) and P7 (run_agg.cu):
-// per value lane, the lane op's combine from every row to the end of its
-// run, a run being a maximal stretch of rows with equal keys.
+// The segmented run scan of P7 (run_agg.cu): per value lane, the lane op's
+// combine from every row to the end of its run, a run being a maximal
+// stretch of rows with equal keys. P5 (seg_reduce.cu) shares the lane ops,
+// their sentinels and combines only: its one sweep over the sorted rows
+// scans every lane in one kernel with look-back carries, where this scan
+// takes four launches (poison, heads, carries, the caller's suffix) and
+// reads each lane twice. What holds P7 back is that: it is the next design
+// to move onto one sweep.
 //
 // Lane l's value at row i is read at row o = order ? order[i] : i:
 //

@@ -220,11 +220,15 @@ def check_on(ops: list[SortOp], what: str = "lex_sort") -> int:
     return n
 
 
-def launch(ops: list[SortOp], n: int, task_width: int, counted) -> torch.Tensor:
+def launch(ops: list[SortOp], n: int, task_width: int, counted, orand: np.ndarray | None = None) -> torch.Tensor:
     """The kernels over checked CUDA operands → int32 [n] permutation. With
     `task_width`, the rows are n / task_width tasks of task_width rows and
     sort by (task, operands) (the task-leading mode). `counted` is the
     wrapper whose launches the call counts, after the one host read.
+    `orand` (uint64 [2 * len(ops)]: each operand's OR and AND of ordered
+    keys, as tt_lex_orand computes them) comes from a caller that has read
+    them already (csrc/compact.cuh's compaction): the call then makes no
+    host read of its own.
 
     Per call: one read of the OR/AND (the pass count follows the data) and
     one upload of every word's fields, both through one pinned buffer; one
@@ -249,12 +253,14 @@ def launch(ops: list[SortOp], n: int, task_width: int, counted) -> torch.Tensor:
     buf = torch.empty(keys0 + 2 * n + n + (n + 1) // 2, dtype=torch.int64, device=dev)
     base = buf.data_ptr()
     pin = torch.empty(2 * nops + nf, dtype=torch.int64, pin_memory=True)
-    desc = op_table(ops)  # kept alive through the call: the launch copies it into kernel parameters
-    _raise(lib.tt_lex_orand(desc.ctypes.data, nops, n, base, n_sms, stream), "orand")
-    pin[:2 * nops].copy_(buf[:2 * nops], non_blocking=True)
-    cs.synchronize()  # the one host read
+    if orand is None:
+        desc = op_table(ops)  # kept alive through the call: the launch copies it into kernel parameters
+        _raise(lib.tt_lex_orand(desc.ctypes.data, nops, n, base, n_sms, stream), "orand")
+        pin[:2 * nops].copy_(buf[:2 * nops], non_blocking=True)
+        cs.synchronize()  # the one host read
+        orand = pin[:2 * nops].numpy().view(np.uint64)
     tasks = n // task_width if task_width else 1
-    words = plan_words(pin[:2 * nops].numpy().view(np.uint64), (tasks - 1).bit_length())
+    words = plan_words(orand, (tasks - 1).bit_length())
     count(counted)
     if not words or n == 0:  # every operand constant: row order is the sorted order
         return torch.arange(n, dtype=torch.int32, device=dev)

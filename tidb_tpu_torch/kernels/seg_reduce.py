@@ -6,10 +6,14 @@ gcd-compressed group code (:1665-1673), `seg_reduce` (:1707-1750) and
 `finish_topk` (:1752-1759); over n_dev ranks also its local reduce, the
 exchange of whole groups to their owners and the final reduce
 (:1765-1786). The CUDA kernels are csrc/seg_reduce.cu (their note gives
-the steps and the bound); the code is sorted by K8 (kernels/lex_sort.py,
-stable as `jnp.argsort`) and the k best are picked by K6 (kernels/topk.py,
-`lax.top_k`'s order). `seg_reduce_ref` is the plain PyTorch version
-beside them, the reference's jnp code step by step.
+the steps and the bound): the code kernel compacts the rows whose code is
+not INT64_MAX (kernels/compact.py: M of them, read with the bits they
+vary in in the call's one host read), K8 (kernels/lex_sort.py, stable as
+`jnp.argsort`) sorts only those, one sweep reduces them, K6
+(kernels/topk.py, `lax.top_k`'s order) picks among their scores and the
+emit kernel appends the INT64_MAX tail where it ranks. `seg_reduce_ref`
+is the plain PyTorch version beside them, the reference's jnp code step
+by step.
 
 `seg_reduce(keys, mask, lanes, score_lane, desc, k, rows=None,
 exchange=None, n_dev=1)`:
@@ -35,7 +39,10 @@ exchange=None, n_dev=1)`:
     lanes the suffix of the run), fvalid = run start & code != INT64_MAX,
     fkey = where(fvalid, code, INT64_MAX), the top-k score, and idx the
     kk = min(k, N) picks in lax.top_k's order — of the final reduce (N = M)
-    where there is an exchange.
+    where there is an exchange. On the card a totals lane is written at
+    the valid run starts only (every other position keeps what torch.empty
+    left there: no check reads it and no consumer ships it); fkey, fvalid
+    and score are written at every position.
 
 Integer sums are bit-exact with the reference (modulo 2^64); float sums
 are direct run sums in the kernel and the plain version alike, where the
@@ -64,9 +71,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import red
+from . import compact, red
 from .build import count, library
-from .lex_sort import SortOp, lex_sort_perm
+from .tables import sm_count, stream_scratch
 from .topk import topk, topk_ref
 
 I64_MAX = red.I64_MAX
@@ -230,59 +237,77 @@ _bound: set = set()
 def _lib():
     lib = library("seg_reduce")
     if "seg_reduce" not in _bound:
-        for fn in ("tt_sr_code", "tt_sr_code_raw", "tt_sr_reduce", "tt_sr_emit"):
+        for fn in ("tt_sr_code", "tt_sr_code_raw", "tt_sr_fill", "tt_sr_reduce", "tt_sr_emit"):
             getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             getattr(lib, fn).restype = ctypes.c_int
-        lib.tt_sr_scratch_words.argtypes = [ctypes.c_int64, ctypes.c_int]
-        lib.tt_sr_scratch_words.restype = ctypes.c_int64
+        lib.tt_sr_code_scratch.argtypes = [ctypes.c_int64]
+        lib.tt_sr_code_scratch.restype = ctypes.c_int64
+        lib.tt_sr_reduce_scratch.argtypes = [ctypes.c_int64, ctypes.c_int]
+        lib.tt_sr_reduce_scratch.restype = ctypes.c_int64
         _bound.add("seg_reduce")
     return lib
 
 
 def _call(fn, words, dev):
     w = np.array(words, dtype=np.int64)
-    rc = getattr(_lib(), fn)(w.ctypes.data, len(w), torch.cuda.get_device_properties(dev).multi_processor_count,
-                             torch.cuda.current_stream(dev).cuda_stream)
+    rc = getattr(_lib(), fn)(w.ctypes.data, len(w), sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"seg_reduce: {fn} launch failed (cudaError {rc})")
 
 
-def emit(rows, idx, fkey, fvalid, totals) -> None:
-    """The kernel that writes the picks' rows (emit_ref on the card)."""
-    dev = rows.device
-    if dev.type == "cpu":
-        return emit_ref(rows, idx, fkey, fvalid, totals)
-    kk = idx.shape[0]
-    if rows.dtype != torch.int64 or rows.dim() != 2 or rows.shape[0] != 2 + len(totals) or rows.shape[1] < kk \
-            or rows.stride(1) != 1:
-        raise TypeError(f"seg_reduce: the result rows are int64 [{2 + len(totals)}, >= {kk}], rows contiguous")
-    words = [kk, len(totals), idx.data_ptr(), fkey.data_ptr(), fvalid.data_ptr(), rows.data_ptr(), rows.stride(0)]
-    words += [t.data_ptr() for t in totals]
-    _call("tt_sr_emit", words, dev)
-
-
-def _reduce(code, mask, lanes, score_lane: int, desc: bool, max_run: int, with_score: bool):
-    """_reduce_ref on the card (K8 sort, then tt_sr_reduce): (fkey, fvalid,
-    totals, score or None)."""
-    dev = code.device
-    n = code.shape[0]
-    order = lex_sort_perm([SortOp(code, "i64")])
+def _reduce(entry, words, n, lanes, score_lane: int, desc: bool, max_run: int, with_score: bool, dev):
+    """_reduce_ref on the card: the code kernel `entry` (its `words`) with
+    the compaction, K8 over the M kept codes, then tt_sr_reduce → (fkey,
+    fvalid, totals, score or None, M)."""
+    lib = _lib()
+    buf, (o_comp, o_crow, o_res) = compact.workspace(dev, [8 * n, 4 * n, 24])
+    base = buf.data_ptr()
+    comp, res = buf[o_comp:o_comp + n], buf[o_res:o_res + 3]
+    with stream_scratch("seg_reduce", dev, lib.tt_sr_code_scratch(n)) as ws:
+        _call(entry, words + [comp.data_ptr(), base + 8 * o_crow, res.data_ptr(), ws.data_ptr()], dev)
+    # the outputs while the code kernel runs: after the read, only launches
     totals = [torch.empty(n, dtype=torch.float64 if ln.is_float else torch.int64, device=dev) for ln in lanes]
     fkey = torch.empty(n, dtype=torch.int64, device=dev)
     fvalid = torch.empty(n, dtype=torch.bool, device=dev)
     score = None
     if with_score:
-        sdt = torch.float64 if lanes[score_lane].is_float else torch.int64
-        score = torch.empty(n, dtype=sdt, device=dev)
-    scratch = torch.empty(_lib().tt_sr_scratch_words(n, len(lanes)), dtype=torch.int64, device=dev)
-    words = [n, len(lanes), score_lane, int(bool(desc)), span(max_run), code.data_ptr(), order.data_ptr(),
-             mask.data_ptr()]
+        score = torch.empty(n, dtype=torch.float64 if lanes[score_lane].is_float else torch.int64, device=dev)
+    tail = [base + 8 * o_crow, comp.data_ptr()]
     for ln, t in zip(lanes, totals):
-        words += [red.OPS[ln.op], 0 if ln.data is None else ln.data.data_ptr(),
-                  0 if ln.valid is None else ln.valid.data_ptr(), t.data_ptr()]
-    words += [fkey.data_ptr(), fvalid.data_ptr(), 0 if score is None else score.data_ptr(), scratch.data_ptr()]
-    _call("tt_sr_reduce", words, dev)
-    return fkey, fvalid, totals, score
+        tail += [red.OPS[ln.op], 0 if ln.data is None else ln.data.data_ptr(),
+                 0 if ln.valid is None else ln.valid.data_ptr(), t.data_ptr()]
+    tail += [fkey.data_ptr(), fvalid.data_ptr(), 0 if score is None else score.data_ptr()]
+    fill = [n, fkey.data_ptr(), fvalid.data_ptr(), 0 if score is None else score.data_ptr(),
+            red.OPS[lanes[score_lane].op]]
+    m, orand = compact.read(res, behind=lambda: _call("tt_sr_fill", fill, dev))
+    perm = compact.sort_kept(comp, m, orand)
+    stage = torch.empty(len(lanes) * m, dtype=torch.int64, device=dev)  # the lanes in sorted order
+    w = [n, m, len(lanes), score_lane, int(bool(desc)), span(max_run), perm.data_ptr()] + tail
+    with stream_scratch("seg_reduce", dev, lib.tt_sr_reduce_scratch(m, len(lanes))) as ws:
+        _call("tt_sr_reduce", w + [stage.data_ptr(), ws.data_ptr()], dev)
+    return fkey, fvalid, totals, score, m
+
+
+def _picks(lanes, score_lane, k, m, rows, fkey, fvalid, totals, score, dev):
+    """K6 over the first M scores, then tt_sr_emit: the picks over all N
+    (the tail positions M, M+1, ... after K6's picks at or above the
+    floor) and, with `rows`, the packed rows at them → int32 [kk]."""
+    n = fkey.shape[0]
+    kk = min(k, n)
+    kp = min(kk, m)
+    pidx, _ = topk(score[:m], None, torch.ones(m, dtype=torch.bool, device=dev), True, kp)
+    idx = torch.empty(kk, dtype=torch.int32, device=dev)
+    w = [kk, kp, m, n, len(totals), red.OPS[lanes[score_lane].op], pidx.data_ptr(), score.data_ptr(),
+         idx.data_ptr(), fkey.data_ptr(), fvalid.data_ptr()]
+    if rows is None:
+        w += [0, 0]
+    else:
+        if rows.dtype != torch.int64 or rows.dim() != 2 or rows.shape[0] != 2 + len(totals) or rows.shape[1] < kk \
+                or rows.stride(1) != 1:
+            raise TypeError(f"seg_reduce: the result rows are int64 [{2 + len(totals)}, >= {kk}], rows contiguous")
+        w += [rows.data_ptr(), rows.stride(0)]
+    _call("tt_sr_emit", w + [t.data_ptr() for t in totals], dev)
+    return idx
 
 
 def seg_reduce(keys, mask, lanes, score_lane: int, desc: bool, k: int, rows=None, exchange=None,
@@ -299,28 +324,27 @@ def seg_reduce(keys, mask, lanes, score_lane: int, desc: bool, k: int, rows=None
     for t in ts:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"seg_reduce: inputs must be contiguous tensors on {dev}")
-    code = torch.empty(n, dtype=torch.int64, device=dev)
-    words = [n, len(keys), mask.data_ptr(), code.data_ptr()]
+    if n >= 1 << 31:
+        raise ValueError(f"seg_reduce: {n} rows exceed the int32 row ids")
+    words = [n, len(keys), mask.data_ptr()]
     for kk in keys:
         words += [kk.data.data_ptr(), kk.valid.data_ptr(), kk.lo, kk.step, kk.stride, int(kk.is_int)]
-    _call("tt_sr_code", words, dev)
     if exchange is None:
-        fkey, fvalid, totals, score = _reduce(code, mask, lanes, score_lane, desc, n, True)
+        fkey, fvalid, totals, score, m = _reduce("tt_sr_code", words, n, lanes, score_lane, desc, n, True, dev)
     else:  # the local reduce, P2's exchange of its groups, the final reduce
-        ukey, uvalid, uvals, _ = _reduce(code, mask, lanes, score_lane, desc, n, False)
+        ukey, uvalid, uvals, _, _ = _reduce("tt_sr_code", words, n, lanes, score_lane, desc, n, False, dev)
         key2, vals2, exm = exchange(ukey, uvals, uvalid)
-        m = exm.shape[0]
-        if key2.shape != (m,) or exm.dtype != torch.bool or len(vals2) != len(lanes):
+        key2, exm = key2.contiguous(), exm.contiguous()  # held through the launches that read them
+        m2 = exm.shape[0]
+        if key2.shape != (m2,) or exm.dtype != torch.bool or len(vals2) != len(lanes):
             raise TypeError("seg_reduce: the exchange returns (key int64 [M], one lane per lane, bool [M])")
+        if m2 >= 1 << 31:
+            raise ValueError(f"seg_reduce: {m2} fragments exceed the int32 row ids")
         lanes = [red.RedLane(final_op(ln.op), v.contiguous()) for ln, v in zip(lanes, vals2)]
-        red.check_lanes(lanes, m, "seg_reduce")
-        code = torch.empty(m, dtype=torch.int64, device=dev)
-        _call("tt_sr_code_raw", [m, exm.data_ptr(), key2.contiguous().data_ptr(), code.data_ptr()], dev)
-        fkey, fvalid, totals, score = _reduce(code, exm, lanes, score_lane, desc, n_dev, True)
-    n_out = fkey.shape[0]
-    idx, _ = topk(score, None, torch.ones(n_out, dtype=torch.bool, device=dev), True, min(k, n_out))
-    if rows is not None:
-        emit(rows, idx, fkey, fvalid, totals)
+        red.check_lanes(lanes, m2, "seg_reduce")
+        fkey, fvalid, totals, score, m = _reduce("tt_sr_code_raw", [m2, exm.data_ptr(), key2.data_ptr()], m2, lanes,
+                                                 score_lane, desc, n_dev, True, dev)
+    idx = _picks(lanes, score_lane, k, m, rows, fkey, fvalid, totals, score, dev)
     count(seg_reduce)
     return SegReduce(idx, fkey, fvalid, totals, score)
 

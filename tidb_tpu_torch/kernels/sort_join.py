@@ -3,9 +3,14 @@
 Replaces the non-LUT level of tidb_tpu/parallel/mpp.py:1546-1653
 (`join_stage` inside MPPEngine._build_program) with `pack_keys`
 (:1451-1463). The CUDA kernels are csrc/sort_join.cu (their note gives
-the steps and the bound); the build keys are sorted by K8
-(kernels/lex_sort.py), stable as `jnp.argsort`. `sort_join_ref` is the
-plain PyTorch version beside them, the reference's jnp code step by step.
+the steps and the bound): the build pack compacts the rows whose key is
+valid (kernels/compact.py: M of them, read with the bits they vary in in
+the call's one host read), K8 (kernels/lex_sort.py, stable as
+`jnp.argsort`) sorts only those, the sorted layout over all B positions
+comes with a directory of the key range that the probe kernels search
+through, and a duplicate level expands slot by slot. `sort_join_ref` is
+the plain PyTorch version beside them, the reference's jnp code step by
+step.
 
 `sort_join(pkeys, bkeys, lo, stride, key_i32, pmask, bmask, brow, mult,
 left, cap, gathers, probe_lanes=(), prows=(), out=None)`:
@@ -46,12 +51,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import compact
 from .build import count, library
-from .lex_sort import SortOp, lex_sort_perm
+from .tables import sm_count, stream_scratch
 
 I64_MAX = (1 << 63) - 1
 I32_MAX = (1 << 31) - 1
 MAX_KEYS, MAX_LANES, MAX_ROWS = 4, 32, 8
+ETILE = 1024  # output slots an expansion block: csrc/sort_join.cu's ETILE
+DIR_MAX_BITS = 20  # csrc/sort_join.cu's DIR_MAX_BITS
 
 
 class SortJoin(NamedTuple):
@@ -176,38 +184,33 @@ _bound: set = set()
 def _lib():
     lib = library("sort_join")
     if "sort_join" not in _bound:
-        for fn in ("tt_sj_pack", "tt_sj_sorted", "tt_sj_probe1", "tt_sj_count", "tt_sj_scan", "tt_sj_expand"):
+        for fn in ("tt_sj_pack", "tt_sj_sorted", "tt_sj_probe1", "tt_sj_count", "tt_sj_expand"):
             getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             getattr(lib, fn).restype = ctypes.c_int
-        lib.tt_sj_scan_scratch.argtypes = [ctypes.c_int64]
-        lib.tt_sj_scan_scratch.restype = ctypes.c_int64
+        lib.tt_sj_scratch_words.argtypes = [ctypes.c_int64]
+        lib.tt_sj_scratch_words.restype = ctypes.c_int64
         _bound.add("sort_join")
     return lib
 
 
 def _call(fn: str, words: list[int], dev) -> None:
     w = np.array(words, dtype=np.int64)
-    rc = getattr(_lib(), fn)(w.ctypes.data, len(w), torch.cuda.get_device_properties(dev).multi_processor_count,
-                             torch.cuda.current_stream(dev).cuda_stream)
+    rc = getattr(_lib(), fn)(w.ctypes.data, len(w), sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sort_join: {fn} launch failed (cudaError {rc})")
 
 
-def _pack(keys, lo, stride, key_i32, mask, key_max, dev):
-    """Packed key and validity of one side; with `mask` the validity is
-    mask & kv and the sort operand where(mask & kv, key, key_max) comes
-    with them."""
-    m = keys[0][0].shape[0]
-    key = torch.empty(m, dtype=torch.int64, device=dev)
-    kv = torch.empty(m, dtype=torch.bool, device=dev)
-    sop = torch.empty(m, dtype=torch.int64, device=dev) if mask is not None else None
-    words = [m, len(keys), int(key_i32), key_max]
+def dir_bits(m: int) -> int:
+    """The directory's bits over M sorted keys: about one bucket a key,
+    at most 2^DIR_MAX_BITS buckets."""
+    return min(DIR_MAX_BITS, m.bit_length())
+
+
+def _key_words(keys, lo, stride, key_i32) -> list[int]:
+    words = [len(keys), int(key_i32)]
     for (d, v), l, st in zip(keys, lo, stride):
         words += [d.data_ptr(), v.data_ptr(), l, st]
-    words += [0 if mask is None else mask.data_ptr(), key.data_ptr(), kv.data_ptr(),
-              0 if sop is None else sop.data_ptr()]
-    _call("tt_sj_pack", words, dev)
-    return key, kv, sop
+    return words
 
 
 def sort_join(pkeys, bkeys, lo, stride, key_i32, pmask, bmask, brow, mult, left, cap, gathers,
@@ -233,32 +236,54 @@ def sort_join(pkeys, bkeys, lo, stride, key_i32, pmask, bmask, brow, mult, left,
             raise ValueError(f"sort_join: inputs must be contiguous tensors on {dev}")
     if mult > 1 and not 1 <= cap < 1 << 31:
         raise ValueError(f"sort_join: capacity {cap} outside 1..2^31-1")
+    if max(n, B) >= 1 << 31:
+        raise ValueError(f"sort_join: {max(n, B)} rows exceed the int32 row ids")
+    lib = _lib()
     key_max = I32_MAX if key_i32 else I64_MAX
-    pkey, pkv, _ = _pack(pkeys, lo, stride, key_i32, None, key_max, dev)
-    _, bvalid, sop = _pack(bkeys, lo, stride, key_i32, bmask, key_max, dev)  # bvalid = bmask & kv
-    order = lex_sort_perm([SortOp(sop, "i64")])
-    sk = torch.empty(B, dtype=torch.int64, device=dev)
-    sv = torch.empty(B, dtype=torch.bool, device=dev)
-    _call("tt_sj_sorted", [B, sop.data_ptr(), bvalid.data_ptr(), order.data_ptr(), sk.data_ptr(), sv.data_ptr()],
-          dev)
+    # the build side: packed and compacted, the kept keys sorted, then laid
+    # out over all B positions with the directory (and the run lengths); one
+    # allocation for every array of the call that it does not return
+    dup = mult > 1
+    etiles = -(-cap // ETILE) if dup else 0
+    buf, offs = compact.workspace(dev, [B, 8 * B, 4 * B, 4 * B, 24, 8 * B, B, 4 * B, 4 * ((1 << dir_bits(B)) + 1),
+                                        4 * B * dup, 24 * n * dup, 4 * (etiles + 1) * dup, 40 * dup])
+    a = [buf.data_ptr() + 8 * o for o in offs]
+    bvalid, comp_a, crow, tail, res_a, sk, sv, order, dirs, rlen, entries, first, scal = a
+    comp, res = buf[offs[1]:offs[1] + B], buf[offs[4]:offs[4] + 3]
+    with stream_scratch("sort_join", dev, lib.tt_sj_scratch_words(max(n, B))) as ws:
+        _call("tt_sj_pack", [B, key_max] + _key_words(bkeys, lo, stride, key_i32)
+              + [bmask.data_ptr(), bvalid, comp_a, crow, tail, res_a, ws.data_ptr()], dev)
+    # the outputs while the pack runs: after the read, only launches
     out = out or {}
-    m = n if mult == 1 else cap
+    L = n if mult == 1 else cap
     mask = out.get("mask")
     if mask is None:
-        mask = torch.empty(m, dtype=torch.bool, device=dev)
+        mask = torch.empty(L, dtype=torch.bool, device=dev)
     rowid = out.get("rowid")
     if rowid is None:
-        rowid = torch.empty(m, dtype=torch.int64, device=dev)
-    if mask.shape != (m,) or mask.dtype not in (torch.bool, torch.int64) or rowid.shape != (m,) \
+        rowid = torch.empty(L, dtype=torch.int64, device=dev)
+    if mask.shape != (L,) or mask.dtype not in (torch.bool, torch.int64) or rowid.shape != (L,) \
             or rowid.dtype != torch.int64:
-        raise TypeError(f"sort_join: the mask row is bool/int64 [{m}], the row-id row int64 [{m}]")
-    gathered = [(torch.empty(m, dtype=d.dtype, device=dev), torch.empty(m, dtype=torch.bool, device=dev))
+        raise TypeError(f"sort_join: the mask row is bool/int64 [{L}], the row-id row int64 [{L}]")
+    gathered = [(torch.empty(L, dtype=d.dtype, device=dev), torch.empty(L, dtype=torch.bool, device=dev))
                 for d, _ in gathers]
-    head = [n, B, len(gathers), int(bool(left)), int(mask.dtype == torch.int64), pkey.data_ptr(), pkv.data_ptr(),
-            pmask.data_ptr(), sk.data_ptr(), sv.data_ptr(), order.data_ptr(), brow.data_ptr()]
     glanes = []
     for (d, v), (od, ov) in zip(gathers, gathered):
         glanes += [d.data_ptr(), v.data_ptr(), od.data_ptr(), ov.data_ptr()]
+    if dup:
+        plan = [(torch.empty(cap, dtype=d.dtype, device=dev), torch.empty(cap, dtype=torch.bool, device=dev))
+                for d, _ in probe_lanes]
+        prow_out = list(out.get("prows", ())) or [torch.empty(cap, dtype=torch.int64, device=dev) for _ in prows]
+        if len(prow_out) != len(prows) or any(t.shape != (cap,) or t.dtype != torch.int64 for t in prow_out):
+            raise TypeError(f"sort_join: one int64 [{cap}] output row per row-id lane")
+    m, orand = compact.read(res)
+    perm = compact.sort_kept(comp, m, orand)
+    bits = dir_bits(m)
+    _call("tt_sj_sorted", [B, m, bits, key_max, perm.data_ptr(), comp_a, crow, tail, bvalid, sk, sv, order, dirs,
+                           rlen if dup else 0], dev)
+    head = [n, B, m, bits, len(gathers), int(bool(left)), int(mask.dtype == torch.int64), pmask.data_ptr(),
+            sk, sv, order, dirs, brow.data_ptr()]
+    head += _key_words(pkeys, lo, stride, key_i32)
     if mult == 1:
         copies = list(zip(prows, out.get("prows", ())))
         words = head + [len(copies)] + glanes + [mask.data_ptr(), rowid.data_ptr()]
@@ -269,22 +294,12 @@ def sort_join(pkeys, bkeys, lo, stride, key_i32, pmask, bmask, brow, mult, left,
         _call("tt_sj_probe1", words, dev)
         count(sort_join)
         return SortJoin(mask, rowid, gathered, list(probe_lanes), list(prows), None)
-    cnt = torch.empty(n, dtype=torch.int32, device=dev)
-    lft = torch.empty(n, dtype=torch.int64, device=dev)
-    hit = torch.empty(n, dtype=torch.bool, device=dev)
-    _call("tt_sj_count", [n, B, int(bool(left)), pkey.data_ptr(), pkv.data_ptr(), pmask.data_ptr(), sk.data_ptr(),
-                          cnt.data_ptr(), lft.data_ptr(), hit.data_ptr()], dev)
-    opos = torch.empty(n, dtype=torch.int64, device=dev)
-    scal = torch.empty(2, dtype=torch.int64, device=dev)  # total, dropped
-    scratch = torch.empty(_lib().tt_sj_scan_scratch(n), dtype=torch.int64, device=dev)
-    _call("tt_sj_scan", [n, cap, cnt.data_ptr(), opos.data_ptr(), scal.data_ptr(), scratch.data_ptr()], dev)
-    plan = [(torch.empty(cap, dtype=d.dtype, device=dev), torch.empty(cap, dtype=torch.bool, device=dev))
-            for d, _ in probe_lanes]
-    prow_out = list(out.get("prows", ())) or [torch.empty(cap, dtype=torch.int64, device=dev) for _ in prows]
-    if len(prow_out) != len(prows) or any(t.shape != (cap,) or t.dtype != torch.int64 for t in prow_out):
-        raise TypeError(f"sort_join: one int64 [{cap}] output row per row-id lane")
-    words = head + [len(probe_lanes), len(prows), cap, cnt.data_ptr(), opos.data_ptr(), lft.data_ptr(),
-                    hit.data_ptr(), scal.data_ptr()] + glanes
+    # entries: (opos, row | left, cnt | hit) a row with cnt > 0; first: the
+    # entry at each expansion tile's first slot; scal: total, dropped, the
+    # last row's left and opos, the entries
+    with stream_scratch("sort_join", dev, lib.tt_sj_scratch_words(max(n, B))) as ws:
+        _call("tt_sj_count", head + [cap, rlen, entries, first, scal, ws.data_ptr()], dev)
+    words = head + [len(probe_lanes), len(prows), cap, entries, first, scal] + glanes
     for (d, v), (od, ov) in zip(probe_lanes, plan):
         words += [d.data_ptr(), v.data_ptr(), od.data_ptr(), ov.data_ptr()]
     for s, t in zip(prows, prow_out):
@@ -292,7 +307,7 @@ def sort_join(pkeys, bkeys, lo, stride, key_i32, pmask, bmask, brow, mult, left,
     words += [mask.data_ptr(), rowid.data_ptr()]
     _call("tt_sj_expand", words, dev)
     count(sort_join)
-    return SortJoin(mask, rowid, gathered, plan, prow_out, scal[1:2])
+    return SortJoin(mask, rowid, gathered, plan, prow_out, buf[offs[12] + 1:offs[12] + 2])
 
 
 sort_join.launches = 0
