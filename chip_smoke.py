@@ -24,8 +24,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
               limits, signed zeros, NaNs and ±inf, k = 1, k = N, every
               row tied, k at K6's ordering cap (4,096) and one past it
               (K8 orders those); K7 topn_multi's operands; K9 sort_groups with
-              NULL-able, float, uint64 and dict-code keys, all rows
-              masked and a capacity below n_groups; W1 window over every
+              NULL-able, float (NaN, ±0.0, subnormals), uint64 and
+              dict-code keys, all rows masked, every row and one row
+              masked in, keys K8 sorts in several words (the sweep
+              compares operands), a constant key (no word) and a capacity
+              below n_groups; W1 window over every
               window function under every frame kind (default, ROWS
               offsets, unbounded, RANGE offsets ASC/DESC with NULL keys,
               empty frames), uint64 and float arguments with NaN and
@@ -60,9 +63,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
               over n_dev 2, 3, 4 and 8 ranks (every group arriving from
               n_dev peers); P6 rowpos_agg
               (rowpos_battery) with a dedicated presence lane, fewer
-              matched rows than k, B = 1,000,000, and its picks from one
+              matched rows than k, B = 1,000,000, B = 1, valid scores at
+              and below the floor (integer and float; every build row
+              picked, past K6's ordering cap too), and its picks from one
               rank's block of build rows (n_dev 3, 4, 8; the last block
-              ragged); P2 exchange (exchange_battery) at n_dev 2, 3, 4 and
+              ragged, a block of one row); P2 exchange (exchange_battery) at n_dev 2, 3, 4 and
               8 with negative keys, NULL keys of a probe side, an int32
               key, most rows masked, one owner past its bucket and 1M
               rows, 8-, 4- and 1-byte lanes; P8 dense_agg
@@ -210,8 +215,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
               CHECKSUM's and Q18's subquery's own lanes (the call, its
               kernel alone over a table built beforehand, the plain
               version, the bound, the launch plan), P5's and P6's mesh
-              calls with the K8, K4 and K6 calls inside them timed
-              apart, P2 on main.mpp_mesh's
+              calls with the K8 and K6 calls inside P5 timed apart and
+              K4's and K6's kernels inside P6 by their device time in one
+              profiled call (P6 launches them over its one upload's
+              tables; its one-device call likewise), P2 on main.mpp_mesh's
               largest exchange (the unfused Q3's second level), M1 and M3
               (their warm
               medians and rows/s) on the mesh phase's lineitem, K10's
@@ -496,7 +503,13 @@ def multi_cases(dev, rng, n: int):
 
 def group_cases(dev, rng, n: int):
     """(name, mask, keys, cap) for K9: NULL-able, float (±0.0, NaN), uint64
-    and dict-code keys; an all-masked batch; a capacity below n_groups."""
+    and dict-code keys; an all-masked batch; a capacity below n_groups; and
+    the edges of the compacted design — keys K8 sorts in more than one word
+    (the sweep gathers each operand), with and without a cap below
+    n_groups, every row masked in, one row masked in, a key constant over
+    the rows (K8 sorts nothing), subnormal and NaN float keys; and 34 keys
+    of every kind (each a row of the kernels' key table), with and without
+    a cap below n_groups."""
     import numpy as np
     import torch
 
@@ -511,11 +524,27 @@ def group_cases(dev, rng, n: int):
     fl = t(rng.choice(np.array([-0.0, 0.0, 1.5, -2.5, np.nan, np.inf]), n))
     u = U64(t(rng.integers(0, 3, n) + (1 << 62) * rng.integers(-2, 2, n)))
     codes = t(rng.integers(0, 7, n).astype(np.int32))
+    wide = t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64) >> rng.integers(0, 62, n))
+    sub = t(rng.choice(np.array([5e-324, -1e-310, 2.2250738585072014e-308, -0.0, 0.0, np.nan, -np.nan, 7.5]), n))
+    one = np.zeros(n, bool)
+    one[rng.integers(0, n)] = True
+    base = rng.integers(0, 8, n)
+    many = [(t(((base * (j + 1)) % (j + 2)).astype(np.int32)) if j % 3 == 0 else
+             t(((base * (j + 1)) % (j + 2)) - 0.5) if j % 3 == 1 else t((base * (j + 1)) % (j + 2)),
+             v if j in (5, 20) else None) for j in range(34)]
     return [("q18_orderkey", t(np.ones(n, bool)), [(orderkey, None)], None),
             ("nullable_int_float", mask, [(t(rng.integers(0, 50, n)), v), (fl, v)], None),
             ("u64_codes", mask, [(u, None), (codes, v)], None),
             ("all_masked", t(np.zeros(n, bool)), [(orderkey, v)], None),
-            ("capped", mask, [(orderkey, None)], 4)]
+            ("capped", mask, [(orderkey, None)], 4),
+            ("wide_keys", mask, [(wide, v), (fl, None)], None),
+            ("wide_capped", mask, [(wide, None), (codes, v)], 3),
+            ("none_masked_wide", t(np.ones(n, bool)), [(wide, v)], None),
+            ("one_masked_in", t(one), [(orderkey, v), (fl, v)], None),
+            ("constant_key", mask, [(t(np.full(n, 7, np.int64)), None)], None),
+            ("subnormal_nan", mask, [(sub, v)], None),
+            ("many_keys", mask, many, None),
+            ("many_keys_capped", mask, many, 3)]
 
 
 def gcap_escalation(ng: int, cap: int = 1 << 16) -> int:
@@ -1363,8 +1392,28 @@ def rowpos_battery(rng, n: int, B: int, case: str) -> dict:
     rows, lanes of every kind. 'presence': a dedicated presence lane
     first (not shipped), score on the int64 sum; 'count': the COUNT(*)
     lane is the presence; 'few': fewer matched build rows than k (the
-    picks run out); 'wide': k 100."""
+    picks run out); 'wide': k 100; 'floor' / 'floor_asc': one row a build
+    row, few of them matched, valid scores above, at (the sum -INT64_MAX,
+    or INT64_MAX ascending) and below the floor (INT64_MIN, whose negation
+    wraps onto itself), every build row picked; 'floor_float': float sums
+    of -inf (a valid score at the floor -inf)."""
     import numpy as np
+
+    if case.startswith("floor"):
+        rid = rng.permutation(B)[:n].astype(np.int64)
+        mask = rng.random(n) < 0.3
+        if case == "floor_float":
+            s = np.round(rng.random(n) * 1e4, 2)
+            s[rng.random(n) < 0.3] = -np.inf
+            lanes = [("count", None, None), ("sum_f64", s, np.ones(n, bool)), ("count", None, np.ones(n, bool))]
+        else:
+            s = rng.integers(-(1 << 40), 1 << 40, n)
+            edge = rng.random(n)
+            s[edge < 0.3] = -((1 << 63) - 1) if case == "floor" else (1 << 63) - 1
+            s[(edge >= 0.3) & (edge < 0.5)] = -(1 << 63)
+            lanes = [("count", None, None), ("sum_i64", s, np.ones(n, bool)), ("count", None, np.ones(n, bool))]
+        return {"mask": mask, "rid": rid, "nseg": B, "lanes": lanes, "pres": 0, "score_lane": 1,
+                "desc": case != "floor_asc", "k": B, "ship_from": 1}
 
     rid = rng.integers(0, B, n)
     if case == "few":
@@ -1381,7 +1430,9 @@ def rowpos_battery(rng, n: int, B: int, case: str) -> dict:
 
 
 ROWPOS_SHAPES = ((1, 1, "presence"), (5000, 4096, "presence"), (5000, 4096, "count"), (20_000, 8192, "few"),
-                 (100_003, 50_000, "wide"), (300_000, 1_000_000, "presence"))
+                 (100_003, 50_000, "wide"), (300_000, 1_000_000, "presence"), (2000, 1, "presence"),
+                 (64, 64, "floor"), (64, 64, "floor_asc"), (64, 64, "floor_float"), (3000, 5000, "floor"),
+                 (9000, 9000, "floor_asc"))
 
 
 def p6_args(b: dict, dev):
@@ -1476,7 +1527,8 @@ SEG_REDUCE_MESH_SHAPES = ((1000, "runs", 3), (100_003, "runs", 4), (300_000, "gi
 # P6's picks from one rank's block of build rows (the collect stands in for
 # psum_scatter / pmin / pmax: the rank's slice of its own partials)
 ROWPOS_MESH_SHAPES = ((5000, 4096, "presence", 4, 1), (20_000, 8192, "few", 3, 2),
-                      (300_000, 1_000_000, "presence", 4, 3), (5000, 4097, "count", 8, 7))
+                      (300_000, 1_000_000, "presence", 4, 3), (5000, 4097, "count", 8, 7),
+                      (64, 64, "floor", 4, 2), (4, 4, "presence", 4, 3))
 
 
 def mode_kernel_cases(dev, rng):
@@ -2200,7 +2252,8 @@ def sort_grouped_cases(dev, rng, r: int, sizes, kinds):
                 cases.append((f"topn_multi_tasks {tag}", k7))
             if "sort_groups" in kinds:
                 for case, spec in (("orderkey", [("orderkey", False)]), ("nullable_int_float", [("ints", True), ("floats", True)]),
-                                   ("u64_codes", [("u64", False), ("codes", True)]), ("limits", [("limits", True)])):
+                                   ("u64_codes", [("u64", False), ("codes", True)]), ("limits", [("limits", True)]),
+                                   ("many_keys", [("codes", j == 7) for j in range(30)] + [("ints", True)] * 4)):
                     keys = [[(_sort_key_lane(dev, rng, n, c, scale=g + 1), v if nullable else None) for c, nullable in spec]
                             for g, v in enumerate(valids)]
                     cases.append((f"sort_groups_tasks {case} {tag}", lambda keys=keys, masks=masks, w=w: _k9_tasks(masks, keys, w)))
@@ -3140,7 +3193,8 @@ def measure_mpp_kernels(main: dict, max_err: dict):
           "plain_ms": time_ms(lambda: with_rows(rowpos_agg_ref, a6, kw6), 3),
           "library_ms": time_ms(lambda: acc6.zero_().index_add_(0, seg6, val6)),
           "library_call": "index_add_ of the ORDER BY lane into the build rows", "bytes": p6_bytes,
-          "n": mask6.numel(), "B": B6, "lanes": len(lanes6), "k": kk6}
+          "n": mask6.numel(), "B": B6, "lanes": len(lanes6), "k": kk6,
+          **rowpos_split(lambda: with_rows(rowpos_agg, a6, kw6))}
 
     # P8 on SEG_REVENUE: 6 segments, the count and five aggregates' lanes
     a8, kw8 = caps["seg_revenue"]["dense_agg"][0]
@@ -4073,6 +4127,28 @@ def measure_seg_agg_queries(main: dict, max_err: dict) -> dict:
     return out
 
 
+def rowpos_split(call, tries: int = 3) -> dict:
+    """One P6 call's device time by kernel (kernel_split): K4's
+    (`seg_agg_ms`), K6's (`topk_ms`) and P6's own kernels' (`p6_device_ms`),
+    their sum (`device_ms`), and the host clock's time to enqueue the call
+    (`enqueue_ms`: nothing synchronized). Late in a long run the profiler
+    can miss some of a call's kernels: a session without K4's, P6's and
+    K6's is tried again, and after `tries` the parts are None."""
+    for _ in range(tries):
+        split = kernel_split(call)
+        sm = split.get("split_ms") or {}
+        if all(any(n.startswith(p) for n in sm) for p in ("seg_agg_kernel", "seg_kernel", "emit_kernel", "topk_")):
+            break
+    else:
+        return {"seg_agg_ms": None, "topk_ms": None, "p6_device_ms": None, "device_ms": None,
+                "enqueue_ms": host_ms(call), "profiler_missed_kernels": True, **split}
+    k4 = sum(v for n, v in sm.items() if n.startswith(("seg_agg_kernel", "init_kernel")))
+    k6 = sum(v for n, v in sm.items() if n.startswith("topk_"))
+    own = sum(v for n, v in sm.items() if n in ("seg_kernel", "score_kernel", "emit_kernel"))
+    return {"seg_agg_ms": k4, "topk_ms": k6, "p6_device_ms": own, "device_ms": sum(sm.values()),
+            "enqueue_ms": host_ms(call), **split}
+
+
 def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
     """P5's local + final reduce and P6's block picks on main.mpp_mesh's own
     inputs: every rank's call held to its plain version (hold_mesh_modes),
@@ -4080,7 +4156,9 @@ def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
     bytes bound and the nearest PyTorch call, the recorded exchange /
     collect outputs standing in for the collectives (so the times hold
     the kernels alone), and the kernels each calls timed apart (K8 and K6
-    in P5, K4 and K6 in P6: `own_ms` is the call less them). The times go
+    in P5, K4 and K6 in P6: `own_ms` is the call less them — P5's less
+    their calls' times, P6's less their kernels' device times in one
+    profiled call, so P6's holds their host work too). The times go
     into the kernels line's seg_reduce and rowpos_agg entries as mesh_ms,
     mesh_plain_ms, mesh_bound_ms, mesh_library_ms and mesh_own_ms."""
     import torch
@@ -4131,15 +4209,16 @@ def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
           "bytes": b6, "bound_ms": b6 / HBM_BYTES_PER_S * 1e3, "rows": mask.numel(), "B": B, "block": blk,
           "n_dev": n_dev, "lanes": len(lanes), "k": kk, "calls_held": len(calls["rowpos_agg"])}
     # each call's own time apart from the kernels it calls: K8 and K6 in
-    # P5, K4 and K6 in P6
+    # P5 (their calls timed apart); K4 and K6 in P6, which launches them
+    # over the tables of its one upload: their kernels' device time in one
+    # profiled call
     mods = {name: importlib.import_module(f"tidb_tpu_torch.kernels.{name}") for name in ("seg_reduce", "rowpos_agg")}
-    for k, name, run, inner in ((k5, "seg_reduce", lambda: seg_reduce(*a5, rows=rows5, exchange=ex, n_dev=n5),
-                                 ("lex_sort_perm", "topk")),
-                                (k6, "rowpos_agg", lambda: rowpos_agg(*a, rows=rows6, n_dev=n_dev, collect=col),
-                                 ("seg_agg", "topk"))):
-        parts = {f"{w}_ms": (k8_inside(mods[name], run)[1] if w == "lex_sort_perm"
-                             else calls_inside(mods[name], w, run)[1]) for w in inner}
-        k.update(parts, own_ms=k["ms"] - sum(parts.values()))
+    parts = {f"{w}_ms": (k8_inside(mods["seg_reduce"], lambda: seg_reduce(*a5, rows=rows5, exchange=ex, n_dev=n5))[1]
+                         if w == "lex_sort_perm" else calls_inside(mods["seg_reduce"], w, lambda: seg_reduce(
+                             *a5, rows=rows5, exchange=ex, n_dev=n5))[1]) for w in ("lex_sort_perm", "topk")}
+    k5.update(parts, own_ms=k5["ms"] - sum(parts.values()))
+    k6.update(rowpos_split(lambda: rowpos_agg(*a, rows=rows6, n_dev=n_dev, collect=col)))
+    k6["own_ms"] = None if k6["seg_agg_ms"] is None else k6["ms"] - k6["seg_agg_ms"] - k6["topk_ms"]
     k5["k8_rows"] = [op[0].data.numel() for op in k8_inside(mods["seg_reduce"], lambda: seg_reduce(
         *a5, rows=rows5, exchange=ex, n_dev=n5))[0]]
     got = {"seg_reduce": k5, "rowpos_agg": k6}
@@ -4706,7 +4785,8 @@ def measure_sort_kernels(main: dict, max_err: dict):
           "unique_consecutive_sorted_key_ms": time_ms(lambda: torch.unique_consecutive(skey, return_inverse=True)),
           "bytes": _nbytes(mask, *_pairs((getattr(kd, "bits", kd), kv) for kd, kv in keys))
           + 4 * mask.numel() + 16 * len(keys) * g.n_groups,
-          "n_groups": g.n_groups, "cap": g.cap, "note": "ms includes K8 (k8_ms) and one n_groups sync"}
+          "n_groups": g.n_groups, "cap": g.cap,
+          "note": "ms includes K8 over the masked-in rows (k8_ms) and two syncs (their count, then n_groups)"}
 
     (mask, no_keys, lanes, nseg), kw = cap["q18_inner"]["seg_agg"]
     seg = kw["seg"]

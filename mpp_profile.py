@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time P4 (csrc/sort_join.cu) and P5 (csrc/seg_reduce.cu) on the MPP
-main path's own inputs, on one NVIDIA GPU.
+"""Time P4 (csrc/sort_join.cu), P5 (csrc/seg_reduce.cu) and P6
+(csrc/rowpos_agg.cu) on the MPP main path's own inputs, on one NVIDIA GPU.
 
-    python3 mpp_profile.py [--seed 42] [--q3-rows 4000000] [--reps 5] [--tree DIR ...]
+    python3 mpp_profile.py [--seed 42] [--q3-rows 4000000] [--reps 5] [--tree DIR ...] [--only p6]
 
 For each --tree (another checkout of the repository: an earlier commit,
 say) and this checkout, each in a fresh process, in turns (the trees, then
@@ -23,6 +23,20 @@ the same in reverse order), one JSON object a run under "runs":
                      P4's call on Q18's duplicate-key level and on
                      q3_unfused's two unique-key levels (lineitem → orders,
                      then → customer), likewise
+  q3_top100 / mesh_q3_top100
+                     run_mpp of Q3 LIMIT 100 (the rowpos aggregation), one
+                     device and over the 4-rank mesh: walls and spans
+  p6, p6_mesh        P6's call on q3_top100 (the rows of the packed result
+                     as the engine passes them) and its largest rank call
+                     of the mesh run (the recorded collectives' outputs in
+                     place of the collectives): ms (CUDA events over 10
+                     calls), host_ms (the host clock's median call through a
+                     synchronize), enqueue_ms (the host clock's mean call,
+                     nothing synchronized), the device ms of each kernel of
+                     one profiled call and their sum, and K4's, K6's and
+                     P6's own kernels' parts of it
+
+--only p6 measures q3_top100 and its P6 calls alone.
 
 Each tree runs its own chip_smoke.py helpers and its own kernels, built in
 its own build/. Every call is held to its plain version before it is
@@ -81,7 +95,65 @@ def _with_k8(cs, module, fn) -> dict:
             "device_ms": dev_ms, **split}
 
 
-def host(rows: int, seed: int, reps: int) -> dict:
+def _p6(cs, fn) -> dict:
+    """P6's call (module doc): event, host and enqueue times, and one
+    profiled call's device time by kernel."""
+    import torch
+
+    ms = cs.time_ms(fn)
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        fn()
+    enqueue = (time.perf_counter() - t) / 10 * 1e3
+    torch.cuda.synchronize()
+    split = cs.kernel_split(fn)
+    sm = split.get("split_ms") or {}
+    part = lambda names: sum(v for n, v in sm.items() if n.startswith(names))  # noqa: E731
+    return {"ms": ms, "host_ms": _host_ms(fn), "enqueue_ms": enqueue, "device_ms": sum(sm.values()) if sm else None,
+            "k4_device_ms": part(("seg_agg_kernel", "init_kernel")), "k6_device_ms": part("topk_"),
+            "p6_device_ms": part(("seg_kernel", "score_kernel", "emit_kernel")), **split}
+
+
+def host_p6(cs, tables, dev, query, out: dict) -> None:
+    """q3_top100 and its P6 calls, one device and the 4-rank mesh."""
+    import torch
+
+    from tidb_tpu_torch.entry import run_mpp
+    from tidb_tpu_torch.kernels import rowpos_agg, rowpos_agg_ref
+    from tidb_tpu_torch.parallel import mpp_program as mp
+    from tidb_tpu_torch.parallel.mesh import make_mesh
+
+    plan, engine, variables, out["q3_top100"] = query("q3_top100")
+    got, real = [], mp.rowpos_agg
+    mp.rowpos_agg = lambda *a, **kw: got.append((a, kw)) or real(*a, **kw)
+    try:
+        run_mpp(plan, tables, device=dev, engine=engine, variables=variables)
+    finally:
+        mp.rowpos_agg = real
+    a, kw = got[0]
+    rows = [torch.zeros_like(kw["rows"]) for _ in range(2)]
+    g, w = rowpos_agg(*a, rows=rows[0]), rowpos_agg_ref(*a, rows=rows[1])
+    cs.same_rowpos(g, w, "rowpos_agg on q3_top100", a[3])
+    cs.same_rows(rows[0], rows[1], 1, "rowpos_agg rows on q3_top100",
+                 {2 + j for j, ln in enumerate(a[3][a[8]:]) if ln.is_float})
+    out["p6"] = {"n": a[0].numel(), "B": a[2], "lanes": len(a[3]), **_p6(cs, lambda: rowpos_agg(*a, rows=rows[0]))}
+    mesh = make_mesh(4, dev)
+    try:
+        plan, engine, variables, out["mesh_q3_top100"] = query("q3_top100", mesh, warm=1)
+        with cs.MeshModeSpy() as spy:
+            run_mpp(plan, tables, device=dev, engine=engine, variables=variables, mesh=mesh)
+    finally:
+        mesh.close()
+    cs.hold_mesh_modes({"seg_reduce": [], "rowpos_agg": spy.calls["rowpos_agg"]})
+    a, kw, col = max(spy.calls["rowpos_agg"], key=lambda c: c[0][0].numel())
+    rows_m = torch.zeros_like(kw["rows"])
+    out["p6_mesh"] = {"n": a[0].numel(), "B": a[2], "n_dev": kw["n_dev"], "block": col[0][0].numel(),
+                      **_p6(cs, lambda: rowpos_agg(*a, rows=rows_m, n_dev=kw["n_dev"], collect=lambda *x: col))}
+
+
+def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
     """One tree's measurements (module doc), in this process."""
     import torch
 
@@ -119,6 +191,9 @@ def host(rows: int, seed: int, reps: int) -> dict:
         med = runs[len(runs) // 2]
         return plan, engine, variables, {"wall_ms": med[0], "walls_ms": [r[0] for r in runs], "spans_ms": med[1]}
 
+    if only == "p6":
+        host_p6(cs, tables, dev, query, out)
+        return out
     for qname in ("q3_unfused", "q18"):
         plan, engine, variables, out[qname] = query(qname)
         got = caps[qname] = {"sort_join": [], "seg_reduce": []}
@@ -165,13 +240,15 @@ def host(rows: int, seed: int, reps: int) -> dict:
     ex = lambda *x, got=got: got  # noqa: E731 — the rank's recorded exchange outputs
     out["p5_mesh"] = {"n": a[1].numel(), "fragments": got[2].numel(), "n_dev": kw["n_dev"],
                       **_with_k8(cs, p5m, lambda: seg_reduce(*a, rows=rows_m, exchange=ex, n_dev=kw["n_dev"]))}
+    host_p6(cs, tables, dev, query, out)
     return out
 
 
-def worker(tree: str, rows: int, seed: int, reps: int) -> dict:
+def worker(tree: str, rows: int, seed: int, reps: int, only: str) -> dict:
     """One tree's measurements in a fresh process rooted at `tree`."""
     r = subprocess.run([sys.executable, os.path.abspath(__file__), "--host-of", tree, "--q3-rows", str(rows),
-                        "--seed", str(seed), "--reps", str(reps)], capture_output=True, text=True, cwd=tree)
+                        "--seed", str(seed), "--reps", str(reps), "--only", only], capture_output=True, text=True,
+                       cwd=tree)
     if r.returncode != 0:
         raise RuntimeError(f"mpp_profile: the run in {tree} failed (exit {r.returncode}):\n{r.stderr[-4000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
@@ -183,6 +260,7 @@ def main(argv=None) -> int:
     ap.add_argument("--q3-rows", type=int, default=4_000_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--tree", action="append", default=[], help="another checkout, timed in turns with this one")
+    ap.add_argument("--only", choices=("", "p6"), default="", help="p6: q3_top100 and its P6 calls alone")
     ap.add_argument("--host-of", help=argparse.SUPPRESS)  # the worker: one tree's measurements
     args = ap.parse_args(argv)
     try:
@@ -200,13 +278,13 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, root)
     if args.host_of:
-        print(json.dumps(host(args.q3_rows, args.seed, args.reps)), flush=True)
+        print(json.dumps(host(args.q3_rows, args.seed, args.reps, args.only)), flush=True)
         return 0
     import chip_smoke as cs
 
     card = cs.card_line()
     trees = [os.path.abspath(t) for t in args.tree] + [ROOT]
-    runs = [(t, worker(t, args.q3_rows, args.seed, args.reps)) for t in trees + trees[::-1]]
+    runs = [(t, worker(t, args.q3_rows, args.seed, args.reps, args.only)) for t in trees + trees[::-1]]
     print(json.dumps({"runs": [{"tree": os.path.relpath(t, ROOT), **r} for t, r in runs], "card": card}), flush=True)
     return 0
 

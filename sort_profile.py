@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Profile K8 (csrc/lex_sort.cu) and K6 (csrc/topk.cu) on one NVIDIA GPU.
+"""Profile K8 (csrc/lex_sort.cu), K6 (csrc/topk.cu) and K9
+(csrc/sort_groups.cu) on one NVIDIA GPU.
 
-    python3 sort_profile.py [--seed 3]
+    python3 sort_profile.py [--seed 3] [--tree DIR ...] [--only k9] [--rows 16000000] [--reps 3]
 
 chip_smoke.py holds the kernels to their plain versions and times them on
 the main path's own inputs, late in one long process. This script adds
@@ -19,9 +20,22 @@ what that run cannot show, each as one JSON line:
             with clock64() by thread 0 of every tile and summed over the 7
             passes of a 16M-row multikey sort, from a copy of
             csrc/lex_sort.cu built with that instrumentation (the
-            repository's source is not changed).
+            repository's source is not changed);
+  k9      — for this checkout and each --tree (another checkout: an
+            earlier commit, say), each in a fresh process rooted there, in
+            turns (the trees, then the same in reverse order): Q18's
+            subquery through run_query over --rows lineitem rows (seed 42,
+            chip_smoke.py's main path), its wall and `sort` span (median of
+            --reps warm runs), K9's call on its own inputs (`k9_q18`) and
+            K10·K9's call on the regions' q18_inner group (`k10_k9_regions`,
+            the last run_many of 8 regions): ms (CUDA events over 10
+            calls), host_ms (the host clock's median call through a
+            synchronize), K8's share (`k8_ms`, its calls timed apart, and
+            `k8_device_ms`, its kernels in one profiled call), the device
+            time by kernel of one profiled call.
 
-It checks every output it times against the plain version first. Without
+--only k9 runs the k9 turns alone. It checks every output it times
+against the plain version first. Without
 a card, or without the repository beside it, it exits non-zero.
 """
 
@@ -175,9 +189,98 @@ def phases(seed: int) -> dict:
     return {"tiles": int(clk[6]), "cycles_per_tile": {p: clk[i] / tiles for i, p in enumerate(PHASES)}}
 
 
+def _host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock ms of fn() through a synchronize."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def _k9_call(cs, fn, k8_ms: float) -> dict:
+    split = cs.kernel_split(fn)
+    sm = split.get("split_ms") or {}
+    k8_dev = sum(v for n, v in sm.items() if n.startswith(("build_keys", "pass_kernel", "orand_kernel",
+                                                               "init_orand")))
+    ms = cs.time_ms(fn)
+    return {"ms": ms, "host_ms": _host_ms(fn), "k8_ms": k8_ms, "own_ms": ms - k8_ms,
+            "device_ms": sum(sm.values()) if sm else None, "k8_device_ms": k8_dev, **split}
+
+
+def k9(rows: int, reps: int) -> dict:
+    """One tree's K9 measurements (module doc), in this process."""
+    import importlib
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.entry import batch_from_numpy, run_many, run_query
+    from tidb_tpu_torch.kernels import sort_groups, sort_groups_ref
+    from tidb_tpu_torch.kernels.grouped import sort_groups_tasks
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.torchenv import PhaseTimer
+
+    dev, out = torch.device("cuda"), {}
+    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(rows, 42))
+    dag = tpch.q18_inner_dag()
+    eng, captured = TorchEngine(dev), {}
+    cs._spy(eng, captured)
+    runs = []
+    for _ in range(reps + 1):
+        eng.timer = PhaseTimer(eng.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_query(dag, batch, device=dev, engine=eng)
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t) * 1e3, eng.timer.totals_ms()))
+    warm = sorted(runs[1:], key=lambda r: r[0])
+    out["q18_inner"] = {"rows": rows, "wall_ms": warm[len(warm) // 2][0], "walls_ms": [r[0] for r in warm],
+                        "spans_ms": warm[len(warm) // 2][1]}
+    (mask, keys, cap_of), _ = captured["sort_groups"]
+    cs._same_groups(sort_groups(mask, keys, cap_of), sort_groups_ref(mask, keys, cap_of), "K9 on Q18's subquery")
+    k9m = importlib.import_module("tidb_tpu_torch.kernels.sort_groups")
+    ops, k8_ms = cs.k8_inside(k9m, lambda: sort_groups(mask, keys, cap_of))
+    out["k9_q18"] = {"n": mask.numel(), "k8_rows": [o[0].data.numel() for o in ops],
+                     **_k9_call(cs, lambda: sort_groups(mask, keys, cap_of), k8_ms)}
+    pairs = [(dag, r) for r in tpch.region_batches(batch)]
+    eng2 = TorchEngine(dev)
+    run_many(pairs, dev, eng2)  # the cold run escalates the group capacity
+    with cs.TaskSpy() as spy:
+        run_many(pairs, dev, eng2)
+    (args,) = cs.task_args(spy.calls, "sort_groups_tasks")
+    cs._k9_tasks(*args)
+    out["k10_k9_regions"] = {"tasks": len(args[0]), "width": args[2],
+                             **_k9_call(cs, lambda: sort_groups_tasks(*args), 0.0)}
+    return out
+
+
+def k9_worker(tree: str, rows: int, reps: int) -> dict:
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--k9-of", tree, "--rows", str(rows), "--reps",
+                        str(reps)], capture_output=True, text=True, cwd=tree)
+    if r.returncode != 0:
+        raise RuntimeError(f"sort_profile: the K9 run in {tree} failed (exit {r.returncode}):\n{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=3)
+    ap.add_argument("--rows", type=int, default=16_000_000)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--tree", action="append", default=[], help="another checkout, its K9 timed in turns with this one")
+    ap.add_argument("--only", choices=("", "k9"), default="", help="k9: the K9 turns alone")
+    ap.add_argument("--k9-of", help=argparse.SUPPRESS)  # the worker: one tree's K9 measurements
     args = ap.parse_args(argv)
     try:
         import torch
@@ -188,16 +291,24 @@ def main(argv=None) -> int:
         print("sort_profile: FAILED: torch.cuda.is_available() is False: this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(ROOT, "tidb_tpu_torch")):
-        print("sort_profile: FAILED: run it from the repository (tidb_tpu_torch/ not found beside it)",
-              file=sys.stderr)
+    root = os.path.abspath(args.k9_of or ROOT)
+    if not os.path.isdir(os.path.join(root, "tidb_tpu_torch")):
+        print(f"sort_profile: FAILED: no tidb_tpu_torch/ in {root}: run it from the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, root)
+    if args.k9_of:
+        print(json.dumps(k9(args.rows, args.reps)), flush=True)
+        return 0
     import chip_smoke as cs
 
     card = cs.card_line()
-    print(json.dumps({"phase": "times", **times(args.seed), "card": card}), flush=True)
-    print(json.dumps({"phase": "phases", **phases(args.seed), "card": card}), flush=True)
+    if not args.only:
+        print(json.dumps({"phase": "times", **times(args.seed), "card": card}), flush=True)
+        print(json.dumps({"phase": "phases", **phases(args.seed), "card": card}), flush=True)
+    trees = [os.path.abspath(t) for t in args.tree] + [ROOT]
+    runs = [(t, k9_worker(t, args.rows, args.reps)) for t in trees + trees[::-1]]
+    print(json.dumps({"phase": "k9", "runs": [{"tree": os.path.relpath(t, ROOT), **r} for t, r in runs],
+                      "card": card}), flush=True)
     return 0
 
 

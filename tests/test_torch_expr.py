@@ -291,6 +291,39 @@ def test_wide_program_reloads_lanes_past_its_register_budget():
         assert np.array_equal(np.asarray(wv), gv.numpy())
 
 
+def test_ranks_at_once_share_one_program_and_one_table_pair():
+    """A mesh's ranks compile and upload from their threads at once: each
+    gets the program the cache keeps and the (ops, consts) pair it keeps,
+    so no rank's pair can be freed before its launch reads it, and the
+    shared program still agrees with the reference."""
+    import threading
+
+    data, valid = _lanes(7)
+    pl = _port_lanes(data, valid)
+    t = ("gt", ("plus", ("col", "i"), ("col", "k")), ("int", 0))
+    pe = build(PORT, t)
+    kinds = {j: P.lane_kind(pl[j][0]) for j in range(len(COLS))}
+    cache, ranks = ProgramCache(), 8
+    start = threading.Barrier(ranks)
+    got: list = [None] * ranks
+
+    def rank(r):
+        start.wait()
+        prog = cache.get([], [ValueSpec(pe)], kinds, False)
+        got[r] = (prog, prog.tables(torch.device("cpu")))
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(ranks)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert all(g[0] is got[0][0] and g[1] is got[0][1] for g in got)
+    (gd,), gv, kind = P.run(got[0][0], pl, None, N)[1][0]
+    wd, wv = TPUEngine._eval_device(build(REF, t), _ref_lanes(data, valid))
+    _same_lane(wd, gd, kind, "shared program")
+    assert np.array_equal(np.asarray(wv), gv.numpy())
+
+
 @pytest.mark.parametrize("nseg", [1, 100])
 @pytest.mark.parametrize("op", ["bit_and", "bit_or", "bit_xor"])
 def test_bitwise_ops_match_reference_per_bit_partials(op, nseg):

@@ -59,7 +59,7 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    for script in ("chip_smoke.py", "sort_profile.py", "k4_profile.py"):
+    for script in ("chip_smoke.py", "sort_profile.py", "k4_profile.py", "mpp_profile.py", "mesh_stress.py"):
         yield os.path.join(ROOT, script)
 
 

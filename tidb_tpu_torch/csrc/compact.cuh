@@ -1,5 +1,7 @@
 // Sentinel-last compaction, shared by P4 (sort_join.cu) and P5
-// (seg_reduce.cu), and the decoupled look-back both build on.
+// (seg_reduce.cu), and the decoupled look-back both build on; K9
+// (sort_groups.cu) places its masked-in rows and numbers its groups with
+// the same place_tile.
 //
 // A stable sort of an operand whose masked rows all hold the sentinel (the
 // operand's largest value) orders the other rows stably among themselves
@@ -172,42 +174,25 @@ __device__ __forceinline__ ll row_of(ll tile, int j) { return tile * TILE + (ll)
 struct Temp {
   int off[PARTS];           // kept rows of the tile before each (round, warp) part
   ull bits[2][WARPS];       // each warp's OR and NOT-AND
-  ll base;
+  ll base;                  // kept rows before the tile
+  ll count;                 // kept rows in the tile
   int last;
 };
 
-// One tile of the compaction over rows row_of(tile, j), j < ITEMS, with
-// operand x[j] and keep[j] (false past n). Called once by every thread of a
-// block of BLOCK threads, as the block's last work: the block's end runs
-// the done ticket (the caller's grid is ntiles blocks, one tile each). The
-// kept rows of a warp's round find their places by one ballot; warp 0
-// scans the tile's PARTS counts and takes the tile's offset by look-back.
-__device__ __forceinline__ void compact_tile(const LookBack& lb, ll tile, ll ntiles, ll n, const ll (&x)[ITEMS],
-                                             const bool (&keep)[ITEMS], const Out& out, Temp& tmp) {
+// The places of a tile's kept rows (rows row_of(tile, j), j < ITEMS, keep[j]
+// false past n): each (round, warp) part counts its kept rows by one
+// ballot (kmask), warp 0 scans the PARTS counts and takes the tile's offset
+// by look-back (publishing the tile's inclusive count for the tiles after
+// it). Called once by every thread of a block of BLOCK threads; it ends on
+// a barrier, after which kept_before() gives each row's place.
+__device__ __forceinline__ void place_tile(const LookBack& lb, ll tile, const bool (&keep)[ITEMS],
+                                           unsigned (&kmask)[ITEMS], Temp& tmp) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const unsigned lt = (1u << lane) - 1u;
-  unsigned kmask[ITEMS];
-  ull o = 0ULL, na = 0ULL;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     kmask[j] = __ballot_sync(FULL, keep[j]);
-    if (keep[j]) {
-      const ull u = (ull)x[j] ^ SIGN;
-      o |= u;
-      na |= ~u;
-    }
     if (lane == 0) tmp.off[j * WARPS + w] = __popc(kmask[j]);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    o |= __shfl_xor_sync(FULL, o, off);
-    na |= __shfl_xor_sync(FULL, na, off);
-  }
-  if (lane == 0) {
-    tmp.bits[0][w] = o;
-    tmp.bits[1][w] = na;
-  }
-  ull* part = (ull*)lb.desc(ntiles);  // the tiles' (OR, NOT-AND) pairs
   __syncthreads();
   if (w == 0) {  // the parts' exclusive offsets (PARTS / 32 a lane), then the tile's by look-back
     constexpr int PER = PARTS / 32;
@@ -240,22 +225,63 @@ __device__ __forceinline__ void compact_tile(const LookBack& lb, ll tile, ll nti
     }
     if (lane == 0) {
       tmp.base = before;
-      ull bo = 0ULL, bn = 0ULL;
-      for (int q = 0; q < WARPS; ++q) {
-        bo |= tmp.bits[0][q];
-        bn |= tmp.bits[1][q];
-      }
-      part[2 * tile] = bo;
-      part[2 * tile + 1] = bn;
-      if (tile == ntiles - 1) out.res[0] = before + agg;
+      tmp.count = agg;
     }
   }
   __syncthreads();
+}
+
+// kept rows before row_of(tile, j) of this thread (after place_tile)
+__device__ __forceinline__ ll kept_before(const Temp& tmp, const unsigned (&kmask)[ITEMS], int j) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  return tmp.base + tmp.off[j * WARPS + w] + __popc(kmask[j] & ((1u << lane) - 1u));
+}
+
+// One tile of the compaction over rows row_of(tile, j), j < ITEMS, with
+// operand x[j] and keep[j] (false past n). Called once by every thread of a
+// block of BLOCK threads, as the block's last work: the block's end runs
+// the done ticket (the caller's grid is ntiles blocks, one tile each). The
+// kept rows find their places by place_tile; thread 0 files the tile's OR
+// and NOT-AND, which the launch's last block folds.
+__device__ __forceinline__ void compact_tile(const LookBack& lb, ll tile, ll ntiles, ll n, const ll (&x)[ITEMS],
+                                             const bool (&keep)[ITEMS], const Out& out, Temp& tmp) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned kmask[ITEMS];
+  ull o = 0ULL, na = 0ULL;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (keep[j]) {
+      const ull u = (ull)x[j] ^ SIGN;
+      o |= u;
+      na |= ~u;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    o |= __shfl_xor_sync(FULL, o, off);
+    na |= __shfl_xor_sync(FULL, na, off);
+  }
+  if (lane == 0) {
+    tmp.bits[0][w] = o;
+    tmp.bits[1][w] = na;
+  }
+  place_tile(lb, tile, keep, kmask, tmp);  // its barriers order the bits before thread 0's fold
+  ull* part = (ull*)lb.desc(ntiles);  // the tiles' (OR, NOT-AND) pairs
+  if (threadIdx.x == 0) {
+    ull bo = 0ULL, bn = 0ULL;
+    for (int q = 0; q < WARPS; ++q) {
+      bo |= tmp.bits[0][q];
+      bn |= tmp.bits[1][q];
+    }
+    part[2 * tile] = bo;
+    part[2 * tile + 1] = bn;
+    if (tile == ntiles - 1) out.res[0] = tmp.base + tmp.count;
+  }
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     const ll i = row_of(tile, j);
     if (i >= n) break;
-    const ll kept = tmp.base + tmp.off[j * WARPS + w] + __popc(kmask[j] & lt);  // kept rows before row i
+    const ll kept = kept_before(tmp, kmask, j);  // kept rows before row i
     if (keep[j]) {
       out.comp[kept] = x[j];
       out.crow[kept] = (int32_t)i;

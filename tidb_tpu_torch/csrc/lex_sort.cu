@@ -432,7 +432,7 @@ int allow_pass_smem(size_t bytes) {
 template <typename KeyT>
 int sort_word(const FieldDesc* fields, int nfields, int passes, int64_t n, int64_t task_width,
               const int32_t* perm_in, KeyT* key_a, KeyT* key_b, int32_t* val_a, int32_t* val_b, u32* counts,
-              u32* tile_ctr, u64* flags, int epoch0, int32_t* perm_out, int n_sms, cudaStream_t s) {
+              u32* tile_ctr, u64* flags, int epoch0, int32_t* perm_out, int keep_keys, int n_sms, cudaStream_t s) {
   const size_t smem = pass_smem<KeyT>();
   int err = allow_pass_smem<KeyT>(smem);
   if (err != 0) return err;
@@ -450,7 +450,8 @@ int sort_word(const FieldDesc* fields, int nfields, int passes, int64_t n, int64
     const bool last = p == passes - 1;
     pass_kernel<KeyT><<<(unsigned)tiles, kThreads, smem, s>>>(ks, vs, n, 8 * p, counts + p * kRadix,
                                                                tile_ctr + p, flags, (u64)(epoch0 + p + 1),
-                                                               last ? nullptr : kd, last ? perm_out : vd);
+                                                               last && !keep_keys ? nullptr : kd,
+                                                               last ? perm_out : vd);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
     KeyT* kt = ks;
@@ -501,11 +502,14 @@ extern "C" int tt_lex_orand(const long long* ops, int nops, int64_t n, u64* oran
 // 32); val_a/val_b: int32 [n]; counts: uint32 [passes * 256] and
 // tile_ctr: uint32 [passes], both zero; flags: uint64
 // [tt_lex_flags_len(n)], zero or from earlier passes of the call, whose
-// epochs are 1..epoch0 (this word's passes take epoch0 + 1 ...).
+// epochs are 1..epoch0 (this word's passes take epoch0 + 1 ...). With
+// keep_keys the last pass also writes the sorted keys, into key_b after an
+// odd number of passes and key_a after an even one (a caller that
+// compares neighbouring sorted rows reads them there: K9's sweep).
 extern "C" int tt_lex_sort_word(const void* fields, int nfields, int bits, int key_bytes, int64_t n,
                                 int64_t task_width, const int32_t* perm_in, void* key_a, void* key_b,
                                 int32_t* val_a, int32_t* val_b, u32* counts, u32* tile_ctr, u64* flags,
-                                int epoch0, int32_t* perm_out, int n_sms, void* stream) {
+                                int epoch0, int32_t* perm_out, int keep_keys, int n_sms, void* stream) {
   if (nfields <= 0 || bits <= 0 || bits > 8 * key_bytes || (key_bytes != 4 && key_bytes != 8) || n <= 0 ||
       n > 0x7fffffffLL || task_width <= 0 || epoch0 < 0)
     return -1;
@@ -514,7 +518,7 @@ extern "C" int tt_lex_sort_word(const void* fields, int nfields, int bits, int k
   const FieldDesc* f = (const FieldDesc*)fields;
   if (key_bytes == 4)
     return sort_word<u32>(f, nfields, passes, n, task_width, perm_in, (u32*)key_a, (u32*)key_b, val_a, val_b,
-                          counts, tile_ctr, flags, epoch0, perm_out, n_sms, s);
+                          counts, tile_ctr, flags, epoch0, perm_out, keep_keys, n_sms, s);
   return sort_word<u64>(f, nfields, passes, n, task_width, perm_in, (u64*)key_a, (u64*)key_b, val_a, val_b,
-                        counts, tile_ctr, flags, epoch0, perm_out, n_sms, s);
+                        counts, tile_ctr, flags, epoch0, perm_out, keep_keys, n_sms, s);
 }

@@ -152,12 +152,15 @@ class Program:
         return k
 
     def tables(self, device: torch.device):
-        """(ops, consts) on `device`, uploaded once."""
+        """(ops, consts) on `device`, uploaded once. A mesh's ranks ask for
+        them from their threads at once: every caller gets the one pair the
+        program keeps (setdefault), so no caller's pair is freed under its
+        launch."""
         key = str(device)
         t = self._tables.get(key)
         if t is None:
-            t = self._tables[key] = (torch.from_numpy(self.ops.reshape(-1).copy()).to(device),
-                                     torch.from_numpy(self.consts.copy()).to(device))
+            t = self._tables.setdefault(key, (torch.from_numpy(self.ops.reshape(-1).copy()).to(device),
+                                              torch.from_numpy(self.consts.copy()).to(device)))
         return t
 
 
@@ -544,10 +547,10 @@ class ProgramCache:
             prog = self._progs.get(key)
         if prog is None:
             prog = compile_program(conds, values, lane_kinds, mask=mask)
-            with self._lock:
-                if len(self._progs) >= self.size:
+            with self._lock:  # ranks that compiled it at once share the first one kept
+                if key not in self._progs and len(self._progs) >= self.size:
                     self._progs.pop(next(iter(self._progs)))
-                self._progs[key] = prog
+                prog = self._progs.setdefault(key, prog)
         return prog
 
 

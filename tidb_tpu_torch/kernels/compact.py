@@ -1,5 +1,5 @@
-"""Sentinel-last sorts: the compaction that P4 (kernels/sort_join.py) and
-P5 (kernels/seg_reduce.py) run before K8.
+"""Sentinel-last sorts: the compaction that P4 (kernels/sort_join.py), P5
+(kernels/seg_reduce.py) and K9 (kernels/sort_groups.py) run before K8.
 
 A stable sort of an operand whose masked rows all hold the sentinel, its
 largest value, is the same permutation as: the rows whose operand is not
@@ -14,7 +14,9 @@ row ids in row order (`comp`, `crow`), the other rows' ids (`tail`, where
 the caller needs them), and `res` = (M, OR, AND of the kept operands'
 order-preserving keys). `read(res)` brings M and the OR/AND up in one
 pinned copy (`workspace` gives a call's internal arrays one allocation);
-`sort_kept` hands the OR/AND to K8 (kernels/lex_sort.launch),
+`sort_kept` (one operand) and `sort_kept_ops` (several: K9's, whose
+compaction keeps the masked-in rows, kernels/sort_groups.py) hand the
+OR/AND to K8 (kernels/lex_sort.launch),
 which then makes no host read of its own and sorts M rows in only the
 bits they vary in. `sentinel_last_perm_ref` is the plain form of the
 whole permutation.
@@ -49,18 +51,24 @@ def workspace(dev: torch.device, sizes: list[int]) -> tuple[torch.Tensor, list[i
     return torch.empty(max(at, 2), dtype=torch.int64, device=dev), offs
 
 
-def read(res: torch.Tensor, behind=None) -> tuple[int, np.ndarray]:
-    """(M, uint64 [OR, AND]) from the compaction's `res`: the call's one
-    host read. `behind()` enqueues work that needs no M after the copy:
-    the host waits for the copy alone, the card runs that work meanwhile."""
-    pin = torch.empty(3, dtype=torch.int64, pin_memory=True)
-    pin.copy_(res, non_blocking=True)
+def fetch(words: torch.Tensor, behind=None) -> np.ndarray:
+    """int64 `words` (a few, on the card) on the host: one pinned copy, the
+    host waiting on its event alone. `behind()` enqueues work that needs
+    none of them after the copy: the card runs it while the host goes on."""
+    pin = torch.empty(words.numel(), dtype=torch.int64, pin_memory=True)
+    pin.copy_(words, non_blocking=True)
     copied = torch.cuda.Event()
-    copied.record(torch.cuda.current_stream(res.device))
+    copied.record(torch.cuda.current_stream(words.device))
     if behind is not None:
         behind()
     copied.synchronize()
-    words = pin.numpy().copy()
+    return pin.numpy().copy()
+
+
+def read(res: torch.Tensor, behind=None) -> tuple[int, np.ndarray]:
+    """(M, uint64 [OR, AND, ...]) from the compaction's `res`: the call's
+    one host read (`fetch`)."""
+    words = fetch(res, behind)
     return int(words[0]), words[1:].view(np.uint64)
 
 
@@ -69,3 +77,12 @@ def sort_kept(comp: torch.Tensor, m: int, orand: np.ndarray) -> torch.Tensor:
     compaction read: int32 [M], positions into comp. Counted as a
     lex_sort_perm launch."""
     return launch([SortOp(comp[:m], "i64")], m, 0, lex_sort_perm, orand=orand)
+
+
+def sort_kept_ops(ops: list, m: int, orand: np.ndarray):
+    """K8 over several kept operands ([M] each, most significant first)
+    with their OR/AND (uint64 [2 * len(ops)]) → (int32 [M] positions into
+    them, K8's sorted word or None, its key bytes): the word where K8's plan
+    is one word (kernels/lex_sort.launch's `keys`). Counted as a
+    lex_sort_perm launch."""
+    return launch(ops, m, 0, lex_sort_perm, orand=orand, keys=True)

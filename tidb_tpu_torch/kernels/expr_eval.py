@@ -323,7 +323,7 @@ def expr_eval_prepare(prog: Program, ins: list, n: int):
             keep.append(table)
             setattr(p, "ext_" + name, table.data_ptr())
 
-    def go(keep=keep):
+    def go(keep=keep, tables=(ops, consts)):  # what the kernel reads by address lives until it is enqueued
         rc = _lib().tt_expr_eval(ctypes.byref(p), torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"expr_eval: kernel launch failed (cudaError {rc})")

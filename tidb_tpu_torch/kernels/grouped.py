@@ -77,8 +77,9 @@ from .lex_sort import launch as sort_launch
 from .seg_agg import SegKey, SegLane, _check, seg_agg_ref, upload_desc
 from .seg_agg import launch as seg_launch
 from .seg_agg import plan as seg_plan
-from .sort_groups import finish as sort_groups_finish
+from .sort_groups import group_tasks as sort_groups_finish
 from .sort_groups import ops_prepare as sort_groups_prepare
+from .sort_groups import read_orand as sort_groups_orand
 from .sort_groups import sort_groups_ref
 from .tables import ptrs, rows, sm_count, to_card
 from .topk import orders_in_kernel, topk_ref
@@ -563,9 +564,12 @@ def sort_groups_tasks_ref(masks: list, keys: list, width: int) -> TaskGroups:
 
 def sort_groups_tasks(masks: list, keys: list, width: int) -> TaskGroups:
     """Dense group ids of G tasks' sort GROUP BY (K9's module doc; `keys[g]`
-    is task g's [(data, valid)]): the ops kernel over the task grid, one
-    K8 task-leading sort, the group counts of every task read in ONE host
-    sync, and the group ids numbered on across the tasks, uncapped."""
+    is task g's [(data, valid)]): the ops kernel over the task grid (with
+    each task's masked-in count and the operands' OR / AND, read in one
+    sync), one K8 task-leading sort with that OR / AND (its sorted word
+    handed back where it is one word), K9's sweep, the group counts of
+    every task read in ONE more sync, and the finish kernel: the group ids
+    numbered on across the tasks, uncapped."""
     if not masks or len(keys) != len(masks) or not keys[0]:
         raise ValueError("sort_groups_tasks: one mask and a non-empty key list per task")
     dev = masks[0].device
@@ -575,18 +579,21 @@ def sort_groups_tasks(masks: list, keys: list, width: int) -> TaskGroups:
         raise ValueError(f"sort_groups_tasks: unsupported device {dev}")
     if not 0 < len(masks) * width < 1 << 31:
         raise ValueError(f"sort_groups_tasks: {len(masks)} x {width} rows outside 1..2^31-1")
-    ops, ko, go = sort_groups_tasks_prepare(masks, keys, width, dev)
+    ops, (mcount, orand, ktab), go = sort_groups_tasks_prepare(masks, keys, width, dev)
     go()
     count(sort_groups_tasks)
-    perm = lex_sort_perm_tasks(ops, width)
-    counts, _, seg, kval, kvalid = sort_groups_finish(ops, ko, perm, len(masks), width, lambda total: total)
-    return TaskGroups(perm, counts, seg.reshape(len(masks), width), kval, kvalid)
+    G = len(masks)
+    perm, words, key_bytes = sort_launch(ops, G * width, width, lex_sort_perm_tasks, orand=sort_groups_orand(orand),
+                                         keys=True)
+    counts, _, seg, kval, kvalid = sort_groups_finish(mcount, orand, ktab, perm, words, key_bytes, G, width,
+                                                      lambda total: total)
+    return TaskGroups(perm, counts, seg.reshape(G, width), kval, kvalid)
 
 
 def sort_groups_tasks_prepare(masks: list, keys: list, width: int, dev: torch.device):
-    """K9's task mode up to its ops launch: (K8's operands, the key-operand
-    table, `go()`); the task table is built a column at a time
-    (sort_groups.ops_prepare)."""
+    """K9's task mode up to its ops launch: (K8's operands, (each task's
+    masked-in count, the operands' OR / NOT-AND, the key table), `go()`);
+    the task table is built a column at a time (sort_groups.ops_prepare)."""
     return sort_groups_prepare(masks, [[(sort_op(d), v) for d, v in ks] for ks in keys], width, dev)
 
 

@@ -196,7 +196,7 @@ def _lib():
         lib.tt_lex_flags_len.restype = L
         lib.tt_lex_orand.argtypes = [C, I, L, C, I, C]
         lib.tt_lex_orand.restype = I
-        lib.tt_lex_sort_word.argtypes = [C, I, I, I, L, L, C, C, C, C, C, C, C, C, I, C, I, C]
+        lib.tt_lex_sort_word.argtypes = [C, I, I, I, L, L, C, C, C, C, C, C, C, C, I, C, I, I, C]
         lib.tt_lex_sort_word.restype = I
         _bound.add("lex_sort")
     return lib
@@ -220,7 +220,8 @@ def check_on(ops: list[SortOp], what: str = "lex_sort") -> int:
     return n
 
 
-def launch(ops: list[SortOp], n: int, task_width: int, counted, orand: np.ndarray | None = None) -> torch.Tensor:
+def launch(ops: list[SortOp], n: int, task_width: int, counted, orand: np.ndarray | None = None,
+           keys: bool = False):
     """The kernels over checked CUDA operands → int32 [n] permutation. With
     `task_width`, the rows are n / task_width tasks of task_width rows and
     sort by (task, operands) (the task-leading mode). `counted` is the
@@ -228,7 +229,11 @@ def launch(ops: list[SortOp], n: int, task_width: int, counted, orand: np.ndarra
     `orand` (uint64 [2 * len(ops)]: each operand's OR and AND of ordered
     keys, as tt_lex_orand computes them) comes from a caller that has read
     them already (csrc/compact.cuh's compaction): the call then makes no
-    host read of its own.
+    host read of its own. With `keys`, the call returns (permutation,
+    sorted keys, key bytes): where the plan is one word, that word's keys
+    in sorted order (uint32 or uint64 as int32 / int64 [n], in the call's
+    buffer; two rows' keys are equal exactly when every operand is), else
+    None.
 
     Per call: one read of the OR/AND (the pass count follows the data) and
     one upload of every word's fields, both through one pinned buffer; one
@@ -263,14 +268,16 @@ def launch(ops: list[SortOp], n: int, task_width: int, counted, orand: np.ndarra
     words = plan_words(orand, (tasks - 1).bit_length())
     count(counted)
     if not words or n == 0:  # every operand constant: row order is the sorted order
-        return torch.arange(n, dtype=torch.int32, device=dev)
+        perm = torch.arange(n, dtype=torch.int32, device=dev)
+        return (perm, None, 0) if keys else perm
     table, offs = field_table(ops, words)
     pin.numpy()[2 * nops:2 * nops + table.size] = table.reshape(-1)
     buf[2 * nops:2 * nops + table.size].copy_(pin[2 * nops:2 * nops + table.size], non_blocking=True)  # the one upload
     buf[zero0:zero0 + 128 * max_passes + max_passes // 2 + flags_len].zero_()
     counts, ctrs, flags = 8 * zero0, 8 * zero0 + 1024 * max_passes, 8 * (keys0 - flags_len)
-    keys, vals, mid = 8 * keys0, 8 * (keys0 + 2 * n), 8 * (keys0 + 3 * n)
+    key_at, vals, mid = 8 * keys0, 8 * (keys0 + 2 * n), 8 * (keys0 + 3 * n)
     perm_out = torch.empty(n, dtype=torch.int32, device=dev)
+    keep = keys and len(words) == 1
     perm = 0
     for j, word in enumerate(words):
         # the words alternate between the two permutations, the last into perm_out
@@ -278,10 +285,18 @@ def launch(ops: list[SortOp], n: int, task_width: int, counted, orand: np.ndarra
         done = sum(w.passes for w in words[:j])
         _raise(lib.tt_lex_sort_word(
             base + 8 * 2 * nops + 24 * offs[j], len(word.fields), word.bits, word.key_bytes, n, task_width or n,
-            perm, base + keys, base + keys + 8 * n, base + vals, base + vals + 4 * n, base + counts + 1024 * done,
-            base + ctrs + 4 * done, base + flags, done, out, n_sms, stream), "sort word")
+            perm, base + key_at, base + key_at + 8 * n, base + vals, base + vals + 4 * n, base + counts + 1024 * done,
+            base + ctrs + 4 * done, base + flags, done, out, int(keep), n_sms, stream), "sort word")
         perm = out
-    return perm_out
+    if not keys:
+        return perm_out
+    if not keep:
+        return perm_out, None, 0
+    # the last pass wrote the keys into key_b after an odd number of passes
+    at = keys0 + (n if words[0].passes % 2 else 0)
+    kb = words[0].key_bytes
+    sk = buf[at:at + n]
+    return perm_out, (sk.view(torch.int32)[:n] if kb == 4 else sk), kb
 
 
 def lex_sort_perm(ops) -> torch.Tensor:

@@ -40,7 +40,8 @@ task (K10's mode, kernels/grouped.py, is the same kernel over G tasks):
 `plan` picks the mode (registers, warp pre-aggregation into per-warp
 slots, or global atomics), the block and the blocks per task;
 `seg_desc` lays out the task table, which goes up in one pinned copy
-(`upload_desc`); `launch` enqueues it with the stream's tickets and
+(`upload_desc`; `solo_desc` and `launch_at` serve a caller that uploads
+the table with its own, P6); `launch` enqueues it with the stream's tickets and
 partials (tables.stream_scratch) when blocks merge; `seg_agg_prepare`
 stops short of the launch (tests/test_torch_launch_plans.py checks the
 plans, the table and a numpy model of the warp pre-aggregation).
@@ -317,16 +318,23 @@ def solo_desc(mask, keys, lanes, base: int, iout: torch.Tensor, fout: torch.Tens
     small call's, and seg_desc at G 1 takes about six times as long
     (k4_profile.py's host phase times both, and the calls with each)."""
     ptr = lambda t: 0 if t is None or t.numel() == 0 else t.data_ptr()  # noqa: E731
+    return np.array(solo_words(mask.data_ptr(), keys, lanes, base, ptr(iout), ptr(fout), ptr(seg)), dtype=np.int64)
+
+
+def solo_words(mask: int, keys, lanes, base: int, iout: int, fout: int, seg: int = 0) -> list:
+    """solo_desc's words from addresses (0: absent), for a caller that lays
+    out K4's outputs in its own workspace (P6, kernels/rowpos_agg.py)."""
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     k0 = TASK_DESC
     l0 = k0 + KEY_DESC * len(keys)
-    words = [mask.data_ptr(), ptr(seg), base + 8 * k0, base + 8 * l0, ptr(iout), ptr(fout)]
+    words = [mask, seg, base + 8 * k0, base + 8 * l0, iout, fout]
     for k in keys:
         words += [k.data.data_ptr(), ptr(k.valid), k.lo, k.dom, k.data.element_size()]
     rows = [0, 0]
     for lane in lanes:
         words += [ptr(lane.data), ptr(lane.valid), _fill_bits(lane), OPS[lane.op] | rows[lane.is_float] << 32]
         rows[lane.is_float] += 1
-    return np.array(words, dtype=np.int64)
+    return words
 
 
 def upload_desc(masks, keys, lanes, width, iout, fout, segs=None, solo: bool = False) -> torch.Tensor:
@@ -354,15 +362,24 @@ def launch(desc: torch.Tensor, G: int, width: int, nkeys: int, nlanes: int, nseg
     current stream, with the stream's scratch when the plan merges: its
     first TICKETS words are the tickets (zero, and left at zero), the
     partials follow, so no call's partials reach another's tickets."""
-    dev = desc.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch_at(desc.data_ptr(), desc.device, G, width, nkeys, nlanes, nseg, shared_out, p, what)
+
+
+def launch_at(addr: int, dev: torch.device, G: int, width: int, nkeys: int, nlanes: int, nseg: int,
+              shared_out: bool, p: Plan, what: str, stream: int | None = None) -> None:
+    """`launch` over a table at device address `addr` on card `dev`: for a
+    caller that uploads K4's table with its own in one copy (P6,
+    kernels/rowpos_agg.py; `stream`: the current stream's handle, where the
+    caller has it)."""
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
     if not p.parts:
-        rc = _lib().tt_seg_agg_tasks(desc.data_ptr(), G, width, nkeys, nlanes, nseg, int(shared_out),
+        rc = _lib().tt_seg_agg_tasks(addr, G, width, nkeys, nlanes, nseg, int(shared_out),
                                      MODES[p.mode], p.threads, p.blocks, p.smem, 0, 0, stream)
     else:
         with stream_scratch("seg_agg", dev, TICKETS + p.parts) as buf:
             base = buf.data_ptr()
-            rc = _lib().tt_seg_agg_tasks(desc.data_ptr(), G, width, nkeys, nlanes, nseg, int(shared_out),
+            rc = _lib().tt_seg_agg_tasks(addr, G, width, nkeys, nlanes, nseg, int(shared_out),
                                          MODES[p.mode], p.threads, p.blocks, p.smem, base, base + 8 * TICKETS,
                                          stream)
     if rc != 0:

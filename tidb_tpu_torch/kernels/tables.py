@@ -19,6 +19,11 @@ their kernels as a grid of one task, and by K10's task-grid modes
   stream_scratch(name, dev, words)    a kernel's int64 scratch on the
                                       current stream, zeroed once when
                                       allocated, held for one call
+  staging(name, dev, words)           a pinned int64 host buffer on the
+                                      current stream (one of a few kept
+                                      from call to call), for a call's one
+                                      upload
+  all_true(dev, n)                    a cached all-true bool [n] on the card
 """
 
 from __future__ import annotations
@@ -122,3 +127,65 @@ def stream_scratch(name: str, dev: torch.device, words: int):
             buf = torch.zeros(max(words, 2 * (0 if buf is None else buf.numel())), dtype=torch.int64, device=dev)
             _scratch[key] = buf
         yield buf
+
+
+class Staging:
+    """A pinned int64 host buffer (`host`, a numpy view) from which a call
+    makes its one upload (`upload`)."""
+
+    def __init__(self, words: int):
+        self.pin = torch.empty(words, dtype=torch.int64, pin_memory=True)
+        self.host = self.pin.numpy()
+        self.copied = None
+
+    def upload(self, dst: torch.Tensor, words: int) -> None:
+        """host[:words] → dst[:words] (int64 on the card), ordered before the
+        launches enqueued after it on the current stream."""
+        dst[:words].copy_(self.pin[:words], non_blocking=True)
+        if self.copied is None:
+            self.copied = torch.cuda.Event()
+        self.copied.record(torch.cuda.current_stream(dst.device))
+
+
+STAGES = 4  # staging buffers a (kernel, stream) cycles through
+_stages: dict = {}
+
+
+@contextlib.contextmanager
+def staging(name: str, dev: torch.device, words: int):
+    """A Staging of kernel `name` on the current stream of card `dev`, of at
+    least `words` words, held (under a lock) while the caller fills it and
+    uploads from it. Calls cycle through STAGES buffers, so the host may run
+    that many calls ahead of the card; a buffer whose last copy has not run
+    yet is waited for, never overwritten."""
+    key = (name, dev_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    with _scratch_guard:
+        lock = _scratch_locks.setdefault(("staging",) + key, threading.Lock())
+    with lock:
+        ring = _stages.setdefault(key, [0, [None] * STAGES])
+        i = ring[0]
+        ring[0] = (i + 1) % STAGES
+        st = ring[1][i]
+        if st is None or st.pin.numel() < words:
+            st = ring[1][i] = Staging(max(words, 256, 0 if st is None else 2 * st.pin.numel()))
+        elif st.copied is not None:
+            st.copied.synchronize()  # its last copy has left the host buffer
+        yield st
+
+
+_all_true: dict = {}
+_all_true_guard = threading.Lock()
+
+
+def all_true(dev: torch.device, n: int) -> torch.Tensor:
+    """bool [n] of True on card `dev`, from a per-card tensor kept and grown
+    (never written after it is filled): a mask meaning every row."""
+    i = dev_index(dev)
+    with _all_true_guard:
+        t = _all_true.get(i)
+        if t is None or t.numel() < n:
+            # the smaller one stays alive: a launch queued on another stream may still read it
+            _all_true.setdefault(("kept", i), []).append(t)
+            t = _all_true[i] = torch.ones(max(n, 1024, 0 if t is None else 2 * t.numel()), dtype=torch.bool,
+                                          device=torch.device("cuda", i))
+    return t[:n]

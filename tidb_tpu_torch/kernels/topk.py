@@ -28,7 +28,8 @@ calls that launched.
 
 The select runs over a task table (csrc/topk.cu: one radix select per
 task, each with its own state); `topk` is its grid of one task, and K10's
-task-grid mode is kernels/grouped.py `topk_tasks`.
+task-grid mode is kernels/grouped.py `topk_tasks`. `select_at` launches
+it over a table a caller uploaded with its own (P6).
 """
 
 from __future__ import annotations
@@ -135,27 +136,54 @@ def select_prepare(datas: list, valids: list, masks: list, desc: bool, k: int, w
     u, the order-preserving key, for K8)."""
     G = len(datas)
     tab = to_card(topk_table(datas, valids, masks, width, dev_index(dev)), dev)
-    lib = _lib()
-    slen, bcap = lib.tt_topk_state_len(), lib.tt_topk_buf_cap(width)
+    wn, nn = buffer_words(G, k, width)
     # the outputs' u, the state and the buffers' u in one int64 allocation;
     # the rows and the buffers' rows in one int32
-    wide = torch.empty(G * (k + slen + 2 * bcap), dtype=torch.int64, device=dev)
-    narrow = torch.empty(G * (k + 2 * bcap), dtype=torch.int32, device=dev)
+    wide = torch.empty(wn, dtype=torch.int64, device=dev)
+    narrow = torch.empty(nn, dtype=torch.int32, device=dev)
     candu, cand = wide[:G * k].view(G, k), narrow[:G * k].view(G, k)
     okc = torch.empty((G, k), dtype=torch.bool, device=dev)
-    n_sms = sm_count(dev)
-    is_float = int(datas[0].dtype == torch.float64)
+    is_float = datas[0].dtype == torch.float64
 
     def go(tab=tab):
-        w0, n0 = wide.data_ptr(), narrow.data_ptr()
-        rc = lib.tt_topk_select_tasks(tab.data_ptr(), G, is_float, int(bool(desc)), width, k, w0 + 8 * G * k,
-                                      w0 + 8 * G * (k + slen), n0 + 4 * G * k, cand.data_ptr(), candu.data_ptr(),
-                                      okc.data_ptr(), int(orders_in_kernel(k)), n_sms,
-                                      torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"topk: kernel launch failed (cudaError {rc})")
+        select_at(tab.data_ptr(), G, is_float, desc, k, width, wide.data_ptr(), narrow.data_ptr(), okc.data_ptr(), dev)
 
     return (cand, candu, okc), go
+
+
+_sizes: dict = {}
+
+
+def _state_len() -> int:
+    if "state" not in _sizes:
+        _sizes["state"] = _lib().tt_topk_state_len()
+    return _sizes["state"]
+
+
+def buffer_words(G: int, k: int, width: int) -> tuple[int, int]:
+    """(int64 words, int32 words) of the select's two buffers for G tasks:
+    the outputs' u, the state and the candidate buffers' u; the rows and
+    the candidate buffers' rows. Their first G * k entries are the outputs
+    (candu, cand). csrc/topk.cu tt_topk_buf_cap: width / 8 candidates."""
+    bcap = (width + 7) // 8
+    return G * (k + _state_len() + 2 * bcap), G * (k + 2 * bcap)
+
+
+def select_at(tab: int, G: int, is_float: bool, desc: bool, k: int, width: int, wide: int, narrow: int, okc: int,
+              dev: torch.device, stream: int | None = None) -> None:
+    """Enqueue the select over a task table at device address `tab` (for a
+    caller that uploads it with its own tables in one copy: P6,
+    kernels/rowpos_agg.py), into the buffers at addresses `wide` / `narrow`
+    (`buffer_words`) and okc (bool [G, k]); `stream`: the current stream's
+    handle, where the caller has it."""
+    slen, bcap = _state_len(), (width + 7) // 8
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().tt_topk_select_tasks(tab, G, int(bool(is_float)), int(bool(desc)), width, k, wide + 8 * G * k,
+                                     wide + 8 * G * (k + slen), narrow + 4 * G * k, narrow, wide, okc,
+                                     int(orders_in_kernel(k)), sm_count(dev), stream)
+    if rc != 0:
+        raise RuntimeError(f"topk: kernel launch failed (cudaError {rc})")
 
 
 def topk(data: torch.Tensor, valid: torch.Tensor | None, mask: torch.Tensor, desc: bool, k: int):
@@ -173,11 +201,17 @@ def topk(data: torch.Tensor, valid: torch.Tensor | None, mask: torch.Tensor, des
     (cand, candu, okc), go = select_prepare([data], [valid], [mask], desc, k, n, dev)
     go()
     count(topk)
+    return ordered(cand[0], candu[0], okc[0], k)
+
+
+def ordered(cand: torch.Tensor, candu: torch.Tensor, okc: torch.Tensor, k: int):
+    """One task's k picks in lax.top_k's order: as the select left them
+    within ORDER_CAP, else ordered by K8 over (u desc, row asc)."""
     if orders_in_kernel(k):
-        return cand[0], okc[0]
+        return cand, okc
     # (u desc, row asc): ~u ascends as u descends; the row breaks ties
-    perm = lex_sort_perm([SortOp(~candu[0], "u64"), SortOp(cand[0], "i32")]).long()
-    return cand[0][perm], okc[0][perm]
+    perm = lex_sort_perm([SortOp(~candu, "u64"), SortOp(cand, "i32")]).long()
+    return cand[perm], okc[perm]
 
 
 topk.launches = 0
