@@ -72,7 +72,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
               key, most rows masked, one owner past its bucket and 1M
               rows, 8-, 4- and 1-byte lanes; P8 dense_agg
               (dense_battery) with dict and int keys, keys above 2^31,
-              the shared-memory and the global path, and no key; K2/K3
+              keys outside their domain (codes below 0, at and past nseg)
+              and 2^31 away (wrapping int32 codes), the shared-memory and
+              the global path, no key (nseg 1), n = 0, NaN and ±inf
+              floats, uint64 min / max, into the packed result's rows at
+              widths nseg, nseg + 2 and nseg + 37 (nothing written past
+              nseg), and every rank's call of the mesh's seg_revenue; K2/K3
               expr_eval (expr_cases) on identical programs through the
               kernel and its plain version: seeded random trees over all
               16 builtins and every lane kind (int64 limits, uint64 above
@@ -98,9 +103,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
               (bitwise_seg_cases) in the direct and segment-lane modes at
               nseg 1, 64, 65 and 65536 with empty segments; M1 q1_local
               with wrapping products and codes out of range, nseg 6 / 8 /
-              12; M3 hash_repartition (repartition_battery) with negative
-              keys, all rows invalid, a cap below the largest bucket and
-              the last owner at its cap, n_dev 1 and 4; K10, the task-grid
+              12, and at the edges of its staged design (q1_edge_shapes:
+              row views starting at every offset 0-15 modulo 16 bytes,
+              the lanes' alignments mixed; n of 0, 1, a tile less one, a
+              tile, a tile and one, a tile past the grid's first sweep,
+              several sweeps; nseg 1-8 and 9); M3 hash_repartition
+              (repartition_battery) with negative keys, all rows invalid,
+              a cap below the largest bucket and the last owner at its
+              cap, n_dev 1 and 4; K10, the task-grid
               modes of K1, the expression kernel and K4 (grouped_cases),
               against the solo plain versions task by task on narrowed
               inputs: every codec, random programs and a 241-lane one,
@@ -218,7 +228,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
               calls with the K8 and K6 calls inside P5 timed apart and
               K4's and K6's kernels inside P6 by their device time in one
               profiled call (P6 launches them over its one upload's
-              tables; its one-device call likewise), P2 on main.mpp_mesh's
+              tables; its one-device call likewise), P8's call on
+              SEG_REVENUE and its largest mesh rank call (the call, its
+              enqueue time, its device time and launches from one
+              profiled call), P2 on main.mpp_mesh's
               largest exchange (the unfused Q3's second level), M1 and M3
               (their warm
               medians and rows/s) on the mesh phase's lineitem, K10's
@@ -1466,11 +1479,16 @@ def dense_battery(rng, n: int, case: str) -> dict:
     ('mixed'), one int key over a narrow domain above 2^31 ('big_keys':
     the reference's int32 code wraps there as int64 would), a domain of
     20,000 ('global': beyond the shared-memory slots), no key at all
-    ('no_keys'); the count over the mask, then lanes of every kind, with
+    ('no_keys'); keys outside their domain ('codes': below lo, past the
+    domain, so codes land in a neighbour's slots, at or past nseg and
+    below 0) and keys 2^31 and more away from lo ('wrap': int32 codes that
+    turn negative, or wrap back into range); the count over the mask, then
+    lanes of every kind (NaN and ±inf floats, uint64 min / max), with
     empty segments."""
     import numpy as np
 
     mask = rng.random(n) > 0.2
+    spec = "scfcncxcmcMcdc"
     if case == "no_keys":  # a join aggregate without GROUP BY: every row codes 0, nseg 1
         keys = []
     elif case == "big_keys":
@@ -1478,6 +1496,17 @@ def dense_battery(rng, n: int, case: str) -> dict:
         d = lo + rng.integers(0, dom, n)
         v = rng.random(n) > 0.05
         keys = [(np.where(v, d, 0).astype(np.int64), v, lo, dom)]
+    elif case in ("codes", "wrap"):
+        lo0, lo1, dom1 = int(rng.integers(-100, 100)), -(1 << 40) + 7, 30
+        d0 = lo0 + rng.integers(-2, 7, n)  # dom 5: two below lo, two past the domain
+        d1 = lo1 + rng.integers(-3, dom1 + 3, n)
+        if case == "wrap":  # 2^31 and 2^32 + 3 away from lo: the int32 code wraps
+            far = rng.random(n) < 0.1
+            d1 = np.where(far, d1 + rng.choice([1 << 31, -(1 << 31), (1 << 32) + 3, (1 << 33)], n), d1)
+        v0, v1 = rng.random(n) > 0.05, rng.random(n) > 0.05
+        keys = [(np.where(v0, d0, 0).astype(np.int64), v0, lo0, 5),
+                (np.where(v1, d1, 0).astype(np.int64), v1, lo1, dom1)]
+        spec = "sFcncxcmcMc"
     else:
         dom1 = 20_000 if case == "global" else 40
         lo1 = int(rng.integers(-100, 100))
@@ -1488,12 +1517,14 @@ def dense_battery(rng, n: int, case: str) -> dict:
     nseg = 1
     for *_, dom in keys:
         nseg *= dom + 1
-    lanes = [("count", None, None)] + _red_lanes(rng, n, "scfcncxcmcMcdc")
+    lanes = [("count", None, None)] + _red_lanes(rng, n, spec)
     return {"mask": mask, "keys": keys, "nseg": nseg, "lanes": lanes}
 
 
 DENSE_SHAPES = ((1, "mixed"), (5000, "mixed"), (5000, "big_keys"), (100_003, "global"), (4_000_000, "mixed"),
                 (1, "no_keys"), (100_003, "no_keys"))
+# the edges of P8's fused code: codes out of range and wrapping int32 codes, no rows
+DENSE_EDGE_SHAPES = ((5000, "codes"), (100_003, "codes"), (100_003, "wrap"), (0, "mixed"), (0, "no_keys"))
 
 
 def p8_args(b: dict, dev):
@@ -1608,15 +1639,21 @@ def mode_kernel_cases(dev, rng):
             fl = {2 + j for j, ln in enumerate(lanes[ship:]) if ln.is_float}
             return max(err, same_rows(rows[0], rows[1], 1, f"rowpos_agg block picks {case} rows", fl))
         cases.append((f"rowpos_agg block picks n={n} B={B} n_dev={n_dev} rank={rank} {case}", p6m))
-    for n, case in DENSE_SHAPES:
+    for n, case in DENSE_SHAPES + DENSE_EDGE_SHAPES:
         args = p8_args(dense_battery(rng, n, case), dev)
+        for pad in (0, 2, 37):  # the packed result's rows: nseg wide, and wider (the engine's packed width)
 
-        def p8(args=args, case=case):
-            lanes, nseg = args[3], args[2]
-            rows = torch.zeros((len(lanes), nseg + 2), dtype=torch.int64, device=dev)
-            got = dense_agg(*args, rows=rows)
-            return same_dense(got, dense_agg_ref(*args), f"dense_agg {case}", lanes)
-        cases.append((f"dense_agg n={n} {case}", p8))
+            def p8(args=args, case=case, pad=pad):
+                lanes, nseg = args[3], args[2]
+                rows = torch.full((len(lanes) + 2, nseg + pad), -5, dtype=torch.int64, device=dev)
+                got = dense_agg(*args, rows=rows[1:1 + len(lanes)])
+                err = same_dense(got, dense_agg_ref(*args), f"dense_agg {case} rows [{nseg} + {pad}]", lanes)
+                if not bool((rows[0] == -5).all() & (rows[-1] == -5).all() & (rows[:, nseg:] == -5).all()):
+                    raise AssertionError(f"dense_agg {case}: wrote outside its rows' first {nseg} columns")
+                if pad == 0:  # the wrapper's own rows
+                    err = max(err, same_dense(dense_agg(*args), dense_agg_ref(*args), f"dense_agg {case}", lanes))
+                return err
+            cases.append((f"dense_agg n={n} {case} pad={pad}", p8))
     return cases
 
 
@@ -2420,6 +2457,22 @@ def q1_battery(rng, n: int, nseg: int, case: str):
     return (qty, price, disc, tax, rf, ls, ship, rv), 700
 
 
+def q1_edge_shapes(n_sms: int) -> list:
+    """(n, nseg, start) of M1's staged design at its edges: every start
+    offset 0-15 (the row views of a shard) at a few tiles; n of 0, 1, a
+    tile less one, a tile, a tile and one, one tile past the grid's first
+    sweep and several sweeps (each stage's mbarrier reused); nseg 1-8 (each
+    template of the staged kernel) and 9 (the wide path)."""
+    from tidb_tpu_torch.kernels.q1_local import NS, STAGES, TILE
+
+    sweep = n_sms * TILE
+    shapes = [(3 * TILE + 5, 8, start) for start in range(16)]
+    shapes += [(n, 8, start) for n in (0, 1, TILE - 1, TILE, TILE + 1, sweep + TILE, STAGES * sweep + 3 * sweep + 7)
+               for start in (0, 9)]
+    shapes += [(2 * TILE + 3, nseg, nseg % 16) for nseg in range(1, NS + 2)]
+    return shapes
+
+
 def repartition_battery(rng, n: int, n_dev: int, case: str):
     """M3 inputs: negative keys, some invalid rows; 'invalid' all rows
     invalid; 'small_cap' a cap below the largest bucket; 'full_last' the
@@ -2453,6 +2506,7 @@ def mesh_kernel_cases(dev, rng):
     import torch
 
     from tidb_tpu_torch.kernels import hash_repartition, hash_repartition_ref, q1_local, q1_local_ref
+    from tidb_tpu_torch.kernels.tables import sm_count
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -2466,6 +2520,17 @@ def mesh_kernel_cases(dev, rng):
         def m1(args=args, nseg=nseg, cutoff=cutoff):
             return _same(q1_local(nseg, cutoff, *args), q1_local_ref(nseg, cutoff, *args), "partials")
         cases.append((f"q1_local n={n} nseg={nseg} {case}", m1))
+    on_card = torch.device(dev).type == "cuda"
+    for n, nseg, start in q1_edge_shapes(sm_count(torch.device(dev)) if on_card else 132):
+        lanes, cutoff = q1_battery(rng, n + 16, nseg, "codes" if nseg < 6 else "overflow")
+        # row views of a shard: lane k from row (start + k) % 16 of its own
+        # tensor (byte offsets 0 or 8 modulo 16, mixed), the valid bytes
+        # from byte `start` (any offset modulo 16)
+        views = [t(a)[(start + k) % 16:][:n] for k, a in enumerate(lanes[:7])] + [t(lanes[7])[start:][:n]]
+
+        def m1e(views=views, nseg=nseg, cutoff=cutoff):
+            return _same(q1_local(nseg, cutoff, *views), q1_local_ref(nseg, cutoff, *views), "partials")
+        cases.append((f"q1_local n={n} nseg={nseg} start={start}", m1e))
     for n, n_dev, case in REPARTITION_SHAPES:
         keys, payload, valid, cap = repartition_battery(rng, n, n_dev, case)
         args = (t(keys), t(payload), t(valid), n_dev, cap)
@@ -3211,7 +3276,8 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     k8 = {"ms": time_ms(lambda: dense_agg(*a8, rows=rows8)), "plain_ms": time_ms(lambda: dense_agg_ref(*a8), 3),
           "library_ms": time_ms(lambda: acc8.zero_().index_add_(0, seg8, sums8)),
           "library_call": "index_add_ of the stacked int64 sum lanes by the precomputed segment",
-          "bytes": p8_bytes, "n": mask8.numel(), "nseg": nseg8, "lanes": len(lanes8)}
+          "enqueue_ms": host_ms(lambda: dense_agg(*a8, rows=rows8)), "bytes": p8_bytes, "n": mask8.numel(),
+          "nseg": nseg8, "lanes": len(lanes8), **call_split(lambda: dense_agg(*a8, rows=rows8))}
     Lc = main["launches"]
 
     def entry(name, src, ref, meas):
@@ -3223,7 +3289,7 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     return ([entry("lut_join", "lut_join.cu", 1516, k3), entry("run_agg", "run_agg.cu", 1850, k7),
              entry("block_topk", "block_topk.cu", 2008, k9), entry("sort_join", "sort_join.cu", 1546, k4),
              entry("seg_reduce", "seg_reduce.cu", 1655, k5), entry("rowpos_agg", "rowpos_agg.cu", 1788, k6),
-             entry("dense_agg", "dense_agg.cu", 1960, k8)],
+             entry("dense_agg", "seg_agg.cu", 1960, k8)],
             {"lut_join": k3, "run_agg": k7, "block_topk": k9, "sort_join": k4, "seg_reduce": k5,
              "rowpos_agg": k6, "dense_agg": k8})
 
@@ -3241,17 +3307,18 @@ MESH_QUERIES = (
 
 
 class MeshModeSpy:
-    """While active, records what every rank hands P2, P5 and P6 in
+    """While active, records what every rank hands P2, P5, P6 and P8 in
     parallel/mpp_program: calls["exchange"] P2's arguments, and
-    calls["seg_reduce"] / calls["rowpos_agg"] each call's (arguments,
-    keywords, what its exchange / collect returned): the collectives'
+    calls["seg_reduce"] / calls["rowpos_agg"] / calls["dense_agg"] each
+    call's (arguments, keywords, what its exchange / collect returned —
+    None for P8, whose all-reduce follows the call): the collectives'
     outputs, so that a replay needs no mesh."""
 
     def __init__(self):
         from tidb_tpu_torch.parallel import mpp_program
 
         self.mp = mpp_program
-        self.calls: dict = {"exchange": [], "seg_reduce": [], "rowpos_agg": []}
+        self.calls: dict = {"exchange": [], "seg_reduce": [], "rowpos_agg": [], "dense_agg": []}
 
     def __enter__(self):
         mp, calls = self.mp, self.calls
@@ -3261,7 +3328,7 @@ class MeshModeSpy:
             calls["exchange"].append(a)
             return real["exchange"](*a, **kw)
 
-        def recorded(name, hook):
+        def recorded(name, hook=None):
             def spy(*a, **kw):
                 fn, got = kw.get(hook), []
                 if fn is not None:
@@ -3273,6 +3340,7 @@ class MeshModeSpy:
         mp.exchange = exchange
         mp.seg_reduce = recorded("seg_reduce", "exchange")
         mp.rowpos_agg = recorded("rowpos_agg", "collect")
+        mp.dense_agg = recorded("dense_agg")
         return self
 
     def __exit__(self, *exc):
@@ -3281,19 +3349,25 @@ class MeshModeSpy:
 
 
 def hold_mesh_modes(calls: dict) -> dict:
-    """Every rank's P5 and P6 call of a mesh run (MeshModeSpy.calls)
+    """Every rank's P5, P6 and P8 call of a mesh run (MeshModeSpy.calls)
     replayed against its plain version on the same inputs, the recorded
     exchange / collect outputs standing in for the collectives: P5's local
     reduce (the groups it hands the exchange) and its final reduce, picks
     and rows; P6's scatter into Bp build rows (the partials it hands the
-    collectives) and its block picks and rows. → the largest float error
-    per kernel."""
+    collectives) and its block picks and rows; P8's rank partials (what
+    its all-reduce takes) into rows of the engine's packed width. → the
+    largest float error per kernel (P8's where it was called)."""
     import torch
 
-    from tidb_tpu_torch.kernels import rowpos_agg, rowpos_agg_ref, seg_reduce, seg_reduce_ref
+    from tidb_tpu_torch.kernels import (dense_agg, dense_agg_ref, rowpos_agg, rowpos_agg_ref, seg_reduce,
+                                        seg_reduce_ref)
 
     err = {"seg_reduce": 0.0, "rowpos_agg": 0.0}
-    for i, (a, kw, out) in enumerate(calls["seg_reduce"]):
+    for i, (a, kw, _) in enumerate(calls.get("dense_agg", [])):
+        rows = torch.zeros_like(kw["rows"])
+        err["dense_agg"] = max(err.get("dense_agg", 0.0), same_dense(dense_agg(*a, rows=rows), dense_agg_ref(*a),
+                                                                     f"dense_agg, rank call {i}", a[3]))
+    for i, (a, kw, out) in enumerate(calls.get("seg_reduce", [])):
         what, lanes, handed = f"seg_reduce local+final, rank call {i}", a[2], []
         if out is None:
             raise AssertionError(f"{what}: no exchange at n_dev {kw['n_dev']}")
@@ -3312,7 +3386,7 @@ def hold_mesh_modes(calls: dict) -> dict:
         fl = {2 + j for j, ln in enumerate(lanes) if ln.is_float}
         err["seg_reduce"] = max(err["seg_reduce"], e, same_seg_reduce(got, want, what, lanes),
                                 same_rows(rows[0], rows[1], 1, f"{what} rows", fl))
-    for i, (a, kw, out) in enumerate(calls["rowpos_agg"]):
+    for i, (a, kw, out) in enumerate(calls.get("rowpos_agg", [])):
         what, lanes, handed = f"rowpos_agg block picks, rank call {i}", a[3], []
         if out is None:
             raise AssertionError(f"{what}: no collect at n_dev {kw['n_dev']}")
@@ -3340,9 +3414,9 @@ def run_mpp_mesh_path(dev, reps: int, card: str, out: dict) -> None:
     oracle), the aggregation mode asserted, nothing dropped (no
     capacity_overflow), P2 launched where a level is HASH; the
     collectives' host-clock time per run (the slowest rank's) and one
-    profiled run's idle share. What P2, P5 and P6 were handed in one extra
-    untimed run of the unfused Q3 and of Q3 LIMIT 100 (MeshModeSpy) lands
-    in out["captured"]["mpp_mesh"]."""
+    profiled run's idle share. What P2, P5, P6 and P8 were handed in one
+    extra untimed run of the unfused Q3, of Q3 LIMIT 100 and of SEG_REVENUE
+    (MeshModeSpy) lands in out["captured"]["mpp_mesh"]."""
     import torch
 
     from tidb_tpu_torch import kernels as K
@@ -3396,10 +3470,10 @@ def run_mpp_mesh_path(dev, reps: int, card: str, out: dict) -> None:
                 if diff is not None:
                     raise AssertionError(f"mpp_mesh {qname} run {i}: differs from the one-device chunk: {diff}\n"
                                          f"mesh: {chunk_rows(r[4])[:3]}\none:  {chunk_rows(want)[:3]}")
-            if qname in ("q3_unfused", "q3_top100"):  # P2's, P5's and P6's inputs, every rank's every call
+            if qname in ("q3_unfused", "q3_top100", "seg_revenue"):  # P2's, P5's, P6's, P8's inputs: every call
                 with MeshModeSpy() as spy:
                     run_mpp(plan, tables, device=dev, engine=engine, variables=variables, mesh=mesh)
-                caught = out["captured"].setdefault("mpp_mesh", {"exchange": [], "seg_reduce": [], "rowpos_agg": []})
+                caught = out["captured"].setdefault("mpp_mesh", {k: [] for k in spy.calls})
                 for k, v in spy.calls.items():
                     caught[k] += v
             prof = profiled_run(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables,
@@ -4127,6 +4201,14 @@ def measure_seg_agg_queries(main: dict, max_err: dict) -> dict:
     return out
 
 
+def call_split(call) -> dict:
+    """One call's launches and device time (kernel_split): `device_ms` the
+    sum of its kernels' device times, `launches_per_call` its kernels."""
+    split = kernel_split(call)
+    sm = split.get("split_ms")
+    return {"device_ms": sum(sm.values()) if sm else None, "launches_per_call": split.pop("launches"), **split}
+
+
 def rowpos_split(call, tries: int = 3) -> dict:
     """One P6 call's device time by kernel (kernel_split): K4's
     (`seg_agg_ms`), K6's (`topk_ms`) and P6's own kernels' (`p6_device_ms`),
@@ -4150,20 +4232,22 @@ def rowpos_split(call, tries: int = 3) -> dict:
 
 
 def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
-    """P5's local + final reduce and P6's block picks on main.mpp_mesh's own
-    inputs: every rank's call held to its plain version (hold_mesh_modes),
-    then the largest call of each timed beside its plain version, its
+    """P5's local + final reduce, P6's block picks and P8's rank partials
+    on main.mpp_mesh's own inputs: every rank's call held to its plain
+    version (hold_mesh_modes), then the largest call of each timed beside its plain version, its
     bytes bound and the nearest PyTorch call, the recorded exchange /
     collect outputs standing in for the collectives (so the times hold
     the kernels alone), and the kernels each calls timed apart (K8 and K6
     in P5, K4 and K6 in P6: `own_ms` is the call less them — P5's less
     their calls' times, P6's less their kernels' device times in one
-    profiled call, so P6's holds their host work too). The times go
-    into the kernels line's seg_reduce and rowpos_agg entries as mesh_ms,
-    mesh_plain_ms, mesh_bound_ms, mesh_library_ms and mesh_own_ms."""
+    profiled call, so P6's holds their host work too; P8 calls none). The
+    times go into the kernels line's seg_reduce, rowpos_agg and dense_agg
+    entries as mesh_ms, mesh_plain_ms, mesh_bound_ms, mesh_library_ms and
+    mesh_own_ms."""
     import torch
 
-    from tidb_tpu_torch.kernels import rowpos_agg, rowpos_agg_ref, seg_reduce, seg_reduce_ref
+    from tidb_tpu_torch.kernels import dense_agg, dense_agg_ref, rowpos_agg, rowpos_agg_ref, seg_reduce, seg_reduce_ref
+    from tidb_tpu_torch.kernels.dense_agg import dense_code_ref
     from tidb_tpu_torch.kernels.rowpos_agg import picks
     from tidb_tpu_torch.kernels.seg_reduce import I64_MAX, group_code_ref
 
@@ -4221,7 +4305,24 @@ def measure_mesh_modes(main: dict, max_err: dict, entries: list) -> dict:
     k6["own_ms"] = None if k6["seg_agg_ms"] is None else k6["ms"] - k6["seg_agg_ms"] - k6["topk_ms"]
     k5["k8_rows"] = [op[0].data.numel() for op in k8_inside(mods["seg_reduce"], lambda: seg_reduce(
         *a5, rows=rows5, exchange=ex, n_dev=n5))[0]]
-    got = {"seg_reduce": k5, "rowpos_agg": k6}
+    # P8's largest rank call of the mesh's SEG_REVENUE (its partials; the
+    # all-reduce follows the call)
+    a, kw, _ = max(calls["dense_agg"], key=lambda c: c[0][0].numel())
+    mask, keys, nseg, lanes = a
+    rows8 = torch.zeros_like(kw["rows"])
+    b8 = (_nbytes(mask, *_pairs((k.data, k.valid) for k in keys), *_pairs((ln.data, ln.valid) for ln in lanes))
+          + 8 * nseg * len(lanes))
+    seg8 = dense_code_ref(mask, keys, nseg)
+    sums8 = torch.stack([ln.data for ln in lanes if ln.op == "sum_i64"], dim=1)
+    acc8 = torch.zeros((nseg + 1, sums8.shape[1]), dtype=torch.int64, device=sums8.device)
+    k8 = {"ms": time_ms(lambda: dense_agg(*a, rows=rows8)), "plain_ms": time_ms(lambda: dense_agg_ref(*a), 3),
+          "library_ms": time_ms(lambda: acc8.zero_().index_add_(0, seg8, sums8)),
+          "library_call": "index_add_ of the stacked int64 sum lanes by the precomputed segment",
+          "enqueue_ms": host_ms(lambda: dense_agg(*a, rows=rows8)), "bytes": b8,
+          "bound_ms": b8 / HBM_BYTES_PER_S * 1e3, "rows": mask.numel(), "nseg": nseg, "lanes": len(lanes),
+          "calls_held": len(calls["dense_agg"]), **call_split(lambda: dense_agg(*a, rows=rows8))}
+    k8["own_ms"] = k8["ms"]  # one launch of K4's kernel, no call inside
+    got = {"seg_reduce": k5, "rowpos_agg": k6, "dense_agg": k8}
     for e in entries:
         if e["name"] in got:
             k = got[e["name"]]

@@ -3,13 +3,16 @@
 the one-device answer: a check for faults that show only now and then,
 such as a race between the ranks' threads.
 
-    python3 mesh_stress.py [--iters 100] [--rows 4000000] [--seed 42] [--query q3_top100] [--tree DIR ...]
+    python3 mesh_stress.py [--iters 100] [--rows 4000000] [--seed 42] [--query q3_top100 --query seg_revenue]
+                           [--tree DIR ...]
 
-Each iteration makes a new MPPEngine and runs the query twice over
+Each iteration makes a new MPPEngine for each query (by default
+q3_top100, the rowpos aggregation, and seg_revenue, the dense one: P8's
+four rank calls at once on the card) and runs it twice over
 make_mesh(4, "cuda") (gloo between the ranks): a cold run, in which the
 ranks compile their programs and upload their tables from their threads
-at once, then a warm one. Every answer must equal the one-device answer
-row for row. A run stops at its first difference or CUDA error (the card's
+at once, then a warm one. Every answer must equal the query's one-device
+answer row for row. A run stops at its first difference or CUDA error (the card's
 error state is sticky). For each --tree (another checkout of the
 repository: an earlier commit, say) and this checkout, each in a fresh
 process, one JSON line: the runs made, the first failure (None when every
@@ -47,31 +50,37 @@ def worker(args) -> int:
     build_all()
     li, orders, cust = tpch.generated_columns(args.rows, args.seed)
     tables = {"lineitem": li, "orders": orders, "customer": cust}
-    builder, *bargs = QUERIES[args.query]
-    plan = getattr(tpch, builder)(*bargs)
-    one = run_mpp(plan, tables, device="cuda", engine=MPPEngine("cuda"))
+    plans, ones = {}, {}
+    for q in args.query:
+        make_plan, *bargs = QUERIES[q]
+        plans[q] = getattr(tpch, make_plan)(*bargs)
+        ones[q] = run_mpp(plans[q], tables, device="cuda", engine=MPPEngine("cuda"))
     mesh = make_mesh(4, "cuda")
-    runs, first, t0 = 0, None, time.perf_counter()
+    runs, first, t0 = dict.fromkeys(args.query, 0), None, time.perf_counter()
     try:
         for i in range(args.iters):
-            engine = MPPEngine("cuda")
-            for kind in ("cold", "warm"):
-                runs += 1
-                try:
-                    got = run_mpp(plan, tables, device="cuda", engine=engine, mesh=mesh)
-                    torch.cuda.synchronize()
-                    diff = cs.chunks_equal(got, one)
-                except Exception:  # noqa: BLE001 — the failure is the result
-                    diff = traceback.format_exc(limit=4)
-                if diff is not None:
-                    first = f"iteration {i}, {kind} run: {diff}"
+            for q in args.query:
+                engine = MPPEngine("cuda")
+                for kind in ("cold", "warm"):
+                    runs[q] += 1
+                    try:
+                        got = run_mpp(plans[q], tables, device="cuda", engine=engine, mesh=mesh)
+                        torch.cuda.synchronize()
+                        diff = cs.chunks_equal(got, ones[q])
+                    except Exception:  # noqa: BLE001 — the failure is the result
+                        diff = traceback.format_exc(limit=4)
+                    if diff is not None:
+                        first = f"iteration {i}, {q}, {kind} run: {diff}"
+                        break
+                if first is not None:
                     break
             if first is not None:
                 break
     finally:
         mesh.close()
-    print(json.dumps({"tree": args.root, "query": args.query, "rows": args.rows, "runs": runs, "first_failure": first,
-                      "seconds": time.perf_counter() - t0, "card": cs.card_line()}), flush=True)
+    print(json.dumps({"tree": args.root, "queries": args.query, "rows": args.rows, "runs": runs,
+                      "first_failure": first, "seconds": time.perf_counter() - t0, "card": cs.card_line()}),
+          flush=True)
     return 0 if first is None else 1
 
 
@@ -80,10 +89,12 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--rows", type=int, default=4_000_000)
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--query", choices=sorted(QUERIES), default="q3_top100")
+    ap.add_argument("--query", choices=sorted(QUERIES), action="append",
+                    help="a query to repeat (again for more; default q3_top100 and seg_revenue)")
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--root", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    args.query = args.query or ["q3_top100", "seg_revenue"]
     import torch
 
     if not torch.cuda.is_available():
@@ -94,7 +105,7 @@ def main() -> int:
     rc = 0
     for tree in [os.path.abspath(t) for t in args.tree] + [ROOT]:
         cmd = [sys.executable, os.path.abspath(__file__), "--root", tree, "--iters", str(args.iters),
-               "--rows", str(args.rows), "--seed", str(args.seed), "--query", args.query]
+               "--rows", str(args.rows), "--seed", str(args.seed)] + [a for q in args.query for a in ("--query", q)]
         rc = subprocess.run(cmd, cwd=tree).returncode
     return rc  # this checkout's
 

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time P4 (csrc/sort_join.cu), P5 (csrc/seg_reduce.cu) and P6
-(csrc/rowpos_agg.cu) on the MPP main path's own inputs, on one NVIDIA GPU.
+"""Time P4 (csrc/sort_join.cu), P5 (csrc/seg_reduce.cu), P6
+(csrc/rowpos_agg.cu), P8 (kernels/dense_agg.py over csrc/seg_agg.cu) and
+M1 (csrc/q1_local.cu) on the main path's own inputs, on one NVIDIA GPU.
 
-    python3 mpp_profile.py [--seed 42] [--q3-rows 4000000] [--reps 5] [--tree DIR ...] [--only p6]
+    python3 mpp_profile.py [--seed 42] [--q3-rows 4000000] [--reps 5] [--tree DIR ...]
+                           [--only p6|p8|m1]
 
 For each --tree (another checkout of the repository: an earlier commit,
 say) and this checkout, each in a fresh process, in turns (the trees, then
@@ -36,7 +38,20 @@ the same in reverse order), one JSON object a run under "runs":
                      one profiled call and their sum, and K4's, K6's and
                      P6's own kernels' parts of it
 
---only p6 measures q3_top100 and its P6 calls alone.
+  seg_revenue / mesh_seg_revenue, p8, p8_mesh
+                     (--only p8) the same for SEG_REVENUE (the dense
+                     aggregation) and P8's call, one device and its largest
+                     rank call of the mesh run (its partials, which the
+                     all-reduce takes after it), with the launches of the
+                     profiled call
+  m1                 (--only m1) M1 on Q1's lanes of a lineitem of
+                     M1_ROWS rows (chip_smoke.py's generator at its
+                     default size, and the dryrun's q1_arrays, one shard): the median single launch
+                     (`median_ms`), the mean of 10 (`ms`), the host clock's
+                     call through a synchronize, one profiled call's device
+                     time and launches, rows/s, and its bytes bound
+
+--only p6 / p8 / m1 measures those alone.
 
 Each tree runs its own chip_smoke.py helpers and its own kernels, built in
 its own build/. Every call is held to its plain version before it is
@@ -55,6 +70,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+M1_ROWS = 16_000_000  # --only m1's lineitem rows: chip_smoke.py's default (its --rows)
 
 
 def _k8_entry(module):
@@ -95,9 +111,9 @@ def _with_k8(cs, module, fn) -> dict:
             "device_ms": dev_ms, **split}
 
 
-def _p6(cs, fn) -> dict:
-    """P6's call (module doc): event, host and enqueue times, and one
-    profiled call's device time by kernel."""
+def _call(cs, fn) -> dict:
+    """A P6 or P8 call (module doc): event, host and enqueue times, and one
+    profiled call's device time by kernel (K4's, K6's and P6's own parts)."""
     import torch
 
     ms = cs.time_ms(fn)
@@ -138,7 +154,7 @@ def host_p6(cs, tables, dev, query, out: dict) -> None:
     cs.same_rowpos(g, w, "rowpos_agg on q3_top100", a[3])
     cs.same_rows(rows[0], rows[1], 1, "rowpos_agg rows on q3_top100",
                  {2 + j for j, ln in enumerate(a[3][a[8]:]) if ln.is_float})
-    out["p6"] = {"n": a[0].numel(), "B": a[2], "lanes": len(a[3]), **_p6(cs, lambda: rowpos_agg(*a, rows=rows[0]))}
+    out["p6"] = {"n": a[0].numel(), "B": a[2], "lanes": len(a[3]), **_call(cs, lambda: rowpos_agg(*a, rows=rows[0]))}
     mesh = make_mesh(4, dev)
     try:
         plan, engine, variables, out["mesh_q3_top100"] = query("q3_top100", mesh, warm=1)
@@ -150,7 +166,78 @@ def host_p6(cs, tables, dev, query, out: dict) -> None:
     a, kw, col = max(spy.calls["rowpos_agg"], key=lambda c: c[0][0].numel())
     rows_m = torch.zeros_like(kw["rows"])
     out["p6_mesh"] = {"n": a[0].numel(), "B": a[2], "n_dev": kw["n_dev"], "block": col[0][0].numel(),
-                      **_p6(cs, lambda: rowpos_agg(*a, rows=rows_m, n_dev=kw["n_dev"], collect=lambda *x: col))}
+                      **_call(cs, lambda: rowpos_agg(*a, rows=rows_m, n_dev=kw["n_dev"], collect=lambda *x: col))}
+
+
+def host_p8(cs, tables, dev, query, out: dict) -> None:
+    """SEG_REVENUE and its P8 calls, one device and the 4-rank mesh."""
+    import threading
+
+    import torch
+
+    from tidb_tpu_torch.entry import run_mpp
+    from tidb_tpu_torch.kernels import dense_agg, dense_agg_ref
+    from tidb_tpu_torch.parallel import mpp_program as mp
+    from tidb_tpu_torch.parallel.mesh import make_mesh
+
+    def caught(run) -> list:
+        got, lock, real = [], threading.Lock(), mp.dense_agg
+
+        def spy(*a, **kw):
+            with lock:
+                got.append((a, kw))
+            return real(*a, **kw)
+        mp.dense_agg = spy
+        try:
+            run()
+        finally:
+            mp.dense_agg = real
+        return got
+
+    def held(a, kw, what):
+        rows = torch.zeros_like(kw["rows"])
+        cs.same_dense(dense_agg(*a, rows=rows), dense_agg_ref(*a), what, a[3])
+        return rows
+
+    plan, engine, variables, out["seg_revenue"] = query("seg_revenue")
+    (a, kw), = caught(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables))
+    rows = held(a, kw, "dense_agg on seg_revenue")
+    out["p8"] = {"n": a[0].numel(), "nseg": a[2], "lanes": len(a[3]), **_call(cs, lambda: dense_agg(*a, rows=rows))}
+    mesh = make_mesh(4, dev)
+    try:
+        plan, engine, variables, out["mesh_seg_revenue"] = query("seg_revenue", mesh, warm=1)
+        calls = caught(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables, mesh=mesh))
+    finally:
+        mesh.close()
+    for i, (a, kw) in enumerate(calls):
+        held(a, kw, f"dense_agg, rank call {i}")
+    a, kw = max(calls, key=lambda c: c[0][0].numel())
+    rows_m = held(a, kw, "dense_agg, the largest rank call")
+    out["p8_mesh"] = {"n": a[0].numel(), "nseg": a[2], "rank_calls": len(calls),
+                      **_call(cs, lambda: dense_agg(*a, rows=rows_m))}
+
+
+def host_m1(cs, seed: int, out: dict) -> None:
+    """M1 on Q1's lanes of an M1_ROWS-row lineitem (module doc)."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels import q1_local, q1_local_ref
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.parallel.mesh import q1_arrays
+
+    spec, args = q1_arrays(tpch.gen_lineitem(M1_ROWS, seed), 1)
+    lanes = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda") for a in args]
+    m1 = (spec.nseg, spec.cutoff, *lanes)
+    cs._same(q1_local(*m1), q1_local_ref(*m1), "q1_local on the lineitem's Q1 lanes")
+    nbytes = sum(t.numel() * t.element_size() for t in lanes) + 6 * 8 * spec.nseg
+    fn = lambda: q1_local(*m1)  # noqa: E731
+    split = cs.kernel_split(fn)
+    med = cs.median_ms(fn)
+    out["m1"] = {"rows": len(args[0]), "nseg": spec.nseg, "median_ms": med, "ms": cs.time_ms(fn),
+                 "host_ms": _host_ms(fn), "rows_per_s": len(args[0]) / (med / 1e3), "bytes": nbytes,
+                 "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+                 "device_ms": sum(split["split_ms"].values()) if split.get("split_ms") else None, **split}
 
 
 def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
@@ -167,11 +254,14 @@ def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
     from tidb_tpu_torch.torchenv import PhaseTimer
 
     dev = torch.device("cuda")
+    out: dict = {}
+    if only == "m1":
+        host_m1(cs, seed, out)
+        return out
     li, orders, cust = tpch.generated_columns(rows, seed)
     tables = {"lineitem": li, "orders": orders, "customer": cust}
     specs = {q: (b, v) for q, b, v, _, _ in cs.MPP_QUERIES}
     p4m, p5m = (importlib.import_module(f"tidb_tpu_torch.kernels.{m}") for m in ("sort_join", "seg_reduce"))
-    out: dict = {}
     caps: dict = {}
 
     def query(qname, mesh=None, warm=reps):
@@ -193,6 +283,9 @@ def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
 
     if only == "p6":
         host_p6(cs, tables, dev, query, out)
+        return out
+    if only == "p8":
+        host_p8(cs, tables, dev, query, out)
         return out
     for qname in ("q3_unfused", "q18"):
         plan, engine, variables, out[qname] = query(qname)
@@ -241,14 +334,15 @@ def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
     out["p5_mesh"] = {"n": a[1].numel(), "fragments": got[2].numel(), "n_dev": kw["n_dev"],
                       **_with_k8(cs, p5m, lambda: seg_reduce(*a, rows=rows_m, exchange=ex, n_dev=kw["n_dev"]))}
     host_p6(cs, tables, dev, query, out)
+    host_p8(cs, tables, dev, query, out)
     return out
 
 
 def worker(tree: str, rows: int, seed: int, reps: int, only: str) -> dict:
     """One tree's measurements in a fresh process rooted at `tree`."""
     r = subprocess.run([sys.executable, os.path.abspath(__file__), "--host-of", tree, "--q3-rows", str(rows),
-                        "--seed", str(seed), "--reps", str(reps), "--only", only], capture_output=True, text=True,
-                       cwd=tree)
+                        "--seed", str(seed), "--reps", str(reps), "--only", only],
+                       capture_output=True, text=True, cwd=tree)
     if r.returncode != 0:
         raise RuntimeError(f"mpp_profile: the run in {tree} failed (exit {r.returncode}):\n{r.stderr[-4000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
@@ -260,7 +354,8 @@ def main(argv=None) -> int:
     ap.add_argument("--q3-rows", type=int, default=4_000_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--tree", action="append", default=[], help="another checkout, timed in turns with this one")
-    ap.add_argument("--only", choices=("", "p6"), default="", help="p6: q3_top100 and its P6 calls alone")
+    ap.add_argument("--only", choices=("", "p6", "p8", "m1"), default="",
+                    help="p6: q3_top100 and its P6 calls alone; p8: seg_revenue and its P8 calls; m1: M1 alone")
     ap.add_argument("--host-of", help=argparse.SUPPRESS)  # the worker: one tree's measurements
     args = ap.parse_args(argv)
     try:

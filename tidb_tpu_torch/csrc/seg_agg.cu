@@ -9,6 +9,11 @@
 //
 //   code = mixed radix over the key lanes: code = code*(dom+1) + kd,
 //          kd = key - lo + 1 for a valid key, 0 (the NULL slot) otherwise;
+//          in the int32-wrap key form (a launch's `wrap32`: P8's dense MPP
+//          code, tidb_tpu/parallel/mpp.py:1962-1967) each key's low 32 bits,
+//          the code wrapped to int32 after each key, so codes above 2^31
+//          turn negative and drop (a template argument: the other callers'
+//          kernels compile without it);
 //          or, in the precomputed-segment mode of the sort-based GROUP BY
 //          (tpu_engine.py:1380-1399), the row's id from K9's segment lane
 //          (csrc/sort_groups.cu), rows at or beyond nseg dropped
@@ -35,7 +40,10 @@
 // lane's own dtype: iinfo(dtype).max for MIN over an int32 dict-code lane,
 // uint64 max bits for MIN_U64, +inf for MIN_F64, N for FIRST_ROW, 0 for
 // sums and counts). Results land directly in the packed [k_i, nseg] int64
-// and [k_f, nseg] float64 matrices the engine ships to the host.
+// and [k_f, nseg] float64 matrices the engine ships to the host, rows
+// `ostride` elements apart (nseg; P8 writes every lane, float lanes as their
+// bits, straight into its row of the MPP program's packed result, whose
+// rows are wider than nseg).
 //
 // Bound: bytes. Each row reads its mask byte, its key lanes and, per value
 // lane, 8 bytes of data plus one valid byte; outputs are k*nseg*8 bytes.
@@ -276,7 +284,9 @@ __device__ __forceinline__ void load4(const void* __restrict__ base, ll r0, ll n
 }
 
 // The group's segments: s[u] = the row's slot, or -1 when it is masked
-// out, past n, or its code falls outside [0, nseg).
+// out, past n, or its code falls outside [0, nseg). WRAP32: the keys'
+// int32-wrap form (file note).
+template <bool WRAP32>
 __device__ __forceinline__ void group_segs(const TaskAgg& T, const KeyDesc* __restrict__ keys,
                                            int nkeys, ll nseg, ll r0, ll n, int (&s)[U]) {
   const unsigned mb = load_bits(T.mask, r0, n);
@@ -298,8 +308,18 @@ __device__ __forceinline__ void group_segs(const TaskAgg& T, const KeyDesc* __re
         for (int u = 0; u < U; ++u) kv[u] = (ll)w[u];
       }
       const unsigned vb = K.valid != nullptr ? load_bits(K.valid, r0, n) : 0xFu;
+      if constexpr (WRAP32) {
+        // int32(d) - lo + 1 and the code in int32 wrap: the same low 32
+        // bits as the reference's int32 arithmetic, exact in 64 bits here
+        // (lo is the int32 the host wrapped it to, the code stays in int32)
 #pragma unroll
-      for (int u = 0; u < U; ++u) code[u] = code[u] * (K.dom + 1) + (((vb >> u) & 1) ? kv[u] - K.lo + 1 : 0);
+        for (int u = 0; u < U; ++u)
+          code[u] = (ll)(int32_t)(uint32_t)((ull)code[u] * (ull)(K.dom + 1) +
+                                            (((vb >> u) & 1) ? (ull)((ll)(int32_t)kv[u] - K.lo + 1) : 0ull));
+      } else {
+#pragma unroll
+        for (int u = 0; u < U; ++u) code[u] = code[u] * (K.dom + 1) + (((vb >> u) & 1) ? kv[u] - K.lo + 1 : 0);
+      }
     }
   }
 #pragma unroll
@@ -477,9 +497,10 @@ __device__ __forceinline__ void global_lane(const LaneRows& r, const int (&s)[U]
   if (cur >= 0 && acc != ident_of(OP)) atomic_fold<OP>(out + cur, acc);
 }
 
-__device__ __forceinline__ ull* out_slot(const TaskAgg& T, const LaneDesc& L, ll nseg, ll seg) {
-  return is_float_op(L.op) ? reinterpret_cast<ull*>(T.fout + (ll)L.out * nseg + seg)
-                           : reinterpret_cast<ull*>(T.iout + (ll)L.out * nseg + seg);
+// lane L's slot `seg` in its output row (rows `ostride` elements apart)
+__device__ __forceinline__ ull* out_slot(const TaskAgg& T, const LaneDesc& L, ll ostride, ll seg) {
+  return is_float_op(L.op) ? reinterpret_cast<ull*>(T.fout + (ll)L.out * ostride + seg)
+                           : reinterpret_cast<ull*>(T.iout + (ll)L.out * ostride + seg);
 }
 
 // Shared layout: lane descriptors, key descriptors, the active lanes and
@@ -490,10 +511,10 @@ __host__ __device__ constexpr ll desc_bytes(int nkeys, int nlanes) {
   return ((ll)nlanes * (ll)sizeof(LaneDesc) + (ll)nkeys * (ll)sizeof(KeyDesc) + 8LL * nlanes + 4 + 15) / 16 * 16;
 }
 
-template <int MODE>
+template <int MODE, bool WRAP32>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
-    seg_agg_kernel(const TaskAgg* __restrict__ tasks, ll width, int nkeys, int nlanes, ll nseg, int shared_out,
-                   ll* __restrict__ tickets, ull* __restrict__ parts) {
+    seg_agg_kernel(const TaskAgg* __restrict__ tasks, ll width, int nkeys, int nlanes, ll nseg, ll ostride,
+                   int shared_out, ll* __restrict__ tickets, ull* __restrict__ parts) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_block;
   LaneDesc* sl = reinterpret_cast<LaneDesc*>(smem);
@@ -552,7 +573,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
   for (ll gw = (ll)blockIdx.x * W + warp; gw * 32 * U < n; gw += warps) {
     const ll r0 = (gw * 32 + lane) * U;
     int s[U];
-    group_segs(T, sk, nkeys, nseg, r0, n, s);
+    group_segs<WRAP32>(T, sk, nkeys, nseg, r0, n, s);
     if constexpr (MODE == MODE_REG) {
       unsigned inb = 0;
 #pragma unroll
@@ -599,7 +620,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
         const LaneRows cur = nxt;
         if (j + 1 < na) load_lane(sl[act[j + 1]], r0, n, nxt);
         const LaneDesc& L = sl[act[j]];
-        ull* out = out_slot(T, L, nseg, 0);
+        ull* out = out_slot(T, L, ostride, 0);
         switch (L.op) {
 #define X(O)                               \
   case O:                                  \
@@ -652,7 +673,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
         if (v != fill) r = comb_rt(L.op, r, v);
       }
       if (nb == 1)
-        *out_slot(T, L, nseg, sg) = r;
+        *out_slot(T, L, ostride, sg) = r;
       else
         mypart[t] = r;
     }
@@ -689,7 +710,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
           const ull v = wsl[q * C + c];
           if (v != fill) r = comb_rt(op, r, v);
         }
-        *out_slot(T, sl[k], nseg, t - (ll)k * nseg) = r;
+        *out_slot(T, sl[k], ostride, t - (ll)k * nseg) = r;
       }
       __syncthreads();
     }
@@ -698,35 +719,36 @@ __global__ void __launch_bounds__(MAX_THREADS, 2)
 }
 
 // MODE_GLOBAL's outputs start at their fills.
-__global__ void init_kernel(const TaskAgg* __restrict__ tasks, int nlanes, ll nseg) {
+__global__ void init_kernel(const TaskAgg* __restrict__ tasks, int nlanes, ll nseg, ll ostride) {
   const TaskAgg T = tasks[blockIdx.y];
   const ll total = (ll)nlanes * nseg;
   for (ll t = (ll)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += (ll)gridDim.x * blockDim.x) {
     const LaneDesc& L = T.lanes[t / nseg];
-    *out_slot(T, L, nseg, t % nseg) = (ull)L.fill;
+    *out_slot(T, L, ostride, t % nseg) = (ull)L.fill;
   }
 }
 
 template <int MODE>
-int launch(const TaskAgg* T, int G, ll width, int nkeys, int nlanes, ll nseg, int shared_out, int threads,
-           int blocks, ll smem, ll* tickets, ull* parts, cudaStream_t s) {
+int launch(bool wrap32, const TaskAgg* T, int G, ll width, int nkeys, int nlanes, ll nseg, ll ostride,
+           int shared_out, int threads, int blocks, ll smem, ll* tickets, ull* parts, cudaStream_t s) {
+  const auto kernel = wrap32 ? seg_agg_kernel<MODE, true> : seg_agg_kernel<MODE, false>;
   // The opt-in shared-memory limit is the function's attribute on each
   // device: set once a device, a bit each (a mesh's ranks launch from
   // threads at once; setting it twice does no harm).
-  static std::atomic<unsigned long long> set_on{0};
+  static std::atomic<unsigned long long> set_on[2];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return (int)cudaGetLastError();
   const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
-  if (bit == 0 || !(set_on.load(std::memory_order_acquire) & bit)) {
+  if (bit == 0 || !(set_on[wrap32].load(std::memory_order_acquire) & bit)) {
     cudaFuncAttributes fa;
-    if (cudaFuncGetAttributes(&fa, seg_agg_kernel<MODE>) != cudaSuccess) return (int)cudaGetLastError();
-    if (cudaFuncSetAttribute(seg_agg_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return (int)cudaGetLastError();
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              227 * 1024 - (int)fa.sharedSizeBytes) != cudaSuccess)
       return (int)cudaGetLastError();
-    set_on.fetch_or(bit, std::memory_order_release);
+    set_on[wrap32].fetch_or(bit, std::memory_order_release);
   }
-  seg_agg_kernel<MODE><<<dim3((unsigned)blocks, (unsigned)G), threads, (size_t)smem, s>>>(
-      T, width, nkeys, nlanes, nseg, shared_out, tickets, parts);
+  kernel<<<dim3((unsigned)blocks, (unsigned)G), threads, (size_t)smem, s>>>(
+      T, width, nkeys, nlanes, nseg, ostride, shared_out, tickets, parts);
   return (int)cudaGetLastError();
 }
 
@@ -736,17 +758,21 @@ int launch(const TaskAgg* T, int G, ll width, int nkeys, int nlanes, ll nseg, in
 // `blocks` is the grid's x extent, blocks per task. Where blocks merge
 // (MODE_REG / MODE_WARP, more than one block to a task's outputs),
 // `tickets` holds a word per task (one with shared_out), zero and left at
-// zero, and `parts` the partials [G * blocks, nlanes * nseg].
+// zero, and `parts` the partials [G * blocks, nlanes * nseg]. `ostride` is
+// the elements between two rows of an output matrix (>= nseg); `wrap32`
+// reads every key in the int32-wrap form (file note).
 extern "C" int tt_seg_agg_tasks(const void* tasks, int G, int64_t width, int nkeys, int nlanes, int64_t nseg,
-                                int shared_out, int mode, int threads, int blocks, int64_t smem, int64_t* tickets,
-                                int64_t* parts, void* stream) {
-  if (nseg <= 0 || nseg >= ((int64_t)1 << 31) || nlanes <= 0 || nkeys < 0 || G < 1 || G > 65535 || blocks < 1 ||
-      threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || smem > 227 * 1024 || width < 0)
+                                int64_t ostride, int wrap32, int shared_out, int mode, int threads, int blocks,
+                                int64_t smem, int64_t* tickets, int64_t* parts, void* stream) {
+  if (nseg <= 0 || nseg >= ((int64_t)1 << 31) || ostride < nseg || nlanes <= 0 || nkeys < 0 || G < 1 ||
+      G > 65535 || blocks < 1 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || smem > 227 * 1024 ||
+      width < 0)
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const TaskAgg* T = (const TaskAgg*)tasks;
   ll* tk = reinterpret_cast<ll*>(tickets);
   ull* pt = reinterpret_cast<ull*>(parts);
+  const bool w = wrap32 != 0 && nkeys > 0;
   const ll S = (ll)nlanes * nseg;
   ll need = desc_bytes(nkeys, nlanes);
   if (mode != MODE_GLOBAL) {
@@ -759,19 +785,20 @@ extern "C" int tt_seg_agg_tasks(const void* tasks, int G, int64_t width, int nke
   if (smem < need) return -1;
   switch (mode) {
     case MODE_REG:
-      return launch<MODE_REG>(T, G, width, nkeys, nlanes, nseg, shared_out, threads, blocks, smem, tk,
-                              pt, s);
+      return launch<MODE_REG>(w, T, G, width, nkeys, nlanes, nseg, ostride, shared_out, threads, blocks, smem,
+                              tk, pt, s);
     case MODE_WARP:
-      return launch<MODE_WARP>(T, G, width, nkeys, nlanes, nseg, shared_out, threads, blocks, smem, tk,
-                               pt, s);
+      return launch<MODE_WARP>(w, T, G, width, nkeys, nlanes, nseg, ostride, shared_out, threads, blocks, smem,
+                               tk, pt, s);
     case MODE_GLOBAL: {
       ll init_blocks = (S + 255) / 256;
       if (init_blocks > 65535) init_blocks = 65535;
-      init_kernel<<<dim3((unsigned)init_blocks, shared_out ? 1u : (unsigned)G), 256, 0, s>>>(T, nlanes, nseg);
+      init_kernel<<<dim3((unsigned)init_blocks, shared_out ? 1u : (unsigned)G), 256, 0, s>>>(T, nlanes, nseg,
+                                                                                          ostride);
       const int err = (int)cudaGetLastError();
       if (err != 0 || width == 0) return err;
-      return launch<MODE_GLOBAL>(T, G, width, nkeys, nlanes, nseg, shared_out, threads, blocks, smem, tk,
-                                 pt, s);
+      return launch<MODE_GLOBAL>(w, T, G, width, nkeys, nlanes, nseg, ostride, shared_out, threads, blocks,
+                                 smem, tk, pt, s);
     }
   }
   return -1;

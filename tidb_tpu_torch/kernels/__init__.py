@@ -34,8 +34,10 @@ and launch counters.
   P9 block_topk      (csrc/block_topk.cu)  ← parallel/mpp.py:2008-2045
                                              _block_topk (+ the result rows,
                                              :1914-1929)
-  P8 dense_agg       (csrc/dense_agg.cu)   ← parallel/mpp.py:1960-1973 dense
+  P8 dense_agg       (csrc/seg_agg.cu)     ← parallel/mpp.py:1960-1973 dense
                                              partials + :2048 _agg_partials
+                                             (K4's kernel over its int32-wrap
+                                             keys, into the packed rows)
   M1 q1_local        (csrc/q1_local.cu)    ← parallel/mesh.py:57 q1_local_kernel
   M3 hash_repartition (csrc/hash_repartition.cu) ← parallel/mesh.py:104
                                              hash_repartition (its local half;

@@ -3,11 +3,14 @@ group-key domain, straight into the rows of the packed result.
 
 Replaces the dense branch of `kernel` in tidb_tpu/parallel/mpp.py:1960-1973
 (MPPEngine._build_program) with `_agg_partials` (:2048-2080), at n_dev 1
-(psum / pmin / pmax are the identity there). The CUDA kernels are
-csrc/dense_agg.cu: the int32 group code as a segment lane, then K4's
-segment-lane mode (kernels/seg_agg.py) folds the partials, then a copy of
-each lane into its row of the packed result. `dense_agg_ref` is the plain
-PyTorch version beside them, the reference's jnp code step by step.
+(psum / pmin / pmax are the identity there). The CUDA kernel is K4's
+(csrc/seg_agg.cu, kernels/seg_agg.py) over a one-task table that this
+module writes: the dense keys as K4 key descriptors in their int32-wrap
+form (K4's kernel launched with `wrap32` computes the reference's code
+in registers), and
+every lane's output as its row of the packed result (`packed` lane rows,
+the rows' stride as K4's output stride). `dense_agg_ref` is the plain
+PyTorch version beside it, the reference's jnp code step by step.
 
 `dense_agg(mask, keys, nseg, lanes, rows=None)`:
 
@@ -21,30 +24,39 @@ PyTorch version beside them, the reference's jnp code step by step.
   * lanes — red.RedLane partial lanes: the count over the mask first,
             then per aggregate (sum, cnt), (min | max, cnt) or cnt
   * rows  — optional int64 [len(lanes), W >= nseg] rows of the packed
-            result to write into (float lanes as their bits)
+            result to write into (float lanes as their bits; columns past
+            nseg are left as they are)
   → [nseg] per lane (float lanes as float64 views of their rows): sums
     and counts, min / max with the reference's sentinel folded for NULL
     rows and the op's identity in empty segments.
 
 Integer lanes are bit-exact with the reference; float sums differ by
-summation order (K4 adds with atomics).
+summation order (K4 adds in another order than XLA).
+
+On the card a call is one pinned upload of K4's table (from a staging
+buffer kept from call to call, `tables.staging`) and one launch of K4's
+kernel (two in K4's global mode, past 3,072 slots: its fill kernel
+first); no segment lane, no copy of the partials, no host read. A uint64
+min / max lane with NULLs gets its sentinel folded into its data first
+(`red.seg_lane`, one PyTorch op), as K4's other callers do. `table`
+returns the words the call uploads (tests/test_torch_dense_q1_plans.py
+checks them against a numpy model of the code).
 
 `dense_agg` takes the plain version only for tensors on the CPU. On a
-CUDA device it launches the kernels or raises; `dense_agg.launches`
-counts its calls that launched.
+CUDA device it launches the kernel or raises; `dense_agg.launches`
+counts its calls that launched (K4's launches count under seg_agg too).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from . import red
-from .build import count, library
-from .seg_agg import seg_agg
+from .build import count
+from .seg_agg import KEY_DESC, LANE_DESC, TASK_DESC, SegKey, launch_at, plan, seg_agg, solo_words
+from .tables import sm_count, staging
 
 MAX_KEYS, MAX_LANES = 8, 32
 
@@ -84,7 +96,7 @@ def dense_agg_ref(mask, keys, nseg: int, lanes, rows=None) -> list:
 
 
 def _views(rows, lanes, nseg):
-    return [rows[j, :nseg].view(torch.float64) if ln.is_float else rows[j, :nseg] for j, ln in enumerate(lanes)]
+    return [r.view(torch.float64) if ln.is_float else r for r, ln in zip(rows[:, :nseg].unbind(0), lanes)]
 
 
 def _check(mask, keys, nseg, lanes, rows):
@@ -104,25 +116,21 @@ def _check(mask, keys, nseg, lanes, rows):
     return n
 
 
-_bound: set = set()
+def seg_keys(keys) -> list:
+    """The dense keys as K4's int32-wrap key lanes (lo wrapped as jnp casts it)."""
+    return [SegKey(k.data, k.valid, _i32(k.lo), k.dom, wrap32=True) for k in keys]
 
 
-def _lib():
-    lib = library("dense_agg")
-    if "dense_agg" not in _bound:
-        for fn in ("tt_dense_code", "tt_dense_emit"):
-            getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            getattr(lib, fn).restype = ctypes.c_int
-        _bound.add("dense_agg")
-    return lib
+def table_words(nkeys: int, nlanes: int) -> int:
+    """Words of the one-task K4 table a call uploads."""
+    return TASK_DESC + KEY_DESC * nkeys + LANE_DESC * nlanes
 
 
-def _call(fn, words, dev):
-    w = np.array(words, dtype=np.int64)
-    rc = getattr(_lib(), fn)(w.ctypes.data, len(w), torch.cuda.get_device_properties(dev).multi_processor_count,
-                             torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"dense_agg: {fn} launch failed (cudaError {rc})")
+def table(mask, keys, lanes, base: int, rows: torch.Tensor) -> list:
+    """The words of K4's one-task table for a call at device address
+    `base`: the mask, the dense keys in their int32-wrap form, the lanes
+    (red.seg_lane) each writing its row of `rows`."""
+    return solo_words(mask.data_ptr(), seg_keys(keys), lanes, base, rows.data_ptr(), rows.data_ptr(), packed=True)
 
 
 def dense_agg(mask, keys, nseg: int, lanes, rows=None) -> list:
@@ -133,27 +141,23 @@ def dense_agg(mask, keys, nseg: int, lanes, rows=None) -> list:
         return dense_agg_ref(mask, keys, nseg, lanes, rows)
     if dev.type != "cuda":
         raise ValueError(f"dense_agg: unsupported device {dev}")
-    for t in [mask] + [t for k in keys for t in (k.data, k.valid)] + \
-            [t for ln in lanes for t in (ln.data, ln.valid) if t is not None]:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"dense_agg: inputs must be contiguous tensors on {dev}")
-    seg = torch.empty(n, dtype=torch.int32, device=dev)
-    words = [n, len(keys), nseg, mask.data_ptr(), seg.data_ptr()]
-    for k in keys:
-        words += [k.data.data_ptr(), k.valid.data_ptr(), _i32(k.lo), k.dom]
-    _call("tt_dense_code", words, dev)
-    iout, fout = seg_agg(mask, [], [red.seg_lane(ln) for ln in lanes], nseg, seg=seg)
-    srcs, ni, nf = [], 0, 0
-    for ln in lanes:
-        if ln.is_float:
-            srcs.append(fout[nf])
-            nf += 1
-        else:
-            srcs.append(iout[ni])
-            ni += 1
+    ins = [mask] + [t for k in keys for t in (k.data, k.valid)] + \
+        [t for ln in lanes for t in (ln.data, ln.valid) if t is not None]
+    if any(t.device != dev or not t.is_contiguous() for t in ins) or (rows is not None and rows.device != dev):
+        raise ValueError(f"dense_agg: inputs must be contiguous tensors on {dev}")
     if rows is None:
         rows = torch.empty((len(lanes), nseg), dtype=torch.int64, device=dev)
-    _call("tt_dense_emit", [len(lanes), nseg, rows.data_ptr(), rows.stride(0)] + [t.data_ptr() for t in srcs], dev)
+    # K4 reads these lanes by address: a lane seg_lane makes (a uint64 min / max with NULLs) lives through the call
+    k4_lanes = [red.seg_lane(ln) for ln in lanes]
+    words = table_words(len(keys), len(lanes))
+    desc = torch.empty(words, dtype=torch.int64, device=dev)
+    with staging("dense_agg", dev, words) as st:  # the call's one upload
+        st.host[:words] = table(mask, keys, k4_lanes, desc.data_ptr(), rows)
+        st.upload(desc, words)
+    launch_at(desc.data_ptr(), dev, 1, n, len(keys), len(lanes), nseg, False,
+              plan(n, 1, len(keys), len(lanes), nseg, sm_count(dev)), "dense_agg", ostride=rows.stride(0),
+              wrap32=True)
+    count(seg_agg)
     count(dense_agg)
     return _views(rows, lanes, nseg)
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .build import count, library
+from .tables import sm_count
 
 _I64 = np.iinfo(np.int64)
 MAX_KEYS, MAX_GATHERS, MAX_COPIES = 4, 32, 8
@@ -143,7 +144,7 @@ def lut_join(keys, lo, size, stride, pmask, lut, bmask, brow, gathers, match_out
     for s, t in copies:
         words += [s.data_ptr(), t.data_ptr()]
     w = np.array(words, dtype=np.int64)
-    rc = _lib().tt_lut_join(w.ctypes.data, len(w), torch.cuda.get_device_properties(dev).multi_processor_count,
+    rc = _lib().tt_lut_join(w.ctypes.data, len(w), sm_count(dev),
                             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lut_join: kernel launch failed (cudaError {rc})")

@@ -23,6 +23,7 @@ import torch
 from ..expr.xp_torch import U64
 from ..torchenv import _KIND_BOOL, _KIND_F64, _KIND_I64, _KIND_U64
 from .build import count, library
+from .tables import sm_count
 
 # source kinds of csrc/pack_flat.cu's segment table
 _S_B64, _S_I32, _S_F32, _S_BOOL = 0, 1, 2, 3
@@ -118,8 +119,7 @@ def pack_flat(outs) -> torch.Tensor:
         off += w
         most = max(most, 32 * w if src == _S_BOOL else w)
     segs = torch.tensor(table, dtype=torch.int64).to(dev)
-    rc = _lib().tt_pack_flat(segs.data_ptr(), len(table), most, out.data_ptr(),
-                             torch.cuda.get_device_properties(dev).multi_processor_count,
+    rc = _lib().tt_pack_flat(segs.data_ptr(), len(table), most, out.data_ptr(), sm_count(dev),
                              torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pack_flat: kernel launch failed (cudaError {rc})")

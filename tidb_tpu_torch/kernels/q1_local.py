@@ -20,6 +20,15 @@ csrc/q1_local.cu (its note gives the design and what bounds it);
     wrapping mod 2^64 as XLA's int64 arithmetic does. Wrapping sums are
     exact whatever their order, so the result is bit-exact.
 
+On the card, for nseg <= NS (the main path's: 8 in entry()'s spec, 6 in
+the dryrun's), the kernel is a persistent grid of one block an SM over
+tiles of TILE rows, each tile's eight streams copied into shared memory by
+bulk copies STAGES tiles ahead, and one merge of the blocks' partials
+through the stream's scratch (csrc/q1_local.cu;
+tests/test_torch_dense_q1_plans.py models its tile schedule and copy
+windows: every row read once, from inside its own 16-byte chunks, at any
+start offset).
+
 `q1_local` takes the plain version only for tensors on the CPU. On a
 CUDA device it launches the kernel or raises; `q1_local.launches` counts
 the launches.
@@ -32,8 +41,13 @@ import ctypes
 import torch
 
 from .build import count, library
+from .tables import sm_count, stream_scratch
 
 N_SUMS = 6
+NS = 8  # the staged kernel's nseg at most (csrc/q1_local.cu NS)
+TILE = 512  # rows a tile (csrc TILE)
+STAGES = 4  # tiles a block keeps in flight (csrc STAGES)
+PARTS_AT = 2  # scratch words before the blocks' partials: the ticket (csrc PARTS_AT)
 
 
 def _check(nseg: int, lanes, row_valid) -> int:
@@ -69,8 +83,11 @@ def _lib():
     lib = library("q1_local")
     if "q1_local" not in _bound:
         lib.tt_q1_local.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                                                            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                                                            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                                            ctypes.c_void_p]
         lib.tt_q1_local.restype = ctypes.c_int
+        lib.tt_q1_grid.argtypes = [ctypes.c_int64, ctypes.c_int]
+        lib.tt_q1_grid.restype = ctypes.c_int64
         _bound.add("q1_local")
     return lib
 
@@ -88,9 +105,14 @@ def q1_local(nseg: int, cutoff: int, qty, price, disc, tax, rf, ls, ship, row_va
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"q1_local: inputs must be contiguous tensors on {dev}")
     out = torch.empty((N_SUMS, nseg), dtype=torch.int64, device=dev)
-    rc = _lib().tt_q1_local(*[t.data_ptr() for t in lanes], row_valid.data_ptr(), n, nseg, cutoff,
-                            out.data_ptr(), torch.cuda.get_device_properties(dev).multi_processor_count,
-                            torch.cuda.current_stream(dev).cuda_stream)
+    n_sms, lib = sm_count(dev), _lib()
+    args = [t.data_ptr() for t in lanes] + [row_valid.data_ptr(), n, nseg, cutoff, out.data_ptr(), n_sms]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if nseg <= NS:  # the staged kernel: its ticket and its blocks' partials in the stream's scratch
+        with stream_scratch("q1_local", dev, PARTS_AT + lib.tt_q1_grid(n, n_sms) * N_SUMS * nseg) as buf:
+            rc = lib.tt_q1_local(*args, buf.data_ptr(), stream)
+    else:
+        rc = lib.tt_q1_local(*args, None, stream)
     if rc != 0:
         raise RuntimeError(f"q1_local: kernel launch failed (cudaError {rc})")
     count(q1_local)

@@ -77,6 +77,9 @@ class SegKey:
     valid: torch.Tensor | None  # bool [N]; None = all valid
     lo: int
     dom: int
+    # P8's dense code: int32(d) - lo + 1 and the code in int32 wrap (lo an
+    # int32); the kernel's form for a whole launch (launch_at's wrap32)
+    wrap32: bool = False
 
 
 @dataclass
@@ -123,11 +126,14 @@ def group_code(mask: torch.Tensor, keys: list[SegKey], nseg: int, seg=None) -> t
         return torch.where(mask & (seg < nseg), seg.to(torch.int64), nseg)
     code = torch.zeros(mask.shape, dtype=torch.int64, device=mask.device)
     for k in keys:
-        kd = k.data.to(torch.int64) - k.lo + 1
+        kd = (k.data.to(torch.int32).to(torch.int64) if k.wrap32 else k.data.to(torch.int64)) - k.lo + 1
         if k.valid is not None:
             kd = torch.where(k.valid, kd, 0)
         code = code * (k.dom + 1) + kd
-    return torch.where(mask, code, nseg)
+        if k.wrap32:
+            code = code.to(torch.int32).to(torch.int64)
+    code = torch.where(mask, code, nseg)
+    return torch.where((code >= 0) & (code < nseg), code, nseg)
 
 
 def seg_agg_ref(mask, keys, lanes, nseg, seg=None):
@@ -306,7 +312,7 @@ def _lib():
     lib = library("seg_agg")
     if "seg_agg" not in _bound:
         C, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.tt_seg_agg_tasks.argtypes = [C, I, L, I, I, L, I, I, I, I, L, C, C, C]
+        lib.tt_seg_agg_tasks.argtypes = [C, I, L, I, I, L, L, I, I, I, I, I, L, C, C, C]
         lib.tt_seg_agg_tasks.restype = I
         _bound.add("seg_agg")
     return lib
@@ -321,9 +327,11 @@ def solo_desc(mask, keys, lanes, base: int, iout: torch.Tensor, fout: torch.Tens
     return np.array(solo_words(mask.data_ptr(), keys, lanes, base, ptr(iout), ptr(fout), ptr(seg)), dtype=np.int64)
 
 
-def solo_words(mask: int, keys, lanes, base: int, iout: int, fout: int, seg: int = 0) -> list:
+def solo_words(mask: int, keys, lanes, base: int, iout: int, fout: int, seg: int = 0, packed: bool = False) -> list:
     """solo_desc's words from addresses (0: absent), for a caller that lays
-    out K4's outputs in its own workspace (P6, kernels/rowpos_agg.py)."""
+    out K4's outputs in its own workspace (P6, kernels/rowpos_agg.py).
+    `packed`: lane j writes row j of one matrix at iout == fout, float
+    lanes as their bits (P8, kernels/dense_agg.py)."""
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     k0 = TASK_DESC
     l0 = k0 + KEY_DESC * len(keys)
@@ -331,8 +339,9 @@ def solo_words(mask: int, keys, lanes, base: int, iout: int, fout: int, seg: int
     for k in keys:
         words += [k.data.data_ptr(), ptr(k.valid), k.lo, k.dom, k.data.element_size()]
     rows = [0, 0]
-    for lane in lanes:
-        words += [ptr(lane.data), ptr(lane.valid), _fill_bits(lane), OPS[lane.op] | rows[lane.is_float] << 32]
+    for j, lane in enumerate(lanes):
+        words += [ptr(lane.data), ptr(lane.valid), _fill_bits(lane),
+                  OPS[lane.op] | (j if packed else rows[lane.is_float]) << 32]
         rows[lane.is_float] += 1
     return words
 
@@ -343,6 +352,8 @@ def upload_desc(masks, keys, lanes, width, iout, fout, segs=None, solo: bool = F
     until the launch is enqueued). `solo`: one task whose lanes the caller
     has checked (`solo_desc`)."""
     nk, nl = len(keys[0]), len(lanes[0])
+    if any(k.wrap32 for ks in keys for k in ks):
+        raise ValueError("seg_agg: int32-wrap keys are P8's form (dense_agg launches them)")
     desc = torch.empty(len(masks) * (TASK_DESC + KEY_DESC * nk + LANE_DESC * nl), dtype=torch.int64,
                        device=iout.device)
     if solo:
@@ -366,22 +377,26 @@ def launch(desc: torch.Tensor, G: int, width: int, nkeys: int, nlanes: int, nseg
 
 
 def launch_at(addr: int, dev: torch.device, G: int, width: int, nkeys: int, nlanes: int, nseg: int,
-              shared_out: bool, p: Plan, what: str, stream: int | None = None) -> None:
+              shared_out: bool, p: Plan, what: str, stream: int | None = None, ostride: int = 0,
+              wrap32: bool = False) -> None:
     """`launch` over a table at device address `addr` on card `dev`: for a
     caller that uploads K4's table with its own in one copy (P6,
-    kernels/rowpos_agg.py; `stream`: the current stream's handle, where the
-    caller has it)."""
+    kernels/rowpos_agg.py; P8, kernels/dense_agg.py; `stream`: the current
+    stream's handle, where the caller has it; `ostride`: the elements
+    between output rows, nseg when 0; `wrap32`: every key in the int32-wrap
+    form, P8's)."""
     if stream is None:
         stream = torch.cuda.current_stream(dev).cuda_stream
+    ostride = ostride or nseg
     if not p.parts:
-        rc = _lib().tt_seg_agg_tasks(addr, G, width, nkeys, nlanes, nseg, int(shared_out),
+        rc = _lib().tt_seg_agg_tasks(addr, G, width, nkeys, nlanes, nseg, ostride, int(wrap32), int(shared_out),
                                      MODES[p.mode], p.threads, p.blocks, p.smem, 0, 0, stream)
     else:
         with stream_scratch("seg_agg", dev, TICKETS + p.parts) as buf:
             base = buf.data_ptr()
-            rc = _lib().tt_seg_agg_tasks(addr, G, width, nkeys, nlanes, nseg, int(shared_out),
-                                         MODES[p.mode], p.threads, p.blocks, p.smem, base, base + 8 * TICKETS,
-                                         stream)
+            rc = _lib().tt_seg_agg_tasks(addr, G, width, nkeys, nlanes, nseg, ostride, int(wrap32),
+                                         int(shared_out), MODES[p.mode], p.threads, p.blocks, p.smem, base,
+                                         base + 8 * TICKETS, stream)
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed (cudaError {rc})")
 

@@ -34,7 +34,7 @@ import torch
 
 from .build import count, library
 from .lex_sort import KINDS, SortOp, sort_op
-from .tables import dev_index, lane_table, to_card
+from .tables import dev_index, lane_table, sm_count, to_card
 
 
 def _ops_in(mask, keys):
@@ -99,7 +99,7 @@ def ops_prepare(masks: list, keys: list, width: int, dev: torch.device):
         ops += [SortOp(null, "i32"), SortOp(val, op.kind)]
         kdesc[j] = (KINDS[op.kind] | (int(is_desc) << 32), null.data_ptr(), val.data_ptr())
     tab = to_card(np.concatenate([tasks.reshape(-1), kdesc.reshape(-1)]), dev)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_sms = sm_count(dev)
 
     def go():
         rc = _lib().tt_topn_multi_ops(tab.data_ptr(), G, width, tab.data_ptr() + 8 * tasks.size, nk,
