@@ -43,8 +43,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
               NULL and out-of-domain probe keys, absent LUT slots, a
               two-key LUT and a build mask that drops rows; P7 run_agg
               with an int64 lane whose prefix overflows, float lanes (one
-              with NaN and ±inf), one giant run, a pad tail and ascending
-              order; P9 block_topk with ties, ±0.0, NaN, fewer scores
+              with NaN and ±inf, at rows 0 and L - 1 too, and -0.0 runs),
+              one giant run, a run over every tile, runs of one row, runs
+              ending on tile edges, a pad tail, ascending order and 16
+              lanes; P9 block_topk with ties, ±0.0, NaN, fewer scores
               than k, n not a multiple of 1024 and n = 2^22, and the edges
               of its two launches (TOPK_EDGE_SHAPES: equal keys, sorted
               lanes, every winner in one chunk, winners tied across chunk
@@ -110,7 +112,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
               several sweeps; nseg 1-8 and 9); M3 hash_repartition
               (repartition_battery) with negative keys, all rows invalid,
               a cap below the largest bucket and the last owner at its
-              cap, n_dev 1 and 4; K10, the task-grid
+              cap, n at the tile edges, n_dev 1, 2, 3, 4, 31 and 1,024; K10, the task-grid
               modes of K1, the expression kernel and K4 (grouped_cases),
               against the solo plain versions task by task on narrowed
               inputs: every codec, random programs and a 241-lane one,
@@ -827,11 +829,22 @@ def run_battery(rng, L: int, case: str) -> dict:
     row-id lane (constant over a run's matched rows). `case`: 'runs',
     'giant_run' (one run holds 90% of the stream), 'pad_tail' (the last
     30% are pad rows: key 0, masked), 'asc' (ascending ORDER BY on the
-    float lane), 'nan' (a NaN, +inf and -inf in the float lane)."""
+    float lane), 'nan' (a NaN, +inf and -inf in the float lane). The edges
+    of the one-sweep design: 'one_run' (a run over every tile), 'singles'
+    (runs of one row), 'tile_end' (a run ends on every tile's last row),
+    'nan_first' / 'nan_last' (a NaN at row 0, an infinity at row L - 1),
+    'negzero' (most float values -0.0: runs that total -0.0), 'big_prefix'
+    (short float runs after large ones), 'lanes16' (16 lanes)."""
     import numpy as np
 
     if case == "giant_run":
         kd = np.sort(np.where(rng.random(L) < 0.9, 1000, rng.integers(1, 2000, L))).astype(np.int64)
+    elif case == "one_run":
+        kd = np.full(L, 7, dtype=np.int64)
+    elif case == "singles":
+        kd = np.arange(L, dtype=np.int64) - L // 2
+    elif case == "tile_end":  # runs change at every multiple of RUN_TILE rows and now and then between
+        kd = ((np.cumsum(rng.random(L) < 0.01) + 1) * L + np.arange(L) // RUN_TILE).astype(np.int64)
     else:
         kd = np.cumsum(rng.random(L) < 0.3).astype(np.int64) + 1
     mask = rng.random(L) > 0.2
@@ -846,15 +859,30 @@ def run_battery(rng, L: int, case: str) -> dict:
     if case == "nan":  # the reference's prefix difference is NaN past these
         f[rng.choice(L, 3, replace=False)] = [np.nan, np.inf, -np.inf]
     vi, vf = rng.random(L) > 0.1, rng.random(L) > 0.1
+    if case == "negzero":
+        f[rng.random(L) < 0.6] = -0.0
+    elif case == "big_prefix":
+        f[:L // 2] *= 1e5
+    elif case in ("nan_first", "nan_last"):
+        at = 0 if case == "nan_first" else L - 1
+        f[at], mask[at], vf[at] = (np.nan if at == 0 else np.inf), True, True
     rid = np.where(mask, runid * 3 + 7, -1).astype(np.int64)
     lanes = [(big.astype(np.int64), vi), (None, vi), (f, vf), (None, vf), (None, None), (rid, None)]
+    if case == "lanes16":  # int and float lanes, with and without a valid lane
+        for j in range(10):
+            d = rng.integers(-(1 << 62), 1 << 62, L) if j % 2 else np.round(rng.random(L) * 1e3, 3)
+            lanes.append((d, (rng.random(L) > 0.2) if j % 3 else None))
     score = 2 if case == "asc" else 0
     return {"kd": kd, "mask": mask, "lanes": lanes, "cnt_lane": 4, "rid_lane": 5, "score_lane": score,
             "desc": case != "asc"}
 
 
+RUN_TILE = 1024  # csrc/run_agg.cu's TILE: the rows a tile of P7's sweep
 RUN_SHAPES = ((1, "runs"), (1000, "runs"), (4096, "runs"), (100_003, "runs"), (300_000, "giant_run"),
-              (65_536, "pad_tail"), (100_003, "asc"), (8192, "nan"))
+              (65_536, "pad_tail"), (100_003, "asc"), (8192, "nan"),
+              (RUN_TILE - 1, "runs"), (RUN_TILE, "tile_end"), (RUN_TILE + 1, "singles"), (3 * RUN_TILE, "tile_end"),
+              (100_003, "one_run"), (100_003, "singles"), (100_003, "negzero"), (100_003, "big_prefix"),
+              (5000, "nan_first"), (5000, "nan_last"), (5000, "lanes16"), (300_001, "lanes16"))
 
 
 def topk_battery(rng, n: int, case: str):
@@ -2495,9 +2523,16 @@ def repartition_battery(rng, n: int, n_dev: int, case: str):
     return keys, payload, valid, cap
 
 
+REPARTITION_TILE = 2048  # csrc/compact.cuh's TILE: the rows a tile of M3's sweep
 REPARTITION_SHAPES = ((1, 1, "mixed"), (1000, 1, "small_cap"), (4097, 4, "mixed"), (4097, 4, "invalid"),
                       (100_003, 4, "small_cap"), (100_003, 1, "full_last"), (20_000, 4, "full_last"),
-                      (4_000_000, 4, "mixed"), (4_000_000, 1, "mixed"))
+                      (4_000_000, 4, "mixed"), (4_000_000, 1, "mixed"),
+                      (REPARTITION_TILE - 1, 1, "mixed"), (REPARTITION_TILE, 1, "mixed"),
+                      (REPARTITION_TILE + 1, 1, "mixed"), (REPARTITION_TILE - 1, 3, "mixed"),
+                      (REPARTITION_TILE, 3, "mixed"), (REPARTITION_TILE + 1, 3, "small_cap"),
+                      (100_003, 1, "invalid"), (100_003, 2, "full_last"), (100_003, 31, "mixed"),
+                      (20_000, 31, "full_last"), (20_000, 1024, "mixed"), (100_003, 1024, "small_cap"),
+                      (3, 1024, "mixed"))
 
 
 def mesh_kernel_cases(dev, rng):
@@ -3168,7 +3203,8 @@ def measure_mpp_kernels(main: dict, max_err: dict):
     # does less work (below P7's own bound), so it is reported apart
     k7 = {"ms": time_ms(lambda: run_agg(*p7)), "plain_ms": time_ms(lambda: run_agg_ref(*p7), 3),
           "library_ms": None, "cumsum_one_lane_ms": time_ms(lambda: torch.cumsum(ilane, 0)), "bytes": p7_bytes,
-          "L": L, "lanes": len(lanes)}
+          "L": L, "lanes": len(lanes), "float_lanes": sum(d is not None and d.is_floating_point() for d, _ in lanes),
+          **call_split(lambda: run_agg(*p7))}
 
     score, kk = cap["block_topk"][0][0][:2]
     max_err["block_topk"] = max(max_err["block_topk"], same_block_topk(
@@ -4425,7 +4461,8 @@ def measure_mesh_kernels(main: dict, max_err: dict):
             "plain_ms": time_ms(lambda: hash_repartition_ref(*m3), 3),
             "library_ms": time_ms(lambda: torch.argsort(owner, stable=True)),
             "library_call": "torch.argsort(stable=True) of the owner lane", "bytes": m3_bytes,
-            "bound_ms": bound(m3_bytes), "rows": n, "n_dev": 1, "cap": n}
+            "bound_ms": bound(m3_bytes), "rows": n, "n_dev": 1, "cap": n,
+            **call_split(lambda: hash_repartition(*m3))}
     k_m3["rows_per_s"] = n / (k_m3["median_ms"] / 1e3)
     L = main["launches"]
 

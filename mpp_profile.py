@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time P4 (csrc/sort_join.cu), P5 (csrc/seg_reduce.cu), P6
-(csrc/rowpos_agg.cu), P8 (kernels/dense_agg.py over csrc/seg_agg.cu) and
-M1 (csrc/q1_local.cu) on the main path's own inputs, on one NVIDIA GPU.
+(csrc/rowpos_agg.cu), P7 (csrc/run_agg.cu), P8 (kernels/dense_agg.py
+over csrc/seg_agg.cu), M1 (csrc/q1_local.cu) and M3
+(csrc/hash_repartition.cu) on the main path's own inputs, on one NVIDIA
+GPU.
 
     python3 mpp_profile.py [--seed 42] [--q3-rows 4000000] [--reps 5] [--tree DIR ...]
-                           [--only p6|p8|m1]
+                           [--only p6|p7|p8|m1|m3]
 
 For each --tree (another checkout of the repository: an earlier commit,
 say) and this checkout, each in a fresh process, in turns (the trees, then
@@ -51,7 +53,22 @@ the same in reverse order), one JSON object a run under "runs":
                      call through a synchronize, one profiled call's device
                      time and launches, rows/s, and its bytes bound
 
---only p6 / p8 / m1 measures those alone.
+  q3_mpp / mesh_q3_mpp, p7, p7_mesh
+                     (--only p7) Q3 fused (the clustered aggregation) and
+                     P7's call, one device and its largest rank call of
+                     the mesh run (every rank call held to the plain
+                     version): events over 10 calls, the median single
+                     call, host and enqueue times, one profiled call's
+                     device time, and every launch of the call (torch's
+                     and memsets included)
+  m3, m3_n2, m3_n1024
+                     (--only m3) M3 on the dryrun's lanes (keys
+                     l_quantity, payload l_extendedprice) of an M1_ROWS
+                     lineitem, cap the rows: n_dev 1, 2 and, over 1M rows,
+                     1,024; the same times and launches, rows/s, its bytes
+                     bound and torch.argsort(stable=True) of the owner lane
+
+--only p6 / p7 / p8 / m1 / m3 measures those alone.
 
 Each tree runs its own chip_smoke.py helpers and its own kernels, built in
 its own build/. Every call is held to its plain version before it is
@@ -240,6 +257,138 @@ def host_m1(cs, seed: int, out: dict) -> None:
                  "device_ms": sum(split["split_ms"].values()) if split.get("split_ms") else None, **split}
 
 
+def _launches(fn) -> dict:
+    """Every kernel one call of fn() launches on the card, torch's own and
+    memsets included (kernel_split leaves those out): their count
+    (`launches`), the memsets among them (`memsets`) and the count by name
+    (`kernels`), from one torch.profiler session opened by a marker kernel
+    (the session's first, left out). None when the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    marker = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy")),
+                 key=lambda e: e.time_range.start)[1:]
+    if not evs:
+        return {"launches": None, "memsets": None, "kernels": None}
+    names: dict = {}
+    for e in evs:
+        name = e.name.split("(")[0].split("<")[0].replace("void ", "")[:60]
+        names[name] = names.get(name, 0) + 1
+    return {"launches": len(evs), "memsets": sum(e.name.startswith("Memset") for e in evs), "kernels": names}
+
+
+def _timed(cs, fn) -> dict:
+    """A P7 or M3 call: events over 10 calls (`ms`), the median single call
+    (`median_ms`), the host clock's call through a synchronize (`host_ms`)
+    and its enqueue (`enqueue_ms`, nothing synchronized), one profiled
+    call's device time (`device_ms`, the port's kernels) and every launch
+    of the call (`_launches`)."""
+    import torch
+
+    ms, med = cs.time_ms(fn), cs.median_ms(fn)
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        fn()
+    enqueue = (time.perf_counter() - t) / 10 * 1e3
+    torch.cuda.synchronize()
+    split = cs.kernel_split(fn)
+    sm = split.get("split_ms")
+    return {"ms": ms, "median_ms": med, "host_ms": _host_ms(fn), "enqueue_ms": enqueue,
+            "device_ms": sum(sm.values()) if sm else None, "split_ms": sm, **_launches(fn)}
+
+
+def host_p7(cs, tables, dev, query, out: dict) -> None:
+    """Q3 (the clustered aggregation) and its P7 calls, one device and the
+    4-rank mesh: every call held to the plain version, then timed."""
+    import threading
+
+    from tidb_tpu_torch.entry import run_mpp
+    from tidb_tpu_torch.kernels import run_agg, run_agg_ref
+    from tidb_tpu_torch.parallel import mpp_program as mp
+    from tidb_tpu_torch.parallel.mesh import make_mesh
+
+    def caught(run) -> list:
+        got, lock, real = [], threading.Lock(), mp.run_agg
+
+        def spy(*a, **kw):
+            with lock:
+                got.append((a, kw))
+            return real(*a, **kw)
+        mp.run_agg = spy
+        try:
+            run()
+        finally:
+            mp.run_agg = real
+        return got
+
+    def held(a, what):
+        cs.same_run_agg(run_agg(*a), run_agg_ref(*a), a[0], what)
+
+    plan, engine, variables, out["q3_mpp"] = query("q3_mpp")
+    (a, _), = caught(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables))
+    held(a, "run_agg on Q3")
+    floats = sum(d is not None and d.is_floating_point() for d, _ in a[2])
+    out["p7"] = {"L": a[0].numel(), "lanes": len(a[2]), "float_lanes": floats, **_timed(cs, lambda: run_agg(*a))}
+    mesh = make_mesh(4, dev)
+    try:
+        plan, engine, variables, out["mesh_q3_mpp"] = query("q3_mpp", mesh, warm=1)
+        calls = caught(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables, mesh=mesh))
+    finally:
+        mesh.close()
+    for i, (a, _) in enumerate(calls):
+        held(a, f"run_agg, rank call {i}")
+    a, _ = max(calls, key=lambda c: c[0][0].numel())
+    out["p7_mesh"] = {"L": a[0].numel(), "rank_calls": len(calls), **_timed(cs, lambda: run_agg(*a))}
+
+
+M3_CASES = ((1, None), (2, None), (1024, 1_000_000))  # (n_dev, rows: None = M1_ROWS)
+
+
+def host_m3(cs, seed: int, out: dict) -> None:
+    """M3 on the dryrun's lanes of an M1_ROWS-row lineitem (q1_arrays, one
+    shard: keys l_quantity, payload l_extendedprice, valid its row mask),
+    cap the row count: n_dev 1 (the main path) and n_dev 2 (the mesh's
+    two-rank dryrun); and n_dev 1,024 (the widest owner count) over the
+    first 1M rows keyed by l_extendedprice (l_quantity holds 50 values),
+    cap twice an even share. Each is held to the plain version bit for
+    bit, then timed; rows/s and the bytes bound, and
+    torch.argsort(stable=True) of the owner lane beside it."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.kernels import hash_repartition, hash_repartition_ref
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.parallel.mesh import q1_arrays
+
+    _, args = q1_arrays(tpch.gen_lineitem(M1_ROWS, seed), 1)
+    qty, price, rv = (torch.from_numpy(np.ascontiguousarray(args[k])).to("cuda") for k in (0, 1, 7))
+    for n_dev, rows in M3_CASES:
+        keys, payload, valid = (t[:rows] for t in ((qty, price, rv) if n_dev < 1024 else (price, qty, rv)))
+        n = keys.numel()
+        cap = n if n_dev < 1024 else 2 * -(-n // n_dev)
+        m3 = (keys, payload, valid, n_dev, cap)
+        for j, (g, w) in enumerate(zip(hash_repartition(*m3), hash_repartition_ref(*m3))):
+            cs._same(g, w, f"hash_repartition output {j} at n_dev {n_dev}")
+        nbytes = 17 * n + 17 * n_dev * cap + 8
+        owner = torch.where(valid, torch.remainder(keys, n_dev), n_dev)
+        r = {"rows": n, "n_dev": n_dev, "cap": cap, "bytes": nbytes, "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+             "library_ms": cs.time_ms(lambda: torch.argsort(owner, stable=True)),
+             **_timed(cs, lambda: hash_repartition(*m3))}
+        r["rows_per_s"] = n / (r["median_ms"] / 1e3)
+        out["m3" if n_dev == 1 else f"m3_n{n_dev}"] = r
+
+
 def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
     """One tree's measurements (module doc), in this process."""
     import torch
@@ -257,6 +406,9 @@ def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
     out: dict = {}
     if only == "m1":
         host_m1(cs, seed, out)
+        return out
+    if only == "m3":
+        host_m3(cs, seed, out)
         return out
     li, orders, cust = tpch.generated_columns(rows, seed)
     tables = {"lineitem": li, "orders": orders, "customer": cust}
@@ -286,6 +438,9 @@ def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
         return out
     if only == "p8":
         host_p8(cs, tables, dev, query, out)
+        return out
+    if only == "p7":
+        host_p7(cs, tables, dev, query, out)
         return out
     for qname in ("q3_unfused", "q18"):
         plan, engine, variables, out[qname] = query(qname)
@@ -354,8 +509,9 @@ def main(argv=None) -> int:
     ap.add_argument("--q3-rows", type=int, default=4_000_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--tree", action="append", default=[], help="another checkout, timed in turns with this one")
-    ap.add_argument("--only", choices=("", "p6", "p8", "m1"), default="",
-                    help="p6: q3_top100 and its P6 calls alone; p8: seg_revenue and its P8 calls; m1: M1 alone")
+    ap.add_argument("--only", choices=("", "p6", "p7", "p8", "m1", "m3"), default="",
+                    help="p6: q3_top100 and its P6 calls alone; p7: Q3 and its P7 calls; p8: seg_revenue and its "
+                         "P8 calls; m1: M1 alone; m3: M3 alone")
     ap.add_argument("--host-of", help=argparse.SUPPRESS)  # the worker: one tree's measurements
     args = ap.parse_args(argv)
     try:

@@ -4,8 +4,9 @@ send buffers.
 Replaces the body of `local` in tidb_tpu/parallel/mesh.py:104
 `hash_repartition` up to its `all_to_all` (the collectives are
 torch.distributed calls, parallel/mesh.py). The CUDA kernels are
-csrc/hash_repartition.cu (their note gives the design and what bounds
-them); `hash_repartition_ref` is the plain PyTorch version beside them.
+csrc/hash_repartition.cu (one sweep with look-back, then a fill of the
+slots no row reached; their note gives the design and what bounds them);
+`hash_repartition_ref` is the plain PyTorch version beside them.
 
 `hash_repartition(keys, payload, valid, n_dev, cap)`:
 
@@ -27,8 +28,9 @@ cap rows and the shard holds an invalid row; that row is not counted in
 `dropped`. With the default cap (the shard's row count) neither happens.
 
 `hash_repartition` takes the plain version only for tensors on the CPU.
-On a CUDA device it launches the kernels or raises;
-`hash_repartition.launches` counts its calls that launched.
+On a CUDA device it launches the kernels (two a call; the outputs are
+views of one `torch.empty`, the look-back scratch is the stream's
+`tables.stream_scratch`) or raises; `hash_repartition.launches` counts its calls that launched.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import ctypes
 import torch
 
 from .build import count, library
+from .tables import sm_count, stream_scratch
 
 MAX_DEV = 1024
 
@@ -89,10 +92,10 @@ def _lib():
     lib = library("hash_repartition")
     if "hash_repartition" not in _bound:
         lib.tt_hash_repartition.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64] + \
-            [ctypes.c_void_p] * 6
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         lib.tt_hash_repartition.restype = ctypes.c_int
-        lib.tt_hash_repartition_blocks.argtypes = [ctypes.c_int64]
-        lib.tt_hash_repartition_blocks.restype = ctypes.c_int64
+        lib.tt_hash_repartition_scratch.argtypes = [ctypes.c_int64, ctypes.c_int]
+        lib.tt_hash_repartition_scratch.restype = ctypes.c_int64
         _bound.add("hash_repartition")
     return lib
 
@@ -109,15 +112,16 @@ def hash_repartition(keys, payload, valid, n_dev: int, cap: int):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"hash_repartition: inputs must be contiguous tensors on {dev}")
     lib = _lib()
-    nblocks = max(int(lib.tt_hash_repartition_blocks(n)), 1)
-    counts = torch.empty((nblocks + 1, n_dev + 1), dtype=torch.int32, device=dev)  # + the totals row
-    buf_k = torch.zeros((n_dev, cap), dtype=torch.int64, device=dev)
-    buf_p = torch.zeros((n_dev, cap), dtype=torch.int64, device=dev)
-    buf_v = torch.zeros((n_dev, cap), dtype=torch.bool, device=dev)
-    dropped = torch.zeros(1, dtype=torch.int64, device=dev)
-    rc = lib.tt_hash_repartition(keys.data_ptr(), payload.data_ptr(), valid.data_ptr(), n, n_dev, cap,
-                                 counts.data_ptr(), buf_k.data_ptr(), buf_p.data_ptr(), buf_v.data_ptr(),
-                                 dropped.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    # the outputs are views of one allocation; the kernels write every slot
+    # and `dropped`, so nothing is zeroed here
+    nc = n_dev * cap
+    buf = torch.empty(2 * nc + 1 + (nc + 7) // 8, dtype=torch.int64, device=dev)
+    buf_k, buf_p, dropped = buf[:nc].view(n_dev, cap), buf[nc:2 * nc].view(n_dev, cap), buf[2 * nc:2 * nc + 1]
+    buf_v = buf[2 * nc + 1:].view(torch.bool)[:nc].view(n_dev, cap)
+    with stream_scratch("hash_repartition", dev, lib.tt_hash_repartition_scratch(n, n_dev)) as scratch:
+        rc = lib.tt_hash_repartition(keys.data_ptr(), payload.data_ptr(), valid.data_ptr(), n, n_dev, cap,
+                                     buf_k.data_ptr(), buf_p.data_ptr(), buf_v.data_ptr(), dropped.data_ptr(),
+                                     scratch.data_ptr(), sm_count(dev), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hash_repartition: kernel launch failed (cudaError {rc})")
     count(hash_repartition)

@@ -2,10 +2,10 @@
 of a fused MPP chain.
 
 Replaces tidb_tpu/parallel/mpp.py:1850-1913 (`clustered_agg_stage` up to
-its top-k) and :1984 `_topk_score`. The CUDA kernels are csrc/run_agg.cu
-(tile heads, carries, a reverse segmented scan; its note gives the
-bound); `run_agg_ref` is the plain PyTorch version beside it, the
-reference's cumsum and run-end gathers step by step.
+its top-k) and :1984 `_topk_score`. The CUDA kernel is csrc/run_agg.cu
+(one reverse sweep with look-back carries, one launch; its note gives the
+design and the bound); `run_agg_ref` is the plain PyTorch version beside
+it, the reference's cumsum and run-end gathers step by step.
 
 `run_agg(kd, mask, lanes, cnt_lane, rid_lane, score_lane, desc)`:
 
@@ -27,10 +27,12 @@ reference's cumsum and run-end gathers step by step.
     and the top-k score (where(valid, ±total, floor))
 
 Integer totals are bit-exact with the reference, overflow or not (both
-add modulo 2^64); float totals agree up to summation order.
+add modulo 2^64); float totals agree up to summation order. The outputs
+of a call are views of one allocation (`outputs`); the kernel's look-back
+scratch is the stream's (`tables.stream_scratch`).
 
 `run_agg` takes the plain version only for tensors on the CPU. On a CUDA
-device it launches the kernels or raises; `run_agg.launches` counts the
+device it launches the kernel or raises; `run_agg.launches` counts the
 calls that launched.
 """
 
@@ -38,10 +40,10 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from .build import count, library
+from .tables import stream_scratch
 
 _I64_MAX = (1 << 63) - 1
 MAX_LANES = 16
@@ -138,6 +140,21 @@ def _lib():
     return lib
 
 
+def outputs(L: int, kinds: list, score_lane: int, dev):
+    """(totals, gpos, valid, score) of a call as views of one int64
+    allocation: the lanes, gpos and score L words each, then the valid
+    bytes."""
+    nl = len(kinds)
+    buf = torch.empty((nl + 2) * L + (L + 7) // 8, dtype=torch.int64, device=dev)
+
+    def lane(j, f):
+        t = buf[j * L:(j + 1) * L]
+        return t.view(torch.float64) if f else t
+
+    totals = [lane(j, f) for j, f in enumerate(kinds)]
+    return totals, buf[nl * L:(nl + 1) * L], buf[(nl + 2) * L:].view(torch.bool)[:L], lane(nl + 1, kinds[score_lane])
+
+
 def run_agg(kd, mask, lanes, cnt_lane: int, rid_lane: int, score_lane: int, desc: bool):
     """(totals, gpos, valid, score) of the clustered aggregation."""
     dev = kd.device
@@ -151,17 +168,15 @@ def run_agg(kd, mask, lanes, cnt_lane: int, rid_lane: int, score_lane: int, desc
             raise ValueError(f"run_agg: inputs must be contiguous tensors on {dev}")
     lib = _lib()
     kinds = [d is not None and d.dtype == torch.float64 for d, _ in lanes]
-    totals = [torch.empty(L, dtype=torch.float64 if f else torch.int64, device=dev) for f in kinds]
-    gpos = torch.empty(L, dtype=torch.int64, device=dev)
-    valid = torch.empty(L, dtype=torch.bool, device=dev)
-    score = torch.empty(L, dtype=totals[score_lane].dtype, device=dev)
-    scratch = torch.empty(lib.tt_run_agg_scratch_words(L, len(lanes)), dtype=torch.int64, device=dev)
+    totals, gpos, valid, score = outputs(L, kinds, score_lane, dev)
     words = [L, len(lanes), cnt_lane, rid_lane, score_lane, int(bool(desc)), kd.data_ptr(), mask.data_ptr()]
     for (d, v), f, out in zip(lanes, kinds, totals):
         words += [0 if d is None else d.data_ptr(), 0 if v is None else v.data_ptr(), int(f), out.data_ptr()]
-    words += [gpos.data_ptr(), valid.data_ptr(), score.data_ptr(), scratch.data_ptr()]
-    w = np.array(words, dtype=np.int64)
-    rc = lib.tt_run_agg(w.ctypes.data, len(w), torch.cuda.current_stream(dev).cuda_stream)
+    words += [gpos.data_ptr(), valid.data_ptr(), score.data_ptr(), 0]
+    with stream_scratch("run_agg", dev, lib.tt_run_agg_scratch_words(L, len(lanes))) as scratch:
+        words[-1] = scratch.data_ptr()
+        w = (ctypes.c_int64 * len(words))(*words)
+        rc = lib.tt_run_agg(w, len(words), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"run_agg: kernel launch failed (cudaError {rc})")
     count(run_agg)
