@@ -13,7 +13,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
               build/kernels/ and reports the seconds;
  3. kernels — every kernel against its plain PyTorch version on the card,
               at the main path's shapes (T=245, R=65536) and edge shapes:
-              K1 decode_lane over every codec; K4 seg_agg over every op
+              K1 decode_lane over every codec (a vocab past its shared
+              memory among them), and its many-lane calls
+              (decode_many_cases: every codec, code width and value
+              width in one launch, odd row counts, codes at unaligned
+              addresses, past its by-value tiers into its pinned table;
+              the task mode over up to 64 tasks' mixed lanes at odd
+              widths); K4 seg_agg over every op
               (nseg 1..65536) and in its segment-lane mode at nseg
               4,194,304; K8 lex_sort over every operand kind, ties and a
               key wider than 64 bits, a 26-bit word (4-byte keys), a
@@ -69,10 +75,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
               and below the floor (integer and float; every build row
               picked, past K6's ordering cap too), and its picks from one
               rank's block of build rows (n_dev 3, 4, 8; the last block
-              ragged, a block of one row); P2 exchange (exchange_battery) at n_dev 2, 3, 4 and
-              8 with negative keys, NULL keys of a probe side, an int32
-              key, most rows masked, one owner past its bucket and 1M
-              rows, 8-, 4- and 1-byte lanes; P8 dense_agg
+              ragged, a block of one row); P2 exchange (exchange_battery) at n_dev 2, 3, 4, 5, 7,
+              8 and 64 with negative keys, NULL keys of a probe side, an
+              int32 key, most rows masked, one owner past its bucket, 1M
+              rows, fewer rows than a tile, 46 lanes of 8, 4 and 1 bytes
+              (15 of them 1-byte), and calls whose send buffer's memory
+              was filled with garbage first; P8 dense_agg
               (dense_battery) with dict and int keys, keys above 2^31,
               keys outside their domain (codes below 0, at and past nseg)
               and 2^31 away (wrapping int32 codes), the shared-memory and
@@ -218,7 +226,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
               Q3, q3_unfused, q3_top100, seg_revenue);
  5. measure — each kernel on the main path's own inputs: held once more to
               its plain version, then timed beside it, its bytes bound and
-              the nearest single PyTorch call where there is one (W1 over
+              the nearest single PyTorch call where there is one (K1 on
+              Q1's coded lanes as one call, as the engine's _decode makes
+              it, one call a lane beside it; W1 over
               each window's own sort, computed once, so K8 stays out of
               its time, with its launches per call and its time per inner
               kernel from one profiled call); expr_eval on Q1's,
@@ -238,6 +248,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
               (their warm
               medians and rows/s) on the mesh phase's lineitem, K10's
               three task modes on the burst's and Q1 regions' own groups
+              (K1's a decode_lanes_tasks call: a group's every coded lane)
               beside the solo kernels launched G times on the same
               tensors, and their launches alone over task tables built
               beforehand (the rest of a call's time is the host's); the
@@ -271,6 +282,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (700 W)
 RTOL, ATOL = 1e-9, 1e-6
+DECODE_VOCAB_SMEM = 32 * 1024  # bytes: K1 keeps a dict vocab up to this in shared memory (csrc's VOCAB_SMEM)
+DECODE_RPT = 32  # rows a K1 thread decodes an item (csrc's RPT)
 T_MAIN, R_MAIN, NSEG_MAIN = 245, 65536, 12
 
 
@@ -369,6 +382,11 @@ def decode_cases(dev, rng, t: int, r: int):
                            ("f64", torch.from_numpy(np.sort(rng.standard_normal(nv)))),
                            ("i32", torch.from_numpy(np.arange(nv, dtype=np.int32) * 3 - 7))):
             cases.append((f"dict_{np.dtype(cdt).name}_{vdt}", {"c": c, "v": vocab.to(dev)}, rv))
+    # a vocab past K1's shared memory (DECODE_VOCAB_SMEM bytes), read through the cache; codes past it clamp
+    nv = DECODE_VOCAB_SMEM // 8 + 1000
+    c = rng.integers(0, nv + 5, n).astype(np.uint32).view(np.int32).reshape(t, r)
+    cases.append(("dict_uint32_i64_big", {"c": torch.from_numpy(c).to(dev),
+                                          "v": torch.from_numpy(rng.integers(-10**15, 10**15, nv)).to(dev)}, rv))
     for vdt, vals in (("i64", rng.integers(-10**12, 10**12, 4095)), ("f64", rng.standard_normal(4095)),
                       ("bool", rng.random(4095) < 0.5)):
         lens = rng.integers(1, max(2, 2 * n // 4095), 4095).astype(np.int32)
@@ -378,6 +396,81 @@ def decode_cases(dev, rng, t: int, r: int):
         cases.append((f"rle_{vdt}", {"rv": torch.from_numpy(vals).to(dev),
                                      "rl": torch.from_numpy(lens).to(dev)}, rv))
     cases.append(("alias", {}, rv))
+    return cases
+
+
+def _offset_view(x, k: int):
+    """x's values in a contiguous view that starts k elements into a larger
+    buffer: an address no 16-byte load of K1 lines up with."""
+    import torch
+
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    buf[k:].copy_(x.reshape(-1))
+    return buf[k:].view(x.shape)
+
+
+def _mixed_lanes(dev, rng, t: int, r: int, shift: int = 0):
+    """Every codec of decode_cases at [t, r] and a dense lane; with
+    `shift`, the pack and dict codes as views `shift` elements into their
+    buffers."""
+    import torch
+
+    lanes = []
+    for _, enc, _ in decode_cases(dev, rng, t, r):
+        if shift and enc:
+            key = "p" if "p" in enc else "c" if "c" in enc else None
+            if key is not None:
+                enc = {**enc, key: _offset_view(enc[key], shift)}
+        lanes.append(enc)
+    lanes.append(torch.from_numpy(rng.integers(-10**9, 10**9, (t, r))).to(dev))
+    return lanes
+
+
+DECODE_MANY = ((1, 1000, 0, 1), (3, 777, 3, 1), (2, 4099, 1, 4), (1, 1000, 0, 33))  # (t, r, code shift, copies)
+DECODE_MANY_TASKS = ((3, 1, 1001, 0), (64, 1, 700, 1), (7, 3, 3 * 256 + 5, 2))  # (G, tiles, width, code shift)
+
+
+def decode_many_cases(dev, rng):
+    """(name, fn) of K1's many-lane calls against the plain version lane by
+    lane, bit for bit: decode_lanes over every codec (code widths 1, 2, 4;
+    values 1, 4, 8 bytes; a vocab past shared memory), the alias and a
+    dense lane at odd row counts, codes at unaligned addresses, and copies
+    of the lanes enough to pass the by-value tiers (33 copies: past 500
+    entries, the pinned table); decode_lanes_tasks over G tasks' mixed
+    lanes at odd widths (unaligned output rows), up to 64 tasks (past 500
+    entries)."""
+    import torch
+
+    from tidb_tpu_torch.kernels import decode_lane_ref, decode_lanes
+    from tidb_tpu_torch.kernels.grouped import decode_lanes_tasks
+
+    cases = []
+    for t, r, shift, copies in DECODE_MANY:
+        rv = torch.ones((t, r), dtype=torch.bool, device=dev)
+        rv.view(-1)[t * r - 5:] = False
+        encs = [e for _ in range(copies) for e in _mixed_lanes(dev, rng, t, r, shift)]
+
+        def k1(encs=encs, rv=rv):
+            got, err = decode_lanes(encs, rv), 0.0
+            for j, (g, e) in enumerate(zip(got, encs)):
+                want = decode_lane_ref(e, rv)
+                err = max(err, _same(g, want, f"lane {j}", floats=want.is_floating_point()))
+            return err
+        cases.append((f"decode_lane many {len(encs)} lanes [{t},{r}] shift={shift}", k1))
+    for G, t, w, shift in DECODE_MANY_TASKS:
+        r = max(-(-w // t), 256)
+        rvs = [_task_row_valid(dev, rng, t, r, w) for _ in range(G)]
+        per_task = [_mixed_lanes(dev, rng, t, r, shift) for _ in range(G)]
+        lanes = [[task[k] for task in per_task] for k in range(len(per_task[0]))]
+
+        def k10(lanes=lanes, rvs=rvs, w=w):
+            got, err = decode_lanes_tasks(lanes, rvs, w), 0.0
+            for k, (outs, encs) in enumerate(zip(got, lanes)):
+                for g, (o, e, rv) in enumerate(zip(outs, encs, rvs)):
+                    want = decode_lane_ref(_cut_enc(e, w), _cut(rv, w)).reshape(-1)
+                    err = max(err, _same(_cut(o, w), want, f"lane {k} task {g}", floats=want.is_floating_point()))
+            return err
+        cases.append((f"decode_lane_tasks many G={G} {len(lanes)} lanes w={w} shift={shift}", k10))
     return cases
 
 
@@ -2601,12 +2694,21 @@ def exchange_battery(rng, n: int, n_dev: int, case: str):
     lanes = [rng.integers(-(1 << 62), 1 << 62, n), rng.standard_normal(n), rng.random(n) > 0.5,
              rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32), np.arange(n, dtype=np.int64),
              rng.random(n) > 0.3]
+    if case == "wide":  # past 40 lanes (the old scatter's chunk), an odd count of 1-byte lanes
+        lanes += [rng.integers(-(1 << 62), 1 << 62, n) for _ in range(14)] + \
+            [rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32) for _ in range(13)] + \
+            [rng.random(n) > 0.5 for _ in range(13)]
     bcap = max(1, n // (4 * n_dev)) if case == "skew" else min(-(-n * 2 // n_dev) + 64, n)
     return n_dev, bcap, mask, [(k1, v1, lo, st), (k2, v2, 0, 1)], key_i32, case == "probe", lanes
 
 
+# (rows, n_dev, case): tile edges (P2's tile is 2,048 rows: fewer rows than one, one row past 2), n_dev up to
+# 64 (the most), 46 lanes ("wide": 15 of them 1-byte), and "garbage": the send buffer's memory filled with
+# 0x5A bytes before the call
 EXCHANGE_SHAPES = ((1, 2, "mixed"), (5000, 2, "mixed"), (4097, 3, "probe"), (20_000, 4, "i32"), (20_000, 8, "masked"),
-                   (20_000, 8, "skew"), (100_003, 3, "skew"), (1_000_000, 4, "probe"))
+                   (20_000, 8, "skew"), (100_003, 3, "skew"), (1_000_000, 4, "probe"), (1000, 4, "mixed"),
+                   (2049, 5, "masked"), (50_000, 64, "mixed"), (4097, 64, "probe"), (30_000, 64, "skew"),
+                   (20_001, 5, "wide"), (20_001, 4, "garbage"), (300_000, 7, "garbage"))
 
 
 def exchange_cases(dev, rng):
@@ -2616,7 +2718,7 @@ def exchange_cases(dev, rng):
     import torch
 
     from tidb_tpu_torch.kernels import exchange, exchange_ref
-    from tidb_tpu_torch.kernels.exchange import OwnerKey
+    from tidb_tpu_torch.kernels.exchange import OwnerKey, layout
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -2628,6 +2730,11 @@ def exchange_cases(dev, rng):
                 [t(x) for x in lanes])
 
         def p2(args=args, case=case):
+            if case == "garbage" and args[2].device.type == "cuda":
+                # the caching allocator hands the send buffer this block again: no slot may rely on zeros
+                _, words = layout(args[6], args[1])
+                junk = torch.full((args[0] * words + 1,), 0x5A5A5A5A5A5A5A5A, dtype=torch.int64, device=args[2].device)
+                del junk
             (gs, gd), (ws, wd) = exchange(*args), exchange_ref(*args)
             _same(gs, ws, "send buffer")
             _same(gd, wd, "dropped")
@@ -2671,6 +2778,8 @@ def check_kernels(dev, rng) -> dict:
                 got, want = decode_lane(enc, rv), decode_lane_ref(enc, rv)
                 return _same(got, want, f"{cname} [{t},{r}]", floats=got.is_floating_point())
             case(f"decode_lane {cname} [{t},{r}]", k1)
+    for name, fn in decode_many_cases(dev, rng):
+        case(name, fn)
     for n, nseg, kw in ((T_MAIN * R_MAIN, NSEG_MAIN, {}), (T_MAIN * R_MAIN, NSEG_MAIN, {"overflow": True}),
                         (4096, 1, {}), (4096, 64, {}), (4096, 65, {}), (200_000, 65536, {}),
                         (4096, 12, {"all_masked": True})):
@@ -2763,8 +2872,8 @@ def _decode_bytes(mirror, encs) -> int:
     """Bytes K1 must move: each encoded input read once (the pack base is
     a launch parameter), each dense output written once."""
     total = 0
-    for enc in encs:
-        total += sum(x.numel() * x.element_size() for k, x in enc.items() if k != "b")
+    for enc in encs:  # "re": the run ends K1 keeps in an rle lane, not an input of the function
+        total += sum(x.numel() * x.element_size() for k, x in enc.items() if k not in ("b", "re"))
         out = enc["b"] if "p" in enc else enc["v"] if "c" in enc else enc["rv"]
         total += mirror.padded * out.element_size()
     return total
@@ -3595,7 +3704,7 @@ TASK_MODES = {"decode_lane": "decode_lane_tasks", "expr_eval": "expr_eval_tasks"
 AGG_TASK_MODES = ("decode_lane_tasks", "expr_eval_tasks", "seg_agg_tasks")  # a filter / direct aggregation's
 SORT_SOLO = ("topk", "topn_multi", "sort_groups", "lex_sort")  # never launched inside a group
 # the task-grid wrappers the engine calls (copr/gpu_engine's names)
-SPIED_TASKS = ("decode_lane_tasks", "seg_agg_tasks", "topk_tasks", "topn_multi_ops_tasks", "lex_sort_perm_tasks",
+SPIED_TASKS = ("decode_lanes_tasks", "seg_agg_tasks", "topk_tasks", "topn_multi_ops_tasks", "lex_sort_perm_tasks",
                "sort_groups_tasks")
 
 
@@ -4071,7 +4180,7 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
     import torch
 
     from tidb_tpu_torch.copr.gpu_engine import TorchEngine
-    from tidb_tpu_torch.kernels import decode_lane, decode_lane_ref, seg_agg, seg_agg_ref
+    from tidb_tpu_torch.kernels import decode_lane, decode_lane_ref, decode_lanes, seg_agg, seg_agg_ref
     from tidb_tpu_torch.kernels.seg_agg import group_code
     from tidb_tpu_torch.models import tpch
 
@@ -4089,13 +4198,14 @@ def measure(dev, main: dict, max_err: dict) -> list[dict]:
     mirror = batch._gpu_mirrors[(str(eng.device), True)]
     encs = _used_encodings(mirror, dag)
     rv = mirror.row_valid
-    for e in encs:
-        got, want = decode_lane(e, rv), decode_lane_ref(e, rv)
-        torch.cuda.synchronize()
-        err = _same(got, want, "decode_lane on Q1's lanes", floats=got.is_floating_point())
+    got = decode_lanes(encs, rv)
+    torch.cuda.synchronize()
+    for g, e in zip(got, encs):
+        err = _same(g, decode_lane_ref(e, rv), "decode_lane on Q1's lanes", floats=g.is_floating_point())
         max_err["decode_lane"] = max(max_err["decode_lane"], err)
-    k1 = {
-        "ms": time_ms(lambda: [decode_lane(e, rv) for e in encs]),
+    k1 = {  # Q1's coded lanes as the engine's _decode hands them over: one call, one launch
+        "ms": time_ms(lambda: decode_lanes(encs, rv)),
+        "one_call_a_lane_ms": time_ms(lambda: [decode_lane(e, rv) for e in encs]),
         "plain_ms": time_ms(lambda: [decode_lane_ref(e, rv) for e in encs]),
         "bytes": _decode_bytes(mirror, encs), "lanes": len(encs),
     }
@@ -4477,38 +4587,42 @@ def measure_mesh_kernels(main: dict, max_err: dict):
 
 
 def _k10_decode(calls):
-    """K1's task mode over the captured calls that launch (codec lanes):
-    (run all, plain version of all, the solo kernel G times per call on the
-    same narrowed lanes, the kernels alone over tables built beforehand,
-    the host's table builds, bytes, error, calls, G) — as _k10_expr and
-    _k10_seg return them for their modes."""
+    """K1's task mode over the captured decode_lanes_tasks calls that launch
+    (a coded lane among theirs): (run all, plain version of all, the solo
+    kernel G times per call — one decode_lanes a task over its narrowed
+    lanes —, the kernel alone over entries built beforehand, the host's
+    entry builds, bytes, error, calls, G) — as _k10_expr and _k10_seg
+    return them for their modes."""
     import torch
 
-    from tidb_tpu_torch.kernels import decode_lane, decode_lane_ref
-    from tidb_tpu_torch.kernels.grouped import (_codec, decode_lane_tasks, decode_lane_tasks_prepare,
-                                                decode_lane_tasks_ref, decode_table, narrow_enc)
+    from tidb_tpu_torch.kernels import decode_lanes
+    from tidb_tpu_torch.kernels.decode_lane import codec, launch
+    from tidb_tpu_torch.kernels.grouped import (decode_lanes_tasks, decode_lanes_tasks_prepare,
+                                                decode_lanes_tasks_ref, narrow_enc)
 
-    calls = [c for c in calls if isinstance(c[0][0], dict) and c[0][0]]
+    coded = lambda encs: codec(encs[0]) in ("pack", "dict", "rle")  # noqa: E731
+    calls = [c for c in calls if any(coded(encs) for encs in c[0])]
     err, nbytes = 0.0, 0
-    for encs, rvs, w in calls:
-        got, want = decode_lane_tasks(encs, rvs, w), decode_lane_tasks_ref(encs, rvs, w)
+    for lanes, rvs, w in calls:
+        got, want = decode_lanes_tasks(lanes, rvs, w), decode_lanes_tasks_ref(lanes, rvs, w)
         torch.cuda.synchronize()
-        for g, wv in zip(got, want):
-            err = max(err, _same(g, wv, "decode_lane_tasks on the main path", floats=wv.is_floating_point()))
-        for e, o in zip(encs, got):
-            nbytes += sum(_nbytes(x[:w] if k in ("p", "c") else x) for k, x in
-                          ((k, x.reshape(-1)) for k, x in e.items() if k != "b")) + _nbytes(o)
-    gos = [decode_lane_tasks_prepare(_codec(encs[0]), encs, w, rvs[0].device)[1] for encs, rvs, w in calls]
-    outs = [torch.empty((len(encs), w), dtype=torch.int32, device=rvs[0].device) for encs, rvs, w in calls]
-    ends = [torch.cumsum(torch.stack([e["rl"] for e in encs]).to(torch.int64), 1) if "rl" in encs[0] else None
-            for encs, _, _ in calls]
-    return (lambda: [decode_lane_tasks(*c) for c in calls],
-            lambda: [decode_lane_tasks_ref(*c) for c in calls],
-            lambda: [decode_lane(narrow_enc(e, w), rv.reshape(-1)[:w]) for encs, rvs, w in calls
-                     for e, rv in zip(encs, rvs)],
-            lambda: [go() for go in gos],
-            lambda: [decode_table(_codec(encs[0]), encs, w, o, e) for (encs, _, w), o, e in zip(calls, outs, ends)],
-            nbytes, err, len(calls), len(calls[0][0]) if calls else 0)
+        for encs, gl, wl in zip(lanes, got, want):
+            if not coded(encs):
+                continue
+            for g, wv in zip(gl, wl):
+                err = max(err, _same(g, wv, "decode_lane_tasks on the main path", floats=wv.is_floating_point()))
+            for e, o in zip(encs, gl):
+                nbytes += sum(_nbytes(x[:w] if k in ("p", "c") else x) for k, x in
+                              ((k, x.reshape(-1)) for k, x in e.items() if k not in ("b", "re"))) + _nbytes(o)
+    dev = calls[0][1][0].device if calls else None
+    prepared = [decode_lanes_tasks_prepare(*c, dev) for c in calls]
+    return (lambda: [decode_lanes_tasks(*c) for c in calls],
+            lambda: [decode_lanes_tasks_ref(*c) for c in calls],
+            lambda: [decode_lanes([narrow_enc(encs[g], w) for encs in lanes], rv.reshape(-1)[:w])
+                     for lanes, rvs, w in calls for g, rv in enumerate(rvs)],
+            lambda: [launch(words, ne, dev) for _, words, ne in prepared],
+            lambda: [decode_lanes_tasks_prepare(*c, dev) for c in calls],
+            nbytes, err, len(calls), len(calls[0][1]) if calls else 0)
 
 
 def _k10_expr(calls):
@@ -4753,7 +4867,7 @@ def measure_grouped_kernels(main: dict, max_err: dict):
                "burst.point_topn": cap["burst"]["point_topn.compression_on"],
                "burst.point_topn_multi": cap["burst"]["point_topn_multi.compression_on"]}
     sources.update({f"regions.{q}": calls for q, calls in cap["regions_sorted"].items()})
-    modes = (("decode_lane_tasks", "decode_lane_tasks", _k10_decode), ("expr_eval_tasks", "expr_eval_tasks", _k10_expr),
+    modes = (("decode_lane_tasks", "decode_lanes_tasks", _k10_decode), ("expr_eval_tasks", "expr_eval_tasks", _k10_expr),
              ("seg_agg_tasks", "seg_agg_tasks", _k10_seg), ("seg_agg_tasks segment-lane", "seg_agg_tasks", _k10_segs),
              ("topk_tasks", "topk_tasks", _k10_topk), ("topn_multi_tasks", "topn_multi_ops_tasks", _k10_multi),
              ("lex_sort_tasks", "lex_sort_perm_tasks", _k10_lexsort), ("sort_groups_tasks", "sort_groups_tasks", _k10_groups))

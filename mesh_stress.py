@@ -8,7 +8,8 @@ such as a race between the ranks' threads.
 
 Each iteration makes a new MPPEngine for each query (by default
 q3_top100, the rowpos aggregation, and seg_revenue, the dense one: P8's
-four rank calls at once on the card) and runs it twice over
+four rank calls at once on the card; q3_unfused and q18 put P2's exchange
+before their HASH levels) and runs it twice over
 make_mesh(4, "cuda") (gloo between the ranks): a cold run, in which the
 ranks compile their programs and upload their tables from their threads
 at once, then a warm one. Every answer must equal the query's one-device
@@ -31,8 +32,10 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-QUERIES = {"q3_top100": ("q3_mpp_plan", 100), "q3_mpp": ("q3_mpp_plan",), "q18": ("q18_mpp_plan",),
-           "seg_revenue": ("seg_revenue_mpp_plan",)}
+# query → (models/tpch.py plan builder and its arguments, the session variables it runs under)
+QUERIES = {"q3_top100": (("q3_mpp_plan", 100), {}), "q3_mpp": (("q3_mpp_plan",), {}), "q18": (("q18_mpp_plan",), {}),
+           "seg_revenue": (("seg_revenue_mpp_plan",), {}),
+           "q3_unfused": (("q3_mpp_plan",), {"tidb_tpu_mpp_fused": "OFF"})}
 
 
 def worker(args) -> int:
@@ -52,9 +55,9 @@ def worker(args) -> int:
     tables = {"lineitem": li, "orders": orders, "customer": cust}
     plans, ones = {}, {}
     for q in args.query:
-        make_plan, *bargs = QUERIES[q]
+        (make_plan, *bargs), variables = QUERIES[q]
         plans[q] = getattr(tpch, make_plan)(*bargs)
-        ones[q] = run_mpp(plans[q], tables, device="cuda", engine=MPPEngine("cuda"))
+        ones[q] = run_mpp(plans[q], tables, device="cuda", engine=MPPEngine("cuda"), variables=variables)
     mesh = make_mesh(4, "cuda")
     runs, first, t0 = dict.fromkeys(args.query, 0), None, time.perf_counter()
     try:
@@ -64,7 +67,8 @@ def worker(args) -> int:
                 for kind in ("cold", "warm"):
                     runs[q] += 1
                     try:
-                        got = run_mpp(plans[q], tables, device="cuda", engine=engine, mesh=mesh)
+                        got = run_mpp(plans[q], tables, device="cuda", engine=engine, mesh=mesh,
+                                      variables=QUERIES[q][1])
                         torch.cuda.synchronize()
                         diff = cs.chunks_equal(got, ones[q])
                     except Exception:  # noqa: BLE001 — the failure is the result

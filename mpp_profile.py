@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Time P4 (csrc/sort_join.cu), P5 (csrc/seg_reduce.cu), P6
-(csrc/rowpos_agg.cu), P7 (csrc/run_agg.cu), P8 (kernels/dense_agg.py
-over csrc/seg_agg.cu), M1 (csrc/q1_local.cu) and M3
-(csrc/hash_repartition.cu) on the main path's own inputs, on one NVIDIA
-GPU.
+"""Time P2 (csrc/exchange.cu), P4 (csrc/sort_join.cu), P5
+(csrc/seg_reduce.cu), P6 (csrc/rowpos_agg.cu), P7 (csrc/run_agg.cu), P8
+(kernels/dense_agg.py over csrc/seg_agg.cu), M1 (csrc/q1_local.cu), M3
+(csrc/hash_repartition.cu) and K1 (csrc/decode_lane.cu) on the main
+path's own inputs, on one NVIDIA GPU.
 
     python3 mpp_profile.py [--seed 42] [--q3-rows 4000000] [--reps 5] [--tree DIR ...]
-                           [--only p6|p7|p8|m1|m3]
+                           [--only p2|p6|p7|p8|m1|m3|k1]
 
 For each --tree (another checkout of the repository: an earlier commit,
 say) and this checkout, each in a fresh process, in turns (the trees, then
@@ -68,7 +68,31 @@ the same in reverse order), one JSON object a run under "runs":
                      1,024; the same times and launches, rows/s, its bytes
                      bound and torch.argsort(stable=True) of the owner lane
 
---only p6 / p7 / p8 / m1 / m3 measures those alone.
+  mesh_q3_unfused, p2, p2_calls, m3, m3_n2, m3_n1024
+                     (--only p2) the unfused Q3 over the 4-rank mesh
+                     (walls and rank 0's spans, `exchange` among them) and
+                     P2's calls of one more run, every rank's call held to
+                     the plain version: the largest call's events over 10
+                     calls, median single call, host and enqueue times,
+                     one profiled call's device time and every launch of
+                     the call, its bytes bound and the stable argsort plus
+                     one gather a lane beside it (chip_smoke's
+                     exchange_timing); the device time of every call
+                     (`p2_calls`); and M3 as --only m3 measures it (the
+                     ranking and look-back P2 shares with it)
+  q1, k1_q1, q1_regions, k1_regions, burst, k1_burst
+                     (--only k1) K1 as the engine calls it: Q1 over an
+                     M1_ROWS-row lineitem (warm walls and spans, `decode`
+                     among them) and its _decode call (every coded lane of
+                     the run), Q1 over the same rows in their regions
+                     through run_many and its _decode_tasks call (the
+                     group's lanes), and bench_sched's 64 x 4,096-row point
+                     aggregation through run_many and its _decode_tasks
+                     call; each call held to the plain version lane by
+                     lane, then timed as P7's (`_timed`), with its bytes
+                     bound
+
+--only p2 / p6 / p7 / p8 / m1 / m3 / k1 measures those alone.
 
 Each tree runs its own chip_smoke.py helpers and its own kernels, built in
 its own build/. Every call is held to its plain version before it is
@@ -389,6 +413,129 @@ def host_m3(cs, seed: int, out: dict) -> None:
         out["m3" if n_dev == 1 else f"m3_n{n_dev}"] = r
 
 
+def host_p2(cs, tables, dev, query, seed: int, out: dict) -> None:
+    """The unfused Q3 over the 4-rank mesh and its P2 calls (module doc)."""
+    from tidb_tpu_torch.entry import run_mpp
+    from tidb_tpu_torch.kernels import exchange, exchange_ref
+    from tidb_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, dev)
+    try:
+        plan, engine, variables, out["mesh_q3_unfused"] = query("q3_unfused", mesh, warm=3)
+        with cs.MeshModeSpy() as spy:
+            run_mpp(plan, tables, device=dev, engine=engine, variables=variables, mesh=mesh)
+    finally:
+        mesh.close()
+    calls = spy.calls["exchange"]
+    for i, a in enumerate(calls):
+        (gs, gd), (ws, wd) = exchange(*a), exchange_ref(*a)
+        cs._same(gs, ws, f"exchange send buffer, rank call {i}")
+        cs._same(gd, wd, f"exchange dropped count, rank call {i}")
+    a = max(calls, key=lambda c: c[2].numel() * len(c[6]))
+    t = cs.exchange_timing(calls)
+    out["p2"] = {**{k: t[k] for k in ("bytes", "bound_ms", "plain_ms", "library_ms", "rows", "n_dev", "bcap", "lanes",
+                                      "keys", "probe", "calls_captured")},
+                 "event_ms_chip_smoke": t["ms"], **_timed(cs, lambda: exchange(*a))}
+    out["p2_calls"] = []
+    for c in calls:
+        split = cs.kernel_split(lambda c=c: exchange(*c)).get("split_ms")
+        out["p2_calls"].append({"rows": c[2].numel(), "lanes": len(c[6]), "n_dev": c[0],
+                                "device_ms": sum(split.values()) if split else None})
+    host_m3(cs, seed, out)
+
+
+def _held_lanes(cs, got: dict, want: dict, what: str) -> None:
+    """Two lanes dicts of the engine's _decode ({i: (data, valid)}), lane by lane."""
+    for i in want:
+        for j in (0, 1):
+            g, w = got[i][j], want[i][j]
+            g, w = getattr(g, "bits", g), getattr(w, "bits", w)  # a uint64 lane is an xp_torch.U64
+            cs._same(g, w, f"{what}: lane {i}.{j}", floats=w.is_floating_point())
+
+
+def host_k1(cs, seed: int, reps: int, out: dict, dev="cuda") -> None:
+    """K1 as the engine calls it: Q1, Q1 over regions, the burst (module doc)."""
+    import torch
+
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.entry import batch_from_numpy, run_many, run_query
+    from tidb_tpu_torch.kernels import decode_lane_ref
+    from tidb_tpu_torch.kernels.grouped import narrow_enc
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.torchenv import PhaseTimer
+
+    dev = torch.device(dev)
+    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(M1_ROWS, seed))
+    dag = tpch.q1_dag()
+
+    def caught(eng, name):  # → the engine's method and the (arguments, keywords) of its calls
+        real, got = getattr(eng, name), []
+        setattr(eng, name, lambda *a, **kw: got.append((a, kw)) or real(*a, **kw))
+        return real, got
+
+    eng = TorchEngine(dev)
+    real, got = caught(eng, "_decode")
+    walls = []
+    for _ in range(reps + 1):
+        eng.timer = PhaseTimer(eng.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_query(dag, batch, device=dev, engine=eng)
+        torch.cuda.synchronize()
+        walls.append(((time.perf_counter() - t) * 1e3, eng.timer.totals_ms()))
+    warm = sorted(walls[1:], key=lambda r: r[0])
+    out["q1"] = {"wall_ms": warm[len(warm) // 2][0], "walls_ms": [w for w, _ in warm],
+                 "spans_ms": warm[len(warm) // 2][1]}
+    a, _ = got[-1]
+    mirror, lanes = a[0], a[1]
+    want = {i: (decode_lane_ref(d, mirror.row_valid), decode_lane_ref(v, mirror.row_valid)) for i, (d, v) in
+            lanes.items()}
+    _held_lanes(cs, real(*a), {i: (getattr(w[0], "bits", w[0]), w[1]) for i, w in want.items()}, "Q1's _decode")
+    encs = [e for d_v in lanes.values() for e in d_v if isinstance(e, dict) and e]
+    nbytes = cs._decode_bytes(mirror, encs)
+    out["k1_q1"] = {"coded_lanes": len(encs), "bytes": nbytes, "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+                    **_timed(cs, lambda: real(*a))}
+
+    def grouped(pairs, name):
+        eng = TorchEngine(dev)
+        real, got = caught(eng, "_decode_tasks")
+        walls = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_many(pairs, dev, eng)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        warm = sorted(walls[1:])
+        out[name] = {"wall_ms": warm[len(warm) // 2], "walls_ms": warm, "tasks": len(pairs)}
+        a, kw = max(got, key=lambda c: len(c[0][0]))
+        argss, order, unsigned, width = a[:4]
+        only = kw.get("only", a[4] if len(a) > 4 else None)
+        res = real(*a, **kw)
+        nbytes = 0
+        for g, (flat, rv) in enumerate(argss):
+            for k, i in enumerate(order):
+                if only is not None and i not in only:
+                    continue
+                for h in (0, 1):
+                    e = flat[2 * k + h]
+                    w = decode_lane_ref(narrow_enc(e, width), rv.reshape(-1)[:width])
+                    gv = res[g][i][h]
+                    gv = getattr(gv, "bits", gv)
+                    cs._same(gv.reshape(-1)[:width], w.reshape(-1), f"{name}: task {g} lane {i}.{h}",
+                             floats=w.is_floating_point())
+                    if isinstance(e, dict) and e:
+                        nbytes += sum(x.reshape(-1)[:width].numel() * x.element_size() if k2 in ("p", "c")
+                                      else x.numel() * x.element_size() for k2, x in e.items() if k2 not in ("b", "re"))
+                        nbytes += width * w.element_size()
+        return {"tasks": len(argss), "width": width, "bytes": nbytes, "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+                **_timed(cs, lambda: real(*a, **kw))}
+
+    regions = tpch.region_batches(batch)
+    out["k1_regions"] = grouped([(dag, r) for r in regions], "q1_regions")
+    out["k1_burst"] = grouped([(tpch.point_agg_dag(), b) for b in tpch.point_agg_table(64, 4096)], "burst")
+
+
 def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
     """One tree's measurements (module doc), in this process."""
     import torch
@@ -409,6 +556,9 @@ def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
         return out
     if only == "m3":
         host_m3(cs, seed, out)
+        return out
+    if only == "k1":
+        host_k1(cs, seed, reps, out)
         return out
     li, orders, cust = tpch.generated_columns(rows, seed)
     tables = {"lineitem": li, "orders": orders, "customer": cust}
@@ -433,6 +583,9 @@ def host(rows: int, seed: int, reps: int, only: str = "") -> dict:
         med = runs[len(runs) // 2]
         return plan, engine, variables, {"wall_ms": med[0], "walls_ms": [r[0] for r in runs], "spans_ms": med[1]}
 
+    if only == "p2":
+        host_p2(cs, tables, dev, query, seed, out)
+        return out
     if only == "p6":
         host_p6(cs, tables, dev, query, out)
         return out
@@ -509,9 +662,10 @@ def main(argv=None) -> int:
     ap.add_argument("--q3-rows", type=int, default=4_000_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--tree", action="append", default=[], help="another checkout, timed in turns with this one")
-    ap.add_argument("--only", choices=("", "p6", "p7", "p8", "m1", "m3"), default="",
-                    help="p6: q3_top100 and its P6 calls alone; p7: Q3 and its P7 calls; p8: seg_revenue and its "
-                         "P8 calls; m1: M1 alone; m3: M3 alone")
+    ap.add_argument("--only", choices=("", "p2", "p6", "p7", "p8", "m1", "m3", "k1"), default="",
+                    help="p2: the mesh's unfused Q3 and its P2 calls (and M3); p6: q3_top100 and its P6 calls alone; "
+                         "p7: Q3 and its P7 calls; p8: seg_revenue and its P8 calls; m1: M1 alone; m3: M3 alone; "
+                         "k1: K1's calls in Q1, Q1 over regions and the burst")
     ap.add_argument("--host-of", help=argparse.SUPPRESS)  # the worker: one tree's measurements
     args = ap.parse_args(argv)
     try:

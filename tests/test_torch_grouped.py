@@ -235,28 +235,39 @@ def test_task_tables_hold_each_tasks_lanes():
     """The task tables the CUDA modes upload, built here over CPU tensors
     from the engine's own group inputs, hold each task's addresses and
     scalars where csrc/{decode_lane,expr_eval,seg_agg}.cu read them —
-    checked entry by entry against the struct layouts."""
+    checked entry by entry against the struct layouts (K1's: one entry of
+    words a task and coded lane, every lane of the call together)."""
     import torch
 
     from tidb_tpu_torch.kernels import grouped as gk
+    from tidb_tpu_torch.kernels.decode_lane import DICT, PACK, RLE, WORDS, codec, run_ends
     from tidb_tpu_torch.kernels.seg_agg import OPS, _fill_bits, seg_desc
 
     calls = _captured_group_calls()
     seen = set()
-    for encs, rvs, w in calls["decode_lane_tasks"]:
-        kind = gk._codec(encs[0])
-        if kind in ("dense", "alias"):
-            continue
-        seen.add(kind)
-        dtype = {"pack": lambda e: e["b"].dtype, "dict": lambda e: e["v"].dtype, "rle": lambda e: e["rv"].dtype}[kind]
-        out = torch.empty((len(encs), w), dtype=dtype(encs[0]))
-        ends = torch.cumsum(torch.stack([e["rl"] for e in encs]).to(torch.int64), 1) if kind == "rle" else None
-        tab = gk.decode_table(kind, encs, w, out, ends)
-        for g, e in enumerate(encs):
-            want = {"pack": (e.get("p", out).data_ptr(), 0, 0, int(e["b"]) if "b" in e else 0),
-                    "dict": (e["c"].data_ptr(), e["v"].data_ptr(), e["v"].shape[0], 0) if "c" in e else None,
-                    "rle": (e["rv"].data_ptr(), ends[g].data_ptr(), e["rv"].shape[0], 0) if "rv" in e else None}[kind]
-            assert tuple(int(x) for x in tab[g]) == want + (out[g].data_ptr(),)
+    for lanes, rvs, w in calls["decode_lanes_tasks"]:
+        outs, words, ne = gk.decode_lanes_tasks_prepare(lanes, rvs, w, torch.device("cpu"))
+        at = 0
+        for encs, out in zip(lanes, outs):
+            kind = codec(encs[0])
+            if kind in ("dense", "alias"):
+                assert [o.data_ptr() for o in out] == [(e if kind == "dense" else rv).data_ptr()
+                                                       for e, rv in zip(encs, rvs)]
+                continue
+            seen.add(kind)
+            for g, e in enumerate(encs):
+                got = [int(x) for x in words[at * WORDS:(at + 1) * WORDS]]
+                codes = e.get("p", e.get("c", e.get("rv")))
+                aux = {"pack": 0, "dict": e["v"].data_ptr() if "v" in e else 0,
+                       "rle": run_ends(e).data_ptr() if "rv" in e else 0}[kind]
+                naux = {"pack": 0, "dict": e["v"].shape[0] if "v" in e else 0, "rle": codes.shape[0]}[kind]
+                code_bytes = 1 if kind == "rle" else codes.element_size()
+                want = [{"pack": PACK, "dict": DICT, "rle": RLE}[kind] | code_bytes << 8
+                        | out[g].element_size() << 16, codes.data_ptr(), aux, naux,
+                        int(e["b"]) if kind == "pack" else 0, out[g].data_ptr(), w]
+                assert got == want
+                at += 1
+        assert at == ne
     assert "pack" in seen
     assert calls["expr_eval_tasks"]
     for prog, ins, w in calls["expr_eval_tasks"]:

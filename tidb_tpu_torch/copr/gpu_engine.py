@@ -58,8 +58,8 @@ from ..errors import CircuitBreakerOpen
 from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFunc
 from ..expr.program import ProgramCache, ValueSpec, evaluate, evaluate_tasks
 from ..expr.xp_torch import U64
-from ..kernels import SegKey, SegLane, decode_lane, lex_sort_perm, seg_agg, sort_groups, topk, topn_multi_ops
-from ..kernels.grouped import (decode_lane_tasks, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks, topk_tasks,
+from ..kernels import SegKey, SegLane, decode_lanes, lex_sort_perm, seg_agg, sort_groups, topk, topn_multi_ops
+from ..kernels.grouped import (decode_lanes_tasks, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks, topk_tasks,
                                topn_multi_ops_tasks)
 from ..utils import memory as _mem
 from ..utils import metrics as M
@@ -847,13 +847,14 @@ class TorchEngine:
         return mask.reshape(-1), vals
 
     def _decode(self, dev: DeviceBatch, lanes: dict, unsigned: set):
-        """K1 over every used lane (the reference's _unflatten)."""
+        """K1 over every used lane (the reference's _unflatten): each
+        lane's data and valid payloads, the coded ones in one launch."""
+        order = list(lanes)
+        got = decode_lanes([x for i in order for x in lanes[i]], dev.row_valid)
         out = {}
-        for i, (d, v) in lanes.items():
-            dd = decode_lane(d, dev.row_valid)
-            if i in unsigned:
-                dd = U64(dd)
-            out[i] = (dd, decode_lane(v, dev.row_valid))
+        for k, i in enumerate(order):
+            dd = got[2 * k]
+            out[i] = (U64(dd) if i in unsigned else dd, got[2 * k + 1])
         return out
 
     @staticmethod
@@ -861,15 +862,15 @@ class TorchEngine:
         """K10's decode: K1's task mode over each used lane of a launch
         group's tasks (`argss`: each task's (flat lanes, row_valid), in
         `order`) → per task the lanes dict `_decode` gives, each lane read
-        to `width`; with `only`, just those lanes."""
+        to `width`; with `only`, just those lanes. Every coded data and
+        valid lane of every task in one launch."""
         rvs = [rv for _, rv in argss]
+        picked = [(k, i) for k, i in enumerate(order) if only is None or i in only]
+        got = decode_lanes_tasks([[flat[2 * k + h] for flat, _ in argss] for k, _ in picked for h in (0, 1)],
+                                 rvs, width)
         out = [{} for _ in argss]
-        for k, i in enumerate(order):
-            if only is not None and i not in only:
-                continue
-            ds = decode_lane_tasks([flat[2 * k] for flat, _ in argss], rvs, width)
-            vs = decode_lane_tasks([flat[2 * k + 1] for flat, _ in argss], rvs, width)
-            for g, (d, v) in enumerate(zip(ds, vs)):
+        for j, (_, i) in enumerate(picked):
+            for g, (d, v) in enumerate(zip(got[2 * j], got[2 * j + 1])):
                 out[g][i] = (U64(d) if i in unsigned else d, v)
         return out
 

@@ -15,7 +15,9 @@
 // and owner o's rows go to slots o * cap + (their rank among o's rows), so
 // a tile needs only each owner's rows in the tiles before it: one sweep
 // with decoupled look-back (compact.cuh's take_tile and look_back, one
-// look-back slot an owner and tile), then a small fill. Two launches:
+// look-back slot an owner and tile; the ranking and the look-back per
+// owner are partition.cuh's, shared with P2), then a small fill. Two
+// launches:
 //
 //   sweep   one tile of TILE rows a block, in ticket order. Each row's
 //           key, payload and valid byte is read once (a warp reads 32
@@ -65,6 +67,7 @@
 #include <cub/block/block_scan.cuh>
 
 #include "compact.cuh"
+#include "partition.cuh"
 
 namespace {
 
@@ -175,40 +178,14 @@ __global__ void __launch_bounds__(BLOCK) part_kernel(const P p, const LookBack l
   for (int r = 0; r < ITEMS; ++r)
     if (o[r] == 0) o[r] = owner_of(k[r], nd);
   __syncthreads();  // cnt zeroed
-  // 1. each row's rank among its warp's rows of its owner, in row order:
-  //    the lanes of the round with the same bin (one ballot a bit of it)
-  //    after the warp's running count
+  // 1. each row's rank among its warp's rows of its owner, in row order
   int rk[ITEMS];
   int* const c = cnt + w * nd;
-  const unsigned lt = (1u << lane) - 1u;
-  const int nbits = 32 - __clz(nd);
-#pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    unsigned peers = FULL;
-    for (int b = 0; b < nbits; ++b) {
-      const unsigned bb = __ballot_sync(FULL, (o[r] >> b) & 1);
-      peers &= ((o[r] >> b) & 1) ? bb : ~bb;
-    }
-    const bool real = o[r] < nd;
-    const int before = real ? c[o[r]] : 0;
-    __syncwarp();
-    if (real && (peers & lt) == 0u) c[o[r]] = before + __popc(peers);
-    __syncwarp();
-    rk[r] = before + __popc(peers & lt);
-  }
+  part::rank_rows(o, nd, c, rk);
   __syncthreads();
   // 2. per owner: each warp's first slot among the tile's rows of the
   //    owner, and the tile's count, published at once for the tiles after
-  for (int q = threadIdx.x; q < nd; q += BLOCK) {
-    int run = 0;
-    for (int ww = 0; ww < WARPS; ++ww) {
-      const int x = cnt[ww * nd + q];
-      cnt[ww * nd + q] = run;
-      run += x;
-    }
-    tcount[q] = run;
-    compact::put_desc(lb.desc(tile * nd + q), tile == 0 ? 2 : 1, P2{run, 0});
-  }
+  part::warp_offsets(lb, tile, nd, cnt, tcount);
   __syncthreads();
   // 3. where each owner's run starts in the staged tile
   {
@@ -237,17 +214,7 @@ __global__ void __launch_bounds__(BLOCK) part_kernel(const P p, const LookBack l
     sown[slot] = (uint16_t)o[r];
   }
   // 5. each owner's rows in the tiles before: warp w looks back owners w, w + WARPS, ...
-  for (int q = w; q < nd; q += WARPS) {
-    ll before = 0;
-    if (tile > 0) {
-      before = compact::look_back(lb, tile, nd, q, compact::AddA()).a;
-      if (lane == 0) compact::put_desc(lb.desc(tile * nd + q), 2, P2{before + tcount[q], 0});
-    }
-    if (lane == 0) {
-      gbase[q] = before;
-      if (tile == p.ntiles - 1) p.tot[q] = before + tcount[q];
-    }
-  }
+  part::look_back_owners(lb, tile, p.ntiles, nd, tcount, gbase, p.tot);
   __syncthreads();
   // 6. each owner's run to its consecutive slots
   for (int j = threadIdx.x; j < s_kept; j += BLOCK) {

@@ -2,6 +2,8 @@
 and launch counters.
 
   K1 decode_lane     (csrc/decode_lane.cu) ← tpu_engine.py:1169 _decode_lane
+                                             (decode_lanes: a call's every
+                                             coded lane in one launch)
   K2/K3 expr_eval    (csrc/expr_eval.cu)   ← tpu_engine.py:1021 _eval_device,
                                              :1044 _mask (+ the MPP scan stage,
                                              post-join conditions and aggregate
@@ -46,7 +48,7 @@ and launch counters.
                                              exchange_all + :1451 pack_keys (the
                                              owner buckets; the all_to_all is the
                                              mesh's, parallel/mesh.py)
-  K10 decode_lane_tasks, expr_eval_tasks, seg_agg_tasks, topk_tasks,
+  K10 decode_lane_tasks (decode_lanes_tasks), expr_eval_tasks, seg_agg_tasks, topk_tasks,
       topn_multi_ops_tasks, lex_sort_perm_tasks, sort_groups_tasks (task-grid
       modes in csrc/decode_lane.cu, csrc/expr_eval.cu, csrc/seg_agg.cu,
       csrc/topk.cu, csrc/topn_multi.cu, csrc/sort_groups.cu, and K8's
@@ -60,15 +62,17 @@ and launch counters.
 Each wrapper runs its plain version for CPU tensors only; on a CUDA
 tensor it launches its kernel (built at first use, kernels/build.py) or
 raises. `<wrapper>.launches` counts kernel launches (`seg_agg.bit_launches`
-those of K4 that reduced a bitwise aggregate).
+those of K4 that reduced a bitwise aggregate; `decode_lane.launches` and
+`decode_lane_tasks.launches` those of K1's solo and task modes, made by
+`decode_lanes` / `decode_lanes_tasks`).
 """
 
 from .block_topk import block_topk, block_topk_ref
-from .decode_lane import decode_lane, decode_lane_ref
+from .decode_lane import decode_lane, decode_lane_ref, decode_lanes
 from .dense_agg import dense_agg, dense_agg_ref
 from .exchange import exchange, exchange_ref
 from .expr_eval import expr_eval, expr_eval_ref
-from .grouped import (decode_lane_tasks, expr_eval_tasks, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks,
+from .grouped import (decode_lane_tasks, decode_lanes_tasks, expr_eval_tasks, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks,
                       topk_tasks, topn_multi_ops_tasks)
 from .hash_repartition import hash_repartition, hash_repartition_ref
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref

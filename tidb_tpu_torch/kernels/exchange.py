@@ -3,7 +3,8 @@ owner's bucket of one send buffer, in row order, every lane at once.
 
 Replaces `exchange_all` of tidb_tpu/parallel/mpp.py:1465-1514 up to its
 `all_to_all`, with the owner key of `pack_keys` (:1451). The CUDA kernels
-are csrc/exchange.cu (their note gives the passes and the bound);
+are csrc/exchange.cu (one sweep and a fill; their note gives the design
+and the bound);
 `exchange_ref` is the plain PyTorch version beside them, the reference's
 jnp code step by step. The collective itself is the mesh's
 (parallel/mesh.Mesh.all_to_all): one all_to_all of the whole send buffer
@@ -21,18 +22,21 @@ per exchange, not one per lane.
   * lanes   — [N] tensors of 8 (int64, float64), 4 (int32) or 1 (bool)
               bytes a row
   → (send int64 [n_dev, W], dropped int64 [1]): row o of `send` holds
-    owner o's bucket of every lane, bcap slots each at the byte offsets of
-    `layout`, the owner's rows in row order (the reference's stable
-    argsort), zero past the owner's count; dropped = sum over the owners
-    of max(count - bcap, 0).
+    owner o's bucket of every lane, bcap slots each at the 16-byte-aligned
+    byte offsets of `layout`, the owner's rows in row order (the
+    reference's stable argsort), zero past the owner's count and in the
+    padding; dropped = sum over the owners of max(count - bcap, 0).
 
 `unpack(recv, lanes, n_dev, bcap)` cuts the buffer an all_to_all returns
 (row s from peer s) into each lane's [n_dev * bcap] received rows, peer by
 peer: the reference's `all_to_all(buf, axis, 0, 0, tiled=True)` reshaped.
 
 `exchange` takes the plain version only for tensors on the CPU. On a CUDA
-device it launches the kernels or raises; `exchange.launches` counts its
-calls that launched.
+device it launches the kernels (two a call, whatever the lane count; the
+send buffer and `dropped` are views of one `torch.empty`, which the
+kernels write byte for byte; the look-back scratch is the stream's
+`tables.stream_scratch`) or raises; `exchange.launches` counts its calls
+that launched.
 """
 
 from __future__ import annotations
@@ -40,12 +44,13 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .build import count, library
+from .tables import host_words, sm_count, stream_scratch
 
 MAX_DEV, MAX_KEYS = 64, 8
+ALIGN = 16  # bytes: every lane's slots start on it, a send row is a multiple of it
 _SIZES = {torch.int64: 8, torch.float64: 8, torch.int32: 4, torch.bool: 1}
 
 
@@ -64,15 +69,17 @@ def bucket_cap(rows: int, n_dev: int) -> int:
 def layout(lanes, bcap: int) -> tuple[list[int], int]:
     """(byte offset of each lane's bcap slots in a send row, the row's
     length in int64 words): 8-byte lanes first, then 4-, then 1-byte
-    ones, so every lane lands aligned."""
+    ones, each lane's slots starting on an ALIGN-byte boundary, the row a
+    multiple of ALIGN bytes (at least one), so that the kernel writes
+    every slot's 16-byte unit with one aligned store."""
     offs = [0] * len(lanes)
     at = 0
     for size in (8, 4, 1):
         for j, t in enumerate(lanes):
             if _SIZES[t.dtype] == size:
                 offs[j] = at
-                at += bcap * size
-    return offs, max(-(-at // 8), 1)
+                at += -(-bcap * size // ALIGN) * ALIGN
+    return offs, max(at, ALIGN) // 8
 
 
 def owner_key_ref(keys, key_i32: bool, probe: bool, n: int) -> torch.Tensor:
@@ -146,10 +153,11 @@ _bound: set = set()
 def _lib():
     lib = library("exchange")
     if "exchange" not in _bound:
-        lib.tt_exchange.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.tt_exchange.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         lib.tt_exchange.restype = ctypes.c_int
-        lib.tt_exchange_tiles.argtypes = [ctypes.c_int64]
-        lib.tt_exchange_tiles.restype = ctypes.c_int64
+        lib.tt_exchange_scratch.argtypes = [ctypes.c_int64, ctypes.c_int]
+        lib.tt_exchange_scratch.restype = ctypes.c_int64
+        lib.tt_exchange_max_lanes.restype = ctypes.c_int
         _bound.add("exchange")
     return lib
 
@@ -166,21 +174,23 @@ def exchange(n_dev: int, bcap: int, mask, keys, key_i32: bool, probe: bool, lane
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"exchange: inputs must be contiguous tensors on {dev}")
     lib = _lib()
+    if len(lanes) > lib.tt_exchange_max_lanes():
+        raise ValueError(f"exchange: at most {lib.tt_exchange_max_lanes()} lanes a call")
     offs, words = layout(lanes, bcap)
-    send = torch.zeros((n_dev, words), dtype=torch.int64, device=dev)
-    dropped = torch.empty(1, dtype=torch.int64, device=dev)
-    ntiles = max(int(lib.tt_exchange_tiles(n)), 1)
-    counts = torch.empty((ntiles + 1, n_dev + 1), dtype=torch.int32, device=dev)
-    bins = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
-    w = [n, n_dev, bcap, mask.data_ptr(), bins.data_ptr(), counts.data_ptr(), dropped.data_ptr(),
+    # the send buffer and `dropped` are views of one allocation; the kernels
+    # write every byte of both, so nothing is zeroed here
+    buf = torch.empty(n_dev * words + 1, dtype=torch.int64, device=dev)
+    send, dropped = buf[:n_dev * words].view(n_dev, words), buf[n_dev * words:]
+    w = [n, n_dev, bcap, mask.data_ptr(), send.data_ptr(), words * 8, dropped.data_ptr(),
          len(keys), int(bool(key_i32)), int(bool(probe))]
     for k in keys:
         w += [k.data.data_ptr(), 0 if k.valid is None else k.valid.data_ptr(), k.lo, k.stride]
-    w += [len(lanes), send.data_ptr(), send.stride(0) * 8]
+    w.append(len(lanes))
     for t, off in zip(lanes, offs):
-        w += [t.data_ptr(), _SIZES[t.dtype], off]
-    words_arr = np.array(w, dtype=np.int64)
-    rc = lib.tt_exchange(words_arr.ctypes.data, len(words_arr), 0, torch.cuda.current_stream(dev).cuda_stream)
+        w += [t.data_ptr(), off, _SIZES[t.dtype]]
+    with stream_scratch("exchange", dev, lib.tt_exchange_scratch(n, n_dev)) as scratch:
+        rc = lib.tt_exchange(host_words(w), len(w), scratch.data_ptr(), sm_count(dev),
+                             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"exchange: kernel launch failed (cudaError {rc})")
     count(exchange)

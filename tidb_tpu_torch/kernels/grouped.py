@@ -11,9 +11,11 @@ sort GROUP BY), → K6 (a single-key TopN; K8 orders its rows only for k
 above topk.ORDER_CAP) or → K7 → K8 (a multi-key TopN), so K10 is a
 task-grid mode of each of those kernels: one launch covers the G tasks
 of a group, the grid's y axis being the task, each
-task addressed through a table in device memory (csrc/decode_lane.cu,
-csrc/expr_eval.cu, csrc/seg_agg.cu, csrc/topk.cu, csrc/topn_multi.cu,
-csrc/sort_groups.cu say how). Nothing is stacked: a task's lanes stay
+task addressed through a table in device memory (csrc/expr_eval.cu,
+csrc/seg_agg.cu, csrc/topk.cu, csrc/topn_multi.cu, csrc/sort_groups.cu
+say how). K1's mode is its one kernel (csrc/decode_lane.cu) over one
+entry a task and coded lane, passed by value: every coded lane of every
+task in one launch. Nothing is stacked: a task's lanes stay
 where its batch uploaded them and its table entry points at them. The
 sorts are one radix sort over the group: K8 puts the row's task in the
 top bits of its key, so each task's sorted rows stay in its own slice.
@@ -23,11 +25,14 @@ flattened rows are read (the group's narrowed width, or its padded one).
 It is exact, as the reference's is: every kernel masks with row_valid, so
 the rows past a task's real rows contribute nothing.
 
+  decode_lanes_tasks(lanes, row_valids, width)
+      every lane of every task (`lanes[k]`: lane k of each task, one codec
+      across them: the program key carries the codec signature) → per
+      lane, per task a flat lane of >= width rows: the task's own dense
+      lane or row_valid (the all-valid alias) without a launch, else row g
+      of the lane's [G, width] decode; the coded lanes in one launch
   decode_lane_tasks(encs, row_valids, width)
-      one lane of every task (the same codec: the program key carries the
-      codec signature) → per task a flat lane of >= width rows: the
-      task's own dense lane or row_valid (the all-valid alias) without a
-      launch, else row g of one [G, width] decode
+      one lane of every task: decode_lanes_tasks of one lane
   expr_eval_tasks(prog, ins, width)
       the same program over every task's input lanes → one [G, width]
       tensor per output slot
@@ -52,12 +57,13 @@ on the CPU, and on CUDA tensors launches its kernel or raises.
 `<wrapper>.launches` counts the launches.
 
 A wrapper on the card is `<wrapper>_prepare` (outputs, task table built
-a column at a time by `decode_table` / `expr_tables` here,
+a column at a time by `expr_tables` here,
 `seg_agg.seg_desc`, `topk.topk_table` or `tables.lane_table` and copied
 up, and a `go()` that enqueues the kernel) followed by one `go()`; K8's
-mode has no table (its operands are the group's own [G, width] lanes).
-K4's, K6's, K7's and K9's solo wrappers launch the same kernels as a
-grid of one task.
+mode has no table (its operands are the group's own [G, width] lanes),
+K1's `decode_lanes_tasks_prepare` returns the kernel's words, which
+`decode_lane.launch` takes. K4's, K6's, K7's and K9's solo wrappers
+launch the same kernels as a grid of one task.
 """
 
 from __future__ import annotations
@@ -70,7 +76,7 @@ import torch
 
 from ..expr.xp_torch import U64
 from .build import count, library
-from .decode_lane import decode_lane_ref
+from .decode_lane import codec, decode_lane_ref, entry, launch, out_dtype
 from .expr_eval import _Params, expr_eval_ref, launch_shape
 from .lex_sort import SortOp, check_on, lex_sort_perm_ref, sort_op
 from .lex_sort import launch as sort_launch
@@ -94,15 +100,8 @@ _bound: set = set()
 def _lib(stem: str):
     lib = library(stem)
     if stem not in _bound:
-        if stem == "decode_lane":
-            lib.tt_decode_pack_tasks.argtypes = [_C, _I, _I, _I, _L, _C]
-            lib.tt_decode_dict_tasks.argtypes = [_C, _I, _I, _I, _L, _C]
-            lib.tt_decode_rle_tasks.argtypes = [_C, _I, _I, _L, _C]
-            for f in (lib.tt_decode_pack_tasks, lib.tt_decode_dict_tasks, lib.tt_decode_rle_tasks):
-                f.restype = _I
-        else:
-            lib.tt_expr_eval_tasks.argtypes = [ctypes.POINTER(_Params), _I, _C]
-            lib.tt_expr_eval_tasks.restype = _I
+        lib.tt_expr_eval_tasks.argtypes = [ctypes.POINTER(_Params), _I, _C]
+        lib.tt_expr_eval_tasks.restype = _I
         _bound.add(stem)
     return lib
 
@@ -135,95 +134,72 @@ def decode_lane_tasks_ref(encs: list, row_valids: list, width: int) -> list:
     return list(out)
 
 
-def _codec(enc) -> str:
-    if isinstance(enc, torch.Tensor):
-        return "dense"
-    if not enc:
-        return "alias"
-    return "pack" if "p" in enc else "dict" if "c" in enc else "rle"
+def decode_lanes_tasks_ref(lanes: list, row_valids: list, width: int) -> list:
+    """Plain version of decode_lanes_tasks: decode_lane_tasks_ref lane by lane."""
+    return [decode_lane_tasks_ref(encs, row_valids, width) for encs in lanes]
+
+
+def _kind(encs: list) -> str:
+    kinds = {codec(e) for e in encs}
+    if len(kinds) != 1:
+        raise ValueError(f"decode_lane_tasks: the tasks' lanes differ in codec: {sorted(kinds)}")
+    return kinds.pop()
+
+
+def decode_lanes_tasks_prepare(lanes: list, row_valids: list, width: int, dev: torch.device):
+    """K1's task mode up to its launch: → (per lane the G tasks' flat lanes,
+    the kernel's words, entries). A dense lane is each task's own, the
+    all-valid alias each task's row_valid; a coded lane gets a [G, width]
+    output, one entry a task (its first `width` rows into row g)."""
+    outs, words, ne, flat_rvs = [], [], 0, None
+    for encs in lanes:
+        kind = _kind(encs)
+        if kind == "dense":  # the task's own lane, read to `width` by its consumer
+            outs.append([e.reshape(-1) for e in encs])
+            continue
+        if kind == "alias":  # the mask IS the task's row_valid, no launch
+            flat_rvs = flat_rvs or [rv.reshape(-1) for rv in row_valids]
+            outs.append(flat_rvs)
+            continue
+        dtype = out_dtype(encs[0])
+        out = torch.empty((len(encs), width), dtype=dtype, device=dev)
+        if width:
+            size = out.element_size()
+            at, step = out.data_ptr(), width * size  # row g's address: no view made for it here
+            for g, e in enumerate(encs):
+                if out_dtype(e) != dtype:
+                    raise TypeError(f"decode_lane_tasks: task {g} decodes to {out_dtype(e)}, task 0 to {dtype}")
+                words += entry(e, at + g * step, size, width, dev)
+            ne += len(encs)
+        outs.append(list(out))
+    return outs, words, ne
+
+
+def decode_lanes_tasks(lanes: list, row_valids: list, width: int) -> list:
+    """Every lane of a launch group's tasks decoded (`lanes[k]`: lane k of
+    each task, one codec across the tasks: the program key carries the
+    codec signature) → per lane, per task a flat lane of >= width rows: the
+    task's own dense lane or row_valid (the all-valid alias) without a
+    launch, else row g of the lane's [G, width] decode — every coded lane
+    of every task in ONE launch."""
+    dev = row_valids[0].device
+    if dev.type == "cpu":
+        for encs in lanes:
+            _kind(encs)
+        return decode_lanes_tasks_ref(lanes, row_valids, width)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_lane_tasks: unsupported device {dev}")
+    outs, words, ne = decode_lanes_tasks_prepare(lanes, row_valids, width, dev)
+    if ne:
+        launch(words, ne, dev)
+        count(decode_lane_tasks)
+    return outs
 
 
 def decode_lane_tasks(encs: list, row_valids: list, width: int) -> list:
-    """One lane of each task of a group, decoded (module doc)."""
-    kinds = {_codec(e) for e in encs}
-    if len(kinds) != 1:
-        raise ValueError(f"decode_lane_tasks: the tasks' lanes differ in codec: {sorted(kinds)}")
-    kind = kinds.pop()
-    if kind == "dense":  # the task's own lane, read to `width` by its consumer
-        return [e.reshape(-1) for e in encs]
-    if kind == "alias":  # the mask IS the task's row_valid, no launch
-        return [rv.reshape(-1) for rv in row_valids]
-    dev = row_valids[0].device
-    if dev.type == "cpu":
-        return decode_lane_tasks_ref(encs, row_valids, width)
-    if dev.type != "cuda":
-        raise ValueError(f"decode_lane_tasks: unsupported device {dev}")
-    out, go = decode_lane_tasks_prepare(kind, encs, width, dev)
-    go()
-    count(decode_lane_tasks)
-    return list(out)
-
-
-def decode_lane_tasks_prepare(kind: str, encs: list, width: int, dev: torch.device):
-    """K1's task mode up to its launch: the [G, width] output and its task
-    table on the card, and `go()`, which enqueues the kernel over them
-    (and may be called again: the table stays alive with it)."""
-    if kind == "pack":
-        dtype = encs[0]["b"].dtype
-        if dtype not in (torch.int32, torch.int64):
-            raise TypeError("decode_lane_tasks: pack bases are int32 or int64")
-    else:
-        dtype = (encs[0]["v"] if kind == "dict" else encs[0]["rv"]).dtype
-    out = torch.empty((len(encs), width), dtype=dtype, device=dev)
-    # rle: inclusive run ends of every task at once (glue, as the solo mode's)
-    ends = torch.cumsum(torch.stack([e["rl"] for e in encs]).to(torch.int64), 1) if kind == "rle" else None
-    tab = to_card(decode_table(kind, encs, width, out, ends), dev)
-    lib, G = _lib("decode_lane"), len(encs)
-    if kind == "pack":
-        args = (lib.tt_decode_pack_tasks, tab.data_ptr(), G, encs[0]["p"].element_size(), out.element_size(), width)
-    elif kind == "dict":
-        args = (lib.tt_decode_dict_tasks, tab.data_ptr(), G, encs[0]["c"].element_size(), out.element_size(), width)
-    else:
-        args = (lib.tt_decode_rle_tasks, tab.data_ptr(), G, out.element_size(), width)
-
-    def go(tab=tab, ends=ends):
-        rc = args[0](*args[1:], _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"decode_lane_tasks: kernel launch failed (cudaError {rc})")
-
-    return out, go
-
-
-def decode_table(kind: str, encs: list, width: int, out: torch.Tensor, ends=None) -> np.ndarray:
-    """K1's [G, 5] task table (TaskLane of csrc/decode_lane.cu): pack
-    (codes, 0, 0, base, out row), dict (codes, vocab, vocab size, 0, out
-    row), rle (values, run ends row, runs, 0, out row). Every task's lane
-    is checked against task 0's: one code width, one base / vocab / value
-    dtype and shape."""
-    G, dev = len(encs), out.get_device()
-    tab = np.zeros((G, 5), dtype=np.int64)
-    tab[:, 4] = rows(out, G)
-    if kind == "pack":
-        codes = [e["p"] for e in encs]
-        if len({c.element_size() for c in codes}) != 1 or len({e["b"].dtype for e in encs}) != 1:
-            raise ValueError("decode_lane_tasks: pack code widths or base dtypes differ")
-        tab[:, 0] = ptrs(codes, width, dev, codes[0].dtype, "decode_lane_tasks: pack codes")
-        tab[:, 3] = [int(e["b"]) for e in encs]
-    elif kind == "dict":
-        codes, vocabs = [e["c"] for e in encs], [e["v"] for e in encs]
-        if len({(v.dtype, v.shape) for v in vocabs}) != 1 or len({c.element_size() for c in codes}) != 1:
-            raise ValueError("decode_lane_tasks: dict vocab shapes or code widths differ")
-        tab[:, 0] = ptrs(codes, width, dev, codes[0].dtype, "decode_lane_tasks: dict codes")
-        tab[:, 1] = ptrs(vocabs, 1, dev, vocabs[0].dtype, "decode_lane_tasks: dict vocab")
-        tab[:, 2] = vocabs[0].shape[0]
-    else:
-        vals = [e["rv"] for e in encs]
-        if len({(v.dtype, v.shape) for v in vals}) != 1:
-            raise ValueError("decode_lane_tasks: rle run arrays differ in shape")
-        tab[:, 0] = ptrs(vals, 1, dev, vals[0].dtype, "decode_lane_tasks: rle values")
-        tab[:, 1] = rows(ends, G)
-        tab[:, 2] = vals[0].shape[0]
-    return tab
+    """One lane of each task of a group, decoded: decode_lanes_tasks of one
+    lane (module doc)."""
+    return decode_lanes_tasks([encs], row_valids, width)[0]
 
 
 decode_lane_tasks.launches = 0

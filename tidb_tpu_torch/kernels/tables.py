@@ -24,6 +24,9 @@ their kernels as a grid of one task, and by K10's task-grid modes
                                       from call to call), for a call's one
                                       upload
   all_true(dev, n)                    a cached all-true bool [n] on the card
+  host_words(words)                   this thread's int64 host buffer of a
+                                      call's parameter words, which a kernel
+                                      library reads before it returns
 """
 
 from __future__ import annotations
@@ -142,9 +145,16 @@ class Staging:
         """host[:words] → dst[:words] (int64 on the card), ordered before the
         launches enqueued after it on the current stream."""
         dst[:words].copy_(self.pin[:words], non_blocking=True)
+        self.record(dst.device)
+
+    def record(self, dev: torch.device) -> None:
+        """Mark the buffer as read by the work enqueued so far on the
+        current stream of card `dev` (a copy made by `upload`, or by a
+        kernel library from `pin`'s address): it is not refilled before
+        that work has run."""
         if self.copied is None:
             self.copied = torch.cuda.Event()
-        self.copied.record(torch.cuda.current_stream(dst.device))
+        self.copied.record(torch.cuda.current_stream(dev))
 
 
 STAGES = 4  # staging buffers a (kernel, stream) cycles through
@@ -189,3 +199,18 @@ def all_true(dev: torch.device, n: int) -> torch.Tensor:
             t = _all_true[i] = torch.ones(max(n, 1024, 0 if t is None else 2 * t.numel()), dtype=torch.bool,
                                           device=torch.device("cuda", i))
     return t[:n]
+
+
+_words = threading.local()
+
+
+def host_words(words: list) -> int:
+    """`words` in this thread's int64 host buffer (kept from call to call,
+    grown as needed) → its address, for a kernel library that reads them
+    before it returns: no array is built a call."""
+    buf = getattr(_words, "buf", None)
+    if buf is None or buf.shape[0] < len(words):
+        buf = _words.buf = np.zeros(max(len(words), 512), dtype=np.int64)
+        _words.addr = buf.ctypes.data
+    buf[:len(words)] = words
+    return _words.addr
