@@ -29,7 +29,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
               topk with NULLs, masked rows, ties past a tile, the int64
               limits, signed zeros, NaNs and ±inf, k = 1, k = N, every
               row tied, k at K6's ordering cap (4,096) and one past it
-              (K8 orders those); K7 topn_multi's operands; K9 sort_groups with
+              (K8 orders those); K7 topn_multi over every key kind
+              (NULLs, both orders, ±0.0, NaN, subnormals, uint64), all
+              rows masked, fewer masked in than k, every key tied, k =
+              1, 50, its ordering cap (4,096), one past it (K8 orders
+              those) and past n; K9 sort_groups with
               NULL-able, float (NaN, ±0.0, subnormals), uint64 and
               dict-code keys, all rows masked, every row and one row
               masked in, keys K8 sorts in several words (the sweep
@@ -130,16 +134,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
               (sort_grouped_cases): K6's task grid (int64 keys at
               INT64_MIN / INT64_MAX - 1, floats with NaN, ±inf, ±0.0 and
               subnormals, NULL keys, both orders, k up to the
-              width), K7's with K8 after it (every key kind, uint64),
+              width), K7's (every key kind, uint64; k = 1, 50 and past
+              the width),
               K9's (NULL-able int and float, uint64 and dict-code keys,
               group counts that differ by task) with K4's segment-lane
               form over its ids, and K8's task-leading key alone (every
               operand kind, ties, a key wider than 64 bits), tasks of
-              different real row counts, one all masked; and K6's and
-              K8's task modes at the edges of their designs
+              different real row counts, one all masked; and K6's, K7's
+              and K8's task modes at the edges of their designs
               (sort_edge_cases: G = 1, 7 and 64 tasks of 1,000, 4,095,
               4,097 and 6,145 rows; 4- and 8-byte words, ties; k = 1,
-              100, the cap, one past it and the width). Integers, row ids and
+              50 or 100, the cap, one past it and the width). Integers, row ids and
               group ids bit-exact, floats within rtol 1e-9 / atol 1e-6
               (bench.py's own check; P5's and P7's float totals at run
               starts, the rows the picks can ship); all cases run,
@@ -210,7 +215,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
               width), merged at the root and equal to main.q1's answer;
               each task mode must launch; main.regions_sorted, tpch_topn,
               multikey_topn and Q18's subquery over the same regions
-              through run_many (K6's, K7's and K9's task modes with K8's
+              through run_many (K6's and K7's task modes, K9's with K8's
               task-leading key, Q18's escalating from gcap0 inside its
               group), merged at the root (the TopN over the partial rows;
               the final aggregation) and equal to the one-batch answers,
@@ -589,8 +594,15 @@ def topk_cases(dev, rng, n: int):
     return cases
 
 
-def multi_cases(dev, rng, n: int):
-    """(mask, keys) for K7 over every key kind, NULLs and both orders."""
+MULTI_CASES = ("mixed", "tied", "all_masked", "few_in", "nulls")
+
+
+def multi_cases(dev, rng, n: int, names=MULTI_CASES):
+    """(name, mask, keys) for K7: every key kind (int32, int64, uint64,
+    floats with ±0.0, NaN, ±inf and subnormals), NULLs and both orders
+    ('mixed'); every key tied, so the row id decides ('tied'); every row
+    masked; three rows masked in, fewer than k; mostly NULL keys, in
+    classes K7 picks ('nulls')."""
     import numpy as np
     import torch
 
@@ -600,13 +612,26 @@ def multi_cases(dev, rng, n: int):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     v = t(rng.random(n) < 0.9)
-    specials = rng.choice(np.array([-np.inf, -1.5, -0.0, 0.0, 1.5, np.inf, np.nan]), n)
-    keys = [(t(rng.integers(90000, 10500000, n)), None, True),
-            (t(rng.integers(0, 5, n).astype(np.int32)), v, False),
-            (t(specials), v, True),
-            (U64(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64))), None, False),
-            (t(rng.integers(-5, 5, n)), v, True)]
-    return t(rng.random(n) < 0.8), keys
+    specials = rng.choice(np.array(F_SPECIALS), n)
+    mixed = [(t(rng.integers(90000, 10500000, n)), None, True),
+             (t(rng.integers(0, 5, n).astype(np.int32)), v, False),
+             (t(specials), v, True),
+             (U64(t(rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64))), None, False),
+             (t(rng.integers(-5, 5, n)), v, True)]
+    tied = [(t(np.full(n, 7, np.int64)), None, False), (t(np.full(n, -0.0)), None, True)]
+    few = np.zeros(n, bool)
+    few[rng.choice(n, min(3, n), replace=False)] = True
+    thin = t(rng.random(n) < 0.2)
+    build = {"mixed": lambda: (t(rng.random(n) < 0.8), mixed), "tied": lambda: (t(np.ones(n, bool)), tied),
+             "all_masked": lambda: (t(np.zeros(n, bool)), mixed[:3]), "few_in": lambda: (t(few), mixed[1:4]),
+             "nulls": lambda: (t(rng.random(n) < 0.9), [(t(rng.integers(0, 3, n)), thin, False),
+                                                        (t(specials), thin, True)])}
+    return [(name, *build[name]()) for name in names]
+
+
+# K7's k: one row, the main path's LIMIT 50, its ordering cap for up to
+# 5 keys, one past it (measure_sort_kernels checks the cap with the library)
+MULTI_KS = (1, 50, 4096, 4097)
 
 
 def group_cases(dev, rng, n: int):
@@ -2353,7 +2378,8 @@ def sort_grouped_cases(dev, rng, r: int, sizes, kinds):
     INT64_MIN / INT64_MAX - 1 with many ties, floats with NaN, ±inf, ±0.0
     and subnormals; NULL keys; both orders; k below the width and at it —
     a LIMIT past the width reaches K6 as k = width, the engine's clamp,
-    which check_limit_past_width holds on the card), K7 with K8 after it (every key kind, uint64 and NULLs), K9
+    which check_limit_past_width holds on the card), K7 (every key kind, uint64 and NULLs; k = 1, 50 and past
+    the width: the engine's clamp takes the width), K9
     (sorted int keys whose group counts differ by task, NULL-able int and
     float keys, uint64 and dict-code keys, the int64 limits) with K4's
     segment-lane mode over its ids, and K8's task-leading mode alone (every
@@ -2363,12 +2389,9 @@ def sort_grouped_cases(dev, rng, r: int, sizes, kinds):
     multi-tile."""
     import torch
 
-    from tidb_tpu_torch.kernels import SegLane, lex_sort_perm_ref, seg_agg_ref, topk_ref, topn_multi_ops_ref
+    from tidb_tpu_torch.kernels import SegLane, lex_sort_perm_ref, seg_agg_ref, topk_ref
     from tidb_tpu_torch.kernels.grouped import (_cut, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks,
-                                                topk_tasks, topn_multi_ops_tasks)
-
-    def bits(x):
-        return x.view(torch.int64) if x.dtype == torch.float64 else x
+                                                topk_tasks)
 
     cases = []
     for t, rr, w in group_shapes(r):
@@ -2397,17 +2420,9 @@ def sort_grouped_cases(dev, rng, r: int, sizes, kinds):
                          (_sort_key_lane(dev, rng, n, "u64"), None, False),
                          (_sort_key_lane(dev, rng, n, "limits"), v, True)] for v in valids]
 
-                def k7(keys=keys, masks=masks, w=w, G=G):
-                    ops = topn_multi_ops_tasks(masks, keys, w)
-                    perm = lex_sort_perm_tasks(ops, w)
-                    for g in range(G):
-                        want = topn_multi_ops_ref(_cut(masks[g], w), [(_cut(d, w), _cut(v, w), s) for d, v, s in keys[g]])
-                        for j, (o, wo) in enumerate(zip(ops, want)):
-                            if o.kind != wo.kind:
-                                raise AssertionError(f"operand {j}: kind {o.kind} vs {wo.kind}")
-                            _same(bits(o.data[g * w:(g + 1) * w]), bits(wo.data), f"task {g} operand {j}")
-                        _same(perm[g * w:(g + 1) * w] - g * w, lex_sort_perm_ref(want), f"task {g} perm")
-                cases.append((f"topn_multi_tasks {tag}", k7))
+                for k in (1, min(50, w), w + 5):
+                    cases.append((f"topn_multi_tasks k={k} {tag}",
+                                  lambda keys=keys, masks=masks, w=w, k=k: _k7_tasks(masks, keys, k, w)))
             if "sort_groups" in kinds:
                 for case, spec in (("orderkey", [("orderkey", False)]), ("nullable_int_float", [("ints", True), ("floats", True)]),
                                    ("u64_codes", [("u64", False), ("codes", True)]), ("limits", [("limits", True)]),
@@ -2459,14 +2474,17 @@ EDGE_WIDTHS = (1000, 4095, 4097, 6145)
 
 
 def sort_edge_cases(dev, rng, G: int, widths=EDGE_WIDTHS):
-    """(name, fn) of K6's and K8's task modes at the edges of their
+    """(name, fn) of K6's, K7's and K8's task modes at the edges of their
     designs, G tasks of each width, against the solo plain versions task
     by task. K8: a 26-bit word (4-byte keys; 32 bits with the task field
     of 64 tasks), a 48-bit word (8-byte keys), a 2-bit key of ties. K6: an
     int64 price key, a key every row ties on, float keys with NaN, ±inf,
     ±0.0 and subnormals (NULL-able); k = 1, 100, the ordering cap and one
-    past it (K8 orders those) and k = width; random masks, the last task
-    (G > 1) all masked."""
+    past it (K8 orders those) and k = width. K7: multikey_topn's keys
+    (price DESC, a sorted orderkey, NULL-able linenumber-like codes), keys
+    every row ties on (the row id decides), NULL-able floats with int32
+    codes; k = 1, 50, its ordering cap, one past it (K8 orders those) and
+    past the width. Random masks, the last task (G > 1) all masked."""
     import numpy as np
     import torch
 
@@ -2506,7 +2524,31 @@ def sort_edge_cases(dev, rng, G: int, widths=EDGE_WIDTHS):
                         _same(gi[g], wi, f"task {g} rows")
                         _same(go[g], wo, f"task {g} ok bits")
                 cases.append((f"topk_tasks edge {case} desc={desc} k={k} {tag}", k6))
+        multi = {"multikey": [[(t(rng.integers(90000, 10500000, w)), None, True),
+                               (t(np.sort(rng.integers(1, w, w))), None, False),
+                               (t(rng.integers(1, 8, w).astype(np.int32)), v, False)] for v in valids],
+                 "tied": [[(t(np.full(w, 3, np.int64)), None, True), (t(np.full(w, 0.0)), None, False)]
+                          for _ in range(G)],
+                 "floats": [[(t(rng.choice(np.array(F_SPECIALS), w)), v, True),
+                             (t(rng.integers(-3, 3, w).astype(np.int32)), v, False)] for v in valids]}
+        for case, keys in multi.items():
+            for k in sorted({min(k, w + 1) for k in (*MULTI_KS, w + 1)}):
+                cases.append((f"topn_multi_tasks edge {case} k={k} {tag}",
+                              lambda keys=keys, masks=masks, w=w, k=k: _k7_tasks(masks, keys, k, w)))
     return cases
+
+
+def _k7_tasks(masks, keys, k: int, w: int) -> None:
+    """K7's task mode against its solo plain version task by task on the
+    narrowed lanes: rows and ok bits bit for bit."""
+    from tidb_tpu_torch.kernels import topn_multi_ref
+    from tidb_tpu_torch.kernels.grouped import _cut, topn_multi_tasks
+
+    gi, go = topn_multi_tasks(masks, keys, k, w)
+    for g in range(len(masks)):
+        wi, wo = topn_multi_ref(_cut(masks[g], w), [(_cut(d, w), _cut(v, w), s) for d, v, s in keys[g]], k)
+        _same(gi[g], wi, f"task {g} rows")
+        _same(go[g], wo, f"task {g} ok bits")
 
 
 def _k9_tasks(masks, keys, w: int) -> None:
@@ -2753,7 +2795,7 @@ def check_kernels(dev, rng) -> dict:
     from tidb_tpu_torch import kernels as K
     from tidb_tpu_torch.kernels import (decode_lane, decode_lane_ref, lex_sort_perm, lex_sort_perm_ref,
                                         seg_agg, seg_agg_ref, sort_groups, sort_groups_ref, topk, topk_ref,
-                                        topn_multi_ops, topn_multi_ops_ref)
+                                        topn_multi, topn_multi_ref)
 
     K.reset_launches()
     verdict = {name: 0.0 for name in K.launches()}
@@ -2815,15 +2857,14 @@ def check_kernels(dev, rng) -> dict:
                 _same(gi, wi, "rows")
                 _same(go, wo, "ok bits")
             case(f"topk {cname} n={n}", k6)
-        mask, keys = multi_cases(dev, rng, n)
-
-        def k7(mask=mask, keys=keys):
-            for j, (g, w) in enumerate(zip(topn_multi_ops(mask, keys), topn_multi_ops_ref(mask, keys))):
-                if g.kind != w.kind:
-                    raise AssertionError(f"operand {j}: kind {g.kind} vs {w.kind}")
-                gd, wd = (g.data.view(torch.int64), w.data.view(torch.int64)) if g.kind == "f64" else (g.data, w.data)
-                _same(gd, wd, f"operand {j}")
-        case(f"topn_multi n={n}", k7)
+        # the main path's n: the mixed keys only (the plain version sorts every row)
+        for cname, mask, keys in multi_cases(dev, rng, n, MULTI_CASES[:1] if n == T_MAIN * R_MAIN else MULTI_CASES):
+            for k in sorted({min(k, n + 1) for k in MULTI_KS}):
+                def k7(mask=mask, keys=keys, k=k):
+                    (gi, go), (wi, wo) = topn_multi(mask, keys, k), topn_multi_ref(mask, keys, k)
+                    _same(gi, wi, "rows")
+                    _same(go, wo, "ok bits")
+                case(f"topn_multi {cname} k={k} n={n}", k7)
         for cname, mask, keys, cap in group_cases(dev, rng, n):
             cap_of = gcap_escalation if cap is None else (lambda ng, cap=cap: cap)
             case(f"sort_groups {cname} n={n}",
@@ -2885,10 +2926,13 @@ QUERIES = (
     ("q6", "q6_dag", ("decode_lane", "expr_eval", "seg_agg")),
     ("checksum", "checksum_dag", ("decode_lane", "expr_eval", "seg_agg", "seg_agg_bitwise")),
     ("tpch_topn", "topn_dag", ("topk",)),
-    ("multikey_topn", "multikey_topn_dag", ("topn_multi", "lex_sort")),
+    ("multikey_topn", "multikey_topn_dag", ("topn_multi",)),
     ("q18_inner", "q18_inner_dag", ("lex_sort", "sort_groups", "seg_agg")),
 )
-SPIED = ("seg_agg", "topk", "topn_multi_ops", "lex_sort_perm", "sort_groups")
+# kernels a query's runs must not launch: K6 and K7 order their LIMIT 100 /
+# LIMIT 50 rows themselves, with no K8 sort
+NOT_LAUNCHED = {"tpch_topn": ("lex_sort",), "multikey_topn": ("lex_sort",)}
+SPIED = ("seg_agg", "topk", "topn_multi", "sort_groups")
 
 
 def _spy(engine, captured: dict) -> None:
@@ -3704,8 +3748,7 @@ TASK_MODES = {"decode_lane": "decode_lane_tasks", "expr_eval": "expr_eval_tasks"
 AGG_TASK_MODES = ("decode_lane_tasks", "expr_eval_tasks", "seg_agg_tasks")  # a filter / direct aggregation's
 SORT_SOLO = ("topk", "topn_multi", "sort_groups", "lex_sort")  # never launched inside a group
 # the task-grid wrappers the engine calls (copr/gpu_engine's names)
-SPIED_TASKS = ("decode_lanes_tasks", "seg_agg_tasks", "topk_tasks", "topn_multi_ops_tasks", "lex_sort_perm_tasks",
-               "sort_groups_tasks")
+SPIED_TASKS = ("decode_lanes_tasks", "seg_agg_tasks", "topk_tasks", "topn_multi_tasks", "sort_groups_tasks")
 
 
 class TaskSpy:
@@ -3768,6 +3811,16 @@ BURST_MIXES = (("point_agg", "point_agg_dag"), ("point_topn", "point_topn_dag"),
                ("point_topn_multi", "point_topn_multi_dag"))
 
 
+def in_kernel(dag) -> bool:
+    """Whether a TopN DAG's rows are ordered by K6 or K7 themselves: its
+    LIMIT within the kernel's ordering cap, so no K8 sort runs."""
+    from tidb_tpu_torch.kernels.topk import orders_in_kernel as k6_orders
+    from tidb_tpu_torch.kernels.topn_multi import orders_in_kernel as k7_orders
+
+    k, nkeys = dag.topn.n, len(dag.topn.by)
+    return k6_orders(k) if nkeys == 1 else k7_orders(k, nkeys)
+
+
 def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
     """tools/bench_sched.py's workload on the card: 64 tasks of 4,096 rows
     each, compression ON and OFF, for each mix of BURST_MIXES (point
@@ -3777,10 +3830,10 @@ def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
     (reps + 1) (64 threads through the LaunchBatcher). Every chunk must
     equal the serial one and the host engine's, bit for bit (the workload
     is all INT); `run_many` must form the gcap-64 group with one fetch,
-    launch each sort mode (K6's, K7's, K8's) that the serial runs' solo
+    launch each sort mode (K6's, K7's) that the serial runs' solo
     kernels need once for the group and no solo K6, K7, K8 or K9 inside
-    it — and for the point TopN (k = 10, which K6 orders itself) no K8 at
-    all, in the serial runs or in `run_many` (`k8_launches`) — the
+    it — and for both TopNs (k = 10, which K6 and K7 order themselves) no
+    K8 at all, in the serial runs or in `run_many` (`k8_launches`) — the
     batcher a multi-task launch and no group that fell back to solo
     execute, and each task mode whose solo
     kernel the serial runs launched must launch in `run_many` and in
@@ -3794,7 +3847,6 @@ def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
     from tidb_tpu_torch.copr.gpu_engine import TorchEngine
     from tidb_tpu_torch.copr.host_engine import execute_dag_host
     from tidb_tpu_torch.entry import concurrent, run_burst, run_many
-    from tidb_tpu_torch.kernels.topk import orders_in_kernel
     from tidb_tpu_torch.models import tpch
     from tidb_tpu_torch.sched import LaunchBatcher
 
@@ -3859,9 +3911,9 @@ def run_burst_path(dev, reps: int, card: str, out: dict) -> None:
             if not_once:
                 raise AssertionError(f"burst {key}: sort modes {not_once} not launched once for the group")
             k8 = {"serial": solo["lex_sort"], "run_many": grouped["lex_sort"] + grouped["lex_sort_tasks"]}
-            if mix == "point_topn" and orders_in_kernel(dag.topn.n) and any(k8.values()):
-                raise AssertionError(f"burst {key}: K8 launched {k8} for a TopN whose k = {dag.topn.n} K6 orders "
-                                     "itself")
+            if dag.topn is not None and in_kernel(dag) and any(k8.values()):
+                raise AssertionError(f"burst {key}: K8 launched {k8} for a TopN whose k = {dag.topn.n} "
+                                     f"{'K6' if len(dag.topn.by) == 1 else 'K7'} orders itself")
             n0, s0, c0 = _occupancy()
             f0, before = eng.fetches, K.launches()
             burst = []
@@ -4024,22 +4076,22 @@ def launch_classes(engine, pairs) -> tuple[int, int]:
 
 def run_regions_sorted_path(dev, regions, wants: dict, reps: int, card: str, out: dict) -> None:
     """The slice at full width: tpch_topn (K6's task mode), multikey_topn
-    (K7's + K8's) and Q18's subquery (K9's + K8's + K4's segment-lane
-    mode) over the main path's lineitem in its regions, through run_many:
-    the full regions form one launch group, the short last one launches
-    solo. The partials merge at the root (merged_regions), and each merged
-    answer must equal, in order, the query's one-batch answer (main.<q>,
-    held to the host engine). Per run: one fetch, the query's sort mode
-    and K8's task-leading mode launched once per group, its solo kernels
-    (K6 / K7 / K9, and K8) only for the solo region — and for tpch_topn
-    (LIMIT 100, within K6's ordering cap) no K8 at all. One cold run (the
-    TopNs upload every column), `reps` warm runs and one profiled run."""
+    (K7's) and Q18's subquery (K9's + K8's + K4's segment-lane mode) over
+    the main path's lineitem in its regions, through run_many: the full
+    regions form one launch group, the short last one launches solo. The
+    partials merge at the root (merged_regions), and each merged answer
+    must equal, in order, the query's one-batch answer (main.<q>, held to
+    the host engine). Per run: one fetch, the query's sort mode launched
+    once per group (with K8's task-leading mode for Q18's), its solo
+    kernels (K6 / K7 / K9, and K8 for K9) only for the solo region — and
+    for the TopNs (LIMIT 100 and 50, within K6's and K7's ordering caps)
+    no K8 at all. One cold run (the TopNs upload every column), `reps`
+    warm runs and one profiled run."""
     import torch
 
     from tidb_tpu_torch import kernels as K
     from tidb_tpu_torch.copr.gpu_engine import TorchEngine
     from tidb_tpu_torch.entry import run_many
-    from tidb_tpu_torch.kernels.topk import orders_in_kernel
     from tidb_tpu_torch.models import tpch
 
     out["regions_sorted"] = {}
@@ -4063,8 +4115,8 @@ def run_regions_sorted_path(dev, regions, wants: dict, reps: int, card: str, out
         calls = reps + 1
         moved = {k: c - before[k] for k, c in K.launches().items() if c - before[k]}
         groups, singles = launch_classes(eng, pairs)
-        # K6 orders its own rows up to its cap: then no K8 at all
-        k8 = 0 if mode == "topk_tasks" and orders_in_kernel(dag.topn.n) else 1
+        # K6 and K7 order their own rows up to their caps: then no K8 at all
+        k8 = 0 if dag.topn is not None and in_kernel(dag) else 1
         want = {mode: groups, "lex_sort_tasks": k8 * groups, solo_of[mode]: singles, "lex_sort": k8 * singles}
         if mode == "sort_groups_tasks":
             want["seg_agg_tasks"] = groups
@@ -4127,6 +4179,9 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
         idle = [k for k in needs if moved[k] == 0]
         if idle:
             raise AssertionError(f"{qname}: kernels {idle} were never launched")
+        stray = {k: moved[k] for k in NOT_LAUNCHED.get(qname, ()) if moved[k]}
+        if stray:
+            raise AssertionError(f"{qname}: kernels {stray} were launched")
         if engine.fallbacks:
             raise AssertionError(f"{qname}: {engine.fallbacks} host fallbacks on the main path")
         t = time.perf_counter()
@@ -4711,32 +4766,52 @@ def _k10_topk(calls):
 
 
 def _k10_multi(calls):
-    """K7's task mode over the captured calls, as _k10_decode."""
+    """K7's task mode over the captured calls, as _k10_decode (the kernels
+    alone: the select and its ordering over a prepared table), and the
+    nearest single PyTorch call: torch.topk(k, largest=False) along dim -1
+    of one packed word of the operands' varying bits per row, [G, width]
+    (it does less: no tie rule, no mask bits). The bytes are
+    k7_need_bytes of each task's narrowed lanes."""
     import torch
 
-    from tidb_tpu_torch.kernels import topn_multi_ops
-    from tidb_tpu_torch.kernels.grouped import (_cut, sort_op, topn_multi_ops_tasks, topn_multi_ops_tasks_prepare,
-                                                topn_multi_ops_tasks_ref)
+    from tidb_tpu_torch.kernels import topn_multi, topn_multi_ops_ref
+    from tidb_tpu_torch.kernels.grouped import (_cut, sort_op, topn_multi_tasks, topn_multi_tasks_prepare,
+                                                topn_multi_tasks_ref)
     from tidb_tpu_torch.kernels.tables import lane_table
 
-    err, nbytes, solo = 0.0, 0, []
-    for masks, keys, w in calls:
-        got, want = topn_multi_ops_tasks(masks, keys, w), topn_multi_ops_tasks_ref(masks, keys, w)
+    err, nbytes, solo, words = 0.0, 0, [], []
+    for masks, keys, k, w in calls:
+        (gi, go), (wi, wo) = topn_multi_tasks(masks, keys, k, w), topn_multi_tasks_ref(masks, keys, k, w)
         torch.cuda.synchronize()
-        for j, (g, wv) in enumerate(zip(got, want)):
-            _same(g.data.view(torch.int64) if g.kind == "f64" else g.data,
-                  wv.data.view(torch.int64) if wv.kind == "f64" else wv.data, f"topn_multi_tasks operand {j}")
+        _same(gi, wi, "topn_multi_tasks rows on the main path")
+        _same(go, wo, "topn_multi_tasks ok bits on the main path")
+        ops = []
         for m, ks in zip(masks, keys):
             cut = [(_cut(d, w), _cut(v, w), desc) for d, v, desc in ks]
-            solo.append((_cut(m, w), cut))
-            nbytes += _nbytes(_cut(m, w), *[getattr(d, "bits", d) for d, _, _ in cut], *[v for _, v, _ in cut])
-        nbytes += sum(_nbytes(o.data) for o in got)
-    gos = [topn_multi_ops_tasks_prepare(*c, c[0][0].device)[1] for c in calls]
-    return (lambda: [topn_multi_ops_tasks(*c) for c in calls], lambda: [topn_multi_ops_tasks_ref(*c) for c in calls],
-            lambda: [topn_multi_ops(*x) for x in solo], lambda: [go() for go in gos],
+            solo.append((_cut(m, w), cut, k))
+            nbytes += k7_need_bytes(_cut(m, w), cut, k)
+            ops.append(topn_multi_ops_ref(_cut(m, w), cut))
+        word = _packed_word([type(o)(torch.cat([p[q].data for p in ops]), o.kind) for q, o in enumerate(ops[0])])
+        words.append(None if word is None else (word.reshape(len(masks), -1), min(k, w)))
+    gos = [topn_multi_tasks_prepare(*c, c[0][0].device) for c in calls]
+    library = None if any(x is None for x in words) else (
+        lambda: [torch.topk(x, k, dim=-1, largest=False) for x, k in words])
+    return (lambda: [topn_multi_tasks(*c) for c in calls], lambda: [topn_multi_tasks_ref(*c) for c in calls],
+            lambda: [topn_multi(*x) for x in solo], lambda: [go() for go in gos],
             lambda: [lane_table(m, [[(sort_op(d), v) for d, v, _ in ks] for ks in keys], w, m[0].get_device(), "k7")
-                     for m, keys, w in calls],
-            nbytes, err, len(calls), len(calls[0][0]) if calls else 0, None)
+                     for m, keys, _, w in calls],
+            nbytes, err, len(calls), len(calls[0][0]) if calls else 0, library)
+
+
+def _k8_of_k9_tasks(calls) -> list:
+    """The (operands, task width) of the K8 task-leading sort each captured
+    K9 task-mode call makes (kernels/grouped.py's sort_launch)."""
+    grouped = importlib.import_module("tidb_tpu_torch.kernels.grouped")
+    out = []
+    for masks, keys, w in calls:
+        seen, _ = calls_inside(grouped, "sort_launch", lambda: grouped.sort_groups_tasks(masks, keys, w))
+        out += [(a[0], a[2]) for a, _ in seen]
+    return out
 
 
 def _k10_lexsort(calls):
@@ -4848,15 +4923,18 @@ def measure_grouped_kernels(main: dict, max_err: dict):
     the work K10 replaces — the solo kernel launched G times back to back
     on the same narrowed tensors (`solo_x_G_ms`: never used on the path)
     — and `kernel_ms`, the same launches alone over tables built
-    beforehand (`*_prepare`; for K6 the select and its ordering, for K9
-    the ops kernel, for K8 none: it has no table), so that `ms` less
-    `kernel_ms` is the wrappers' host work (and, for K8 and K9, their one
-    sync each; K6 within its ordering cap has none), of
-    which `host_tables_ms` builds the task tables. K6's, K8's and K9's
-    modes also give the nearest single PyTorch call (`library_ms`:
-    torch.topk over the [G, width] sort key; a batched stable torch.sort
-    over one packed word; torch.unique_consecutive over every task's
-    sorted key, the solo K9 row's yardstick). The kernels-line row of K1's and K4's modes is the
+    beforehand (`*_prepare`; for K6 and K7 the select and its ordering,
+    for K9 the ops kernel, for K8 none: it has no table), so that `ms`
+    less `kernel_ms` is the wrappers' host work (and, for K8 and K9, their
+    one sync each; K6 and K7 within their ordering caps have none), of
+    which `host_tables_ms` builds the task tables. K8's mode is timed on
+    the operands K9's mode hands it (Q18's subquery over the regions: the
+    multi-key TopN no longer sorts). The sort modes also give the nearest
+    single PyTorch call (`library_ms`: torch.topk over the [G, width] sort
+    key; torch.topk(largest=False) over one packed word of K7's operands;
+    a batched stable torch.sort over one packed word;
+    torch.unique_consecutive over every task's sorted key, the solo K9
+    row's yardstick). The kernels-line row of K1's and K4's modes is the
     burst's, the expression kernel's (which the point aggregation does not
     launch: its program has no work) Q1's regions', and the sort modes'
     the regions' (the slice at full width); K1's, the expression kernel's and K4's rows keep the
@@ -4869,12 +4947,14 @@ def measure_grouped_kernels(main: dict, max_err: dict):
     sources.update({f"regions.{q}": calls for q, calls in cap["regions_sorted"].items()})
     modes = (("decode_lane_tasks", "decode_lanes_tasks", _k10_decode), ("expr_eval_tasks", "expr_eval_tasks", _k10_expr),
              ("seg_agg_tasks", "seg_agg_tasks", _k10_seg), ("seg_agg_tasks segment-lane", "seg_agg_tasks", _k10_segs),
-             ("topk_tasks", "topk_tasks", _k10_topk), ("topn_multi_tasks", "topn_multi_ops_tasks", _k10_multi),
-             ("lex_sort_tasks", "lex_sort_perm_tasks", _k10_lexsort), ("sort_groups_tasks", "sort_groups_tasks", _k10_groups))
+             ("topk_tasks", "topk_tasks", _k10_topk), ("topn_multi_tasks", "topn_multi_tasks", _k10_multi),
+             ("lex_sort_tasks", "sort_groups_tasks", _k10_lexsort), ("sort_groups_tasks", "sort_groups_tasks", _k10_groups))
     report: dict = {}
     for src, calls in sources.items():
         for mode, spied, fn in modes:
             picked = task_args(calls, spied, keywords=mode.endswith("segment-lane"))
+            if mode == "lex_sort_tasks":  # K8's task-leading mode: the operands K9's mode hands it
+                picked = _k8_of_k9_tasks(picked)
             if not picked:
                 continue
             run, plain, solo, kernel, tables, nbytes, err, ncalls, G, *library = fn(picked)
@@ -4892,7 +4972,7 @@ def measure_grouped_kernels(main: dict, max_err: dict):
     rows = (("decode_lane_tasks", "burst", "decode_lane.cu"), ("expr_eval_tasks", "q1_regions", "expr_eval.cu"),
             ("seg_agg_tasks", "burst", "seg_agg.cu"), ("topk_tasks", "regions.tpch_topn", "topk.cu"),
             ("topn_multi_tasks", "regions.multikey_topn", "topn_multi.cu"),
-            ("lex_sort_tasks", "regions.multikey_topn", "lex_sort.cu"),
+            ("lex_sort_tasks", "regions.q18_inner", "lex_sort.cu"),
             ("sort_groups_tasks", "regions.q18_inner", "sort_groups.cu"))
     for mode, src, cu in rows:
         r = report[src][mode]
@@ -4940,6 +5020,40 @@ def _packed_word(ops):
     return word
 
 
+def k7_need_bytes(mask, keys, k: int) -> int:
+    """The bytes a multi-key TopN of k rows must move on this data: the
+    mask and the first key's lanes (data and valid) at every row; a later
+    key's lanes only at the rows still tied with the k-th row on every
+    operand before it, and at the k rows returned (to order them); the k
+    row ids and mask bits written. A later key read at every row (25
+    bytes a row on multikey_topn) is what a sort of every row needs, not
+    the TopN."""
+    import torch
+
+    from tidb_tpu_torch.kernels.lex_sort import lex_sort_perm_ref, ordered_key
+    from tidb_tpu_torch.kernels.topn_multi import topn_multi_ops_ref
+
+    n = mask.numel()
+    k = min(k, n)
+    if k == 0:
+        return 0
+    ops = topn_multi_ops_ref(mask, keys)
+    rows = lex_sort_perm_ref(ops)[:k].long()
+    picked = torch.zeros_like(mask)
+    picked[rows] = True
+
+    def at_kth(op):
+        o = ordered_key(op)
+        return o == o[rows[-1]]
+
+    tied, total = at_kth(ops[0]), _nbytes(mask) + 9 * k
+    for j, (d, v, _) in enumerate(keys):
+        row_bytes = sum(t.element_size() for t in (getattr(d, "bits", d), v) if t is not None)
+        total += row_bytes * (n if j == 0 else int((tied | picked).sum()))
+        tied &= at_kth(ops[1 + 2 * j]) & at_kth(ops[2 + 2 * j])
+    return total
+
+
 def calls_inside(module, name: str, fn) -> tuple[list, float]:
     """(the (args, kwargs) of every call of `module.name` — a kernel
     wrapper another kernel's module imports by name — that one fn() makes,
@@ -4980,8 +5094,10 @@ def measure_sort_kernels(main: dict, max_err: dict):
     import torch
 
     from tidb_tpu_torch.kernels import (lex_sort_perm, lex_sort_perm_ref, seg_agg, seg_agg_ref, sort_groups,
-                                        sort_groups_ref, topk, topk_ref, topn_multi_ops, topn_multi_ops_ref)
+                                        sort_groups_ref, topk, topk_ref, topn_multi, topn_multi_ops_ref, topn_multi_ref)
     from tidb_tpu_torch.kernels.topk import orders_in_kernel, select_prepare, sort_key
+    from tidb_tpu_torch.kernels.topn_multi import _ops_in, order_cap
+    from tidb_tpu_torch.kernels.topn_multi import select_prepare as multi_prepare
 
     cap = main["captured"]
     bound = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
@@ -5003,23 +5119,30 @@ def measure_sort_kernels(main: dict, max_err: dict):
           "select_ms": time_ms(select), "prepare_host_ms": host_ms(lambda: topk_select(d, v, m, desc, k)),
           "rows": d.numel(), "k": k, "desc": desc, "ordered_in_kernel": orders_in_kernel(k)}
 
-    (mask, keys), _ = cap["multikey_topn"]["topn_multi_ops"]
-    got, want = topn_multi_ops(mask, keys), topn_multi_ops_ref(mask, keys)
-    torch.cuda.synchronize()
-    for j, (g, w) in enumerate(zip(got, want)):
-        _same(g.data.view(torch.int64) if g.kind == "f64" else g.data,
-              w.data.view(torch.int64) if w.kind == "f64" else w.data, f"topn_multi operand {j}")
-    k7_in = _nbytes(mask, *_pairs((getattr(kd, "bits", kd), kv) for kd, kv, _ in keys))
-    k7 = {"ms": time_ms(lambda: topn_multi_ops(mask, keys)),
-          "plain_ms": time_ms(lambda: topn_multi_ops_ref(mask, keys), 3),
-          "bytes": k7_in + sum(_nbytes(o.data) for o in got), "keys": len(keys)}
-
-    (ops,), _ = cap["multikey_topn"]["lex_sort_perm"]
-    _same(lex_sort_perm(ops), lex_sort_perm_ref(ops), "lex_sort on multikey_topn")
-    word = _packed_word(ops)
-    k8 = {"ms": time_ms(lambda: lex_sort_perm(ops)), "plain_ms": time_ms(lambda: lex_sort_perm_ref(ops), 3),
-          "library_ms": None if word is None else time_ms(lambda: torch.argsort(word, stable=True)),
-          "bytes": sum(_nbytes(o.data) for o in ops) + 4 * ops[0].data.numel(), "operands": len(ops)}
+    (mask, keys, k), _ = cap["multikey_topn"]["topn_multi"]
+    caps = [order_cap(nk) for nk in range(1, 6)]
+    if caps != [MULTI_KS[2]] * 5:
+        raise AssertionError(f"K7's ordering cap for 1-5 keys is {caps}: MULTI_KS no longer straddles it")
+    # the main path's inputs at its k and MULTI_KS's: one row, K7's
+    # ordering cap and one past it (K8 orders those)
+    for kk in sorted({k, *MULTI_KS}):
+        (gi, go), (wi, wo) = topn_multi(mask, keys, kk), topn_multi_ref(mask, keys, kk)
+        torch.cuda.synchronize()
+        _same(gi, wi, f"topn_multi rows on multikey_topn, k={kk}")
+        _same(go, wo, f"topn_multi ok bits on multikey_topn, k={kk}")
+    # every key's lanes at every row (what a sort of every row reads): context beside the bound
+    k7_all = _nbytes(mask, *_pairs((getattr(kd, "bits", kd), kv) for kd, kv, _ in keys)) + 9 * k
+    word7 = _packed_word(topn_multi_ops_ref(mask, keys))
+    n7, checked = _ops_in(mask, keys)
+    select7 = multi_prepare([mask], [checked], k, n7, mask.device)
+    k7 = {"ms": time_ms(lambda: topn_multi(mask, keys, k)), "plain_ms": time_ms(lambda: topn_multi_ref(mask, keys, k), 3),
+          "library_ms": None if word7 is None else time_ms(lambda: torch.topk(word7, k, largest=False)),
+          "library_call": "torch.topk(k, largest=False) of one packed word of the operands' varying bits (no tie "
+                          "rule, no mask bits)",
+          "kernels_ms": time_ms(select7), "bytes": k7_need_bytes(mask, keys, k), "all_keys_bytes": k7_all, "keys": len(keys), "k": k, "rows": n7,
+          # a profiled session can miss a kernel: the one that saw the most
+          **max((kernel_split(lambda: topn_multi(mask, keys, k)) for _ in range(3)),
+                key=lambda x: x.get("launches") or 0)}
 
     (mask, keys, cap_of), _ = cap["q18_inner"]["sort_groups"]
     g, w = sort_groups(mask, keys, cap_of), sort_groups_ref(mask, keys, cap_of)
@@ -5039,6 +5162,16 @@ def measure_sort_kernels(main: dict, max_err: dict):
           + 4 * mask.numel() + 16 * len(keys) * g.n_groups,
           "n_groups": g.n_groups, "cap": g.cap,
           "note": "ms includes K8 over the masked-in rows (k8_ms) and two syncs (their count, then n_groups)"}
+
+    # K8 on the main path: the operands K9 hands it on Q18's subquery (the
+    # multi-key TopN no longer sorts)
+    ops = k9_ops[0]
+    _same(lex_sort_perm(ops), lex_sort_perm_ref(ops), "lex_sort on q18_inner's kept rows")
+    word = _packed_word(ops)
+    k8 = {"ms": time_ms(lambda: lex_sort_perm(ops)), "plain_ms": time_ms(lambda: lex_sort_perm_ref(ops), 3),
+          "library_ms": None if word is None else time_ms(lambda: torch.argsort(word, stable=True)),
+          "bytes": sum(_nbytes(o.data) for o in ops) + 4 * ops[0].data.numel(), "operands": len(ops),
+          "rows": ops[0].data.numel(), "on": "q18_inner"}
 
     (mask, no_keys, lanes, nseg), kw = cap["q18_inner"]["seg_agg"]
     seg = kw["seg"]
@@ -5064,7 +5197,7 @@ def measure_sort_kernels(main: dict, max_err: dict):
                 "max_abs_err": max_err[name], "ms": meas["ms"], "plain_ms": meas["plain_ms"],
                 "bound_ms": bound(meas["bytes"]), "bound_by": "bytes", "library_ms": meas.get("library_ms")}
 
-    return ([entry("topk", "topk.cu", 1759, k6), entry("topn_multi", "topn_multi.cu", 1812, k7),
+    return ([entry("topk", "topk.cu", 1759, k6), entry("topn_multi", "topn_multi.cu", 1796, k7),
              entry("lex_sort", "lex_sort.cu", 195, k8), entry("sort_groups", "sort_groups.cu", 1351, k9)],
             {"topk": k6, "topn_multi": k7, "lex_sort": k8, "sort_groups": k9, "seg_agg_segment_lane": k4s})
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Profile K8 (csrc/lex_sort.cu), K6 (csrc/topk.cu) and K9
-(csrc/sort_groups.cu) on one NVIDIA GPU.
+"""Profile K8 (csrc/lex_sort.cu), K6 (csrc/topk.cu), K7
+(csrc/topn_multi.cu) and K9 (csrc/sort_groups.cu) on one NVIDIA GPU.
 
-    python3 sort_profile.py [--seed 3] [--tree DIR ...] [--only k9] [--rows 16000000] [--reps 3]
+    python3 sort_profile.py [--seed 3] [--tree DIR ...] [--only k9|k7|k68] [--rows 16000000] [--reps 3]
+                            [--turns 1] [--reads 3]
 
 chip_smoke.py holds the kernels to their plain versions and times them on
 the main path's own inputs, late in one long process. This script adds
@@ -13,9 +14,9 @@ what that run cannot show, each as one JSON line:
             16M rows (k = 100, a padded tail masked) and 7 x 2,097,152,
             beside torch.argsort / torch.topk on the same data; and both
             task modes on tools/bench_sched.py's burst groups (64 tasks x
-            4,096 rows, captured from one run_many), where a call is
-            host-bound: `ms` is the call, `device_ms` the card's busy time
-            in it (torch.profiler);
+            4,096 rows, captured from one run_many; K7's mode on the
+            multi-key TopN's), where a call is host-bound: `ms` is the
+            call, `device_ms` the card's busy time in it (torch.profiler);
   phases  — the cycles one tile of K8's pass spends in each phase, read
             with clock64() by thread 0 of every tile and summed over the 7
             passes of a 16M-row multikey sort, from a copy of
@@ -34,7 +35,32 @@ what that run cannot show, each as one JSON line:
             `k8_device_ms`, its kernels in one profiled call), the device
             time by kernel of one profiled call.
 
---only k9 runs the k9 turns alone. It checks every output it times
+  k7      — for this checkout and each --tree, in turns as k9's: the
+            multi-key TopN's sort phase — multikey_topn through run_query
+            over --rows lineitem rows (its wall and `sort` span, median of
+            --reps warm runs), its one sort call on the query's own inputs
+            (`solo`: K7's select, or an earlier tree's K7 operand kernel
+            and K8 over every row), the regions' group (`regions`, 7 x
+            2,097,152 rows) and the point multi-key TopN burst's group
+            (`burst`, 64 x 4,096 rows) as the engine calls them: `ms` (CUDA
+            events over 10 calls), `host_ms`, the device time and launches
+            of one profiled call by kernel; beside them
+            torch.topk(k, largest=False) of one packed word of the
+            operands' varying bits (`topk_word_ms`, the nearest single
+            call: it does less) and the bytes bound (chip_smoke.py's
+            k7_need_bytes on the call's data: the mask and the first key
+            at every row, a later key only where the rows still tie); and
+            K6 and K8 on their own 16M-row calls (`k6_16M_k100`,
+            `k8_multikey_16M`), which the slice must leave unchanged;
+  k68     — only with --only k68, in turns as k9's: K8's and K6's calls
+            of k7 alone, --reads readings each of `ms` and `device_ms`
+            (torch.profiler, 5 calls) in every turn, and the ptxas lines
+            (registers, stack, spills) and a digest of each kernel's SASS
+            (cuobjdump) of each tree's lex_sort.cu and topk.cu build;
+            `sass_same` says whether every tree built the same code.
+
+--only k9 / k7 / k68 runs those turns alone; --turns repeats the trees
+and their reverse that many times. It checks every output it times
 against the plain version first. Without
 a card, or without the repository beside it, it exits non-zero.
 """
@@ -106,7 +132,7 @@ def times(seed: int) -> dict:
     from tidb_tpu_torch.copr.gpu_engine import TorchEngine
     from tidb_tpu_torch.entry import run_many
     from tidb_tpu_torch.kernels.grouped import (lex_sort_perm_tasks, lex_sort_perm_tasks_ref, topk_tasks,
-                                                topk_tasks_ref)
+                                                topk_tasks_ref, topn_multi_tasks, topn_multi_tasks_ref)
     from tidb_tpu_torch.kernels.topk import sort_key
     from tidb_tpu_torch.models import tpch
 
@@ -140,8 +166,8 @@ def times(seed: int) -> dict:
                                "topk_ms": cs.time_ms(lambda: torch.topk(keys2d, 100, dim=-1))}
     batches = tpch.point_agg_table(cs.N_TASKS, cs.ROWS_PER_TASK)
     for builder, name, mode, ref in (("point_topn_dag", "k10_k6_burst", topk_tasks, topk_tasks_ref),
-                                     ("point_topn_multi_dag", "k10_k8_burst", lex_sort_perm_tasks,
-                                      lex_sort_perm_tasks_ref)):
+                                     ("point_topn_multi_dag", "k10_k7_burst", topn_multi_tasks,
+                                      topn_multi_tasks_ref)):
         with cs.TaskSpy() as spy:
             run_many([(getattr(tpch, builder)(), b) for b in batches], dev, TorchEngine(dev))
         (args,) = cs.task_args(spy.calls, mode.__name__)
@@ -265,11 +291,222 @@ def k9(rows: int, reps: int) -> dict:
     return out
 
 
-def k9_worker(tree: str, rows: int, reps: int) -> dict:
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--k9-of", tree, "--rows", str(rows), "--reps",
-                        str(reps)], capture_output=True, text=True, cwd=tree)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _multi_sorter(cs):
+    """(solo, tasks): the tree's multi-key TopN sort as the engine calls it
+    — (mask, keys, k) → (idx, ok) and (masks, keys, k, width) → ([G, k]
+    idx, ok) — with the spied names of its calls: K7's select in this
+    slice, K7's operand kernel and K8 over every row before it."""
+    import torch
+
+    from tidb_tpu_torch.kernels import grouped
+
+    if "topn_multi_tasks" in cs.SPIED_TASKS:
+        from tidb_tpu_torch.kernels import topn_multi
+
+        return ("topn_multi", lambda m, ks, k: topn_multi(m, ks, k)), (
+            "topn_multi_tasks", lambda ms, kss, k, w: grouped.topn_multi_tasks(ms, kss, k, w))
+    from tidb_tpu_torch.kernels import lex_sort_perm, topn_multi_ops
+
+    def solo(m, ks, k):
+        ops = topn_multi_ops(m, ks)
+        idx = lex_sort_perm(ops)[:k].long()
+        return idx, ops[0].data[idx] == 0
+
+    def tasks(ms, kss, k, w):
+        ops = grouped.topn_multi_ops_tasks(ms, kss, w)
+        G = len(ms)
+        rows = grouped.lex_sort_perm_tasks(ops, w).long().reshape(G, w)[:, :k]
+        return rows - torch.arange(G, device=rows.device)[:, None] * w, ops[0].data[rows] == 0
+
+    return ("topn_multi_ops", solo), ("topn_multi_ops_tasks", tasks)
+
+
+def _here_smoke():
+    """This checkout's chip_smoke.py (a worker rooted in another tree
+    imports that tree's as `cs`): its k7_need_bytes is the bound of every
+    tree's call on the same data."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _k7_call(cs, fn, check, word, k: int, nbytes: int) -> dict:
+    import torch
+
+    check(fn())
+    # a profiled session can miss a kernel (late in a process): the session that saw the most
+    split = max((cs.kernel_split(fn) for _ in range(3)), key=lambda x: x.get("launches") or 0)
+    sm = split.get("split_ms") or {}
+    return {"ms": cs.time_ms(fn), "host_ms": _host_ms(fn), "device_ms": sum(sm.values()) if sm else None, **split,
+            "topk_word_ms": None if word is None else cs.time_ms(lambda: torch.topk(word, k, dim=-1, largest=False)),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def k7(rows: int, reps: int, seed: int) -> dict:
+    """One tree's K7 measurements (module doc), in this process."""
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.entry import batch_from_numpy, run_many, run_query
+    from tidb_tpu_torch.kernels.grouped import _cut
+    from tidb_tpu_torch.kernels.lex_sort import lex_sort_perm_ref
+    from tidb_tpu_torch.kernels.topn_multi import topn_multi_ops_ref
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.torchenv import PhaseTimer
+
+    (solo_name, solo), (tasks_name, tasks) = _multi_sorter(cs)
+    dev, out = torch.device("cuda"), {}
+
+    def ref(m, ks, k):
+        idx = lex_sort_perm_ref(topn_multi_ops_ref(m, ks))[:k].long()
+        return idx, m[idx]
+
+    need = _here_smoke().k7_need_bytes
+
+    batch = batch_from_numpy(tpch.LINEITEM, tpch.gen_lineitem(rows, 42))
+    dag = tpch.multikey_topn_dag()
+    eng, captured = TorchEngine(dev), {}
+
+    def spy(*a, _fn=getattr(eng, solo_name), **kw):
+        captured["args"] = a
+        return _fn(*a, **kw)
+    setattr(eng, solo_name, spy)
+    runs = []
+    for _ in range(reps + 1):
+        eng.timer = PhaseTimer(eng.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_query(dag, batch, device=dev, engine=eng)
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t) * 1e3, eng.timer.totals_ms()))
+    warm = sorted(runs[1:], key=lambda r: r[0])
+    out["multikey_topn"] = {"rows": rows, "wall_ms": warm[len(warm) // 2][0], "walls_ms": [r[0] for r in warm],
+                            "spans_ms": warm[len(warm) // 2][1]}
+    mask, keys = captured["args"][:2]
+    k = min(dag.topn.n, mask.numel())
+
+    def check_solo(got, m=mask, ks=keys, k=k):
+        want = ref(m, ks, k)
+        cs._same(got[0], want[0], "K7 rows")
+        cs._same(got[1], want[1], "K7 ok bits")
+
+    word = cs._packed_word(topn_multi_ops_ref(mask, keys))
+    out["solo"] = {"n": mask.numel(), "k": k, **_k7_call(cs, lambda: solo(mask, keys, k), check_solo, word, k,
+                                                           need(mask, keys, k))}
+    # the reference's regions (a smaller --rows cut at an eighth, to form a group)
+    groups = {"regions": [(dag, r) for r in tpch.region_batches(batch, min(1 << 21, max(rows // 8, 1)))],
+              "burst": [(tpch.point_topn_multi_dag(), b) for b in tpch.point_agg_table(cs.N_TASKS, cs.ROWS_PER_TASK)]}
+    for gname, pairs in groups.items():
+        eng2 = TorchEngine(dev)
+        run_many(pairs, dev, eng2)  # the cold run uploads the lanes
+        with cs.TaskSpy() as tspy:
+            run_many(pairs, dev, eng2)
+        (args,) = cs.task_args(tspy.calls, tasks_name)
+        ms, kss, w = args[0], args[1], args[-1]
+        kt = min(pairs[0][0].topn.n, w)
+
+        def check_tasks(got, ms=ms, kss=kss, w=w, kt=kt):
+            for g, (m, ks) in enumerate(zip(ms, kss)):
+                want = ref(_cut(m, w), [(_cut(d, w), _cut(v, w), s) for d, v, s in ks], kt)
+                cs._same(got[0][g], want[0], f"K7 task {g} rows")
+                cs._same(got[1][g], want[1], f"K7 task {g} ok bits")
+
+        ops = [topn_multi_ops_ref(_cut(m, w), [(_cut(d, w), _cut(v, w), s) for d, v, s in ks]) for m, ks in zip(ms, kss)]
+        gword = cs._packed_word([type(o)(torch.cat([p[q].data for p in ops]), o.kind) for q, o in enumerate(ops[0])])
+        nbytes = sum(need(_cut(m, w), [(_cut(d, w), _cut(v, w), s) for d, v, s in ks], kt) for m, ks in zip(ms, kss))
+        out[gname] = {"tasks": len(ms), "width": w, "k": kt,
+                      **_k7_call(cs, lambda: tasks(ms, kss, kt, w), check_tasks,
+                                 None if gword is None else gword.reshape(len(ms), w), kt, nbytes)}
+    # K6 and K8 on their own calls (the slice leaves them as they were)
+    for name, fn in _k68_calls(cs, seed).items():
+        out[name] = {"ms": cs.time_ms(fn)}
+    return out
+
+
+def _k68_calls(cs, seed: int) -> dict:
+    """{name: call} of K8 on a multikey_topn-like operand set of 16M rows
+    and K6 over 16,056,320 rows (k = 100, the padded tail masked), each
+    held to its plain version once."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(seed)
+    (_, sops), = cs.sort_cases("cuda", rng, 16_000_000, ("multikey_topn",))
+    cs._same(K.lex_sort_perm(sops), K.lex_sort_perm_ref(sops), "K8 multikey")
+    n = 16_056_320
+    m6 = torch.ones(n, dtype=torch.bool, device="cuda")
+    m6[16_000_000:] = False
+    price = torch.from_numpy(rng.integers(90000, 10500000, n)).cuda()
+    cs._same(K.topk(price, None, m6, True, 100)[0], K.topk_ref(price, None, m6, True, 100)[0], "K6 16M")
+    return {"k8_multikey_16M": lambda: K.lex_sort_perm(sops),
+            "k6_16M_k100": lambda: K.topk(price, None, m6, True, 100)}
+
+
+def _ptxas(stems) -> dict:
+    """{stem: the ptxas lines of its last build in this tree — each kernel's
+    registers, stack and spills}."""
+    from tidb_tpu_torch.kernels.build import BUILD_DIR, build_all
+
+    build_all()
+    out = {}
+    for stem in stems:
+        log = BUILD_DIR / f"{stem}.log"
+        lines = log.read_text().splitlines() if log.exists() else []
+        out[stem] = [" ".join(x.split()) for x in lines
+                     if "Compiling entry" in x or "Used" in x or "spill" in x]
+    return out
+
+
+def _sass(stems) -> dict:
+    """{stem: {kernel: a digest of its SASS}} of this tree's build
+    (cuobjdump beside nvcc; instruction addresses and the anonymous
+    namespace's hash left out), so two trees' kernels compare as code."""
+    import hashlib
+    import re
+
+    from tidb_tpu_torch.kernels.build import CSRC, _target, nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = {}
+    for stem in stems:
+        text = subprocess.run([tool, "-sass", str(_target(CSRC / f"{stem}.cu"))], capture_output=True, text=True,
+                              check=True).stdout
+        text = re.sub(r"/\*[0-9a-f]{4,5}\*/", "", re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", text))
+        parts = re.split(r"^\s*Function : (\S+)$", text, flags=re.M)
+        out[stem] = {name: hashlib.sha256(body.encode()).hexdigest()[:16]
+                     for name, body in zip(parts[1::2], parts[2::2])}
+    return out
+
+
+def k68(seed: int, reads: int) -> dict:
+    """One tree's K8 and K6 readings (module doc), in this process."""
+    import chip_smoke as cs
+
+    out = {}
+    for name, fn in _k68_calls(cs, seed).items():
+        out[name] = {"ms": [cs.time_ms(fn) for _ in range(reads)], "device_ms": [device_ms(fn) for _ in range(reads)]}
+    out["ptxas"] = _ptxas(("lex_sort", "topk"))
+    out["sass"] = _sass(("lex_sort", "topk"))
+    return out
+
+
+def worker(kind: str, tree: str, args) -> dict:
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), f"--{kind}-of", tree, "--rows", str(args.rows),
+                        "--reps", str(args.reps), "--reads", str(args.reads), "--seed", str(args.seed)],
+                       capture_output=True, text=True, cwd=tree)
     if r.returncode != 0:
-        raise RuntimeError(f"sort_profile: the K9 run in {tree} failed (exit {r.returncode}):\n{r.stderr[-4000:]}")
+        raise RuntimeError(f"sort_profile: the {kind} run in {tree} failed (exit {r.returncode}):\n{r.stderr[-4000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
@@ -278,9 +515,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--rows", type=int, default=16_000_000)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--tree", action="append", default=[], help="another checkout, its K9 timed in turns with this one")
-    ap.add_argument("--only", choices=("", "k9"), default="", help="k9: the K9 turns alone")
+    ap.add_argument("--turns", type=int, default=1, help="the trees, then in reverse order, this many times")
+    ap.add_argument("--reads", type=int, default=3, help="k68: readings of each call in each turn")
+    ap.add_argument("--tree", action="append", default=[],
+                    help="another checkout, its K9 and K7 timed in turns with this one")
+    ap.add_argument("--only", choices=("", "k9", "k7", "k68"), default="", help="k9 / k7 / k68: those turns alone")
     ap.add_argument("--k9-of", help=argparse.SUPPRESS)  # the worker: one tree's K9 measurements
+    ap.add_argument("--k7-of", help=argparse.SUPPRESS)  # the worker: one tree's K7 measurements
+    ap.add_argument("--k68-of", help=argparse.SUPPRESS)  # the worker: one tree's K6 and K8 readings
     args = ap.parse_args(argv)
     try:
         import torch
@@ -291,13 +533,19 @@ def main(argv=None) -> int:
         print("sort_profile: FAILED: torch.cuda.is_available() is False: this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    root = os.path.abspath(args.k9_of or ROOT)
+    root = os.path.abspath(args.k9_of or args.k7_of or args.k68_of or ROOT)
     if not os.path.isdir(os.path.join(root, "tidb_tpu_torch")):
         print(f"sort_profile: FAILED: no tidb_tpu_torch/ in {root}: run it from the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, root)
     if args.k9_of:
         print(json.dumps(k9(args.rows, args.reps)), flush=True)
+        return 0
+    if args.k7_of:
+        print(json.dumps(k7(args.rows, args.reps, args.seed)), flush=True)
+        return 0
+    if args.k68_of:
+        print(json.dumps(k68(args.seed, args.reads)), flush=True)
         return 0
     import chip_smoke as cs
 
@@ -306,9 +554,15 @@ def main(argv=None) -> int:
         print(json.dumps({"phase": "times", **times(args.seed), "card": card}), flush=True)
         print(json.dumps({"phase": "phases", **phases(args.seed), "card": card}), flush=True)
     trees = [os.path.abspath(t) for t in args.tree] + [ROOT]
-    runs = [(t, k9_worker(t, args.rows, args.reps)) for t in trees + trees[::-1]]
-    print(json.dumps({"phase": "k9", "runs": [{"tree": os.path.relpath(t, ROOT), **r} for t, r in runs],
-                      "card": card}), flush=True)
+    for kind in ("k9", "k7", "k68"):
+        if args.only == kind or (not args.only and kind != "k68"):
+            runs = [(t, worker(kind, t, args)) for t in (trees + trees[::-1]) * args.turns]
+            extra = {}
+            if kind == "k68":  # each stem's kernels the same code in every tree
+                sass = [r["sass"] for _, r in runs]
+                extra["sass_same"] = {stem: all(x[stem] == sass[0][stem] for x in sass) for stem in sass[0]}
+            print(json.dumps({"phase": kind, "runs": [{"tree": os.path.relpath(t, ROOT), **r} for t, r in runs],
+                              **extra, "card": card}), flush=True)
     return 0
 
 

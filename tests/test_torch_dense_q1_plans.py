@@ -398,7 +398,9 @@ def test_wrappers_take_the_cached_sm_count(module):
 
 
 @pytest.mark.parametrize("script,args", [("mpp_profile.py", ["--only", "p8"]), ("mpp_profile.py", ["--only", "m1"]),
-                                         ("mesh_stress.py", ["--query", "seg_revenue", "--iters", "1"])])
+                                         ("mesh_stress.py", ["--query", "seg_revenue", "--iters", "1"]),
+                                         ("sort_profile.py", ["--only", "k7"]),
+                                         ("sort_profile.py", ["--only", "k68", "--turns", "3", "--reads", "3"])])
 def test_profile_modes_without_a_card_exit_non_zero(script, args):
     out = subprocess.run([sys.executable, str(ROOT / script), *args], capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and not out.stdout.strip()

@@ -4,7 +4,9 @@
   to on the card — run here, where each wrapper takes its plain version:
   each task mode equals the SOLO plain version run task by task on the
   task's narrowed inputs, for every codec, G and width case; so do
-  chip_smoke.sort_edge_cases (K6's and K8's modes at their designs' edges);
+  chip_smoke.sort_edge_cases (K6's, K7's and K8's modes at their designs'
+  edges); K7's mode equals the reference's _lower_topn_multi program task
+  by task and a numpy lexsort;
 * models/tpch.point_agg_dag equals the DAG the reference Session pushes
   for tools/bench_sched.py's point aggregation;
 * Q1 over lineitem cut into regions (models/tpch.region_batches), run
@@ -49,13 +51,76 @@ def test_task_modes_equal_the_solo_plain_versions(kind, G):
     assert not failed, "\n".join(failed)
 
 
+def _ref_topn_multi(m, spec, k):
+    """The reference's _lower_topn_multi program body (tpu_engine.py:1812-1830)
+    on one task's lanes: its operands, lex_sort_perm, the first min(k, rows)
+    row ids and their mask bits."""
+    from tidb_tpu.copr.tpu_engine import lex_sort_perm
+    from tidb_tpu.jaxenv import jnp
+
+    ops = [(~jnp.asarray(m)).astype(jnp.int32)]
+    for d, v, desc in spec:
+        d, v = jnp.asarray(d), jnp.asarray(v)
+        dd = jnp.where(v, d, jnp.zeros((), d.dtype))
+        if desc:
+            dd = -dd if jnp.issubdtype(d.dtype, jnp.floating) else ~dd
+        ops += [(jnp.where(v, 0, 1) if desc else jnp.where(v, 1, 0)).astype(jnp.int32), dd]
+    perm = lex_sort_perm(ops)
+    rows = min(k, len(m))
+    return np.asarray(perm[:rows]), np.asarray(ops[0][perm][:rows] == 0)
+
+
+@pytest.mark.parametrize("k", [1, 50, 1005])
+def test_topn_multi_tasks_match_the_reference_program_per_task(k):
+    """K7's task mode (its plain version here) on three tasks narrowed to a
+    width of 1,000 rows — int32 codes ASC, floats with ±0.0, NaN, ±inf and
+    subnormals DESC, uint64 with the top bit set, NULLs in every key, one
+    task all masked, k past the width — returns each task's reference rows
+    and mask bits bit for bit, and a numpy lexsort's rows."""
+    import torch
+
+    from tidb_tpu_torch.expr.xp_torch import U64
+    from tidb_tpu_torch.kernels.grouped import topn_multi_tasks
+
+    rng = np.random.default_rng(k)
+    n, w = 1200, 1000
+    specials = np.array([-np.inf, -1.5, -0.0, 0.0, 1.5, np.inf, np.nan, 5e-324])
+    tasks = []
+    for g in range(3):
+        m = np.zeros(n, bool) if g == 2 else rng.random(n) < 0.7
+        u = (rng.integers(0, 4, n).astype(np.uint64) << np.uint64(62)) | rng.integers(0, 3, n).astype(np.uint64)
+        spec = [(rng.integers(-3, 3, n).astype(np.int32), rng.random(n) < 0.8, False),
+                (rng.choice(specials, n), rng.random(n) < 0.8, True), (u, rng.random(n) < 0.9, False)]
+        tasks.append((m, spec))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    idx, ok = topn_multi_tasks([t(m) for m, _ in tasks],
+                               [[(U64(t(d.view(np.int64))) if d.dtype == np.uint64 else t(d), t(v), desc)
+                                 for d, v, desc in spec] for _, spec in tasks], k, w)
+    assert tuple(idx.shape) == (3, min(k, w))
+    for g, (m, spec) in enumerate(tasks):
+        cut = [(d[:w], v[:w], desc) for d, v, desc in spec]
+        want_idx, want_ok = _ref_topn_multi(m[:w], cut, k)
+        assert idx[g].numpy().tolist() == want_idx.tolist() and ok[g].numpy().tolist() == want_ok.tolist()
+        cols = [(~m[:w]).astype(np.int64)]
+        for d, v, desc in cut:
+            x = np.where(v, d, np.zeros((), d.dtype))
+            x = (-x if d.dtype.kind == "f" else ~x) if desc else x
+            if d.dtype.kind == "f":
+                x = np.where(np.abs(x) < np.finfo(np.float64).tiny, 0.0, x)
+                cols += [np.where(v, 0, 1) if desc else np.where(v, 1, 0), np.isnan(x).astype(np.int64),
+                         np.where(np.isnan(x), 0.0, x)]
+            else:
+                cols += [np.where(v, 0, 1) if desc else np.where(v, 1, 0), x]
+        assert idx[g].numpy().tolist() == np.lexsort(list(reversed(cols)))[:min(k, w)].tolist()
+
+
 @pytest.mark.parametrize("G", chip_smoke.EDGE_GROUP_SIZES)
 def test_sort_edges_equal_the_solo_plain_versions(G):
-    """chip_smoke.sort_edge_cases — K6's and K8's task modes at the edges of
-    their designs (4- and 8-byte words, widths around a tile, k at the
-    ordering cap and past it, every row tied) — hold here too."""
+    """chip_smoke.sort_edge_cases — K6's, K7's and K8's task modes at the
+    edges of their designs (4- and 8-byte words, widths around a tile, k at
+    the ordering cap and past it, every row tied) — hold here too."""
     cases = chip_smoke.sort_edge_cases("cpu", np.random.default_rng(11 + G), G)
-    assert {name.split()[0] for name, _ in cases} == {"topk_tasks", "lex_sort_tasks"}
+    assert {name.split()[0] for name, _ in cases} == {"topk_tasks", "topn_multi_tasks", "lex_sort_tasks"}
     failed = []
     for name, fn in cases:
         try:
@@ -120,7 +185,7 @@ def test_point_topn_burst_equals_serial_execute_and_host(builder, compress):
         assert chip_smoke.chunks_equal(g, execute_dag_host(d, b)) is None
     # compression OFF pads each task to a 64Ki tile, narrowed to its 1,024 rows
     assert eng.fetches == 1 and [(k[1], k[2]) for k in eng._vprograms] == [(16, None if compress else 1024)]
-    mode = "topk_tasks" if dag.topn.by[0][1] else "topn_multi_ops_tasks"
+    mode = "topk_tasks" if len(dag.topn.by) == 1 else "topn_multi_tasks"
     assert len(spy.calls[mode]) == 1
 
 
@@ -147,8 +212,7 @@ def test_sorted_paths_over_regions_equal_the_one_batch_answers(query, compress, 
             merged = chip_smoke.merged_regions(dag, run_many([(dag, r) for r in regions], "cpu", eng))
         assert chip_smoke.chunks_equal(merged, want) is None
         assert eng.fetches == rep + 1 and eng.fallbacks == 0
-        spied = {"topk_tasks": "topk_tasks", "topn_multi_tasks": "topn_multi_ops_tasks"}.get(mode, mode)
-        assert len(spy.calls[spied]) == 1
+        assert len(spy.calls[mode]) == 1
     assert chip_smoke.launch_classes(eng, [(dag, r) for r in regions]) == (1, 0)
     if query == "q18_inner":
         assert sorted(eng._gcap.values()) == [4096]
@@ -350,8 +414,8 @@ def test_sort_task_tables_hold_each_tasks_lanes(monkeypatch):
     ((datas, valids, masks, desc, k, w),) = chip_smoke.task_args(spy.calls, "topk_tasks")
     tab = topk_table(datas, valids, masks, w, -1)
     assert [list(r) for r in tab] == [[ptr(d), ptr(v), ptr(m)] for d, v, m in zip(datas, valids, masks)]
-    for name in ("topn_multi_ops_tasks", "sort_groups_tasks"):
-        ((masks, keys, w),) = chip_smoke.task_args(spy.calls, name)
+    for name in ("topn_multi_tasks", "sort_groups_tasks"):
+        ((masks, keys, *_, w),) = chip_smoke.task_args(spy.calls, name)
         tab = lane_table(masks, [[(gk.sort_op(x[0]), x[1]) for x in ks] for ks in keys], w, -1, name)
         for g, (m, ks) in enumerate(zip(masks, keys)):
             want = [m.data_ptr()] + [p for x in ks for p in (gk.sort_op(x[0]).data.data_ptr(), ptr(x[1]))]

@@ -82,8 +82,8 @@ def _items():
     return ref, port
 
 
-SORT_MODES = ("sort_groups_tasks", "topk_tasks", "topn_multi_ops_tasks", "lex_sort_perm_tasks")
-SOLO = ("sort_groups", "topk", "topn_multi_ops", "lex_sort_perm")
+SORT_MODES = ("sort_groups_tasks", "topk_tasks", "topn_multi_tasks")
+SOLO = ("sort_groups", "topk", "topn_multi")
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["compress_on", "compress_off"])
@@ -183,7 +183,7 @@ def test_sort_and_topn_groups_run_their_task_modes(runs):
     # each group: one call of its mode in each of the two execute_many calls
     assert calls["sort_groups_tasks"] == 2 * groups["aggsort"]
     assert calls["topk_tasks"] == 2 * groups["topn"]
-    assert calls["topn_multi_ops_tasks"] == calls["lex_sort_perm_tasks"] == 2 * groups["topn_multi"]
+    assert calls["topn_multi_tasks"] == 2 * groups["topn_multi"]
     for key, group in port._raw.items():
         if key[0] in ("aggsort", "topn", "topn_multi"):
             assert callable(group)  # no sort or TopN key runs back to back
@@ -203,7 +203,7 @@ def test_solo_sort_kernels_run_only_for_groups_of_one(runs):
     _, alone = _classes(runs["port"])
     assert calls["sort_groups"] == 2 * alone["aggsort"]
     assert calls["topk"] == 2 * alone["topn"]
-    assert calls["topn_multi_ops"] == calls["lex_sort_perm"] == 2 * alone["topn_multi"]
+    assert calls["topn_multi"] == 2 * alone["topn_multi"]
 
 
 @pytest.mark.parametrize("compress", [True, False], ids=["compress_on", "compress_off"])

@@ -23,7 +23,7 @@ from tidb_tpu.jaxenv import jnp
 
 from tidb_tpu_torch.expr.xp_torch import U64
 from tidb_tpu_torch.kernels import (SegLane, SortOp, lex_sort_perm, seg_agg, seg_agg_ref, sort_groups,
-                                    topk, topn_multi_ops)
+                                    topk, topn_multi, topn_multi_ops_ref)
 from tidb_tpu_torch.kernels.lex_sort import ordered_key, plan_words
 
 RTOL, ATOL = 1e-9, 1e-6
@@ -441,6 +441,94 @@ def _ref_multi_ops(m, keys):
     return ops
 
 
+def _ref_topn_multi(m, keys, k):
+    """The reference's _lower_topn_multi program body (tpu_engine.py:
+    1812-1830): its operands, lex_sort_perm, the first min(k, rows) row ids
+    and their mask bits."""
+    ops = _ref_multi_ops(m, keys)
+    perm = ref_engine.lex_sort_perm(ops)
+    rows = min(k, len(m))
+    return np.asarray(perm[:rows]), np.asarray(ops[0][perm][:rows] == 0)
+
+
+def _port_multi_keys(spec):
+    return [(U64(_t(d.view(np.int64))) if d.dtype == np.uint64 else _t(d), _t(v), desc) for d, v, desc in spec]
+
+
+def _np_topn_multi(m, spec, k):
+    """numpy oracle: np.lexsort over (masked, per key its NULL flag and its
+    value — NaN after +inf, -0.0 == +0.0, subnormals 0 — as lax.sort
+    orders them) → the first min(k, n) row ids."""
+    cols = [(~m).astype(np.int64)]
+    for d, v, desc in spec:
+        cols.append(np.where(v, 0, 1) if desc else np.where(v, 1, 0))
+        x = np.where(v, d, np.zeros((), d.dtype))
+        if desc:
+            x = -x if d.dtype.kind == "f" else ~x
+        key, nan = _np_order_key(x, "f64" if d.dtype.kind == "f" else "int")
+        if nan is not None:
+            cols.append(nan.astype(np.int64))
+        cols.append(key)
+    return np.lexsort(list(reversed(cols)))[:min(k, len(m))]
+
+
+def _multi_spec(case: str, n: int, rng):
+    """(mask, [(data, valid, desc)]): every key kind — int32, int64,
+    uint64 with the top bit set, float64 with ±0.0, NaN, ±inf and
+    subnormals — with NULLs in every key, in both orders."""
+    v = lambda p=0.85: rng.random(n) < p  # noqa: E731
+    m = rng.random(n) < 0.8
+    u64 = (rng.integers(0, 4, n).astype(np.uint64) << np.uint64(62)) | rng.integers(0, 3, n).astype(np.uint64)
+    if case == "every_kind_desc_first":
+        spec = [(rng.choice(SPECIALS, n), v(), True), (rng.integers(-3, 3, n).astype(np.int32), v(), False),
+                (u64, v(), True), (rng.integers(-2, 2, n), v(), False)]
+    elif case == "every_kind_asc_first":
+        spec = [(u64, v(), False), (rng.choice(SPECIALS, n), v(), False),
+                (rng.choice(np.array([I64.min, -1, 0, 1, I64.max]), n), v(), True),
+                (rng.integers(-2, 2, n).astype(np.int32), v(), True)]
+    elif case == "price_orderkey_linenumber":  # MULTIKEY_TOPN's keys over a padded tail
+        m = np.ones(n, bool)
+        m[-n // 10:] = False
+        spec = [(rng.integers(90000, 10500000, n), np.ones(n, bool), True),
+                (np.sort(rng.integers(1, max(n // 4, 2), n)), np.ones(n, bool), False),
+                (rng.integers(1, 8, n), np.ones(n, bool), False)]
+    elif case == "all_masked":
+        m = np.zeros(n, bool)
+        spec = [(rng.integers(0, 5, n), v(), True), (rng.choice(SPECIALS, n), v(), False)]
+    elif case == "few_masked_in":
+        m = rng.random(n) < 3 / n
+        spec = [(rng.integers(0, 5, n), v(0.5), False), (u64, v(), True)]
+    elif case == "all_equal":  # every key ties: the row id decides
+        m = np.ones(n, bool)
+        spec = [(np.full(n, 3, np.int64), np.ones(n, bool), True), (np.full(n, -0.0), np.ones(n, bool), False)]
+    elif case == "null_keys":
+        spec = [(rng.integers(0, 3, n), v(0.3), False), (rng.choice(SPECIALS, n), v(0.3), True)]
+    else:
+        raise KeyError(case)
+    return m, spec
+
+
+MULTI_CASES = ["every_kind_desc_first", "every_kind_asc_first", "price_orderkey_linenumber", "all_masked",
+               "few_masked_in", "all_equal", "null_keys"]
+
+
+@pytest.mark.parametrize("k", [1, 7, 50, 600, 605])
+@pytest.mark.parametrize("case", MULTI_CASES)
+def test_topn_multi_matches_the_reference_and_np_lexsort(case, k):
+    """K7 (its plain version here) returns the reference program's first
+    rows and mask bits bit for bit — every key kind, NULLs in every key,
+    both orders, all rows masked, fewer masked in than k, every key tied,
+    k past the rows — and the numpy oracle's rows."""
+    rng = np.random.default_rng(MULTI_CASES.index(case) * 31 + k)
+    n = 600
+    m, spec = _multi_spec(case, n, rng)
+    idx, ok = topn_multi(_t(m), _port_multi_keys(spec), k)
+    want_idx, want_ok = _ref_topn_multi(m, spec, k)
+    assert idx.dtype == torch.int64 and idx.numpy().tolist() == want_idx.tolist()
+    assert ok.numpy().tolist() == want_ok.tolist()
+    assert idx.numpy().tolist() == _np_topn_multi(m, spec, k).tolist()
+
+
 def test_topn_multi_operands_and_order_match_the_reference():
     rng = np.random.default_rng(11)
     n = 3000
@@ -452,15 +540,270 @@ def test_topn_multi_operands_and_order_match_the_reference():
     vs = [np.ones(n, bool), rng.random(n) < 0.9, rng.random(n) < 0.9, rng.random(n) < 0.9]
     spec = [(price, vs[0], True), (codes, vs[1], False), (fl, vs[2], True), (u, vs[3], False)]
     ref_ops = _ref_multi_ops(m, spec)
-    port_keys = [(U64(_t(d.view(np.int64))) if d.dtype == np.uint64 else _t(d), _t(v), desc)
-                 for d, v, desc in spec]
-    ops = topn_multi_ops(_t(m), port_keys)
+    ops = topn_multi_ops_ref(_t(m), _port_multi_keys(spec))
     for got, want in zip(ops, ref_ops):
         w = np.asarray(want)
         g = got.data.numpy()
         assert g.view(np.uint8).tobytes() == (w.view(np.int64) if w.dtype == np.uint64 else w).view(np.uint8).tobytes()
     perm = lex_sort_perm(ops).numpy()
     assert perm.tolist() == np.asarray(ref_engine.lex_sort_perm(ref_ops)).tolist()
+    idx, ok = topn_multi(_t(m), _port_multi_keys(spec), n)
+    assert idx.numpy().tolist() == perm.tolist() and ok.numpy().tolist() == m[perm].tolist()
+
+
+def _np_multi_words(m, spec) -> list:
+    """The composite words csrc/topn_multi.cu selects over (its note), in
+    numpy: word 0 (masked, null_0), then per key its value's K8 key and
+    the next key's NULL flag, the row id last — uint64 each."""
+    def ordered(x, kind):
+        if kind == "f":
+            x = np.where(np.abs(x) < np.finfo(np.float64).tiny, 0.0, x)
+            b = np.where(np.isnan(x), np.nan, x).view(np.uint64)
+            return np.where(b >> np.uint64(63), ~b, b | np.uint64(1 << 63))
+        if kind == "u":
+            return x.astype(np.uint64)
+        if x.dtype == np.int32:
+            return (x.view(np.uint32) ^ np.uint32(1 << 31)).astype(np.uint64)
+        return x.view(np.uint64) ^ np.uint64(1 << 63)
+
+    words = []
+    for j, (d, v, desc) in enumerate(spec):
+        null = (~v if desc else v).astype(np.uint64)
+        words.append(((~m).astype(np.uint64) << np.uint64(1)) | null if j == 0 else null)
+        x = np.where(v, d, np.zeros((), d.dtype))
+        if desc:
+            x = -x if d.dtype.kind == "f" else ~x
+        words.append(ordered(x, d.dtype.kind))
+    words.append(np.arange(len(m), dtype=np.uint64))
+    return words
+
+
+def _emulate_multi_select(words: list, k: int, etrig: int, reads: list | None = None) -> tuple[list, int]:
+    """numpy model of csrc/topn_multi.cu's select over one task: class
+    passes at the flag words (per class count and OR / AND of the next
+    word), digit passes of up to 8 bits from each word's top varying bit
+    down, the candidates read from every row (checked against every known
+    bit) until they fit a buffer of width / 8 — or until a pass over every
+    row that speculated (buffering each candidate at the smallest digit
+    seen so far) picked the smallest digit —, the collect once the rows
+    below the threshold and the candidates number at most `etrig` (0: when
+    every candidate is needed), then the composite order → (row ids,
+    passes); `reads` gets each pass's candidate count read."""
+    W = [[int(x) for x in w] for w in words]
+    nw, width = len(W), len(W[0])
+    rem, ncand = min(k, width), width
+    pw, pmask, pval = -1, 0, 0
+    T, K = [0] * nw, [0] * nw
+    cw, ctop, vary, src, bcap = 0, -1, 0, None, (width + 7) // 8
+    collect = ncand == rem or (etrig and width <= etrig)
+    out, passes = [], 0
+
+    def next_word(w):
+        if w + 1 == nw - 1 and width > 1:
+            v = (1 << (width - 1).bit_length()) - 1
+            return w + 1, v, v.bit_length() - 1
+        return w + 1, 0, -1
+
+    while True:
+        passes += 1
+        rows = range(width) if src is None else src
+        if reads is not None:
+            reads.append(len(rows))
+
+        def classify(r):
+            for w in range(nw):
+                if K[w] and (W[w][r] ^ T[w]) & K[w]:
+                    assert src is None, "a buffered row off the known bits"
+                    return -1
+            if pw < 0:
+                return 0
+            x = W[pw][r] & pmask
+            return 1 if x < pval else (0 if x == pval else -1)
+
+        if collect:
+            out += [r for r in rows if classify(r) >= 0]
+            break
+        stay, write = [], src is not None or ncand <= bcap
+        cls = cw % 2 == 0 and cw < nw - 1
+        spec_on, spec, smin = not cls and src is None and not write, [], 256
+        nb = (4 if cw == 0 else 2) if cls else 256
+        cnt, orv, andv = [0] * nb, [0] * nb, [(1 << 64) - 1] * nb
+        dlo = 0 if cls else max(ctop - 7, (vary & -vary).bit_length() - 1)
+        dm = 0 if cls else (2 << (ctop - dlo)) - 1
+        for r in rows:
+            c = classify(r)
+            if c == 1:
+                out.append(r)
+            elif c == 0:
+                b = W[cw][r] if cls else (W[cw][r] >> dlo) & dm
+                cnt[b] += 1
+                if cls:
+                    orv[b] |= W[cw + 1][r]
+                    andv[b] &= W[cw + 1][r]
+                if spec_on and b <= smin:
+                    spec.append(r)
+                    smin = b
+                stay.append(r)
+        assert sum(cnt) == ncand
+        incl = 0
+        for b in range(nb):
+            excl, incl = incl, incl + cnt[b]
+            if excl < rem <= incl:
+                break
+        if pw >= 0:
+            K[pw] |= pmask
+        if cls:
+            T[cw], pw, pmask, pval = b, cw, nb - 1, b
+            vary = orv[b] ^ andv[b]
+            if vary:
+                cw, ctop = cw + 1, vary.bit_length() - 1
+            else:
+                cw, vary, ctop = next_word(cw + 1)
+        else:
+            T[cw] |= b << dlo
+            pw, pmask, pval = cw, dm << dlo, b << dlo
+            rest = vary & ((1 << dlo) - 1)
+            if rest:
+                ctop = rest.bit_length() - 1
+            else:
+                cw, vary, ctop = next_word(cw)
+        held = spec_on and b == min(x for x in range(nb) if cnt[x]) and len(spec) <= bcap
+        rem, ncand = rem - excl, cnt[b]
+        if write:
+            assert len(stay) <= bcap
+            src = stay
+        elif held:
+            src = spec
+        collect = ncand == rem or (etrig and (min(k, width) - rem) + ncand <= etrig)
+    kk = min(k, width)
+    assert len(out) >= kk and (etrig or len(out) == kk)
+    return sorted(out, key=lambda r: tuple(W[w][r] for w in range(nw)))[:kk], passes
+
+
+@pytest.mark.parametrize("k", [1, 50, 300, 2000])
+@pytest.mark.parametrize("case", MULTI_CASES)
+def test_select_plan_matches_the_reference(case, k):
+    """csrc/topn_multi.cu's select, emulated in numpy over its composite
+    words with the endgame size the kernel takes (and with none, as above
+    the ordering cap), keeps exactly the reference's first rows in order."""
+    rng = np.random.default_rng(MULTI_CASES.index(case) * 7 + k)
+    n = 2000
+    m, spec = _multi_spec(case, n, rng)
+    want, _ = _ref_topn_multi(m, spec, k)
+    words = _np_multi_words(m, spec)
+    for etrig in (_kernel_endgame(k, len(spec), True)[0], 0):
+        got, _ = _emulate_multi_select(words, k, etrig)
+        assert got == want.tolist()
+
+
+@pytest.mark.parametrize("k", [1, 50, 600])
+@pytest.mark.parametrize("case", MULTI_CASES)
+def test_k7_bound_reads_a_later_key_only_where_rows_tie(case, k):
+    """chip_smoke.k7_need_bytes, K7's bytes bound: the mask and the first
+    key's lanes at every row, key j's lanes only at the rows whose
+    composite words before it equal the k-th row's and at the k rows
+    returned, and 9 bytes a row returned — against the numpy words."""
+    import chip_smoke
+
+    rng = np.random.default_rng(MULTI_CASES.index(case) * 13 + k)
+    n = 600
+    m, spec = _multi_spec(case, n, rng)
+    order = _np_topn_multi(m, spec, n)
+    words = _np_multi_words(m, spec)
+    picked = np.zeros(n, bool)
+    picked[order[:k]] = True
+    want = n + 9 * k + n * (spec[0][0].itemsize + 1)
+    for j in range(1, len(spec)):
+        tied = np.logical_and.reduce([w == w[order[k - 1]] for w in words[:2 * j]])
+        want += int((tied | picked).sum()) * (spec[j][0].itemsize + 1)
+    assert chip_smoke.k7_need_bytes(_t(m), _port_multi_keys(spec), k) == want
+    if k == n:  # every row returned: every key at every row
+        assert want == n + 9 * n + n * sum(d.itemsize + 1 for d, _, _ in spec)
+
+
+def test_select_plan_reads_every_row_twice_on_multikey_topn():
+    """On MULTIKEY_TOPN's keys (a 24-bit price DESC over a padded tail) the
+    select is a class pass and one speculating digit pass over every row,
+    then the buffer: no later key is read at every row."""
+    rng = np.random.default_rng(5)
+    n = 1 << 17
+    m, spec = _multi_spec("price_orderkey_linenumber", n, rng)
+    words = _np_multi_words(m, spec)
+    got, passes = _emulate_multi_select(words, 50, 1024)
+    assert got == _np_topn_multi(m, spec, 50).tolist()
+    assert passes <= 4
+    reads = []
+    _emulate_multi_select(words, 50, 1024, reads)
+    assert reads[:3] == [n, n, reads[2]] and all(r < n // 8 for r in reads[2:])
+
+
+def _kernel_consts() -> dict:
+    """csrc/topn_multi.cu's ordering constants, read from the source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "tidb_tpu_torch" / "csrc" / "topn_multi.cu").read_text()
+    assert "return 8 * nk + 10;" in src  # order_bytes: 8 bytes a key, flag bits, row id, index
+    return {name: int(eval(re.search(rf"constexpr int {name} = ([0-9 *]+);", src).group(1)))
+            for name in ("kOrderCap", "kOrderSmem", "kEndgame")}
+
+
+def _kernel_order_cap(nk: int) -> int:
+    """A model of csrc/topn_multi.cu's order_cap over its constants."""
+    c = _kernel_consts()
+    if not 1 <= nk <= 31:
+        return 0
+    cap = c["kOrderCap"]
+    while cap and cap * (8 * nk + 10) > c["kOrderSmem"]:
+        cap >>= 1
+    return cap
+
+
+def _kernel_endgame(k: int, nk: int, ordered: bool) -> tuple[int, int]:
+    """A model of csrc/topn_multi.cu's endgame(): (etrig, oc)."""
+    if not ordered:
+        return 0, k
+    etrig = k if k > _kernel_consts()["kEndgame"] else min(_kernel_consts()["kEndgame"], _kernel_order_cap(nk))
+    return etrig, max(k, etrig)
+
+
+def test_topn_multi_ordering_cap_is_the_kernels(monkeypatch):
+    """The route choice: K7 orders k <= order_cap(nkeys) rows itself (no K8,
+    no host read), above it K8 orders them. The rule lives in
+    csrc/topn_multi.cu alone: its caps and output slots are as planned, and
+    the wrapper takes both from the library."""
+    import importlib
+
+    tm = importlib.import_module("tidb_tpu_torch.kernels.topn_multi")
+    assert [_kernel_order_cap(nk) for nk in (1, 3, 5, 6, 31, 32)] == [4096, 4096, 4096, 2048, 512, 0]
+    assert [_kernel_endgame(k, 3, k <= 4096)[1] for k in (50, 3000, 5000)] == [1024, 3000, 5000]
+    for name in ("ORDER_CAP", "ORDER_SMEM", "ENDGAME"):
+        assert not hasattr(tm, name)
+
+    class Lib:
+        def tt_topn_multi_order_cap(self, nk):
+            return _kernel_order_cap(nk)
+
+        def tt_topn_multi_out_cap(self, k, nk, ordered):
+            return _kernel_endgame(k, nk, bool(ordered))[1]
+
+    monkeypatch.setattr(tm, "_lib", Lib)
+    monkeypatch.setattr(tm, "_sizes", {})
+    assert tm.orders_in_kernel(4096, 3) and not tm.orders_in_kernel(4097, 3)
+    assert tm.orders_in_kernel(2048, 6) and not tm.orders_in_kernel(2049, 6)
+    assert tm.out_cap(50, 3) == 1024 and tm.out_cap(3000, 3) == 3000 and tm.out_cap(5000, 3) == 5000
+
+
+def test_topn_multi_rejects_what_it_does_not_take():
+    m = _t(np.ones(5, bool))
+    with pytest.raises(ValueError):
+        topn_multi(m, [], 2)
+    with pytest.raises(ValueError):
+        topn_multi(m, [(_t(np.arange(4)), None, True)], 2)
+    with pytest.raises(TypeError):
+        topn_multi(m, [(_t(np.arange(5)), _t(np.arange(5)), True)], 2)
+    idx, ok = topn_multi(m, [(_t(np.arange(5)), None, True)], 0)  # LIMIT 0: nothing
+    assert idx.numel() == ok.numel() == 0
 
 
 # --- K9 sort_groups --------------------------------------------------------

@@ -13,7 +13,8 @@ run eagerly on the card:
       sort GROUP BY     K9 sort_groups (K8 lex_sort inside) → capped dense
                         group ids → K4 seg_agg in its segment-lane mode
       single-key TopN   K6 topk (radix select; K8 orders the k rows)
-      multi-key TopN    K7 topn_multi_ops → K8 lex_sort_perm → first n
+      multi-key TopN    K7 topn_multi (radix select; K8 orders the k rows
+                        only past its ordering cap)
       a launch group    K10: the task-grid modes of the same kernels
                         (kernels/grouped.py; module doc below)
 
@@ -31,7 +32,7 @@ of two or more runs K10 (kernels/grouped.py): one launch of each kernel's
 task-grid mode over the whole group, every task narrowed to the group's
 `width` — K1 and the expression kernel, then K4 (filter, direct GROUP
 BY), K9 + K8 + K4 (sort GROUP BY: one host read of the group's counts),
-K6 + K8 (single-key TopN) or K7 + K8 (multi-key TopN); a group of one
+K6 (single-key TopN) or K7 (multi-key TopN); a group of one
 launches its solo kernels. Everything launched comes back with one host
 synchronization (`fetches` counts them).
 
@@ -58,9 +59,8 @@ from ..errors import CircuitBreakerOpen
 from ..expr.expression import Column as ExprCol, Constant, Expression, ScalarFunc
 from ..expr.program import ProgramCache, ValueSpec, evaluate, evaluate_tasks
 from ..expr.xp_torch import U64
-from ..kernels import SegKey, SegLane, decode_lanes, lex_sort_perm, seg_agg, sort_groups, topk, topn_multi_ops
-from ..kernels.grouped import (decode_lanes_tasks, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks, topk_tasks,
-                               topn_multi_ops_tasks)
+from ..kernels import SegKey, SegLane, decode_lanes, seg_agg, sort_groups, topk, topn_multi
+from ..kernels.grouped import decode_lanes_tasks, seg_agg_tasks, sort_groups_tasks, topk_tasks, topn_multi_tasks
 from ..utils import memory as _mem
 from ..utils import metrics as M
 from ..utils import timeline as TL
@@ -371,8 +371,7 @@ class TorchEngine:
         # path's own tensors)
         self.seg_agg = seg_agg
         self.topk = topk
-        self.topn_multi_ops = topn_multi_ops
-        self.lex_sort_perm = lex_sort_perm
+        self.topn_multi = topn_multi
         self.sort_groups = sort_groups
         # sort-based GROUP BY group capacity: start at gcap0, escalate x4
         # past an overflow and remember it per DAG shape (the reference's
@@ -1446,10 +1445,9 @@ class TorchEngine:
 
     def _lower_topn_multi(self, dag: DAGRequest, vocabs, dev: DeviceBatch, lanes, r_conds, unsigned, sig):
         """Multi-key TopN (ref: tpu_engine.py:1796 _lower_topn_multi): K7
-        writes the sort operands, K8 sorts every row by them, the first n
-        row ids come back with their mask bits. A launch group (K10) runs
-        K7's task grid and one K8 sort by (task, operands); each task
-        keeps its first min(n, width) rows."""
+        selects the first min(n, padded) rows in the operands' order and
+        returns them with their mask bits. A launch group (K10) runs K7's
+        task grid, min(n, width) rows a task."""
         r_by = []
         for e, desc in dag.topn.by:
             r_e = self._rewrite(e, vocabs)
@@ -1467,15 +1465,12 @@ class TorchEngine:
             with self.phase("sort"):
                 keys = [(U64(datas[0]) if kind == "u64" else datas[0], self._valid_arg(v, dev), desc)
                         for (datas, v, kind), (_, desc) in zip(vals, r_by)]
-                ops = self.topn_multi_ops(mask, keys)
-                perm = self.lex_sort_perm(ops)
-                idx = perm[: min(n, dev.padded)].long()
-                ok = ops[0].data[idx] == 0
+                idx, ok = self.topn_multi(mask, keys, min(n, dev.padded))
             return [idx, ok]
 
         order = sorted(lanes)
 
-        def group(argss, width):  # K10: K1 → expression kernel → K7 → K8, task-grid modes
+        def group(argss, width):  # K10: K1 → expression kernel → K7, task-grid modes
             rvs = [rv for _, rv in argss]
             with self.phase("decode"):
                 ls = self._decode_tasks(argss, order, unsigned, width, only=dlanes)
@@ -1485,11 +1480,7 @@ class TorchEngine:
             with self.phase("sort"):
                 keys = [[(U64(ds[0]) if kind == "u64" else ds[0], self._valid_arg(v, _TaskView(rv, width)), desc)
                          for (ds, v, kind), (_, desc) in zip(task, r_by)] for task, rv in zip(vals, rvs)]
-                ops = topn_multi_ops_tasks([m.reshape(-1) for m in masks], keys, width)
-                G = len(argss)
-                rows = lex_sort_perm_tasks(ops, width).long().reshape(G, width)[:, :min(n, width)]
-                ok = ops[0].data[rows] == 0
-                idx = rows - torch.arange(G, device=rows.device)[:, None] * width
+                idx, ok = topn_multi_tasks([m.reshape(-1) for m in masks], keys, min(n, width), width)
             return [idx, ok], _stacked
 
         def finalize(fetched):

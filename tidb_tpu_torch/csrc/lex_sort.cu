@@ -44,16 +44,8 @@
 // hands out in the order the blocks start, so it never waits on a block
 // that is not running.
 //
-// Order-preserving keys, per operand kind:
-//   I32  x ^ 0x80000000 (as uint32)
-//   I64  x ^ 2^63
-//   U64  x
-//   F64  lax.sort's order: -0.0 folds to +0.0 and every NaN to one +NaN
-//        (jax/_src/lax/lax.py _canonicalize_float_for_sort), then the
-//        IEEE total order: negative -> ~bits, else bits | 2^63. NaN sorts
-//        after +inf. XLA evaluates that fold's x == 0 with subnormals
-//        flushed (on the CPU as on the TPU), so every subnormal folds to
-//        +0.0 too: |x| < DBL_MIN is zero here.
+// Order-preserving keys, per operand kind: csrc/sort_key.cuh (shared
+// with K7).
 //
 // Task-leading mode (K10's sort, tidb_tpu/copr/tpu_engine.py:1096-1134
 // vmapping lex_sort_perm over a launch group): G tasks' rows laid out as
@@ -81,6 +73,8 @@
 
 #include <atomic>
 
+#include "sort_key.cuh"
+
 namespace {
 
 using u64 = unsigned long long;
@@ -88,8 +82,6 @@ using u32 = unsigned int;
 
 enum Kind : int32_t { K_I32 = 0, K_I64 = 1, K_U64 = 2, K_F64 = 3, K_TASK = 4 };
 
-constexpr u64 kSign = 0x8000000000000000ULL;
-constexpr double kDblMin = 2.2250738585072014e-308;  // smallest normal double
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;  // = kRadix: thread t owns digit t
 constexpr int kRadix = 256;
@@ -131,25 +123,7 @@ struct FieldDesc {  // int64 triples: ptr, kind | src_shift << 32, width | dst_s
 };
 
 __device__ __forceinline__ u64 ordered(const void* data, int32_t kind, int64_t row) {
-  switch (kind) {
-    case K_I32:
-      return (u64)(uint32_t)(((const int32_t*)data)[row] ^ (int32_t)0x80000000);
-    case K_I64:
-      return (u64)((const long long*)data)[row] ^ kSign;
-    case K_U64:
-      return (u64)((const long long*)data)[row];
-    default: {
-      double x = ((const double*)data)[row];
-      u64 b;
-      if (fabs(x) < kDblMin)  // zeros and subnormals (module note)
-        b = 0ULL;
-      else if (x != x)
-        b = 0x7ff8000000000000ULL;
-      else
-        b = (u64)__double_as_longlong(x);
-      return (b & kSign) ? ~b : (b | kSign);
-    }
-  }
+  return sort_key::load_key(data, kind, row);
 }
 
 __global__ void init_orand(u64* orand, int nops) {

@@ -13,7 +13,9 @@ and launch counters.
                                              + :1527-1617 _agg_partials_device
                                              (its bitwise ops: K5's recombination)
   K6 topk            (csrc/topk.cu)        ← tpu_engine.py:1759-1781 _lower_topn
-  K7 topn_multi_ops  (csrc/topn_multi.cu)  ← tpu_engine.py:1812-1828 _lower_topn_multi
+  K7 topn_multi      (csrc/topn_multi.cu)  ← tpu_engine.py:1796-1835 _lower_topn_multi
+                                             (a radix select; K8 orders its rows
+                                             only past its ordering cap)
   K8 lex_sort_perm   (csrc/lex_sort.cu)    ← tpu_engine.py:195-208 lex_sort_perm
   K9 sort_groups     (csrc/sort_groups.cu) ← tpu_engine.py:1351-1400 _lower_agg_sorted
   W1 window          (csrc/window.cu)      ← executor/window_device.py:154-442
@@ -49,7 +51,7 @@ and launch counters.
                                              owner buckets; the all_to_all is the
                                              mesh's, parallel/mesh.py)
   K10 decode_lane_tasks (decode_lanes_tasks), expr_eval_tasks, seg_agg_tasks, topk_tasks,
-      topn_multi_ops_tasks, lex_sort_perm_tasks, sort_groups_tasks (task-grid
+      topn_multi_tasks, lex_sort_perm_tasks, sort_groups_tasks (task-grid
       modes in csrc/decode_lane.cu, csrc/expr_eval.cu, csrc/seg_agg.cu,
       csrc/topk.cu, csrc/topn_multi.cu, csrc/sort_groups.cu, and K8's
       task-leading key in csrc/lex_sort.cu; kernels/grouped.py)
@@ -73,7 +75,7 @@ from .dense_agg import dense_agg, dense_agg_ref
 from .exchange import exchange, exchange_ref
 from .expr_eval import expr_eval, expr_eval_ref
 from .grouped import (decode_lane_tasks, decode_lanes_tasks, expr_eval_tasks, lex_sort_perm_tasks, seg_agg_tasks, sort_groups_tasks,
-                      topk_tasks, topn_multi_ops_tasks)
+                      topk_tasks, topn_multi_tasks)
 from .hash_repartition import hash_repartition, hash_repartition_ref
 from .lex_sort import SortOp, lex_sort_perm, lex_sort_perm_ref
 from .lut_join import lut_join, lut_join_ref
@@ -86,17 +88,17 @@ from .seg_reduce import seg_reduce, seg_reduce_ref
 from .sort_join import sort_join, sort_join_ref
 from .sort_groups import sort_groups, sort_groups_ref
 from .topk import topk, topk_ref
-from .topn_multi import topn_multi_ops, topn_multi_ops_ref
+from .topn_multi import topn_multi, topn_multi_ops_ref, topn_multi_ref
 from .window import window, window_ref
 
 WRAPPERS = {"decode_lane": decode_lane, "seg_agg": seg_agg, "topk": topk,
-            "topn_multi": topn_multi_ops, "lex_sort": lex_sort_perm, "sort_groups": sort_groups,
+            "topn_multi": topn_multi, "lex_sort": lex_sort_perm, "sort_groups": sort_groups,
             "window": window, "pack_flat": pack_flat, "lut_join": lut_join, "run_agg": run_agg,
             "block_topk": block_topk, "sort_join": sort_join, "seg_reduce": seg_reduce,
             "rowpos_agg": rowpos_agg, "dense_agg": dense_agg, "expr_eval": expr_eval,
             "q1_local": q1_local, "hash_repartition": hash_repartition, "exchange": exchange,
             "decode_lane_tasks": decode_lane_tasks, "expr_eval_tasks": expr_eval_tasks,
-            "seg_agg_tasks": seg_agg_tasks, "topk_tasks": topk_tasks, "topn_multi_tasks": topn_multi_ops_tasks,
+            "seg_agg_tasks": seg_agg_tasks, "topk_tasks": topk_tasks, "topn_multi_tasks": topn_multi_tasks,
             "lex_sort_tasks": lex_sort_perm_tasks, "sort_groups_tasks": sort_groups_tasks}
 
 

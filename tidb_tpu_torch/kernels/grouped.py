@@ -8,12 +8,13 @@ of a launch group's tasks on a new leading axis, narrows every task to
 jitted dispatch. The port's per-task programs are K1 → the expression
 kernel → K4 (a filter, a direct-address aggregation), → K9 (K8) → K4 (a
 sort GROUP BY), → K6 (a single-key TopN; K8 orders its rows only for k
-above topk.ORDER_CAP) or → K7 → K8 (a multi-key TopN), so K10 is a
+above topk.ORDER_CAP) or → K7 (a multi-key TopN; K8 orders its rows only
+for k above topn_multi.order_cap), so K10 is a
 task-grid mode of each of those kernels: one launch covers the G tasks
 of a group, the grid's y axis being the task, each
-task addressed through a table in device memory (csrc/expr_eval.cu,
-csrc/seg_agg.cu, csrc/topk.cu, csrc/topn_multi.cu, csrc/sort_groups.cu
-say how). K1's mode is its one kernel (csrc/decode_lane.cu) over one
+task addressed through a table in device memory (K7's in the launch
+parameters when it fits; csrc/expr_eval.cu, csrc/seg_agg.cu,
+csrc/topk.cu, csrc/topn_multi.cu, csrc/sort_groups.cu say how). K1's mode is its one kernel (csrc/decode_lane.cu) over one
 entry a task and coded lane, passed by value: every coded lane of every
 task in one launch. Nothing is stacked: a task's lanes stay
 where its batch uploaded them and its table entry points at them. The
@@ -45,8 +46,9 @@ the rows past a task's real rows contribute nothing.
       task g's sorted rows are its slice g
   topk_tasks(datas, valids, masks, desc, k, width)
       each task's K6 TopN → (int32 [G, k] task-local rows, bool [G, k])
-  topn_multi_ops_tasks(masks, keys, width)
-      each task's K7 operands → K8's operands over [G * width]
+  topn_multi_tasks(masks, keys, k, width)
+      each task's K7 TopN → (int64 [G, min(k, width)] task-local rows,
+      bool [G, min(k, width)])
   sort_groups_tasks(masks, keys, width)
       each task's K9 groups → TaskGroups(perm, counts (one host read),
       seg [G, width] numbered on across the tasks, kval / kvalid [k, Σ])
@@ -90,8 +92,9 @@ from .sort_groups import sort_groups_ref
 from .tables import ptrs, rows, sm_count, to_card
 from .topk import orders_in_kernel, topk_ref
 from .topk import select_prepare as topk_tasks_prepare  # K6's task mode up to its launch
-from .topn_multi import ops_prepare as topn_multi_prepare
-from .topn_multi import topn_multi_ops_ref
+from .topn_multi import ordered as topn_multi_ordered
+from .topn_multi import select_prepare as topn_multi_prepare
+from .topn_multi import topn_multi_ref
 
 _C, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _bound: set = set()
@@ -478,39 +481,54 @@ topk_tasks.launches = 0
 # --- K7's task mode -------------------------------------------------------------
 
 
-def topn_multi_ops_tasks_ref(masks: list, keys: list, width: int) -> list:
+def _multi_in(masks: list, keys: list, k: int, width: int) -> int:
+    G = len(masks)
+    if G == 0 or len(keys) != G:
+        raise ValueError("topn_multi_tasks: one mask and key list per task")
+    if k < 0 or width < 0:
+        raise ValueError(f"topn_multi_tasks: k={k}, width={width}")
+    return G
+
+
+def topn_multi_tasks_ref(masks: list, keys: list, k: int, width: int):
     """Plain version: K7's plain version on each task's narrowed lanes,
-    each operand's tasks concatenated ([G * width])."""
-    per = [topn_multi_ops_ref(_cut(m, width), [(_cut(d, width), _cut(v, width), desc) for d, v, desc in ks])
+    stacked."""
+    _multi_in(masks, keys, k, width)
+    per = [topn_multi_ref(_cut(m, width), [(_cut(d, width), _cut(v, width), desc) for d, v, desc in ks], k)
            for m, ks in zip(masks, keys)]
-    return [SortOp(torch.cat([p[j].data for p in per]), op.kind) for j, op in enumerate(per[0])]
+    return torch.stack([i for i, _ in per]), torch.stack([o for _, o in per])
 
 
-def topn_multi_ops_tasks(masks: list, keys: list, width: int) -> list:
-    """K8's operands for G tasks' multi-key TopN, each [G * width] with task
-    g's rows in slice g (K7's module doc: `keys[g]` is task g's [(data,
-    valid, desc)], the same kinds and orders in every task)."""
-    if not masks or len(keys) != len(masks):
-        raise ValueError("topn_multi_ops_tasks: one mask and key list per task")
+def topn_multi_tasks(masks: list, keys: list, k: int, width: int):
+    """(int64 [G, min(k, width)] task-local row ids, bool [G, min(k,
+    width)] their mask bits): each task's first rows of its first `width`
+    in the multi-key order (K7's module doc; `keys[g]` is task g's [(data,
+    valid, desc)], the same kinds and orders in every task) — one radix
+    select per task over the task grid, which orders each task's rows
+    itself for k up to topn_multi.order_cap (no host read); above it one
+    K8 task-leading sort of all G * k rows by (task, their words)."""
+    G = _multi_in(masks, keys, k, width)
     dev = masks[0].device
     if dev.type == "cpu":
-        return topn_multi_ops_tasks_ref(masks, keys, width)
+        return topn_multi_tasks_ref(masks, keys, k, width)
     if dev.type != "cuda":
-        raise ValueError(f"topn_multi_ops_tasks: unsupported device {dev}")
-    ops, go = topn_multi_ops_tasks_prepare(masks, keys, width, dev)
-    if width:
-        go()
-    count(topn_multi_ops_tasks)
-    return ops
+        raise ValueError(f"topn_multi_tasks: unsupported device {dev}")
+    k = min(k, width)
+    if k == 0:
+        return torch.empty((G, 0), dtype=torch.int64, device=dev), torch.empty((G, 0), dtype=torch.bool, device=dev)
+    idx, ok, words = topn_multi_tasks_prepare(masks, keys, k, width, dev)()
+    count(topn_multi_tasks)
+    return topn_multi_ordered(idx, ok, words, lambda ops: lex_sort_perm_tasks(ops, k))
 
 
-def topn_multi_ops_tasks_prepare(masks: list, keys: list, width: int, dev: torch.device):
-    """K7's task mode up to its launch: (the operands, `go()`); the task
-    table is built a column at a time (topn_multi.ops_prepare)."""
-    return topn_multi_prepare(masks, [[(sort_op(d), v, bool(desc)) for d, v, desc in ks] for ks in keys], width, dev)
+def topn_multi_tasks_prepare(masks: list, keys: list, k: int, width: int, dev: torch.device):
+    """K7's task mode up to its launch: `go()` (topn_multi.select_prepare;
+    the task table is built a column at a time)."""
+    return topn_multi_prepare(masks, [[(sort_op(d), v, bool(desc)) for d, v, desc in ks] for ks in keys], k, width,
+                              dev)
 
 
-topn_multi_ops_tasks.launches = 0
+topn_multi_tasks.launches = 0
 
 
 # --- K9's task mode -------------------------------------------------------------
