@@ -306,9 +306,14 @@ def test_sorted_agg_capacity_escalation_matches_reference(gcap0):
 
 
 def test_function_outside_the_slice_raises_when_the_dag_is_built():
-    pt = PORT.table(COLS)
-    with pytest.raises(ValueError, match="unknown function"):
-        PORT.dag(pt, conds=[("div", COL("i"), ("int", 2))])
+    """Every builtin of the reference is in the port (DIV included); a name
+    neither registry holds raises the reference's error when the DAG is
+    built."""
+    pt, rt = PORT.table(COLS), REF.table(COLS)
+    PORT.dag(pt, conds=[("div", COL("i"), ("int", 2))])
+    for pkg, t in ((PORT, pt), (REF, rt)):
+        with pytest.raises(ValueError, match="unknown function no_such_function"):
+            pkg.dag(t, conds=[("no_such_function", COL("i"), ("int", 2))])
 
 
 LINEITEM_COLS = [("l_orderkey", "bigint"), ("l_partkey", "bigint"), ("l_suppkey", "bigint"),

@@ -36,7 +36,9 @@ def test_importing_every_module_brings_in_neither_jax_nor_the_reference():
     for m in ("executor.window_device", "executor.window", "executor.mpp_gather", "parallel.mpp",
               "parallel.mpp_program", "planner.fragment", "expr.program", "parallel.mesh", "copr.retry",
               "sched.batcher", "sched.scheduler", "sched.resource_group", "utils.failpoint", "utils.metrics",
-              "utils.tracing", "utils.timeline", "utils.memory"):
+              "utils.tracing", "utils.timeline", "utils.memory", "utils.sem", "expr.builtins", "expr.builtins_ext",
+              "expr.builtins_ext2", "expr.builtins_ext3", "expr._aes", "expr.sessioninfo", "mysqltypes.collate",
+              "mysqltypes.coretime", "mysqltypes.datum", "mysqltypes.field_type", "mysqltypes.mydecimal"):
         assert f"tidb_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -59,7 +61,8 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    for script in ("chip_smoke.py", "sort_profile.py", "k4_profile.py", "mpp_profile.py", "mesh_stress.py"):
+    for script in ("chip_smoke.py", "sort_profile.py", "k4_profile.py", "mpp_profile.py", "mesh_stress.py",
+                   "expr_profile.py"):
         yield os.path.join(ROOT, script)
 
 

@@ -45,16 +45,26 @@
 //     fit) the ops are copied into shared memory, so every warp reads the
 //     same op and takes the same branch.
 //
+//   * Two instantiations. The ops past arithmetic, compares and logic
+//     (integer and float division, the selects of CASE / IF / COALESCE,
+//     rounding, the math and date functions, the bit operators: from
+//     EXT_FIRST on) are compiled into expr_eval_kernel<true> only; a
+//     program without them (Q1's, Q6's, the checksum's) runs
+//     expr_eval_kernel<false>, whose dispatch and registers are those of
+//     the kernel before them. The host picks one (Params.ext_ops).
+//
 // Per row group the thread computes every condition into the mask and
 // every value output, and stores each output once: one launch per
 // program, where the reference's trace issued one array op per tree node.
 //
-// Arithmetic, as the reference's XLA CPU program computes it:
+// Arithmetic, as the reference's jitted XLA CPU program computes it:
 //   * int64 adds, subtracts and multiplies wrap (done in unsigned);
-//   * doubles with __dadd_rn / __dsub_rn / __dmul_rn / __ddiv_rn, never
-//     contracted into a multiply-add; a subnormal operand reads as zero
-//     of its sign and a subnormal result is flushed (XLA CPU's DAZ/FTZ);
-//     negation flips the sign bit only;
+//   * doubles with __dadd_rn / __dsub_rn / __dmul_rn / __ddiv_rn, not
+//     contracted into a multiply-add (but the float MOD, which XLA
+//     contracts: __fma_rn); a subnormal operand reads as zero of its sign
+//     and a subnormal result is flushed (XLA CPU's DAZ/FTZ); negation
+//     flips the sign bit only; a division by a constant is a multiply by
+//     its reciprocal (FMULK), as XLA rewrites it;
 //   * uint64 -> double rounds once (__ull2double_rn); double -> int64
 //     saturates, NaN -> 0 (F2I truncates, RINT rounds half to even);
 //   * comparisons in the domain the compiler chose: signed, unsigned,
@@ -85,11 +95,25 @@ constexpr int U = 4;   // rows per thread (expr/program.py ROWS)
 constexpr unsigned ALLV = (1u << U) - 1;
 
 enum Code : int32_t {
-  NOP = 0, LD8, LD4, LDB, LDK, I2F, U2F, F2I, RINT, FDIVK, IMULK, RDIVK,
+  NOP = 0, LD8, LD4, LDB, LDK, I2F, U2F, F2I, RINT, FMULK, IMULK, RDIVK,
   IADD, ISUB, IMUL, FADD, FSUB, FMUL, INEG, FNEG, CMP, IN0, IN, INF,
-  AND, OR, NOT, ISNULL, MASK, ZNULL, IHI, ILO, ST8, STV, STB
+  AND, OR, NOT, ISNULL, MASK, ZNULL, IHI, ILO, ST8, STV, STB,
+  // the extended instantiation's ops (expr/program.py EXT_OPS), from EXT_FIRST on
+  IDIV, RDIV, IFLOORK, IMODK, ITRUNCK, IABS, MAX, MIN, X2F, BAND, BOR, BXOR,
+  BNOT, SHL, SHR, XOR, ISTRUE, ISFALSE, SEL, COAL, NULLIF, VAND, FDIV, FABS,
+  FFLOOR, FCEIL, FTRUNC, FRNDA, FSIGN, FUN1, FUN2
 };
+constexpr int EXT_FIRST = IDIV;
 enum Dom : int32_t { DOM_I = 0, DOM_U = 1, DOM_F = 2, DOM_X = 3 };
+// IDIV's aux; FDIV's modes (aux & 15, the product's second factor's register above);
+// FUN1's functions (aux & 15, the domain above) and FUN2's (expr/program.py)
+enum IdivMode : int32_t { IDIV_S = 0, IDIV_U = 1, IMOD_S = 2 };
+enum FdivMode : int32_t { FDIV_PLAIN = 0, FDIV_GUARD = 1, FDIV_MOD = 2, FDIV_MODK = 3, FDIV_PRODUCT = 4 };
+constexpr int FDIV_REG_SHIFT = 4;
+enum Fun1 : int32_t { F_SQRT = 0, F_EXP, F_LOG, F_SIN, F_COS, F_TAN, F_ASIN, F_ACOS, F_ATAN };
+enum Fun1Dom : int32_t { D_ANY = 0, D_GE0 = 1, D_GT0 = 2 };
+enum Fun2 : int32_t { F_POW = 0, F_ATAN2 = 1 };
+constexpr int SEL_REG_BITS = 16;
 
 struct Op {
   int32_t code, dst, a, b, aux;
@@ -170,6 +194,304 @@ __device__ __forceinline__ bool compare(int aux, ll a, ll b) {
     case 4: return !(lt || eq);
     default: return !lt;
   }
+}
+
+// --- the extended instantiation's ops ------------------------------------
+//
+// Integer division is guarded as the reference guards it (a zero divisor
+// reads 1, INT64_MIN / -1 is INT64_MIN, XLA's rule, where CUDA's is
+// undefined); shifts by 64 or more, or by a negative count, give 0. Doubles
+// follow XLA's CPU: operands flushed, results flushed, but for sin and tan
+// and the operands of pow and atan2; max / min return a NaN operand as it
+// is and order -0.0 below +0.0; a float MOD is one fused multiply-add, as
+// XLA's CPU contracts a - trunc(a / b) * b.
+
+__device__ __forceinline__ ll neg(ll x) { return (ll)(0ULL - (ull)x); }
+__device__ __forceinline__ ll iabs(ll x) { return x < 0 ? neg(x) : x; }
+__device__ __forceinline__ ll tdiv(ll a, ll b) { return b == -1 ? neg(a) : a / b; }
+
+// jnp's floor division (b != 0)
+__device__ __forceinline__ ll jfloordiv(ll a, ll b) {
+  const ll q = tdiv(a, b);
+  const ll r = (ll)((ull)a - (ull)q * (ull)b);
+  return (r != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// expr/builtins._round_div over a divisor lane: half away from zero, with
+// jnp's integer semantics (|INT64_MIN| wraps)
+__device__ __forceinline__ ll round_div_lane(ll num, ll den) {
+  const ll ds = den == 0 ? 1 : den;
+  const ll an = iabs(num), ad = iabs(ds);
+  ll q = jfloordiv(an, ad);
+  const ll r = (ll)((ull)an - (ull)q * (ull)ad);
+  if ((ll)((ull)r * 2ULL) >= ad) q = (ll)((ull)q + 1ULL);
+  return ((num < 0) != (ds < 0)) ? neg(q) : q;
+}
+
+// floor division and modulo by a positive constant
+__device__ __forceinline__ ll floordivk(ll a, ll k) {
+  const ll q = a / k;
+  return (a % k != 0 && a < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ double maxmin(double x, double y, bool is_max) {
+  x = daz(x);
+  y = daz(y);
+  if (x != x) return x;
+  if (y != y) return y;
+  if (x == y) return (signbit(x) != 0) == is_max ? y : x;
+  return (x > y) == is_max ? x : y;
+}
+
+__device__ __forceinline__ double fun1(int fn, double x) {
+  switch (fn) {
+    case F_SQRT: return sqrt(x);
+    case F_EXP: return exp(x);
+    case F_LOG: return log(x);
+    case F_SIN: return sin(x);
+    case F_COS: return cos(x);
+    case F_TAN: return tan(x);
+    case F_ASIN: return asin(x);
+    case F_ACOS: return acos(x);
+    default: return atan(x);
+  }
+}
+
+// One op of the extended instantiation over a thread's U rows, read from
+// and written to the register file. Inlined into expr_eval_kernel<true>
+// only (a call an op ran FN_MIX's program 1.3x slower on the card: PERF.md,
+// Findings); the base instantiation's dispatch never sees it.
+__device__ __forceinline__ void ext_op(const Op o, ll* R, unsigned char* V, const ll* sk, int t, int T) {
+#define XR(r, u) R[((ll)(r) * U + (u)) * T + t]
+#define XV(r) V[(ll)(r) * T + t]
+#define XU _Pragma("unroll") for (int u = 0; u < U; ++u)
+  ll d[U];
+  const unsigned va = XV(o.a);
+  unsigned v = va;
+  switch (o.code) {
+    case IDIV: {
+      const unsigned vb = XV(o.b);
+      v = 0;
+      XU {
+        const ll a = XR(o.a, u), b = XR(o.b, u), bs = b == 0 ? 1 : b;
+        if (o.aux == IDIV_U)
+          d[u] = (ll)((ull)a / (ull)bs);
+        else if (o.aux == IDIV_S)
+          d[u] = tdiv(a, bs);
+        else
+          d[u] = (ll)((ull)a - (ull)tdiv(a, bs) * (ull)bs);
+        if (b != 0) v |= 1u << u;
+      }
+      v &= va & vb;
+      break;
+    }
+    case RDIV: {
+      const unsigned vb = XV(o.b);
+      v = 0;
+      XU {
+        const ll b = XR(o.b, u);
+        d[u] = round_div_lane(XR(o.a, u), b);
+        if (b != 0) v |= 1u << u;
+      }
+      v &= va & vb;
+      break;
+    }
+    case IFLOORK: {
+      const ll k = sk[o.b];
+      XU d[u] = floordivk(XR(o.a, u), k);
+      break;
+    }
+    case IMODK: {
+      const ll k = sk[o.b];
+      XU {
+        const ll r = XR(o.a, u) % k;
+        d[u] = r < 0 ? r + k : r;
+      }
+      break;
+    }
+    case ITRUNCK: {
+      const ll k = sk[o.b];
+      XU {
+        const ll a = XR(o.a, u);
+        const ll q = floordivk(iabs(a), k);
+        d[u] = a < 0 ? neg(q) : (a == 0 ? 0 : q);
+      }
+      break;
+    }
+    case IABS:
+      XU d[u] = o.aux ? (ll)(int32_t)(uint32_t)(ull)iabs(XR(o.a, u)) : iabs(XR(o.a, u));
+      break;
+    case MAX:
+    case MIN: {
+      const bool is_max = o.code == MAX;
+      XU {
+        const ll a = XR(o.a, u), b = XR(o.b, u);
+        if (o.aux == DOM_F)
+          d[u] = as_i(maxmin(as_f(a), as_f(b), is_max));
+        else if (o.aux == DOM_U)
+          d[u] = (((ull)a < (ull)b) == is_max) ? b : a;
+        else
+          d[u] = ((a < b) == is_max) ? b : a;
+      }
+      v = va & XV(o.b);
+      break;
+    }
+    case X2F:
+      XU {
+        const ll a = XR(o.a, u);
+        double f = __ll2double_rn(a);
+        if (o.aux && a < 0) f = __dadd_rn(f, 18446744073709551616.0);
+        d[u] = as_i(f);
+      }
+      break;
+    case BAND:
+      XU d[u] = XR(o.a, u) & XR(o.b, u);
+      v = va & XV(o.b);
+      break;
+    case BOR:
+      XU d[u] = XR(o.a, u) | XR(o.b, u);
+      v = va & XV(o.b);
+      break;
+    case BXOR:
+      XU d[u] = XR(o.a, u) ^ XR(o.b, u);
+      v = va & XV(o.b);
+      break;
+    case BNOT:
+      XU d[u] = ~XR(o.a, u);
+      break;
+    case SHL:
+    case SHR:
+      XU {
+        const ll b = XR(o.b, u);
+        const ull a = (ull)XR(o.a, u);
+        d[u] = (b >= 0 && b < 64) ? (ll)(o.code == SHL ? a << (b & 63) : a >> (b & 63)) : 0;
+      }
+      v = va & XV(o.b);
+      break;
+    case XOR:
+      XU d[u] = nz(XR(o.a, u), o.aux & 1) != nz(XR(o.b, u), (o.aux >> 1) & 1);
+      v = va & XV(o.b);
+      break;
+    case ISTRUE:
+    case ISFALSE:
+      XU d[u] = (nz(XR(o.a, u), o.aux & 1) == (o.code == ISTRUE)) && ((va >> u) & 1);
+      v = ALLV;
+      break;
+    case SEL: {
+      const int c = o.aux & ((1 << SEL_REG_BITS) - 1), fl = (o.aux >> SEL_REG_BITS) & 1;
+      const unsigned vc = XV(c), vb = XV(o.b);
+      v = 0;
+      XU {
+        const bool cond = nz(XR(c, u), fl) && ((vc >> u) & 1);
+        d[u] = cond ? XR(o.a, u) : XR(o.b, u);
+        v |= ((cond ? va : vb) >> u & 1u) << u;
+      }
+      break;
+    }
+    case COAL: {
+      const unsigned vb = XV(o.b);
+      XU d[u] = ((va >> u) & 1) ? XR(o.a, u) : XR(o.b, u);
+      v = va | vb;
+      break;
+    }
+    case NULLIF: {
+      const unsigned vb = XV(o.b);
+      unsigned eq = 0;
+      XU {
+        d[u] = XR(o.a, u);
+        eq |= (unsigned)(XR(o.b, u) != 0) << u;
+      }
+      v = va & ~(eq & vb) & ALLV;
+      break;
+    }
+    case VAND:
+      XU d[u] = XR(o.a, u);
+      v = va & XV(o.b);
+      break;
+    case FDIV: {
+      const int mode = o.aux & ((1 << FDIV_REG_SHIFT) - 1), c = o.aux >> FDIV_REG_SHIFT;
+      v = va & XV(o.b);
+      if (mode & FDIV_PRODUCT) v &= XV(c);
+      unsigned okb = 0;
+      XU {
+        const double fa = daz(as_f(XR(o.a, u))), fb = daz(as_f(XR(o.b, u)));
+        const bool ok = mode == FDIV_PLAIN || (mode & 3) == FDIV_MODK || fb != 0.0;
+        okb |= (unsigned)ok << u;
+        const double bs = ok ? fb : 1.0;
+        if (mode == FDIV_PLAIN || mode == FDIV_GUARD) {
+          d[u] = as_i(daz(__ddiv_rn(fa, bs)));
+          continue;
+        }
+        double prod = fa, fk = 0.0;
+        if (mode & FDIV_PRODUCT) {
+          fk = daz(as_f(XR(c, u)));
+          prod = daz(__dmul_rn(fa, fk));
+        }
+        const double q = (mode & 3) == FDIV_MODK ? daz(__dmul_rn(prod, __ddiv_rn(1.0, bs))) : daz(__ddiv_rn(prod, bs));
+        const double tq = trunc(q);
+        const double r = (mode & FDIV_PRODUCT) ? __fma_rn(fa, fk, -daz(__dmul_rn(tq, bs))) : __fma_rn(-tq, bs, fa);
+        d[u] = as_i(daz(r));
+      }
+      v &= okb;
+      break;
+    }
+    case FABS:
+      XU d[u] = XR(o.a, u) & 0x7FFFFFFFFFFFFFFFLL;
+      break;
+    case FFLOOR:
+      XU d[u] = as_i(floor(daz(as_f(XR(o.a, u)))));
+      break;
+    case FCEIL:
+      XU d[u] = as_i(ceil(daz(as_f(XR(o.a, u)))));
+      break;
+    case FTRUNC:
+      XU d[u] = as_i(trunc(daz(as_f(XR(o.a, u)))));
+      break;
+    case FRNDA:
+      XU {
+        const double s = daz(as_f(XR(o.a, u)));
+        d[u] = as_i(s >= 0.0 ? floor(daz(__dadd_rn(s, 0.5))) : ceil(daz(__dsub_rn(s, 0.5))));
+      }
+      break;
+    case FSIGN:
+      XU {
+        const double s = daz(as_f(XR(o.a, u)));
+        d[u] = (s != s || s == 0.0) ? 0 : (s > 0.0 ? 1 : -1);
+      }
+      break;
+    case FUN1: {
+      const int fn = o.aux & 15, dom = o.aux >> 4;
+      unsigned okb = 0;
+      XU {
+        const double x = as_f(XR(o.a, u));
+        if (fn == F_SIN || fn == F_TAN) {  // no flush on either side
+          d[u] = as_i(fun1(fn, x));
+          okb |= 1u << u;
+          continue;
+        }
+        const double s = daz(x);
+        const bool ok = dom == D_GE0 ? s >= 0.0 : (dom == D_GT0 ? s > 0.0 : true);
+        okb |= (unsigned)ok << u;
+        d[u] = as_i(daz(fun1(fn, ok ? s : 1.0)));
+      }
+      v = va & okb;
+      break;
+    }
+    case FUN2:
+      XU {
+        const double x = as_f(XR(o.a, u)), y = as_f(XR(o.b, u));
+        d[u] = as_i(daz(o.aux == F_POW ? pow(x, y) : atan2(x, y)));
+      }
+      v = va & XV(o.b);
+      break;
+    default:
+      return;
+  }
+  XU XR(o.dst, u) = d[u];
+  XV(o.dst) = (unsigned char)v;
+#undef XR
+#undef XV
+#undef XU
 }
 
 __device__ __forceinline__ bool aligned(ll p, int bytes) { return (p & (bytes - 1)) == 0; }
@@ -259,6 +581,9 @@ __device__ __forceinline__ void load_op(const Op& o, const ll* sin, ll r0, ll n,
   v = o.b < 0 ? ALLV : ldbits(sin[o.b], r0, n, full);
 }
 
+// EXT: the extended instantiation (a program holding an op from EXT_FIRST
+// on); the base one's dispatch holds none of them.
+template <bool EXT>
 __global__ void __launch_bounds__(256, 4) expr_eval_kernel(const KParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = blockDim.x, t = threadIdx.x;
@@ -324,9 +649,9 @@ __global__ void __launch_bounds__(256, 4) expr_eval_kernel(const KParams p) {
           FOR_U d[u] = sat_i64(rint(as_f(RD(o.a, u))));
           v = VB(o.a);
           break;
-        case FDIVK: {
+        case FMULK: {  // a division by a constant c is FMULK by 1 / c (the host rounds it once)
           const double k = as_f(sk[o.b]);
-          FOR_U d[u] = as_i(daz(__ddiv_rn(daz(as_f(RD(o.a, u))), k)));
+          FOR_U d[u] = as_i(daz(__dmul_rn(daz(as_f(RD(o.a, u))), k)));
           v = VB(o.a);
           break;
         }
@@ -471,6 +796,8 @@ __global__ void __launch_bounds__(256, 4) expr_eval_kernel(const KParams p) {
           continue;
         }
         default:
+          if constexpr (EXT)
+            if (o.code >= EXT_FIRST) ext_op(o, R, V, sk, t, T);
           continue;
       }
       FOR_U RD(o.dst, u) = d[u];
@@ -491,13 +818,14 @@ struct Params {
   const void* ext_in;
   const void* ext_out;
   int64_t n;
-  int nops, nk, nregs, n_in, n_out, threads, blocks, ops_in_smem, nld;
+  int nops, nk, nregs, n_in, n_out, threads, blocks, ops_in_smem, nld, ext_ops;
   int64_t smem;
   int64_t in_ptrs[MAX_PTRS];
   int64_t out_ptrs[MAX_PTRS];
 };
 
-static int launch(const Params* h, int tasks, void* stream) {
+template <bool EXT>
+static int launch_as(const Params* h, int tasks, void* stream) {
   if (h->n < 0 || h->nops < 0 || h->nregs < 0 || h->threads < 32 || h->threads > 256 || h->blocks < 1 ||
       h->nld < 0 || h->nld > h->nops)
     return -1;
@@ -506,8 +834,9 @@ static int launch(const Params* h, int tasks, void* stream) {
                        ((int64_t)h->nregs * h->threads + 15) / 16 * 16 +
                        (h->ops_in_smem ? 20LL * h->nops : 0);
   // The opt-in limit (less the kernel's static shared memory) is the
-  // function's attribute on each device: set once a device, a bit each (a
-  // mesh's ranks launch from threads at once; setting it twice does no harm).
+  // function's attribute on each device: set once a device and
+  // instantiation, a bit each (a mesh's ranks launch from threads at once;
+  // setting it twice does no harm).
   static std::atomic<unsigned long long> set_on{0};
   static std::atomic<int> dyn_max{-1};
   int dev = 0;
@@ -515,9 +844,9 @@ static int launch(const Params* h, int tasks, void* stream) {
   const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
   if (bit == 0 || !(set_on.load(std::memory_order_acquire) & bit)) {
     cudaFuncAttributes fa;
-    if (cudaFuncGetAttributes(&fa, expr_eval_kernel) != cudaSuccess) return (int)cudaGetLastError();
+    if (cudaFuncGetAttributes(&fa, expr_eval_kernel<EXT>) != cudaSuccess) return (int)cudaGetLastError();
     const int lim = 227 * 1024 - (int)fa.sharedSizeBytes;
-    if (cudaFuncSetAttribute(expr_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lim) != cudaSuccess)
+    if (cudaFuncSetAttribute(expr_eval_kernel<EXT>, cudaFuncAttributeMaxDynamicSharedMemorySize, lim) != cudaSuccess)
       return (int)cudaGetLastError();
     dyn_max.store(lim);
     set_on.fetch_or(bit, std::memory_order_release);
@@ -541,8 +870,12 @@ static int launch(const Params* h, int tasks, void* stream) {
     p.out[j] = j < h->n_out && !h->ext_out ? h->out_ptrs[j] : 0;
   }
   if (h->n == 0) return 0;
-  expr_eval_kernel<<<dim3(h->blocks, tasks), h->threads, (size_t)h->smem, (cudaStream_t)stream>>>(p);
+  expr_eval_kernel<EXT><<<dim3(h->blocks, tasks), h->threads, (size_t)h->smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+static int launch(const Params* h, int tasks, void* stream) {
+  return h->ext_ops ? launch_as<true>(h, tasks, stream) : launch_as<false>(h, tasks, stream);
 }
 
 extern "C" int tt_expr_eval(const Params* h, void* stream) { return launch(h, 1, stream); }

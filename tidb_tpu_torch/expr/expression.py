@@ -310,6 +310,13 @@ def int2_pair(xp, lane):
     return -xp.astype(lo < 0, xp.int64), lo
 
 
+def int2_as_float(xp, pair):
+    """Approximate scalar value of an int2 pair (for arithmetic domains
+    where exactness above 2^53 is not contractual)."""
+    hi, lo = pair
+    return xp.astype(lo, xp.float64) + (hi == 1) * np.float64(2.0**64)
+
+
 def all_valid(xp, avals):
     v = avals[0][1]
     for _, vv in avals[1:]:

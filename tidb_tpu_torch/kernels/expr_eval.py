@@ -24,11 +24,17 @@ Where trouble lies, and what pins it (tests/test_torch_expr.py, the
 chip_smoke.py battery):
   * int64 wrap: adds and multiplies wrap mod 2^64 (unsigned in CUDA);
   * float rounding: no multiply-add is contracted (the kernel uses
-    __dmul_rn / __dadd_rn / __ddiv_rn); uint64 → float64 rounds once;
-    decimals become floats by an IEEE division by the exact double 10^s;
+    __dmul_rn / __dadd_rn / __ddiv_rn) but in the float MOD, which XLA
+    contracts (__fma_rn; `_fma` emulates it here); uint64 → float64
+    rounds once; a division by a constant is a multiply by the host's
+    reciprocal (FMULK: a decimal becomes a float as x * 10^-s);
   * XLA's CPU float rules, which the reference runs under: subnormal
     operands read as signed zero, subnormal results flush (not on
-    negation);
+    negation, abs, sin and tan, nor pow's and atan2's operands); max and
+    min return a NaN operand as it is, -0.0 below +0.0;
+  * integer division: a zero divisor reads 1 (its row NULL), INT64_MIN /
+    -1 is INT64_MIN (XLA's rule; CUDA's and the host's trap); a shift by
+    64 or more, or by a negative count, is 0;
   * float → int64 saturates with NaN → 0 (XLA's conversion), and the
     bitwise aggregates' rint rounds half to even first.
 
@@ -46,7 +52,9 @@ import ctypes
 import numpy as np
 import torch
 
-from ..expr.program import DOM_F, DOM_U, DOM_X, OP, ROWS, SMEM_MAX, Program
+from ..expr.program import (DOM_F, DOM_GE0, DOM_GT0, DOM_U, DOM_X, EXT_FIRST, FDIV_GUARD, FDIV_MODK, FDIV_PLAIN,
+                            FDIV_PRODUCT, FDIV_REG_SHIFT, FUN1, FUN2, IDIV_U, IMOD_S, KOPS, OP, ROWS, SEL_REG_BITS,
+                            SMEM_MAX, Program)
 from .build import count, library
 from .tables import sm_count
 
@@ -115,6 +123,223 @@ def _cmp(aux: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return [a == b, a != b, a < b, a <= b, a > b, a >= b][pred]
 
 
+def _neg(x: torch.Tensor) -> torch.Tensor:
+    return 0 - x  # wraps: -INT64_MIN is INT64_MIN
+
+
+def _iabs(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x < 0, _neg(x), x)
+
+
+def _tdiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b truncated, b != 0; INT64_MIN / -1 is INT64_MIN (XLA's rule),
+    never the host's overflow trap."""
+    neg = b == -1
+    q = torch.div(a, torch.where(neg, 1, b), rounding_mode="trunc")
+    return torch.where(neg, _neg(q), q)
+
+
+def _jfloordiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp's floor division of int64 (b != 0): the truncated quotient,
+    one less where the signs differ and the remainder is not 0."""
+    q = _tdiv(a, b)
+    r = a - q * b
+    return q - ((r != 0) & ((a < 0) != (b < 0))).to(torch.int64)
+
+
+def _udiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """uint64 a / b over their int64 bit patterns (b != 0)."""
+    big = b < 0  # b >= 2^63: the quotient is 0 or 1
+    q1 = ((a ^ _I64_MIN) >= (b ^ _I64_MIN)).to(torch.int64)
+    bs = torch.where(big, 1, b)
+    q = torch.div((a >> 1) & _I64_MAX, bs, rounding_mode="floor") << 1
+    r = a - q * bs
+    q = q + ((r ^ _I64_MIN) >= (bs ^ _I64_MIN)).to(torch.int64)
+    return torch.where(big, q1, q)
+
+
+def _round_div_lane(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """expr/builtins._round_div over a divisor lane, with jnp's integer
+    semantics (|INT64_MIN| wraps, floor division)."""
+    ds = torch.where(den == 0, 1, den)
+    an, ad = _iabs(num), _iabs(ds)
+    q = _jfloordiv(an, ad)
+    r = an - q * ad
+    q = q + (2 * r >= ad).to(torch.int64)
+    return q * torch.where((num < 0) != (ds < 0), -1, 1)
+
+
+def _fmax(x: torch.Tensor, y: torch.Tensor, is_max: bool) -> torch.Tensor:
+    """XLA CPU's max / min of doubles: operands flushed, a NaN operand
+    returned as it is (the first one), -0.0 below +0.0."""
+    x, y = _daz(x), _daz(y)
+    sx = torch.signbit(x)
+    if is_max:
+        pick = torch.where(x == y, torch.where(sx, y, x), torch.where(x > y, x, y))
+    else:
+        pick = torch.where(x == y, torch.where(sx, x, y), torch.where(x < y, x, y))
+    return torch.where(torch.isnan(x), x, torch.where(torch.isnan(y), y, pick))
+
+
+_SPLIT = 134217729.0  # 2^27 + 1: Dekker's split of a double into two 26-bit halves
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once (the fused multiply-add), by Boldo and
+    Melquiond's emulation: the exact product as two doubles (Dekker), its
+    exact sum with c, the low parts added rounding to odd, then one
+    rounding to nearest; operands past 2^900 scaled by 2^-200 first.
+    Non-finite operands or products take a * b + c (the same NaN and
+    infinities)."""
+    def split(x):
+        t = _SPLIT * x
+        hi = t - (t - x)
+        return hi, x - hi
+
+    # scale a and b below 2^900 by powers of two (exact), c with them
+    one = torch.ones_like(a)
+    sa = torch.where(a.abs() >= 2.0 ** 900, one * 2.0 ** -200, one)
+    sb = torch.where(b.abs() >= 2.0 ** 900, one * 2.0 ** -200, one)
+    a0, b0, c0 = a, b, c
+    a, b, c = a * sa, b * sb, c * (sa * sb)
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, p)
+    v, ve = _two_sum(tl, e)
+    vb = _bits(v)
+    odd = (ve != 0) & ((vb & 1) == 0)  # inexact on an even last bit: the odd neighbour toward the error
+    v = torch.where(odd, _f(vb + torch.where((ve > 0) == (v > 0), 1, -1)), v)
+    r = (th + v) / (sa * sb)
+    ok = torch.isfinite(a0) & torch.isfinite(b0) & torch.isfinite(c0) & torch.isfinite(p)
+    return torch.where(ok, r, a0 * b0 + c0)
+
+
+def _f1(fn: int, x: torch.Tensor) -> torch.Tensor:
+    return [torch.sqrt, torch.exp, torch.log, torch.sin, torch.cos, torch.tan, torch.asin, torch.acos,
+            torch.atan][fn](x)
+
+
+def _ext(name: str, aux: int, x, va, y, vb, consts, b, D, V, ones):
+    """One op of the extended instantiation → (data, valid)."""
+    both = va & vb if vb is not None else None
+    if name in ("IFLOORK", "IMODK", "ITRUNCK"):
+        k = int(consts[b])
+        if name == "IFLOORK":
+            return torch.div(x, k, rounding_mode="floor"), va
+        if name == "IMODK":
+            return torch.remainder(x, k), va
+        return torch.sign(x) * torch.div(_iabs(x), k, rounding_mode="floor"), va
+    if name == "IDIV":
+        ok = y != 0
+        ys = torch.where(ok, y, 1)
+        if aux == IDIV_U:
+            return _udiv(x, ys), both & ok
+        q = _tdiv(x, ys)
+        return (x - q * ys if aux == IMOD_S else q), both & ok
+    if name == "RDIV":
+        return _round_div_lane(x, y), both & (y != 0)
+    if name == "IABS":
+        a = _iabs(x)
+        return (a.to(torch.int32).to(torch.int64) if aux else a), va
+    if name in ("MAX", "MIN"):
+        if aux == DOM_F:
+            return _bits(_fmax(_f(x), _f(y), name == "MAX")), both
+        if aux == DOM_U:
+            lt = (x ^ _I64_MIN) < (y ^ _I64_MIN)
+            return torch.where(lt, y, x) if name == "MAX" else torch.where(lt, x, y), both
+        return (torch.maximum(x, y) if name == "MAX" else torch.minimum(x, y)), both
+    if name == "X2F":
+        f = x.to(torch.float64)
+        if aux:
+            f = torch.where(x < 0, f + 2.0 ** 64, f)
+        return _bits(f), va
+    if name in ("BAND", "BOR", "BXOR"):
+        return {"BAND": x & y, "BOR": x | y, "BXOR": x ^ y}[name], both
+    if name == "BNOT":
+        return ~x, va
+    if name in ("SHL", "SHR"):
+        ok = (y >= 0) & (y < 64)
+        s = y & 63
+        if name == "SHL":
+            return torch.where(ok, x << s, 0), both
+        mask = torch.where(s == 0, -1, (torch.ones_like(s) << (64 - s)) - 1)
+        return torch.where(ok, (x >> s) & mask, 0), both
+    if name == "XOR":
+        return (_nz(x, aux & 1) != _nz(y, aux >> 1 & 1)).to(torch.int64), both
+    if name in ("ISTRUE", "ISFALSE"):
+        t = _nz(x, aux & 1)
+        return ((t if name == "ISTRUE" else ~t) & va).to(torch.int64), ones
+    if name == "SEL":
+        c = aux & ((1 << SEL_REG_BITS) - 1)
+        cond = _nz(D[c], aux >> SEL_REG_BITS & 1) & V[c]
+        return torch.where(cond, x, y), torch.where(cond, va, vb)
+    if name == "COAL":
+        return torch.where(va, x, y), va | vb
+    if name == "NULLIF":
+        return x, va & ~((y != 0) & vb)
+    if name == "VAND":
+        return x, both
+    if name == "FDIV":
+        mode = aux & ((1 << FDIV_REG_SHIFT) - 1)
+        fa, fb = _daz(_f(x)), _daz(_f(y))
+        if mode == FDIV_PLAIN:
+            return _bits(_daz(fa / fb)), both
+        if mode == FDIV_GUARD:
+            ok = fb != 0
+            return _bits(_daz(fa / torch.where(ok, fb, 1.0))), both & ok
+        if mode & FDIV_PRODUCT:  # a is x * k
+            c = aux >> FDIV_REG_SHIFT
+            fk = _daz(_f(D[c]))
+            prod = _daz(fa * fk)
+            both = both & V[c]
+        else:
+            prod = fa
+        if mode & ~FDIV_PRODUCT == FDIV_MODK:  # b: a nonzero constant; the quotient by its reciprocal
+            ok, bs = torch.ones_like(both), fb
+            q = _daz(prod * (1.0 / fb))
+        else:
+            ok = fb != 0
+            bs = torch.where(ok, fb, 1.0)
+            q = _daz(prod / bs)
+        t = torch.trunc(q)
+        if mode & FDIV_PRODUCT:
+            r = _fma(fa, fk, -_daz(t * bs))
+        else:
+            r = _fma(-t, bs, fa)
+        return _bits(_daz(r)), both & ok
+    if name == "FABS":
+        return x & _I64_MAX, va
+    if name in ("FFLOOR", "FCEIL", "FTRUNC"):
+        fn = {"FFLOOR": torch.floor, "FCEIL": torch.ceil, "FTRUNC": torch.trunc}[name]
+        return _bits(fn(_daz(_f(x)))), va
+    if name == "FRNDA":
+        s = _daz(_f(x))
+        return _bits(torch.where(s >= 0, torch.floor(_daz(s + 0.5)), torch.ceil(_daz(s - 0.5)))), va
+    if name == "FSIGN":
+        s = _daz(_f(x))
+        return torch.where(torch.isnan(s) | (s == 0), 0, torch.where(s > 0, 1, -1)), va
+    if name == "FUN1":
+        fn, dom = aux & 15, aux >> 4
+        if fn in (FUN1["sin"], FUN1["tan"]):  # no flush on either side
+            return _bits(_f1(fn, _f(x))), va
+        s = _daz(_f(x))
+        ok = s >= 0 if dom == DOM_GE0 else s > 0 if dom == DOM_GT0 else torch.ones_like(va)
+        return _bits(_daz(_f1(fn, torch.where(ok, s, 1.0)))), va & ok
+    if name == "FUN2":
+        if aux == FUN2["pow"]:  # neither operand flushed
+            return _bits(_daz(torch.pow(_f(x), _f(y)))), both
+        return _bits(_daz(torch.atan2(_f(x), _f(y)))), both
+    raise ValueError(f"expr_eval: unknown opcode {name}")
+
+
 def expr_eval_ref(prog: Program, ins: list, n: int) -> list:
     """Plain PyTorch version: the program, instruction by instruction,
     over whole lanes."""
@@ -147,9 +372,11 @@ def expr_eval_ref(prog: Program, ins: list, n: int) -> list:
                 V[dst] = ones
         else:
             x, va = D.get(a), V.get(a)
-            y, vb = (D.get(b), V.get(b)) if name not in ("FDIVK", "IMULK", "RDIVK") else (None, None)
+            y, vb = (D.get(b), V.get(b)) if name not in KOPS else (None, None)
             both = va & vb if vb is not None else None
-            if name == "I2F":
+            if code >= EXT_FIRST:
+                d, v = _ext(name, aux, x, va, y, vb, consts, b, D, V, ones)
+            elif name == "I2F":
                 d, v = _bits(x.to(torch.float64)), va
             elif name == "U2F":
                 d, v = _bits(_u2f(x)), va
@@ -157,11 +384,10 @@ def expr_eval_ref(prog: Program, ins: list, n: int) -> list:
                 d, v = _sat_i64(torch.trunc(_f(x))), va
             elif name == "RINT":
                 d, v = _sat_i64(torch.round(_f(x))), va
-            elif name == "FDIVK":
-                # a 0-d tensor divisor: torch on CUDA multiplies by the
-                # reciprocal of a Python scalar, which is not IEEE division
+            elif name == "FMULK":
+                # a 0-d tensor factor: the product IEEE-rounded once
                 k = torch.tensor(np.array(consts[b], dtype=np.int64).view(np.float64), device=dev)
-                d, v = _bits(_daz(_daz(_f(x)) / k)), va
+                d, v = _bits(_daz(_daz(_f(x)) * k)), va
             elif name == "IMULK":
                 d, v = x * int(consts[b]), va
             elif name == "RDIVK":
@@ -219,7 +445,7 @@ class _Params(ctypes.Structure):
                 ("ext_out", ctypes.c_void_p), ("n", ctypes.c_int64), ("nops", ctypes.c_int),
                 ("nk", ctypes.c_int), ("nregs", ctypes.c_int), ("n_in", ctypes.c_int), ("n_out", ctypes.c_int),
                 ("threads", ctypes.c_int), ("blocks", ctypes.c_int), ("ops_in_smem", ctypes.c_int),
-                ("nld", ctypes.c_int), ("smem", ctypes.c_int64),
+                ("nld", ctypes.c_int), ("ext_ops", ctypes.c_int), ("smem", ctypes.c_int64),
                 ("in_ptrs", ctypes.c_int64 * MAX_PTRS), ("out_ptrs", ctypes.c_int64 * MAX_PTRS)]
 
 
@@ -312,7 +538,7 @@ def expr_eval_prepare(prog: Program, ins: list, n: int):
     threads, blocks, smem, in_smem = launch_shape(prog, n, sm_count(dev))
     p = _Params(ops=ops.data_ptr(), consts=consts.data_ptr(), n=n, nops=len(prog.ops), nk=len(prog.consts),
                 nregs=prog.nregs, n_in=len(ins), n_out=len(outs), threads=threads, blocks=blocks,
-                ops_in_smem=int(in_smem), nld=prog.loads, smem=smem)
+                ops_in_smem=int(in_smem), nld=prog.loads, ext_ops=int(prog.ext), smem=smem)
     keep = []
     for name, ts, fld in (("in", ins, "in_ptrs"), ("out", outs, "out_ptrs")):
         ptrs = [t.data_ptr() for t in ts]

@@ -258,7 +258,7 @@ def expr_eval_tasks_prepare(prog, ins: list, width: int, dev: torch.device):
     p = _Params(ops=ops.data_ptr(), consts=consts.data_ptr(), ext_in=t_in.data_ptr(), ext_out=t_out.data_ptr(),
                 n=width, nops=len(prog.ops), nk=len(prog.consts), nregs=prog.nregs, n_in=len(prog.inputs),
                 n_out=len(prog.outputs), threads=threads, blocks=blocks, ops_in_smem=int(in_smem),
-                nld=prog.loads, smem=smem)
+                nld=prog.loads, ext_ops=int(prog.ext), smem=smem)
 
     def go(keep=(t_in, t_out, ops, consts)):
         rc = _lib("expr_eval").tt_expr_eval_tasks(ctypes.byref(p), G, _stream(dev))

@@ -13,6 +13,11 @@
   every sort key is a column of the projection below the Sort);
 * `q18_inner_dag`: the aggregation pushed for Q18_INNER, the subquery of
   TPC-H Q18 (spec 2.4.18; its HAVING runs above the cop);
+* `fn_mix_dag` / `fn_math_dag`: the aggregations pushed for FN_MIX and
+  FN_MATH, lineitem aggregated through the builtins past arithmetic
+  (division with NULL on a zero divisor, CASE / IF / COALESCE / NULLIF,
+  DIV / MOD, the date fields, CEIL / FLOOR / ROUND, the math functions,
+  CAST, GREATEST, the bit operators);
 * `checksum_dag`: the aggregation pushed for CHECKSUM, a per-group
   BIT_XOR / BIT_OR / BIT_AND checksum of lineitem in the way
   pt-table-checksum folds row checksums with BIT_XOR;
@@ -50,10 +55,11 @@ from ..copr.tilecache import ColumnBatch
 from ..copr.dag import AggNode, DAGRequest, ScanNode, SelectionNode, TopNNode
 from ..executor.mpp_gather import RootStep
 from ..expr.aggregation import AggDesc, Frame, WinDesc, agg_ret_type
-from ..expr.expression import Column, Constant, make_func
+from ..expr import builtins  # noqa: F401 — the registry
+from ..expr.expression import FUNCS, Column, Constant, ScalarFunc, make_func
 from ..mysqltypes.coretime import parse_datetime
 from ..mysqltypes.datum import Datum
-from ..mysqltypes.field_type import NOT_NULL_FLAG, FieldType, TypeCode, ft_decimal, ft_longlong, ft_varchar
+from ..mysqltypes.field_type import NOT_NULL_FLAG, FieldType, TypeCode, ft_decimal, ft_double, ft_longlong, ft_varchar
 from ..planner.fragment import Aggregation, DataSource, JoinFrag, MPPPlan, PlanCol, ScanFrag
 from ..mysqltypes.mydecimal import dec_from_string
 
@@ -117,6 +123,30 @@ GROUP BY c.c_mktsegment"""
 CHECKSUM = """SELECT l_returnflag, COUNT(*), BIT_XOR(l_orderkey), BIT_OR(l_partkey),
        BIT_AND(l_extendedprice * (1 - l_discount))
 FROM lineitem WHERE l_shipdate <= '1998-09-02' GROUP BY l_returnflag"""
+
+# the builtins beyond arithmetic on the cop path: division by a lane with
+# zero divisors (NULL where l_quantity = 25), CASE / IF / COALESCE /
+# NULLIF, DIV and MOD, the date fields, CEIL and ROUND (a float ROUND of a
+# decimal product); the reference runs both on its device with no fallback
+FN_MIX = """SELECT l_returnflag, l_linestatus, COUNT(*),
+  SUM(CASE WHEN l_discount >= 0.05 THEN l_extendedprice * (1 - l_discount) ELSE l_extendedprice END),
+  SUM(l_extendedprice / (l_quantity - 25)), COUNT(l_extendedprice / (l_quantity - 25)),
+  SUM(IF(l_receiptdate > l_commitdate, l_extendedprice DIV 100, 0)),
+  MIN(COALESCE(NULLIF(l_linenumber MOD 3, 0), -1)), MAX(DAYOFMONTH(l_receiptdate)),
+  SUM(CEIL(l_extendedprice / 7)), SUM(ROUND(l_extendedprice * 1.0e0 * (1 - l_discount), 2))
+FROM lineitem
+WHERE MONTH(l_shipdate) IN (1, 4, 7, 10) AND YEAR(l_shipdate) BETWEEN 1993 AND 1997 AND l_quantity MOD 7 <> 0
+GROUP BY l_returnflag, l_linestatus"""
+
+# the math functions, ABS / SIGN / FLOOR, CAST AS SIGNED, GREATEST and the
+# bit operators
+FN_MATH = """SELECT l_returnflag, l_linestatus,
+  SUM(SQRT(l_quantity)), SUM(LN(l_extendedprice)), MAX(POW(l_discount, 2)),
+  SUM(ABS(l_tax - 0.04)), MIN(SIGN(l_tax - 0.04)), SUM(FLOOR(l_extendedprice / 1000)),
+  SUM(CAST(l_extendedprice AS SIGNED)), MAX(GREATEST(l_quantity, l_tax * 100)), BIT_OR(l_partkey >> 3),
+  SUM(EXP(-l_discount) * COS(l_tax))
+FROM lineitem WHERE DAYOFMONTH(l_shipdate) <= 15 AND (l_linenumber & 1) = 1
+GROUP BY l_returnflag, l_linestatus"""
 
 # a join aggregate with no GROUP BY (TPC-H Q14's and Q19's shape)
 SCALAR_REVENUE = ("SELECT SUM(l_extendedprice * (1 - l_discount)) FROM lineitem JOIN orders "
@@ -323,6 +353,64 @@ def q6_dag() -> DAGRequest:
     ]
     revenue = AggDesc.make("sum", [make_func("mul", _col("l_extendedprice"), disc)])
     return DAGRequest(scan=_scan(), selection=SelectionNode(conds), agg=AggNode([], [revenue]))
+
+
+def _float(v: float) -> Constant:
+    return Constant(Datum.f(v), ft_double())
+
+
+def fn_mix_dag() -> DAGRequest:
+    """The aggregation the reference planner pushes for FN_MIX."""
+    price, disc, qty = _col("l_extendedprice"), _col("l_discount"), _col("l_quantity")
+    ship, recv = _col("l_shipdate"), _col("l_receiptdate")
+    per_qty = make_func("div", price, make_func("minus", qty, _int(25)))
+    aggs = [
+        AggDesc.make("count", []),
+        AggDesc.make("sum", [make_func("case", make_func("ge", disc, _dec("0.05", 2)),
+                                       make_func("mul", price, make_func("minus", _int(1), disc)), price)]),
+        AggDesc.make("sum", [per_qty]),
+        AggDesc.make("count", [per_qty]),
+        AggDesc.make("sum", [make_func("if", make_func("gt", recv, _col("l_commitdate")),
+                                       make_func("intdiv", price, _int(100)), _int(0))]),
+        AggDesc.make("min", [make_func("coalesce", make_func("nullif", make_func("mod", _col("l_linenumber"), _int(3)),
+                                                             _int(0)), make_func("unaryminus", _int(1)))]),
+        AggDesc.make("max", [make_func("dayofmonth", recv)]),
+        AggDesc.make("sum", [make_func("ceil", make_func("div", price, _int(7)))]),
+        AggDesc.make("sum", [make_func("round", make_func("mul", make_func("mul", price, _float(1.0)),
+                                                          make_func("minus", _int(1), disc)), _int(2))]),
+    ]
+    conds = [
+        make_func("in", make_func("month", ship), _int(1), _int(4), _int(7), _int(10)),
+        make_func("ge", make_func("year", ship), _int(1993)),
+        make_func("le", make_func("year", ship), _int(1997)),
+        make_func("ne", make_func("mod", qty, _int(7)), _int(0)),
+    ]
+    return DAGRequest(scan=_scan(), selection=SelectionNode(conds),
+                      agg=AggNode([_col("l_returnflag"), _col("l_linestatus")], aggs))
+
+
+def fn_math_dag() -> DAGRequest:
+    """The aggregation the reference planner pushes for FN_MATH."""
+    price, disc, qty, tax = _col("l_extendedprice"), _col("l_discount"), _col("l_quantity"), _col("l_tax")
+    tax_off = make_func("minus", tax, _dec("0.04", 2))
+    aggs = [
+        AggDesc.make("sum", [make_func("sqrt", qty)]),
+        AggDesc.make("sum", [make_func("ln", price)]),
+        AggDesc.make("max", [make_func("pow", disc, _int(2))]),
+        AggDesc.make("sum", [make_func("abs", tax_off)]),
+        AggDesc.make("min", [make_func("sign", tax_off)]),
+        AggDesc.make("sum", [make_func("floor", make_func("div", price, _int(1000)))]),
+        AggDesc.make("sum", [ScalarFunc(FUNCS["cast"], [price], FieldType(TypeCode.Longlong))]),
+        AggDesc.make("max", [make_func("greatest", qty, make_func("mul", tax, _int(100)))]),
+        AggDesc.make("bit_or", [make_func("rshift", _col("l_partkey"), _int(3))]),
+        AggDesc.make("sum", [make_func("mul", make_func("exp", make_func("unaryminus", disc)), make_func("cos", tax))]),
+    ]
+    conds = [
+        make_func("le", make_func("dayofmonth", _col("l_shipdate")), _int(15)),
+        make_func("eq", make_func("bitand", _col("l_linenumber"), _int(1)), _int(1)),
+    ]
+    return DAGRequest(scan=_scan(), selection=SelectionNode(conds),
+                      agg=AggNode([_col("l_returnflag"), _col("l_linestatus")], aggs))
 
 
 def checksum_dag() -> DAGRequest:

@@ -1,20 +1,33 @@
-"""Collation weight strings (ref: tidb_tpu/mysqltypes/collate.py, trimmed).
+"""Collation weight strings (copy of tidb_tpu/mysqltypes/collate.py; ref:
+util/collate/, expression/collation.go,
+charset/collations generated tables — redesigned over Unicode
+normalization instead of shipped weight tables).
 
 A collation maps a string to a WEIGHT string such that binary comparison
-of weights == collated comparison of the originals. The port's host paths
-(group-by factorization, min/max over strings, compare kernels) and the
-dict encoder's sorted-vocab order run on weights under a case-insensitive
-collation, and on the raw values under a binary one.
+of weights == collated comparison of the originals. Everything that
+compares/sorts/groups strings (expression compare kernels, lexicographic
+sorts, group-by factorization, join key encoding, the device
+dict-encoder's sorted-vocab order) runs on weights when the column's
+collation is case-insensitive, and on the raw bytes for binary
+collations.
 
-Ported: the binary collations, *_general_ci (per-character NFD base
-letter, uppercased) and the NFKD + casefold approximation the reference
-uses for *_0900_ai_ci / *_unicode_520_ci. Not ported: the exact UCA 4.0.0
-table behind utf8mb4_unicode_ci / utf8_unicode_ci, which raises
-NotPortedError.
+Weight sources:
+ - *_unicode_ci: EXACT UCA 4.0.0 primary weights (uca400_weights.npz,
+   derived from the public allkeys-4.0.0.txt — the table MySQL's
+   utf8mb4_unicode_ci implements; ref: util/collate/unicode_ci.go
+   semantics: ignorables drop, supplementary planes weigh 0xFFFD, PAD
+   SPACE truncates trailing spaces).
+ - *_general_ci: per-character NFD base letter, uppercased (accent- and
+   case-insensitive for Latin; code-point order elsewhere). ß folds to S
+   (matches MySQL general_ci's ß=s single-character behavior).
+ - *_0900_ai_ci / *_unicode_520_ci: NFKD + casefold + combining-mark
+   strip — UCA primary-strength approximation (those need UCA 9.0/5.2
+   tables; documented gap).
 """
 
 from __future__ import annotations
 
+import os
 import unicodedata
 from functools import lru_cache
 
@@ -27,7 +40,6 @@ _GENERAL_CI = {
 _UNICODE_CI = {
     "utf8mb4_unicode_ci", "utf8_unicode_ci", "utf8mb4_0900_ai_ci", "utf8mb4_unicode_520_ci",
 }
-_UCA400_EXACT = {"utf8mb4_unicode_ci", "utf8_unicode_ci"}
 _BIN = {"binary", "utf8mb4_bin", "utf8_bin", "latin1_bin", "ascii_bin", "utf8mb4_0900_bin"}
 
 SUPPORTED = _GENERAL_CI | _UNICODE_CI | _BIN
@@ -51,14 +63,36 @@ def _general_ci_char(ch: str) -> str:
     return u[0] if u else ch
 
 
+_UCA400_EXACT = {"utf8mb4_unicode_ci", "utf8_unicode_ci"}
+_uca400 = None
+
+
+def _uca400_tables():
+    global _uca400
+    if _uca400 is None:
+        path = os.path.join(os.path.dirname(__file__), "uca400_weights.npz")
+        z = np.load(path)
+        _uca400 = (z["offsets"], z["weights"])
+    return _uca400
+
+
+@lru_cache(maxsize=65536)
+def _uca400_char(ch: str) -> str:
+    cp = ord(ch)
+    if cp > 0xFFFF:
+        return "�"  # supplementary planes: single implicit weight
+    offsets, weights = _uca400_tables()
+    run = weights[offsets[cp]:offsets[cp + 1]]
+    return "".join(chr(int(w)) for w in run)
+
+
 def weight(s: str, coll: str) -> str:
     """Weight string for one value under `coll` (identity for binary)."""
     if coll in _GENERAL_CI:
         return "".join(_general_ci_char(ch) for ch in s)
     if coll in _UCA400_EXACT:
-        from ..errors import NotPortedError
-
-        raise NotPortedError("mysqltypes/collate.py UCA 4.0.0 weights", coll)
+        # PAD SPACE: trailing spaces never distinguish values
+        return "".join(_uca400_char(ch) for ch in s.rstrip(" "))
     if coll in _UNICODE_CI:
         d = unicodedata.normalize("NFKD", s.casefold())
         return "".join(c for c in d if not unicodedata.combining(c))

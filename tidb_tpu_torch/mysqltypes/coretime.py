@@ -1,5 +1,5 @@
-"""Datetime/date representation (copy of tidb_tpu/mysqltypes/coretime.py,
-trimmed to packing, parsing and formatting; ref: types/time.go).
+"""Datetime/date representation (copy of tidb_tpu/mysqltypes/coretime.py;
+ref: types/time.go, types/core_time.go).
 
 A datetime is packed into a single int64 whose natural integer order equals
 chronological order, so packed times compare/sort/min/max directly as int64
@@ -85,3 +85,60 @@ def format_time(packed: int, is_date: bool = False, fsp: int = 0) -> str:
     if fsp > 0:
         base += "." + f"{us:06d}"[:fsp]
     return base
+
+
+def number_to_datetime(v: int) -> int | None:
+    """MySQL numeric datetime forms: YYYYMMDD or YYYYMMDDHHMMSS
+    (ref: types/time.go ParseDatetimeFromNum)."""
+    if v <= 0:
+        return 0 if v == 0 else None
+    s = str(v)
+    if len(s) <= 8:
+        s = s.zfill(8)
+        return parse_datetime(f"{s[:4]}-{s[4:6]}-{s[6:8]}")
+    if len(s) <= 14:
+        s = s.zfill(14)
+        return parse_datetime(f"{s[:4]}-{s[4:6]}-{s[6:8]} {s[8:10]}:{s[10:12]}:{s[12:14]}")
+    return None
+
+
+def time_year(packed: int) -> int:
+    return packed // (_US * 60 * 60 * 24 * 32 * 13)
+
+
+def time_month(packed: int) -> int:
+    return (packed // (_US * 60 * 60 * 24 * 32)) % 13
+
+
+def time_day(packed: int) -> int:
+    return (packed // (_US * 60 * 60 * 24)) % 32
+
+
+def time_hour(packed: int) -> int:
+    return (packed // (_US * 60 * 60)) % 24
+
+
+def time_minute(packed: int) -> int:
+    return (packed // (_US * 60)) % 60
+
+
+def time_second(packed: int) -> int:
+    return (packed // _US) % 60
+
+
+_DUR_RE = re.compile(r"^\s*(-)?(\d+):(\d{1,2})(?::(\d{1,2})(?:\.(\d{1,6}))?)?\s*$")
+
+
+def parse_duration(s: str) -> int | None:
+    """'[-]HH:MM[:SS[.f]]' → signed microseconds; MySQL parses the
+    two-part form as hours:minutes (ref: types/duration.go)."""
+    m = _DUR_RE.match(s)
+    if m is None:
+        return None
+    neg, h, mi, sec, frac = m.groups()
+    mi = int(mi)
+    sec = int(sec) if sec is not None else 0
+    if mi > 59 or sec > 59:
+        return None
+    us = ((int(h) * 3600 + mi * 60 + sec) * 1_000_000) + int((frac or "0").ljust(6, "0"))
+    return -us if neg else us

@@ -1,5 +1,5 @@
-"""MySQL field types (copy of tidb_tpu/mysqltypes/field_type.py without the
-DDL type-name parser; ref: types/field_type.go, parser/mysql type codes).
+"""MySQL field types (copy of tidb_tpu/mysqltypes/field_type.py; ref:
+types/field_type.go, parser/mysql type codes).
 
 The TypeCode values follow the MySQL protocol type space so that a wire
 layer can serialize them directly.
@@ -162,3 +162,64 @@ def ft_date() -> FieldType:
 
 def ft_datetime(fsp=0) -> FieldType:
     return FieldType(TypeCode.Datetime, flen=19, decimal=fsp)
+
+
+_NAME_TO_TYPE = {
+    "tinyint": TypeCode.Tiny,
+    "smallint": TypeCode.Short,
+    "mediumint": TypeCode.Int24,
+    "int": TypeCode.Long,
+    "integer": TypeCode.Long,
+    "bigint": TypeCode.Longlong,
+    "float": TypeCode.Float,
+    "double": TypeCode.Double,
+    "real": TypeCode.Double,
+    "decimal": TypeCode.NewDecimal,
+    "numeric": TypeCode.NewDecimal,
+    "varchar": TypeCode.Varchar,
+    "char": TypeCode.String,
+    "text": TypeCode.Blob,
+    "tinytext": TypeCode.TinyBlob,
+    "mediumtext": TypeCode.MediumBlob,
+    "longtext": TypeCode.LongBlob,
+    "blob": TypeCode.Blob,
+    "varbinary": TypeCode.VarString,
+    "binary": TypeCode.String,
+    "date": TypeCode.Date,
+    "datetime": TypeCode.Datetime,
+    "timestamp": TypeCode.Timestamp,
+    "time": TypeCode.Duration,
+    "year": TypeCode.Year,
+    "json": TypeCode.JSON,
+    "bit": TypeCode.Bit,
+    "enum": TypeCode.Enum,
+    "set": TypeCode.Set,
+    "bool": TypeCode.Tiny,
+    "boolean": TypeCode.Tiny,
+}
+
+
+def parse_type_name(name: str, args=(), unsigned=False, elems=(), collate="") -> FieldType:
+    """Map a SQL type name + length args to a FieldType (used by the DDL parser)."""
+    tp = _NAME_TO_TYPE.get(name.lower())
+    if tp is None:
+        raise ValueError(f"unknown type {name!r}")
+    ft = FieldType(tp)
+    if collate:
+        from .collate import is_supported
+
+        if not is_supported(collate):
+            raise ValueError(f"Unknown collation: '{collate}'")
+        ft.collate = collate
+    if unsigned:
+        ft.flag |= UNSIGNED_FLAG
+    if tp == TypeCode.NewDecimal:
+        ft.flen = args[0] if args else 10
+        ft.decimal = args[1] if len(args) > 1 else 0
+    elif tp in (TypeCode.Datetime, TypeCode.Timestamp, TypeCode.Duration):
+        ft.decimal = args[0] if args else 0
+    elif args:
+        ft.flen = args[0]
+    if tp in (TypeCode.Enum, TypeCode.Set):
+        ft.elems = tuple(elems)
+    return ft

@@ -125,7 +125,26 @@ def dec_from_string(s: str) -> Dec:
     return Dec(-v if neg else v, scale)
 
 
+def dec_from_int(v: int) -> Dec:
+    return Dec(v, 0)
+
+
 def dec_from_float(f: float, scale: int | None = None) -> Dec:
     if scale is None:
         return dec_from_string(repr(f))
     return Dec(round(f * pow10(scale)), scale)
+
+
+def dec_round(d: Dec, frac: int) -> Dec:
+    """ROUND(d, frac) — keeps at most `frac` fractional digits."""
+    if frac >= d.scale:
+        return d
+    if frac < 0:
+        r = d.rescale(0)
+        p = pow10(-frac)
+        v, rem = divmod(abs(r.value), p)
+        if rem * 2 >= p:
+            v += 1
+        v *= p
+        return Dec(v if r.value >= 0 else -v, 0)
+    return d.rescale(frac)
