@@ -214,8 +214,15 @@ Phases, one line each; any failure exits non-zero and prints no result:
               task and fetches per call, no batcher group falling back
               to solo execute, and one profiled run_many and run_burst
               each (the card's busy time and idle share); and
+              main.store: the --rows lineitem bulk-ingested into the
+              port's store (models/tpch.bulk_load: the columnar run,
+              idx_ship's index run, the split into 8 regions of 7 x
+              2,097,152 and 1,319,936 rows at the handles' record keys),
+              with the ingest's seconds and rows/s, then one
+              TileCache.get_batch per region, cold (the columnar gather,
+              seconds per region) and warm (hits, the same batches);
               main.q1_regions, Q1 over the
-              --rows lineitem cut into its regions at 2,097,152 rows
+              store's region batches
               through run_many (the full regions one group, K10 at full
               width), merged at the root and equal to main.q1's answer;
               each task mode must launch; main.regions_sorted, tpch_topn,
@@ -225,7 +232,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
               group), merged at the root (the TopN over the partial rows;
               the final aggregation) and equal to the one-batch answers,
               with one fetch a run and the sort kernels launched solo only
-              for the short region; the burst also runs the point TopN
+              for the short region; main.store.htap, one Txn through
+              table.Table over that store (l_discount changed on 5,000
+              rows of region 2, 5,000 rows of region 5 deleted, 5,000
+              rows inserted into region 8): the next get_batch rebuilds
+              exactly those three regions, merging the committed rows
+              after the runs' kept rows, and keeps the other five and
+              their device lanes; Q1 and Q18's subquery over the new
+              batches through run_many equal the port's host engine over
+              the same batches, their first rerun uploading only the
+              rebuilt regions' lanes (every other region's device tensors
+              the same objects) and the second nothing; before it,
+              main.store.turns times Q1 and tpch_topn over the store's
+              batches and over region_batches' cut of the one batch in
+              alternating turns; the burst also runs the point TopN
               and multi-key TopN mixes (64 x 4,096 rows), with no solo
               K6 / K7 / K8 / K9 inside run_many's group, and both at a
               LIMIT past the narrowed width (8 tasks, LIMIT 8,192: every
@@ -2258,7 +2278,7 @@ def expr_edge_cases(dev, rng):
 def directed_trees(cols: dict) -> list:
     """Trees over expr_lanes' columns that together hold every opcode of the
     arithmetic, compares and logic and of the extended instantiation (the
-    float MOD's product form too)."""
+    float MOD's product form too, and the fused multiply-add's signs)."""
     from tidb_tpu_torch.expr.expression import Column, Constant, make_func
     from tidb_tpu_torch.mysqltypes import field_type as F
     from tidb_tpu_torch.mysqltypes.datum import Datum
@@ -2284,7 +2304,9 @@ def directed_trees(cols: dict) -> list:
             make_func("minus", f, d2), make_func("mul", f, f), make_func("unaryminus", i),
             make_func("unaryminus", f), make_func("eq", d2, d6), make_func("in", i, k, one), make_func("and", i, f),
             make_func("or", i, k), make_func("not", f), make_func("isnull", i), make_func("plus", u, f),
-            make_func("nulleq", i, null), make_func("round", d2, one)]
+            make_func("nulleq", i, null), make_func("round", d2, one), make_func("minus", f, f),
+            make_func("plus", f, make_func("mul", f, d2)), make_func("minus", make_func("mul", f, k), f),
+            make_func("plus", f, make_func("unaryminus", make_func("mul", f, f)))]
 
 
 def _opcode_programs(rng, cols, kinds) -> list:
@@ -4101,7 +4123,7 @@ def check_limit_past_width(dev, batches, out: dict) -> None:
     from tidb_tpu_torch import kernels as K
     from tidb_tpu_torch.copr.gpu_engine import TorchEngine
     from tidb_tpu_torch.copr.host_engine import execute_dag_host
-    from tidb_tpu_torch.entry import run_many
+    from tidb_tpu_torch.entry import batch_from_numpy, run_many
     from tidb_tpu_torch.models import tpch
 
     res = {}
@@ -4131,6 +4153,364 @@ def check_limit_past_width(dev, batches, out: dict) -> None:
             res[key] = {"tasks": len(pairs), "limit": dag.topn.n, "widths": widths, "launches": moved}
     out["burst"]["limit_past_width"] = res
     say("main.burst.limit_past_width", **res)
+
+
+class StoreSession:
+    """The part of the reference's Session that models/tpch.bulk_load and
+    br/ingest.BulkIngest use, over a port Storage (the Session is a later
+    slice of the port): `.store`, `.current_db`, `.vars`, `.cop.tiles` (a
+    TileCache), `.infoschema()` (copied from tidb_tpu/session/session.py:251,
+    without temporary tables) and `.alloc_auto_id()` (:2322, in a meta
+    transaction retried on a write conflict); `create_table` stores a
+    TableInfo in the meta keys as the reference's CREATE TABLE does."""
+
+    def __init__(self, store, db: str = "test"):
+        from types import SimpleNamespace
+
+        from tidb_tpu_torch.catalog.schema import DBInfo
+        from tidb_tpu_torch.copr.tilecache import TileCache
+
+        self.store = store
+        self.current_db = db
+        self.vars = {"tidb_bulk_ingest": "ON"}
+        self.cop = SimpleNamespace(tiles=TileCache(store))
+
+        def mk(txn, m):
+            if m.db(db) is None:
+                m.put_db(DBInfo(db))
+                m.bump_schema_version()
+
+        self._meta_txn(mk)
+
+    def _meta_txn(self, fn):
+        from tidb_tpu_torch.catalog.meta import Meta
+        from tidb_tpu_torch.errors import RetryableError, WriteConflict
+
+        for _ in range(20):
+            txn = self.store.begin()
+            try:
+                out = fn(txn, Meta(txn))
+                txn.commit()
+                return out
+            except (WriteConflict, RetryableError):
+                txn.rollback()
+        raise RuntimeError("meta transaction kept conflicting")
+
+    def create_table(self, info) -> None:
+        def do(txn, m):
+            d = m.db(self.current_db)
+            info.db_name = self.current_db
+            m.put_table(info)
+            d.table_ids.append(info.id)
+            m.put_db(d)
+            m.bump_schema_version()
+
+        self._meta_txn(do)
+
+    def infoschema(self):
+        from tidb_tpu_torch.catalog.meta import Meta
+        from tidb_tpu_torch.catalog.schema import InfoSchema
+
+        txn = self.store.begin()
+        m = Meta(txn)
+        ver = m.schema_version()
+        dbs = {d.name: d for d in m.list_dbs()}
+        tables = {t.id: t for t in m.list_tables()}
+        views = {(v["db"], v["name"]): v for v in m.list_views()}
+        txn.rollback()
+        return InfoSchema(ver, dbs, tables, views)
+
+    def alloc_auto_id(self, tinfo, n: int) -> int:
+        def do(txn, m):
+            t = m.table(tinfo.id)
+            first = t.auto_inc_id
+            t.auto_inc_id += n
+            m.put_table(t)
+            tinfo.auto_inc_id = t.auto_inc_id
+            return first
+
+        return self._meta_txn(do)
+
+
+def table_regions(store, info) -> list:
+    """(region, start, end) of every region over the table's record keys,
+    in key order (the cop client's region split of a full scan)."""
+    from tidb_tpu_torch.codec import tablecodec
+    from tidb_tpu_torch.planner.ranger import prefix_next
+
+    p = tablecodec.record_prefix(info.id)
+    return store.regions.split_ranges(p, prefix_next(p))
+
+
+def store_batches(sess, info) -> list:
+    """One TileCache.get_batch per region of the table, at one snapshot."""
+    read_ts = sess.store.tso.next()
+    return [sess.cop.tiles.get_batch(info, s, e, read_ts) for _r, s, e in table_regions(sess.store, info)]
+
+
+def split_rule(n: int, step: int) -> list[int]:
+    """Row counts of the regions the store's split rule (storage/txn.py
+    _auto_split_run: a cut at every step-th key short of the last half
+    region, none below 2 * step keys) gives a run of n keys."""
+    cuts = list(range(step, n - step // 2, step)) if n >= 2 * step else []
+    bounds = [0] + cuts + [n]
+    return [b - a for a, b in zip(bounds, bounds[1:])]
+
+
+def run_store_path(cols: dict, rows: int, card: str, out: dict, split: int | None = None):
+    """main.store: the main path's lineitem bulk-ingested into the port's
+    store (models/tpch.bulk_load over StoreSession: the columnar run, the
+    idx_ship index run, the region split), then one TileCache.get_batch per
+    region of the table — cold (the columnar gather), then warm (cache
+    hits, the same batch objects). The regions must be the split rule's
+    (16M rows: 7 x 2,097,152 and 1,319,936), bounded by the record keys of
+    the handles at every 2,097,152nd row. → (session, table info, batches)."""
+    import copy
+
+    from tidb_tpu_torch.codec import tablecodec
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.planner.ranger import prefix_next
+    from tidb_tpu_torch.storage import Storage
+
+    sess = StoreSession(Storage())
+    if split is not None:  # a narrowed run (the CPU tests): regions of `split` rows
+        sess.store.region_split_size = split
+    sess.create_table(copy.deepcopy(tpch.LINEITEM))
+    t = time.perf_counter()
+    tpch.bulk_load(sess, "lineitem", cols)
+    ingest_s = time.perf_counter() - t
+    info = sess.infoschema().table(sess.current_db, "lineitem")
+    spans = table_regions(sess.store, info)
+    step = sess.store.region_split_size
+    want = split_rule(rows, step)
+    p = tablecodec.record_prefix(info.id)
+    bounds = [p] + [tablecodec.record_key(info.id, 1 + step * k) for k in range(1, len(want))] + [prefix_next(p)]
+    got_bounds = [s_ for _r, s_, _e in spans] + [spans[-1][2]]
+    if got_bounds != bounds:
+        raise AssertionError(f"store: region bounds {[b.hex() for b in got_bounds]}, want {[b.hex() for b in bounds]}")
+    tiles = sess.cop.tiles
+    read_ts = sess.store.tso.next()
+    batches, cold = [], []
+    for _r, s_, e in spans:
+        t = time.perf_counter()
+        batches.append(tiles.get_batch(info, s_, e, read_ts))
+        cold.append(time.perf_counter() - t)
+    counts = [b.n_rows for b in batches]
+    if counts != want:
+        raise AssertionError(f"store: region rows {counts}, want {want}")
+    if tiles.misses != len(spans) or tiles.hits:
+        raise AssertionError(f"store: cold reads gave {tiles.hits} hits, {tiles.misses} misses")
+    t = time.perf_counter()
+    again = store_batches(sess, info)
+    warm_s = time.perf_counter() - t
+    if any(a is not b for a, b in zip(again, batches)) or tiles.hits != len(spans):
+        raise AssertionError("store: a warm read rebuilt a region")
+    out["store"] = {
+        "rows": rows, "ingest_s": ingest_s, "ingest_rows_per_s": rows / ingest_s, "regions": len(spans),
+        "region_rows": counts, "first_handles": [int(b.handles[0]) for b in batches],
+        "cold_get_batch_s": cold, "warm_get_batches_s": warm_s, "tile_hits": tiles.hits,
+        "tile_misses": tiles.misses, "store_regions_total": len(sess.store.regions.regions), "card": card,
+    }
+    say("main.store", **out["store"])
+    return sess, info, batches
+
+
+def run_store_turns(dev, batch, regions, card: str, out: dict, turns: int = 5, split: int = 1 << 21) -> None:
+    """main.store.turns: Q1 and tpch_topn through run_many over the
+    store's region batches and over models/tpch.region_batches' cut of
+    the one batch (the region phases' input before the store), both
+    resident, in alternating turns within this call: what reading from
+    the store costs a warm run."""
+    import torch
+
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.entry import run_many
+    from tidb_tpu_torch.models import tpch
+
+    cut = tpch.region_batches(batch, split)
+    res = {}
+    for qname, builder in (("q1", "q1_dag"), ("tpch_topn", "topn_dag")):
+        dag = getattr(tpch, builder)()
+        eng = TorchEngine(dev)
+        walls = {"store": [], "cut": []}
+        answers = {}
+        for turn in range(turns + 1):  # turn 0 uploads the cut's lanes
+            for side in (("cut", "store") if turn % 2 else ("store", "cut")):
+                bs = regions if side == "store" else cut
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                answers[side] = merged_regions(dag, run_many([(dag, b) for b in bs], dev, eng))
+                if turn:
+                    walls[side].append(time.perf_counter() - t)
+        diff = chunks_equal(answers["store"], answers["cut"])
+        if diff is not None:
+            raise AssertionError(f"store turns {qname}: the store's answer differs from the cut's: {diff}")
+        res[qname] = {side: {"median_s": sorted(w)[len(w) // 2], "walls_s": w} for side, w in walls.items()}
+    out["store_turns"] = dict(res, turns=turns, card=card)
+    say("main.store.turns", **out["store_turns"])
+    for b in cut:
+        b._gpu_mirrors = None
+
+
+def lineitem_datums(info, batch, i: int) -> list:
+    """Row i of a lineitem batch as the visible columns' Datums."""
+    from tidb_tpu_torch.mysqltypes.datum import Datum
+    from tidb_tpu_torch.mysqltypes.mydecimal import Dec
+
+    out = []
+    for c in info.columns:
+        if c.hidden:
+            continue
+        d = batch.data[c.offset][i]
+        if c.ft.is_decimal():
+            out.append(Datum.d(Dec(int(d), max(c.ft.decimal, 0))))
+        elif c.ft.is_string():
+            out.append(Datum.s(d))
+        elif c.ft.is_time():
+            out.append(Datum.t(int(d)))
+        else:
+            out.append(Datum.i(int(d)))
+    return out
+
+
+def lane_tensors(batch) -> dict:
+    """(mirror key, lane) → the batch's device tensors (the objects): the
+    same objects before and after a run exactly when the run uploaded
+    nothing for the batch (a mirror uploads a lane once, at its first use)."""
+    out = {}
+    for mk, m in (getattr(batch, "_gpu_mirrors", None) or {}).items():
+        out[(mk, "row_valid")] = (m, m.row_valid)
+        for side, lanes in (("d", m._data), ("v", m._valid)):
+            for off, lane in lanes.items():
+                out[(mk, side, off)] = tuple(lane.values()) if isinstance(lane, dict) else (lane,)
+    return out
+
+
+def same_objects(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(len(a[k]) == len(b[k]) and all(x is y for x, y in zip(a[k], b[k]))
+                                        for k in a)
+
+
+def device_bytes(batch) -> int:
+    """Bytes of the batch's device lanes (every mirror's uploaded tensors)."""
+    n = 0
+    for m in (getattr(batch, "_gpu_mirrors", None) or {}).values():
+        tensors = [m.row_valid]
+        for lane in list(m._data.values()) + list(m._valid.values()):  # a pack lane's base "b" stays on the host
+            tensors += [t for k, t in lane.items() if k != "b"] if isinstance(lane, dict) else [lane]
+        n += sum(t.numel() * t.element_size() for t in tensors)
+    return n
+
+
+HTAP_ROWS = 5000
+HTAP_UPDATE, HTAP_DELETE = 1, 4  # the regions (0-based) whose rows the transaction updates / deletes
+
+
+def run_htap_path(dev, sess, info, regions, seed: int, card: str, out: dict, n_rows: int = HTAP_ROWS) -> None:
+    """main.store.htap: one Txn through table.Table over the store that
+    main.q1_regions and main.regions_sorted read — l_discount changed on
+    5,000 rows of region 2, 5,000 rows of region 5 deleted, 5,000 new rows
+    inserted (handles past the last: region 8) — then one get_batch per
+    region at a new snapshot. The version bump must rebuild exactly the
+    written regions (the committed rows merged after the runs' kept rows)
+    and keep the other batches and their device lanes; Q1 and Q18's
+    subquery over the new batches through run_many must equal the port's
+    host engine over the same batches, and the first rerun may upload only
+    the rebuilt regions' lanes."""
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.copr.gpu_engine import TorchEngine
+    from tidb_tpu_torch.copr.host_engine import execute_dag_host
+    from tidb_tpu_torch.entry import batch_from_numpy, run_many
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.mysqltypes.datum import Datum
+    from tidb_tpu_torch.mysqltypes.mydecimal import Dec
+    from tidb_tpu_torch.table.table import Table
+    from tidb_tpu_torch.utils import metrics as M
+
+    rng = np.random.default_rng(seed)
+    table = Table(info)
+    disc = info.col_by_name("l_discount").offset
+    lanes_before = [lane_tensors(b) for b in regions]
+    t = time.perf_counter()
+    txn = sess.store.begin()
+    b = regions[HTAP_UPDATE]
+    for i in np.sort(rng.choice(b.n_rows, n_rows, replace=False)).tolist():
+        h = int(b.handles[i])
+        old = lineitem_datums(info, b, i)
+        new = list(old)
+        new[disc] = Datum.d(Dec((int(b.data[disc][i]) + 3) % 11, 2))
+        table.update_record(txn, h, table.row_datums_with_hidden(old, h), table.row_datums_with_hidden(new, h))
+    b = regions[HTAP_DELETE]
+    for i in np.sort(rng.choice(b.n_rows, n_rows, replace=False)).tolist():
+        h = int(b.handles[i])
+        table.remove_record(txn, h, table.row_datums_with_hidden(lineitem_datums(info, b, i), h))
+    fresh = batch_from_numpy(info, tpch.gen_lineitem(n_rows, seed + 7))
+    first = sess.alloc_auto_id(info, n_rows)
+    for j in range(n_rows):
+        table.add_record(txn, table.row_datums_with_hidden(lineitem_datums(info, fresh, j), first + j), first + j)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    txn.commit()
+    commit_s = time.perf_counter() - t
+    tiles = sess.cop.tiles
+    hits, misses = tiles.hits, tiles.misses
+    touched = {HTAP_UPDATE, HTAP_DELETE, len(regions) - 1}
+    t = time.perf_counter()
+    batches = store_batches(sess, info)
+    rebuild_s = time.perf_counter() - t
+    rebuilt = [i for i, (a, b) in enumerate(zip(regions, batches)) if a is not b]
+    if sorted(rebuilt) != sorted(touched) or tiles.misses - misses != len(touched) \
+            or tiles.hits - hits != len(regions) - len(touched):
+        raise AssertionError(f"htap: rebuilt regions {rebuilt}, want {sorted(touched)} "
+                             f"({tiles.hits - hits} hits, {tiles.misses - misses} misses)")
+    counts = [b.n_rows for b in batches]
+    want_counts = [r.n_rows for r in regions]
+    want_counts[HTAP_DELETE] -= n_rows
+    want_counts[-1] += n_rows
+    if counts != want_counts:
+        raise AssertionError(f"htap: region rows {counts}, want {want_counts}")
+    runs = {}
+    h2d = M.TPU_TRANSFER_BYTES
+    for qname, builder in (("q1", "q1_dag"), ("q18_inner", "q18_inner_dag")):
+        dag = getattr(tpch, builder)()
+        eng = TorchEngine(dev)
+        walls, moved = [], []
+        for _ in range(2):
+            before = h2d.value(dir="h2d")
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = merged_regions(dag, run_many([(dag, b) for b in batches], dev, eng))
+            walls.append(time.perf_counter() - t)
+            moved.append(h2d.value(dir="h2d") - before)
+        want = merged_regions(dag, [execute_dag_host(dag, b) for b in batches])
+        diff = chunks_equal(got, want)
+        if diff is not None:
+            raise AssertionError(f"htap {qname}: the answer differs from the host engine's: {diff}")
+        if eng.fallbacks:
+            raise AssertionError(f"htap {qname}: {eng.fallbacks} host fallbacks")
+        runs[qname] = {"first_s": walls[0], "warm_s": walls[1], "h2d_bytes_first": moved[0],
+                       "h2d_bytes_warm": moved[1], "answer": got.slice(0, 4).to_pylist()}
+    for i in range(len(regions)):
+        if i not in touched and not same_objects(lane_tensors(batches[i]), lanes_before[i]):
+            raise AssertionError(f"htap: region {i + 1}'s device lanes were dropped, replaced or added to: "
+                                 "an untouched region re-uploaded")
+    uploaded = runs["q1"]["h2d_bytes_first"] + runs["q18_inner"]["h2d_bytes_first"]
+    if not uploaded or runs["q1"]["h2d_bytes_warm"] or runs["q18_inner"]["h2d_bytes_warm"]:
+        raise AssertionError(f"htap: the reruns uploaded {uploaded} bytes, then "
+                             f"{runs['q1']['h2d_bytes_warm'] + runs['q18_inner']['h2d_bytes_warm']}")
+    fresh_lanes = sum(device_bytes(batches[i]) for i in touched)
+    out["store_htap"] = {
+        "rows_updated": n_rows, "rows_deleted": n_rows, "rows_inserted": n_rows,
+        "txn_build_s": build_s, "commit_s": commit_s, "rebuilt_regions": [i + 1 for i in sorted(rebuilt)],
+        "rebuild_get_batches_s": rebuild_s, "region_rows": counts, "tile_hits": tiles.hits,
+        "tile_misses": tiles.misses, "tile_revalidated": tiles.revalidated,
+        "rebuilt_lane_bytes": fresh_lanes, "runs": runs, "card": card,
+    }
+    say("main.store.htap", **out["store_htap"])
 
 
 def run_q1_regions_path(dev, batch, regions, want, reps: int, card: str, out: dict) -> None:
@@ -4357,9 +4737,12 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
     run_mpp_mesh_path(dev, reps, card, out)
     run_mesh_path(dev, cols, card, out)
     run_burst_path(dev, reps, card, out)
-    regions = tpch.region_batches(batch)
+    sess, info, regions = run_store_path(cols, rows, card, out)
+    del cols
     run_q1_regions_path(dev, batch, regions, out["q1_want"], reps, card, out)
     run_regions_sorted_path(dev, regions, {q: out.pop(f"{q}_want") for q, _, _ in REGION_QUERIES}, reps, card, out)
+    run_store_turns(dev, batch, regions, card, out)
+    run_htap_path(dev, sess, info, regions, seed, card, out)
     counts = K.launches()
     for name, c in counts.items():
         if c == 0:

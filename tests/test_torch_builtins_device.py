@@ -407,25 +407,136 @@ def test_bitneg_and_shift_host_follow_the_host_device_the_device():
     assert rtree.ret_type.is_unsigned and ptree.ret_type.is_unsigned
 
 
-def test_a_float_product_plus_a_float_is_rounded_twice_where_xla_fuses_it():
-    """A departure (ROADMAP Queue 3): XLA's CPU contracts a + b * c into
-    one fused multiply-add when the product has no other use; the port
-    rounds the product and the sum apart (as the reference's eager
-    evaluation and its host do), so the two differ in the last bits of
-    some rows and agree within rtol 1e-9 on data without cancellation."""
+def _fma_lanes():
+    """Five double lanes, a DECIMAL(30,2) lane and a BIGINT lane (10%
+    NULL, zeroed as the storage does)."""
     rng = np.random.default_rng(11)
     n = 4096
-    a, b, c = (rng.standard_normal(n) * 100 for _ in range(3))
-    v = np.ones(n, bool)
-    cols = [REF.E.Column(j, REF.F.ft_double()) for j in range(3)]
-    tree = REF.E.make_func("plus", cols[0], REF.E.make_func("mul", cols[1], cols[2]))
-    want = np.asarray(jax.jit(lambda lanes: TPUEngine._eval_device(tree, lanes)[0])(
-        {j: (x, v) for j, x in enumerate((a, b, c))}))
-    pcols = [PORT.E.Column(j, PORT.F.ft_double()) for j in range(3)]
-    e = PORT.E.make_func("plus", pcols[0], PORT.E.make_func("mul", pcols[1], pcols[2]))
-    lanes = {j: (torch.from_numpy(x), torch.from_numpy(v)) for j, x in enumerate((a, b, c))}
-    _, [((got,), _, _)] = evaluate(ProgramCache(), [], [ValueSpec(e)], lanes, None, n, mask=False)
-    got = got.numpy().view(np.float64)
-    assert np.array_equal(got, a + b * c)
-    assert (got != want).any()
-    assert np.allclose(got, want, rtol=RTOL, atol=ATOL)
+    data = [rng.standard_normal(n) * 100 for _ in range(5)]
+    data += [rng.integers(-10**9, 10**9, n), rng.integers(-10**6, 10**6, n)]
+    valid = [rng.random(n) >= 0.1 for _ in data]
+    return [np.where(v, x, 0).astype(x.dtype) for x, v in zip(data, valid)], valid
+
+
+def _fma_tree(pkg, spec):
+    op, *a = spec
+    if op == "f":
+        return pkg.E.Column(a[0], pkg.F.ft_double())
+    if op == "dec":
+        return pkg.E.Column(5, pkg.F.ft_decimal(30, 2))
+    if op == "int":
+        return pkg.E.Column(6, pkg.F.ft_longlong())
+    if op == "k":
+        return pkg.E.Constant(pkg.V.Datum.f(a[0]), pkg.F.ft_double())
+    return pkg.E.make_func(op, *[_fma_tree(pkg, x) for x in a])
+
+
+def _fma_run(specs):
+    """[(want, got)] of (data, valid) per tree of one program: the jitted
+    reference's and the port's (compiler + expr_eval_ref)."""
+    data, valid = _fma_lanes()
+    rtrees = [_fma_tree(REF, sp) for sp in specs]
+    want = jax.jit(lambda lanes: [TPUEngine._eval_device(t, lanes) for t in rtrees])(
+        {j: (x, v) for j, (x, v) in enumerate(zip(data, valid))})
+    lanes = {j: (torch.from_numpy(x), torch.from_numpy(v)) for j, (x, v) in enumerate(zip(data, valid))}
+    _, outs = evaluate(ProgramCache(), [], [ValueSpec(_fma_tree(PORT, sp)) for sp in specs], lanes, None,
+                       len(data[0]), mask=False)
+    return [((np.asarray(wd).view(np.int64), np.asarray(wv)), (g[0][0].numpy().view(np.int64), g[1].numpy()))
+            for (wd, wv), g in zip(want, outs)]
+
+
+def _P(i, j):
+    return ("mul", ("f", i), ("f", j))
+
+
+_A, _B, _C, _D, _E = (("f", j) for j in range(5))
+# every shape the contraction probe pinned down as a rule of the tree: an
+# add or subtract of a float product with no other use in its tree is one
+# fused multiply-add — a product of lanes, by a literal, a division by a
+# constant, pow(x, 2), a decimal or an integer read as a float, a negated
+# product, nested under further adds, inside a function or a branch; the
+# left product's where both operands are products; no contraction where
+# the product is used twice in the tree; each tree of a program alone
+FMA_SHAPES = {
+    "a+b*c": [("plus", _A, _P(1, 2))], "b*c+a": [("plus", _P(1, 2), _A)],
+    "b*c-a": [("minus", _P(1, 2), _A)], "a-b*c": [("minus", _A, _P(1, 2))],
+    "a*b+c*d": [("plus", _P(0, 1), _P(2, 3))], "a*b-c*d": [("minus", _P(0, 1), _P(2, 3))],
+    "c*d+a*b": [("plus", _P(2, 3), _P(0, 1))], "(a+b*c)+d": [("plus", ("plus", _A, _P(1, 2)), _D)],
+    "d+(a+b*c)": [("plus", _D, ("plus", _A, _P(1, 2)))],
+    "a+b*(c+d*e)": [("plus", _A, ("mul", _B, ("plus", _C, _P(3, 4))))],
+    "(a*b)*c+d": [("plus", ("mul", _P(0, 1), _C), _D)], "a-b*c-d": [("minus", ("minus", _A, _P(1, 2)), _D)],
+    "(a+b)*c+d": [("plus", ("mul", ("plus", _A, _B), _C), _D)],
+    "a+b*2.5": [("plus", _A, ("mul", _B, ("k", 2.5)))], "a+b/7": [("plus", _A, ("div", _B, ("k", 7.0)))],
+    "(b*c)/7+a": [("plus", ("div", _P(1, 2), ("k", 7.0)), _A)], "1.5+b*c": [("plus", ("k", 1.5), _P(1, 2))],
+    "pow(b,2)+a": [("plus", ("pow", _B, ("k", 2.0)), _A)],
+    "a+-(b*c)": [("plus", _A, ("unaryminus", _P(1, 2)))], "-(b*c)+a": [("plus", ("unaryminus", _P(1, 2)), _A)],
+    "a-(-(b*c))": [("minus", _A, ("unaryminus", _P(1, 2)))], "-(b*c)-a": [("minus", ("unaryminus", _P(1, 2)), _A)],
+    "dec+b*c": [("plus", ("dec",), _P(1, 2))], "dec-b*c": [("minus", ("dec",), _P(1, 2))],
+    "a+dec": [("plus", _A, ("dec",))], "dec-a": [("minus", ("dec",), _A)],
+    "dec*b+c": [("plus", ("mul", ("dec",), _B), _C)], "int+b*c": [("plus", ("int",), _P(1, 2))],
+    "int*b+c": [("plus", ("mul", ("int",), _B), _C)], "int*b+dec": [("plus", ("mul", ("int",), _B), ("dec",))],
+    "floor(b*c+a)": [("floor", ("plus", _P(1, 2), _A))], "abs(a-b*c)": [("abs", ("minus", _A, _P(1, 2)))],
+    "if(a>0,b*c+d,e)": [("if", ("gt", _A, ("k", 0.0)), ("plus", _P(1, 2), _D), _E)],
+    "a+b*c>0": [("gt", ("plus", _A, _P(1, 2)), ("k", 0.0))],
+    "(a*b+c*d)+e*c": [("plus", ("plus", _P(0, 1), _P(2, 3)), _P(4, 2))],
+    "a*b+(c*d+e*a)": [("plus", _P(0, 1), ("plus", _P(2, 3), _P(4, 0)))],
+    "(a*b-c*d)+e*a": [("plus", ("minus", _P(0, 1), _P(2, 3)), _P(4, 0))],
+    "twice: b*c+(a+b*c)": [("plus", _P(1, 2), ("plus", _A, _P(1, 2)))],
+    "twice: (a+b*c)*(b*c)": [("mul", ("plus", _A, _P(1, 2)), _P(1, 2))],
+    "a*(b*c)+b*c": [("plus", ("mul", _A, _P(1, 2)), _P(1, 2))],
+    "two trees: a+b*c, d+b*c": [("plus", _A, _P(1, 2)), ("plus", _D, _P(1, 2))],
+}
+# the shapes where XLA's choice is not a rule of the tree (ROADMAP Queue
+# 3): two products added where the left one's factor is read again later
+# in the tree, a float product plus a decimal read as a float, and a
+# product one tree of the program stores bare — XLA contracts the other
+# product, or none
+FMA_DEPARTURES = {
+    "(a*b+c*d)+e*a": ([("plus", ("plus", _P(0, 1), _P(2, 3)), _P(4, 0))], 0),
+    "((a*b+c*d)*e)+a": ([("plus", ("mul", ("plus", _P(0, 1), _P(2, 3)), _E), _A)], 0),
+    "b*c+dec": ([("plus", _P(1, 2), ("dec",))], 0),
+    "two trees: a+b*c, b*c": ([("plus", _A, _P(1, 2)), _P(1, 2)], 0),
+}
+
+
+@pytest.mark.parametrize("shape", list(FMA_SHAPES))
+def test_a_float_product_plus_a_float_is_one_fused_multiply_add_as_jit_contracts_it(shape):
+    """XLA's CPU contracts a + b * c into one fused multiply-add under
+    jit where the product has no other use; the port's compiler emits
+    FFMA there (expr/program.py `Emitter.fused`) and rounds once: every
+    pinned shape's data lanes bit-identical to the jitted reference's
+    where valid, its valid lanes equal."""
+    for (wd, wv), (gd, gv) in _fma_run(FMA_SHAPES[shape]):
+        assert np.array_equal(wv, gv)
+        assert np.array_equal(wd[wv], gd[gv])
+
+
+@pytest.mark.parametrize("shape", list(FMA_DEPARTURES))
+def test_the_contractions_xla_decides_past_the_tree_differ_in_the_last_bits(shape):
+    """A departure (ROADMAP Queue 3): on these shapes XLA's choice of the
+    product to contract depends on more than the tree's shape; the port
+    contracts the left one (or the one it stores), so the two differ in
+    the last bits of some rows and agree within rtol 1e-9."""
+    specs, at = FMA_DEPARTURES[shape]
+    (wd, wv), (gd, gv) = _fma_run(specs)[at]
+    assert np.array_equal(wv, gv)
+    assert (wd[wv] != gd[gv]).any()
+    assert np.allclose(gd[gv].view(np.float64), wd[wv].view(np.float64), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("build", ["q1_dag", "q6_dag", "checksum_dag", "fn_mix_dag", "fn_math_dag"])
+def test_the_main_paths_programs_hold_no_float_product_sum(build):
+    """TPC-H Q1's, Q6's and the checksum's programs hold no FFMA (their
+    sums are decimal) and keep the base instantiation; FN_MIX's and
+    FN_MATH's floats add no product either (a product is rounded, then
+    ROUNDed, SUMmed or multiplied), so their device floats are the ones
+    chip_smoke.py has held to the plain version all along."""
+    from tidb_tpu_torch.expr.program import OP, compile_program
+    from tidb_tpu_torch.models import tpch
+
+    dag = getattr(tpch, build)()
+    conds = dag.selection.conds if dag.selection is not None else []
+    values = [ValueSpec(a) for agg in dag.agg.aggs for a in agg.args]
+    prog = compile_program(conds, values, {c: "i64" for c in range(16)})
+    assert OP["FFMA"] not in set(prog.ops[:, 0].tolist())
+    assert prog.ext == build.startswith("fn_")

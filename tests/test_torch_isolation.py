@@ -38,7 +38,11 @@ def test_importing_every_module_brings_in_neither_jax_nor_the_reference():
               "sched.batcher", "sched.scheduler", "sched.resource_group", "utils.failpoint", "utils.metrics",
               "utils.tracing", "utils.timeline", "utils.memory", "utils.sem", "expr.builtins", "expr.builtins_ext",
               "expr.builtins_ext2", "expr.builtins_ext3", "expr._aes", "expr.sessioninfo", "mysqltypes.collate",
-              "mysqltypes.coretime", "mysqltypes.datum", "mysqltypes.field_type", "mysqltypes.mydecimal"):
+              "mysqltypes.coretime", "mysqltypes.datum", "mysqltypes.field_type", "mysqltypes.mydecimal",
+              "codec.key", "codec.tablecodec", "codec.row", "codec.rowfast", "catalog.schema", "catalog.meta",
+              "ddl.jobs", "table.table", "planner.ranger", "storage.memkv", "storage.tso", "storage.regions",
+              "storage.detector", "storage.segment", "storage.mvcc", "storage.txn", "cdc", "br.ingest",
+              "copr.tilecache"):
         assert f"tidb_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -79,6 +83,29 @@ def test_no_source_imports_jax_or_the_reference():
                 continue
             offenders += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}" for n in names if _forbidden(n)]
     assert not offenders
+
+
+def test_every_relative_import_of_the_port_resolves_inside_the_port():
+    """No module of the port names a module the port does not have (the
+    reference's lazy imports of modules outside a slice — the WAL, the
+    compactor, the Session — are gone, not left to fail at run time)."""
+    missing = []
+    for path in _sources():
+        if not path.startswith(PKG):
+            continue
+        pkg_parts = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+        for node in ast.walk(ast.parse(open(path, encoding="utf-8").read(), path)):
+            if not isinstance(node, ast.ImportFrom) or node.level == 0:
+                continue
+            base = pkg_parts[: len(pkg_parts) - (node.level - 1)]
+            targets = [base + node.module.split(".")] if node.module else [base + [a.name] for a in node.names]
+            for t in targets:
+                f = os.path.join(ROOT, *t)
+                if not (os.path.isfile(f + ".py") or os.path.isfile(os.path.join(f, "__init__.py"))):
+                    if node.module is None and os.path.isfile(os.path.join(ROOT, *base, "__init__.py")):
+                        continue  # a name of the package itself
+                    missing.append(f"{os.path.relpath(path, ROOT)}:{node.lineno} {'.'.join(t)}")
+    assert not missing
 
 
 def test_engine_without_a_device_argument_never_falls_back_to_cpu():

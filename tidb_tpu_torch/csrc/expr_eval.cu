@@ -59,9 +59,10 @@
 //
 // Arithmetic, as the reference's jitted XLA CPU program computes it:
 //   * int64 adds, subtracts and multiplies wrap (done in unsigned);
-//   * doubles with __dadd_rn / __dsub_rn / __dmul_rn / __ddiv_rn, not
-//     contracted into a multiply-add (but the float MOD, which XLA
-//     contracts: __fma_rn); a subnormal operand reads as zero of its sign
+//   * doubles with __dadd_rn / __dsub_rn / __dmul_rn / __ddiv_rn, but
+//     where XLA's CPU contracts a multiply-add (FFMA, an add or subtract
+//     of a product with no other use; the float MOD): __fma_rn; a
+//     subnormal operand reads as zero of its sign
 //     and a subnormal result is flushed (XLA CPU's DAZ/FTZ); negation
 //     flips the sign bit only; a division by a constant is a multiply by
 //     its reciprocal (FMULK), as XLA rewrites it;
@@ -101,7 +102,7 @@ enum Code : int32_t {
   // the extended instantiation's ops (expr/program.py EXT_OPS), from EXT_FIRST on
   IDIV, RDIV, IFLOORK, IMODK, ITRUNCK, IABS, MAX, MIN, X2F, BAND, BOR, BXOR,
   BNOT, SHL, SHR, XOR, ISTRUE, ISFALSE, SEL, COAL, NULLIF, VAND, FDIV, FABS,
-  FFLOOR, FCEIL, FTRUNC, FRNDA, FSIGN, FUN1, FUN2
+  FFLOOR, FCEIL, FTRUNC, FRNDA, FSIGN, FUN1, FUN2, FFMA
 };
 constexpr int EXT_FIRST = IDIV;
 enum Dom : int32_t { DOM_I = 0, DOM_U = 1, DOM_F = 2, DOM_X = 3 };
@@ -110,6 +111,8 @@ enum Dom : int32_t { DOM_I = 0, DOM_U = 1, DOM_F = 2, DOM_X = 3 };
 enum IdivMode : int32_t { IDIV_S = 0, IDIV_U = 1, IMOD_S = 2 };
 enum FdivMode : int32_t { FDIV_PLAIN = 0, FDIV_GUARD = 1, FDIV_MOD = 2, FDIV_MODK = 3, FDIV_PRODUCT = 4 };
 constexpr int FDIV_REG_SHIFT = 4;
+// FFMA's aux: the flags below, the addend's register above FDIV_REG_SHIFT
+enum FmaFlags : int32_t { FMA_NEG_PRODUCT = 1, FMA_NEG_ADDEND = 2 };
 enum Fun1 : int32_t { F_SQRT = 0, F_EXP, F_LOG, F_SIN, F_COS, F_TAN, F_ASIN, F_ACOS, F_ATAN };
 enum Fun1Dom : int32_t { D_ANY = 0, D_GE0 = 1, D_GT0 = 2 };
 enum Fun2 : int32_t { F_POW = 0, F_ATAN2 = 1 };
@@ -433,6 +436,15 @@ __device__ __forceinline__ void ext_op(const Op o, ll* R, unsigned char* V, cons
         d[u] = as_i(daz(r));
       }
       v &= okb;
+      break;
+    }
+    case FFMA: {  // (±a) * b + (±c) rounded once, as XLA's CPU contracts an add of a product
+      const int c = o.aux >> FDIV_REG_SHIFT;
+      v = va & XV(o.b) & XV(c);
+      XU {
+        const double x = daz(as_f(XR(o.a, u))), y = daz(as_f(XR(o.b, u))), z = daz(as_f(XR(c, u)));
+        d[u] = as_i(daz(__fma_rn((o.aux & FMA_NEG_PRODUCT) ? -x : x, y, (o.aux & FMA_NEG_ADDEND) ? -z : z)));
+      }
       break;
     }
     case FABS:

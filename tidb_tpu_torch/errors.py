@@ -12,8 +12,57 @@ class TiDBError(Exception):
 
     def __init__(self, msg: str = "", code: int | None = None):
         super().__init__(msg)
+        self.msg = msg
         if code is not None:
             self.code = code
+
+
+# --- schema and store errors (ref: errno/errno.go, kv/error.go) -------------
+
+
+class UnknownDatabase(TiDBError):
+    code = 1049
+
+
+class UnknownTable(TiDBError):
+    code = 1146
+
+
+class UnknownColumn(TiDBError):
+    code = 1054
+
+
+class DuplicateEntry(TiDBError):
+    code = 1062
+
+
+class WriteConflict(TiDBError):
+    """Optimistic transaction write-write conflict (ref: kv/error.go ErrWriteConflict)."""
+
+    code = 9007
+
+
+class LockedError(TiDBError):
+    """Key is locked by another in-flight transaction (percolator lock)."""
+
+    code = 9008
+
+    def __init__(self, msg="", key=None, lock=None):
+        super().__init__(msg)
+        self.key = key
+        self.lock = lock
+
+
+class DeadlockError(TiDBError):
+    """Pessimistic lock wait closed a cycle (MySQL ER_LOCK_DEADLOCK)."""
+
+
+class RetryableError(TiDBError):
+    code = 9009
+
+
+class TxnAborted(TiDBError):
+    code = 9010
 
 
 class QueryInterrupted(TiDBError):

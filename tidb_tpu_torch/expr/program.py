@@ -36,7 +36,10 @@ once, by the same rules, for every pushable builtin of the registry:
 Floats follow XLA's CPU arithmetic under jit, which the reference runs
 under: subnormal operands read as zero of their sign and subnormal
 results are flushed (so `f > 0` is false for f = 5e-324), negation and
-abs touch the sign bit only, no multiply-add is contracted, and the
+abs touch the sign bit only, a float add or subtract of a product with
+no other use in its tree is one fused multiply-add (FFMA, the left
+product's when both operands are products: `Emitter.fused`), as LLVM
+contracts it under XLA, and the
 algebraic simplifier's rewrites hold: a division by a constant (a
 literal, or a subtree of constants, which XLA folds) is a multiply by
 its reciprocal rounded once (`lane_as_float` of a decimal is x * 10^-s,
@@ -107,7 +110,7 @@ BASE_OPS = ("NOP", "LD8", "LD4", "LDB", "LDK", "I2F", "U2F", "F2I", "RINT", "FMU
 # the extended instantiation's opcodes (module doc)
 EXT_OPS = ("IDIV", "RDIV", "IFLOORK", "IMODK", "ITRUNCK", "IABS", "MAX", "MIN", "X2F", "BAND", "BOR", "BXOR",
            "BNOT", "SHL", "SHR", "XOR", "ISTRUE", "ISFALSE", "SEL", "COAL", "NULLIF", "VAND", "FDIV", "FABS",
-           "FFLOOR", "FCEIL", "FTRUNC", "FRNDA", "FSIGN", "FUN1", "FUN2")
+           "FFLOOR", "FCEIL", "FTRUNC", "FRNDA", "FSIGN", "FUN1", "FUN2", "FFMA")
 OP = {name: i for i, name in enumerate(BASE_OPS + EXT_OPS)}
 EXT_FIRST = len(BASE_OPS)
 # CMP domains and predicates (aux = dom | pred << 2 | ua << 5 | ub << 6 | nulleq << 7); MAX / MIN take dom
@@ -122,6 +125,9 @@ IDIV_S, IDIV_U, IMOD_S = 0, 1, 2
 # (LLVM contracts the subtraction's first operand when both are products)
 FDIV_PLAIN, FDIV_GUARD, FDIV_MOD, FDIV_MODK, FDIV_PRODUCT = 0, 1, 2, 3, 4
 FDIV_REG_SHIFT = 4
+# FFMA's aux = flags | c << FDIV_REG_SHIFT: (±a) * b + (±c) rounded once, where XLA's CPU contracts a
+# float add or subtract of a product (Emitter.fused)
+FMA_NEG_PRODUCT, FMA_NEG_ADDEND = 1, 2
 # FUN1's aux = function | domain << 4 (the domain's failures are NULL and read 1.0); FUN2's aux.
 # XLA's CPU reads a subnormal operand as zero and flushes a subnormal result, but for sin and tan
 # (a tiny x is its own result) and the operands of pow and atan2
@@ -145,7 +151,7 @@ for _n in ("I2F", "U2F", "F2I", "RINT", "INEG", "FNEG", "NOT", "ISNULL", "ZNULL"
     _REGS[_n] = (1, 1, 0)
 for _n in ("IADD", "ISUB", "IMUL", "FADD", "FSUB", "FMUL", "CMP", "AND", "OR", "IN", "INF", "IDIV", "RDIV",
            "MAX", "MIN", "BAND", "BOR", "BXOR", "SHL", "SHR", "XOR", "SEL", "COAL", "NULLIF", "VAND", "FDIV",
-           "FUN2"):
+           "FUN2", "FFMA"):
     _REGS[_n] = (1, 1, 1)
 # the constant-pool operand (b) of these ops
 KOPS = ("FMULK", "IMULK", "RDIVK", "IFLOORK", "IMODK", "ITRUNCK")
@@ -286,6 +292,8 @@ class _Emitter:
         self._need: dict = {}
         self._folded: dict = {}
         self.products: dict = {}  # vreg of an FMUL / FMULK -> its factors (a constant as ("k", pool index))
+        self.negprods: dict = {}  # vreg of an FNEG of a contractable product -> the product's factors
+        self.uses: dict = {}  # structural key -> occurrences in the tree being compiled
 
     # -- plumbing
     def vreg(self) -> int:
@@ -336,6 +344,50 @@ class _Emitter:
     def out(self, width: int) -> int:
         self.outputs.append(width)
         return len(self.outputs) - 1
+
+    # -- trees and XLA's multiply-add contraction
+    def tree(self, e):
+        """(vreg, kind) of a whole tree (a condition or a value): its
+        subtrees are counted first, as XLA's CSE merges equal subtrees of
+        one output and then contracts only a product with no other use."""
+        self.uses = {}
+        _count_subtrees(e, self.uses)
+        return self.expr(e)
+
+    def contractable(self, r, arg):
+        """(x, y, negated) of the product `r` (arg's register) when XLA's
+        CPU would contract it into the add or subtract reading it: a float
+        multiply, a multiply by a constant (a literal, a division by a
+        constant, a decimal read as a float) or the negation of one, used
+        nowhere else in the tree; else None."""
+        if self.uses.get(structural_key(arg), 0) != 1:
+            return None
+        if r in self.products:
+            x, y = self.products[r]
+            return x, y, False
+        if r in self.negprods:
+            x, y = self.negprods[r]
+            return x, y, True
+        return None
+
+    def fused(self, name, a, b, args):
+        """a + b or a - b as XLA's CPU computes it under jit, when one
+        operand is a contractable product: one fused multiply-add (FFMA)
+        over its factors, the left operand's when both are (ROADMAP lists
+        the nested shapes where XLA picks otherwise); else None."""
+        for side, r in ((0, a), (1, b)):
+            p = self.contractable(r, args[side])
+            if p is None:
+                continue
+            x, y, neg = p
+            if isinstance(y, tuple):
+                y = self.op("LDK", y[1], aux=1)
+            addend = b if side == 0 else a
+            neg_prod = neg ^ (name == "minus" and side == 1)
+            neg_add = name == "minus" and side == 0
+            aux = (FMA_NEG_PRODUCT if neg_prod else 0) | (FMA_NEG_ADDEND if neg_add else 0)
+            return self.op("FFMA", x, y, aux, c=addend)
+        return None
 
     # -- leaves
     def column(self, c: ExprCol):
@@ -583,6 +635,9 @@ class _Emitter:
         (ra, ka), (rb, kb) = vals
         if ret.is_float():
             a, b = (self.lane_as_float(r, k, ft) for (r, k), ft in zip(vals, fts))
+            r = self.fused(name, a, b, e.args) if name != "mul" else None
+            if r is not None:
+                return r, "f64"
             return self.op({"plus": "FADD", "minus": "FSUB", "mul": "FMUL"}[name], a, b), "f64"
         if ret.is_decimal():
             rs = _scale(ret)
@@ -602,7 +657,12 @@ class _Emitter:
     def fn_unaryminus(self, e):
         (r, k), = self.args(e)
         if e.ret_type.is_float():
-            return self.op("FNEG", self.lane_as_float(r, k, e.args[0].ret_type)), "f64"
+            x = self.lane_as_float(r, k, e.args[0].ret_type)
+            neg = self.op("FNEG", x)
+            p = self.contractable(x, e.args[0])
+            if p is not None and not p[2]:  # -(x * y) contracts as (-x) * y
+                self.negprods[neg] = p[:2]
+            return neg, "f64"
         return self.op("INEG", self.as_i64(r, k)), "i64"
 
     def fold_float(self, f, ft, x2f: int = -1) -> float:
@@ -970,7 +1030,7 @@ class _Emitter:
     def mask(self, conds):
         m = self.op("LDB", self.slot(("mask_in",)))
         for c in conds:
-            r, k = self.expr(c)
+            r, k = self.tree(c)
             nxt = self.vreg()
             self.emit("MASK", nxt, r, aux=int(k == "f64"), acc=m)
             m = nxt
@@ -993,7 +1053,7 @@ class _Emitter:
         bare = isinstance(e, ExprCol)
         if spec.derive in ("value", "valid") and bare:
             return ValueOut([("col", e.idx)], ("col", e.idx), self.lane_kinds[e.idx])
-        r, kind = self.expr(e)
+        r, kind = self.tree(e)
         valid = ("col", e.idx) if bare else self.store_valid(r)
         if spec.derive == "valid":
             return ValueOut([], valid, kind)
@@ -1025,6 +1085,29 @@ class _Emitter:
         raise ValueError(f"expression program: unknown derivation {spec.derive!r}")
 
 
+def _count_subtrees(e, uses: dict) -> None:
+    """Occurrences of each subtree of e by its structural key."""
+    k = structural_key(e)
+    uses[k] = uses.get(k, 0) + 1
+    if isinstance(e, ScalarFunc):
+        for a in e.args:
+            _count_subtrees(a, uses)
+
+
+def _live(code: list) -> list:
+    """`code` without the ops whose value nothing reads (a product a
+    multiply-add took the factors of)."""
+    while True:
+        read = set()
+        for name, _dst, a, b, _aux, acc, c in code:
+            _d, ra, rb = _REGS[name]
+            read.update(v for v, isreg in ((a, ra), (b, rb), (acc, True), (c, True)) if isreg and v >= 0)
+        kept = [op for op in code if not _REGS[op[0]][0] or op[1] in read]
+        if len(kept) == len(code):
+            return code
+        code = kept
+
+
 def _allocate(code: list, nv: int):
     """Physical registers by liveness; → (int32 ops [n, 5], register count).
     SEL's condition register (`c`) goes into its aux's low bits."""
@@ -1043,7 +1126,7 @@ def _allocate(code: list, nv: int):
         pa = phys[a] if ra else a
         pb = phys[b] if rb else b
         if c >= 0:
-            aux |= phys[c] << (FDIV_REG_SHIFT if name == "FDIV" else 0)
+            aux |= phys[c] << (FDIV_REG_SHIFT if name in ("FDIV", "FFMA") else 0)
         for v in {x for x, isreg in ((a, ra), (b, rb), (c, c >= 0)) if isreg and x >= 0}:
             if last[v] == i and v != acc:
                 heapq.heappush(free, phys[v])
@@ -1068,7 +1151,7 @@ def _compile(conds, values, lane_kinds, with_mask: bool, reload: bool, hoist: bo
     em = _Emitter(lane_kinds, reload)
     mask_slot = em.mask(conds) if with_mask else None
     outs = [em.value(s) for s in values]
-    code = em.code
+    code = _live(em.code)
     if hoist:  # every lane load first, in order: the kernel's load phase, ahead of any arithmetic
         code = [c for c in code if c[0] in LOADS] + [c for c in code if c[0] not in LOADS]
     ops, nregs = _allocate(code, em.nv)

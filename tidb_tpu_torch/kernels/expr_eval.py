@@ -23,9 +23,11 @@ the same program with one torch op per instruction over whole lanes.
 Where trouble lies, and what pins it (tests/test_torch_expr.py, the
 chip_smoke.py battery):
   * int64 wrap: adds and multiplies wrap mod 2^64 (unsigned in CUDA);
-  * float rounding: no multiply-add is contracted (the kernel uses
-    __dmul_rn / __dadd_rn / __ddiv_rn) but in the float MOD, which XLA
-    contracts (__fma_rn; `_fma` emulates it here); uint64 → float64
+  * float rounding: a multiply-add is contracted where XLA's CPU
+    contracts it (FFMA: an add or subtract of a product with no other
+    use, expr/program.py `Emitter.fused`; and the float MOD) — __fma_rn,
+    which `_fma` emulates here — and nowhere else (__dmul_rn /
+    __dadd_rn / __ddiv_rn); uint64 → float64
     rounds once; a division by a constant is a multiply by the host's
     reciprocal (FMULK: a decimal becomes a float as x * 10^-s);
   * XLA's CPU float rules, which the reference runs under: subnormal
@@ -53,8 +55,8 @@ import numpy as np
 import torch
 
 from ..expr.program import (DOM_F, DOM_GE0, DOM_GT0, DOM_U, DOM_X, EXT_FIRST, FDIV_GUARD, FDIV_MODK, FDIV_PLAIN,
-                            FDIV_PRODUCT, FDIV_REG_SHIFT, FUN1, FUN2, IDIV_U, IMOD_S, KOPS, OP, ROWS, SEL_REG_BITS,
-                            SMEM_MAX, Program)
+                            FDIV_PRODUCT, FDIV_REG_SHIFT, FMA_NEG_ADDEND, FMA_NEG_PRODUCT, FUN1, FUN2, IDIV_U, IMOD_S,
+                            KOPS, OP, ROWS, SEL_REG_BITS, SMEM_MAX, Program)
 from .build import count, library
 from .tables import sm_count
 
@@ -315,6 +317,11 @@ def _ext(name: str, aux: int, x, va, y, vb, consts, b, D, V, ones):
         else:
             r = _fma(-t, bs, fa)
         return _bits(_daz(r)), both & ok
+    if name == "FFMA":
+        c = aux >> FDIV_REG_SHIFT
+        fx, fy, fz = _daz(_f(x)), _daz(_f(y)), _daz(_f(D[c]))
+        r = _fma(-fx if aux & FMA_NEG_PRODUCT else fx, fy, -fz if aux & FMA_NEG_ADDEND else fz)
+        return _bits(_daz(r)), both & V[c]
     if name == "FABS":
         return x & _I64_MAX, va
     if name in ("FFLOOR", "FCEIL", "FTRUNC"):

@@ -43,14 +43,23 @@
   DAG has no selection); `point_topn_dag` / `point_topn_multi_dag`: the
   TopN DAGs pushed for POINT_TOPN / POINT_TOPN_MULTI over the same rows;
 * `region_batches`: a batch cut at the reference's region split points
-  (storage/txn.py:440 region_split_size, :1600-1608 _auto_split_run).
+  (storage/txn.py:440 region_split_size, :1600-1608 _auto_split_run);
+* `LINEITEM_DDL` and `bulk_load` (tpch.py:28 and :214, with its legacy
+  route, tidb_bulk_ingest=OFF, :259): columns into the port's store
+  (storage/txn.py) through the bulk engine (br/ingest.BulkIngest), which
+  splits the regions as the reference's store does; the tables carry the
+  indexes the reference's DDL creates (lineitem's idx_ship; a PRIMARY
+  index on each clustered key).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..catalog.schema import ColumnInfo, TableInfo
+from ..br.ingest import datum_for
+from ..catalog.schema import ColumnInfo, IndexInfo, TableInfo
+from ..codec import tablecodec
+from ..codec.row import encode_row
 from ..copr.tilecache import ColumnBatch
 from ..copr.dag import AggNode, DAGRequest, ScanNode, SelectionNode, TopNNode
 from ..executor.mpp_gather import RootStep
@@ -58,7 +67,7 @@ from ..expr.aggregation import AggDesc, Frame, WinDesc, agg_ret_type
 from ..expr import builtins  # noqa: F401 — the registry
 from ..expr.expression import FUNCS, Column, Constant, ScalarFunc, make_func
 from ..mysqltypes.coretime import parse_datetime
-from ..mysqltypes.datum import Datum
+from ..mysqltypes.datum import K_DEC, K_DUR, K_FLOAT, K_INT, K_STR, K_TIME, K_UINT, Datum
 from ..mysqltypes.field_type import NOT_NULL_FLAG, FieldType, TypeCode, ft_decimal, ft_double, ft_longlong, ft_varchar
 from ..planner.fragment import Aggregation, DataSource, JoinFrag, MPPPlan, PlanCol, ScanFrag
 from ..mysqltypes.mydecimal import dec_from_string
@@ -191,10 +200,31 @@ _COLS = [
     ("l_receiptdate", _nn(TypeCode.Date)),
 ]
 
+LINEITEM_DDL = """CREATE TABLE lineitem (
+  l_orderkey BIGINT NOT NULL,
+  l_partkey BIGINT NOT NULL,
+  l_suppkey BIGINT NOT NULL,
+  l_linenumber BIGINT NOT NULL,
+  l_quantity DECIMAL(15,2) NOT NULL,
+  l_extendedprice DECIMAL(15,2) NOT NULL,
+  l_discount DECIMAL(15,2) NOT NULL,
+  l_tax DECIMAL(15,2) NOT NULL,
+  l_returnflag CHAR(1) NOT NULL,
+  l_linestatus CHAR(1) NOT NULL,
+  l_shipdate DATE NOT NULL,
+  l_commitdate DATE NOT NULL,
+  l_receiptdate DATE NOT NULL,
+  KEY idx_ship (l_shipdate)
+)"""
+
+# what the reference's CREATE TABLE builds from LINEITEM_DDL (session.py
+# _build_table_info), ids aside: no primary key, so the hidden
+# _tidb_rowid is the handle, and the secondary index idx_ship
 LINEITEM = TableInfo(
     1, "lineitem",
     [ColumnInfo(2 + i, name, ft, i) for i, (name, ft) in enumerate(_COLS)]
     + [ColumnInfo(2 + len(_COLS), "_tidb_rowid", ft_longlong(), len(_COLS), hidden=True)],
+    [IndexInfo(3 + len(_COLS), "idx_ship", [10])], db_name="test",
 )
 
 
@@ -218,9 +248,9 @@ _CUSTOMER_COLS = [
 # o_orderkey and c_custkey are clustered BIGINT primary keys: the key is the
 # row handle, so neither table has a hidden _tidb_rowid column
 ORDERS = TableInfo(2, "orders", [ColumnInfo(20 + i, name, ft, i) for i, (name, ft) in enumerate(_ORDERS_COLS)],
-                   pk_is_handle=True)
+                   [IndexInfo(27, "PRIMARY", [0], unique=True, primary=True)], pk_is_handle=True, db_name="test")
 CUSTOMER = TableInfo(3, "customer", [ColumnInfo(30 + i, name, ft, i) for i, (name, ft) in enumerate(_CUSTOMER_COLS)],
-                     pk_is_handle=True)
+                     [IndexInfo(34, "PRIMARY", [0], unique=True, primary=True)], pk_is_handle=True, db_name="test")
 
 
 def _rand_dates(rng, n, y0=1992, y1=1998):
@@ -605,7 +635,8 @@ POINT_AGG = "SELECT COUNT(*), SUM(v), MIN(v), MAX(w) FROM pt WHERE id >= {lo} AN
 # handle, so the table has no hidden _tidb_rowid column
 PT = TableInfo(4, "pt", [ColumnInfo(40, "id", FieldType(TypeCode.Long, flag=NOT_NULL_FLAG), 0),
                          ColumnInfo(41, "v", FieldType(TypeCode.Long), 1),
-                         ColumnInfo(42, "w", FieldType(TypeCode.Long), 2)], pk_is_handle=True)
+                         ColumnInfo(42, "w", FieldType(TypeCode.Long), 2)],
+               [IndexInfo(43, "PRIMARY", [0], unique=True, primary=True)], pk_is_handle=True, db_name="test")
 
 
 def point_agg_table(n_tasks: int, rows_per_task: int, seed: int = 0) -> list[ColumnBatch]:
@@ -668,3 +699,181 @@ def region_batches(batch: ColumnBatch, split: int = 1 << 21) -> list[ColumnBatch
                         [v[a:b] for v in batch.valid], batch.version, start=int(a).to_bytes(8, "big"),
                         end=int(b).to_bytes(8, "big"))
             for a, b in zip(bounds, bounds[1:])]
+
+
+def _kind_of(ft) -> int:
+    # ONE definition with the bulk engine (br/ingest.kind_of): a K_INT
+    # fallthrough that truncated DOUBLE columns to ints once lived in a
+    # private copy of this mapping
+    from ..br.ingest import kind_of
+
+    return kind_of(ft)
+
+
+# kinds the columnar bulk path encodes; K_BYTES stays excluded (the
+# trailing-NUL width heuristic would clip binary values ending in 0x00)
+_BULK_KINDS = (K_INT, K_UINT, K_FLOAT, K_DEC, K_TIME, K_DUR, K_STR)
+
+
+def bulk_load(session, table_name: str, columns: dict[str, np.ndarray], kinds: dict[str, int] | None = None, batch: int = 500_000):
+    """Bulk-load columns into a table through the ingest path (2PC bypass,
+    the Lightning local backend analog; copy of tidb_tpu/models/tpch.py:214).
+    `session` is anything with the Session's `.store`, `.current_db`,
+    `.vars`, `.cop.tiles`, `.infoschema()` and `.alloc_auto_id()` (the
+    Session is a later slice of the port). Rows get sequential handles.
+    Column kinds derive from the table schema unless overridden.
+
+    Default route (tidb_bulk_ingest=ON): the shared bulk engine
+    (br/ingest.BulkIngest) keeps the data COLUMNAR end to end — canonical
+    numpy lanes become a ColumnarRun + IntIndexRun artifacts published
+    atomically under one WAL ingest record; no row-major byte plane is
+    materialized at load time. OFF (or ineligible kinds) recovers the
+    legacy per-batch path: v2 row encode + per-batch segment ingest."""
+    info = session.infoschema().table(session.current_db, table_name)
+    names = list(columns)
+    col_infos = [info.col_by_name(n) for n in names]
+    if kinds is None:
+        kinds = {n: _kind_of(c.ft) for n, c in zip(names, col_infos)}
+    n = len(columns[names[0]])
+    kind_list = [kinds[n_] for n_ in names]
+    if (
+        session.vars.get("tidb_bulk_ingest", "ON") == "ON"
+        and info.partition is None
+        and all(k in _BULK_KINDS for k in kind_list)
+    ):
+        from ..br.ingest import BulkIngest, IngestAborted
+
+        try:
+            job = BulkIngest(session, info)
+        except IngestAborted:
+            # DDL queued/running on the table: the legacy per-batch
+            # segment path coexists with online DDL as it always did
+            job = None
+        if job is not None:
+            try:
+                job.add_columns(names, [columns[nm] for nm in names], kind_list)
+                job.commit()
+            except IngestAborted:
+                job.abort()  # publish-time abort: recover via legacy below
+            except BaseException:
+                job.abort()
+                raise
+            else:
+                return n
+    return _bulk_load_segments(session, info, names, columns, kinds, col_infos, batch)
+
+
+def _bulk_load_segments(session, info, names, columns, kinds, col_infos, batch):
+    """Legacy bulk path (tidb_bulk_ingest=OFF): v2 row-major encode +
+    one segment ingest per batch — kept bit-compatible as the live
+    fallback and the paired-bench baseline."""
+    from ..codec import rowfast
+
+    col_ids = [c.id for c in col_infos]
+    n = len(columns[names[0]])
+    # clustered int pk: the pk VALUE is the row handle (ref: tables.go
+    # AddRecord pkIsHandle) — sequential handles would mis-key PointGet
+    # and index back-reads
+    pk_handle_pos = None
+    if info.pk_is_handle:
+        hc = info.handle_col()
+        pk_handle_pos = next(i for i, c in enumerate(col_infos) if c.offset == hc.offset)
+        first_handle = None
+    else:
+        first_handle = session.alloc_auto_id(info, n)
+    arrays = [columns[n_] for n_ in names]
+    kind_list = [kinds[n_] for n_ in names]
+    commit_ts = session.store.tso.next()
+    scale_fix = [max(c.ft.decimal, 0) if k == K_DEC else 0 for c, k in zip(col_infos, kind_list)]
+    indexes = [ix for ix in info.indexes if ix.state not in ("none", "delete_only") and not (info.pk_is_handle and ix.primary)]
+
+    if rowfast.encodable_kinds(kind_list):
+        name_pos = {c.offset: i for i, c in enumerate(col_infos)}
+        int_kinds = (K_INT, K_TIME)
+        mvcc = session.store.mvcc
+        for lo in range(0, n, batch):
+            hi = min(lo + batch, n)
+            m = hi - lo
+            arrs = [a[lo:hi] for a in arrays]
+            if pk_handle_pos is not None:
+                handles = np.asarray(arrs[pk_handle_pos]).astype(np.int64)
+                presorted = bool(np.all(np.diff(handles) > 0)) if m > 1 else True
+            else:
+                handles = np.arange(first_handle + lo, first_handle + hi, dtype=np.int64)
+                presorted = True
+            buf, offs = rowfast.encode_rows_v2(col_ids, kind_list, scale_fix, arrs)
+            key_mat = rowfast.record_key_matrix(info.id, handles)
+            mvcc.ingest_run(key_mat, buf, offs[:-1], np.diff(offs), commit_ts, presorted=presorted)
+            for ix in indexes:
+                poss = [name_pos.get(off) for off in ix.col_offsets]
+                if all(p is not None and kind_list[p] in int_kinds for p in poss):
+                    kcols = [np.asarray(arrs[p]).astype(np.int64) for p in poss]
+                    if ix.unique:
+                        imat = rowfast.int_index_key_matrix(info.id, ix.id, kcols, None)
+                        vbuf, vstarts, vlens = rowfast.handle_value_buffer(handles)
+                        mvcc.ingest_run(imat, vbuf, vstarts, vlens, commit_ts)
+                    else:
+                        imat = rowfast.int_index_key_matrix(info.id, ix.id, kcols, handles)
+                        z = np.zeros(m, dtype=np.int64)
+                        mvcc.ingest_run(imat, b"", z, z, commit_ts)
+                else:  # string/decimal/missing index cols — per-row fallback
+                    kvs: list[tuple[bytes, bytes]] = []
+                    _index_kvs_slow(info, ix, col_infos, arrs, kind_list, scale_fix, handles, kvs)
+                    mvcc.ingest(kvs, commit_ts)
+    else:
+        _bulk_load_rows(session, info, col_infos, col_ids, arrays, kind_list, scale_fix, pk_handle_pos, first_handle, indexes, commit_ts, batch)
+    # semi-sync parity with the bulk engine: each ingest_run fsynced
+    # locally; one wal_sync extends the ack to durable-on-standby
+    session.store.wal_sync()
+    session.store.bump_version([tablecodec.record_prefix(info.id)])
+    session.cop.tiles.invalidate_table(info.id)
+    return n
+
+
+def _index_kvs_slow(info, ix, col_infos, arrs, kind_list, scale_fix, handles, kvs):
+    from ..table.table import Table
+
+    tbl = Table(info)
+    n_tbl_cols = len(info.columns)
+    offsets = [c.offset for c in col_infos]
+    for i in range(len(handles)):
+        full = [Datum.null()] * n_tbl_cols
+        for off, arr, k, sf in zip(offsets, arrs, kind_list, scale_fix):
+            full[off] = datum_for(k, arr[i], sf)
+        for c in info.columns:
+            if c.hidden and c.name == "_tidb_rowid":
+                full[c.offset] = Datum.i(int(handles[i]))
+        ikey, ival, _ = tbl.index_value_key(ix, full, int(handles[i]))
+        kvs.append((ikey, ival))
+
+
+def _bulk_load_rows(session, info, col_infos, col_ids, arrays, kind_list, scale_fix, pk_handle_pos, first_handle, indexes, commit_ts, batch):
+    """Per-row fallback for kinds the vectorized encoder doesn't cover."""
+    from ..table.table import Table
+
+    tbl = Table(info)
+    offsets = [c.offset for c in col_infos]
+    n_tbl_cols = len(info.columns)
+    n = len(arrays[0])
+    kvs = []
+    for lo in range(0, n, batch):
+        hi = min(lo + batch, n)
+        for i in range(lo, hi):
+            datums = [
+                datum_for(k, arr[i], sf)
+                for arr, k, sf in zip(arrays, kind_list, scale_fix)
+            ]
+            handle = datums[pk_handle_pos].to_int() if pk_handle_pos is not None else first_handle + i
+            kvs.append((tablecodec.record_key(info.id, handle), encode_row(col_ids, datums)))
+            if indexes:
+                full = [Datum.null()] * n_tbl_cols
+                for off, d in zip(offsets, datums):
+                    full[off] = d
+                for c in info.columns:
+                    if c.hidden and c.name == "_tidb_rowid":
+                        full[c.offset] = Datum.i(handle)
+                for ix in indexes:
+                    ikey, ival, _ = tbl.index_value_key(ix, full, handle)
+                    kvs.append((ikey, ival))
+        session.store.mvcc.ingest(kvs, commit_ts)
+        kvs = []

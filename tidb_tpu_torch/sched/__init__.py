@@ -11,9 +11,10 @@
       through `TorchEngine.execute_many` (sched/batcher.py).
 
 The reference's per-store facade (ResourceController, hung off a
-Storage) and its runaway watchdog (sched/runaway.py) are not ported: the
-port has no storage layer; a caller holds its own engine and batcher
-(entry.run_burst).
+Storage) and its runaway watchdog (sched/runaway.py) are not ported yet:
+they come with the cop client (copr/client.py), and the port's store
+(storage/txn.py) raises NotPortedError for `Storage.sched` until then; a
+caller holds its own engine and batcher (entry.run_burst).
 """
 
 from __future__ import annotations

@@ -296,3 +296,16 @@ TPU_LANE_REROUTES = REGISTRY.counter(
     "tidb_tpu_lane_reroutes_total",
     "placements diverted off the resident lane (reason: breaker | spill)",
 )
+
+# the store (ref: tidb_tpu/utils/metrics.py): transaction outcomes, and the
+# bulk ingest's rows published and bytes by pipeline stage — encode
+# (canonical columnar artifact bytes), wal (journaled; absent for
+# in-memory stores), publish (artifact bytes made visible)
+TXN_TOTAL = REGISTRY.counter("tidb_txn_total", "transaction outcomes")
+INGEST_ROWS = REGISTRY.counter(
+    "tidb_ingest_rows_total", "rows published by bulk-ingest commits"
+)
+INGEST_BYTES = REGISTRY.counter(
+    "tidb_ingest_bytes_total",
+    "bulk-ingest bytes by pipeline stage (parse | encode | wal | publish)",
+)
