@@ -3276,6 +3276,101 @@ def run_window_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) 
         say(f"main.{qname}", **out[qname])
 
 
+# --- plans from SQL, and their descriptions (tests/test_torch_mpp.py,
+# tests/test_torch_planner.py and main.sql compare plans by these) -----------
+
+
+def expr_desc(e):
+    """An expression tree by node kind, column offset, constant and field
+    type (tp, decimals, unsigned), whatever package built it."""
+    ft = e.ret_type
+    t = (int(ft.tp), ft.decimal, bool(ft.is_unsigned))
+    if hasattr(e, "sig"):
+        return (e.sig.name, t, [expr_desc(a) for a in e.args])
+    if hasattr(e, "idx"):
+        return ("col", e.idx, t)
+    return ("const", repr(e.value), e.value.kind, t)
+
+
+def agg_fn_desc(a):
+    return (a.name, a.distinct, repr(a.ret_type), [expr_desc(x) for x in a.args], repr(a))
+
+
+def frag_tree(f):
+    """A fragment tree: join levels with their keys, conditions and
+    exchanges; scans with their pushed conditions and output columns."""
+    if hasattr(f, "probe"):
+        return ("join", f.kind, f.probe_keys, f.build_keys, repr(f.post_conds), f.exchange,
+                frag_tree(f.probe), frag_tree(f.build))
+    ds = f.ds
+    return ("scan", ds.table.name, ds.alias, f.side_offset, repr(ds.pushed_conds),
+            [(pc.name, pc.orig_offset, repr(pc.ft)) for pc in ds.out_cols])
+
+
+def agg_desc(agg):
+    """The fused aggregation: group keys and aggregates with their types,
+    and the final aggregate's output types."""
+    if agg is None:
+        return None
+    return (repr(agg.group_by), [repr(g.ret_type) for g in agg.group_by], repr(agg.aggs),
+            [(a.name, repr(a.ret_type), a.distinct) for a in agg.aggs], [repr(c.ft) for c in agg.out_cols])
+
+
+def step_desc(step):
+    """A RootStep by column offsets and types (the names a planner gives
+    its sort keys are not part of the step)."""
+    if step is None:
+        return None
+    return (list(step.proj), [(expr_desc(e), bool(d)) for e, d in step.by], step.n,
+            [expr_desc(c) for c in step.having])
+
+
+def mpp_desc(mplan) -> dict:
+    """Every field of an MPPPlan that the engine and the steps above the
+    gather read."""
+    return {"explain": mplan.explain(), "root": frag_tree(mplan.root), "scans": [frag_tree(s) for s in mplan.scans],
+            "agg": agg_desc(mplan.agg), "topn": mplan.topn, "out_cols": [(c.name, repr(c.ft)) for c in mplan.out_cols],
+            "root_step": step_desc(getattr(mplan, "root_step", None))}  # the reference's MPPPlan has none
+
+
+def cop_parts(plan) -> dict:
+    """What the reference's executor builder pushes to the coprocessor for
+    an optimized one-table plan (executors.py `_build_agg`, `_build_limit`):
+    the scan's pushed conditions, the pushed aggregation, and a Limit over
+    a Sort as a TopN whose keys are mapped through the projections below
+    the Sort into the scan's columns."""
+    from tidb_tpu_torch.planner.plans import Aggregation, DataSource, Limit, Projection, Sort
+
+    node, above = plan, []
+    while not isinstance(node, (DataSource, Aggregation)):
+        above.append(node)
+        node = node.children[0]
+    agg = node if isinstance(node, Aggregation) else None
+    ds = node.children[0] if agg is not None else node
+    if not isinstance(ds, DataSource):
+        raise AssertionError(f"not a one-table plan: {plan.pretty()}")
+    topn = None
+    for lim, srt in zip(above, above[1:]):
+        if isinstance(lim, Limit) and isinstance(srt, Sort):
+            by, below = list(srt.by), srt.children[0]
+            while isinstance(below, Projection):
+                by = [(below.exprs[e.idx], d) for e, d in by]
+                below = below.children[0]
+            if below is ds:
+                topn = ([(expr_desc(e), bool(d)) for e, d in by], lim.count + lim.offset)
+    return {"conds": [expr_desc(c) for c in ds.pushed_conds],
+            "group_by": [expr_desc(g) for g in agg.group_by] if agg is not None else None,
+            "aggs": [agg_fn_desc(a) for a in agg.aggs] if agg is not None else None, "topn": topn}
+
+
+def dag_parts(dag) -> dict:
+    """The same parts of a DAGRequest."""
+    return {"conds": [expr_desc(c) for c in (dag.selection.conds if dag.selection is not None else [])],
+            "group_by": [expr_desc(g) for g in dag.agg.group_by] if dag.agg is not None else None,
+            "aggs": [agg_fn_desc(a) for a in dag.agg.aggs] if dag.agg is not None else None,
+            "topn": ([(expr_desc(e), bool(d)) for e, d in dag.topn.by], dag.topn.n) if dag.topn is not None else None}
+
+
 # (query, plan builder of models/tpch.py and its arguments, session
 # variables, kernels its runs must launch, fusion outcome)
 MPP_QUERIES = (
@@ -3287,6 +3382,108 @@ MPP_QUERIES = (
     ("q3_top100", ("q3_mpp_plan", 100), {}, ("lut_join", "expr_eval", "seg_agg", "rowpos_agg", "topk"), "fused"),
     ("seg_revenue", ("seg_revenue_mpp_plan",), {}, ("lut_join", "expr_eval", "dense_agg"), "fused"),
 )
+# the SQL constant of models/tpch.py each MPP query is planned from
+MPP_SQL = {"q3_mpp": "Q3", "q10_mpp": "Q10", "q18": "Q18", "q3_unfused": "Q3", "q3_top100": "Q3_TOP100",
+           "seg_revenue": "SEG_REVENUE"}
+# (query, its SQL constant, the hand-built DAG its plan must push)
+COP_SQL = (("q1", "Q1", "q1_dag"), ("q6", "Q6", "q6_dag"), ("tpch_topn", "TOPN", "topn_dag"),
+           ("multikey_topn", "MULTIKEY_TOPN", "multikey_topn_dag"), ("q18_inner", "Q18_INNER", "q18_inner_dag"),
+           ("checksum", "CHECKSUM", "checksum_dag"), ("fn_mix", "FN_MIX", "fn_mix_dag"),
+           ("fn_math", "FN_MATH", "fn_math_dag"))
+
+
+def catalog_session():
+    """A store whose catalog holds models/tpch.py's lineitem, orders and
+    customer and no rows: the MPP queries are planned over it, without
+    ANALYZE, as the reference's setup_tpch leaves its tables."""
+    import copy
+
+    from tidb_tpu_torch.models import tpch
+    from tidb_tpu_torch.storage import Storage
+
+    sess = StoreSession(Storage())
+    for info in (tpch.LINEITEM, tpch.ORDERS, tpch.CUSTOMER):
+        sess.create_table(copy.deepcopy(info))
+    return sess
+
+
+def plan_mpp(sess, qname: str, infoschema=None):
+    """The MPPPlan of one query of MPP_QUERIES, planned from its SQL by
+    entry.plan_select and entry.mpp_plan; a planning failure raises."""
+    from tidb_tpu_torch import entry
+    from tidb_tpu_torch.models import tpch
+
+    variables = dict(next(v for q, _, v, _, _ in MPP_QUERIES if q == qname))
+    plan = entry.plan_select(getattr(tpch, MPP_SQL[qname]), infoschema or sess.infoschema(), sess.current_db,
+                             sess.store.stats, variables)
+    mplan = entry.mpp_plan(plan, variables)
+    if mplan is None:
+        raise AssertionError(f"{qname}: the planner cut no MPP plan from its SQL")
+    return mplan
+
+
+def plan_phases_ms(sess, infoschema, sql: str, variables: dict, reps: int, cut: bool) -> dict:
+    """Host milliseconds to parse, build, optimize and (for an MPP query)
+    cut one statement: the median of `reps` runs of each phase, and of
+    their sum."""
+    from tidb_tpu_torch import entry
+    from tidb_tpu_torch.parser import parse_one
+    from tidb_tpu_torch.planner.builder import PlanBuilder
+    from tidb_tpu_torch.planner.optimizer import optimize
+
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        stmt = parse_one(sql)
+        t1 = time.perf_counter()
+        plan = PlanBuilder(infoschema, sess.current_db, context_info={"vars": variables}).build_select(stmt)
+        t2 = time.perf_counter()
+        plan = optimize(plan, sess.store.stats, variables)
+        t3 = time.perf_counter()
+        if cut and entry.mpp_plan(plan, variables) is None:
+            raise AssertionError(f"no MPP plan for {sql!r}")
+        t4 = time.perf_counter()
+        runs.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3, (t4 - t3) * 1e3, (t4 - t0) * 1e3))
+    med = dict(zip(("parse", "build", "optimize", "cut", "total"), (sorted(c)[len(c) // 2] for c in zip(*runs))))
+    if not cut:
+        del med["cut"]
+    return med
+
+
+def plan_sql(sess, reps: int = 10) -> dict:
+    """Every MPP query and every cop query of the main path planned from its
+    SQL over `sess`'s catalog, each held to its hand-built plan or DAG of
+    models/tpch.py (mpp_desc; cop_parts against dag_parts, on the host:
+    turning a plan into a DAG is the executors' work), with its planning
+    phases timed (plan_phases_ms). Raises on any difference or failure."""
+    from tidb_tpu_torch import entry
+    from tidb_tpu_torch.models import tpch
+
+    infoschema = sess.infoschema()
+    out = {"mpp": {}, "equal": {}, "cop_equal": {}, "ms": {}, "rows_equal_oracle": {}}
+    for qname, (builder, *bargs), variables, _, _ in MPP_QUERIES:
+        out["ms"][qname] = plan_phases_ms(sess, infoschema, getattr(tpch, MPP_SQL[qname]), dict(variables), reps,
+                                          cut=True)
+        mplan = plan_mpp(sess, qname, infoschema)
+        got, want = mpp_desc(mplan), mpp_desc(getattr(tpch, builder)(*bargs))
+        differ = [k for k in want if got[k] != want[k]]
+        if differ:
+            raise AssertionError(f"{qname}: the plan from its SQL differs from the hand-built one in {differ}\n"
+                                 f"planned: {[got[k] for k in differ]}\nhand:    {[want[k] for k in differ]}")
+        out["mpp"][qname], out["equal"][qname] = mplan, True
+    for qname, sql_name, dag in COP_SQL:
+        sql = getattr(tpch, sql_name)
+        out["ms"][qname] = plan_phases_ms(sess, infoschema, sql, {}, reps, cut=False)
+        got = cop_parts(entry.plan_select(sql, infoschema, sess.current_db, sess.store.stats, {}))
+        want = dag_parts(getattr(tpch, dag)())
+        differ = [k for k in want if got[k] != want[k]]
+        if differ:
+            raise AssertionError(f"{qname}: the plan of {sql_name} pushes other {differ} than {dag}\n"
+                                 f"planned: {[got[k] for k in differ]}\nhand:    {[want[k] for k in differ]}")
+        out["cop_equal"][qname] = True
+    return out
+
+
 MPP_SPIED = ("lut_join", "run_agg", "block_topk", "sort_join", "seg_reduce", "rowpos_agg", "dense_agg")
 
 
@@ -3358,7 +3555,9 @@ def chunk_rows(chunk) -> list[tuple]:
 
 def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> None:
     """The MPP queries through run_mpp on the card at `rows` lineitem rows
-    (with orders = rows/4 and customers = orders/10): one cold run and
+    (with orders = rows/4 and customers = orders/10), each planned from
+    its SQL (plan_sql over catalog_session, held to the hand-built plan
+    first; out["sql"] keeps the planning times): one cold run and
     `reps` warm runs each, every answer equal, in order, to the port's
     engine on the CPU (the plain versions) and to a numpy oracle; each
     query's kernel counters must move, its fusion outcome be the
@@ -3375,14 +3574,19 @@ def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> 
     from tidb_tpu_torch.torchenv import PhaseTimer
 
     t0 = time.perf_counter()
+    catalog = out["sql_catalog"] = catalog_session()
+    out["sql"] = plan_sql(catalog)
+    say("main.sql_plans", equal=out["sql"]["equal"], cop_equal=out["sql"]["cop_equal"],
+        seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     li, orders, cust = tpch.generated_columns(rows, seed)
     tables = {"lineitem": li, "orders": orders, "customer": cust}
     out["mpp_tables"], out["mpp_chunks"] = tables, {}
     say("main.mpp_data", rows=rows, orders=len(orders["o_orderkey"]), customers=len(cust["c_custkey"]),
         seed=seed, seconds=time.perf_counter() - t0)
     real = {k: getattr(mp, k) for k in MPP_SPIED}
-    for qname, (builder, *bargs), variables, needs, outcome in MPP_QUERIES:
-        plan = getattr(tpch, builder)(*bargs)
+    for qname, _, variables, needs, outcome in MPP_QUERIES:
+        plan = plan_mpp(catalog, qname)
         engine = MPPEngine(dev)
         captured = out["captured"][qname] = {k: [] for k in MPP_SPIED}
 
@@ -3438,6 +3642,7 @@ def run_mpp_path(dev, rows: int, seed: int, reps: int, card: str, out: dict) -> 
                 raise AssertionError(f"{qname} run {i}: GPU answer differs from the CPU engine's: {diff}\n"
                                      f"gpu: {chunk_rows(res)[:3]}\ncpu: {chunk_rows(cpu)[:3]}")
         out["mpp_chunks"][qname] = spied
+        out["sql"]["rows_equal_oracle"][qname] = True  # the planned plan's rows, every run, in order
         warm = sorted(runs[1:], key=lambda x: x[0])
         med = warm[len(warm) // 2]
         prof = profiled_run(lambda: run_mpp(plan, tables, device=dev, engine=engine, variables=variables), engine)
@@ -3754,7 +3959,8 @@ def hold_mesh_modes(calls: dict) -> dict:
 
 
 def run_mpp_mesh_path(dev, reps: int, card: str, out: dict) -> None:
-    """main.mpp_mesh: the MPP queries of MESH_QUERIES through run_mpp over
+    """main.mpp_mesh: the MPP queries of MESH_QUERIES, planned from their
+    SQL (plan_mpp), through run_mpp over
     make_mesh(4, "cuda") — four ranks sharing the one card, their
     collectives through gloo — over main.mpp's tables: one cold run and
     `reps` warm runs each (Q18 one), every answer equal in order to the
@@ -3769,14 +3975,13 @@ def run_mpp_mesh_path(dev, reps: int, card: str, out: dict) -> None:
 
     from tidb_tpu_torch import kernels as K
     from tidb_tpu_torch.entry import run_mpp
-    from tidb_tpu_torch.models import tpch
     from tidb_tpu_torch.parallel.mesh import make_mesh
     from tidb_tpu_torch.parallel.mpp import MPPEngine
     from tidb_tpu_torch.planner.fragment import HASH
     from tidb_tpu_torch.torchenv import PhaseTimer
 
     tables = out["mpp_tables"]
-    specs = {q: (b, v) for q, b, v, _, _ in MPP_QUERIES}
+    variables_of = {q: v for q, _, v, _, _ in MPP_QUERIES}
     mesh = make_mesh(MESH_RANKS, dev)
     if mesh.n_dev != MESH_RANKS or mesh.backend != "gloo" or len({mesh.device(r) for r in range(MESH_RANKS)}) != 1:
         raise AssertionError(f"mpp_mesh: {mesh.n_dev} ranks over {mesh.backend}, not four sharing one card")
@@ -3784,8 +3989,8 @@ def run_mpp_mesh_path(dev, reps: int, card: str, out: dict) -> None:
     res_all = out["mpp_mesh"] = {}
     try:
         for qname, mode, needs, hashed in MESH_QUERIES:
-            (builder, *bargs), variables = specs[qname]
-            plan = getattr(tpch, builder)(*bargs)
+            variables = variables_of[qname]
+            plan = plan_mpp(out["sql_catalog"], qname)
             engine = MPPEngine(dev)
 
             def timed():
@@ -4659,6 +4864,33 @@ def run_regions_sorted_path(dev, regions, wants: dict, reps: int, card: str, out
         say(f"main.regions_sorted.{qname}", **out["regions_sorted"][qname])
 
 
+def run_sql_path(sess, info, rows: int, card: str, out: dict) -> None:
+    """main.sql: the planning of every main-path query from its SQL (the
+    host milliseconds of each phase, median of 10, and whether its plan
+    equals the hand-built one; main.sql_plans held them before the MPP
+    runs, whose rows the MPP phases held to the oracle), then ANALYZE of
+    main.store's lineitem through
+    `store.stats.analyze_table` over the store's TileCache batches, with
+    its seconds, and the row count the stats must hold."""
+    t = time.perf_counter()
+    ts = sess.store.stats.analyze_table(sess, info)
+    analyze_s = time.perf_counter() - t
+    if ts.row_count != rows or len(ts.columns) != len(info.visible_columns()):
+        raise AssertionError(f"ANALYZE: {ts.row_count} rows, {len(ts.columns)} columns (want {rows})")
+    if sess.store.stats.get(info.id) is not ts:
+        raise AssertionError("ANALYZE: the stats handle does not serve the stats it built")
+    sql = out["sql"]
+    if sorted(sql["rows_equal_oracle"]) != sorted(sql["equal"]):
+        raise AssertionError(f"main.sql: planned MPP queries without checked rows: "
+                             f"{sorted(set(sql['equal']) - set(sql['rows_equal_oracle']))}")
+    out["main.sql"] = {"plan_ms": sql["ms"], "equal": sql["equal"], "cop_equal": sql["cop_equal"],
+                       "rows_equal_oracle": sql["rows_equal_oracle"],
+                       "analyze_s": analyze_s, "analyze_rows": ts.row_count,
+                       "analyze_ndv": {c.name: ts.columns[c.id].ndv for c in info.visible_columns()},
+                       "card": card}
+    say("main.sql", **out["main.sql"])
+
+
 def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int = 8_000_000,
                   q3_rows: int = 4_000_000) -> dict:
     import torch
@@ -4739,6 +4971,7 @@ def run_main_path(dev, rows: int, seed: int, reps: int, card: str, win_rows: int
     run_burst_path(dev, reps, card, out)
     sess, info, regions = run_store_path(cols, rows, card, out)
     del cols
+    run_sql_path(sess, info, rows, card, out)
     run_q1_regions_path(dev, batch, regions, out["q1_want"], reps, card, out)
     run_regions_sorted_path(dev, regions, {q: out.pop(f"{q}_want") for q, _, _ in REGION_QUERIES}, reps, card, out)
     run_store_turns(dev, batch, regions, card, out)

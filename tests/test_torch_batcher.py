@@ -105,6 +105,9 @@ def _batcher():
 def test_coalescing_actually_happens():
     eng, batcher = TorchEngine(device="cpu"), _batcher()
     dag, batch = _pairs()[0]
+    # one more task in flight: no thread takes the solo bypass (a thread
+    # that arrives alone on a loaded host would), every one joins a group
+    batcher._inflight = 1
     for _ in range(5):  # the barrier makes coalescing near-certain; retry races
         n0, sum0 = M.SCHED_BATCH_OCCUPANCY._n, M.SCHED_BATCH_OCCUPANCY._sum
         _threads(lambda i: batcher.execute(eng, dag, batch), 4)
@@ -142,6 +145,7 @@ def test_snapshot_dedup_shares_one_execution():
     eng, batcher = TorchEngine(device="cpu"), _batcher()
     dag, batch = _pairs()[0]
     stats: dict = {}
+    batcher._inflight = 1  # every thread joins a group, none takes the solo bypass
 
     def bump(key, n=1):
         stats[key] = stats.get(key, 0) + n

@@ -42,7 +42,11 @@ def test_importing_every_module_brings_in_neither_jax_nor_the_reference():
               "codec.key", "codec.tablecodec", "codec.row", "codec.rowfast", "catalog.schema", "catalog.meta",
               "ddl.jobs", "table.table", "planner.ranger", "storage.memkv", "storage.tso", "storage.regions",
               "storage.detector", "storage.segment", "storage.mvcc", "storage.txn", "cdc", "br.ingest",
-              "copr.tilecache"):
+              "copr.tilecache", "parser", "parser.lexer", "parser.ast", "parser.parser", "statistics",
+              "statistics.histogram", "statistics.cmsketch", "statistics.fmsketch", "statistics.tablestats",
+              "statistics.selectivity", "statistics.handle", "planner.plans", "planner.builder",
+              "planner.optimizer", "session.vars", "sched.runaway", "utils.stmtstats", "storage.gcworker",
+              "executor.executors"):
         assert f"tidb_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -37,6 +37,7 @@ from tidb_tpu.planner.fragment import slice_plan
 from tidb_tpu.planner.plans import Aggregation as RefAggregation, Join, Limit
 from tidb_tpu.session import Session
 
+from chip_smoke import agg_desc as _agg_desc, frag_tree as _frag_tree
 from tidb_tpu_torch.entry import run_mpp
 from tidb_tpu_torch.executor import mpp_gather
 from tidb_tpu_torch.models import tpch
@@ -90,22 +91,6 @@ def ref_scans(mplan, tables, engine, valid=None):
         out.append(RefScanData(sf, data, val, version=0, shared=engine,
                                orig_offs=[pc.orig_offset for pc in sf.ds.out_cols]))
     return out
-
-
-def _frag_tree(f):
-    if hasattr(f, "probe"):
-        return ("join", f.kind, f.probe_keys, f.build_keys, repr(f.post_conds), f.exchange,
-                _frag_tree(f.probe), _frag_tree(f.build))
-    ds = f.ds
-    return ("scan", ds.table.name, ds.alias, f.side_offset, repr(ds.pushed_conds),
-            [(pc.name, pc.orig_offset, repr(pc.ft)) for pc in ds.out_cols])
-
-
-def _agg_desc(agg):
-    if agg is None:
-        return None
-    return (repr(agg.group_by), [repr(g.ret_type) for g in agg.group_by], repr(agg.aggs),
-            [(a.name, repr(a.ret_type), a.distinct) for a in agg.aggs], [repr(c.ft) for c in agg.out_cols])
 
 
 PLANS = {"q3": (ref_tpch.Q3, tpch.q3_mpp_plan), "q10": (ref_tpch.Q10, tpch.q10_mpp_plan)}
@@ -226,7 +211,7 @@ class Pkg:
         self.root = root
         self.E, self.A, self.F = m("expr.expression"), m("expr.aggregation"), m("mysqltypes.field_type")
         self.V, self.S, self.FR = m("mysqltypes.datum"), m("catalog.schema"), m("planner.fragment")
-        self.P = m("planner.plans") if root == "tidb_tpu" else self.FR
+        self.P = m("planner.plans")
 
     def ft(self, kind):
         F = self.F
@@ -264,7 +249,7 @@ class Pkg:
         for alias in spec["scans"]:
             t = tables[alias]
             cols = [self.P.PlanCol(c.name, c.ft, alias, c.offset) for c in t.columns]
-            ds = self.P.DataSource(t, alias, cols) if self.root == "tidb_tpu" else self.FR.DataSource(t, alias, cols)
+            ds = self.P.DataSource(t, alias, cols)
             frags[alias] = self.FR.ScanFrag(ds, off)
             off += len(cols)
 
@@ -290,8 +275,7 @@ class Pkg:
                     for name, *args in spec["agg"]["aggs"]]
             cols = [self.P.PlanCol(f"g{i}", g.ret_type) for i, g in enumerate(group_by)]
             cols += [self.P.PlanCol(f"a{i}", a.ret_type) for i, a in enumerate(aggs)]
-            agg = (self.P.Aggregation(None, group_by, aggs, cols) if self.root == "tidb_tpu"
-                   else self.FR.Aggregation(group_by, aggs, cols))
+            agg = self.P.Aggregation(None, group_by, aggs, cols)
         out_cols = [pc for a in spec["scans"] for pc in frags[a].ds.out_cols]
         return self.FR.MPPPlan(root, [frags[a] for a in spec["scans"]], agg, out_cols, topn=spec.get("topn"))
 

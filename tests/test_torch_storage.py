@@ -330,10 +330,15 @@ def test_the_durable_store_and_later_services_raise_not_ported():
         with pytest.raises(NotPortedError, match="durable store"):
             Storage(**kw)
     s = Storage()
-    for name in ("ddl", "stats", "mem", "sched", "build_cache", "workload", "gc_worker", "compactor", "plugins",
-                 "shipper", "stmt_stats", "trace_ring"):
+    for name in ("ddl", "mem", "sched", "build_cache", "workload", "gc_worker", "compactor", "plugins",
+                 "shipper", "trace_ring"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             getattr(s, name)
+    from tidb_tpu_torch.statistics.handle import StatsHandle
+    from tidb_tpu_torch.utils.stmtstats import StmtStats
+
+    assert isinstance(s.stats, StatsHandle) and s.stats is s.stats
+    assert isinstance(s.stmt_stats, StmtStats) and s.stmt_stats is s.stmt_stats
     for call in (s.checkpoint, s.promote, s.rejoin):
         with pytest.raises(NotPortedError):
             call()

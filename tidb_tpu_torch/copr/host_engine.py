@@ -4,9 +4,8 @@ cophandler/closure_exec.go's fused scan→sel→agg/topN/limit single pass).
 
 Two roles in the port: the path for exactly the DAGs the reference's
 device engine declines (TorchEngine counts them in `fallbacks`), and the
-oracle chip_smoke.py holds the GPU path against. Not ported:
-approx_count_distinct (its FM sketches live in the reference's
-statistics package), which raises NotPortedError.
+oracle chip_smoke.py holds the GPU path against. approx_count_distinct
+builds its per-group FM sketches through the port's statistics package.
 """
 
 from __future__ import annotations
@@ -348,9 +347,20 @@ def _agg_partial_columns(a: AggDesc, chunk: Chunk, mask: np.ndarray, inv: np.nda
         yield Column(out_fts[oi + 2], sq, ones)
         return
     if name == "approx_count_distinct":
-        from ..errors import NotPortedError
+        # per-group FM sketch, shipped serialized; the root final unions
+        # them (ref: aggfuncs approxCountDistinctPartial1, fmsketch.go)
+        from ..statistics.cmsketch import hash_values
+        from ..statistics.fmsketch import FMSketch
 
-        raise NotPortedError("host_engine approx_count_distinct (statistics.fmsketch)")
+        hashes = hash_values(dv)
+        out = np.empty(G, dtype=object)
+        for g in range(G):
+            sel_g = (inv == g) & vv
+            sk = FMSketch()
+            sk.insert_hashes(np.asarray(hashes[sel_g], dtype=np.uint64))
+            out[g] = sk.serialize()
+        yield Column(out_fts[oi], out, np.ones(G, dtype=bool))
+        return
     if name in ("bit_and", "bit_or", "bit_xor"):
         if dv.dtype == object:
             from ..errors import TiDBError

@@ -14,6 +14,20 @@
   row order (the reference's WindowExec.next over a TableReaderExec).
   `mode` is the WindowExec engine: 'tpu' runs W1 + W2 on `device` and
   raises on a device error; 'host' is the host oracle.
+* `plan_select(sql_or_stmt, infoschema, db, stats=None, variables=None,
+  run_subquery=None)`: a SELECT's optimized logical plan, as the
+  reference's `Session.plan_select` makes it: `parser.parse_one`, then
+  `PlanBuilder(...).build_select` (with the statement's optimizer hints),
+  then `optimize(plan, stats, variables)` (`stats`: a
+  statistics.StatsHandle, such as `Storage.stats`, or None).
+  `run_subquery(select_ast) -> (rows, field types)` evaluates a subquery
+  at plan time; without one such a statement raises NotPortedError (the
+  executors are a later slice).
+* `mpp_plan(plan, variables=None, engine=None)`: the MPPPlan the
+  reference's executor tree runs for an optimized plan — `slice_plan` of
+  the Aggregation or Join below the root (a typed decline counted by
+  `engine`), the fused TopN attached, the host steps above the cut as its
+  `root_step` — or None where the reference runs no MPP gather there.
 * `run_mpp(mplan, tables, device="cuda", variables=None, mesh=None)`: an
   MPP fragment plan (its join levels, LUT or sort-probe, and its
   aggregation in the mode the engine chooses, or the joined rows) over the
@@ -68,12 +82,14 @@ from .copr.dag import DAGRequest
 from .copr.gpu_engine import TorchEngine
 from .copr.tilecache import ColumnBatch
 from .executor import mpp_gather
+from .executor.executors import _mpp_topn_spec
 from .executor.final_agg import merge_partials, order_by_keys, top_n
 from .executor.window import WindowExec
 from .parallel.mpp import MPPEngine
 from .parallel.mesh import build_q1_arrays, distributed_q1_step, hash_repartition, make_mesh, q1_arrays, \
     q1_exact, q1_local_kernel
 from .planner.fragment import MPPPlan
+from .planner.plans import Aggregation, Join, Limit, Projection, Selection, Sort
 from .sched.batcher import LaunchBatcher
 from .torchenv import resolve_device
 
@@ -158,6 +174,67 @@ def run_mpp(mplan: MPPPlan, tables: dict, device="cuda", engine: MPPEngine | Non
     partial = mpp_gather.gather(mplan, scans, engine, variables, mesh)
     with engine._phase("finalize"):
         return mpp_gather.finish(mplan, mplan.root_step, partial)
+
+
+def _no_subquery(select):
+    from .errors import NotPortedError
+
+    raise NotPortedError("executor/executors.py build_executor",
+                         "a subquery evaluated at plan time runs through the executors (ROADMAP Queue 1, item 4.3)")
+
+
+def plan_select(sql_or_stmt, infoschema, db: str, stats=None, variables: dict | None = None, run_subquery=None):
+    """The optimized logical plan of one SELECT (module doc; ref:
+    Session.plan_select and Session._builder, session.py:1679-1690,
+    :1823-1828)."""
+    from .parser import parse_one
+    from .planner.builder import PlanBuilder
+    from .planner.optimizer import optimize
+
+    variables = variables if variables is not None else {}
+    stmt = parse_one(sql_or_stmt) if isinstance(sql_or_stmt, str) else sql_or_stmt
+    # the statement's optimizer hints, as Session.run_select hands them on
+    # (`_effective_hints`; SQL bindings come with the Session)
+    builder = PlanBuilder(infoschema, db, run_subquery=run_subquery or _no_subquery,
+                          context_info={"vars": variables}, hints=list(getattr(stmt, "hints", []) or []))
+    plan = builder.build_select(stmt)
+    return optimize(plan, stats, variables)
+
+
+def mpp_plan(plan, variables: dict | None = None, engine: MPPEngine | None = None) -> MPPPlan | None:
+    """The MPPPlan of an optimized plan (ref: the executor tree of
+    Session.run_select over it): the Aggregation or Join below the host
+    operators sliced, the fused ORDER BY <sum/count> LIMIT k attached where
+    the reference's `_build_limit` attaches it (executors.py:362-395), and
+    the host operators above the cut as its root_step. None where the
+    reference runs no MPP gather at the cut."""
+    above: list = []
+    node = plan
+    while not isinstance(node, (Aggregation, Join)):
+        if not isinstance(node, (Limit, Sort, Projection, Selection)):
+            return None
+        above.append(node)
+        node = node.children[0]
+    mplan = mpp_gather.try_build_mpp(node, variables, engine)
+    if mplan is None:
+        if isinstance(node, Aggregation):
+            # the reference aggregates on the host and tries the join below
+            # alone (its decline counted there); the port has no host
+            # aggregation above a gather yet, so this is no cut it runs
+            child = node.children[0]
+            while isinstance(child, (Projection, Selection)):
+                child = child.children[0]
+            if isinstance(child, Join):
+                mpp_gather.try_build_mpp(child, variables, engine)
+        return None
+    for lim, srt in zip(above, above[1:]):
+        if isinstance(lim, Limit) and isinstance(srt, Sort):
+            spec = _mpp_topn_spec(srt, srt.children[0])
+            if spec is not None and mplan.agg is spec[2]:
+                mplan.topn = (spec[0], spec[1], lim.count + lim.offset)
+    width = len(mplan.agg.out_cols if mplan.agg is not None else mplan.out_cols)
+    mplan.root_step = mpp_gather.root_step_above(above, width)
+    return mplan
 
 
 def run_many(pairs: list, device="cuda", engine: TorchEngine | None = None) -> list[Chunk]:

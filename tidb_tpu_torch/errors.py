@@ -17,6 +17,10 @@ class TiDBError(Exception):
             self.code = code
 
 
+class ParseError(TiDBError):
+    code = 1064
+
+
 # --- schema and store errors (ref: errno/errno.go, kv/error.go) -------------
 
 
@@ -30,6 +34,10 @@ class UnknownTable(TiDBError):
 
 class UnknownColumn(TiDBError):
     code = 1054
+
+
+class AmbiguousColumn(TiDBError):
+    code = 1052
 
 
 class DuplicateEntry(TiDBError):
@@ -78,6 +86,27 @@ class ServerMemoryExceeded(MemoryQuotaExceeded):
     statement was the top consumer: the arbiter (utils/memory
     ServerMemTracker) fails the allocator in place instead of flagging
     its session (ref: util/servermemorylimit killSessIfNeeded)."""
+
+
+class RunawayKilled(QueryInterrupted):
+    """A statement crossed its resource group's QUERY_LIMIT with
+    ACTION=KILL (ref: ErrResourceGroupQueryRunawayInterrupted, 8253).
+    Subclasses QueryInterrupted so every interrupt-aware wait (admission,
+    backoff, chunk boundaries) treats it like the kill it is."""
+
+    code = 8253
+
+    def __init__(self, msg: str = ""):
+        super().__init__(msg)
+        self.reason = "runaway"
+
+
+class RunawayQuarantined(RunawayKilled):
+    """A statement whose digest sits in the runaway watch list was
+    rejected at admission, before consuming a ticket (ref:
+    ErrResourceGroupQueryRunawayQuarantine, 8254)."""
+
+    code = 8254
 
 
 class ResourceGroupExists(TiDBError):

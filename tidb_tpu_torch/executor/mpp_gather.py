@@ -16,6 +16,11 @@ above the gather out.
   executor tree runs for the query: FinalHashAggExec (the port's
   final_agg.merge_partials), the HAVING Selection over its output, the
   projection, the TopN (final_agg.top_n).
+* `try_build_mpp` / `root_step_above`: slice_plan over an Aggregation or
+  Join as the reference's executor builder tries it (mpp_gather.py:34-80,
+  with its typed slice decline counted by the engine), and the RootStep
+  that the Selection, Projection, Sort and Limit above the cut make
+  (`entry.mpp_plan` puts the two together).
 
 The reference degrades a declined plan to its host hash join; the port
 has no host join, so a decline raises NotPortedError with the engine's
@@ -33,8 +38,9 @@ from ..chunk.chunk import Chunk
 from ..copr.dag import AggNode, DAGRequest, ScanNode
 from ..copr.host_engine import _eval_mask, _exec_agg
 from ..errors import NotPortedError
-from ..expr.expression import Expression
-from ..planner.fragment import MPPPlan
+from ..expr.expression import Column as ECol, Expression
+from ..planner.fragment import MPPPlan, slice_plan
+from ..planner.plans import Join, Limit, LogicalPlan, Projection, Selection, Sort
 from .final_agg import merge_partials, top_n
 
 
@@ -109,14 +115,83 @@ def _host_finish_agg(mplan: MPPPlan, chunk: Chunk) -> Chunk:
 
 
 def finish(mplan: MPPPlan, root: RootStep | None, partial: Chunk) -> Chunk:
-    """FinalHashAggExec over the partial chunk, then the root step."""
+    """FinalHashAggExec over the partial chunk (the joined rows as they
+    are without an aggregation), then the root step."""
     if mplan.agg is None:
-        return partial
-    agg = mplan.agg
-    final = merge_partials([partial], agg.group_by, agg.aggs, [c.ft for c in agg.out_cols])
+        final = partial
+    else:
+        agg = mplan.agg
+        final = merge_partials([partial], agg.group_by, agg.aggs, [c.ft for c in agg.out_cols])
     if root is None:
         return final
     if root.having:
         final = final.filter(_eval_mask(root.having, final))
     out = Chunk([final.columns[i] for i in root.proj])
     return top_n(out, root.by, root.n) if root.by else out
+
+
+# --- the cut (ref: mpp_gather.py:34-80, executors.py:109-118) ---------------
+
+
+def _has_join(plan: LogicalPlan) -> bool:
+    if isinstance(plan, Join):
+        return True
+    return any(_has_join(c) for c in plan.children)
+
+
+def try_build_mpp(plan: LogicalPlan, variables: dict | None = None, engine=None) -> MPPPlan | None:
+    """slice_plan over an Aggregation or Join subtree as the reference's
+    executor builder tries it: None where it builds the host operators
+    instead (MPP disallowed, no join, a slice decline). A decline at a
+    Join with a typed reason is counted by `engine` (parallel/mpp.MPPEngine)
+    when one is given, as the reference counts it on its store's engine."""
+    if (variables or {}).get("tidb_allow_mpp", "ON") != "ON":
+        return None
+    if not _has_join(plan):
+        return None
+    reason: list = []
+    mplan = slice_plan(plan, reason)
+    if mplan is None and isinstance(plan, Join) and reason and engine is not None:
+        key, detail, _ = reason[0]
+        engine._fallback(key, detail)
+    return mplan
+
+
+def root_step_above(above: list[LogicalPlan], width: int) -> RootStep | None:
+    """The RootStep of the host operators `above` the cut (top first) over
+    the cut's `width` output columns: Selection → having (over the
+    aggregate's output), column Projection → proj, Sort → by, Limit → n.
+    Any other shape needs the host executors, which come with the
+    executor tree (ROADMAP Queue 1, item 4.3)."""
+    if not above:
+        return None
+    from ..planner.optimizer import _remap_expr
+
+    def later(what):
+        return NotPortedError("executor/executors.py build_executor", f"{what} above an MPP gather (item 4.3)")
+
+    proj, having, by, n = None, [], None, None
+    for node in reversed(above):
+        if isinstance(node, Selection):
+            if by is not None or n is not None:
+                raise later("a Selection over a Sort or Limit")
+            mapping = {i: j for i, j in enumerate(proj)} if proj is not None else {i: i for i in range(width)}
+            having += [_remap_expr(c, mapping) for c in node.conds]
+        elif isinstance(node, Projection):
+            if by is not None or n is not None:
+                raise later("a Projection over a Sort or Limit")
+            if not all(isinstance(e, ECol) for e in node.exprs):
+                raise later("a computed Projection")
+            cur = proj if proj is not None else list(range(width))
+            proj = [cur[e.idx] for e in node.exprs]
+        elif isinstance(node, Sort):
+            if by is not None or n is not None:
+                raise later("a second Sort")
+            by = list(node.by)
+        elif isinstance(node, Limit):
+            if n is not None or by is None or node.offset:
+                raise later("a Limit without a Sort below it, or with an offset")
+            n = node.count
+        else:
+            raise later(type(node).__name__)
+    return RootStep(proj=proj if proj is not None else list(range(width)), by=by or [], n=n, having=having)

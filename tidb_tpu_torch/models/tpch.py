@@ -69,7 +69,8 @@ from ..expr.expression import FUNCS, Column, Constant, ScalarFunc, make_func
 from ..mysqltypes.coretime import parse_datetime
 from ..mysqltypes.datum import K_DEC, K_DUR, K_FLOAT, K_INT, K_STR, K_TIME, K_UINT, Datum
 from ..mysqltypes.field_type import NOT_NULL_FLAG, FieldType, TypeCode, ft_decimal, ft_double, ft_longlong, ft_varchar
-from ..planner.fragment import Aggregation, DataSource, JoinFrag, MPPPlan, PlanCol, ScanFrag
+from ..planner.fragment import JoinFrag, MPPPlan, ScanFrag
+from ..planner.plans import Aggregation, DataSource, PlanCol
 from ..mysqltypes.mydecimal import dec_from_string
 
 Q1 = """SELECT l_returnflag, l_linestatus,
@@ -552,7 +553,7 @@ def _revenue(li: ScanFrag) -> AggDesc:
 def _agg(group_by: list[Column], aggs: list[AggDesc]) -> Aggregation:
     cols = [PlanCol(f"g{i}", g.ret_type) for i, g in enumerate(group_by)]
     cols += [PlanCol(f"a{i}", a.ret_type) for i, a in enumerate(aggs)]
-    return Aggregation(group_by, aggs, cols)
+    return Aggregation(None, group_by, aggs, cols)  # no child: the plan is built by hand
 
 
 def _out_cols(*frags: ScanFrag) -> list[PlanCol]:

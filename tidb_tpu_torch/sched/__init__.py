@@ -10,9 +10,9 @@
       of identical snapshot reads plus one grouped launch and one fetch
       through `TorchEngine.execute_many` (sched/batcher.py).
 
-The reference's per-store facade (ResourceController, hung off a
-Storage) and its runaway watchdog (sched/runaway.py) are not ported yet:
-they come with the cop client (copr/client.py), and the port's store
+The runaway watchdog (sched/runaway.py) is the reference's; the per-store
+facade that hangs it and the groups off a Storage (ResourceController)
+comes with the cop client (copr/client.py), and the port's store
 (storage/txn.py) raises NotPortedError for `Storage.sched` until then; a
 caller holds its own engine and batcher (entry.run_burst).
 """

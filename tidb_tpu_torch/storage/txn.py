@@ -12,10 +12,12 @@ The port's store lives in memory. The durable store (the WAL, its
 snapshots and recovery modes, warm standbys and their shipping, spare
 media, the delta-main compactor and the GC worker) is a later slice, and
 so are the store's services that hang off other front-door modules (the
-online-DDL worker, the stats handle, the memory arbiter, the resource
-controller, the MPP build-side cache, the workload history, plugins,
-statement stats): each such argument, property or method raises
-NotPortedError (a NotImplementedError) naming the slice that brings it.
+online-DDL worker, the memory arbiter, the resource controller, the MPP
+build-side cache, the workload history, plugins, the trace ring): each
+such argument, property or method raises NotPortedError (a
+NotImplementedError) naming the slice that brings it. The stats handle
+(statistics/handle.py) and the statement stats (utils/stmtstats.py) are
+the reference's.
 """
 
 from __future__ import annotations
@@ -507,7 +509,13 @@ class Storage:
 
     @property
     def stats(self):
-        raise NotPortedError("storage/txn.py Storage.stats (statistics/handle.py)", f"comes with {FRONT_DOOR}")
+        """Shared stats handle (ref: statistics/handle — hangs off Storage
+        so all sessions over this store see one stats view)."""
+        if getattr(self, "_stats", None) is None:
+            from ..statistics.handle import StatsHandle
+
+            self._stats = StatsHandle(self)
+        return self._stats
 
     @property
     def mem(self):
@@ -535,7 +543,11 @@ class Storage:
 
     @property
     def stmt_stats(self):
-        raise NotPortedError("storage/txn.py Storage.stmt_stats (utils/stmtstats.py)", f"comes with {FRONT_DOOR}")
+        if getattr(self, "_stmt_stats", None) is None:
+            from ..utils.stmtstats import StmtStats
+
+            self._stmt_stats = StmtStats()
+        return self._stmt_stats
 
     @property
     def trace_ring(self):

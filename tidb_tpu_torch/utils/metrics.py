@@ -309,3 +309,13 @@ INGEST_BYTES = REGISTRY.counter(
     "tidb_ingest_bytes_total",
     "bulk-ingest bytes by pipeline stage (parse | encode | wal | publish)",
 )
+
+# runaway-control series (ref: tidb_tpu/utils/metrics.py; sched/runaway.py)
+RUNAWAY_ACTIONS = REGISTRY.counter(
+    "tidb_runaway_actions_total",
+    "runaway QUERY_LIMIT actions fired, by group, action and breached rule",
+)
+RUNAWAY_WATCH_HITS = REGISTRY.counter(
+    "tidb_runaway_watch_hits_total",
+    "statements matched against the runaway watch list at admission",
+)
